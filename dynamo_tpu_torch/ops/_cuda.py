@@ -1,0 +1,170 @@
+"""Build and load the hand-written CUDA kernels (``dynamo_tpu_torch/csrc``).
+
+Each ``.cu`` file compiles with ``nvcc`` for ``sm_90a`` into its own shared
+library with a plain C interface, loaded with :mod:`ctypes`. Nothing here
+runs at import time: the first kernel launch (or an explicit
+:func:`build_all`) compiles every source in parallel, one ``nvcc`` process
+per file, into ``dynamo_tpu_torch/_build/`` (listed in ``.gitignore``).
+Libraries are keyed by a hash of their source, so an edited kernel is
+rebuilt and a stale one is never loaded.
+
+Wrappers pass tensor pointers from ``data_ptr()`` and the current stream
+from ``torch.cuda.current_stream().cuda_stream`` as ``c_void_p``; every C
+entry point returns the launch's ``cudaGetLastError()``, and
+:func:`check` raises on anything but 0.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+
+import torch
+
+_PKG = Path(__file__).resolve().parent.parent
+SRC_DIR = _PKG / "csrc"
+BUILD_DIR = _PKG / "_build"
+
+#: source file -> [(C function, argtypes)]; restype is c_int for all
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+SOURCES = {
+    "kv_cache_append.cu": {
+        "kv_cache_append_launch": [_P] * 6 + [_I] * 7 + [_P],
+    },
+    "paged_attention.cu": {
+        "paged_attention_launch": (
+            [_P] * 8 + [_I] + [_P] * 3 + [_I] * 9 + [_F, _I, _P, _I, _P]
+        ),
+    },
+}
+
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+]
+
+_lock = threading.Lock()
+_libs: dict[str, ctypes.CDLL] = {}
+
+
+def _nvcc() -> str:
+    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(path):
+        raise RuntimeError(
+            "nvcc not found (looked on PATH and /usr/local/cuda/bin): the "
+            "CUDA kernels of dynamo_tpu_torch build on a machine with the "
+            "CUDA toolkit"
+        )
+    return path
+
+
+def _lib_path(src: str) -> Path:
+    digest = hashlib.sha256((SRC_DIR / src).read_bytes()).hexdigest()[:12]
+    return BUILD_DIR / f"{Path(src).stem}-{digest}.so"
+
+
+def build_all() -> float:
+    """Compile every stale source in parallel; returns the wall seconds
+    spent (0.0 when every library was already built). Raises with the
+    compiler's output when any build fails. The ptxas report (registers,
+    shared memory, spills per kernel) lands beside each library as
+    ``<name>.log``."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    todo = [s for s in SOURCES if not _lib_path(s).exists()]
+    if not todo:
+        return 0.0
+    nvcc = _nvcc()
+    t0 = time.perf_counter()
+    procs = []
+    for src in todo:
+        out = _lib_path(src)
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(SRC_DIR / src)]
+        procs.append((src, out, tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        )))
+    failed = []
+    for src, out, tmp, proc in procs:
+        log, _ = proc.communicate()
+        out.with_suffix(".log").write_bytes(log)
+        if proc.returncode != 0:
+            failed.append(f"{src} (exit {proc.returncode}):\n{log.decode()}")
+            continue
+        os.replace(tmp, out)
+    if failed:
+        raise RuntimeError("nvcc failed for " + "\n".join(failed))
+    return time.perf_counter() - t0
+
+
+def build_logs() -> dict[str, str]:
+    """The compiler output of each built library (ptxas -v report)."""
+    out = {}
+    for src in SOURCES:
+        log = _lib_path(src).with_suffix(".log")
+        if log.exists():
+            out[src] = log.read_text()
+    return out
+
+
+def lib(src: str) -> ctypes.CDLL:
+    """The loaded library of ``src`` (building every stale source first)."""
+    with _lock:
+        if src not in _libs:
+            build_all()
+            cdll = ctypes.CDLL(str(_lib_path(src)))
+            for fn, argtypes in SOURCES[src].items():
+                f = getattr(cdll, fn)
+                f.argtypes = argtypes
+                f.restype = ctypes.c_int
+            _libs[src] = cdll
+        return _libs[src]
+
+
+def check(err: int, what: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{what}: CUDA launch failed with error {err}")
+
+
+def stream_ptr(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_sm_counts: dict[int, int] = {}
+
+
+def sm_count(device: torch.device) -> int:
+    """Streaming multiprocessors of a CUDA device (cached per index)."""
+    idx = device.index if device.index is not None else torch.cuda.current_device()
+    if idx not in _sm_counts:
+        _sm_counts[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
+    return _sm_counts[idx]
+
+
+def require_cuda(name: str, *tensors: torch.Tensor) -> torch.device:
+    """The kernels take CUDA tensors on one device, contiguous. Anything
+    else raises — a CUDA-less call is an error, never a silent reroute."""
+    dev = tensors[0].device
+    if dev.type != "cuda":
+        raise RuntimeError(
+            f"{name}: the CUDA kernel needs CUDA tensors, got {dev}"
+        )
+    for t in tensors:
+        if t.device != dev:
+            raise ValueError(f"{name}: tensors on {t.device} and {dev}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: tensors must be contiguous")
+    return dev
+
+
+def require_int32(name: str, *tensors: torch.Tensor) -> None:
+    for t in tensors:
+        if t.dtype != torch.int32:
+            raise ValueError(f"{name}: index tensors must be int32, "
+                             f"got {t.dtype}")

@@ -1,0 +1,307 @@
+"""Paged attention over a block-table-indirect KV cache (PyTorch).
+
+Counterpart of ``dynamo_tpu/ops/attention.py`` for the main path. Cache
+layout, as in the JAX package (one array per K/V for all layers):
+
+    k_cache, v_cache: [num_layers, num_kv_heads, num_blocks, block_size, head_dim]
+
+Block tables are ``[batch, max_blocks_per_seq]`` int32 page ids, page 0
+reserved as trash; sequence lengths mask the unused tail.
+
+  * The dispatchers :func:`chunk_attention_with_cache` and
+    :func:`decode_attention_merged` go through the kernel wrappers
+    (``paged_prefill_attention`` / ``paged_decode_attention`` with stats),
+    which launch the CUDA kernel on CUDA tensors and take their plain
+    version on CPU tensors — never anything in between.
+  * ``decode_attention_xla``, ``_history_attention_xla`` and
+    ``chunk_attention_with_cache_xla`` keep the JAX names of the dense
+    gather paths they mirror (there they lower through XLA; here they are
+    plain PyTorch). They are the oracles the tests hold the kernels to.
+  * ``write_chunk_to_cache``, ``decode_slot_indices`` and
+    ``write_decode_token_to_cache`` are the slot-mapping writers. Unlike
+    the JAX functions (which return an updated copy), the writers update
+    the cache layer IN PLACE and return it.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from .paged_attention import (
+    NEG_INF,
+    gather_pages,
+    paged_decode_attention,
+    paged_prefill_attention,
+)
+
+
+def _no_extras(fn: str, window=0, sinks=None, cap=0.0, k_scales=None):
+    if window or sinks is not None or cap or k_scales is not None:
+        raise NotImplementedError(
+            f"{fn}: sliding windows, sinks, softcap and per-page KV scales "
+            "are not ported yet"
+        )
+
+
+def decode_attention_merged(
+    q: torch.Tensor,  # [B, H, D] current token's queries
+    k_new: torch.Tensor,  # [B, Hkv, D] current token's key (rope'd)
+    v_new: torch.Tensor,  # [B, Hkv, D]
+    k_cache_layer: torch.Tensor,  # [Hkv, N, bs, D] — current token NOT written
+    v_cache_layer: torch.Tensor,
+    block_tables: torch.Tensor,  # [B, M] int32
+    hist_lens: torch.Tensor,  # [B] int32 tokens in cache (EXCLUDES current)
+    scale: float,
+    window: int = 0,
+    sinks: Optional[torch.Tensor] = None,
+    k_scales: Optional[torch.Tensor] = None,
+    v_scales: Optional[torch.Tensor] = None,
+) -> torch.Tensor:  # [B, H, D]
+    """Decode attention with the current token handled OUT of the cache:
+    history from the stats-emitting paged kernel, the current token folded
+    in with the flash merge. It removes the write-before-attend dependency,
+    so all layers' cache writes batch into one in-place
+    :func:`~dynamo_tpu_torch.ops.kv_cache_update.kv_cache_append`."""
+    _no_extras("decode_attention_merged", window, sinks, 0.0, k_scales)
+    return verify_attention(
+        q[:, None], k_new[:, None], v_new[:, None], k_cache_layer,
+        v_cache_layer, block_tables, hist_lens, scale,
+    )[:, 0]
+
+
+def verify_attention(
+    q: torch.Tensor,  # [B, T, H, D] queries for T in-flight tokens per seq
+    k_win: torch.Tensor,  # [B, T, Hkv, D] their keys (rope'd, NOT in cache)
+    v_win: torch.Tensor,  # [B, T, Hkv, D]
+    k_cache_layer: torch.Tensor,  # [Hkv, N, bs, D] history only
+    v_cache_layer: torch.Tensor,
+    block_tables: torch.Tensor,  # [B, M]
+    hist_lens: torch.Tensor,  # [B] tokens in cache (before the T in-flight)
+    scale: float,
+    window: int = 0,
+    sinks: Optional[torch.Tensor] = None,
+    cap: float = 0.0,
+    k_scales: Optional[torch.Tensor] = None,
+    v_scales: Optional[torch.Tensor] = None,
+) -> torch.Tensor:  # [B, T, H, D]
+    """T in-flight tokens per sequence attend the cached history (through
+    the stats-emitting decode kernel: the T*G rows of a kv head pack into
+    its query-row dimension) plus the causal prefix of the window (dense,
+    tiny), merged with the flash-decoding rule."""
+    _no_extras("verify_attention", window, sinks, cap, k_scales)
+    B, T, H, D = q.shape
+    Hkv = k_cache_layer.shape[0]
+    G = H // Hkv
+    # rows ordered (hkv, t, g): the kernel's [B, Hkv, T*G] row layout
+    qp = q.reshape(B, T, Hkv, G, D).permute(0, 2, 1, 3, 4)
+    o_h, m_h, l_h = paged_decode_attention(
+        qp.reshape(B, Hkv * T * G, D).contiguous(), k_cache_layer,
+        v_cache_layer, block_tables, hist_lens, scale, return_stats=True,
+        q_pos_offset=1, group=G,
+    )
+    o_h = o_h.reshape(B, Hkv, T, G, D).float()
+    m_h = m_h.reshape(B, Hkv, T, G)
+    l_h = l_h.reshape(B, Hkv, T, G)
+    qg = q.reshape(B, T, Hkv, G, D).float() * scale
+    s_w = torch.einsum("btkgd,bukd->bktgu", qg, k_win.float())
+    if T > 1:  # the window's causal part (nothing to mask at T = 1)
+        future = torch.ones(T, T, dtype=torch.bool, device=q.device).triu(1)
+        s_w = s_w.masked_fill(future[None, None, :, None, :], NEG_INF)
+    m_f = torch.maximum(m_h, s_w.amax(-1))
+    kept = l_h * torch.exp(m_h - m_f)  # history's share of the normalizer
+    p_w = torch.exp(s_w - m_f[..., None])  # [B, Hkv, T, G, T']
+    o_w = torch.einsum("bktgu,bukd->bktgd", p_w, v_win.float())
+    num = kept[..., None] * o_h + o_w
+    den = kept + p_w.sum(-1)  # >= the diagonal's own term
+    out = num / den[..., None]
+    return out.permute(0, 2, 1, 3, 4).reshape(B, T, H, D).to(q.dtype)
+
+
+def _history_attention_xla(
+    q: torch.Tensor,  # [B, T, H, D]
+    k_cache_layer: torch.Tensor,
+    v_cache_layer: torch.Tensor,
+    block_tables: torch.Tensor,
+    hist_lens: torch.Tensor,
+    scale: float,
+):
+    """Dense twin of the stats-emitting kernel path: history-only attention
+    with raw softmax stats (o normalized, m row max, l normalizer) in the
+    ``[B, Hkv, T, G(, D)]`` layout verify_attention merges over."""
+    B, T, H, D = q.shape
+    Hkv = k_cache_layer.shape[0]
+    G = H // Hkv
+    k = gather_pages(k_cache_layer, block_tables).float()  # [Hkv, B, S, D]
+    v = gather_pages(v_cache_layer, block_tables).float()
+    qg = q.reshape(B, T, Hkv, G, D).float() * scale
+    s = torch.einsum("btkgd,kbsd->bktgs", qg, k)
+    valid = torch.arange(k.shape[2], device=q.device)[None, :] < hist_lens[:, None]
+    s = s.masked_fill(~valid[:, None, None, None, :], NEG_INF)
+    m = s.amax(-1)
+    p = torch.exp(s - m[..., None]) * valid[:, None, None, None, :]
+    l = p.sum(-1)
+    o = torch.einsum("bktgs,kbsd->bktgd", p, v) / l.clamp_min(1e-20)[..., None]
+    return o, m, l
+
+
+def decode_attention_xla(
+    q: torch.Tensor,  # [B, H, D] one new token per sequence
+    k_cache_layer: torch.Tensor,  # [Hkv, N, bs, D]
+    v_cache_layer: torch.Tensor,
+    block_tables: torch.Tensor,  # [B, M] int32
+    seq_lens: torch.Tensor,  # [B] int32 (includes the new token)
+    scale: float,
+) -> torch.Tensor:  # [B, H, D]
+    """Dense gather + masked softmax in the query dtype (the JAX XLA path's
+    arithmetic: scores in the compute dtype, softmax in f32)."""
+    B, H, D = q.shape
+    Hkv = k_cache_layer.shape[0]
+    G = H // Hkv
+    k = gather_pages(k_cache_layer, block_tables).to(q.dtype)
+    v = gather_pages(v_cache_layer, block_tables).to(q.dtype)
+    qg = q.reshape(B, Hkv, G, D)
+    scores = torch.einsum("bkgd,kbtd->bkgt", qg * scale, k).float()
+    mask = torch.arange(k.shape[2], device=q.device)[None, :] < seq_lens[:, None]
+    scores = scores.masked_fill(~mask[:, None, None, :], NEG_INF)
+    p = torch.exp(scores - scores.amax(-1, keepdim=True))
+    p = p * mask[:, None, None, :]
+    probs = (p / p.sum(-1, keepdim=True).clamp_min(1e-30)).to(v.dtype)
+    return torch.einsum("bkgt,kbtd->bkgd", probs, v).reshape(B, H, D)
+
+
+def chunk_attention_with_cache(
+    q: torch.Tensor,  # [T, H, D] chunk queries
+    k_chunk: torch.Tensor,  # [T, Hkv, D]
+    v_chunk: torch.Tensor,
+    k_cache_layer: torch.Tensor,  # [Hkv, num_blocks, bs, D]
+    v_cache_layer: torch.Tensor,
+    block_table: torch.Tensor,  # [M]
+    history_len,
+    valid_len,
+    scale: float,
+    window: int = 0,
+    sinks: Optional[torch.Tensor] = None,
+    cap: float = 0.0,
+    k_scales: Optional[torch.Tensor] = None,
+    v_scales: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Prefill dispatcher: the paged prefill kernel (plain twin on CPU).
+    Write-before-attend: the chunk's K/V must ALREADY be in the cache, so
+    ``k_chunk``/``v_chunk`` are unused (they feed the dense twin
+    :func:`chunk_attention_with_cache_xla`). Real rows (t < valid_len)
+    agree between the two; padded rows come out zero (discarded by every
+    caller)."""
+    _no_extras("chunk_attention_with_cache", window, sinks, cap, k_scales)
+    return paged_prefill_attention(
+        q, k_cache_layer, v_cache_layer, block_table, history_len, scale,
+        valid_len=valid_len,
+    )
+
+
+def chunk_attention_with_cache_xla(
+    q: torch.Tensor,  # [T, H, D] chunk queries
+    k_chunk: torch.Tensor,  # [T, Hkv, D]
+    v_chunk: torch.Tensor,  # [T, Hkv, D]
+    k_cache_layer: torch.Tensor,  # [Hkv, num_blocks, bs, D]
+    v_cache_layer: torch.Tensor,
+    block_table: torch.Tensor,  # [M] this sequence's blocks
+    history_len,  # tokens already in cache
+    valid_len,  # real tokens in this chunk
+    scale: float,
+) -> torch.Tensor:
+    """Queries attend cached history (read from the cache) plus the causal
+    prefix of the chunk (read from the arguments)."""
+    T, H, D = q.shape
+    Hkv, _, bs, _ = k_cache_layer.shape
+    G = H // Hkv
+    S_hist = block_table.shape[0] * bs
+    dev = q.device
+    hist = torch.as_tensor(history_len, device=dev).reshape(())
+    valid = torch.as_tensor(valid_len, device=dev).reshape(())
+    k_hist = gather_pages(k_cache_layer, block_table).to(k_chunk.dtype)
+    v_hist = gather_pages(v_cache_layer, block_table).to(v_chunk.dtype)
+    k_all = torch.cat([k_hist, k_chunk.transpose(0, 1)], dim=1)  # [Hkv, S, D]
+    v_all = torch.cat([v_hist, v_chunk.transpose(0, 1)], dim=1)
+    qg = q.reshape(T, Hkv, G, D)
+    scores = torch.einsum("tkgd,ksd->tkgs", qg * scale, k_all).float()
+    ar = torch.arange(S_hist + T, device=dev)
+    q_pos = hist + torch.arange(T, device=dev)
+    kv_pos = torch.cat([torch.arange(S_hist, device=dev), q_pos])
+    kv_valid = torch.where(ar < S_hist, ar < hist, (ar - S_hist) < valid)
+    mask = (q_pos[:, None] >= kv_pos[None, :]) & kv_valid[None, :]  # [T, S]
+    scores = scores.masked_fill(~mask[:, None, None, :], NEG_INF)
+    p = torch.exp(scores - scores.amax(-1, keepdim=True))
+    p = p * mask[:, None, None, :]
+    probs = (p / p.sum(-1, keepdim=True).clamp_min(1e-30)).to(v_all.dtype)
+    return torch.einsum("tkgs,ksd->tkgd", probs, v_all).reshape(T, H, D)
+
+
+def chunk_slot_indices(
+    block_tables: torch.Tensor,  # [M] or [MP, M]
+    start_pos,  # int / 0-d tensor, or [MP] tensor: first position per chunk
+    T: int,
+    block_size: int,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """(physical block, in-block offset) of every row of a T-row chunk
+    (``[T]``, or ``[MP, T]`` for stacked tables). Padded tail rows that run
+    past the table land in the reserved trash page 0 (the JAX gather
+    clamps the index instead)."""
+    M = block_tables.shape[-1]
+    ar = torch.arange(T, device=block_tables.device)
+    if torch.is_tensor(start_pos) and start_pos.dim() == 1:
+        pos = start_pos.long()[:, None] + ar[None, :]
+    else:
+        pos = ar + start_pos
+    idx = pos // block_size
+    blk = torch.gather(
+        block_tables.long(), -1,
+        idx.clamp_max(M - 1).reshape(*block_tables.shape[:-1], -1),
+    ).reshape(idx.shape)
+    return torch.where(idx < M, blk, 0), pos % block_size
+
+
+def write_slots(
+    cache_layer: torch.Tensor,  # [Hkv, num_blocks, bs, D] — updated IN PLACE
+    rows: torch.Tensor,  # [R, Hkv, D]
+    blk: torch.Tensor,  # [R] physical page per row
+    off: torch.Tensor,  # [R] row within the page
+) -> torch.Tensor:
+    cache_layer[:, blk.long(), off.long()] = (
+        rows.transpose(0, 1).to(cache_layer.dtype)
+    )
+    return cache_layer
+
+
+def write_chunk_to_cache(
+    cache_layer: torch.Tensor,  # [Hkv, num_blocks, bs, D] — updated IN PLACE
+    chunk: torch.Tensor,  # [T, Hkv, D]
+    block_table: torch.Tensor,  # [M]
+    start_pos,  # first absolute position of the chunk (int or 0-d tensor)
+) -> torch.Tensor:
+    """Scatter a chunk's K or V into its paged blocks."""
+    blk, off = chunk_slot_indices(
+        block_table, start_pos, chunk.shape[0], cache_layer.shape[2]
+    )
+    return write_slots(cache_layer, chunk, blk, off)
+
+
+def decode_slot_indices(
+    block_tables: torch.Tensor,  # [B, M]
+    positions: torch.Tensor,  # [B]
+    block_size: int,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """(physical block, in-block offset) of each sequence's write slot."""
+    blk = torch.gather(block_tables, 1, (positions // block_size)[:, None].long())
+    return blk[:, 0], positions % block_size
+
+
+def write_decode_token_to_cache(
+    cache_layer: torch.Tensor,  # [Hkv, num_blocks, bs, D] — updated IN PLACE
+    token_kv: torch.Tensor,  # [B, Hkv, D]
+    block_tables: torch.Tensor,  # [B, M]
+    positions: torch.Tensor,  # [B] absolute position of the new token
+) -> torch.Tensor:
+    blk, off = decode_slot_indices(block_tables, positions, cache_layer.shape[2])
+    return write_slots(cache_layer, token_kv, blk, off)

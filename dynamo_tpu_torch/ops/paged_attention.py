@@ -1,0 +1,286 @@
+"""Paged attention for decode and prefill: CUDA kernel + plain twin.
+
+Counterpart of ``dynamo_tpu/ops/paged_attention_pallas.py``. Both entry
+points launch the one hand-written kernel in ``csrc/paged_attention.cu``
+on CUDA tensors and take their plain PyTorch version on CPU tensors:
+
+  * :func:`paged_decode_attention` — one query token per sequence (``Gq``
+    query rows per kv head, so the verify path's T*G packing works),
+    optionally with the softmax statistics (m, l) the flash merge needs;
+  * :func:`paged_prefill_attention` — a chunk of T queries over history
+    plus the chunk itself, already written into the cache, through one
+    block table, causal at absolute positions ``history_len + t``.
+
+Cache layout (as in the JAX package): ``[Hkv, N, bs, D]`` per layer, block
+tables of physical page ids, page 0 reserved as trash.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+
+from . import _cuda
+
+NEG_INF = -1e30
+#: query rows one kernel block holds (8 warps x 8 rows, csrc NW * RPW)
+MAX_TILE_ROWS = 64
+#: most horizon splits per tile (flash-decoding partials)
+MAX_SPLITS = 16
+_SRC = "paged_attention.cu"
+
+
+def _ptr(t: Optional[torch.Tensor]):
+    return None if t is None else ctypes.c_void_p(t.data_ptr())
+
+
+def launch_paged_attention(
+    q: torch.Tensor,  # [Ntok, Hkv, Gq, D]
+    k_cache_layer: torch.Tensor,  # [Hkv, N, bs, D]
+    v_cache_layer: torch.Tensor,
+    scale: float,
+    *,
+    d_tables: Optional[torch.Tensor] = None,  # [B, M] int32
+    d_seq_lens: Optional[torch.Tensor] = None,  # [B] int32
+    p_tables: Optional[torch.Tensor] = None,  # [MP, M] int32
+    p_hists: Optional[torch.Tensor] = None,  # [MP] int32
+    p_valids: Optional[torch.Tensor] = None,  # [MP] int32 or None (= T)
+    T: int = 0,
+    Tq: int = 1,
+    stats: bool = False,
+    name: str = "paged_attention",
+):
+    """Launch ``csrc/paged_attention.cu`` on its tile list: B one-token
+    decode tiles, then MP segments of T tokens in Tq-token tiles. Returns
+    ``o`` (like ``q``) and, with ``stats``, ``m``/``l`` f32 ``[Ntok, Hkv,
+    Gq]``. Validates every input and raises on what the kernel does not
+    take."""
+    Ntok, Hkv, Gq, D = q.shape
+    Hc, N, bs, Dc = k_cache_layer.shape
+    B = 0 if d_tables is None else d_tables.shape[0]
+    MP = 0 if p_tables is None else p_tables.shape[0]
+    tensors = [q, k_cache_layer, v_cache_layer] + [
+        t for t in (d_tables, d_seq_lens, p_tables, p_hists, p_valids)
+        if t is not None
+    ]
+    _cuda.require_cuda(name, *tensors)
+    _cuda.require_int32(name, *tensors[3:])
+    if q.dtype not in _cuda.DTYPE_CODES:
+        raise ValueError(f"{name}: dtype {q.dtype} not supported")
+    if k_cache_layer.dtype != q.dtype or v_cache_layer.dtype != q.dtype:
+        raise ValueError(f"{name}: cache dtype must equal the query dtype")
+    if (Hc, Dc) != (Hkv, D) or v_cache_layer.shape != k_cache_layer.shape:
+        raise ValueError(f"{name}: cache shape {tuple(k_cache_layer.shape)} "
+                         f"does not fit q {tuple(q.shape)}")
+    if D not in (64, 128):
+        raise ValueError(f"{name}: head_dim {D} not supported (64, 128)")
+    if Ntok != B + MP * T:
+        raise ValueError(f"{name}: {Ntok} query tokens for B={B} + "
+                         f"MP={MP} x T={T}")
+    if max(1 if B else 0, Tq if MP else 0) * Gq > MAX_TILE_ROWS:
+        raise ValueError(f"{name}: {Tq} tokens x {Gq} rows exceeds the "
+                         f"kernel's {MAX_TILE_ROWS} rows per tile")
+    M = (d_tables if B else p_tables).shape[1] if (B or MP) else 0
+    if B and MP and p_tables.shape[1] != M:
+        raise ValueError(f"{name}: decode and prefill tables differ in width")
+    o = torch.empty_like(q)
+    m = l = None
+    if stats:
+        m = torch.empty((Ntok, Hkv, Gq), dtype=torch.float32, device=q.device)
+        l = torch.empty_like(m)
+    # split every tile's horizon until the grid holds ~2 blocks per SM
+    # (decode: B x Hkv tiles alone leave most of the card idle)
+    blocks = (B + MP * -(-T // Tq)) * Hkv
+    n_split = min(MAX_SPLITS,
+                  max(1, -(-2 * _cuda.sm_count(q.device) // max(blocks, 1))))
+    scratch = None
+    if n_split > 1:
+        scratch = torch.empty(n_split * Ntok * Hkv * Gq * (D + 2),
+                              dtype=torch.float32, device=q.device)
+    err = _cuda.lib(_SRC).paged_attention_launch(
+        _ptr(q), _ptr(o), _ptr(m), _ptr(l), _ptr(k_cache_layer),
+        _ptr(v_cache_layer), _ptr(d_tables), _ptr(d_seq_lens), B,
+        _ptr(p_tables), _ptr(p_hists), _ptr(p_valids), MP, T, Tq, Hkv, Gq,
+        N, bs, M, D, float(scale), n_split, _ptr(scratch),
+        _cuda.DTYPE_CODES[q.dtype], ctypes.c_void_p(_cuda.stream_ptr(q)),
+    )
+    _cuda.check(err, name)
+    return o, m, l
+
+
+# ---------------- plain PyTorch twins (CPU path + kernel oracle) ----------------
+
+
+def gather_pages(cache_layer: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    """``[Hkv, N, bs, D]`` pages of ``table [..., M]`` -> ``[Hkv, ...,
+    M*bs, D]`` (logical positions in order)."""
+    Hkv, _, bs, D = cache_layer.shape
+    g = cache_layer[:, table.long()]
+    return g.reshape(Hkv, *table.shape[:-1], table.shape[-1] * bs, D)
+
+
+def masked_attention(
+    qg: torch.Tensor,  # [R, Hkv, Gq, D] f32, already scaled
+    k: torch.Tensor,  # [Hkv, R or 1, S, D]
+    v: torch.Tensor,
+    limit: torch.Tensor,  # [R] last attended position per row (-1 = none)
+):
+    """Row r attends positions ``0..limit[r]``; fp32 softmax with the TPU
+    kernels' statistics: ``m`` the row max (``NEG_INF`` when nothing is
+    attended), ``l`` the normalizer (0 then), ``o`` normalized (0 then).
+    Returns ``o [R, Hkv, Gq, D]`` f32, ``m``/``l`` ``[R, Hkv, Gq]``."""
+    S = k.shape[-2]
+    s = qg.permute(1, 0, 2, 3) @ k.float().transpose(-1, -2)  # [Hkv,R,Gq,S]
+    pos = torch.arange(S, device=qg.device)
+    valid = (pos[None, :] <= limit[:, None].long())[None, :, None, :]
+    s = s.masked_fill(~valid, NEG_INF)
+    m = s.amax(-1)
+    p = torch.exp(s - m[..., None]) * valid
+    l = p.sum(-1)
+    o = (p @ v.float()) / l.clamp_min(1e-20)[..., None]
+    return o.permute(1, 0, 2, 3), m.permute(1, 0, 2), l.permute(1, 0, 2)
+
+
+def paged_decode_attention_plain(
+    q, k_cache_layer, v_cache_layer, block_tables, seq_lens, scale,
+    return_stats: bool = False,
+):
+    """Gather the pages through the tables, masked softmax in f32."""
+    B, H, D = q.shape
+    Hkv = k_cache_layer.shape[0]
+    qg = q.reshape(B, Hkv, H // Hkv, D).float() * scale
+    o, m, l = masked_attention(
+        qg, gather_pages(k_cache_layer, block_tables),
+        gather_pages(v_cache_layer, block_tables), seq_lens.long() - 1,
+    )
+    o = o.reshape(B, H, D).to(q.dtype)
+    return (o, m, l) if return_stats else o
+
+
+def paged_prefill_attention_plain(
+    q, k_cache_layer, v_cache_layer, block_table, history_len, scale,
+    valid_len=None,
+):
+    T, H, D = q.shape
+    Hkv = k_cache_layer.shape[0]
+    hist = torch.as_tensor(history_len, device=q.device).reshape(())
+    t = torch.arange(T, device=q.device)
+    limit = hist + t
+    if valid_len is not None:
+        valid = torch.as_tensor(valid_len, device=q.device).reshape(())
+        limit = torch.where(t < valid, limit, -1)
+    qg = q.reshape(T, Hkv, H // Hkv, D).float() * scale
+    o, _, _ = masked_attention(
+        qg, gather_pages(k_cache_layer, block_table)[:, None],
+        gather_pages(v_cache_layer, block_table)[:, None], limit,
+    )
+    return o.reshape(T, H, D).to(q.dtype)
+
+
+# ---------------- entry points ----------------
+
+
+def paged_decode_attention(
+    q: torch.Tensor,  # [B, H, D]
+    k_cache_layer: torch.Tensor,  # [Hkv, N, bs, D]
+    v_cache_layer: torch.Tensor,
+    block_tables: torch.Tensor,  # [B, M] int32
+    seq_lens: torch.Tensor,  # [B] int32
+    scale: float,
+    pages_per_step: int = 0,
+    return_stats: bool = False,
+    window: int = 0,
+    q_pos_offset: int = 0,
+    group: int = 0,
+    k_scales: Optional[torch.Tensor] = None,
+    v_scales: Optional[torch.Tensor] = None,
+):  # [B, H, D] or (out, m [B, Hkv, G], l [B, Hkv, G]) with return_stats
+    """GQA paged decode attention over ``seq_lens[b]`` cached positions.
+
+    ``pages_per_step`` is the TPU kernel's DMA grouping and is ignored.
+    ``q_pos_offset``/``group`` only matter for a sliding window; windows
+    and per-page scales are not ported yet and raise. Rows with
+    ``seq_len == 0`` return o = 0, m = -1e30, l = 0."""
+    if window or k_scales is not None or v_scales is not None:
+        raise NotImplementedError(
+            "paged_decode_attention: sliding windows and per-page KV "
+            "scales are not ported yet"
+        )
+    B, H, D = q.shape
+    Hkv = k_cache_layer.shape[0]
+    G = H // Hkv
+    if q.device.type == "cpu":
+        return paged_decode_attention_plain(
+            q, k_cache_layer, v_cache_layer, block_tables, seq_lens, scale,
+            return_stats,
+        )
+    o, m, l = launch_paged_attention(
+        q.reshape(B, Hkv, G, D), k_cache_layer, v_cache_layer, scale,
+        d_tables=block_tables, d_seq_lens=seq_lens, stats=return_stats,
+        name="paged_decode_attention",
+    )
+    paged_decode_attention.launches += 1
+    o = o.reshape(B, H, D)
+    return (o, m, l) if return_stats else o
+
+
+paged_decode_attention.launches = 0
+
+
+def prefill_q_tile(G: int) -> int:
+    """Query tokens per kernel tile: as many as fill the block's rows."""
+    return max(1, MAX_TILE_ROWS // G)
+
+
+def paged_prefill_attention(
+    q: torch.Tensor,  # [T, H, D] chunk queries
+    k_cache_layer: torch.Tensor,  # [Hkv, N, bs, D] — chunk ALREADY written
+    v_cache_layer: torch.Tensor,
+    block_table: torch.Tensor,  # [M] int32, covers history + padded chunk
+    history_len,  # int, or int32 tensor of one element on q's device
+    scale: float,
+    pages_per_step: int = 0,
+    window: int = 0,
+    sinks: Optional[torch.Tensor] = None,
+    k_scales: Optional[torch.Tensor] = None,
+    v_scales: Optional[torch.Tensor] = None,
+    valid_len=None,  # int or one-element int32 tensor; None = all T rows
+) -> torch.Tensor:  # [T, H, D]
+    """Chunked-prefill attention over the paged cache (write-before-attend:
+    the caller scattered this chunk's K/V into the cache first). Row t
+    attends positions ``<= history_len + t``. Padded tail rows are
+    discarded by every caller: as in the JAX kernel they compute values
+    anyway, unless ``valid_len`` (the port's addition) says where the
+    padding starts — then they come out zero and cost nothing."""
+    if window or sinks is not None or k_scales is not None:
+        raise NotImplementedError(
+            "paged_prefill_attention: sliding windows, sinks and per-page "
+            "KV scales are not ported yet"
+        )
+    T, H, D = q.shape
+    Hkv = k_cache_layer.shape[0]
+    G = H // Hkv
+    if q.device.type == "cpu":
+        return paged_prefill_attention_plain(
+            q, k_cache_layer, v_cache_layer, block_table, history_len, scale,
+            valid_len,
+        )
+
+    def dev_i32(x):
+        if torch.is_tensor(x):
+            return x.reshape(1)
+        return torch.tensor([x], dtype=torch.int32, device=q.device)
+
+    o, _, _ = launch_paged_attention(
+        q.reshape(T, Hkv, G, D), k_cache_layer, v_cache_layer, scale,
+        p_tables=block_table.reshape(1, -1), p_hists=dev_i32(history_len),
+        p_valids=None if valid_len is None else dev_i32(valid_len),
+        T=T, Tq=prefill_q_tile(G), name="paged_prefill_attention",
+    )
+    paged_prefill_attention.launches += 1
+    return o.reshape(T, H, D)
+
+
+paged_prefill_attention.launches = 0

@@ -1,0 +1,80 @@
+"""Each CUDA kernel against its plain PyTorch version on the card.
+
+Marked ``cuda``: skips without a CUDA device. This file imports torch and
+the port only (no JAX), so it runs on a GPU machine as it stands:
+
+    python -m pytest tests/test_torch_cuda.py -q --noconftest
+
+(``--noconftest``: the suite's conftest configures JAX, which a GPU
+machine need not have.)
+"""
+
+import pytest
+import torch
+
+from dynamo_tpu_torch.ops.kv_cache_update import kv_cache_append
+from dynamo_tpu_torch.ops.paged_attention import (
+    paged_decode_attention,
+    paged_prefill_attention,
+)
+from dynamo_tpu_torch.ops.ragged_paged_attention import ragged_mixed_attention
+
+
+@pytest.mark.cuda
+def test_cuda_kernels_match_plain_versions():
+    """On the card: every kernel against its plain version on the same
+    inputs (bf16 outputs, sums in another order: 2e-2)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the chip)")
+    from dynamo_tpu_torch.ops.kv_cache_update import kv_cache_append_plain
+    from dynamo_tpu_torch.ops.paged_attention import (
+        paged_decode_attention_plain,
+        paged_prefill_attention_plain,
+    )
+    from dynamo_tpu_torch.ops.ragged_paged_attention import (
+        ragged_mixed_attention_plain,
+    )
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(0)
+    Hkv, G, D, bs, M, N = 8, 4, 128, 16, 16, 160
+    H = Hkv * G
+    kc = torch.randn(Hkv, N, bs, D, generator=g, device=dev).bfloat16()
+    vc = torch.randn(Hkv, N, bs, D, generator=g, device=dev).bfloat16()
+    tables = torch.randperm(N - 1, generator=g, device=dev)[: 9 * M].add(1)
+    tables = tables.reshape(9, M).to(torch.int32)
+    lens = torch.tensor([0, 1, 17, 100, 256, 31, 64, 200], dtype=torch.int32,
+                        device=dev)
+    q = torch.randn(8, H, D, generator=g, device=dev).bfloat16()
+    tol = dict(atol=2e-2, rtol=2e-2)
+    got = paged_decode_attention(q, kc, vc, tables[:8], lens, D ** -0.5,
+                                 return_stats=True)
+    ref = paged_decode_attention_plain(q, kc, vc, tables[:8], lens, D ** -0.5,
+                                       return_stats=True)
+    torch.testing.assert_close(got[0].float(), ref[0].float(), **tol)
+    torch.testing.assert_close(got[1], ref[1], rtol=1e-3, atol=1e-3)
+    torch.testing.assert_close(got[2], ref[2], rtol=1e-3, atol=1e-3)
+    qp = torch.randn(64, H, D, generator=g, device=dev).bfloat16()
+    hist = torch.tensor([100], dtype=torch.int32, device=dev)
+    torch.testing.assert_close(
+        paged_prefill_attention(qp, kc, vc, tables[8], hist, D ** -0.5).float(),
+        paged_prefill_attention_plain(qp, kc, vc, tables[8], hist,
+                                      D ** -0.5).float(), **tol)
+    qc = torch.randn(2, 32, H, D, generator=g, device=dev).bfloat16()
+    p_tab = torch.stack([tables[8], torch.zeros_like(tables[8])])
+    p_h = torch.tensor([40, 0], dtype=torch.int32, device=dev)
+    p_v = torch.tensor([30, 0], dtype=torch.int32, device=dev)
+    args = (q, qc, kc, vc, tables[:8], lens, p_tab, p_h, p_v, D ** -0.5)
+    for a, b in zip(ragged_mixed_attention(*args),
+                    ragged_mixed_attention_plain(*args)):
+        torch.testing.assert_close(a.float(), b.float(), **tol)
+    new = torch.randn(2, 4, 8, Hkv, D, generator=g, device=dev).bfloat16()
+    caches = torch.randn(2, 4, Hkv, 12, bs, D, generator=g,
+                         device=dev).bfloat16()
+    plain = caches.clone()
+    blk = torch.arange(1, 9, dtype=torch.int32, device=dev)
+    off = torch.arange(8, dtype=torch.int32, device=dev)
+    kv_cache_append(new[0], new[1], caches[0], caches[1], blk, off)
+    kv_cache_append_plain(new[0], new[1], plain[0], plain[1], blk, off)
+    torch.cuda.synchronize()
+    assert torch.equal(caches, plain)

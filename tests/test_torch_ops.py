@@ -1,0 +1,281 @@
+"""The port's attention / KV-append / sampling ops against the JAX package.
+
+Each kernel's plain PyTorch version (what the wrapper runs on a CPU tensor)
+is held to the JAX Pallas kernel run in interpret mode, on the same numpy
+inputs from a seed, at f32 with the JAX kernel tests' tolerance (2e-5);
+the KV append is bit-exact. The dense twins and the sampling ops are held
+to their JAX functions (the CUDA kernels themselves are held to their
+plain versions on the card by tests/test_torch_cuda.py).
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from dynamo_tpu.ops import attention as jatt
+from dynamo_tpu.ops import sampling as jsamp
+from dynamo_tpu.ops.kv_cache_update_pallas import kv_cache_append as j_append
+from dynamo_tpu.ops.paged_attention_pallas import (
+    paged_decode_attention as j_decode,
+)
+from dynamo_tpu.ops.paged_attention_pallas import (
+    paged_prefill_attention as j_prefill,
+)
+from dynamo_tpu.ops.ragged_paged_attention_pallas import (
+    ragged_mixed_attention as j_ragged,
+)
+from dynamo_tpu_torch.ops import attention as att
+from dynamo_tpu_torch.ops import sampling
+from dynamo_tpu_torch.ops.kv_cache_update import kv_cache_append
+from dynamo_tpu_torch.ops.paged_attention import (
+    paged_decode_attention,
+    paged_prefill_attention,
+)
+from dynamo_tpu_torch.ops.ragged_paged_attention import ragged_mixed_attention
+
+TOL = dict(rtol=2e-5, atol=2e-5)
+
+
+def _cache(rng, Hkv, N, bs, D):
+    return (rng.standard_normal((Hkv, N, bs, D)).astype(np.float32),
+            rng.standard_normal((Hkv, N, bs, D)).astype(np.float32))
+
+
+def _tables(rng, rows, M, N):
+    """Disjoint physical pages per row; page 0 stays the trash page."""
+    pages = rng.permutation(np.arange(1, N)).astype(np.int32)
+    return pages[: rows * M].reshape(rows, M)
+
+
+def _t(*arrs):
+    return [torch.from_numpy(np.ascontiguousarray(a)) for a in arrs]
+
+
+def _j(*arrs):
+    return [jnp.asarray(a) for a in arrs]
+
+
+def _close(got, ref, **tol):
+    np.testing.assert_allclose(np.asarray(got), np.asarray(ref), **(tol or TOL))
+
+
+@pytest.mark.parametrize("H,Hkv", [(8, 2), (4, 4)])
+def test_paged_decode_attention_stats_match_pallas(H, Hkv):
+    rng = np.random.default_rng(0)
+    B, D, bs, M = 4, 16, 8, 3
+    N = B * M + 1
+    kc, vc = _cache(rng, Hkv, N, bs, D)
+    q = rng.standard_normal((B, H, D)).astype(np.float32)
+    tables = _tables(rng, B, M, N)
+    seq_lens = np.asarray([0, 5, M * bs, 9], np.int32)  # one empty slot
+    scale = D ** -0.5
+    o, m, l = paged_decode_attention(*_t(q, kc, vc, tables, seq_lens), scale,
+                                     return_stats=True)
+    jo, jm, jl = j_decode(*_j(q, kc, vc, tables, seq_lens), scale,
+                          return_stats=True, interpret=True)
+    _close(o, jo)
+    _close(m, jm)
+    _close(l, jl)
+    # the empty slot: o = 0, m = the kernels' -1e30 (not -inf), l = 0
+    assert (o[0] == 0).all() and (m[0] == -1e30).all() and (l[0] == 0).all()
+
+
+def test_decode_attention_merged_matches_jax():
+    rng = np.random.default_rng(1)
+    B, H, Hkv, D, bs, M = 3, 8, 2, 16, 8, 4
+    N = B * M + 1
+    kc, vc = _cache(rng, Hkv, N, bs, D)
+    q = rng.standard_normal((B, H, D)).astype(np.float32)
+    k_new = rng.standard_normal((B, Hkv, D)).astype(np.float32)
+    v_new = rng.standard_normal((B, Hkv, D)).astype(np.float32)
+    tables = _tables(rng, B, M, N)
+    hist = np.asarray([0, 7, 30], np.int32)  # hist 0 degenerates to v_new
+    scale = D ** -0.5
+    args = (q, k_new, v_new, kc, vc, tables, hist)
+    got = att.decode_attention_merged(*_t(*args), scale)
+    ref = jatt.decode_attention_merged(*_j(*args), scale, interpret=True)
+    _close(got, ref)
+    # a T=3 in-flight window: the causal part inside the window too
+    win = (rng.standard_normal((B, 3, H, D)).astype(np.float32),
+           rng.standard_normal((B, 3, Hkv, D)).astype(np.float32),
+           rng.standard_normal((B, 3, Hkv, D)).astype(np.float32),
+           kc, vc, tables, hist)
+    _close(att.verify_attention(*_t(*win), scale),
+           jatt.verify_attention(*_j(*win), scale, use_pallas=True,
+                                 interpret=True))
+    # the dense twins agree with their JAX counterparts too
+    h_got = att._history_attention_xla(
+        *_t(q[:, None], kc, vc, tables, hist), scale)
+    h_ref = jatt._history_attention_xla(
+        *_j(q[:, None], kc, vc, tables, hist), scale)
+    for g, r in zip(h_got, h_ref):
+        _close(g, r)
+    seq_lens = hist + 1
+    _close(att.decode_attention_xla(*_t(q, kc, vc, tables, seq_lens), scale),
+           jatt.decode_attention_xla(*_j(q, kc, vc, tables, seq_lens), scale))
+
+
+def test_paged_prefill_attention_matches_pallas_on_real_rows():
+    rng = np.random.default_rng(2)
+    H, Hkv, D, bs, M = 4, 2, 16, 8, 6
+    T, valid, hist = 16, 13, 19
+    N = M + 4
+    kc, vc = _cache(rng, Hkv, N, bs, D)
+    table = _tables(rng, 1, M, N)[0]
+    q = rng.standard_normal((T, H, D)).astype(np.float32)
+    k_chunk = rng.standard_normal((T, Hkv, D)).astype(np.float32)
+    v_chunk = rng.standard_normal((T, Hkv, D)).astype(np.float32)
+    scale = D ** -0.5
+    # write-before-attend: the chunk lands through the port's writer and
+    # through the JAX one; the two caches must come out identical
+    tkc, tvc, ttab = _t(kc, vc, table)
+    att.write_chunk_to_cache(tkc, *_t(k_chunk), ttab, hist)
+    att.write_chunk_to_cache(tvc, *_t(v_chunk), ttab, hist)
+    jkc = jatt.write_chunk_to_cache(jnp.asarray(kc), jnp.asarray(k_chunk),
+                                    jnp.asarray(table), jnp.int32(hist))
+    jvc = jatt.write_chunk_to_cache(jnp.asarray(vc), jnp.asarray(v_chunk),
+                                    jnp.asarray(table), jnp.int32(hist))
+    np.testing.assert_array_equal(tkc.numpy(), np.asarray(jkc))
+    got = paged_prefill_attention(torch.from_numpy(q), tkc, tvc, ttab, hist,
+                                  scale)
+    ref = j_prefill(jnp.asarray(q), jkc, jvc, jnp.asarray(table),
+                    jnp.int32(hist), scale, interpret=True)
+    _close(got[:valid], np.asarray(ref)[:valid])
+    # with the valid length the padded rows come out zero, real rows alike
+    got_v = paged_prefill_attention(torch.from_numpy(q), tkc, tvc, ttab, hist,
+                                    scale, valid_len=valid)
+    assert (got_v[valid:] == 0).all()
+    _close(got_v[:valid], got[:valid], rtol=0, atol=0)
+    # ... and the dense twin (chunk read from the arguments)
+    dense = att.chunk_attention_with_cache_xla(
+        *_t(q, k_chunk, v_chunk), tkc, tvc, ttab, hist, valid, scale)
+    jdense = jatt.chunk_attention_with_cache_xla(
+        *_j(q, k_chunk, v_chunk), jkc, jvc, jnp.asarray(table),
+        jnp.int32(hist), jnp.int32(valid), scale)
+    _close(dense[:valid], np.asarray(jdense)[:valid])
+    _close(got[:valid], dense[:valid])
+
+
+def test_ragged_mixed_attention_matches_pallas():
+    rng = np.random.default_rng(3)
+    B, Hkv, G, D, bs, M = 3, 2, 2, 16, 8, 6
+    H = Hkv * G
+    MP, T = 2, 16
+    N = (B + MP) * M + 1
+    kc, vc = _cache(rng, Hkv, N, bs, D)
+    tables = _tables(rng, B + MP, M, N)
+    d_tables, p_tables = tables[:B], tables[B:].copy()
+    p_tables[1] = 0  # dead segment: zero table, valid 0
+    d_seq_lens = np.asarray([5, 0, 33], np.int32)  # one inactive slot
+    p_hists = np.asarray([9, 0], np.int32)
+    p_valids = np.asarray([13, 0], np.int32)
+    q_dec = rng.standard_normal((B, H, D)).astype(np.float32)
+    q_chunks = rng.standard_normal((MP, T, H, D)).astype(np.float32)
+    scale = D ** -0.5
+    args = (q_dec, q_chunks, kc, vc, d_tables, d_seq_lens, p_tables, p_hists,
+            p_valids)
+    o_dec, o_chunks = ragged_mixed_attention(*_t(*args), scale)
+    jo_dec, jo_chunks = j_ragged(*_j(*args), scale, q_tile=8, interpret=True)
+    _close(o_dec, jo_dec)
+    _close(o_chunks[0, :13], np.asarray(jo_chunks)[0, :13])
+    # inactive slot, dead segment and padded rows are zeros
+    assert (o_dec[1] == 0).all() and (o_chunks[1] == 0).all()
+    assert (o_chunks[0, 13:] == 0).all()
+    np.testing.assert_array_equal(np.asarray(jo_chunks)[1], 0.0)
+
+
+def test_kv_cache_append_bit_exact_vs_pallas():
+    rng = np.random.default_rng(4)
+    L, B, Hkv, D, N, bs = 3, 4, 2, 16, 9, 8
+    k_new = rng.standard_normal((L, B, Hkv, D)).astype(np.float32)
+    v_new = rng.standard_normal((L, B, Hkv, D)).astype(np.float32)
+    kc = rng.standard_normal((L, Hkv, N, bs, D)).astype(np.float32)
+    vc = rng.standard_normal((L, Hkv, N, bs, D)).astype(np.float32)
+    blk = np.asarray([3, 5, 1, 8], np.int32)
+    off = np.asarray([0, 7, 4, 2], np.int32)
+    tk, tv = _t(kc, vc)
+    out_k, out_v = kv_cache_append(*_t(k_new, v_new), tk, tv, *_t(blk, off))
+    assert out_k is tk and out_v is tv  # updated in place
+    jk, jv = j_append(*_j(k_new, v_new, kc, vc, blk, off), interpret=True)
+    np.testing.assert_array_equal(tk.numpy(), np.asarray(jk))
+    np.testing.assert_array_equal(tv.numpy(), np.asarray(jv))
+    # the per-layer slot writer lands the same rows (positions -> slots)
+    tables = np.arange(1, 9, dtype=np.int32).reshape(B, 2)
+    pos = np.asarray([0, 9, 4, 15], np.int32)
+    got = att.write_decode_token_to_cache(
+        *_t(kc[1], k_new[1], tables, pos))
+    ref = jatt.write_decode_token_to_cache(*_j(kc[1], k_new[1], tables, pos))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
+
+
+def test_kernel_path_is_selected_by_device_never_rerouted(monkeypatch):
+    """A tensor that is not on the CPU goes to the kernel path, which
+    raises without CUDA — the plain version is never a fallback."""
+    from dynamo_tpu_torch.ops import kv_cache_update, paged_attention
+
+    def boom(*a, **k):
+        raise AssertionError("plain version called for a non-CPU tensor")
+
+    monkeypatch.setattr(paged_attention, "paged_decode_attention_plain", boom)
+    monkeypatch.setattr(kv_cache_update, "kv_cache_append_plain", boom)
+    meta = dict(device="meta")
+    q = torch.empty(2, 4, 64, **meta)
+    kc = torch.empty(2, 5, 8, 64, **meta)
+    tables = torch.empty(2, 2, dtype=torch.int32, **meta)
+    lens = torch.empty(2, dtype=torch.int32, **meta)
+    before = paged_decode_attention.launches
+    with pytest.raises(RuntimeError, match="CUDA"):
+        paged_decode_attention(q, kc, kc, tables, lens, 0.125)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        kv_cache_append(torch.empty(1, 2, 2, 64, **meta),
+                        torch.empty(1, 2, 2, 64, **meta),
+                        torch.empty(1, 2, 5, 8, 64, **meta),
+                        torch.empty(1, 2, 5, 8, 64, **meta), lens, lens)
+    assert paged_decode_attention.launches == before
+
+
+def test_sampling_ops_match_jax():
+    rng = np.random.default_rng(5)
+    B, V = 4, 64
+    logits = rng.standard_normal((B, V)).astype(np.float32)
+    logits[2, 7] = logits[2, 9] = logits[2].max() + 1.0  # tie: first wins
+    counts = rng.integers(0, 3, (B, V)).astype(np.int32)
+    mask = rng.random((B, V)) < 0.2
+    pens = (np.asarray([0.5, 0, 0.2, 0], np.float32),
+            np.asarray([0, 0.3, 0.1, 0], np.float32),
+            np.asarray([1.0, 1.3, 0.8, 1.0], np.float32))
+    _close(sampling.apply_penalties(*_t(logits, counts, mask, *pens)),
+           jsamp.apply_penalties(*_j(logits, counts, mask, *pens)))
+    zeros = np.zeros(B, np.float32)
+    greedy = sampling.sample_tokens(
+        *_t(logits), [None] * B, *_t(zeros, zeros.astype(np.int32),
+                                     np.ones(B, np.float32)))
+    jgreedy = jsamp.sample_tokens(
+        *_j(logits), jsamp.make_keys(jnp.zeros(B, jnp.int32),
+                                     jnp.zeros(B, jnp.int32)),
+        *_j(zeros, zeros.astype(np.int32), np.ones(B, np.float32)))
+    np.testing.assert_array_equal(greedy.numpy(), np.asarray(jgreedy))
+    assert int(greedy[2]) == 7
+    chosen = np.asarray([1, 2, 3, 4], np.int32)
+    (lp, ids, top), (jlp, jids, jtop) = (
+        sampling.token_logprobs(*_t(logits, chosen)),
+        jsamp.token_logprobs(*_j(logits, chosen)),
+    )
+    _close(lp, jlp, rtol=1e-5, atol=1e-5)
+    _close(top, jtop, rtol=1e-5, atol=1e-5)
+    # tied logits may list in either order
+    np.testing.assert_array_equal(np.sort(ids.numpy()), np.sort(np.asarray(jids)))
+    # top-k/top-p masks agree; a seeded row replays within the port
+    tk = np.asarray([3, 0, 5, 0], np.int32)
+    tp = np.asarray([1.0, 0.5, 0.9, 1.0], np.float32)
+    _close(sampling._apply_topk_topp(*_t(logits, tk, tp)),
+           jsamp._apply_topk_topp(*_j(logits, tk, tp)))
+    temps = np.full(B, 0.7, np.float32)
+    draws = [
+        sampling.sample_tokens(
+            *_t(logits), sampling.make_keys([11] * B, [3] * B, temps, "cpu"),
+            *_t(temps, tk, tp)).tolist()
+        for _ in range(2)
+    ]
+    assert draws[0] == draws[1]
