@@ -395,48 +395,63 @@ async def serve(torch, dev, card: str) -> dict:
         1, 8, dtype=torch.int32, device=dev), 0, 64, kc, vc)
     if logits.shape != (cfg.vocab_size,) or not bool(torch.isfinite(logits).all()):
         raise AssertionError("llama3-8b-sim prefill logits not finite [V]")
-    decode_anatomy(torch, dev, params, cfg, engine.k_cache, engine.v_cache)
+    step_anatomy(torch, dev, params, cfg, engine.k_cache, engine.v_cache)
     del engine, params, kc, vc
     torch.cuda.empty_cache()
     return launches
 
 
-def decode_anatomy(torch, dev, params, cfg, k_cache, v_cache) -> None:
-    """One 4-step decode window of llama3-8b-sim (B=8 at ~1k context) on
-    the serving cache: wall time per step, and under torch.profiler the
-    device's kernel time and launch count — how much of a step the card
-    is busy."""
+def anatomy(torch, label: str, fn, n: int) -> None:
+    """Wall time of ``fn`` per step (``n`` steps per call, profiler off),
+    then under torch.profiler the card's kernel time, launch count and the
+    three kernels that take most of it: how much of a step the card is
+    busy, and with what."""
+    from collections import defaultdict
+
     from torch.profiler import ProfilerActivity, profile
 
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3 / n
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    by_name = defaultdict(float)
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    for e in kernels:
+        by_name[e.name] += e.device_time_total / 1e3 / n
+    busy = sum(by_name.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:3]
+    log(f"  {label}: {wall:.2f} ms wall per step, {busy:.2f} ms of kernels "
+        f"({busy / wall:.0%} busy), {len(kernels) / n:.0f} kernel launches "
+        f"per step; top: " + "; ".join(f"{k[:48]} {v:.2f} ms" for k, v in top))
+
+
+def step_anatomy(torch, dev, params, cfg, k_cache, v_cache) -> None:
+    """A 4-step decode window (B=8 at ~1k context) and a lone prompt's
+    dedicated prefill (1201 tokens in the 2048 bucket) of llama3-8b-sim on
+    the serving cache."""
     from dynamo_tpu_torch.models import llama
 
-    B, n = 8, 4
+    B = 8
     tables = torch.arange(1, 1 + B * 80, dtype=torch.int32, device=dev).reshape(B, 80)
     lens = torch.arange(1000, 1000 + B, dtype=torch.int32, device=dev)
     toks = torch.arange(300, 300 + B, dtype=torch.int32, device=dev)
     samp = (torch.zeros(B, device=dev), torch.zeros(B, dtype=torch.int32, device=dev),
             torch.ones(B, device=dev))
-
-    def window():
-        return llama.decode_window(params, cfg, toks, lens - 1, tables, lens,
-                                   [0] * B, [0] * B, *samp, k_cache, v_cache,
-                                   n_steps=n)[0]
-
-    window()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    window()
-    torch.cuda.synchronize()
-    wall = (time.perf_counter() - t0) * 1e3 / n
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        window()
-        torch.cuda.synchronize()
-    kernels = [e for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy = sum(e.device_time_total for e in kernels) / 1e3 / n
-    log(f"  decode step anatomy (B=8, ~1k context): {wall:.2f} ms wall per "
-        f"step, {busy:.2f} ms of kernels ({busy / wall:.0%} busy), "
-        f"{len(kernels) / n:.0f} kernel launches per step")
+    anatomy(torch, "decode step (B=8, ~1k context)", lambda: llama.decode_window(
+        params, cfg, toks, lens - 1, tables, lens, [0] * B, [0] * B, *samp,
+        k_cache, v_cache, n_steps=4), 4)
+    prompt = torch.zeros(2048, dtype=torch.int32, device=dev)
+    prompt[:1201] = torch.arange(1201, device=dev) % 250 + 3
+    table = torch.arange(700, 828, dtype=torch.int32, device=dev)
+    anatomy(torch, "dedicated prefill (1201 tokens, 2048 bucket)",
+            lambda: llama.prefill(params, cfg, prompt, table, 0, 1201,
+                                  k_cache, v_cache), 1)
 
 
 # ---------------- phase 4: timing ----------------
