@@ -132,6 +132,51 @@ class KernelInputs:
                   self.d_lens, self.r_tables, self.r_hists, self.r_valids,
                   self.scale)
 
+    # (m, l) of a prefill / ragged launch against the plain softmax
+    # statistics: o within 2e-2 cannot tell a dropped page or a causal edge
+    # moved by a few positions from bf16 rounding; l at rtol 1e-3 can
+    def launch_stats(self, q, T, **tables):
+        from dynamo_tpu_torch.ops import paged_attention as pa
+
+        G = self.H // self.Hkv
+        _, m, l = pa.launch_paged_attention(
+            q.reshape(-1, self.Hkv, G, self.D), self.kc, self.vc, self.scale,
+            T=T, Tq=pa.prefill_q_tile(G), stats=True, **tables)
+        return m, l
+
+    def plain_stats(self, q, table, limit):
+        """Rows ``q [R, H, D]`` through ``table`` ([M] shared or [R, M]),
+        row r attending positions ``0..limit[r]``."""
+        from dynamo_tpu_torch.ops import paged_attention as pa
+
+        k, v = pa.gather_pages(self.kc, table), pa.gather_pages(self.vc, table)
+        if table.dim() == 1:
+            k, v = k[:, None], v[:, None]
+        qg = q.reshape(q.shape[0], self.Hkv, -1, self.D).float() * self.scale
+        _, m, l = pa.masked_attention(qg, k, v, limit)
+        return m, l
+
+    def prefill_stats(self):
+        T = self.q_pre.shape[0]
+        limit = self.hist.long() + self.torch.arange(T, device=self.q_pre.device)
+        return (self.launch_stats(self.q_pre, T, p_tables=self.p_table[None],
+                                  p_hists=self.hist),
+                self.plain_stats(self.q_pre, self.p_table, limit))
+
+    def ragged_stats(self):
+        torch = self.torch
+        MP, T = self.q_chunks.shape[:2]
+        got = self.launch_stats(
+            torch.cat([self.q_dec, self.q_chunks.reshape(MP * T, self.H, self.D)]),
+            T, d_tables=self.d_tables, d_seq_lens=self.d_lens,
+            p_tables=self.r_tables, p_hists=self.r_hists, p_valids=self.r_valids)
+        parts = [self.plain_stats(self.q_dec, self.d_tables, self.d_lens.long() - 1)]
+        t = torch.arange(T, device=self.q_dec.device)
+        for m in range(MP):
+            limit = torch.where(t < self.r_valids[m], self.r_hists[m].long() + t, -1)
+            parts.append(self.plain_stats(self.q_chunks[m], self.r_tables[m], limit))
+        return got, tuple(torch.cat(x) for x in zip(*parts))
+
     def append(self, fn, kc=None, vc=None):
         return fn(self.k_new, self.v_new, self.a_kc if kc is None else kc,
                   self.a_vc if vc is None else vc, self.a_blk, self.a_off)
@@ -152,13 +197,17 @@ def check_kernels(torch, dev, inp: KernelInputs) -> dict:
             )
         return float(err.max())
 
+    def close_stats(name, got, ref):
+        (m, l), (rm, rl) = got, ref
+        close(f"{name} m", m, rm, 1e-3, 1e-3)
+        close(f"{name} l", l, rl, 1e-3, 1e-3)
+
     errs = {}
     o, m, l = inp.decode(pa.paged_decode_attention)
     ro, rm, rl = inp.decode(pa.paged_decode_attention_plain)
     torch.cuda.synchronize()
     errs["paged_decode_attention"] = close("decode o", o, ro, 2e-2, 2e-2)
-    close("decode m", m, rm, 1e-3, 1e-3)
-    close("decode l", l, rl, 1e-3, 1e-3)
+    close_stats("decode", (m, l), (rm, rl))
     if not (bool((o[7] == 0).all()) and bool((m[7] == -1e30).all())
             and bool((l[7] == 0).all())):
         raise AssertionError("decode: the empty slot must give o=0, m=-1e30, l=0")
@@ -166,6 +215,7 @@ def check_kernels(torch, dev, inp: KernelInputs) -> dict:
     ref = inp.prefill(pa.paged_prefill_attention_plain)
     torch.cuda.synchronize()
     errs["paged_prefill_attention"] = close("prefill", got, ref, 2e-2, 2e-2)
+    close_stats("prefill", *inp.prefill_stats())
     got = inp.ragged(rpa.ragged_mixed_attention)
     ref = inp.ragged(rpa.ragged_mixed_attention_plain)
     torch.cuda.synchronize()
@@ -173,6 +223,7 @@ def check_kernels(torch, dev, inp: KernelInputs) -> dict:
         close("ragged decode rows", got[0], ref[0], 2e-2, 2e-2),
         close("ragged segments", got[1], ref[1], 2e-2, 2e-2),
     )
+    close_stats("ragged", *inp.ragged_stats())
     kc, vc = inp.a_kc.clone(), inp.a_vc.clone()
     inp.append(kvu.kv_cache_append, kc, vc)
     inp.append(kvu.kv_cache_append_plain)
@@ -458,16 +509,17 @@ def step_anatomy(torch, dev, params, cfg, k_cache, v_cache) -> None:
 
 
 def time_ms(torch, fn, reps: int, flush) -> float:
-    """Median ms per call, L2 flushed before each (CUDA events). A short
+    """Median ms per call, L2 flushed before each (CUDA events). A
     device-side spin after the flush keeps the card busy while the host
-    enqueues the call, so a kernel's time excludes the host's launch path
-    (a plain version's many small ops still pay their host gaps)."""
+    enqueues the call, so the time of a kernel or of a library call of a
+    few ops excludes the host's launch path (a plain version's many small
+    ops still pay their host gaps)."""
     fn()
     fn()
     times = []
     for _ in range(reps):
         flush.zero_()
-        torch.cuda._sleep(200_000)  # ~0.1 ms at the H100's clock
+        torch.cuda._sleep(2_000_000)  # ~1 ms at the H100's clock
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -484,8 +536,10 @@ def bound_ms(nbytes: float, flops: float):
 
 
 def library_calls(torch, inp: KernelInputs):
-    """One PyTorch call per kernel computing the same function on the same
-    inputs, K/V laid out contiguously: the yardstick (timed only)."""
+    """PyTorch library calls computing each kernel's function on the same
+    inputs, K/V laid out contiguously: the yardstick (timed only). One call
+    each, except ragged: one for the decode rows plus one per live segment,
+    timed together."""
     import torch.nn.functional as F
 
     from dynamo_tpu_torch.ops.paged_attention import gather_pages
@@ -506,24 +560,29 @@ def library_calls(torch, inp: KernelInputs):
         return F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
                                               scale=inp.scale, **kw)
 
+    def causal(q, table, hist):
+        """q ``[T, H, D]`` at positions hist..hist+T-1 over its own prefix."""
+        T = q.shape[0]
+        k, v = contiguous(table[None], hist + T)
+        mask = (torch.arange(hist + T, device=dev)[None]
+                <= hist + torch.arange(T, device=dev)[:, None])
+        return q.transpose(0, 1)[None], k, v, mask
+
     S = int(inp.d_lens.max())
     dk, dv = contiguous(inp.d_tables, S)
     dq = inp.q_dec[:, :, None]  # [B, H, 1, D]
     dmask = (torch.arange(S, device=dev)[None] < inp.d_lens[:, None])[:, None, None]
-    hist, T = int(inp.hist), inp.q_pre.shape[0]
-    pk, pv = contiguous(inp.p_table[None], hist + T)
-    pq = inp.q_pre.transpose(0, 1)[None]
-    pmask = (torch.arange(hist + T, device=dev)[None]
-             <= hist + torch.arange(T, device=dev)[:, None])
-    # ragged: decode rows and segments padded into one batch
-    Tm = inp.q_chunks.shape[1]
-    rq = torch.zeros(8 + 2, inp.H, Tm, inp.D, dtype=torch.bfloat16, device=dev)
-    rq[:8, :, :1] = dq
-    rq[8:] = inp.q_chunks.transpose(1, 2)
-    rk, rv = contiguous(torch.cat([inp.d_tables, inp.r_tables]), S)
-    q_pos = torch.cat([(inp.d_lens - 1)[:, None].expand(8, Tm),
-                       inp.r_hists[:, None] + torch.arange(Tm, device=dev)])
-    rmask = (torch.arange(S, device=dev)[None, None] <= q_pos[:, :, None])[:, None]
+    pre = causal(inp.q_pre, inp.p_table, int(inp.hist))
+    # ragged: the decode rows' call plus one call per live segment over
+    # its real rows at its own horizon (a dead segment attends nothing)
+    segs = [causal(inp.q_chunks[m, :n], inp.r_tables[m], int(inp.r_hists[m]))
+            for m, n in enumerate(inp.r_valids.tolist()) if n > 0]
+
+    def ragged():
+        sdpa(dq, dk, dv, dmask)
+        for seg in segs:
+            sdpa(*seg)
+
     idx = (inp.a_blk.long(), inp.a_off.long())
     kvals = inp.k_new.permute(0, 2, 1, 3).contiguous()
     vvals = inp.v_new.permute(0, 2, 1, 3).contiguous()
@@ -534,33 +593,44 @@ def library_calls(torch, inp: KernelInputs):
 
     return {
         "paged_decode_attention": lambda: sdpa(dq, dk, dv, dmask),
-        "paged_prefill_attention": lambda: sdpa(pq, pk, pv, pmask),
-        "ragged_mixed_attention": lambda: sdpa(rq, rk, rv, rmask),
+        "paged_prefill_attention": lambda: sdpa(*pre),
+        "ragged_mixed_attention": ragged,
         "kv_cache_append": append,
     }
 
 
 def work(inp: KernelInputs) -> dict:
     """(bytes, flops) each kernel must move/compute on these inputs: each
-    input read once, each output written once, only the cached positions
-    the rows attend."""
-    H, Hkv, D = inp.H, inp.Hkv, inp.D
+    input it needs read once, each output written once. Counted from this
+    run's data: only the queries of rows that attend something, the cached
+    positions they attend and the table entries that reach them."""
+    H, Hkv, D, bs = inp.H, inp.Hkv, inp.D, inp.bs
     kv_row = Hkv * D * 2 * 2  # K and V bytes of one position
+    q_row = H * D * 2  # one token's queries (read) or output (written)
+
+    def pages(n):  # table entries read to reach n positions
+        return -(-n // bs)
+
     lens = [int(x) for x in inp.d_lens]
-    dec_bytes = (8 * H * D * 2 * 2 + sum(lens) * kv_row
-                 + inp.d_tables.numel() * 4 + 8 * 4 + 8 * H * 4 * 2)
+    live = sum(1 for n in lens if n > 0)  # an empty slot reads no q
+    dec_bytes = (live * q_row + len(lens) * q_row + sum(lens) * kv_row
+                 + sum(pages(n) for n in lens) * 4 + len(lens) * 4)
+    dec_stats = len(lens) * H * 4 * 2  # (m, l) f32 written
     dec_flops = 4 * H * D * sum(lens)
     hist, T = int(inp.hist), inp.q_pre.shape[0]
-    pre_bytes = T * H * D * 2 * 2 + (hist + T) * kv_row + inp.p_table.numel() * 4
+    pre_bytes = (2 * T * q_row + (hist + T) * kv_row + pages(hist + T) * 4)
     pre_flops = 4 * H * D * sum(hist + t + 1 for t in range(T))
-    rh, rv = int(inp.r_hists[0]), int(inp.r_valids[0])
-    seg_T = inp.q_chunks.shape[1]
-    rag_bytes = (dec_bytes - 8 * H * 4 * 2 + 2 * seg_T * H * D * 2 * 2
-                 + (rh + rv) * kv_row + inp.r_tables.numel() * 4 + 4 * 4)
-    rag_flops = dec_flops + 4 * H * D * sum(rh + t + 1 for t in range(rv))
+    # ragged: every segment row is written, only the real ones are read
+    MP, seg_T = inp.q_chunks.shape[:2]
+    segs = list(zip(inp.r_hists.tolist(), inp.r_valids.tolist()))
+    rag_bytes = (dec_bytes + sum(n for _, n in segs) * q_row + MP * seg_T * q_row
+                 + sum((h + n) * kv_row + pages(h + n) * 4 for h, n in segs if n)
+                 + MP * 2 * 4)
+    rag_flops = dec_flops + sum(4 * H * D * sum(h + t + 1 for t in range(n))
+                                for h, n in segs)
     app_bytes = 2 * (inp.k_new.numel() * 2) * 2 + 8 * 4 * 2
     return {
-        "paged_decode_attention": (dec_bytes, dec_flops),
+        "paged_decode_attention": (dec_bytes + dec_stats, dec_flops),
         "paged_prefill_attention": (pre_bytes, pre_flops),
         "ragged_mixed_attention": (rag_bytes, rag_flops),
         "kv_cache_append": (app_bytes, 0),

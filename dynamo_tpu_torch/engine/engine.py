@@ -78,9 +78,6 @@ class EngineConfig:
     max_context: int = 0  # 0 -> model.max_position_embeddings
     prefill_chunk: int = 2048
     max_queue: int = 1024
-    # fused mixed prefill+decode steps (False = alternate a dedicated
-    # prefill chunk with 1-step decode windows)
-    mixed_batch: bool = True
     # prefill tokens per fused mixed step; 0 = prefill_chunk
     mixed_step_budget: int = 0
     # max concurrent prompts whose chunks pack into one fused step
@@ -347,9 +344,6 @@ class TorchEngine(AsyncEngine):
             return self._waiting_front.popleft()
         return self._waiting.get_nowait()
 
-    def _prefill_limit(self) -> int:
-        return self.cfg.mixed_max_prefills if self.cfg.mixed_batch else 1
-
     async def _admit(self) -> bool:
         admitted = False
         self._backpressured = False
@@ -358,7 +352,7 @@ class TorchEngine(AsyncEngine):
         if self._prefill_states and not self._mixed_fusable():
             admitted |= await self._prefill_step()
         while (
-            len(self._prefill_states) < self._prefill_limit()
+            len(self._prefill_states) < self.cfg.mixed_max_prefills
             and self._n_active + len(self._prefill_states) < self.cfg.max_batch_size
             and not self._waiting_is_empty()
         ):
@@ -588,8 +582,7 @@ class TorchEngine(AsyncEngine):
         prompts packing together (a lone prompt with nothing decoding runs
         the dedicated prefill program)."""
         return (
-            self.cfg.mixed_batch
-            and bool(self._prefill_states)
+            bool(self._prefill_states)
             and (self._n_active > 0 or len(self._prefill_states) > 1)
         )
 

@@ -62,7 +62,6 @@ def engine_config(args, cfg: ModelConfig) -> EngineConfig:
         max_batch_size=args.max_batch,
         max_context=args.max_context,
         decode_window=args.decode_window,
-        mixed_batch=not args.no_mixed_batch,
         mixed_step_budget=args.mixed_step_budget,
         mixed_max_prefills=args.mixed_max_prefills,
     )
@@ -123,8 +122,6 @@ def parse_args(argv=None):
     p.add_argument("--max-context", type=int, default=0)
     p.add_argument("--decode-window", type=int, default=4,
                    help="fused decode steps per device dispatch")
-    p.add_argument("--no-mixed-batch", action="store_true",
-                   help="disable fused mixed prefill+decode steps")
     p.add_argument("--mixed-step-budget", type=int, default=0,
                    help="prefill tokens per fused mixed step (0 = prefill_chunk)")
     p.add_argument("--mixed-max-prefills", type=int, default=4,

@@ -30,7 +30,7 @@ import torch.nn.functional as F
 
 from ..ops import attention as att
 from ..ops.kv_cache_update import kv_cache_append
-from ..ops.ragged_paged_attention import ragged_mixed_attention
+from ..ops.ragged_paged_attention import ragged_mixed_attention_rows
 from ..ops.sampling import (
     apply_penalties,
     bump_counts,
@@ -430,13 +430,11 @@ def _mixed_fused_forward(
         q, k = rotate(q, rope), rotate(k, rope)
         att.write_slots(k_cache[l], k, blk, off)
         att.write_slots(v_cache[l], v, blk, off)
-        o_dec, o_chunks = ragged_mixed_attention(
-            q[:B], q[B:].reshape(MP, T, *q.shape[1:]), k_cache[l],
-            v_cache[l], d_tables, d_seq_lens, p_tables, p_hists, p_valids,
-            scale,
+        o = ragged_mixed_attention_rows(
+            q, k_cache[l], v_cache[l], d_tables, d_seq_lens, p_tables,
+            p_hists, p_valids, scale, T,
         )
-        o = torch.cat([o_dec.reshape(B, -1), o_chunks.reshape(MP * T, -1)])
-        x = _layer_tail(x, lp, o, cfg)
+        x = _layer_tail(x, lp, o.reshape(o.shape[0], -1), cfg)
     x = rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
     logits_d = _logits(params, cfg, x[:B])
     # each segment's last REAL row only

@@ -96,23 +96,54 @@ def ragged_mixed_attention(
         )
     B, H, D = q_dec.shape
     MP, T = q_chunks.shape[0], q_chunks.shape[1]
-    Hkv = k_cache_layer.shape[0]
-    G = H // Hkv
     if q_dec.device.type == "cpu":
         return ragged_mixed_attention_plain(
             q_dec, q_chunks, k_cache_layer, v_cache_layer, d_tables,
             d_seq_lens, p_tables, p_hists, p_valids, scale,
         )
-    q_all = torch.cat([q_dec.reshape(B, H * D), q_chunks.reshape(MP * T, H * D)])
+    o = ragged_mixed_attention_rows(
+        torch.cat([q_dec.reshape(B, H, D), q_chunks.reshape(MP * T, H, D)]),
+        k_cache_layer, v_cache_layer, d_tables, d_seq_lens, p_tables,
+        p_hists, p_valids, scale, T, q_tile,
+    )
+    return o[:B], o[B:].reshape(MP, T, H, D)
+
+
+def ragged_mixed_attention_rows(
+    q: torch.Tensor,  # [B + MP*T, H, D] decode rows, then the segments' rows
+    k_cache_layer: torch.Tensor,
+    v_cache_layer: torch.Tensor,
+    d_tables: torch.Tensor,
+    d_seq_lens: torch.Tensor,
+    p_tables: torch.Tensor,
+    p_hists: torch.Tensor,
+    p_valids: torch.Tensor,
+    scale: float,
+    T: int,  # padded tokens per segment
+    q_tile: int = 0,
+) -> torch.Tensor:  # [B + MP*T, H, D]
+    """:func:`ragged_mixed_attention` on the flat row axis the mixed step
+    already holds, so the kernel reads ``q`` and writes ``o`` with no
+    split or concatenation. Its launches count in
+    ``ragged_mixed_attention.launches``."""
+    B, MP = d_tables.shape[0], p_tables.shape[0]
+    Ntok, H, D = q.shape
+    if q.device.type == "cpu":
+        o_dec, o_chunks = ragged_mixed_attention_plain(
+            q[:B], q[B:].reshape(MP, T, H, D), k_cache_layer, v_cache_layer,
+            d_tables, d_seq_lens, p_tables, p_hists, p_valids, scale,
+        )
+        return torch.cat([o_dec, o_chunks.reshape(MP * T, H, D)])
+    Hkv = k_cache_layer.shape[0]
+    G = H // Hkv
     o, _, _ = launch_paged_attention(
-        q_all.reshape(B + MP * T, Hkv, G, D), k_cache_layer, v_cache_layer,
-        scale, d_tables=d_tables, d_seq_lens=d_seq_lens, p_tables=p_tables,
+        q.reshape(Ntok, Hkv, G, D), k_cache_layer, v_cache_layer, scale,
+        d_tables=d_tables, d_seq_lens=d_seq_lens, p_tables=p_tables,
         p_hists=p_hists, p_valids=p_valids, T=T,
         Tq=q_tile or prefill_q_tile(G), name="ragged_mixed_attention",
     )
     ragged_mixed_attention.launches += 1
-    o = o.reshape(B + MP * T, H, D)
-    return o[:B], o[B:].reshape(MP, T, H, D)
+    return o.reshape(Ntok, H, D)
 
 
 ragged_mixed_attention.launches = 0
