@@ -9,18 +9,24 @@ Phases, in order; any failure raises and the script exits non-zero:
      CUDA versions, and the build of every CUDA kernel from csrc/ (one
      nvcc per source, in parallel) with its ptxas register report;
   2. kernel vs plain: each kernel entry point against its plain PyTorch
-     version on the same inputs at the Llama-3-8B shapes (H=32, Hkv=8,
-     D=128, bs=16, bf16); attention outputs within atol=rtol=2e-2 (bf16
-     output, sums in another order), (m, l) within rtol=1e-3 (f32, the
-     order of the sums only), the KV append bit-exact; plus the tiny
-     model's prefill / mixed step / decode window on the card against the
-     same functions on the CPU (f32, TF32 off);
-  3. serving: the port's OpenAI HTTP service in-process on llama3-8b-sim
-     (random weights from a seed, byte tokenizer) at the reference
-     defaults — one request alone (the dedicated prefill), then several
-     more of 64-1500 bytes while it decodes (fused mixed steps), one of
-     them a streaming chat; every response must be 200 and non-empty, and
-     every kernel's launch counter, zeroed just before, must be > 0;
+     version on the same inputs, the GQA kernels at the Llama-3-8B shapes
+     (H=32, Hkv=8, D=128, bs=16, bf16) and the MLA latent kernels at the
+     DeepSeek-V2-Lite shapes (H=16, C=512, R=64, bs=16, bf16); attention
+     outputs within atol=rtol=2e-2 (bf16 output, sums in another order),
+     (m, l) within rtol=1e-3 (f32, the order of the sums only), the KV
+     append bit-exact at both the GQA and the MLA widths; plus two tiny
+     models (dense GQA, and MLA + MoE) through prefill / mixed step /
+     decode window on the card against the same functions on the CPU
+     (f32, TF32 off);
+  3. serving: the port's OpenAI HTTP service in-process, first on
+     llama3-8b-sim, then (after its memory is freed) on
+     deepseek-v2-lite-sim (random weights from a seed, byte tokenizer,
+     full width and depth) at the reference defaults — one request alone
+     (the dedicated prefill), then several more of 64-1500 bytes while it
+     decodes (fused mixed steps), one of them a streaming chat; every
+     response must be 200 and non-empty, and every kernel of the model's
+     path, its launch counter zeroed just before the drive, must have
+     launched;
   4. timing: median time per launch of each kernel with L2 flushed
      between launches, its plain version's and a library yardstick's
      (scaled_dot_product_attention / index_put_, timed only, never used by
@@ -36,6 +42,7 @@ repository beside this file, it prints no result and exits non-zero.
 from __future__ import annotations
 
 import asyncio
+import gc
 import json
 import statistics
 import subprocess
@@ -62,6 +69,14 @@ KERNELS = {
     "kv_cache_append": (
         "dynamo_tpu_torch/csrc/kv_cache_append.cu",
         "dynamo_tpu/ops/kv_cache_update_pallas.py:63",
+    ),
+    "mla_paged_decode_attention": (
+        "dynamo_tpu_torch/csrc/mla_attention.cu",
+        "dynamo_tpu/ops/mla_attention_pallas.py:132",
+    ),
+    "mla_paged_prefill_attention": (
+        "dynamo_tpu_torch/csrc/mla_attention.cu",
+        "dynamo_tpu/ops/mla_attention_pallas.py:375",
     ),
 }
 
@@ -182,25 +197,127 @@ class KernelInputs:
                   self.a_vc if vc is None else vc, self.a_blk, self.a_off)
 
 
+class MlaInputs:
+    """Synthetic latent caches and queries at the DeepSeek-V2-Lite shapes:
+    H=16 heads, kv_lora_rank C=512, rope dims R=64, bs=16, the model's own
+    softmax scale; decode B=8 over lengths up to 2048 with one empty slot,
+    prefill T=512 on 1000 cached tokens, the append over all 27 layers."""
+
+    def __init__(self, torch, dev):
+        from dynamo_tpu_torch.models.config import deepseek_v2_lite
+
+        self.torch = torch
+        g = torch.Generator(device=dev).manual_seed(1)
+        cfg = deepseek_v2_lite()
+        self.H, self.C, self.R, self.bs = (cfg.num_heads, cfg.kv_lora_rank,
+                                           cfg.qk_rope_head_dim, 16)
+        self.M, self.N = 128, 2048
+        self.scale = cfg.mla_softmax_scale()
+        H, C, R, bs, M, N = self.H, self.C, self.R, self.bs, self.M, self.N
+
+        def randn(*shape):
+            return torch.randn(*shape, generator=g, device=dev).to(torch.bfloat16)
+
+        self.cc, self.pc = randn(1, N, bs, C), randn(1, N, bs, R)
+        pages = torch.randperm(N - 1, generator=g, device=dev) + 1
+        tables = pages[: 9 * M].reshape(9, M).to(torch.int32)
+        self.d_tables = tables[:8].contiguous()
+        self.d_lens = torch.tensor([2048, 1500, 1031, 777, 512, 300, 17, 0],
+                                   dtype=torch.int32, device=dev)
+        self.qe_dec, self.qp_dec = randn(8, H, C), randn(8, H, R)
+        self.p_table = tables[8].contiguous()
+        self.hist = torch.tensor([1000], dtype=torch.int32, device=dev)
+        self.qe_pre, self.qp_pre = randn(512, H, C), randn(512, H, R)
+        L = cfg.num_layers
+        self.c_new, self.pe_new = randn(L, 8, 1, C), randn(L, 8, 1, R)
+        self.a_kc, self.a_vc = randn(L, 1, 256, bs, C), randn(L, 1, 256, bs, R)
+        self.a_blk = (torch.randperm(255, generator=g, device=dev)[:8] + 1).to(torch.int32)
+        self.a_off = torch.randint(0, bs, (8,), generator=g, device=dev,
+                                   dtype=torch.int32)
+
+    def decode(self, fn):
+        return fn(self.qe_dec, self.qp_dec, self.cc, self.pc, self.d_tables,
+                  self.d_lens, self.scale, return_stats=True)
+
+    def prefill(self, fn):
+        return fn(self.qe_pre, self.qp_pre, self.cc, self.pc, self.p_table,
+                  self.hist, self.scale)
+
+    def prefill_stats(self):
+        """(m, l) of the prefill launch against the plain softmax's."""
+        from dynamo_tpu_torch.ops import mla_attention as mla
+
+        _, m, l = mla.launch_mla_attention(
+            self.qe_pre, self.qp_pre, self.cc, self.pc, self.p_table,
+            self.scale, hist=self.hist, stats=True, out_f32=True)
+        T = self.qe_pre.shape[0]
+        limit = self.hist.long() + self.torch.arange(T, device=self.cc.device)
+        _, rm, rl = mla.latent_attention(
+            self.qe_pre, self.qp_pre,
+            mla.gather_latents(self.cc, self.p_table)[None],
+            mla.gather_latents(self.pc, self.p_table)[None], limit, self.scale)
+        return (m, l), (rm, rl)
+
+    def append(self, fn, kc=None, vc=None):
+        return fn(self.c_new, self.pe_new, self.a_kc if kc is None else kc,
+                  self.a_vc if vc is None else vc, self.a_blk, self.a_off)
+
+
+def close(name, got, ref, rtol, atol):
+    """Max |got - ref|; raises when any element is outside rtol/atol."""
+    err = (got.float() - ref.float()).abs()
+    bad = err > atol + rtol * ref.float().abs()
+    if bool(bad.any()):
+        raise AssertionError(
+            f"{name}: {int(bad.sum())} elements outside rtol={rtol} "
+            f"atol={atol}, max |err| {float(err.max())}"
+        )
+    return float(err.max())
+
+
+def close_stats(name, got, ref):
+    (m, l), (rm, rl) = got, ref
+    close(f"{name} m", m, rm, 1e-3, 1e-3)
+    close(f"{name} l", l, rl, 1e-3, 1e-3)
+
+
+def check_mla_kernels(torch, mi: MlaInputs) -> dict:
+    from dynamo_tpu_torch.ops import kv_cache_update as kvu
+    from dynamo_tpu_torch.ops import mla_attention as mla
+
+    errs = {}
+    o, m, l = mi.decode(mla.mla_paged_decode_attention)
+    ro, rm, rl = mi.decode(mla.mla_paged_decode_attention_plain)
+    torch.cuda.synchronize()
+    errs["mla_paged_decode_attention"] = close("mla decode o", o, ro, 2e-2, 2e-2)
+    close_stats("mla decode", (m, l), (rm, rl))
+    if not (bool((o[7] == 0).all()) and bool((m[7] == -1e30).all())
+            and bool((l[7] == 0).all())):
+        raise AssertionError("mla decode: the empty slot must give o=0, "
+                             "m=-1e30, l=0")
+    got = mi.prefill(mla.mla_paged_prefill_attention)
+    ref = mi.prefill(mla.mla_paged_prefill_attention_plain)
+    torch.cuda.synchronize()
+    if got.dtype != torch.float32:
+        raise AssertionError("mla prefill must return f32 like the TPU kernel")
+    errs["mla_paged_prefill_attention"] = close("mla prefill", got, ref, 2e-2, 2e-2)
+    close_stats("mla prefill", *mi.prefill_stats())
+    kc, vc = mi.a_kc.clone(), mi.a_vc.clone()
+    mi.append(kvu.kv_cache_append, kc, vc)
+    mi.append(kvu.kv_cache_append_plain)
+    torch.cuda.synchronize()
+    if not (torch.equal(kc, mi.a_kc) and torch.equal(vc, mi.a_vc)):
+        raise AssertionError("kv_cache_append at MLA widths: not bit-exact")
+    for name in ("mla_paged_decode_attention", "mla_paged_prefill_attention"):
+        log(f"  {name}: kernel vs plain max |err| {errs[name]:.3e}  OK")
+    log("  kv_cache_append at MLA widths (C=512 / R=64): bit-exact  OK")
+    return errs
+
+
 def check_kernels(torch, dev, inp: KernelInputs) -> dict:
     from dynamo_tpu_torch.ops import kv_cache_update as kvu
     from dynamo_tpu_torch.ops import paged_attention as pa
     from dynamo_tpu_torch.ops import ragged_paged_attention as rpa
-
-    def close(name, got, ref, rtol, atol):
-        err = (got.float() - ref.float()).abs()
-        bad = err > atol + rtol * ref.float().abs()
-        if bool(bad.any()):
-            raise AssertionError(
-                f"{name}: {int(bad.sum())} elements outside rtol={rtol} "
-                f"atol={atol}, max |err| {float(err.max())}"
-            )
-        return float(err.max())
-
-    def close_stats(name, got, ref):
-        (m, l), (rm, rl) = got, ref
-        close(f"{name} m", m, rm, 1e-3, 1e-3)
-        close(f"{name} l", l, rl, 1e-3, 1e-3)
 
     errs = {}
     o, m, l = inp.decode(pa.paged_decode_attention)
@@ -236,15 +353,34 @@ def check_kernels(torch, dev, inp: KernelInputs) -> dict:
     return errs
 
 
-def check_model_on_card(torch, dev):
-    """The tiny model's three main-path functions on the card (kernels)
-    against the same functions on the CPU (plain versions), f32."""
-    from dynamo_tpu_torch.models import llama
+def tiny_models():
+    """(label, config) of the two tiny models held on the card to the CPU:
+    dense GQA, and MLA (q-lora, the kernel's R=64 and smallest C=128) with
+    one dense layer then MoE (8 experts top-2, one shared)."""
     from dynamo_tpu_torch.models.config import ModelConfig
 
-    cfg = ModelConfig.tiny(dtype="float32", head_dim=64, num_heads=8,
-                           num_kv_heads=2, hidden_size=128)
+    return [
+        ("tiny GQA", ModelConfig.tiny(dtype="float32", head_dim=64, num_heads=8,
+                                      num_kv_heads=2, hidden_size=128)),
+        ("tiny MLA+MoE", ModelConfig.tiny_mla(
+            dtype="float32", kv_lora_rank=128, qk_rope_head_dim=64,
+            num_layers=3, first_dense_layers=1, num_experts=8,
+            num_experts_per_tok=2, num_shared_experts=1,
+            moe_intermediate_size=32)),
+    ]
+
+
+def check_model_on_card(torch, dev, label, cfg):
+    """A tiny model's three main-path functions on the card (kernels)
+    against the same functions on the CPU (plain versions), f32."""
+    from dynamo_tpu_torch.models import llama
+
     params = llama.init_params(cfg, torch.Generator().manual_seed(1), "cpu")
+    # weights x5 (std 0.1): decisive logits and expert routing, so a token
+    # or an expert choice is never a near-tie that the sum order can flip
+    params = {k: ({kk: vv * (5.0 if vv.dim() > 1 else 1.0) for kk, vv in v.items()}
+                  if isinstance(v, dict) else v * (5.0 if v.dim() > 1 else 1.0))
+              for k, v in params.items()}
     gparams = {k: ({kk: vv.to(dev) for kk, vv in v.items()} if isinstance(v, dict)
                    else v.to(dev)) for k, v in params.items()}
     kc, vc = llama.init_kv_cache(cfg, 64, 16)
@@ -257,7 +393,7 @@ def check_model_on_card(torch, dev):
                              gkc, gvc)
     err = float((lg.cpu() - lc).abs().max())
     if not (bool(torch.isfinite(lg).all()) and err < 1e-3):
-        raise AssertionError(f"tiny prefill on the card: max |dlogit| {err}")
+        raise AssertionError(f"{label} prefill on the card: max |dlogit| {err}")
     # decode rows 0-1 continue the prompt; a second prompt prefills as a
     # fused segment beside them
     B = 2
@@ -284,11 +420,11 @@ def check_model_on_card(torch, dev):
     perr = float((p1 - p0).abs().max())
     if not (torch.equal(n0, n1) and torch.equal(w0[:, 0], w1[:, 0]) and perr < 1e-3):
         raise AssertionError(
-            f"tiny mixed step / decode window on the card disagree with the "
+            f"{label} mixed step / decode window on the card disagree with the "
             f"CPU: tokens {n1.tolist()} vs {n0.tolist()}, windows "
             f"{w1[:, 0].tolist()} vs {w0[:, 0].tolist()}, max |dlogit| {perr}"
         )
-    log(f"  tiny model on the card vs CPU: prefill max |dlogit| {err:.2e}, "
+    log(f"  {label} on the card vs CPU: prefill max |dlogit| {err:.2e}, "
         f"mixed-step max |dlogit| {perr:.2e}, tokens equal  OK")
 
 
@@ -345,54 +481,73 @@ async def http_request(port: int, path: str, body: dict):
     return status, text, times
 
 
-async def serve(torch, dev, card: str) -> dict:
-    from dynamo_tpu_torch.engine import EngineConfig, TorchEngine
-    from dynamo_tpu_torch.http import HttpService, ModelManager
-    from dynamo_tpu_torch.llm import ByteTokenizer
-    from dynamo_tpu_torch.llm.openai_engine import OpenAIWorkerEngine
-    from dynamo_tpu_torch.models import llama
-    from dynamo_tpu_torch.models.config import ModelConfig
-    from dynamo_tpu_torch.models.weights import init_random_params
+def drives():
+    """The serving drives in order: (served name, config, engine geometry,
+    the kernel wrappers the model's path must launch)."""
+    from dynamo_tpu_torch.models.config import ModelConfig, deepseek_v2_lite
     from dynamo_tpu_torch.ops.kv_cache_update import kv_cache_append
+    from dynamo_tpu_torch.ops.mla_attention import (
+        mla_paged_decode_attention,
+        mla_paged_prefill_attention,
+    )
     from dynamo_tpu_torch.ops.paged_attention import (
         paged_decode_attention,
         paged_prefill_attention,
     )
     from dynamo_tpu_torch.ops.ragged_paged_attention import ragged_mixed_attention
 
-    counted = {
-        "paged_decode_attention": paged_decode_attention,
-        "paged_prefill_attention": paged_prefill_attention,
-        "ragged_mixed_attention": ragged_mixed_attention,
-        "kv_cache_append": kv_cache_append,
-    }
+    return [
+        # reference defaults (block 16, batch 8, window 4, chunk 2048, 4
+        # prompts per fused step); a 4096-page pool = 8 GiB of GQA KV, or
+        # 2 GB of MLA latents (27 x 576 values x 2 B = 31 KB per token)
+        ("llama3-8b-sim", ModelConfig.llama3_8b(),
+         dict(num_blocks=4096, block_size=16, max_batch_size=8, decode_window=4),
+         {"paged_decode_attention": paged_decode_attention,
+          "paged_prefill_attention": paged_prefill_attention,
+          "ragged_mixed_attention": ragged_mixed_attention,
+          "kv_cache_append": kv_cache_append}),
+        ("deepseek-v2-lite-sim", deepseek_v2_lite(),
+         dict(num_blocks=4096, block_size=16, max_batch_size=8, decode_window=4,
+              max_context=8192),
+         {"mla_paged_decode_attention": mla_paged_decode_attention,
+          "mla_paged_prefill_attention": mla_paged_prefill_attention,
+          "kv_cache_append": kv_cache_append}),
+    ]
+
+
+async def serve(torch, dev, card: str, name: str, cfg, geometry: dict,
+                counted: dict) -> dict:
+    """One serving drive of ``name`` over HTTP; returns the launch count of
+    each kernel of its path during the drive (counters zeroed just
+    before it)."""
+    from dynamo_tpu_torch.engine import EngineConfig, TorchEngine
+    from dynamo_tpu_torch.http import HttpService, ModelManager
+    from dynamo_tpu_torch.llm import ByteTokenizer
+    from dynamo_tpu_torch.llm.openai_engine import OpenAIWorkerEngine
+    from dynamo_tpu_torch.models import llama
+    from dynamo_tpu_torch.models.weights import init_random_params
+
     t0 = time.perf_counter()
-    cfg = ModelConfig.llama3_8b()
     params = init_random_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
-    # reference defaults (block 16, batch 8, window 4, chunk 2048, 4
-    # prompts per fused step); a 4096-page pool = 8 GiB of KV
-    engine = TorchEngine(
-        EngineConfig(model=cfg, num_blocks=4096, block_size=16,
-                     max_batch_size=8, decode_window=4),
-        params=params, device=dev,
-    )
+    engine = TorchEngine(EngineConfig(model=cfg, **geometry), params=params,
+                         device=dev)
     torch.cuda.synchronize()
     n_params = sum(t.numel() for v in params.values()
                    for t in (v.values() if isinstance(v, dict) else [v]))
-    log(f"  llama3-8b-sim: {n_params / 1e9:.2f}B params, KV pool "
-        f"{engine.k_cache.nbytes * 2 / 2**30:.1f} GiB, ready in "
-        f"{time.perf_counter() - t0:.3f} s")
+    log(f"  {name}: {n_params / 1e9:.2f}B params, {cfg.num_layers} layers, KV "
+        f"pool {(engine.k_cache.nbytes + engine.v_cache.nbytes) / 2**30:.2f} "
+        f"GiB, ready in {time.perf_counter() - t0:.3f} s")
     manager = ModelManager()
     worker = OpenAIWorkerEngine(ByteTokenizer(), engine)
-    manager.add_chat_model("llama3-8b-sim", worker)
-    manager.add_completion_model("llama3-8b-sim", worker)
+    manager.add_chat_model(name, worker)
+    manager.add_completion_model(name, worker)
     svc = HttpService(manager, host="127.0.0.1", port=0)
     await svc.start()
 
     def completion(n_bytes, stream):
         prompt = ("The paged cache holds every token. " * 64)[:n_bytes]
         return "/v1/completions", {
-            "model": "llama3-8b-sim", "prompt": prompt, "max_tokens": 32,
+            "model": name, "prompt": prompt, "max_tokens": 32,
             "temperature": 0.0, "stream": stream, "nvext": {"ignore_eos": True},
         }
 
@@ -407,7 +562,7 @@ async def serve(torch, dev, card: str) -> dict:
         # more while it decodes: fused mixed steps
         more = [completion(n, n % 2 == 0) for n in (64, 333, 700, 1100, 1500)]
         more.append(("/v1/chat/completions", {
-            "model": "llama3-8b-sim", "max_tokens": 32, "temperature": 0.0,
+            "model": name, "max_tokens": 32, "temperature": 0.0,
             "stream": True, "nvext": {"ignore_eos": True},
             "messages": [{"role": "user", "content": "Describe paged attention. " * 8}],
         }))
@@ -417,10 +572,10 @@ async def serve(torch, dev, card: str) -> dict:
     finally:
         await svc.close()
         await engine.close()
-    launches = {name: f.launches for name, f in counted.items()}
+    launches = {k: f.launches for k, f in counted.items()}
     for i, (status, text, times) in enumerate(results):
         if status != 200 or not text:
-            raise AssertionError(f"request {i}: status {status}, text {text!r}")
+            raise AssertionError(f"{name} request {i}: status {status}, text {text!r}")
     streamed = [t for _s, _x, t in results if len(t) > 1]
     ttft = [t[0] * 1e3 for t in streamed]
     # per request: the mean gap from its first to its last text event (a
@@ -430,33 +585,35 @@ async def serve(torch, dev, card: str) -> dict:
     log(f"  {len(results)} requests answered 200 with text; engine: "
         f"{engine.stats['prefill_chunks']} dedicated prefill chunks, "
         f"{engine.stats['mixed_steps']} mixed steps, "
-        f"{engine.stats['decode_windows']} decode windows")
+        f"{engine.stats['decode_windows']} decode windows "
+        f"({engine.stats['decode_steps']} decode steps)")
     log(f"  TTFT ms (streamed requests): {[round(x, 1) for x in ttft]}; "
         f"ITL (per request, mean) median {statistics.median(itl):.2f} ms; "
         f"{tokens} tokens in "
-        f"{wall:.2f} s = {tokens / wall:.1f} tok/s  [{card}]")
+        f"{wall:.2f} s = {tokens / wall:.1f} tok/s  [{name}, {card}]")
     log(f"  launches during serving: {launches}")
-    missing = [n for n, c in launches.items() if c <= 0]
+    missing = [k for k, c in launches.items() if c <= 0]
     if missing:
-        raise AssertionError(f"kernels never launched while serving: {missing}")
+        raise AssertionError(f"{name}: kernels never launched while serving: {missing}")
     # what comes out of the big model is finite and of the expected shape
     kc, vc = llama.init_kv_cache(cfg, 8, 16, device=dev)
     toks = torch.arange(100, 164, dtype=torch.int32, device=dev)
     logits, _, _ = llama.prefill(params, cfg, toks, torch.arange(
         1, 8, dtype=torch.int32, device=dev), 0, 64, kc, vc)
     if logits.shape != (cfg.vocab_size,) or not bool(torch.isfinite(logits).all()):
-        raise AssertionError("llama3-8b-sim prefill logits not finite [V]")
+        raise AssertionError(f"{name} prefill logits not finite [V]")
     step_anatomy(torch, dev, params, cfg, engine.k_cache, engine.v_cache)
-    del engine, params, kc, vc
-    torch.cuda.empty_cache()
     return launches
 
 
 def anatomy(torch, label: str, fn, n: int) -> None:
     """Wall time of ``fn`` per step (``n`` steps per call, profiler off),
-    then under torch.profiler the card's kernel time, launch count and the
-    three kernels that take most of it: how much of a step the card is
-    busy, and with what."""
+    the host syncs it makes (CUDA sync debug mode: each call that waits
+    for the card, such as ``.tolist()`` of a device tensor), then under
+    torch.profiler the card's kernel time, launch count and the three
+    kernels that take most of it: how much of a step the card is busy, and
+    with what."""
+    import warnings
     from collections import defaultdict
 
     from torch.profiler import ProfilerActivity, profile
@@ -467,6 +624,14 @@ def anatomy(torch, label: str, fn, n: int) -> None:
     fn()
     torch.cuda.synchronize()
     wall = (time.perf_counter() - t0) * 1e3 / n
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            fn()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    syncs = sum("synchroniz" in str(w.message) for w in caught)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
@@ -479,13 +644,14 @@ def anatomy(torch, label: str, fn, n: int) -> None:
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:3]
     log(f"  {label}: {wall:.2f} ms wall per step, {busy:.2f} ms of kernels "
         f"({busy / wall:.0%} busy), {len(kernels) / n:.0f} kernel launches "
-        f"per step; top: " + "; ".join(f"{k[:48]} {v:.2f} ms" for k, v in top))
+        f"and {syncs / n:.2f} host syncs per step; top: "
+        + "; ".join(f"{k[:48]} {v:.2f} ms" for k, v in top))
 
 
 def step_anatomy(torch, dev, params, cfg, k_cache, v_cache) -> None:
     """A 4-step decode window (B=8 at ~1k context) and a lone prompt's
-    dedicated prefill (1201 tokens in the 2048 bucket) of llama3-8b-sim on
-    the serving cache."""
+    dedicated prefill (1201 tokens in the 2048 bucket) of the served model
+    on its serving cache."""
     from dynamo_tpu_torch.models import llama
 
     B = 8
@@ -637,8 +803,89 @@ def work(inp: KernelInputs) -> dict:
     }
 
 
-def timing(torch, dev, inp: KernelInputs, errs: dict, launches: dict) -> list:
+def mla_work(mi: MlaInputs) -> dict:
+    """(bytes, flops) of the two latent kernels on these inputs, counted
+    like :func:`work`: queries of rows that attend something, every output
+    row (decode in bf16 with f32 (m, l); prefill in f32), the latent rows
+    (C + R values) of the positions attended, the table entries that reach
+    them; 2 flops per multiply-add of the scores (C + R) and of the value
+    product (C)."""
+    H, C, R, bs = mi.H, mi.C, mi.R, mi.bs
+    row = (C + R) * 2  # one position's latents, bf16
+
+    def pages(n):
+        return -(-n // bs)
+
+    lens = [int(x) for x in mi.d_lens]
+    live = sum(1 for n in lens if n > 0)
+    dec_bytes = (live * H * (C + R) * 2 + len(lens) * H * (C * 2 + 8)
+                 + sum(lens) * row + sum(pages(n) for n in lens) * 4 + len(lens) * 4)
+    dec_flops = 2 * H * (2 * C + R) * sum(lens)
+    hist, T = int(mi.hist), mi.qe_pre.shape[0]
+    pre_bytes = (T * H * (C + R) * 2 + T * H * C * 4 + (hist + T) * row
+                 + pages(hist + T) * 4)
+    pre_flops = 2 * H * (2 * C + R) * sum(hist + t + 1 for t in range(T))
+    return {
+        "mla_paged_decode_attention": (dec_bytes, dec_flops),
+        "mla_paged_prefill_attention": (pre_bytes, pre_flops),
+    }
+
+
+def mla_library_calls(torch, mi: MlaInputs) -> dict:
+    """One scaled_dot_product_attention call per latent kernel over the
+    latents gathered contiguous: q = [q_eff | q_pe], k = [c | pe], v = c,
+    one shared kv head (timed only; the port never calls it)."""
+    import torch.nn.functional as F
+
+    from dynamo_tpu_torch.ops.mla_attention import gather_latents
+
+    dev = mi.cc.device
+
+    def kv(table, S):
+        c = gather_latents(mi.cc, table)[..., :S, :]
+        pe = gather_latents(mi.pc, table)[..., :S, :]
+        return torch.cat([c, pe], -1).unsqueeze(-3), c.unsqueeze(-3).contiguous()
+
+    def sdpa(q, k, v, mask):
+        return F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
+                                              scale=mi.scale, enable_gqa=True)
+
+    S = int(mi.d_lens.max())
+    dk, dv = kv(mi.d_tables, S)  # [B, 1, S, C+R], [B, 1, S, C]
+    dq = torch.cat([mi.qe_dec, mi.qp_dec], -1)[:, :, None]  # [B, H, 1, C+R]
+    dmask = (torch.arange(S, device=dev)[None] < mi.d_lens[:, None])[:, None, None]
+    hist, T = int(mi.hist), mi.qe_pre.shape[0]
+    pk, pv = kv(mi.p_table, hist + T)
+    pq = torch.cat([mi.qe_pre, mi.qp_pre], -1).transpose(0, 1)[None]  # [1, H, T, C+R]
+    pmask = (torch.arange(hist + T, device=dev)[None]
+             <= hist + torch.arange(T, device=dev)[:, None])
+    return {
+        "mla_paged_decode_attention": lambda: sdpa(dq, dk, dv, dmask),
+        "mla_paged_prefill_attention": lambda: sdpa(pq, pk[None], pv[None], pmask),
+    }
+
+
+def sdpa_backend(torch, fn) -> str:
+    """Which SDPA backend PyTorch picked for ``fn``, from the kernel names
+    of one profiled call."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    names = " ".join(e.name.lower() for e in prof.events()
+                     if e.device_type == torch.autograd.DeviceType.CUDA)
+    for key, backend in (("flash", "flash"), ("cudnn", "cudnn"),
+                         ("fmha", "efficient"), ("efficient", "efficient")):
+        if key in names:
+            return backend
+    return "math"
+
+
+def timing(torch, dev, inp: KernelInputs, mi: MlaInputs, errs: dict,
+           launches: dict) -> list:
     from dynamo_tpu_torch.ops import kv_cache_update as kvu
+    from dynamo_tpu_torch.ops import mla_attention as mla
     from dynamo_tpu_torch.ops import paged_attention as pa
     from dynamo_tpu_torch.ops import ragged_paged_attention as rpa
 
@@ -648,17 +895,24 @@ def timing(torch, dev, inp: KernelInputs, errs: dict, launches: dict) -> list:
         "paged_prefill_attention": lambda: inp.prefill(pa.paged_prefill_attention),
         "ragged_mixed_attention": lambda: inp.ragged(rpa.ragged_mixed_attention),
         "kv_cache_append": lambda: inp.append(kvu.kv_cache_append),
+        "mla_paged_decode_attention": lambda: mi.decode(mla.mla_paged_decode_attention),
+        "mla_paged_prefill_attention": lambda: mi.prefill(mla.mla_paged_prefill_attention),
     }
     plain = {
         "paged_decode_attention": lambda: inp.decode(pa.paged_decode_attention_plain),
         "paged_prefill_attention": lambda: inp.prefill(pa.paged_prefill_attention_plain),
         "ragged_mixed_attention": lambda: inp.ragged(rpa.ragged_mixed_attention_plain),
         "kv_cache_append": lambda: inp.append(kvu.kv_cache_append_plain),
+        "mla_paged_decode_attention":
+            lambda: mi.decode(mla.mla_paged_decode_attention_plain),
+        "mla_paged_prefill_attention":
+            lambda: mi.prefill(mla.mla_paged_prefill_attention_plain),
     }
-    library = library_calls(torch, inp)
+    library = {**library_calls(torch, inp), **mla_library_calls(torch, mi)}
+    bounds = {**work(inp), **mla_work(mi)}
     rows = []
     for name, (source, replaces) in KERNELS.items():
-        nbytes, flops = work(inp)[name]
+        nbytes, flops = bounds[name]
         b_ms, b_by = bound_ms(nbytes, flops)
         row = {
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -668,9 +922,31 @@ def timing(torch, dev, inp: KernelInputs, errs: dict, launches: dict) -> list:
             "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": time_ms(torch, library[name], 10, flush),
         }
+        extra = ""
+        if name.startswith("mla_"):
+            extra = f", SDPA backend {sdpa_backend(torch, library[name])}"
         log(f"  {name}: {row['ms']:.4f} ms (bound {b_ms:.4f} ms by {b_by}, "
-            f"plain {row['plain_ms']:.3f} ms, library {row['library_ms']:.4f} ms)")
+            f"plain {row['plain_ms']:.3f} ms, library {row['library_ms']:.4f} ms"
+            f"{extra})")
         rows.append(row)
+    # the append at MLA widths (all 27 layers of c_kv / k_pe, B=8): its own
+    # line, the kernels line keeps one row per kernel
+    L, B = mi.c_new.shape[:2]
+    a_bytes = 2 * (mi.c_new.numel() + mi.pe_new.numel()) * 2 + B * 4 * 2
+    a_ms, a_by = bound_ms(a_bytes, 0)
+    idx = (mi.a_blk.long(), mi.a_off.long())
+    cvals = mi.c_new.permute(0, 2, 1, 3).contiguous()
+    pvals = mi.pe_new.permute(0, 2, 1, 3).contiguous()
+
+    def index_put():
+        mi.a_kc[:, :, idx[0], idx[1]] = cvals
+        mi.a_vc[:, :, idx[0], idx[1]] = pvals
+
+    log(f"  kv_cache_append at MLA widths (L={L}, B={B}, C={mi.C}, R={mi.R}): "
+        f"{time_ms(torch, lambda: mi.append(kvu.kv_cache_append), 30, flush):.4f} ms "
+        f"(bound {a_ms:.4f} ms by {a_by}, plain "
+        f"{time_ms(torch, lambda: mi.append(kvu.kv_cache_append_plain), 5, flush):.3f}"
+        f" ms, library {time_ms(torch, index_put, 10, flush):.4f} ms)")
     return rows
 
 
@@ -699,14 +975,25 @@ def main() -> int:
         for line in text.splitlines():
             if "Used" in line or "spill" in line:
                 log(f"  {src}: {line.strip()}")
-    log("[2/4] kernels against their plain versions (Llama-3-8B shapes, bf16)")
+    log("[2/4] kernels against their plain versions (Llama-3-8B and "
+        "DeepSeek-V2-Lite shapes, bf16)")
     inp = KernelInputs(torch, dev)
     errs = check_kernels(torch, dev, inp)
-    check_model_on_card(torch, dev)
-    log("[3/4] serving llama3-8b-sim over HTTP")
-    launches = asyncio.run(serve(torch, dev, card))
+    mi = MlaInputs(torch, dev)
+    errs.update(check_mla_kernels(torch, mi))
+    for label, cfg in tiny_models():
+        check_model_on_card(torch, dev, label, cfg)
+    log("[3/4] serving over HTTP: llama3-8b-sim, then deepseek-v2-lite-sim")
+    launches = {}
+    for name, cfg, geometry, counted in drives():
+        got = asyncio.run(serve(torch, dev, card, name, cfg, geometry, counted))
+        # a kernel shared by both paths (the append) counts both drives
+        for k, n in got.items():
+            launches[k] = launches.get(k, 0) + n
+        gc.collect()
+        torch.cuda.empty_cache()
     log("[4/4] timing (median per launch, L2 flushed)  [" + card + "]")
-    rows = timing(torch, dev, inp, errs, launches)
+    rows = timing(torch, dev, inp, mi, errs, launches)
     torch.cuda.synchronize()
     log(f"all phases passed in {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": rows}))

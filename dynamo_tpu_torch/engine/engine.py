@@ -19,11 +19,15 @@
     with stop conditions, cancellation, penalties, logprobs and
     preemption by recompute under pool pressure.
 
-Device work runs in the loop's executor under one lock, so the event loop
-stays live while the card computes. Left out of this slice (ROADMAP queue
-A): offload tiers, disaggregation, speculative decoding, adapters, live
-reshard, the pipelined decode, multi-host mirrors, tracing / flight
-recorder and the compile ledger. PyTorch runs eagerly, so there are no
+Models: dense GQA decoders and the DeepSeek MLA + MoE family (the latent
+cache is two single-"head" paged arrays of different widths, from
+``llama.kv_cache_shapes``; MLA mixed steps take the per-part flavor inside
+``llama.mixed_step``). Device work runs in the loop's executor under one
+lock, so the event loop stays live while the card computes. Left out of
+this slice (ROADMAP queue A): offload tiers, disaggregation, speculative
+decoding, adapters, live reshard, the pipelined decode, multi-host
+mirrors, tracing / flight recorder and the compile ledger. PyTorch runs
+eagerly, so there are no
 compiled program buckets; prompt chunks are still padded to the
 reference's buckets so both engines run the same shapes.
 """
@@ -43,6 +47,7 @@ import torch
 from ..device import resolve_device
 from ..models import llama
 from ..models.config import ModelConfig
+from ..ops import mla_attention
 from ..ops.sampling import make_keys, sample_first_token, token_logprobs
 from ..protocols.common import FinishReason, LLMEngineOutput, PreprocessedRequest
 from ..runtime.engine import AsyncEngine, Context
@@ -147,6 +152,19 @@ class TorchEngine(AsyncEngine):
         mcfg = cfg.model
         self.device = resolve_device(device)
         llama.check_supported(mcfg)
+        if self.device.type == "cuda" and mcfg.is_mla and not (
+            mcfg.kv_lora_rank in mla_attention.KERNEL_C
+            and mcfg.qk_rope_head_dim == mla_attention.KERNEL_R
+        ):
+            # the JAX engine's MLA kernel gate (kv_lora_rank % 128 == 0),
+            # narrowed to the widths the CUDA kernel is built for; where the
+            # JAX engine falls back to XLA, the card runs the kernel or
+            # nothing
+            raise ValueError(
+                f"MLA latent widths C={mcfg.kv_lora_rank}, "
+                f"R={mcfg.qk_rope_head_dim}: the CUDA latent kernel takes C in "
+                f"{mla_attention.KERNEL_C} and R={mla_attention.KERNEL_R}"
+            )
         if params is None:
             gen = torch.Generator(device=self.device).manual_seed(seed)
             params = llama.init_params(mcfg, gen, self.device)
@@ -495,7 +513,8 @@ class TorchEngine(AsyncEngine):
         so = seq.request.sampling_options
         temp = so.temperature if so.temperature is not None else 1.0
         seed = (so.seed or 0) & 0x7FFFFFFF
-        keys = make_keys([seed], [seq.generated], [temp], self.device)
+        keys = (make_keys([seed], [seq.generated], self.device)
+                if temp > 0.0 else None)
 
         def f32(x):
             return torch.tensor([x], dtype=torch.float32, device=self.device)

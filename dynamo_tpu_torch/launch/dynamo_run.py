@@ -11,12 +11,16 @@ Examples::
 
   python -m dynamo_tpu_torch.launch.dynamo_run in=http out=torch \\
       --model-path llama3-8b-sim
+  python -m dynamo_tpu_torch.launch.dynamo_run in=http out=torch \\
+      --model-path deepseek-v2-lite-sim
   python -m dynamo_tpu_torch.launch.dynamo_run in=text out=torch \\
       --model-path tiny --device cpu
 
-Model presets (random weights from seed 0, byte tokenizer): ``tiny``
-and ``llama3-8b-sim`` (the full Llama-3-8B architecture). Engine flags
-and defaults match the reference's.
+Model presets (random weights from seed 0, byte tokenizer): ``tiny``,
+``llama3-8b-sim`` (the full Llama-3-8B architecture) and
+``deepseek-v2-lite-sim`` (DeepSeek-V2-Lite's published config: 27 layers,
+MLA latent cache, 64 routed experts top-6 + 2 shared). Engine flags and
+defaults match the reference's.
 """
 
 from __future__ import annotations
@@ -33,13 +37,14 @@ from ..engine.engine import EngineConfig, TorchEngine
 from ..http.service import HttpService, ModelManager
 from ..llm.openai_engine import OpenAIWorkerEngine
 from ..llm.tokenizer import ByteTokenizer
-from ..models.config import ModelConfig
+from ..models.config import ModelConfig, deepseek_v2_lite
 from ..models.weights import init_random_params
 from ..runtime.engine import Context
 
 PRESETS = {
     "tiny": ModelConfig.tiny,
     "llama3-8b-sim": ModelConfig.llama3_8b,
+    "deepseek-v2-lite-sim": deepseek_v2_lite,
 }
 
 
@@ -110,7 +115,7 @@ def parse_args(argv=None):
         "dynamo_run", description="dynamo run on PyTorch: in=<source> out=torch"
     )
     p.add_argument("in_out", nargs="*", help="in=http|text out=torch")
-    p.add_argument("--model-path", default=None, help="tiny | llama3-8b-sim")
+    p.add_argument("--model-path", default=None, help="tiny | llama3-8b-sim | deepseek-v2-lite-sim")
     p.add_argument("--model-name", default=None)
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     p.add_argument("--host", default="0.0.0.0")

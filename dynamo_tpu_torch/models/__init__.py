@@ -1,1 +1,2 @@
-"""Model configs, the dense GQA decoder and its weights."""
+"""Model configs, the decoder (dense GQA, or DeepSeek MLA with MoE FFNs)
+and its weights."""

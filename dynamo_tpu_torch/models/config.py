@@ -1,10 +1,11 @@
 """Model architecture config (llama-family superset + MoE fields).
 
 A copy of ``dynamo_tpu/models/config.py`` (the port imports nothing of the
-JAX package), with the presets the port serves: ``tiny`` and
-``llama3_8b``. Parsed from HF ``config.json``; the port's forward covers
-the dense GQA families only and raises on the rest
-(models/llama.py).
+JAX package), with the presets the port serves: ``tiny``, ``tiny_mla``,
+``llama3_8b`` and DeepSeek-V2-Lite (:data:`DEEPSEEK_V2_LITE_HF`, the
+published ``config.json``, parsed by :meth:`ModelConfig.from_hf_config`).
+The port's forward covers dense GQA decoders and the DeepSeek MLA + MoE
+family; models/llama.py ``check_supported`` raises on the rest.
 """
 
 from __future__ import annotations
@@ -385,6 +386,18 @@ class ModelConfig:
         base.update(overrides)
         return ModelConfig(**base)
 
+    @staticmethod
+    def tiny_mla(**overrides) -> "ModelConfig":
+        """A small DeepSeek-shaped MLA config (compressed latent cache,
+        absorbed attention) for tests."""
+        base = dict(
+            num_heads=4, num_kv_heads=4, kv_lora_rank=32,
+            qk_nope_head_dim=16, qk_rope_head_dim=8, v_head_dim=16,
+            q_lora_rank=24, num_layers=2,
+        )
+        base.update(overrides)
+        return ModelConfig.tiny(**base)
+
     # llama-3-8b-ish for benches
     @staticmethod
     def llama3_8b(**overrides) -> "ModelConfig":
@@ -395,3 +408,59 @@ class ModelConfig:
         )
         base.update(overrides)
         return ModelConfig(**base)
+
+
+#: DeepSeek-V2-Lite's published config.json
+#: (huggingface.co/deepseek-ai/DeepSeek-V2-Lite, main/config.json): 27
+#: layers (the first dense, 26 MoE), hidden 2048, 16 heads, MLA with
+#: kv_lora_rank 512 / rope 64 / nope 128 / v 128 and no q-lora, 64 routed
+#: experts top-6 plus 2 shared (width 1408), dense width 10944, vocab
+#: 102400, YaRN rope at factor 40.
+DEEPSEEK_V2_LITE_HF = {
+    "attention_bias": False,
+    "first_k_dense_replace": 1,
+    "hidden_act": "silu",
+    "hidden_size": 2048,
+    "intermediate_size": 10944,
+    "kv_lora_rank": 512,
+    "max_position_embeddings": 163840,
+    "model_type": "deepseek_v2",
+    "moe_intermediate_size": 1408,
+    "moe_layer_freq": 1,
+    "n_group": 1,
+    "n_routed_experts": 64,
+    "n_shared_experts": 2,
+    "norm_topk_prob": False,
+    "num_attention_heads": 16,
+    "num_experts_per_tok": 6,
+    "num_hidden_layers": 27,
+    "num_key_value_heads": 16,
+    "q_lora_rank": None,
+    "qk_nope_head_dim": 128,
+    "qk_rope_head_dim": 64,
+    "rms_norm_eps": 1e-06,
+    "rope_scaling": {
+        "beta_fast": 32,
+        "beta_slow": 1,
+        "factor": 40,
+        "mscale": 0.707,
+        "mscale_all_dim": 0.707,
+        "original_max_position_embeddings": 4096,
+        "type": "yarn",
+    },
+    "rope_theta": 10000,
+    "routed_scaling_factor": 1,
+    "scoring_func": "softmax",
+    "seq_aux": True,
+    "tie_word_embeddings": False,
+    "topk_group": 1,
+    "topk_method": "greedy",
+    "v_head_dim": 128,
+    "vocab_size": 102400,
+}
+
+
+def deepseek_v2_lite() -> ModelConfig:
+    """The ``deepseek-v2-lite-sim`` preset: DeepSeek-V2-Lite's published
+    shapes through :meth:`ModelConfig.from_hf_config`."""
+    return ModelConfig.from_hf_config(DEEPSEEK_V2_LITE_HF)

@@ -1,4 +1,5 @@
-"""Llama-family dense GQA decoder over a paged KV cache (PyTorch).
+"""Llama-family decoder over a paged KV cache (PyTorch), dense GQA or
+DeepSeek MLA, with dense or MoE FFNs.
 
 Counterpart of ``dynamo_tpu/models/llama.py`` for the main serving path:
 chunked prefill into the paged cache (:func:`prefill`), merged decode
@@ -10,14 +11,21 @@ PyTorch on the CPU).
 
 Parameters are a plain dictionary of tensors with the JAX package's tree
 and layout: layers stacked on a leading axis, projection weights
-``[in, out]`` (``x @ w``). The caches ``[L, Hkv, N, bs, D]`` are updated IN
-PLACE (the JAX functions donate them and return new arrays; these
-functions return the same tensors so call sites read alike). PyTorch runs
-eagerly, so the layer loops are plain Python loops.
+``[in, out]`` (``x @ w``); DeepSeek's ``first_k_dense_replace`` makes two
+layer groups (``dense_layers`` then ``layers``, :func:`layer_groups`). The
+caches are updated IN PLACE (the JAX functions donate them and return new
+arrays; these functions return the same tensors so call sites read alike):
+``[L, Hkv, N, bs, D]`` each for GQA, and for MLA the latent ``c_kv`` ``[L,
+1, N, bs, C]`` in the k slot and the rotated ``k_pe`` ``[L, 1, N, bs, R]``
+in the v slot (models/mla.py). PyTorch runs eagerly, so the layer loops
+are plain Python loops.
 
-Covered: the Llama / Llama-3 / Mistral-without-window shape — RMS norms,
-half-split rope (default or ``llama3`` scaling), SwiGLU, optional tied
-embeddings. Everything else raises in :func:`check_supported`.
+Covered: the Llama / Llama-3 / Mistral-without-window shape (RMS norms,
+half-split rope with default or ``llama3`` scaling, SwiGLU, optional tied
+embeddings), DeepSeek-V2/V3 Multi-Latent Attention (absorbed, with or
+without q-lora, YaRN rope) and Mixtral/DeepSeek MoE FFNs with bf16/f32
+experts (softmax or sigmoid scoring, gate bias, group-limited routing,
+shared experts). Everything else raises in :func:`check_supported`.
 """
 
 from __future__ import annotations
@@ -30,6 +38,10 @@ import torch.nn.functional as F
 
 from ..ops import attention as att
 from ..ops.kv_cache_update import kv_cache_append
+from ..ops.mla_attention import (
+    mla_decode_attention_merged,
+    mla_paged_prefill_attention,
+)
 from ..ops.ragged_paged_attention import ragged_mixed_attention_rows
 from ..ops.sampling import (
     apply_penalties,
@@ -38,6 +50,7 @@ from ..ops.sampling import (
     sample_tokens,
     token_logprobs,
 )
+from . import mla
 from .config import ModelConfig
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
@@ -49,9 +62,9 @@ def _dtype(cfg: ModelConfig) -> torch.dtype:
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """The port serves dense GQA decoders only; other families raise."""
+    """The port serves dense GQA decoders and the DeepSeek MLA + MoE family;
+    other families raise."""
     unsupported = {
-        "MLA": cfg.is_mla, "MoE": cfg.is_moe,
         "attention bias": cfg.attention_bias, "qk norm": cfg.qk_norm,
         "sliding window": cfg.sliding_window or cfg.layer_windows,
         "attention sinks": cfg.attn_sinks, "o_proj bias": cfg.o_bias,
@@ -62,17 +75,62 @@ def check_supported(cfg: ModelConfig) -> None:
         "partial rotary": bool(cfg.rope_partial_dim),
         "local rope": bool(cfg.rope_local_theta),
         "query scale base": bool(cfg.attn_scale_base),
+        "gpt-oss expert clamp and biases": cfg.is_moe and cfg.moe_act != "swiglu",
     }
     bad = [k for k, v in unsupported.items() if v]
     if bad:
         raise NotImplementedError(
-            f"dynamo_tpu_torch serves dense GQA decoders; not ported yet: "
-            f"{', '.join(bad)}"
+            f"dynamo_tpu_torch serves dense GQA and DeepSeek MLA/MoE "
+            f"decoders; not ported yet: {', '.join(bad)}"
         )
-    _rope_kind(cfg)
+    if not cfg.is_mla:  # MLA ropes with its own YaRN (models/mla.py)
+        _rope_kind(cfg)
 
 
 # ---------------- parameters / cache ----------------
+
+
+def _init_layer_group(cfg: ModelConfig, L: int, moe: bool, normal, ones) -> dict:
+    """Stacked ``[L, ...]`` leaves of one homogeneous layer group (attention
+    plus one FFN kind), the JAX package's tree."""
+    E, H, Hkv, D, F_ = (cfg.hidden_size, cfg.num_heads, cfg.num_kv_heads,
+                        cfg.head_dim, cfg.intermediate_size)
+    layers = {"attn_norm": ones(L, E), "mlp_norm": ones(L, E)}
+    if cfg.is_mla:
+        Cq, C = cfg.q_lora_rank, cfg.kv_lora_rank
+        dqk, dr, dv = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
+        if Cq:
+            layers["wq_a"] = normal(L, E, Cq)
+            layers["q_norm"] = ones(L, Cq)
+            layers["wq_b"] = normal(L, Cq, H * (dqk + dr))
+        else:
+            layers["wq"] = normal(L, E, H * (dqk + dr))
+        layers["wkv_a"] = normal(L, E, C + dr)
+        layers["kv_norm"] = ones(L, C)
+        layers["wkv_b"] = normal(L, C, H * (dqk + dv))
+        layers["wo"] = normal(L, H * dv, E)
+    else:
+        layers.update(wq=normal(L, E, H * D), wk=normal(L, E, Hkv * D),
+                      wv=normal(L, E, Hkv * D), wo=normal(L, H * D, E))
+    if moe:
+        X = cfg.num_experts
+        Fm = cfg.moe_intermediate_size or F_
+        layers["moe_gate"] = normal(L, E, X)
+        if cfg.moe_gate_bias:
+            layers["moe_gate_bias"] = ones(L, X).float().zero_()  # f32, as in JAX
+        layers.update(we_gate=normal(L, X, E, Fm), we_up=normal(L, X, E, Fm),
+                      we_down=normal(L, X, Fm, E))
+        if cfg.num_shared_experts:
+            Fs = cfg.shared_expert_size or Fm * cfg.num_shared_experts
+            layers.update(shared_gate=normal(L, E, Fs),
+                          shared_up=normal(L, E, Fs),
+                          shared_down=normal(L, Fs, E))
+            if cfg.shared_expert_gate:  # qwen2moe sigmoid gate [E, 1]
+                layers["shared_egate"] = normal(L, E, 1)
+    else:
+        layers.update(w_gate=normal(L, E, F_), w_up=normal(L, E, F_),
+                      w_down=normal(L, F_, E))
+    return layers
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator,
@@ -82,8 +140,7 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     models/weights.py)."""
     check_supported(cfg)
     dt = _dtype(cfg)
-    E, H, Hkv, D = cfg.hidden_size, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    F_, V, L = cfg.intermediate_size, cfg.vocab_size, cfg.num_layers
+    E, V, L = cfg.hidden_size, cfg.vocab_size, cfg.num_layers
 
     def normal(*shape):
         return torch.empty(shape, dtype=dt, device=device).normal_(
@@ -93,26 +150,49 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     def ones(*shape):
         return torch.ones(shape, dtype=dt, device=device)
 
+    kd = cfg.first_dense_layers if cfg.is_moe else 0
     params = {
         "embed": normal(V, E),
         "final_norm": ones(E),
-        "layers": {
-            "attn_norm": ones(L, E), "mlp_norm": ones(L, E),
-            "wq": normal(L, E, H * D), "wk": normal(L, E, Hkv * D),
-            "wv": normal(L, E, Hkv * D), "wo": normal(L, H * D, E),
-            "w_gate": normal(L, E, F_), "w_up": normal(L, E, F_),
-            "w_down": normal(L, F_, E),
-        },
+        "layers": _init_layer_group(cfg, L - kd, cfg.is_moe, normal, ones),
     }
+    if kd:
+        params["dense_layers"] = _init_layer_group(cfg, kd, False, normal, ones)
     if not cfg.tie_word_embeddings:
         params["lm_head"] = normal(E, V)
     return params
 
 
+def layer_groups(params: dict, cfg: ModelConfig):
+    """[(stacked layer params, n_layers, layer offset)] in forward order:
+    one group for homogeneous models, (dense, moe) for DeepSeek-style
+    first_k_dense_replace models."""
+    k = cfg.first_dense_layers if "dense_layers" in params else 0
+    out = []
+    if k:
+        out.append((params["dense_layers"], k, 0))
+    out.append((params["layers"], cfg.num_layers - k, k))
+    return out
+
+
+def _layers(params: dict, cfg: ModelConfig):
+    """(layer index, layer leaves as views into the stacked tensors) for
+    every layer in forward order."""
+    for group, n, goff in layer_groups(params, cfg):
+        for i in range(n):
+            yield goff + i, {k: v[i] for k, v in group.items()}
+
+
 def kv_cache_shapes(cfg: ModelConfig, num_blocks: int,
                     block_size: int) -> tuple[tuple, tuple]:
-    """(k_shape, v_shape), both ``[L, Hkv, num_blocks, block_size, D]``."""
-    s = (cfg.num_layers, cfg.num_kv_heads, num_blocks, block_size, cfg.head_dim)
+    """(k_shape, v_shape): ``[L, Hkv, num_blocks, block_size, D]`` each, or
+    for MLA the latent ``[L, 1, N, bs, kv_lora_rank]`` and the rope key
+    ``[L, 1, N, bs, qk_rope_head_dim]``."""
+    L = cfg.num_layers
+    if cfg.is_mla:
+        return ((L, 1, num_blocks, block_size, cfg.kv_lora_rank),
+                (L, 1, num_blocks, block_size, cfg.qk_rope_head_dim))
+    s = (L, cfg.num_kv_heads, num_blocks, block_size, cfg.head_dim)
     return s, s
 
 
@@ -206,11 +286,6 @@ def _embed(params: dict, cfg: ModelConfig, tokens: torch.Tensor) -> torch.Tensor
     return params["embed"][tokens.long()]
 
 
-def _layer(params: dict, l: int) -> dict:
-    """Layer l's leaves (views into the stacked tensors)."""
-    return {k: v[l] for k, v in params["layers"].items()}
-
-
 def _qkv(lp: dict, cfg: ModelConfig, x: torch.Tensor):
     D = cfg.head_dim
     q = x @ lp["wq"]
@@ -225,10 +300,153 @@ def swiglu(x, w_gate, w_up, w_down):
     return (F.silu(x @ w_gate) * (x @ w_up)) @ w_down
 
 
+# ---------------- mixture of experts ----------------
+
+
+def _route_topk(lp: dict, cfg: ModelConfig, x: torch.Tensor):
+    """(combine weights [T, k] f32, expert indices [T, k]): Mixtral/Qwen
+    softmax routing and the DeepSeek variants — V2 softmax, V3 sigmoid
+    scoring with the no-aux-loss gate bias (the bias picks the experts, the
+    UNBIASED score is the combine weight), group-limited top-k (score the
+    n_group blocks by their max, or V3's top-2 sum, and route only within
+    the best topk_group blocks) — with routed_scaling_factor applied."""
+    k, X = cfg.num_experts_per_tok, cfg.num_experts
+    gate_logits = x.float() @ lp["moe_gate"].float()
+    if cfg.moe_scoring == "sigmoid":
+        scores = torch.sigmoid(gate_logits)
+    else:
+        scores = torch.softmax(gate_logits, dim=-1)  # [T, X]
+    sel = scores
+    if lp.get("moe_gate_bias") is not None:
+        sel = scores + lp["moe_gate_bias"].float()
+    if cfg.n_group > 1 and cfg.topk_group:
+        T = sel.shape[0]
+        g = sel.reshape(T, cfg.n_group, X // cfg.n_group)
+        if cfg.moe_group_score == "top2":  # V3 noaux_tc
+            g_score = torch.topk(g, 2, dim=-1).values.sum(-1)  # [T, n_group]
+        else:  # V2 group_limited_greedy: the group's max score
+            g_score = g.amax(-1)
+        g_idx = torch.topk(g_score, cfg.topk_group, dim=-1).indices
+        g_mask = torch.zeros(T, cfg.n_group, dtype=torch.bool, device=x.device)
+        g_mask.scatter_(1, g_idx, True)
+        # masked groups score 0.0, not -inf (the HF routers' rule)
+        sel = torch.where(
+            g_mask.repeat_interleave(X // cfg.n_group, dim=1), sel, 0.0
+        )
+    idx = torch.topk(sel, k, dim=-1).indices  # selection: (biased) score
+    vals = torch.gather(scores, 1, idx)  # combine: raw score
+    if cfg.norm_topk_prob:
+        vals = vals / (vals.sum(-1, keepdim=True) + 1e-20)
+    return vals * cfg.routed_scaling_factor, idx
+
+
+def _moe_route(lp: dict, cfg: ModelConfig, x: torch.Tensor):
+    """Top-k routing + expert-sorted dispatch order. Returns (t_sorted,
+    w_sorted, group_sizes): token row per assignment in expert order
+    (stable within an expert), its combine weight, and per-expert
+    assignment counts."""
+    k = cfg.num_experts_per_tok
+    vals, idx = _route_topk(lp, cfg, x)
+    e_flat = idx.reshape(-1)  # assignment r -> token r // k
+    order = torch.argsort(e_flat, stable=True)
+    # a scatter, not bincount: on the card bincount reads its max on the host
+    group_sizes = torch.zeros(cfg.num_experts, dtype=torch.int64,
+                              device=x.device).scatter_add_(
+        0, e_flat, torch.ones_like(e_flat))
+    return order // k, vals.reshape(-1)[order], group_sizes
+
+
+def _expert_act(cfg: ModelConfig, g: torch.Tensor, u: torch.Tensor):
+    """Expert gating nonlinearity: SwiGLU (gpt-oss's clamped GLU is not
+    ported; check_supported refuses it)."""
+    if cfg.moe_act != "swiglu":
+        raise NotImplementedError(f"expert activation {cfg.moe_act!r}")
+    return F.silu(g) * u
+
+
+def _ragged_mm(xs: torch.Tensor, w, group_sizes: torch.Tensor) -> torch.Tensor:
+    """Grouped matmul over expert-sorted rows: rows of group e (``group_sizes
+    [X]`` consecutive) times ``w[e]`` (``[X, in, out]``), the twin of
+    ``lax.ragged_dot``. On the card one ``torch._grouped_mm`` call (offsets
+    from a device cumsum, no host sync); on the CPU a loop over the groups.
+    Quantized expert stacks are not ported yet."""
+    if isinstance(w, dict):
+        raise NotImplementedError(
+            "quantized expert stacks need ragged_int8_gmm, not ported yet"
+        )
+    if xs.device.type == "cuda":
+        offs = torch.cumsum(group_sizes, 0).to(torch.int32)
+        return torch._grouped_mm(xs, w, offs=offs)
+    out = xs.new_zeros(xs.shape[0], w.shape[-1])
+    start = 0
+    for e, n in enumerate(group_sizes.tolist()):
+        if n:
+            out[start:start + n] = xs[start:start + n] @ w[e]
+        start += n
+    return out
+
+
+def _moe_combine(o, t_sorted, w_sorted, T: int, dtype):
+    """Scatter-add the weighted expert outputs back to their token rows."""
+    out = torch.zeros(T, o.shape[-1], dtype=dtype, device=o.device)
+    return out.index_add_(0, t_sorted, o * w_sorted[:, None].to(dtype))
+
+
+def moe_ffn(lp: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    """Sparse MoE FFN with RAGGED dispatch: tokens sorted by assigned
+    expert, each expert contracts only its own row group (per-token FLOPs
+    scale with top-k, not the expert count). Exact: no capacity factor, no
+    token dropping. Shared experts add on top."""
+    T = x.shape[0]
+    t_sorted, w_sorted, group_sizes = _moe_route(lp, cfg, x)
+    xs = x[t_sorted]
+    g = _ragged_mm(xs, lp["we_gate"], group_sizes)
+    u = _ragged_mm(xs, lp["we_up"], group_sizes)
+    o = _ragged_mm(_expert_act(cfg, g, u), lp["we_down"], group_sizes)
+    out = _moe_combine(o, t_sorted, w_sorted, T, x.dtype)
+    if "shared_gate" in lp:
+        out = out + _shared_expert(lp, x)
+    return out
+
+
+def _shared_expert(lp: dict, x: torch.Tensor) -> torch.Tensor:
+    """Shared-expert contribution: DeepSeek's is always on; Qwen2-MoE gates
+    it per token with sigmoid(x @ shared_expert_gate)."""
+    shared = swiglu(x, lp["shared_gate"], lp["shared_up"], lp["shared_down"])
+    if "shared_egate" in lp:
+        g = torch.sigmoid(x.float() @ lp["shared_egate"].float())
+        shared = shared * g.to(shared.dtype)
+    return shared
+
+
+def moe_ffn_dense(lp: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    """Dense-dispatch reference (every expert computes every token, the
+    routing matrix selects), shared experts included: the tests' oracle."""
+    vals, idx = _route_topk(lp, cfg, x)
+    w = torch.zeros(x.shape[0], cfg.num_experts, device=x.device).scatter_add_(
+        1, idx, vals
+    )  # [T, X] routing weights
+    g = torch.einsum("te,xef->txf", x, lp["we_gate"])
+    u = torch.einsum("te,xef->txf", x, lp["we_up"])
+    y = torch.einsum("txf,xfe->txe", _expert_act(cfg, g, u), lp["we_down"])
+    out = torch.einsum("txe,tx->te", y, w.to(x.dtype))
+    if "shared_gate" in lp:
+        out = out + _shared_expert(lp, x)
+    return out
+
+
+def _ffn(lp: dict, cfg: ModelConfig, h: torch.Tensor) -> torch.Tensor:
+    # branch on the GROUP's own leaves: DeepSeek's first_k_dense_replace
+    # layers are dense inside an MoE model
+    if "moe_gate" in lp:
+        return moe_ffn(lp, cfg, h)
+    return swiglu(h, lp["w_gate"], lp["w_up"], lp["w_down"])
+
+
 def _layer_tail(x, lp, o_flat, cfg: ModelConfig):
     x = x + o_flat @ lp["wo"]
     h = rms_norm(x, lp["mlp_norm"], cfg.rms_norm_eps)
-    return x + swiglu(h, lp["w_gate"], lp["w_up"], lp["w_down"])
+    return x + _ffn(lp, cfg, h)
 
 
 def _logits(params: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
@@ -256,29 +474,43 @@ def prefill(
 ):
     """Process one (chunk of a) prompt; returns (last-real-token logits
     [V] f32, k_cache, v_cache). ``history_len`` cached tokens are attended
-    but not recomputed (chunked prefill and prefix-cache hits)."""
+    but not recomputed (chunked prefill and prefix-cache hits). MLA layers
+    write the chunk's latents first, then run the latent prefill kernel."""
     dev = tokens.device
     T = tokens.shape[0]
     history_len, valid_len = int(history_len), int(valid_len)
     x = _embed(params, cfg, tokens)  # [T, E]
     positions = torch.arange(T, device=dev) + history_len
-    inv_freq = _rope_freqs(cfg, dev)
-    scale = attn_query_scale(cfg)
-    rope = rope_tables(positions, inv_freq)
+    if cfg.is_mla:
+        inv_freq, msc = mla.mla_rope_freqs(cfg, dev)
+        scale = cfg.mla_softmax_scale()
+    else:
+        inv_freq, msc = _rope_freqs(cfg, dev), 1.0
+        scale = attn_query_scale(cfg)
+    rope = rope_tables(positions, inv_freq, msc)
     blk, off = att.chunk_slot_indices(block_table, history_len, T,
                                       k_cache.shape[3])
     hist, valid = _i32([history_len], dev), _i32([valid_len], dev)
-    for l in range(cfg.num_layers):
-        lp = _layer(params, l)
+    for l, lp in _layers(params, cfg):
         h = rms_norm(x, lp["attn_norm"], cfg.rms_norm_eps)
-        q, k, v = _qkv(lp, cfg, h)
-        q, k = rotate(q, rope), rotate(k, rope)
-        att.write_slots(k_cache[l], k, blk, off)
-        att.write_slots(v_cache[l], v, blk, off)
-        o = att.chunk_attention_with_cache(
-            q, k, v, k_cache[l], v_cache[l], block_table, hist, valid, scale,
-        )
-        x = _layer_tail(x, lp, o.reshape(T, -1), cfg)
+        if cfg.is_mla:
+            q_eff, q_pe, c_kv, k_pe = mla.mla_q_and_latent(lp, cfg, h, rope)
+            att.write_slots(k_cache[l], c_kv[:, None], blk, off)
+            att.write_slots(v_cache[l], k_pe[:, None], blk, off)
+            o_lat = mla_paged_prefill_attention(
+                q_eff, q_pe, k_cache[l], v_cache[l], block_table, hist, scale,
+                valid_len=valid,
+            )
+            o = mla._o_proj(lp, cfg, o_lat).to(x.dtype)
+        else:
+            q, k, v = _qkv(lp, cfg, h)
+            q, k = rotate(q, rope), rotate(k, rope)
+            att.write_slots(k_cache[l], k, blk, off)
+            att.write_slots(v_cache[l], v, blk, off)
+            o = att.chunk_attention_with_cache(
+                q, k, v, k_cache[l], v_cache[l], block_table, hist, valid, scale,
+            ).reshape(T, -1)
+        x = _layer_tail(x, lp, o, cfg)
     x = rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
     last = min(max(valid_len - 1, 0), T - 1)
     return _logits(params, cfg, x[last]), k_cache, v_cache
@@ -291,27 +523,41 @@ def _decode_body(params, cfg, tokens, positions, block_tables, seq_lens,
                  k_cache, v_cache):
     """One decode step for all sequences, the MERGED one-write path:
     attention handles the current token out of the cache (flash merge over
-    the stats-emitting paged kernel), then ONE in-place append writes every
-    layer's new K/V. Returns (logits [B, V] f32, k_cache, v_cache)."""
+    the stats-emitting paged kernel: GQA, or the latent kernel for MLA),
+    then ONE in-place append writes every layer's new K/V (or c_kv/k_pe).
+    Returns (logits [B, V] f32, k_cache, v_cache)."""
     x = _embed(params, cfg, tokens)  # [B, E]
     B = x.shape[0]
-    inv_freq = _rope_freqs(cfg, x.device)
-    scale = attn_query_scale(cfg)
+    if cfg.is_mla:
+        inv_freq, msc = mla.mla_rope_freqs(cfg, x.device)
+        scale = cfg.mla_softmax_scale()
+    else:
+        inv_freq, msc = _rope_freqs(cfg, x.device), 1.0
+        scale = attn_query_scale(cfg)
     blk, off = att.decode_slot_indices(block_tables, positions, k_cache.shape[3])
     hist_lens = seq_lens - 1  # cache contents EXCLUDE the new token
-    rope = rope_tables(positions, inv_freq)
+    rope = rope_tables(positions, inv_freq, msc)
     k_news, v_news = [], []
-    for l in range(cfg.num_layers):
-        lp = _layer(params, l)
+    for l, lp in _layers(params, cfg):
         h = rms_norm(x, lp["attn_norm"], cfg.rms_norm_eps)
-        q, k, v = _qkv(lp, cfg, h)  # [B, H, D], [B, Hkv, D]
-        q, k = rotate(q, rope), rotate(k, rope)
-        k_news.append(k)
-        v_news.append(v)
-        o = att.decode_attention_merged(
-            q, k, v, k_cache[l], v_cache[l], block_tables, hist_lens, scale,
-        )
-        x = _layer_tail(x, lp, o.reshape(B, -1), cfg)
+        if cfg.is_mla:
+            q_eff, q_pe, c_kv, k_pe = mla.mla_q_and_latent(lp, cfg, h, rope)
+            k_news.append(c_kv[:, None])  # [B, 1, C]
+            v_news.append(k_pe[:, None])  # [B, 1, R]
+            o_lat = mla_decode_attention_merged(
+                q_eff, q_pe, c_kv, k_pe, k_cache[l], v_cache[l], block_tables,
+                hist_lens, scale,
+            )
+            o = mla._o_proj(lp, cfg, o_lat).to(x.dtype)
+        else:
+            q, k, v = _qkv(lp, cfg, h)  # [B, H, D], [B, Hkv, D]
+            q, k = rotate(q, rope), rotate(k, rope)
+            k_news.append(k)
+            v_news.append(v)
+            o = att.decode_attention_merged(
+                q, k, v, k_cache[l], v_cache[l], block_tables, hist_lens, scale,
+            ).reshape(B, -1)
+        x = _layer_tail(x, lp, o, cfg)
     kv_cache_append(
         torch.stack(k_news), torch.stack(v_news), k_cache, v_cache,
         blk.to(torch.int32), off.to(torch.int32),
@@ -331,7 +577,8 @@ def _sample_step(logits, seeds, steps, temps, temps_host, top_ks, top_ps,
     if penalties is not None:
         freq, pres, rep, counts, mask = penalties
         logits = apply_penalties(logits, counts, mask, freq, pres, rep)
-    keys = make_keys(seeds, steps, temps_host, logits.device)
+    keys = (make_keys(seeds, steps, logits.device)
+            if any(t > 0.0 for t in temps_host) else None)
     nxt = sample_tokens(logits, keys, temps, top_ks, top_ps)
     if penalties is not None:
         bump_counts(penalties[3], nxt)
@@ -407,8 +654,9 @@ def _mixed_fused_forward(
     layer covering the decode rows and every segment. Write-before-attend:
     each layer scatters the decode tokens' and the segments' K/V first
     (padded/dead segment rows land in trash page 0 through their zero
-    table entries). Returns (decode_logits [B, V] f32, p_logits [MP, V]
-    f32, k_cache, v_cache)."""
+    table entries). GQA only: MLA takes :func:`_mixed_per_part` (there is
+    no latent ragged kernel). Returns (decode_logits [B, V] f32, p_logits
+    [MP, V] f32, k_cache, v_cache)."""
     B = d_tokens.shape[0]
     MP, T = p_tokens.shape
     bs = k_cache.shape[3]
@@ -423,8 +671,7 @@ def _mixed_fused_forward(
     blk = torch.cat([d_blk.long(), p_blk.reshape(-1)])
     off = torch.cat([d_off.long(), p_off.reshape(-1)])
     rope = rope_tables(positions_all, inv_freq)
-    for l in range(cfg.num_layers):
-        lp = _layer(params, l)
+    for l, lp in _layers(params, cfg):
         h = rms_norm(x, lp["attn_norm"], cfg.rms_norm_eps)
         q, k, v = _qkv(lp, cfg, h)  # [B+MP*T, H/Hkv, D]
         q, k = rotate(q, rope), rotate(k, rope)
@@ -440,6 +687,36 @@ def _mixed_fused_forward(
     # each segment's last REAL row only
     last = B + torch.arange(MP, device=dev) * T + (p_valids.long() - 1).clamp(0, T - 1)
     p_logits = _logits(params, cfg, x[last])
+    return logits_d, p_logits, k_cache, v_cache
+
+
+def _mixed_per_part(
+    params, cfg, d_tokens, d_positions, d_tables, d_seq_lens,
+    p_tokens, p_tables, p_hists, p_valids, k_cache, v_cache,
+):
+    """The per-part flavor of the mixed step (the JAX package's MLA path):
+    each live segment runs through :func:`prefill` in admission order, then
+    the decode batch through the merged :func:`_decode_body`. The parts are
+    independent (no prefill sequence decodes; segments own disjoint pages),
+    so the order changes nothing. Dead pad segments (valid 0) are skipped:
+    their logits row, never read, is zero. Same return as
+    :func:`_mixed_fused_forward`."""
+    hists, valids = p_hists.tolist(), p_valids.tolist()
+    rows = []
+    for m, (hist, valid) in enumerate(zip(hists, valids)):
+        if valid <= 0:
+            rows.append(None)
+            continue
+        lg, k_cache, v_cache = prefill(
+            params, cfg, p_tokens[m], p_tables[m], hist, valid, k_cache, v_cache,
+        )
+        rows.append(lg)
+    logits_d, k_cache, v_cache = _decode_body(
+        params, cfg, d_tokens, d_positions, d_tables, d_seq_lens, k_cache,
+        v_cache,
+    )
+    zero = logits_d.new_zeros(logits_d.shape[-1])
+    p_logits = torch.stack([zero if r is None else r for r in rows])
     return logits_d, p_logits, k_cache, v_cache
 
 
@@ -473,9 +750,12 @@ def mixed_step(
     with_logprobs: bool = False,
 ):
     """ONE fused step: MP prefill chunks plus a decode token for every
-    active sequence. Returns (next_tokens [B], p_logits [MP, V] f32,
-    k_cache, v_cache[, counts][, (chosen_lp, top_ids, top_lps)])."""
-    logits_d, p_logits, k_cache, v_cache = _mixed_fused_forward(
+    active sequence (GQA: combined-row GEMMs and one ragged attention call
+    per layer; MLA: the per-part flavor). Returns (next_tokens [B],
+    p_logits [MP, V] f32, k_cache, v_cache[, counts][, (chosen_lp,
+    top_ids, top_lps)])."""
+    forward = _mixed_per_part if cfg.is_mla else _mixed_fused_forward
+    logits_d, p_logits, k_cache, v_cache = forward(
         params, cfg, d_tokens, d_positions, d_tables, d_seq_lens,
         p_tokens, p_tables, p_hists, p_valids, k_cache, v_cache,
     )

@@ -2,9 +2,13 @@
 drawn at random on the device.
 
 The JAX package's tree (``dynamo_tpu/models/llama.py`` init_params) is
-``embed [V, E]``, ``final_norm [E]``, optional ``lm_head [E, V]`` and
-``layers.{attn_norm, mlp_norm, wq, wk, wv, wo, w_gate, w_up, w_down}``
-stacked ``[L, ...]`` with projections ``[in, out]``; the port keeps that
+``embed [V, E]``, ``final_norm [E]``, optional ``lm_head [E, V]`` and one
+or two stacked layer groups, ``layers`` and (DeepSeek's
+first_k_dense_replace) ``dense_layers``, with projections ``[in, out]``:
+the attention leaves (``wq``/``wk``/``wv``/``wo``, or MLA's ``wq`` or
+``wq_a``/``q_norm``/``wq_b``, ``wkv_a``, ``kv_norm``, ``wkv_b``, ``wo``),
+the norms, and the FFN (dense ``w_gate``/``w_up``/``w_down``, or MoE
+``moe_gate``, ``we_*`` expert stacks and ``shared_*``). The port keeps that
 exact tree (models/llama.py), so carrying weights over is a dtype and
 device move per leaf. A safetensors checkpoint loader is not ported yet.
 """
@@ -17,11 +21,15 @@ import torch
 from .config import ModelConfig
 from .llama import _dtype, check_supported, init_params
 
-_LAYER_KEYS = ("attn_norm", "mlp_norm", "wq", "wk", "wv", "wo",
-               "w_gate", "w_up", "w_down")
+#: leaves kept in float32 whatever the model dtype (as in the JAX tree)
+_F32_LEAVES = ("moe_gate_bias",)
 
 
 def _leaf(x, dtype: torch.dtype, device) -> torch.Tensor:
+    if isinstance(x, dict):
+        raise NotImplementedError(
+            "quantized weight leaves ({'q', 's'}) are not ported yet"
+        )
     # numpy has no bfloat16: widen to f32 on the host, narrow on the way in
     return torch.from_numpy(np.array(x, dtype=np.float32)).to(
         device=device, dtype=dtype
@@ -30,18 +38,20 @@ def _leaf(x, dtype: torch.dtype, device) -> torch.Tensor:
 
 def from_jax_params(tree: dict, cfg: ModelConfig, device="cpu") -> dict:
     """The JAX parameter tree (leaves as numpy arrays) as the port's
-    parameter dictionary on ``device``, in the model's dtype."""
+    parameter dictionary on ``device``, in the model's dtype: every layer
+    group and every leaf."""
     check_supported(cfg)
     dt = _dtype(cfg)
-    layers = tree["layers"]
-    missing = [k for k in _LAYER_KEYS if k not in layers]
-    if missing:
-        raise ValueError(f"JAX layer tree lacks {missing}")
     params = {
         "embed": _leaf(tree["embed"], dt, device),
         "final_norm": _leaf(tree["final_norm"], dt, device),
-        "layers": {k: _leaf(layers[k], dt, device) for k in _LAYER_KEYS},
     }
+    for group in ("layers", "dense_layers"):
+        if group in tree:
+            params[group] = {
+                k: _leaf(v, torch.float32 if k in _F32_LEAVES else dt, device)
+                for k, v in tree[group].items()
+            }
     if not cfg.tie_word_embeddings:
         params["lm_head"] = _leaf(tree["lm_head"], dt, device)
     return params
@@ -50,6 +60,6 @@ def from_jax_params(tree: dict, cfg: ModelConfig, device="cpu") -> dict:
 def init_random_params(cfg: ModelConfig, generator: torch.Generator,
                        device="cuda") -> dict:
     """Random weights drawn directly on ``device`` (normal x 0.02, norms
-    at 1): the ``llama3-8b-sim`` preset's 16 GB of bf16 weights never
-    touch the host."""
+    at 1): the presets' bf16 weights (16 GB for ``llama3-8b-sim``, 31 GB
+    for ``deepseek-v2-lite-sim``) never touch the host."""
     return init_params(cfg, generator, device)

@@ -35,7 +35,12 @@ BUILD_DIR = _PKG / "_build"
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SOURCES = {
     "kv_cache_append.cu": {
-        "kv_cache_append_launch": [_P] * 6 + [_I] * 7 + [_P],
+        "kv_cache_append_launch": [_P] * 6 + [_I] * 8 + [_P],
+    },
+    "mla_attention.cu": {
+        "mla_attention_launch": (
+            [_P] * 11 + [_I] * 8 + [_F] + [_I] * 3 + [_P, _I, _P]
+        ),
     },
     "paged_attention.cu": {
         "paged_attention_launch": (

@@ -9,7 +9,9 @@ read like the reference). On CUDA tensors it launches
 
 Merged decode uses it: the layer loop stacks each layer's new K/V ([L, B,
 Hkv, D], tiny) and writes them with ONE call after attention, which
-handled the current token out of the cache.
+handled the current token out of the cache. The K and V rows may differ in
+width: MLA's k cache holds the latent ``c_kv`` ``[L, 1, N, bs, C]`` and its
+v cache the rotated ``k_pe`` ``[L, 1, N, bs, R]``.
 """
 
 from __future__ import annotations
@@ -32,10 +34,10 @@ def kv_cache_append_plain(k_new, v_new, k_cache, v_cache, blk, off):
 
 
 def kv_cache_append(
-    k_new: torch.Tensor,  # [L, B, Hkv, D] this step's keys, all layers
-    v_new: torch.Tensor,  # [L, B, Hkv, D]
-    k_cache: torch.Tensor,  # [L, Hkv, N, bs, D] — updated IN PLACE
-    v_cache: torch.Tensor,  # [L, Hkv, N, bs, D] — updated IN PLACE
+    k_new: torch.Tensor,  # [L, B, Hkv, Dk] this step's keys, all layers
+    v_new: torch.Tensor,  # [L, B, Hkv, Dv]
+    k_cache: torch.Tensor,  # [L, Hkv, N, bs, Dk] — updated IN PLACE
+    v_cache: torch.Tensor,  # [L, Hkv, N, bs, Dv] — updated IN PLACE
     blk: torch.Tensor,  # [B] int32 physical page of each sequence's slot
     off: torch.Tensor,  # [B] int32 row within that page
 ) -> tuple[torch.Tensor, torch.Tensor]:
@@ -49,16 +51,19 @@ def kv_cache_append(
     name = "kv_cache_append"
     _cuda.require_cuda(name, k_new, v_new, k_cache, v_cache, blk, off)
     _cuda.require_int32(name, blk, off)
-    L, B, Hkv, D = k_new.shape
-    Lc, Hc, N, bs, Dc = k_cache.shape
+    L, B, Hkv, Dk = k_new.shape
+    Dv = v_new.shape[-1]
+    N, bs = k_cache.shape[2:4]
     if (
-        v_new.shape != k_new.shape or v_cache.shape != k_cache.shape
-        or (Lc, Hc, Dc) != (L, Hkv, D) or blk.shape != (B,)
-        or off.shape != (B,)
+        v_new.shape != (L, B, Hkv, Dv)
+        or k_cache.shape != (L, Hkv, N, bs, Dk)
+        or v_cache.shape != (L, Hkv, N, bs, Dv)
+        or blk.shape != (B,) or off.shape != (B,)
     ):
         raise ValueError(f"{name}: shapes do not fit: new {tuple(k_new.shape)}"
-                         f", cache {tuple(k_cache.shape)}, blk "
-                         f"{tuple(blk.shape)}")
+                         f" / {tuple(v_new.shape)}, caches "
+                         f"{tuple(k_cache.shape)} / {tuple(v_cache.shape)}, "
+                         f"blk {tuple(blk.shape)}")
     dtypes = {k_new.dtype, v_new.dtype, k_cache.dtype, v_cache.dtype}
     if len(dtypes) != 1 or k_cache.dtype not in _cuda.DTYPE_CODES:
         raise ValueError(f"{name}: new rows and caches must share one of "
@@ -68,7 +73,7 @@ def kv_cache_append(
         ctypes.c_void_p(k_cache.data_ptr()),
         ctypes.c_void_p(v_cache.data_ptr()),
         ctypes.c_void_p(blk.data_ptr()), ctypes.c_void_p(off.data_ptr()),
-        L, B, Hkv, N, bs, D, _cuda.DTYPE_CODES[k_cache.dtype],
+        L, B, Hkv, N, bs, Dk, Dv, _cuda.DTYPE_CODES[k_cache.dtype],
         ctypes.c_void_p(_cuda.stream_ptr(k_cache)),
     )
     _cuda.check(err, name)

@@ -1,0 +1,284 @@
+"""Paged LATENT attention for MLA decode and prefill: CUDA kernel + plain twin.
+
+Counterpart of ``dynamo_tpu/ops/mla_attention_pallas.py``. The cache holds
+one latent stream per token, shared by all H query heads (MQA-shaped):
+``c [1, N, bs, C]`` (the kv_lora_rank latents, which are also the VALUES)
+and ``pe [1, N, bs, R]`` (the rotated rope keys). A query row scores
+position s as ``q_eff . c[s] + q_pe . pe[s]`` (scaled), fp32 softmax.
+
+  * :func:`mla_paged_decode_attention` — one token per sequence over its
+    ``seq_lens[b]`` cached positions, optionally with the softmax
+    statistics (m, l);
+  * :func:`mla_decode_attention_merged` — the merged one-write decode: the
+    kernel's statistics over the history plus the flash merge of the
+    current token, which is NOT in the cache;
+  * :func:`mla_paged_prefill_attention` — a chunk of T tokens over history
+    plus the chunk itself (already written), causal at absolute positions.
+
+On CUDA tensors the entry points launch ``csrc/mla_attention.cu`` (one
+kernel body for both); on CPU tensors they take their plain twins below.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+
+from . import _cuda
+
+NEG_INF = -1e30
+#: most horizon splits per decode tile (flash-decoding partials)
+MAX_SPLITS = 16
+#: latent widths the kernel is built for (C, R)
+KERNEL_C = (128, 256, 512)
+KERNEL_R = 64
+_SRC = "mla_attention.cu"
+
+
+def _ptr(t: Optional[torch.Tensor]):
+    return None if t is None else ctypes.c_void_p(t.data_ptr())
+
+
+def launch_mla_attention(
+    q_eff: torch.Tensor,  # [Ntok, H, C]
+    q_pe: torch.Tensor,  # [Ntok, H, R]
+    c_cache_layer: torch.Tensor,  # [1, N, bs, C]
+    pe_cache_layer: torch.Tensor,  # [1, N, bs, R]
+    tables: torch.Tensor,  # decode [B, M]; prefill [M]
+    scale: float,
+    *,
+    seq_lens: Optional[torch.Tensor] = None,  # decode [B] int32
+    hist: Optional[torch.Tensor] = None,  # prefill [1] int32
+    valid: Optional[torch.Tensor] = None,  # prefill [1] int32 or None (= T)
+    stats: bool = False,
+    out_f32: bool = False,
+    name: str = "mla_attention",
+):
+    """Launch ``csrc/mla_attention.cu``: decode when ``seq_lens`` is given
+    (one token per table row), else prefill of one T-token chunk. Returns
+    ``o [Ntok, H, C]`` (q's dtype, or f32 with ``out_f32``) and, with
+    ``stats``, ``m``/``l`` f32 ``[Ntok, H]``. Validates every input and
+    raises on what the kernel does not take."""
+    Ntok, H, C = q_eff.shape
+    _, N, bs, Cc = c_cache_layer.shape
+    R = pe_cache_layer.shape[-1]
+    decode = seq_lens is not None
+    idx = [t for t in (tables, seq_lens, hist, valid) if t is not None]
+    _cuda.require_cuda(name, q_eff, q_pe, c_cache_layer, pe_cache_layer, *idx)
+    _cuda.require_int32(name, *idx)
+    dt = q_eff.dtype
+    if dt not in _cuda.DTYPE_CODES or {q_pe.dtype, c_cache_layer.dtype,
+                                       pe_cache_layer.dtype} != {dt}:
+        raise ValueError(f"{name}: queries and caches must share one of "
+                         f"{list(_cuda.DTYPE_CODES)}")
+    if (C not in KERNEL_C or R != KERNEL_R or Cc != C
+            or q_pe.shape != (Ntok, H, R) or c_cache_layer.shape[0] != 1
+            or pe_cache_layer.shape != (1, N, bs, R)):
+        raise ValueError(
+            f"{name}: latent widths C={C} (cache {Cc}), R={R} do not fit the "
+            f"kernel (C in {KERNEL_C}, R={KERNEL_R}) or the shapes disagree")
+    if decode and (tables.dim() != 2 or tables.shape[0] != Ntok
+                   or seq_lens.shape != (Ntok,)):
+        raise ValueError(f"{name}: decode tables {tuple(tables.shape)} / "
+                         f"seq_lens do not fit {Ntok} tokens")
+    if not decode and (tables.dim() != 1 or hist is None
+                       or hist.numel() != 1):
+        raise ValueError(f"{name}: prefill takes one [M] table and [1] hist")
+    for t in (q_eff, q_pe, c_cache_layer, pe_cache_layer):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: tensors must be 16-byte aligned")
+    rmax = 16 if decode and H <= 16 else 32
+    o = torch.empty((Ntok, H, C), dtype=torch.float32 if out_f32 else dt,
+                    device=q_eff.device)
+    m = l = None
+    if stats:
+        m = torch.empty((Ntok, H), dtype=torch.float32, device=q_eff.device)
+        l = torch.empty_like(m)
+    rows = Ntok * H
+    tiles = Ntok * -(-H // rmax) if decode else -(-rows // rmax)
+    # split every tile's horizon while the grid holds fewer than ~2 blocks
+    # per SM (decode: B tiles alone leave most of the card idle)
+    n_split = min(MAX_SPLITS, max(1, 2 * _cuda.sm_count(q_eff.device) // max(tiles, 1)))
+    scratch = None
+    if n_split > 1:
+        scratch = torch.empty(n_split * rows * (C + 2), dtype=torch.float32,
+                              device=q_eff.device)
+    err = _cuda.lib(_SRC).mla_attention_launch(
+        _ptr(q_eff), _ptr(q_pe), _ptr(o), _ptr(m), _ptr(l),
+        _ptr(c_cache_layer), _ptr(pe_cache_layer), _ptr(tables),
+        _ptr(seq_lens), _ptr(hist), _ptr(valid),
+        Ntok if decode else 0, 0 if decode else Ntok, H, N, bs,
+        tables.shape[-1], C, R, float(scale), int(out_f32), rmax, n_split,
+        _ptr(scratch), _cuda.DTYPE_CODES[dt],
+        ctypes.c_void_p(_cuda.stream_ptr(q_eff)),
+    )
+    _cuda.check(err, name)
+    return o, m, l
+
+
+# ---------------- plain PyTorch twins (CPU path + kernel oracle) ----------------
+
+
+def gather_latents(cache_layer: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    """``[1, N, bs, D]`` pages of ``table [..., M]`` -> ``[..., M*bs, D]``
+    (logical positions in order)."""
+    g = cache_layer[0][table.long()]
+    return g.reshape(*table.shape[:-1], -1, cache_layer.shape[-1])
+
+
+def latent_attention(q_eff, q_pe, c, pe, limit, scale):
+    """Row r of ``q [R_, H, *]`` attends positions ``0..limit[r]`` of ``c
+    [R_ or 1, S, C]`` / ``pe``: f32 softmax with the TPU kernels'
+    statistics (``m`` NEG_INF and ``l`` 0 where nothing is attended, ``o``
+    normalized, 0 then). Returns ``o [R_, H, C]`` f32, ``m``/``l`` ``[R_,
+    H]``."""
+    c, pe = c.float(), pe.float()
+    s = (torch.einsum("rhc,rsc->rhs", q_eff.float() * scale, c.expand(q_eff.shape[0], -1, -1))
+         + torch.einsum("rhd,rsd->rhs", q_pe.float() * scale, pe.expand(q_pe.shape[0], -1, -1)))
+    pos = torch.arange(s.shape[-1], device=s.device)
+    valid = (pos[None, :] <= limit[:, None].long())[:, None, :]
+    s = s.masked_fill(~valid, NEG_INF)
+    m = s.amax(-1)
+    p = torch.exp(s - m[..., None]) * valid
+    l = p.sum(-1)
+    o = torch.einsum("rhs,rsc->rhc", p, c.expand(q_eff.shape[0], -1, -1))
+    return o / l.clamp_min(1e-20)[..., None], m, l
+
+
+def mla_paged_decode_attention_plain(
+    q_eff, q_pe, c_cache_layer, pe_cache_layer, block_tables, seq_lens, scale,
+    return_stats: bool = False,
+):
+    """Gather the latent pages through the tables, masked f32 softmax."""
+    o, m, l = latent_attention(
+        q_eff, q_pe, gather_latents(c_cache_layer, block_tables),
+        gather_latents(pe_cache_layer, block_tables), seq_lens.long() - 1,
+        scale,
+    )
+    o = o.to(q_eff.dtype)
+    return (o, m, l) if return_stats else o
+
+
+def mla_paged_prefill_attention_plain(
+    q_eff, q_pe, c_cache_layer, pe_cache_layer, block_table, history_len,
+    scale, valid_len=None,
+):
+    T = q_eff.shape[0]
+    dev = q_eff.device
+    hist = torch.as_tensor(history_len, device=dev).reshape(())
+    t = torch.arange(T, device=dev)
+    limit = hist + t
+    if valid_len is not None:
+        valid = torch.as_tensor(valid_len, device=dev).reshape(())
+        limit = torch.where(t < valid, limit, -1)
+    o, _, _ = latent_attention(
+        q_eff, q_pe, gather_latents(c_cache_layer, block_table)[None],
+        gather_latents(pe_cache_layer, block_table)[None], limit, scale,
+    )
+    return o
+
+
+# ---------------- entry points ----------------
+
+
+def mla_paged_decode_attention(
+    q_eff: torch.Tensor,  # [B, H, C] absorbed queries
+    q_pe: torch.Tensor,  # [B, H, R]
+    c_cache_layer: torch.Tensor,  # [1, N, bs, C]
+    pe_cache_layer: torch.Tensor,  # [1, N, bs, R]
+    block_tables: torch.Tensor,  # [B, M] int32
+    seq_lens: torch.Tensor,  # [B] int32
+    scale: float,
+    pages_per_step: int = 0,
+    return_stats: bool = False,
+):  # [B, H, C] in q's dtype, or (out, m [B, H], l [B, H]) with return_stats
+    """MLA latent decode over ``seq_lens[b]`` cached positions.
+    ``pages_per_step`` is the TPU kernel's DMA grouping and is ignored.
+    Rows with ``seq_len == 0`` return o = 0, m = -1e30, l = 0."""
+    if q_eff.device.type == "cpu":
+        return mla_paged_decode_attention_plain(
+            q_eff, q_pe, c_cache_layer, pe_cache_layer, block_tables,
+            seq_lens, scale, return_stats,
+        )
+    o, m, l = launch_mla_attention(
+        q_eff.contiguous(), q_pe.contiguous(), c_cache_layer, pe_cache_layer,
+        block_tables, scale, seq_lens=seq_lens, stats=return_stats,
+        name="mla_paged_decode_attention",
+    )
+    mla_paged_decode_attention.launches += 1
+    return (o, m, l) if return_stats else o
+
+
+mla_paged_decode_attention.launches = 0
+
+
+def mla_decode_attention_merged(
+    q_eff: torch.Tensor,  # [B, H, C]
+    q_pe: torch.Tensor,  # [B, H, R]
+    c_new: torch.Tensor,  # [B, C] current token's latent (NOT in cache)
+    pe_new: torch.Tensor,  # [B, R] current token's rotated k_pe
+    c_cache_layer: torch.Tensor,  # [1, N, bs, C] history only
+    pe_cache_layer: torch.Tensor,  # [1, N, bs, R]
+    block_tables: torch.Tensor,  # [B, M]
+    hist_lens: torch.Tensor,  # [B] tokens in cache (EXCLUDES current)
+    scale: float,
+) -> torch.Tensor:  # [B, H, C] f32 latent output
+    """MLA decode with the current token handled OUT of the cache: history
+    through the stats-emitting latent kernel, the current token's score
+    ``q_eff . c_new + q_pe . pe_new`` (value ``c_new``, shared by the heads)
+    folded in with the flash merge, so all layers' latent writes batch into
+    one in-place append. ``hist_lens == 0`` rows give ``c_new``."""
+    o_h, m_h, l_h = mla_paged_decode_attention(
+        q_eff, q_pe, c_cache_layer, pe_cache_layer, block_tables, hist_lens,
+        scale, return_stats=True,
+    )
+    s_new = (torch.einsum("bhc,bc->bh", q_eff.float(), c_new.float())
+             + torch.einsum("bhr,br->bh", q_pe.float(), pe_new.float())) * scale
+    m_f = torch.maximum(m_h, s_new)
+    kept = l_h * torch.exp(m_h - m_f)  # history's share of the normalizer
+    p_new = torch.exp(s_new - m_f)
+    num = kept[..., None] * o_h.float() + p_new[..., None] * c_new[:, None, :].float()
+    return num / (kept + p_new)[..., None]  # >= p_new > 0: the token is live
+
+
+def mla_paged_prefill_attention(
+    q_eff: torch.Tensor,  # [T, H, C] chunk's absorbed queries
+    q_pe: torch.Tensor,  # [T, H, R]
+    c_cache_layer: torch.Tensor,  # [1, N, bs, C] — chunk ALREADY written
+    pe_cache_layer: torch.Tensor,  # [1, N, bs, R]
+    block_table: torch.Tensor,  # [M] int32, covers history + padded chunk
+    history_len,  # int, or int32 tensor of one element on q's device
+    scale: float,
+    pages_per_step: int = 0,
+    valid_len=None,  # int or one-element int32 tensor; None = all T rows
+) -> torch.Tensor:  # [T, H, C] f32 latent outputs
+    """Chunked-prefill latent attention over the paged MLA cache
+    (write-before-attend: the caller scattered this chunk's latents first).
+    Row t attends positions ``<= history_len + t``. Padded tail rows are
+    discarded by every caller: as in the JAX kernel they compute values
+    anyway, unless ``valid_len`` (the port's addition) says where the
+    padding starts — then they come out zero and cost nothing."""
+    if q_eff.device.type == "cpu":
+        return mla_paged_prefill_attention_plain(
+            q_eff, q_pe, c_cache_layer, pe_cache_layer, block_table,
+            history_len, scale, valid_len,
+        )
+
+    def dev_i32(x):
+        if torch.is_tensor(x):
+            return x.reshape(1)
+        return torch.tensor([x], dtype=torch.int32, device=q_eff.device)
+
+    o, _, _ = launch_mla_attention(
+        q_eff.contiguous(), q_pe.contiguous(), c_cache_layer, pe_cache_layer,
+        block_table, scale, hist=dev_i32(history_len),
+        valid=None if valid_len is None else dev_i32(valid_len),
+        out_f32=True, name="mla_paged_prefill_attention",
+    )
+    mla_paged_prefill_attention.launches += 1
+    return o
+
+
+mla_paged_prefill_attention.launches = 0

@@ -4,12 +4,13 @@ Counterpart of ``dynamo_tpu/ops/sampling.py``: temperature / top-k / top-p
 / greedy for a whole decode batch with per-request parameters as vectors,
 sampling penalties, and logprobs.
 
-Randomness: the JAX package keys each draw on
-``fold_in(key(seed), step)`` (threefry). The port draws from a per-(request,
-step) ``torch.Generator`` seeded from the same (seed, step) pair
-(:func:`make_keys`), so a seeded request replays deterministically within
-the port but does NOT reproduce the JAX package's token stream. Greedy
-rows are exact: ``torch.argmax`` and ``jnp.argmax`` both return the first
+Randomness reproduces the JAX package bit for bit: each draw is keyed on
+``fold_in(key(seed), step)`` and drawn as ``jax.random.categorical``
+(argmax of the logits plus Gumbel noise from ``jax.random.uniform``), with
+JAX's default threefry2x32 generator in its partitionable form. The
+threefry hash is ported as plain integer tensor ops (uint32 values held in
+int64 tensors), batched over rows, on the tensor's device. Greedy rows are
+exact too: ``torch.argmax`` and ``jnp.argmax`` both return the first
 maximum.
 """
 
@@ -22,49 +23,78 @@ import torch
 NEG_INF = -1e30
 TOPK_LOGPROBS = 20  # OpenAI's top_logprobs cap; the host slices per-request
 
+_M32 = 0xFFFFFFFF
+_ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
+_F32_TINY = torch.finfo(torch.float32).tiny
 
-def make_keys(
-    seeds: Sequence[int], steps: Sequence[int], temps: Sequence[float],
-    device,
-) -> list[Optional[torch.Generator]]:
-    """One generator per row, seeded from (seed, step); None for greedy
-    rows (temperature <= 0), which draw nothing."""
-    out: list[Optional[torch.Generator]] = []
-    for seed, step, t in zip(seeds, steps, temps):
-        if t <= 0.0:
-            out.append(None)
-            continue
-        g = torch.Generator(device=device)
-        g.manual_seed(((int(seed) & 0x7FFFFFFF) << 32) | (int(step) & 0xFFFFFFFF))
-        out.append(g)
-    return out
+
+def _rotl(x: torch.Tensor, r: int) -> torch.Tensor:
+    return ((x << r) | (x >> (32 - r))) & _M32
+
+
+def threefry2x32(k1, k2, x1, x2):
+    """The threefry-2x32 hash (20 rounds, JAX's ``threefry2x32_p``) on
+    uint32 values held in int64 tensors, broadcast together. Returns the
+    two output words."""
+    ks = (k1, k2, k1 ^ k2 ^ 0x1BD11BDA)
+    x1 = (x1 + ks[0]) & _M32
+    x2 = (x2 + ks[1]) & _M32
+    for i in range(5):
+        for r in _ROTATIONS[i % 2]:
+            x1 = (x1 + x2) & _M32
+            x2 = _rotl(x2, r) ^ x1
+        x1 = (x1 + ks[(i + 1) % 3]) & _M32
+        x2 = (x2 + ks[(i + 2) % 3] + (i + 1)) & _M32
+    return x1, x2
+
+
+def make_keys(seeds: Sequence[int], steps: Sequence[int],
+              device="cpu") -> torch.Tensor:
+    """``[B, 2]`` key data, uint32 values in int64:
+    ``key_data(fold_in(key(seed), step))`` per row. ``key(seed)`` of an
+    int32 seed is ``[0, seed]``; folding in ``step`` hashes the counter
+    pair ``(0, step)`` under that key. Computed on the host (B rows) and
+    moved to ``device``."""
+    seed = torch.as_tensor([int(s) & _M32 for s in seeds], dtype=torch.int64)
+    step = torch.as_tensor([int(s) & _M32 for s in steps], dtype=torch.int64)
+    k1, k2 = threefry2x32(torch.zeros_like(seed), seed,
+                          torch.zeros_like(step), step)
+    return torch.stack([k1, k2], dim=-1).to(device)
+
+
+def _uniform(keys: torch.Tensor, V: int, device) -> torch.Tensor:
+    """``jax.random.uniform(key, (V,), minval=tiny, maxval=1)`` per row of
+    ``keys [B, 2]``: the row's bits are the hash of the counter pairs
+    ``(0, i)``, XORed; 23 of them fill a float in [1, 2)."""
+    keys = keys.to(device)
+    i = torch.arange(V, dtype=torch.int64, device=device)[None, :]
+    b1, b2 = threefry2x32(keys[:, :1], keys[:, 1:], torch.zeros_like(i), i)
+    bits = (((b1 ^ b2) >> 9) | 0x3F800000).to(torch.int32)
+    floats = bits.view(torch.float32) - 1.0
+    return torch.clamp_min(floats * (1.0 - _F32_TINY) + _F32_TINY, _F32_TINY)
 
 
 def sample_tokens(
     logits: torch.Tensor,  # [B, V] float32
-    keys: Sequence[Optional[torch.Generator]],  # per row (make_keys)
+    keys: Optional[torch.Tensor],  # [B, 2] key data (make_keys); None = all greedy
     temperature: torch.Tensor,  # [B] 0 => greedy
     top_k: torch.Tensor,  # [B] 0 => disabled
     top_p: torch.Tensor,  # [B] 1.0 => disabled
 ) -> torch.Tensor:  # [B] int32
-    """An all-greedy batch (every key None: make_keys gives greedy rows
-    none) is one argmax and never waits for the card; a filter-free
-    sampled batch skips the full-vocab sort; sampled rows draw a
-    Gumbel-max categorical."""
+    """An all-greedy batch (``keys`` None: callers that know every
+    temperature is 0 make no keys) is one argmax and never waits for the
+    card; a filter-free sampled batch skips the full-vocab sort; sampled
+    rows draw ``jax.random.categorical``: the argmax of Gumbel noise plus
+    the temperature-scaled logits."""
     greedy = torch.argmax(logits, dim=-1).to(torch.int32)
-    if all(g is None for g in keys):
+    if keys is None:
         return greedy
     scaled = logits / temperature.clamp_min(1e-6)[:, None]
     if bool(((top_k > 0) | (top_p < 1.0)).any()):
         scaled = _apply_topk_topp(scaled, top_k, top_p)
-    sampled = greedy.clone()
-    for b, g in enumerate(keys):
-        if g is None:  # a greedy row in a mixed batch
-            continue
-        u = torch.rand(scaled.shape[-1], generator=g, device=logits.device)
-        gumbel = -torch.log(-torch.log(u.clamp(1e-20, 1.0 - 1e-7)))
-        sampled[b] = torch.argmax(scaled[b] + gumbel).to(torch.int32)
-    return sampled
+    gumbel = -torch.log(-torch.log(_uniform(keys, scaled.shape[-1], logits.device)))
+    sampled = torch.argmax(gumbel + scaled, dim=-1).to(torch.int32)
+    return torch.where(temperature <= 0.0, greedy, sampled)
 
 
 def _apply_topk_topp(
@@ -113,7 +143,7 @@ def bump_counts(counts: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
 
 def sample_first_token(
     logits: torch.Tensor,  # [1, V] float32
-    keys: Sequence[Optional[torch.Generator]],  # [1]
+    keys: Optional[torch.Tensor],  # [1, 2] (make_keys); None = greedy
     temperature: torch.Tensor,  # [1]
     top_k: torch.Tensor,
     top_p: torch.Tensor,

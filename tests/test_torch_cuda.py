@@ -78,3 +78,55 @@ def test_cuda_kernels_match_plain_versions():
     kv_cache_append_plain(new[0], new[1], plain[0], plain[1], blk, off)
     torch.cuda.synchronize()
     assert torch.equal(caches, plain)
+
+
+@pytest.mark.cuda
+def test_cuda_mla_kernels_match_plain_versions():
+    """On the card: the latent decode (with stats and an empty slot) and
+    prefill kernels and the append at MLA widths against their plain
+    versions (DeepSeek-V2-Lite widths C=512, R=64, H=16; bf16: 2e-2)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the chip)")
+    from dynamo_tpu_torch.ops import mla_attention as mla
+    from dynamo_tpu_torch.ops.kv_cache_update import kv_cache_append_plain
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(0)
+    H, C, R, bs, M, N = 16, 512, 64, 16, 16, 160
+    cc = torch.randn(1, N, bs, C, generator=g, device=dev).bfloat16()
+    pc = torch.randn(1, N, bs, R, generator=g, device=dev).bfloat16()
+    tables = torch.randperm(N - 1, generator=g, device=dev)[: 9 * M].add(1)
+    tables = tables.reshape(9, M).to(torch.int32)
+    lens = torch.tensor([0, 1, 17, 100, 256, 31, 64, 200], dtype=torch.int32,
+                        device=dev)
+    qe = torch.randn(8, H, C, generator=g, device=dev).bfloat16()
+    qp = torch.randn(8, H, R, generator=g, device=dev).bfloat16()
+    scale = 0.05
+    tol = dict(atol=2e-2, rtol=2e-2)
+    got = mla.mla_paged_decode_attention(qe, qp, cc, pc, tables[:8], lens, scale,
+                                         return_stats=True)
+    ref = mla.mla_paged_decode_attention_plain(qe, qp, cc, pc, tables[:8], lens,
+                                               scale, return_stats=True)
+    torch.testing.assert_close(got[0].float(), ref[0].float(), **tol)
+    torch.testing.assert_close(got[1], ref[1], rtol=1e-3, atol=1e-3)
+    torch.testing.assert_close(got[2], ref[2], rtol=1e-3, atol=1e-3)
+    qe = torch.randn(64, H, C, generator=g, device=dev).bfloat16()
+    qp = torch.randn(64, H, R, generator=g, device=dev).bfloat16()
+    hist = torch.tensor([100], dtype=torch.int32, device=dev)
+    for valid in (None, 50):
+        torch.testing.assert_close(
+            mla.mla_paged_prefill_attention(qe, qp, cc, pc, tables[8], hist,
+                                            scale, valid_len=valid),
+            mla.mla_paged_prefill_attention_plain(qe, qp, cc, pc, tables[8],
+                                                  hist, scale, valid), **tol)
+    c_new = torch.randn(3, 8, 1, C, generator=g, device=dev).bfloat16()
+    pe_new = torch.randn(3, 8, 1, R, generator=g, device=dev).bfloat16()
+    kc = torch.randn(3, 1, 12, bs, C, generator=g, device=dev).bfloat16()
+    vc = torch.randn(3, 1, 12, bs, R, generator=g, device=dev).bfloat16()
+    kp, vp = kc.clone(), vc.clone()
+    blk = torch.arange(1, 9, dtype=torch.int32, device=dev)
+    off = torch.arange(8, dtype=torch.int32, device=dev)
+    kv_cache_append(c_new, pe_new, kc, vc, blk, off)
+    kv_cache_append_plain(c_new, pe_new, kp, vp, blk, off)
+    torch.cuda.synchronize()
+    assert torch.equal(kc, kp) and torch.equal(vc, vp)

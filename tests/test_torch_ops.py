@@ -249,8 +249,8 @@ def test_sampling_ops_match_jax():
            jsamp.apply_penalties(*_j(logits, counts, mask, *pens)))
     zeros = np.zeros(B, np.float32)
     greedy = sampling.sample_tokens(
-        *_t(logits), [None] * B, *_t(zeros, zeros.astype(np.int32),
-                                     np.ones(B, np.float32)))
+        *_t(logits), None, *_t(zeros, zeros.astype(np.int32),
+                               np.ones(B, np.float32)))
     jgreedy = jsamp.sample_tokens(
         *_j(logits), jsamp.make_keys(jnp.zeros(B, jnp.int32),
                                      jnp.zeros(B, jnp.int32)),
@@ -266,7 +266,7 @@ def test_sampling_ops_match_jax():
     _close(top, jtop, rtol=1e-5, atol=1e-5)
     # tied logits may list in either order
     np.testing.assert_array_equal(np.sort(ids.numpy()), np.sort(np.asarray(jids)))
-    # top-k/top-p masks agree; a seeded row replays within the port
+    # top-k/top-p masks agree; a seeded row replays, and draws JAX's token
     tk = np.asarray([3, 0, 5, 0], np.int32)
     tp = np.asarray([1.0, 0.5, 0.9, 1.0], np.float32)
     _close(sampling._apply_topk_topp(*_t(logits, tk, tp)),
@@ -274,8 +274,13 @@ def test_sampling_ops_match_jax():
     temps = np.full(B, 0.7, np.float32)
     draws = [
         sampling.sample_tokens(
-            *_t(logits), sampling.make_keys([11] * B, [3] * B, temps, "cpu"),
+            *_t(logits), sampling.make_keys([11] * B, [3] * B),
             *_t(temps, tk, tp)).tolist()
         for _ in range(2)
     ]
     assert draws[0] == draws[1]
+    jdraw = jsamp.sample_tokens(
+        *_j(logits), jsamp.make_keys(jnp.full(B, 11, jnp.int32),
+                                     jnp.full(B, 3, jnp.int32)),
+        *_j(temps, tk, tp))
+    assert draws[0] == np.asarray(jdraw).tolist()
