@@ -10,28 +10,40 @@ Phases, in order; any failure raises and the script exits non-zero:
      nvcc per source, in parallel) with its ptxas register report;
   2. kernel vs plain: each kernel entry point against its plain PyTorch
      version on the same inputs, the GQA kernels at the Llama-3-8B shapes
-     (H=32, Hkv=8, D=128, bs=16, bf16) and the MLA latent kernels at the
-     DeepSeek-V2-Lite shapes (H=16, C=512, R=64, bs=16, bf16); attention
-     outputs within atol=rtol=2e-2 (bf16 output, sums in another order),
-     (m, l) within rtol=1e-3 (f32, the order of the sums only), the KV
-     append bit-exact at both the GQA and the MLA widths; plus two tiny
-     models (dense GQA, and MLA + MoE) through prefill / mixed step /
+     (H=32, Hkv=8, D=128, bs=16, bf16; also over int8 pages with per-page
+     scales) and the MLA latent kernels at the DeepSeek-V2-Lite shapes
+     (H=16, C=512, R=64, bs=16, bf16); attention outputs within
+     atol=rtol=2e-2 (bf16 output, sums in another order), (m, l) within
+     rtol=1e-3 (f32, the order of the sums only), the KV append bit-exact
+     at both the GQA and the MLA widths and the quantized append bit-exact
+     at the Llama widths (the trash page 0 excluded); the int8/fp8 grouped
+     GEMM at DeepSeek-V2-Lite's expert shapes (64 experts, 2048 x 1408 and
+     1408 x 2048; 48 decode rows and 7206 prefill rows) within 2e-2 of its
+     plain twin, unowned rows exactly 0; the int8_native ``_mm``
+     (torch._int_mm) on the card against the CPU's int32 product; plus
+     four tiny models (dense GQA, MLA + MoE, and each again quantized:
+     int8 KV + fp8 weights, int8 experts) through prefill / mixed step /
      decode window on the card against the same functions on the CPU
      (f32, TF32 off);
-  3. serving: the port's OpenAI HTTP service in-process, first on
-     llama3-8b-sim, then (after its memory is freed) on
-     deepseek-v2-lite-sim (random weights from a seed, byte tokenizer,
-     full width and depth) at the reference defaults — one request alone
-     (the dedicated prefill), then several more of 64-1500 bytes while it
-     decodes (fused mixed steps), one of them a streaming chat; every
-     response must be 200 and non-empty, and every kernel of the model's
-     path, its launch counter zeroed just before the drive, must have
-     launched;
+  3. serving: the port's OpenAI HTTP service in-process, four drives one
+     after the other (each model's memory freed before the next):
+     llama3-8b-sim, deepseek-v2-lite-sim, deepseek-v2-lite-sim with int8
+     weights (experts through ragged_int8_gmm), llama3-8b-sim with fp8
+     weights and the int8 KV cache (random weights from a seed, byte
+     tokenizer, full width and depth) at the reference defaults — one
+     request alone (the dedicated prefill), then several more of 64-1500
+     bytes while it decodes (fused mixed steps), one of them a streaming
+     chat; every response must be 200 and non-empty, and every kernel of
+     the drive's path, its launch counter zeroed just before the drive,
+     must have launched; then each drive's step anatomy, and the dense
+     projections' cost per decode step in each weight form (bf16 drive)
+     or the plain dequantize's (quantized drives);
   4. timing: median time per launch of each kernel with L2 flushed
      between launches, its plain version's and a library yardstick's
-     (scaled_dot_product_attention / index_put_, timed only, never used by
-     the port), and the least time the card could take (bytes over
-     3.35 TB/s or operations over 989 TFLOP/s, from this run's inputs).
+     (scaled_dot_product_attention / index_put_ / torch._grouped_mm over
+     the dequantized bf16 experts, timed only, never used by the port),
+     and the least time the card could take (bytes over 3.35 TB/s or
+     operations over 989 TFLOP/s, from this run's inputs).
 
 The second-to-last lines are the ``{"kernels": [...]}`` JSON and the
 card's ``nvidia-smi`` name and power limit; the last line is
@@ -78,7 +90,34 @@ KERNELS = {
         "dynamo_tpu_torch/csrc/mla_attention.cu",
         "dynamo_tpu/ops/mla_attention_pallas.py:375",
     ),
+    "ragged_int8_gmm": (
+        "dynamo_tpu_torch/csrc/moe_gmm.cu",
+        "dynamo_tpu/ops/moe_gmm_pallas.py:137",
+    ),
+    "ragged_int8_gmm (prefill rows)": (
+        "dynamo_tpu_torch/csrc/moe_gmm.cu",
+        "dynamo_tpu/ops/moe_gmm_pallas.py:137",
+    ),
+    "kv_cache_append_quantized": (
+        "dynamo_tpu_torch/csrc/kv_cache_append.cu",
+        "dynamo_tpu/ops/kv_cache_update_pallas.py:273",
+    ),
+    "paged_decode_attention (int8 KV)": (
+        "dynamo_tpu_torch/csrc/paged_attention.cu",
+        "dynamo_tpu/ops/paged_attention_pallas.py:184",
+    ),
+    "paged_prefill_attention (int8 KV)": (
+        "dynamo_tpu_torch/csrc/paged_attention.cu",
+        "dynamo_tpu/ops/paged_attention_pallas.py:440",
+    ),
+    "ragged_mixed_attention (int8 KV)": (
+        "dynamo_tpu_torch/csrc/paged_attention.cu",
+        "dynamo_tpu/ops/ragged_paged_attention_pallas.py:225",
+    ),
 }
+#: the int8-KV variant of each GQA kernel shares the kernel's counter; the
+#: int8-KV drive's launches land under the variant's name
+INT8_KV = " (int8 KV)"
 
 
 def log(*a):
@@ -133,19 +172,47 @@ class KernelInputs:
         self.a_blk = (torch.randperm(255, generator=g, device=dev)[:8] + 1).to(torch.int32)
         self.a_off = torch.randint(0, bs, (8,), generator=g, device=dev,
                                    dtype=torch.int32)
+        self.sc = {}  # per-page scales of an int8 cache (see scaled())
+
+    def scaled(self):
+        """The same queries and tables over an int8 copy of the caches with
+        one f32 absmax scale per page (K and V): the int8-KV variants."""
+        import copy
+
+        torch = self.torch
+        other = copy.copy(self)
+        for name, skey in (("kc", "k_scales"), ("vc", "v_scales")):
+            c = getattr(self, name).float()  # [Hkv, N, bs, D]
+            s = (c.abs().amax(dim=(0, 2, 3)) / 127.0).clamp_min(1e-12)  # [N]
+            q = torch.clamp(torch.round(c / s[None, :, None, None]), -127, 127)
+            setattr(other, name, q.to(torch.int8))
+            other.sc = {**other.sc, skey: s}
+        return other
+
+    def dequantized(self):
+        """The int8 caches dequantized to bf16 (the library yardstick's
+        inputs; built outside any timed span)."""
+        import copy
+
+        other = copy.copy(self)
+        other.kc = (self.kc.float() * self.sc["k_scales"][None, :, None, None]).bfloat16()
+        other.vc = (self.vc.float() * self.sc["v_scales"][None, :, None, None]).bfloat16()
+        other.sc = {}
+        return other
 
     # one call of each entry point, kernel or plain
     def decode(self, fn):
         return fn(self.q_dec, self.kc, self.vc, self.d_tables, self.d_lens,
-                  self.scale, return_stats=True)
+                  self.scale, return_stats=True, **self.sc)
 
     def prefill(self, fn):
-        return fn(self.q_pre, self.kc, self.vc, self.p_table, self.hist, self.scale)
+        return fn(self.q_pre, self.kc, self.vc, self.p_table, self.hist, self.scale,
+                  **self.sc)
 
     def ragged(self, fn):
         return fn(self.q_dec, self.q_chunks, self.kc, self.vc, self.d_tables,
                   self.d_lens, self.r_tables, self.r_hists, self.r_valids,
-                  self.scale)
+                  self.scale, **self.sc)
 
     # (m, l) of a prefill / ragged launch against the plain softmax
     # statistics: o within 2e-2 cannot tell a dropped page or a causal edge
@@ -156,7 +223,7 @@ class KernelInputs:
         G = self.H // self.Hkv
         _, m, l = pa.launch_paged_attention(
             q.reshape(-1, self.Hkv, G, self.D), self.kc, self.vc, self.scale,
-            T=T, Tq=pa.prefill_q_tile(G), stats=True, **tables)
+            T=T, Tq=pa.prefill_q_tile(G), stats=True, **tables, **self.sc)
         return m, l
 
     def plain_stats(self, q, table, limit):
@@ -164,7 +231,8 @@ class KernelInputs:
         row r attending positions ``0..limit[r]``."""
         from dynamo_tpu_torch.ops import paged_attention as pa
 
-        k, v = pa.gather_pages(self.kc, table), pa.gather_pages(self.vc, table)
+        k = pa.gather_pages(self.kc, table, self.sc.get("k_scales"))
+        v = pa.gather_pages(self.vc, table, self.sc.get("v_scales"))
         if table.dim() == 1:
             k, v = k[:, None], v[:, None]
         qg = q.reshape(q.shape[0], self.Hkv, -1, self.D).float() * self.scale
@@ -263,6 +331,142 @@ class MlaInputs:
                   self.a_vc if vc is None else vc, self.a_blk, self.a_off)
 
 
+class QuantInputs:
+    """Inputs of the two quantized-path kernels. ragged_int8_gmm at
+    DeepSeek-V2-Lite's expert shapes (64 experts; gate/up K=2048, N=1408;
+    down K=1408, N=2048) with int8 and fp8 codes of random bf16 weights,
+    bf16 rows routed top-6 by random scores: 8 decode tokens (48 rows) and
+    a 1201-token prefill (7206 rows), each with 16 rows no expert owns.
+    kv_cache_append_quantized at Llama-3-8B's widths (L=32, B=8, Hkv=8,
+    D=128, bs=16) over a 256-page int8 pool whose per-page scales are
+    those of random bf16 pages; two padded rows share the trash page 0."""
+
+    SHAPES = dict(X=64, E=2048, F=1408, prefill_tokens=1201, L=32, N=256)
+
+    def __init__(self, torch, dev):
+        from dynamo_tpu_torch.models.quant import quantize_array
+
+        self.torch = torch
+        g = torch.Generator(device=dev).manual_seed(2)
+        X, E, F = (self.SHAPES[k] for k in ("X", "E", "F"))
+        self.codes = {}
+        for mode in ("int8", "fp8_e4m3"):
+            for proj, (K, N) in (("gate", (E, F)), ("down", (F, E))):
+                w = torch.randn(X, K, N, generator=g, device=dev).bfloat16()
+                qw = quantize_array(w, mode)
+                self.codes[mode, proj] = (qw["q"], qw["s"])
+                del w
+        self.rows = {}
+        for label, tokens in (("decode", 8), ("prefill", self.SHAPES["prefill_tokens"])):
+            scores = torch.rand(tokens, X, generator=g, device=dev)
+            experts = scores.topk(6, dim=-1).indices.reshape(-1)
+            sizes = torch.bincount(experts, minlength=X)
+            R = int(sizes.sum()) + 16
+            lhs = {K: torch.randn(R, K, generator=g, device=dev).bfloat16()
+                   for K in (E, F)}
+            self.rows[label] = (lhs, sizes)
+        L, B, Hkv, D, N, bs = self.SHAPES["L"], 8, 8, 128, self.SHAPES["N"], 16
+        pages = torch.randn(2, L, Hkv, N, bs, D, generator=g, device=dev)
+        self.scales = (pages.abs().amax(dim=(2, 4, 5)) / 127.0).contiguous()  # [2, L, N]
+        self.caches = torch.clamp(torch.round(
+            pages / self.scales[:, :, None, :, None, None]), -127, 127).to(torch.int8)
+        del pages
+        self.k_new = torch.randn(L, B, Hkv, D, generator=g, device=dev).bfloat16()
+        self.v_new = torch.randn(L, B, Hkv, D, generator=g, device=dev).bfloat16()
+        blk = torch.randperm(N - 1, generator=g, device=dev)[:B] + 1
+        blk[[2, 6]] = 0  # padded rows: the trash page
+        self.blk = blk.to(torch.int32)
+        self.off = torch.randint(0, bs, (B,), generator=g, device=dev,
+                                 dtype=torch.int32)
+
+    def gmm(self, fn, label="decode", mode="int8", proj="gate"):
+        lhs, sizes = self.rows[label]
+        q, sc = self.codes[mode, proj]
+        return fn(lhs[q.shape[1]], q, sc, sizes)
+
+    def append(self, fn, caches=None):
+        c = self.caches if caches is None else caches
+        return fn(self.k_new, self.v_new, c[0], c[1], self.scales[0],
+                  self.scales[1], self.blk, self.off)
+
+    def rmw(self, fn, caches):
+        """The page read-modify-write alone, on the rows and ratios that the
+        scale math gives for these inputs."""
+        from dynamo_tpu_torch.ops.kv_cache_update import quant_scale_update
+
+        if not hasattr(self, "_rmw"):
+            _, rk, kq = quant_scale_update(self.k_new, self.scales[0], self.blk)
+            _, rv, vq = quant_scale_update(self.v_new, self.scales[1], self.blk)
+            self._rmw = (kq, vq, rk, rv)
+        kq, vq, rk, rv = self._rmw
+        return fn(kq, vq, caches[0], caches[1], rk, rv, self.blk, self.off)
+
+
+def check_quant_kernels(torch, qi: QuantInputs) -> dict:
+    """The grouped GEMM (both codes, both projections, decode and prefill
+    rows) against its plain twin at 2e-2 with the unowned rows exactly 0,
+    and the quantized append bit-exact (page 0 excluded)."""
+    from dynamo_tpu_torch.ops import kv_cache_update as kvu
+    from dynamo_tpu_torch.ops import moe_gmm
+
+    errs = {}
+    for label in ("decode", "prefill"):
+        for mode in ("int8", "fp8_e4m3"):
+            for proj in ("gate", "down"):
+                got = qi.gmm(moe_gmm.ragged_int8_gmm, label, mode, proj)
+                ref = qi.gmm(moe_gmm.ragged_int8_plain, label, mode, proj)
+                torch.cuda.synchronize()
+                owned = int(qi.rows[label][1].sum())
+                if not bool((got[owned:] == 0).all()):
+                    raise AssertionError(f"ragged_int8_gmm {label}: unowned rows "
+                                         "must be exactly 0")
+                err = close(f"ragged_int8_gmm {label} {mode} {proj}", got, ref,
+                            2e-2, 2e-2)
+                key = "ragged_int8_gmm" + ("" if label == "decode" else " (prefill rows)")
+                errs[key] = max(errs.get(key, 0.0), err)
+                log(f"  ragged_int8_gmm {label} ({got.shape[0]} rows) {mode} "
+                    f"{proj}: kernel vs plain max |err| {err:.3e}  OK")
+    caches = qi.caches.clone()
+    got = qi.append(kvu.kv_cache_append_quantized, caches)
+    plain = qi.caches.clone()
+    ref = qi.append(kvu.kv_cache_append_quantized_plain, plain)
+    torch.cuda.synchronize()
+    if not (torch.equal(caches[:, :, :, 1:], plain[:, :, :, 1:])
+            and torch.equal(got[2], ref[2]) and torch.equal(got[3], ref[3])
+            and int(got[4]) == int(ref[4])):
+        raise AssertionError("kv_cache_append_quantized: not bit-exact with "
+                             "its plain twin")
+    errs["kv_cache_append_quantized"] = 0.0
+    log(f"  kv_cache_append_quantized (L=32, B=8, {int(got[4])} scale entries "
+        "grew): bit-exact except the trash page  OK")
+    return errs
+
+
+def check_int8_native_mm(torch, dev) -> None:
+    """``_mm`` with int8_native weights (Llama-3-8B's wo, 4096 x 4096) on
+    the card (``torch._int_mm`` on the column-major codes, 8 and 40 rows)
+    against the same function on the CPU (an int32 product): the same
+    activation codes and exact integer sums, so equal to f32 rounding of
+    the epilogue (rtol 1e-6). A tiny model is no test of this: its f32
+    activations round apart between the two devices, and a code that
+    flips moves the logits by a quantization step."""
+    from dynamo_tpu_torch.models.llama import _mm
+    from dynamo_tpu_torch.models.quant import quantize_array
+
+    gen = torch.Generator(device=dev).manual_seed(4)
+    w = quantize_array(torch.randn(4096, 4096, generator=gen, device=dev,
+                                   dtype=torch.bfloat16) * 0.02, "int8_native")
+    assert w["qn"].stride() == (1, 4096)
+    cw = {k: v.cpu() for k, v in w.items()}
+    for rows in (8, 40):
+        x = torch.randn(rows, 4096, generator=gen, device=dev, dtype=torch.bfloat16)
+        got = _mm(x, w)
+        ref = _mm(x.cpu(), cw)
+        err = close(f"int8_native _mm, {rows} rows", got.cpu(), ref, 1e-6, 1e-6)
+        log(f"  int8_native _mm (torch._int_mm), {rows} rows x 4096 x 4096: card "
+            f"vs CPU max |err| {err:.3e}  OK")
+
+
 def close(name, got, ref, rtol, atol):
     """Max |got - ref|; raises when any element is outside rtol/atol."""
     err = (got.float() - ref.float()).abs()
@@ -314,8 +518,9 @@ def check_mla_kernels(torch, mi: MlaInputs) -> dict:
     return errs
 
 
-def check_kernels(torch, dev, inp: KernelInputs) -> dict:
-    from dynamo_tpu_torch.ops import kv_cache_update as kvu
+def check_attention(torch, inp: KernelInputs, tag: str = "") -> dict:
+    """The three GQA attention entry points against their plain versions
+    (outputs 2e-2, (m, l) 1e-3, the empty slot's o=0, m=-1e30, l=0)."""
     from dynamo_tpu_torch.ops import paged_attention as pa
     from dynamo_tpu_torch.ops import ragged_paged_attention as rpa
 
@@ -323,24 +528,32 @@ def check_kernels(torch, dev, inp: KernelInputs) -> dict:
     o, m, l = inp.decode(pa.paged_decode_attention)
     ro, rm, rl = inp.decode(pa.paged_decode_attention_plain)
     torch.cuda.synchronize()
-    errs["paged_decode_attention"] = close("decode o", o, ro, 2e-2, 2e-2)
-    close_stats("decode", (m, l), (rm, rl))
+    errs["paged_decode_attention" + tag] = close("decode o" + tag, o, ro, 2e-2, 2e-2)
+    close_stats("decode" + tag, (m, l), (rm, rl))
     if not (bool((o[7] == 0).all()) and bool((m[7] == -1e30).all())
             and bool((l[7] == 0).all())):
         raise AssertionError("decode: the empty slot must give o=0, m=-1e30, l=0")
     got = inp.prefill(pa.paged_prefill_attention)
     ref = inp.prefill(pa.paged_prefill_attention_plain)
     torch.cuda.synchronize()
-    errs["paged_prefill_attention"] = close("prefill", got, ref, 2e-2, 2e-2)
-    close_stats("prefill", *inp.prefill_stats())
+    errs["paged_prefill_attention" + tag] = close("prefill" + tag, got, ref, 2e-2, 2e-2)
+    close_stats("prefill" + tag, *inp.prefill_stats())
     got = inp.ragged(rpa.ragged_mixed_attention)
     ref = inp.ragged(rpa.ragged_mixed_attention_plain)
     torch.cuda.synchronize()
-    errs["ragged_mixed_attention"] = max(
-        close("ragged decode rows", got[0], ref[0], 2e-2, 2e-2),
-        close("ragged segments", got[1], ref[1], 2e-2, 2e-2),
+    errs["ragged_mixed_attention" + tag] = max(
+        close("ragged decode rows" + tag, got[0], ref[0], 2e-2, 2e-2),
+        close("ragged segments" + tag, got[1], ref[1], 2e-2, 2e-2),
     )
-    close_stats("ragged", *inp.ragged_stats())
+    close_stats("ragged" + tag, *inp.ragged_stats())
+    return errs
+
+
+def check_kernels(torch, dev, inp: KernelInputs) -> dict:
+    from dynamo_tpu_torch.ops import kv_cache_update as kvu
+
+    errs = {**check_attention(torch, inp),
+            **check_attention(torch, inp.scaled(), INT8_KV)}
     kc, vc = inp.a_kc.clone(), inp.a_vc.clone()
     inp.append(kvu.kv_cache_append, kc, vc)
     inp.append(kvu.kv_cache_append_plain)
@@ -354,26 +567,39 @@ def check_kernels(torch, dev, inp: KernelInputs) -> dict:
 
 
 def tiny_models():
-    """(label, config) of the two tiny models held on the card to the CPU:
-    dense GQA, and MLA (q-lora, the kernel's R=64 and smallest C=128) with
-    one dense layer then MoE (8 experts top-2, one shared)."""
+    """(label, config, weight quantization, int8 KV cache) of the tiny
+    models held on the card to the CPU: dense GQA, and MLA (q-lora, the
+    kernel's R=64 and smallest C=128) with one dense layer then MoE (8
+    experts top-2, one shared); then each again on the quantized path."""
     from dynamo_tpu_torch.models.config import ModelConfig
 
+    gqa = ModelConfig.tiny(dtype="float32", head_dim=64, num_heads=8,
+                           num_kv_heads=2, hidden_size=128)
+    mla = ModelConfig.tiny_mla(
+        dtype="float32", kv_lora_rank=128, qk_rope_head_dim=64,
+        num_layers=3, first_dense_layers=1, num_experts=8,
+        num_experts_per_tok=2, num_shared_experts=1,
+        moe_intermediate_size=32)
     return [
-        ("tiny GQA", ModelConfig.tiny(dtype="float32", head_dim=64, num_heads=8,
-                                      num_kv_heads=2, hidden_size=128)),
-        ("tiny MLA+MoE", ModelConfig.tiny_mla(
-            dtype="float32", kv_lora_rank=128, qk_rope_head_dim=64,
-            num_layers=3, first_dense_layers=1, num_experts=8,
-            num_experts_per_tok=2, num_shared_experts=1,
-            moe_intermediate_size=32)),
+        ("tiny GQA", gqa, "none", False),
+        ("tiny MLA+MoE", mla, "none", False),
+        ("tiny GQA, fp8 weights + int8 KV", gqa, "fp8_e4m3", True),
+        ("tiny MLA+MoE, int8 weights", mla, "int8", False),
     ]
 
 
-def check_model_on_card(torch, dev, label, cfg):
+def to_device(tree, dev):
+    if isinstance(tree, dict):
+        return {k: to_device(v, dev) for k, v in tree.items()}
+    return tree.to(dev)
+
+
+def check_model_on_card(torch, dev, label, cfg, quantization="none",
+                        kv_int8=False):
     """A tiny model's three main-path functions on the card (kernels)
     against the same functions on the CPU (plain versions), f32."""
     from dynamo_tpu_torch.models import llama
+    from dynamo_tpu_torch.models.quant import KV_SCALE_EPS, quantize_params
 
     params = llama.init_params(cfg, torch.Generator().manual_seed(1), "cpu")
     # weights x5 (std 0.1): decisive logits and expert routing, so a token
@@ -381,16 +607,21 @@ def check_model_on_card(torch, dev, label, cfg):
     params = {k: ({kk: vv * (5.0 if vv.dim() > 1 else 1.0) for kk, vv in v.items()}
                   if isinstance(v, dict) else v * (5.0 if v.dim() > 1 else 1.0))
               for k, v in params.items()}
-    gparams = {k: ({kk: vv.to(dev) for kk, vv in v.items()} if isinstance(v, dict)
-                   else v.to(dev)) for k, v in params.items()}
-    kc, vc = llama.init_kv_cache(cfg, 64, 16)
+    params = quantize_params(params, cfg, quantization)
+    gparams = to_device(params, dev)
+    kc, vc = llama.init_kv_cache(cfg, 64, 16, dtype=torch.int8 if kv_int8 else None)
     gkc, gvc = kc.to(dev), vc.to(dev)
+    planes = {}
+    if kv_int8:
+        planes = {k: torch.full((cfg.num_layers, 64), KV_SCALE_EPS)
+                  for k in ("k_scales", "v_scales")}
+    gplanes = {k: v.to(dev) for k, v in planes.items()}
     gen = torch.Generator().manual_seed(2)
     toks = torch.randint(0, cfg.vocab_size, (64,), generator=gen, dtype=torch.int32)
     table = torch.arange(1, 9, dtype=torch.int32)
-    lc, _, _ = llama.prefill(params, cfg, toks, table, 0, 50, kc, vc)
-    lg, _, _ = llama.prefill(gparams, cfg, toks.to(dev), table.to(dev), 0, 50,
-                             gkc, gvc)
+    lc = llama.prefill(params, cfg, toks, table, 0, 50, kc, vc, **planes)[0]
+    lg = llama.prefill(gparams, cfg, toks.to(dev), table.to(dev), 0, 50,
+                       gkc, gvc, **gplanes)[0]
     err = float((lg.cpu() - lc).abs().max())
     if not (bool(torch.isfinite(lg).all()) and err < 1e-3):
         raise AssertionError(f"{label} prefill on the card: max |dlogit| {err}")
@@ -407,14 +638,15 @@ def check_model_on_card(torch, dev, label, cfg):
     pre = (p_tok, p_tab, torch.tensor([0], dtype=torch.int32),
            torch.tensor([30], dtype=torch.int32))
     outs = []
-    for where, p, k, v in (("cpu", params, kc, vc), (dev, gparams, gkc, gvc)):
+    for where, p, k, v, pk in (("cpu", params, kc, vc, planes),
+                               (dev, gparams, gkc, gvc, gplanes)):
         mv = lambda t: t.to(where)  # noqa: E731
-        nxt, pl, _, _ = llama.mixed_step(
+        nxt, pl = llama.mixed_step(
             p, cfg, *map(mv, args), z["seeds"], z["steps"], *map(mv, samp),
-            *map(mv, pre), k, v)
+            *map(mv, pre), k, v, **pk)[:2]
         toks_w = llama.decode_window(
             p, cfg, nxt, mv(d_lens), mv(d_tables), mv(d_lens + 1),
-            z["seeds"], z["steps"], *map(mv, samp), k, v, n_steps=3)[0]
+            z["seeds"], z["steps"], *map(mv, samp), k, v, n_steps=3, **pk)[0]
         outs.append((nxt.cpu(), pl.cpu(), toks_w.cpu()))
     (n0, p0, w0), (n1, p1, w1) = outs
     perr = float((p1 - p0).abs().max())
@@ -483,9 +715,14 @@ async def http_request(port: int, path: str, body: dict):
 
 def drives():
     """The serving drives in order: (served name, config, engine geometry,
-    the kernel wrappers the model's path must launch)."""
+    the kernel wrappers the model's path must launch; a wrapper, or a
+    (wrapper, counter attribute) pair for a counter other than
+    ``launches``)."""
     from dynamo_tpu_torch.models.config import ModelConfig, deepseek_v2_lite
-    from dynamo_tpu_torch.ops.kv_cache_update import kv_cache_append
+    from dynamo_tpu_torch.ops.kv_cache_update import (
+        kv_cache_append,
+        kv_cache_append_quantized,
+    )
     from dynamo_tpu_torch.ops.mla_attention import (
         mla_paged_decode_attention,
         mla_paged_prefill_attention,
@@ -494,8 +731,14 @@ def drives():
         paged_decode_attention,
         paged_prefill_attention,
     )
+    from dynamo_tpu_torch.ops.moe_gmm import ragged_int8_gmm
     from dynamo_tpu_torch.ops.ragged_paged_attention import ragged_mixed_attention
 
+    v2 = dict(num_blocks=4096, block_size=16, max_batch_size=8, decode_window=4,
+              max_context=8192)
+    mla_path = {"mla_paged_decode_attention": mla_paged_decode_attention,
+                "mla_paged_prefill_attention": mla_paged_prefill_attention,
+                "kv_cache_append": kv_cache_append}
     return [
         # reference defaults (block 16, batch 8, window 4, chunk 2048, 4
         # prompts per fused step); a 4096-page pool = 8 GiB of GQA KV, or
@@ -506,12 +749,22 @@ def drives():
           "paged_prefill_attention": paged_prefill_attention,
           "ragged_mixed_attention": ragged_mixed_attention,
           "kv_cache_append": kv_cache_append}),
-        ("deepseek-v2-lite-sim", deepseek_v2_lite(),
+        ("deepseek-v2-lite-sim", deepseek_v2_lite(), v2, mla_path),
+        # int8 weights: the experts through ragged_int8_gmm, the MLA
+        # projections, shared experts and the dense layer through _mm's
+        # {"q", "s"}; the latent cache stays bf16 (MLA refuses int8 KV)
+        ("deepseek-v2-lite-sim", deepseek_v2_lite(), {**v2, "quantization": "int8"},
+         {**mla_path, "ragged_int8_gmm": ragged_int8_gmm,
+          "ragged_int8_gmm (prefill rows)": (ragged_int8_gmm, "prefill_launches")}),
+        # fp8 weights through _mm and the int8-with-scales KV cache: the
+        # scaled GQA kernels and the quantized append
+        ("llama3-8b-sim", ModelConfig.llama3_8b(),
          dict(num_blocks=4096, block_size=16, max_batch_size=8, decode_window=4,
-              max_context=8192),
-         {"mla_paged_decode_attention": mla_paged_decode_attention,
-          "mla_paged_prefill_attention": mla_paged_prefill_attention,
-          "kv_cache_append": kv_cache_append}),
+              quantization="fp8_e4m3", kv_cache_dtype="int8"),
+         {"paged_decode_attention" + INT8_KV: paged_decode_attention,
+          "paged_prefill_attention" + INT8_KV: paged_prefill_attention,
+          "ragged_mixed_attention" + INT8_KV: ragged_mixed_attention,
+          "kv_cache_append_quantized": kv_cache_append_quantized}),
     ]
 
 
@@ -529,14 +782,24 @@ async def serve(torch, dev, card: str, name: str, cfg, geometry: dict,
 
     t0 = time.perf_counter()
     params = init_random_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
-    engine = TorchEngine(EngineConfig(model=cfg, **geometry), params=params,
-                         device=dev)
-    torch.cuda.synchronize()
     n_params = sum(t.numel() for v in params.values()
                    for t in (v.values() if isinstance(v, dict) else [v]))
-    log(f"  {name}: {n_params / 1e9:.2f}B params, {cfg.num_layers} layers, KV "
-        f"pool {(engine.k_cache.nbytes + engine.v_cache.nbytes) / 2**30:.2f} "
-        f"GiB, ready in {time.perf_counter() - t0:.3f} s")
+    engine = TorchEngine(EngineConfig(model=cfg, **geometry), params=params,
+                         device=dev)
+    # the engine serves its own (possibly quantized) weights: drop the
+    # full-width ones it replaced
+    params = engine.params
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    planes = ({} if engine.k_scales is None else
+              {"k_scales": engine.k_scales, "v_scales": engine.v_scales})
+    quant = geometry.get("quantization", "none")
+    log(f"  {name} (weights {quant}, KV {engine.k_cache.dtype}): "
+        f"{n_params / 1e9:.2f}B params, {cfg.num_layers} layers, weights "
+        f"{engine._hbm_stats()['weights'] / 2**30:.2f} GiB, KV pool "
+        f"{engine._hbm_stats()['kv_pool'] / 2**30:.2f} GiB, ready in "
+        f"{time.perf_counter() - t0:.3f} s")
     manager = ModelManager()
     worker = OpenAIWorkerEngine(ByteTokenizer(), engine)
     manager.add_chat_model(name, worker)
@@ -551,8 +814,10 @@ async def serve(torch, dev, card: str, name: str, cfg, geometry: dict,
             "temperature": 0.0, "stream": stream, "nvext": {"ignore_eos": True},
         }
 
-    for f in counted.values():
-        f.launches = 0
+    counters = {k: c if isinstance(c, tuple) else (c, "launches")
+                for k, c in counted.items()}
+    for f, attr in counters.values():
+        setattr(f, attr, 0)
     try:
         t_start = time.perf_counter()
         # one request alone: the dedicated prefill program
@@ -572,7 +837,7 @@ async def serve(torch, dev, card: str, name: str, cfg, geometry: dict,
     finally:
         await svc.close()
         await engine.close()
-    launches = {k: f.launches for k, f in counted.items()}
+    launches = {k: getattr(f, attr) for k, (f, attr) in counters.items()}
     for i, (status, text, times) in enumerate(results):
         if status != 200 or not text:
             raise AssertionError(f"{name} request {i}: status {status}, text {text!r}")
@@ -592,17 +857,29 @@ async def serve(torch, dev, card: str, name: str, cfg, geometry: dict,
         f"{tokens} tokens in "
         f"{wall:.2f} s = {tokens / wall:.1f} tok/s  [{name}, {card}]")
     log(f"  launches during serving: {launches}")
+    if planes:
+        lm = engine.load_metrics()
+        log("  int8 KV lane: " + ", ".join(
+            f"{k} {lm[k]}" for k in ("kv_device_quant_pages", "kv_device_requants_total",
+                                     "kv_device_bytes_saved_total", "lowprec_tok_s")))
+        if lm["kv_device_requants_total"] <= 0:
+            raise AssertionError(f"{name}: no page requantized while serving")
     missing = [k for k, c in launches.items() if c <= 0]
     if missing:
         raise AssertionError(f"{name}: kernels never launched while serving: {missing}")
     # what comes out of the big model is finite and of the expected shape
-    kc, vc = llama.init_kv_cache(cfg, 8, 16, device=dev)
+    kc, vc = llama.init_kv_cache(cfg, 8, 16, device=dev, dtype=engine.k_cache.dtype)
+    small = {k: torch.full((cfg.num_layers, 8), 1e-12, device=dev) for k in planes}
     toks = torch.arange(100, 164, dtype=torch.int32, device=dev)
-    logits, _, _ = llama.prefill(params, cfg, toks, torch.arange(
-        1, 8, dtype=torch.int32, device=dev), 0, 64, kc, vc)
+    logits = llama.prefill(params, cfg, toks, torch.arange(
+        1, 8, dtype=torch.int32, device=dev), 0, 64, kc, vc, **small)[0]
     if logits.shape != (cfg.vocab_size,) or not bool(torch.isfinite(logits).all()):
         raise AssertionError(f"{name} prefill logits not finite [V]")
-    step_anatomy(torch, dev, params, cfg, engine.k_cache, engine.v_cache)
+    step_anatomy(torch, dev, params, cfg, engine.k_cache, engine.v_cache, planes)
+    if quant != "none":
+        dequant_cost(torch, params)
+    elif not cfg.is_mla:
+        dense_mm_cost(torch, dev, params, cfg)
     return launches
 
 
@@ -648,10 +925,83 @@ def anatomy(torch, label: str, fn, n: int) -> None:
         + "; ".join(f"{k[:48]} {v:.2f} ms" for k, v in top))
 
 
-def step_anatomy(torch, dev, params, cfg, k_cache, v_cache) -> None:
+def dequant_cost(torch, params) -> None:
+    """What the plain dequantize of the dense projections costs per step:
+    every quantized dense leaf of every layer widened to bf16 once (what
+    ``_mm`` does per call; expert stacks excluded, the grouped kernel reads
+    their codes), timed with CUDA events."""
+    leaves = [(v["q"], i) for grp in ("dense_layers", "layers")
+              for k, v in params.get(grp, {}).items()
+              if isinstance(v, dict) and "q" in v and not k.startswith("we_")
+              for i in range(v["q"].shape[0])]
+    nbytes = sum(q[i].numel() for q, i in leaves)
+
+    def run():
+        for q, i in leaves:
+            q[i].to(torch.bfloat16)
+
+    run()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    run()
+    end.record()
+    end.synchronize()
+    ms = start.elapsed_time(end)
+    log(f"  dense dequantize per step: {ms:.3f} ms for {len(leaves)} weight "
+        f"matrices ({nbytes / 1e9:.2f} GB of codes read, "
+        f"{2 * nbytes / 1e9:.2f} GB of bf16 written)")
+
+
+def dense_mm_cost(torch, dev, params, cfg) -> None:
+    """What the dense projections of one decode step (8 rows) cost in each
+    weight form: layer 0's seven matrices as bf16, int8 and fp8_e4m3
+    (``{"q", "s"}``: widen the codes, then the product) and int8_native
+    (per-row activation quantization, ``torch._int_mm`` on the column-major
+    codes, both scales; also its ``torch._int_mm`` calls alone), timed with
+    CUDA events (median of 5 passes) and counted for every layer. No
+    serving drive runs int8_native, which ``dynamo_run --quantization
+    int8_native`` serves."""
+    from dynamo_tpu_torch.models import llama
+    from dynamo_tpu_torch.models.quant import quantize_array
+
+    def per_step_ms(fn):
+        fn()
+        times = []
+        for _ in range(5):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+        return statistics.median(times) * cfg.num_layers
+
+    keys = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
+    gen = torch.Generator(device=dev).manual_seed(3)
+    mats = {k: params["layers"][k][0] for k in keys}
+    x = {k: torch.randn(8, w.shape[0], generator=gen, device=dev,
+                        dtype=torch.bfloat16) for k, w in mats.items()}
+    costs = {}
+    for mode in ("none", "int8", "fp8_e4m3", "int8_native"):
+        ws = {k: w if mode == "none" else quantize_array(w, mode)
+              for k, w in mats.items()}
+        costs[mode] = per_step_ms(lambda: [llama._mm(x[k], ws[k]) for k in keys])
+    # int8_native's products alone: 17 rows of codes (the padding _int_mm
+    # takes for 8)
+    xq = {k: torch.randint(-127, 128, (17, v.shape[1]), generator=gen, device=dev,
+                           dtype=torch.int8) for k, v in x.items()}
+    costs["int8_native, torch._int_mm alone"] = per_step_ms(
+        lambda: [torch._int_mm(xq[k], ws[k]["qn"]) for k in keys])
+    log("  dense projections per decode step (8 rows, layer 0 x "
+        f"{cfg.num_layers}): " + ", ".join(f"{m} {ms:.3f} ms" for m, ms in costs.items()))
+
+
+def step_anatomy(torch, dev, params, cfg, k_cache, v_cache, planes=None) -> None:
     """A 4-step decode window (B=8 at ~1k context) and a lone prompt's
     dedicated prefill (1201 tokens in the 2048 bucket) of the served model
-    on its serving cache."""
+    on its serving cache (and scale planes, with the int8 cache)."""
+    planes = planes or {}
     from dynamo_tpu_torch.models import llama
 
     B = 8
@@ -662,13 +1012,13 @@ def step_anatomy(torch, dev, params, cfg, k_cache, v_cache) -> None:
             torch.ones(B, device=dev))
     anatomy(torch, "decode step (B=8, ~1k context)", lambda: llama.decode_window(
         params, cfg, toks, lens - 1, tables, lens, [0] * B, [0] * B, *samp,
-        k_cache, v_cache, n_steps=4), 4)
+        k_cache, v_cache, n_steps=4, **planes), 4)
     prompt = torch.zeros(2048, dtype=torch.int32, device=dev)
     prompt[:1201] = torch.arange(1201, device=dev) % 250 + 3
     table = torch.arange(700, 828, dtype=torch.int32, device=dev)
     anatomy(torch, "dedicated prefill (1201 tokens, 2048 bucket)",
             lambda: llama.prefill(params, cfg, prompt, table, 0, 1201,
-                                  k_cache, v_cache), 1)
+                                  k_cache, v_cache, **planes), 1)
 
 
 # ---------------- phase 4: timing ----------------
@@ -771,11 +1121,13 @@ def work(inp: KernelInputs) -> dict:
     run's data: only the queries of rows that attend something, the cached
     positions they attend and the table entries that reach them."""
     H, Hkv, D, bs = inp.H, inp.Hkv, inp.D, inp.bs
-    kv_row = Hkv * D * 2 * 2  # K and V bytes of one position
+    elem = inp.kc.element_size()  # 2 (bf16), or 1 (int8 pages)
+    kv_row = Hkv * D * elem * 2  # K and V bytes of one position
     q_row = H * D * 2  # one token's queries (read) or output (written)
+    entry = 4 + (8 if inp.sc else 0)  # a table entry, plus the page's scales
 
-    def pages(n):  # table entries read to reach n positions
-        return -(-n // bs)
+    def pages(n):  # table entries (and page scales) read to reach n positions
+        return -(-n // bs) * entry / 4
 
     lens = [int(x) for x in inp.d_lens]
     live = sum(1 for n in lens if n > 0)  # an empty slot reads no q
@@ -795,12 +1147,66 @@ def work(inp: KernelInputs) -> dict:
     rag_flops = dec_flops + sum(4 * H * D * sum(h + t + 1 for t in range(n))
                                 for h, n in segs)
     app_bytes = 2 * (inp.k_new.numel() * 2) * 2 + 8 * 4 * 2
+    tag = INT8_KV if inp.sc else ""
     return {
-        "paged_decode_attention": (dec_bytes + dec_stats, dec_flops),
-        "paged_prefill_attention": (pre_bytes, pre_flops),
-        "ragged_mixed_attention": (rag_bytes, rag_flops),
+        "paged_decode_attention" + tag: (dec_bytes + dec_stats, dec_flops),
+        "paged_prefill_attention" + tag: (pre_bytes, pre_flops),
+        "ragged_mixed_attention" + tag: (rag_bytes, rag_flops),
         "kv_cache_append": (app_bytes, 0),
     }
+
+
+def quant_work(torch, qi: QuantInputs) -> dict:
+    """(bytes, flops) of the two quantized-path kernels on these inputs.
+    ragged_int8_gmm (int8 codes, gate/up shape): the rows read (bf16) and
+    written (f32), the codes and scales of the experts that own a row (the
+    others are never read), 2 flops per multiply-add of the owned rows;
+    the operations count at the bf16 rate (the reference widens the codes
+    to the rows' bf16). kv_cache_append_quantized: the new rows read
+    (bf16), the planes read and the grown planes written, and per (layer,
+    row) the int8 row written plus, where the page's scale grew (r < 1) and
+    the page is not the trash page, its read and write."""
+    from dynamo_tpu_torch.ops.kv_cache_update import quant_scale_update
+
+    out = {}
+    q, _ = qi.codes["int8", "gate"]
+    X, K, N = q.shape
+    for label, key in (("decode", "ragged_int8_gmm"),
+                       ("prefill", "ragged_int8_gmm (prefill rows)")):
+        _, sizes = qi.rows[label]
+        R = int(sizes.sum()) + 16
+        owned, experts = int(sizes.sum()), int((sizes > 0).sum())
+        nbytes = owned * K * 2 + R * N * 4 + experts * (K * N + N * 4) + X * 8
+        out[key] = (nbytes, 2 * owned * K * N)
+    # the page read-modify-write kernel alone: the int8 rows and the ratios
+    # read, each row written, each grown page (not the trash page) read and
+    # written
+    L, B, Hkv, D = qi.k_new.shape
+    bs = qi.caches.shape[4]
+    page = Hkv * bs * D
+    nbytes = 2 * B * 4
+    for x, s in ((qi.k_new, qi.scales[0]), (qi.v_new, qi.scales[1])):
+        _, r, _ = quant_scale_update(x, s, qi.blk)
+        rmw = int(((r < 1) & (qi.blk != 0)[None, :]).sum())
+        nbytes += 2 * L * B * Hkv * D + L * B * 4 + rmw * 2 * page
+    out["kv_cache_append_quantized"] = (nbytes, 0)
+    return out
+
+
+def quant_library_calls(torch, qi: QuantInputs) -> dict:
+    """torch._grouped_mm over the bf16 experts dequantized OUTSIDE the
+    timed span (the yardstick of ragged_int8_gmm; timed only, never called
+    by the port). No single PyTorch call computes the quantized append."""
+    q, sc = qi.codes["int8", "gate"]
+    w = (q.float() * sc[:, None, :]).bfloat16()
+    calls = {}
+    for label, key in (("decode", "ragged_int8_gmm"),
+                       ("prefill", "ragged_int8_gmm (prefill rows)")):
+        lhs, sizes = qi.rows[label]
+        x = lhs[q.shape[1]][: int(sizes.sum())]
+        offs = torch.cumsum(sizes, 0).to(torch.int32)
+        calls[key] = (lambda x=x, offs=offs: torch._grouped_mm(x, w, offs=offs))
+    return calls
 
 
 def mla_work(mi: MlaInputs) -> dict:
@@ -882,14 +1288,17 @@ def sdpa_backend(torch, fn) -> str:
     return "math"
 
 
-def timing(torch, dev, inp: KernelInputs, mi: MlaInputs, errs: dict,
-           launches: dict) -> list:
+def timing(torch, dev, inp: KernelInputs, mi: MlaInputs, qi: QuantInputs,
+           errs: dict, launches: dict) -> list:
     from dynamo_tpu_torch.ops import kv_cache_update as kvu
     from dynamo_tpu_torch.ops import mla_attention as mla
+    from dynamo_tpu_torch.ops import moe_gmm
     from dynamo_tpu_torch.ops import paged_attention as pa
     from dynamo_tpu_torch.ops import ragged_paged_attention as rpa
 
     flush = torch.empty(64 * 2**20, dtype=torch.uint8, device=dev)  # > 50 MB L2
+    sinp = inp.scaled()
+    app_caches = qi.caches.clone()
     kernel = {
         "paged_decode_attention": lambda: inp.decode(pa.paged_decode_attention),
         "paged_prefill_attention": lambda: inp.prefill(pa.paged_prefill_attention),
@@ -897,6 +1306,16 @@ def timing(torch, dev, inp: KernelInputs, mi: MlaInputs, errs: dict,
         "kv_cache_append": lambda: inp.append(kvu.kv_cache_append),
         "mla_paged_decode_attention": lambda: mi.decode(mla.mla_paged_decode_attention),
         "mla_paged_prefill_attention": lambda: mi.prefill(mla.mla_paged_prefill_attention),
+        "ragged_int8_gmm": lambda: qi.gmm(moe_gmm.ragged_int8_gmm),
+        "ragged_int8_gmm (prefill rows)":
+            lambda: qi.gmm(moe_gmm.ragged_int8_gmm, "prefill"),
+        "kv_cache_append_quantized":
+            lambda: qi.rmw(kvu.append_quantized_rows, app_caches),
+        "paged_decode_attention" + INT8_KV: lambda: sinp.decode(pa.paged_decode_attention),
+        "paged_prefill_attention" + INT8_KV:
+            lambda: sinp.prefill(pa.paged_prefill_attention),
+        "ragged_mixed_attention" + INT8_KV:
+            lambda: sinp.ragged(rpa.ragged_mixed_attention),
     }
     plain = {
         "paged_decode_attention": lambda: inp.decode(pa.paged_decode_attention_plain),
@@ -907,9 +1326,24 @@ def timing(torch, dev, inp: KernelInputs, mi: MlaInputs, errs: dict,
             lambda: mi.decode(mla.mla_paged_decode_attention_plain),
         "mla_paged_prefill_attention":
             lambda: mi.prefill(mla.mla_paged_prefill_attention_plain),
+        "ragged_int8_gmm": lambda: qi.gmm(moe_gmm.ragged_int8_plain),
+        "ragged_int8_gmm (prefill rows)":
+            lambda: qi.gmm(moe_gmm.ragged_int8_plain, "prefill"),
+        "kv_cache_append_quantized":
+            lambda: qi.rmw(kvu.append_quantized_rows_plain, app_caches),
+        "paged_decode_attention" + INT8_KV:
+            lambda: sinp.decode(pa.paged_decode_attention_plain),
+        "paged_prefill_attention" + INT8_KV:
+            lambda: sinp.prefill(pa.paged_prefill_attention_plain),
+        "ragged_mixed_attention" + INT8_KV:
+            lambda: sinp.ragged(rpa.ragged_mixed_attention_plain),
     }
-    library = {**library_calls(torch, inp), **mla_library_calls(torch, mi)}
-    bounds = {**work(inp), **mla_work(mi)}
+    scaled_library = {k + INT8_KV: f for k, f in
+                      library_calls(torch, sinp.dequantized()).items()
+                      if k != "kv_cache_append"}
+    library = {**library_calls(torch, inp), **mla_library_calls(torch, mi),
+               **scaled_library, **quant_library_calls(torch, qi)}
+    bounds = {**work(inp), **mla_work(mi), **work(sinp), **quant_work(torch, qi)}
     rows = []
     for name, (source, replaces) in KERNELS.items():
         nbytes, flops = bounds[name]
@@ -920,14 +1354,16 @@ def timing(torch, dev, inp: KernelInputs, mi: MlaInputs, errs: dict,
             "ms": time_ms(torch, kernel[name], 30, flush),
             "plain_ms": time_ms(torch, plain[name], 5, flush),
             "bound_ms": b_ms, "bound_by": b_by,
-            "library_ms": time_ms(torch, library[name], 10, flush),
+            "library_ms": (time_ms(torch, library[name], 10, flush)
+                           if name in library else None),
         }
         extra = ""
         if name.startswith("mla_"):
             extra = f", SDPA backend {sdpa_backend(torch, library[name])}"
+        lib = ("none" if row["library_ms"] is None
+               else f"{row['library_ms']:.4f} ms")
         log(f"  {name}: {row['ms']:.4f} ms (bound {b_ms:.4f} ms by {b_by}, "
-            f"plain {row['plain_ms']:.3f} ms, library {row['library_ms']:.4f} ms"
-            f"{extra})")
+            f"plain {row['plain_ms']:.3f} ms, library {lib}{extra})")
         rows.append(row)
     # the append at MLA widths (all 27 layers of c_kv / k_pe, B=8): its own
     # line, the kernels line keeps one row per kernel
@@ -942,6 +1378,12 @@ def timing(torch, dev, inp: KernelInputs, mi: MlaInputs, errs: dict,
         mi.a_kc[:, :, idx[0], idx[1]] = cvals
         mi.a_vc[:, :, idx[0], idx[1]] = pvals
 
+    log("  kv_cache_append_quantized, the whole function (the scale math in "
+        "PyTorch, then the kernel): "
+        f"{time_ms(torch, lambda: qi.append(kvu.kv_cache_append_quantized, app_caches), 30, flush):.4f}"
+        " ms (plain "
+        f"{time_ms(torch, lambda: qi.append(kvu.kv_cache_append_quantized_plain, app_caches), 5, flush):.3f}"
+        " ms)")
     log(f"  kv_cache_append at MLA widths (L={L}, B={B}, C={mi.C}, R={mi.R}): "
         f"{time_ms(torch, lambda: mi.append(kvu.kv_cache_append), 30, flush):.4f} ms "
         f"(bound {a_ms:.4f} ms by {a_by}, plain "
@@ -981,19 +1423,24 @@ def main() -> int:
     errs = check_kernels(torch, dev, inp)
     mi = MlaInputs(torch, dev)
     errs.update(check_mla_kernels(torch, mi))
-    for label, cfg in tiny_models():
-        check_model_on_card(torch, dev, label, cfg)
-    log("[3/4] serving over HTTP: llama3-8b-sim, then deepseek-v2-lite-sim")
+    for label, cfg, quantization, kv_int8 in tiny_models():
+        check_model_on_card(torch, dev, label, cfg, quantization, kv_int8)
+    qi = QuantInputs(torch, dev)
+    errs.update(check_quant_kernels(torch, qi))
+    check_int8_native_mm(torch, dev)
+    log("[3/4] serving over HTTP: llama3-8b-sim, deepseek-v2-lite-sim, "
+        "deepseek-v2-lite-sim (int8 weights), llama3-8b-sim (fp8 weights, "
+        "int8 KV)")
     launches = {}
     for name, cfg, geometry, counted in drives():
         got = asyncio.run(serve(torch, dev, card, name, cfg, geometry, counted))
-        # a kernel shared by both paths (the append) counts both drives
+        # a kernel shared by several drives (the append) counts them all
         for k, n in got.items():
             launches[k] = launches.get(k, 0) + n
         gc.collect()
         torch.cuda.empty_cache()
     log("[4/4] timing (median per launch, L2 flushed)  [" + card + "]")
-    rows = timing(torch, dev, inp, mi, errs, launches)
+    rows = timing(torch, dev, inp, mi, qi, errs, launches)
     torch.cuda.synchronize()
     log(f"all phases passed in {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": rows}))

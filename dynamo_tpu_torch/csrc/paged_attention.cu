@@ -37,10 +37,24 @@
 // zeros, m = -1e30, l = 0, exactly what the TPU kernel emits and what the
 // flash merge in verify_attention relies on. Not done yet (later work):
 // tensor-core (wgmma) score tiles, TMA page loads, double buffering.
+//
+// The int8-with-scales device cache (the Pallas kernels' k_scales /
+// v_scales option, paged_attention_pallas.py:197 and :451,
+// ragged_paged_attention_pallas.py:240): the cache element type is a
+// template parameter apart from the q/o type. An int8 page carries one f32
+// scale per physical page for K and one for V; the step's page lookup reads
+// them beside the row offsets, and each int8 row is widened and multiplied
+// by its page's scale as it lands in shared memory (8 codes per 8-byte load:
+// a thread converts as many elements as in the bf16 kernel, which keeps the
+// register count, and one pass still covers a KT x D step), so everything
+// after the load is the bf16/f32 kernel unchanged and the bytes read from
+// the cache halve against bf16.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -56,6 +70,8 @@ struct Params {
   float* l_out;      // [Ntok, Hkv, Gq] or null
   const void* kc;    // [Hkv, N, bs, D]
   const void* vc;    // [Hkv, N, bs, D]
+  const float* k_scales;  // [N] per-page K scales (int8 cache) or null
+  const float* v_scales;  // [N] per-page V scales (int8 cache) or null
   const int* d_tables;    // [B, M]
   const int* d_seq_lens;  // [B]: decode row b attends kv_pos < seq_len
   int B;
@@ -75,6 +91,7 @@ __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
+__device__ __forceinline__ float to_f(int8_t x) { return (float)x; }
 template <typename T>
 __device__ __forceinline__ T from_f(float x);
 template <>
@@ -102,14 +119,20 @@ __device__ __forceinline__ void load_lane(const float* p, float (&out)[DPL]) {
   }
 }
 
-template <typename T, int D>
+// T: the q/o type; TC: the cache type (T itself, or int8_t with per-page
+// scales)
+template <typename T, typename TC, int D>
 __global__ void __launch_bounds__(NW * 32)
 paged_attention_kernel(const Params p) {
   constexpr int DPL = D / 32;
-  constexpr int VEC = 16 / sizeof(T);  // elements per 16-byte load
+  constexpr bool kScaled = std::is_same<TC, int8_t>::value;
+  // elements per load: 16 bytes of bf16/f32, 8 bytes of int8
+  constexpr int VEC = kScaled ? 8 : 16 / sizeof(TC);
+  using Load = typename std::conditional<kScaled, uint2, uint4>::type;
   __shared__ __align__(16) float ks[KT][D];
   __shared__ __align__(16) float vs[KT][D];
   __shared__ long long row_base[KT];  // element offset of a position's row
+  __shared__ float row_ks[KT], row_vs[KT];  // its page's scales (int8 cache)
 
   const int s = blockIdx.x;  // tile
   const int h = blockIdx.y;  // kv head
@@ -144,8 +167,8 @@ paged_attention_kernel(const Params p) {
   const int real_rows = real * p.Gq;
 
   const T* q = static_cast<const T*>(p.q);
-  const T* kc = static_cast<const T*>(p.kc);
-  const T* vc = static_cast<const T*>(p.vc);
+  const TC* kc = static_cast<const TC*>(p.kc);
+  const TC* vc = static_cast<const TC*>(p.vc);
 
   float qr[RPW][DPL], acc[RPW][DPL], mr[RPW], lr[RPW];
   int qpos[RPW];
@@ -183,10 +206,14 @@ paged_attention_kernel(const Params p) {
     // ---- one step of KT positions: K/V rows into shared memory ----
     if (threadIdx.x < KT) {
       const int pos = c + threadIdx.x;
+      const int page = pos < c_end ? table[pos / p.bs] : 0;
       row_base[threadIdx.x] =
-          pos < c_end
-              ? (((long long)h * p.N + table[pos / p.bs]) * p.bs + pos % p.bs) * D
-              : -1;
+          pos < c_end ? (((long long)h * p.N + page) * p.bs + pos % p.bs) * D
+                      : -1;
+      if constexpr (kScaled) {
+        row_ks[threadIdx.x] = p.k_scales[page];
+        row_vs[threadIdx.x] = p.v_scales[page];
+      }
     }
     __syncthreads();
     for (int e = threadIdx.x * VEC; e < KT * D; e += NW * 32 * VEC) {
@@ -194,14 +221,22 @@ paged_attention_kernel(const Params p) {
       const long long base = row_base[j];
       float kv[VEC], vv[VEC];
       if (base >= 0) {
-        const uint4 kraw = *reinterpret_cast<const uint4*>(kc + base + d);
-        const uint4 vraw = *reinterpret_cast<const uint4*>(vc + base + d);
-        const T* kt = reinterpret_cast<const T*>(&kraw);
-        const T* vt = reinterpret_cast<const T*>(&vraw);
+        const Load kraw = *reinterpret_cast<const Load*>(kc + base + d);
+        const Load vraw = *reinterpret_cast<const Load*>(vc + base + d);
+        const TC* kt = reinterpret_cast<const TC*>(&kraw);
+        const TC* vt = reinterpret_cast<const TC*>(&vraw);
 #pragma unroll
         for (int u = 0; u < VEC; ++u) {
           kv[u] = to_f(kt[u]);
           vv[u] = to_f(vt[u]);
+        }
+        if constexpr (kScaled) {  // per-page dequant as the row lands
+          const float sk = row_ks[j], sv = row_vs[j];
+#pragma unroll
+          for (int u = 0; u < VEC; ++u) {
+            kv[u] *= sk;
+            vv[u] *= sv;
+          }
         }
       } else {
 #pragma unroll
@@ -315,10 +350,10 @@ combine_splits_kernel(const Params p, size_t R) {
   }
 }
 
-template <typename T, int D>
+template <typename T, typename TC, int D>
 cudaError_t launch_d(const Params& p, int n_tiles, cudaStream_t stream) {
   dim3 grid(n_tiles, p.Hkv, p.n_split);
-  paged_attention_kernel<T, D><<<grid, NW * 32, 0, stream>>>(p);
+  paged_attention_kernel<T, TC, D><<<grid, NW * 32, 0, stream>>>(p);
   if (p.n_split > 1) {
     const size_t R = (size_t)(p.B + p.MP * p.T) * p.Hkv * p.Gq;
     const unsigned blocks = (unsigned)((R + NW - 1) / NW);
@@ -327,17 +362,19 @@ cudaError_t launch_d(const Params& p, int n_tiles, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, typename TC>
 cudaError_t launch_typed(const Params& p, int D, int n_tiles,
                          cudaStream_t stream) {
-  if (D == 128) return launch_d<T, 128>(p, n_tiles, stream);
-  if (D == 64) return launch_d<T, 64>(p, n_tiles, stream);
+  if (D == 128) return launch_d<T, TC, 128>(p, n_tiles, stream);
+  if (D == 64) return launch_d<T, TC, 64>(p, n_tiles, stream);
   return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// Plain C interface, loaded with ctypes. dtype: 0 = float32, 1 = bfloat16.
+// Plain C interface, loaded with ctypes. dtype (q and o): 0 = float32,
+// 1 = bfloat16. kv_dtype: the same code as dtype for a cache of the q type,
+// 2 = int8 with per-page f32 scales k_scales / v_scales ([N] each).
 // Returns the cudaError_t of the launch (0 = success). Rows per tile
 // (tokens * Gq) must not exceed NW * RPW; the Python wrapper checks it.
 // With n_split > 1, ``scratch`` holds n_split * R * (D + 2) floats (R =
@@ -347,7 +384,8 @@ extern "C" int paged_attention_launch(
     const void* vc, const int* d_tables, const int* d_seq_lens, int B,
     const int* p_tables, const int* p_hists, const int* p_valids, int MP,
     int T, int Tq, int Hkv, int Gq, int N, int bs, int M, int D, float scale,
-    int n_split, float* scratch, int dtype, void* stream) {
+    int n_split, float* scratch, int dtype, const float* k_scales,
+    const float* v_scales, int kv_dtype, void* stream) {
   if (Tq < 1) Tq = 1;
   Params p;
   p.q = q;
@@ -356,6 +394,8 @@ extern "C" int paged_attention_launch(
   p.l_out = l_out;
   p.kc = kc;
   p.vc = vc;
+  p.k_scales = k_scales;
+  p.v_scales = v_scales;
   p.d_tables = d_tables;
   p.d_seq_lens = d_seq_lens;
   p.B = B;
@@ -381,7 +421,17 @@ extern "C" int paged_attention_launch(
   p.part_l = p.part_m + (size_t)p.n_split * R;
   if (p.n_split > 1 && scratch == nullptr) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return (int)launch_typed<float>(p, D, n_tiles, st);
-  if (dtype == 1) return (int)launch_typed<__nv_bfloat16>(p, D, n_tiles, st);
+  if (kv_dtype == 2) {
+    if (k_scales == nullptr || v_scales == nullptr)
+      return (int)cudaErrorInvalidValue;
+    if (dtype == 0) return (int)launch_typed<float, int8_t>(p, D, n_tiles, st);
+    if (dtype == 1)
+      return (int)launch_typed<__nv_bfloat16, int8_t>(p, D, n_tiles, st);
+    return (int)cudaErrorInvalidValue;
+  }
+  if (kv_dtype != dtype) return (int)cudaErrorInvalidValue;
+  if (dtype == 0) return (int)launch_typed<float, float>(p, D, n_tiles, st);
+  if (dtype == 1)
+    return (int)launch_typed<__nv_bfloat16, __nv_bfloat16>(p, D, n_tiles, st);
   return (int)cudaErrorInvalidValue;
 }

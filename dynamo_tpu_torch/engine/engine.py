@@ -22,8 +22,14 @@
 Models: dense GQA decoders and the DeepSeek MLA + MoE family (the latent
 cache is two single-"head" paged arrays of different widths, from
 ``llama.kv_cache_shapes``; MLA mixed steps take the per-part flavor inside
-``llama.mixed_step``). Device work runs in the loop's executor under one
-lock, so the event loop stays live while the card computes. Left out of
+``llama.mixed_step``). Quantized serving (``EngineConfig.quantization``,
+``kv_cache_dtype``; models/quant.py): weights quantize before they
+serve, and the int8-with-scales KV cache keeps ``[L, N]`` f32
+scale planes beside the caches — recycled pages get their scales reset by
+one scatter on the next dispatch, prefix-cache claims keep theirs, and the
+device count of requantized pages folds into the stats only when
+``load_metrics`` is scraped. Device work runs in the loop's executor under
+one lock, so the event loop stays live while the card computes. Left out of
 this slice (ROADMAP queue A): offload tiers, disaggregation, speculative
 decoding, adapters, live reshard, the pipelined decode, multi-host
 mirrors, tracing / flight recorder and the compile ledger. PyTorch runs
@@ -36,6 +42,7 @@ from __future__ import annotations
 
 import asyncio
 import logging
+import threading
 import time
 from collections import deque
 from dataclasses import dataclass, field
@@ -47,6 +54,8 @@ import torch
 from ..device import resolve_device
 from ..models import llama
 from ..models.config import ModelConfig
+from ..models.mla import MLA_INT8_NATIVE
+from ..models.quant import KV_SCALE_EPS, kv_cache_dtype, quantize_params
 from ..ops import mla_attention
 from ..ops.sampling import make_keys, sample_first_token, token_logprobs
 from ..protocols.common import FinishReason, LLMEngineOutput, PreprocessedRequest
@@ -56,6 +65,16 @@ from .allocator import Block, BlockAllocator, sequence_block_hashes
 logger = logging.getLogger(__name__)
 
 PREFILL_BUCKETS = [16, 32, 64, 128, 256, 512, 1024, 2048, 4096, 8192]
+
+
+def _leaves(v):
+    """The tensors of a parameter entry: a tensor, a layer group, or a
+    quantized node inside one."""
+    if isinstance(v, dict):
+        for x in v.values():
+            yield from _leaves(x)
+    else:
+        yield v
 
 
 def _bucket(n: int) -> int:
@@ -89,6 +108,13 @@ class EngineConfig:
     mixed_max_prefills: int = 4
     # max fused decode steps per dispatch
     decode_window: int = 4
+    # weight quantization: "none" | "int8" | "fp8_e4m3" | "int8_native"
+    # (models/quant.py: per-output-channel scales; MoE expert stacks
+    # quantize too and run the ragged_int8_gmm kernel)
+    quantization: str = "none"
+    # KV cache storage: "model" | "bfloat16" | "int8" (int8 with per-page
+    # f32 scale planes); "float8_e4m3" is not ported yet and raises
+    kv_cache_dtype: str = "model"
 
     def __post_init__(self):
         if self.max_context == 0:
@@ -165,14 +191,54 @@ class TorchEngine(AsyncEngine):
                 f"R={mcfg.qk_rope_head_dim}: the CUDA latent kernel takes C in "
                 f"{mla_attention.KERNEL_C} and R={mla_attention.KERNEL_R}"
             )
+        if mcfg.is_mla and cfg.quantization == "int8_native":
+            raise ValueError(MLA_INT8_NATIVE)
+        cache_dt = kv_cache_dtype(mcfg, cfg.kv_cache_dtype)
+        if cache_dt == torch.int8 and mcfg.is_mla:
+            # refused, not a silent fallback: the absorbed latent path dots
+            # queries against the cache directly and has no per-page scale
+            # stream
+            raise ValueError(
+                "kv_cache_dtype='int8' is not supported for MLA models: the "
+                "absorbed-matmul latent path has no per-page scale stream"
+            )
         if params is None:
             gen = torch.Generator(device=self.device).manual_seed(seed)
             params = llama.init_params(mcfg, gen, self.device)
-        self.params = params
+        # quantize before the weights serve: the codes replace the
+        # full-width leaves (the caller's dictionary is not changed)
+        self.params = quantize_params(params, mcfg, cfg.quantization)
         self.k_cache, self.v_cache = llama.init_kv_cache(
-            mcfg, cfg.num_blocks, cfg.block_size, device=self.device
+            mcfg, cfg.num_blocks, cfg.block_size, device=self.device,
+            dtype=cache_dt,
         )
+        # int8-with-scales cache: one f32 absmax scale per (layer, physical
+        # page) for K and for V, updated in place by every write
+        self.k_scales = self.v_scales = None
+        if cache_dt == torch.int8:
+            self.k_scales, self.v_scales = (
+                torch.full((mcfg.num_layers, cfg.num_blocks), KV_SCALE_EPS,
+                           dtype=torch.float32, device=self.device)
+                for _ in range(2)
+            )
         self.allocator = BlockAllocator(cfg.num_blocks, cfg.block_size)
+        # recycled pages must not inherit a previous tenant's scale: every
+        # fresh allocation queues a reset, flushed as ONE scatter on the
+        # next dispatch (_flush_scale_resets); prefix claims keep theirs
+        self._pending_scale_resets: list[int] = []
+        self._requants_dev: Optional[torch.Tensor] = None
+        # the executor adds to the counter while a scrape folds it
+        self._requants_lock = threading.Lock()
+        self._lowprec_rate_t = 0.0
+        self._weight_bytes: Optional[int] = None
+        if self.k_scales is not None:
+            self.allocator.on_allocated = self._pending_scale_resets.append
+            # bytes one token's K+V rows save landing int8 instead of at
+            # the model's width (the planes are counted in _hbm_stats)
+            self._kv_saved_per_token = int(
+                2 * mcfg.num_layers * mcfg.num_kv_heads * mcfg.head_dim
+                * (llama._dtype(mcfg).itemsize - 1)
+            )
         self.kv_block_bytes = int(
             (self.k_cache.nbytes + self.v_cache.nbytes) // max(cfg.num_blocks, 1)
         )
@@ -222,6 +288,10 @@ class TorchEngine(AsyncEngine):
             "mixed_steps": 0,
             "mixed_prefill_segments": 0,
             "preemptions": 0,
+            "kv_device_quant_pages": 0,
+            "kv_device_requants_total": 0,
+            "kv_device_bytes_saved_total": 0,
+            "lowprec_tok_s": 0.0,
         }
 
     # ---------------- public api ----------------
@@ -279,7 +349,10 @@ class TorchEngine(AsyncEngine):
 
     def load_metrics(self) -> dict:
         """Worker stats under the JAX engine's keys (the ones
-        ``WorkerLoad.from_stats`` scrapes)."""
+        ``WorkerLoad.from_stats`` scrapes). The int8 cache's device
+        requant counter converts to a host number here, and only here."""
+        self._fold_quant_counters()
+        hbm = self._hbm_stats()
         return {
             "mixed_steps": self.stats["mixed_steps"],
             "mixed_prefill_segments": self.stats["mixed_prefill_segments"],
@@ -294,7 +367,90 @@ class TorchEngine(AsyncEngine):
             "prompt_tokens_total": self.stats["prompt_tokens_total"],
             "kv_block_bytes": self.kv_block_bytes,
             "kv_block_size": self.cfg.block_size,
+            "hbm_bytes_in_use": hbm["in_use"],
+            "hbm_bytes_limit": hbm["limit"],
+            "hbm_kv_pool_bytes": hbm["kv_pool"],
+            "hbm_weights_bytes": hbm["weights"],
+            # int8-with-scales device-cache lane (zeros unless
+            # kv_cache_dtype="int8")
+            "kv_device_quant_pages": self.stats["kv_device_quant_pages"],
+            "kv_device_requants_total": self.stats["kv_device_requants_total"],
+            "kv_device_bytes_saved_total": self.stats[
+                "kv_device_bytes_saved_total"],
+            "lowprec_tok_s": self.stats["lowprec_tok_s"],
         }
+
+    def _hbm_stats(self) -> dict:
+        """Device-memory attribution: the KV pool (caches plus the int8
+        cache's scale planes) and the weights, from the tensors themselves;
+        the allocator's view on the card."""
+        kv = self.k_cache.nbytes + self.v_cache.nbytes
+        if self.k_scales is not None:
+            kv += self.k_scales.nbytes + self.v_scales.nbytes
+        if self._weight_bytes is None:
+            self._weight_bytes = sum(
+                t.nbytes for v in self.params.values()
+                for t in _leaves(v)
+            )
+        in_use = limit = 0
+        if self.device.type == "cuda":
+            in_use = torch.cuda.memory_allocated(self.device)
+            limit = torch.cuda.get_device_properties(self.device).total_memory
+        return {"in_use": in_use or kv + self._weight_bytes, "limit": limit,
+                "kv_pool": kv, "weights": self._weight_bytes}
+
+    # ---- int8-with-scales device cache ----
+
+    def _scale_kwargs(self) -> dict:
+        """The planes for the next dispatch, with the recycled pages'
+        entries reset first (_flush_scale_resets); empty without them."""
+        if self.k_scales is None:
+            return {}
+        self._flush_scale_resets()
+        return {"k_scales": self.k_scales, "v_scales": self.v_scales}
+
+    def _flush_scale_resets(self) -> None:
+        """Reset the plane entries of every page the allocator handed out
+        since the last dispatch (queued by its ``on_allocated`` hook) to
+        the floor, as ONE scatter per plane."""
+        if self.k_scales is None or not self._pending_scale_resets:
+            return
+        idxs = self._dev(np.unique(np.asarray(self._pending_scale_resets,
+                                              np.int64)))
+        self._pending_scale_resets.clear()
+        self.k_scales[:, idxs] = KV_SCALE_EPS
+        self.v_scales[:, idxs] = KV_SCALE_EPS
+
+    def _note_quant_step(self, n_requants, tokens_written: int,
+                         gen_tokens: int = 0) -> None:
+        """Fold one quantized dispatch into the lane's stats. ``n_requants``
+        stays a DEVICE scalar (summed on the card; converted only by
+        _fold_quant_counters at scrape time); ``gen_tokens`` > 0 (decode
+        dispatches) feeds the lane's decode-throughput EMA."""
+        if n_requants is not None:
+            with self._requants_lock:
+                self._requants_dev = (n_requants if self._requants_dev is None
+                                      else self._requants_dev + n_requants)
+        self.stats["kv_device_bytes_saved_total"] += (
+            tokens_written * self._kv_saved_per_token)
+        self.stats["kv_device_quant_pages"] = self.allocator.resident_count
+        if gen_tokens > 0:
+            now = time.perf_counter()
+            dt = now - self._lowprec_rate_t
+            if self._lowprec_rate_t and 0 < dt < 10.0:
+                inst = gen_tokens / dt
+                prev = self.stats["lowprec_tok_s"]
+                self.stats["lowprec_tok_s"] = round(
+                    inst if prev == 0.0 else 0.8 * prev + 0.2 * inst, 3)
+            self._lowprec_rate_t = now
+
+    def _fold_quant_counters(self) -> None:
+        """The accumulated device requant count as a host number (one
+        scalar read; load_metrics only)."""
+        with self._requants_lock:
+            folded, self._requants_dev = self._requants_dev, None
+        if folded is not None:
+            self.stats["kv_device_requants_total"] += int(folded)
 
     # ---------------- scheduler loop ----------------
 
@@ -486,10 +642,14 @@ class TorchEngine(AsyncEngine):
         chunk = seq.tokens[st.pos : st.pos + cfg.prefill_chunk]
         toks = np.zeros(_bucket(len(chunk)), np.int32)
         toks[: len(chunk)] = chunk
-        logits, self.k_cache, self.v_cache = llama.prefill(
+        out = llama.prefill(
             self.params, cfg.model, self._dev(toks), self._dev(self._table_for(seq)),
             st.pos, len(chunk), self.k_cache, self.v_cache,
+            **self._scale_kwargs(),
         )
+        logits = out[0]
+        if self.k_scales is not None:
+            self._note_quant_step(None, len(chunk))
         self.stats["prefill_chunks"] += 1
         st.pos += len(chunk)
         if st.pos < len(seq.tokens):
@@ -750,7 +910,11 @@ class TorchEngine(AsyncEngine):
             self._dev(self._seq_lens), self._seeds.tolist(), steps.tolist(),
             *self._sampling_tensors(), self.k_cache, self.v_cache,
             n_steps=n, with_logprobs=want_lp, **self._penalty_kwargs(),
+            **self._scale_kwargs(),
         )
+        if self.k_scales is not None:
+            self._note_quant_step(out[5], self._n_active * n,
+                                  gen_tokens=self._n_active * n)
         lps = out[-1] if want_lp else None
         return out[0].cpu().numpy(), (
             tuple(a.cpu().numpy() for a in lps) if lps is not None else None
@@ -891,8 +1055,13 @@ class TorchEngine(AsyncEngine):
             *self._sampling_tensors(), self._dev(toks_p), self._dev(tables_p),
             self._dev(hists_p), self._dev(valids_p), self.k_cache, self.v_cache,
             with_logprobs=want_lp, **self._penalty_kwargs(),
+            **self._scale_kwargs(),
         )
         toks, p_logits = out[0], out[1]
+        if self.k_scales is not None:
+            self._note_quant_step(
+                out[6], self._n_active + int(valids_p.sum()),
+                gen_tokens=self._n_active)
         completed = []
         for i, (st, take) in enumerate(packed):
             st.pos += take

@@ -15,6 +15,8 @@ Examples::
       --model-path deepseek-v2-lite-sim
   python -m dynamo_tpu_torch.launch.dynamo_run in=text out=torch \\
       --model-path tiny --device cpu
+  python -m dynamo_tpu_torch.launch.dynamo_run in=http out=torch \\
+      --model-path llama3-8b-sim --quantization fp8_e4m3 --kv-cache-dtype int8
 
 Model presets (random weights from seed 0, byte tokenizer): ``tiny``,
 ``llama3-8b-sim`` (the full Llama-3-8B architecture) and
@@ -38,6 +40,7 @@ from ..http.service import HttpService, ModelManager
 from ..llm.openai_engine import OpenAIWorkerEngine
 from ..llm.tokenizer import ByteTokenizer
 from ..models.config import ModelConfig, deepseek_v2_lite
+from ..models.quant import KV_CACHE_DTYPES, WEIGHT_MODES, kv_cache_dtype
 from ..models.weights import init_random_params
 from ..runtime.engine import Context
 
@@ -60,6 +63,8 @@ def build_model(args) -> tuple[ModelConfig, ByteTokenizer, str]:
 
 
 def engine_config(args, cfg: ModelConfig) -> EngineConfig:
+    # an unported KV dtype raises here, before any weights are drawn
+    kv_cache_dtype(cfg, args.kv_cache_dtype)
     return EngineConfig(
         model=cfg,
         num_blocks=args.num_blocks,
@@ -69,6 +74,8 @@ def engine_config(args, cfg: ModelConfig) -> EngineConfig:
         decode_window=args.decode_window,
         mixed_step_budget=args.mixed_step_budget,
         mixed_max_prefills=args.mixed_max_prefills,
+        quantization=args.quantization,
+        kv_cache_dtype=args.kv_cache_dtype,
     )
 
 
@@ -131,6 +138,14 @@ def parse_args(argv=None):
                    help="prefill tokens per fused mixed step (0 = prefill_chunk)")
     p.add_argument("--mixed-max-prefills", type=int, default=4,
                    help="max concurrent prompts packed into one fused step")
+    p.add_argument("--quantization", default="none", choices=list(WEIGHT_MODES),
+                   help="weight quantization (per-channel; models/quant.py; "
+                        "expert stacks through the ragged_int8_gmm kernel)")
+    p.add_argument("--kv-cache-dtype", default="model",
+                   choices=list(KV_CACHE_DTYPES),
+                   help="KV cache storage dtype (int8 = int8-with-scales "
+                        "device cache, per-(layer, page) f32 scale planes; "
+                        "float8_e4m3 is not ported yet)")
     args = p.parse_args(argv)
     kv = dict(a.split("=", 1) for a in args.in_out if "=" in a)
     args.in_ = kv.get("in", "http")

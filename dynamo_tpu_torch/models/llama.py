@@ -23,9 +23,18 @@ are plain Python loops.
 Covered: the Llama / Llama-3 / Mistral-without-window shape (RMS norms,
 half-split rope with default or ``llama3`` scaling, SwiGLU, optional tied
 embeddings), DeepSeek-V2/V3 Multi-Latent Attention (absorbed, with or
-without q-lora, YaRN rope) and Mixtral/DeepSeek MoE FFNs with bf16/f32
-experts (softmax or sigmoid scoring, gate bias, group-limited routing,
-shared experts). Everything else raises in :func:`check_supported`.
+without q-lora, YaRN rope) and Mixtral/DeepSeek MoE FFNs (softmax or
+sigmoid scoring, gate bias, group-limited routing, shared experts).
+Everything else raises in :func:`check_supported`.
+
+Quantized serving (models/quant.py): projection weights may be ``{"q",
+"s"}`` / ``{"qn", "s"}`` nodes (:func:`_mm`) and expert stacks ``{"q",
+"s"}`` nodes (:func:`_ragged_mm`, the ``ragged_int8_gmm`` kernel). With the
+int8-with-scales KV cache (GQA only), :func:`prefill`,
+:func:`decode_window` and :func:`mixed_step` take the ``[L, N]`` f32 scale
+planes ``k_scales`` / ``v_scales``, update them IN PLACE like the caches,
+and return them (and the device int32 count of scale entries that grew,
+``n_requants``) right after the caches, as the JAX functions do.
 """
 
 from __future__ import annotations
@@ -37,11 +46,12 @@ import torch
 import torch.nn.functional as F
 
 from ..ops import attention as att
-from ..ops.kv_cache_update import kv_cache_append
+from ..ops.kv_cache_update import kv_cache_append, kv_cache_append_quantized
 from ..ops.mla_attention import (
     mla_decode_attention_merged,
     mla_paged_prefill_attention,
 )
+from ..ops.moe_gmm import ragged_int8_gmm
 from ..ops.ragged_paged_attention import ragged_mixed_attention_rows
 from ..ops.sampling import (
     apply_penalties,
@@ -175,12 +185,20 @@ def layer_groups(params: dict, cfg: ModelConfig):
     return out
 
 
+def _layer_slice(v, i: int):
+    """Layer ``i`` of a stacked leaf, or of each tensor of a quantized
+    ``{"q"/"qn", "s"}`` node."""
+    if isinstance(v, dict):
+        return {k: t[i] for k, t in v.items()}
+    return v[i]
+
+
 def _layers(params: dict, cfg: ModelConfig):
     """(layer index, layer leaves as views into the stacked tensors) for
     every layer in forward order."""
     for group, n, goff in layer_groups(params, cfg):
         for i in range(n):
-            yield goff + i, {k: v[i] for k, v in group.items()}
+            yield goff + i, {k: _layer_slice(v, i) for k, v in group.items()}
 
 
 def kv_cache_shapes(cfg: ModelConfig, num_blocks: int,
@@ -286,18 +304,60 @@ def _embed(params: dict, cfg: ModelConfig, tokens: torch.Tensor) -> torch.Tensor
     return params["embed"][tokens.long()]
 
 
+def _int_mm(xq: torch.Tensor, wq: torch.Tensor) -> torch.Tensor:
+    """Exact int8 x int8 -> int32 product of ``[..., K]`` by ``[K, N]``. On
+    the card ``torch._int_mm`` (more than 16 rows, K and N multiples of 8:
+    the rows pad and the result is sliced; the weight comes column-major,
+    as ``quant.native_layout`` stores it); on the CPU an int32 product."""
+    lead, K = xq.shape[:-1], xq.shape[-1]
+    x2 = xq.reshape(-1, K)
+    if x2.device.type == "cuda":
+        R = x2.shape[0]
+        if K % 8 or wq.shape[1] % 8:
+            raise ValueError(f"int8_native: K={K} and N={wq.shape[1]} must be "
+                             "multiples of 8 on the card")
+        if R <= 16:
+            x2 = torch.cat([x2, x2.new_zeros(17 - R, K)])
+        assert wq.stride(0) == 1, "int8_native codes must be column-major"
+        acc = torch._int_mm(x2, wq)[:R]
+    else:
+        acc = x2.to(torch.int32) @ wq.to(torch.int32)
+    return acc.reshape(*lead, -1)
+
+
+def _mm(x: torch.Tensor, w) -> torch.Tensor:
+    """Matmul against a plain or quantized weight. ``{"q": int8|fp8, "s":
+    f32}`` dequantizes the codes to ``x``'s dtype and scales the product's
+    columns (``(x @ q) * s``, the reference's order; plain PyTorch, as it is
+    XLA in the JAX package). ``{"qn": int8, "s"}`` (int8_native) quantizes
+    the activations per row (absmax / 127, floor 1e-12, round, clip), takes
+    an exact int8 x int8 -> int32 product and applies both scales in f32."""
+    if isinstance(w, dict):
+        if "qn" in w:
+            xf = x.float()
+            # times the f32 reciprocal of 127: the jitted reference's
+            # arithmetic for its division by the constant, bit for bit
+            s_x = torch.clamp_min(xf.abs().amax(-1, keepdim=True) * (1.0 / 127.0),
+                                  1e-12)
+            xq = torch.clamp(torch.round(xf / s_x), -127, 127).to(torch.int8)
+            out = _int_mm(xq, w["qn"]).float() * s_x * w["s"]
+            return out.to(x.dtype)
+        return (x @ w["q"].to(x.dtype)) * w["s"].to(x.dtype)
+    return x @ w
+
+
 def _qkv(lp: dict, cfg: ModelConfig, x: torch.Tensor):
     D = cfg.head_dim
-    q = x @ lp["wq"]
-    k = x @ lp["wk"]
-    v = x @ lp["wv"]
+    q = _mm(x, lp["wq"])
+    k = _mm(x, lp["wk"])
+    v = _mm(x, lp["wv"])
     lead = x.shape[:-1]
     return (q.reshape(*lead, -1, D), k.reshape(*lead, -1, D),
             v.reshape(*lead, -1, D))
 
 
 def swiglu(x, w_gate, w_up, w_down):
-    return (F.silu(x @ w_gate) * (x @ w_up)) @ w_down
+    return _mm(F.silu(_mm(x, w_gate)) * _mm(x, w_up), w_down)
 
 
 # ---------------- mixture of experts ----------------
@@ -369,11 +429,10 @@ def _ragged_mm(xs: torch.Tensor, w, group_sizes: torch.Tensor) -> torch.Tensor:
     [X]`` consecutive) times ``w[e]`` (``[X, in, out]``), the twin of
     ``lax.ragged_dot``. On the card one ``torch._grouped_mm`` call (offsets
     from a device cumsum, no host sync); on the CPU a loop over the groups.
-    Quantized expert stacks are not ported yet."""
+    A quantized stack (``{"q", "s"}``) goes through ``ragged_int8_gmm``
+    (the CUDA kernel on the card, its plain twin on the CPU)."""
     if isinstance(w, dict):
-        raise NotImplementedError(
-            "quantized expert stacks need ragged_int8_gmm, not ported yet"
-        )
+        return ragged_int8_gmm(xs, w["q"], w["s"], group_sizes).to(xs.dtype)
     if xs.device.type == "cuda":
         offs = torch.cumsum(group_sizes, 0).to(torch.int32)
         return torch._grouped_mm(xs, w, offs=offs)
@@ -419,6 +478,15 @@ def _shared_expert(lp: dict, x: torch.Tensor) -> torch.Tensor:
     return shared
 
 
+def _dense_expert_mm(x, w, spec: str):
+    """Dense-dispatch einsum against a plain or quantized expert stack
+    (scales ``[X, out]`` broadcast over the ``[T, X, out]`` product)."""
+    if isinstance(w, dict):
+        out = torch.einsum(spec, x, w["q"].to(x.dtype))
+        return out * w["s"][None].to(out.dtype)
+    return torch.einsum(spec, x, w)
+
+
 def moe_ffn_dense(lp: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     """Dense-dispatch reference (every expert computes every token, the
     routing matrix selects), shared experts included: the tests' oracle."""
@@ -426,9 +494,9 @@ def moe_ffn_dense(lp: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     w = torch.zeros(x.shape[0], cfg.num_experts, device=x.device).scatter_add_(
         1, idx, vals
     )  # [T, X] routing weights
-    g = torch.einsum("te,xef->txf", x, lp["we_gate"])
-    u = torch.einsum("te,xef->txf", x, lp["we_up"])
-    y = torch.einsum("txf,xfe->txe", _expert_act(cfg, g, u), lp["we_down"])
+    g = _dense_expert_mm(x, lp["we_gate"], "te,xef->txf")
+    u = _dense_expert_mm(x, lp["we_up"], "te,xef->txf")
+    y = _dense_expert_mm(_expert_act(cfg, g, u), lp["we_down"], "txf,xfe->txe")
     out = torch.einsum("txe,tx->te", y, w.to(x.dtype))
     if "shared_gate" in lp:
         out = out + _shared_expert(lp, x)
@@ -444,7 +512,7 @@ def _ffn(lp: dict, cfg: ModelConfig, h: torch.Tensor) -> torch.Tensor:
 
 
 def _layer_tail(x, lp, o_flat, cfg: ModelConfig):
-    x = x + o_flat @ lp["wo"]
+    x = x + _mm(o_flat, lp["wo"])
     h = rms_norm(x, lp["mlp_norm"], cfg.rms_norm_eps)
     return x + _ffn(lp, cfg, h)
 
@@ -456,6 +524,18 @@ def _logits(params: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
 
 def _i32(x, device) -> torch.Tensor:
     return torch.as_tensor(x, dtype=torch.int32, device=device)
+
+
+def _check_planes(cfg: ModelConfig, k_scales, v_scales) -> bool:
+    """Whether the int8-with-scales cache is on: both planes or neither,
+    and never for MLA (its latent path has no per-page scale stream)."""
+    if (k_scales is None) != (v_scales is None):
+        raise ValueError("k_scales and v_scales come together")
+    if k_scales is not None and cfg.is_mla:
+        raise ValueError("the int8-with-scales KV cache is not supported for "
+                         "MLA models (the absorbed latent path has no "
+                         "per-page scale stream)")
+    return k_scales is not None
 
 
 # ---------------- prefill (one sequence, chunked) ----------------
@@ -471,11 +551,17 @@ def prefill(
     valid_len: int,  # real tokens in this chunk
     k_cache: torch.Tensor,  # [L, Hkv, N, bs, D], written IN PLACE
     v_cache: torch.Tensor,
+    k_scales: Optional[torch.Tensor] = None,  # [L, N] f32 (int8 cache), IN PLACE
+    v_scales: Optional[torch.Tensor] = None,
 ):
     """Process one (chunk of a) prompt; returns (last-real-token logits
-    [V] f32, k_cache, v_cache). ``history_len`` cached tokens are attended
-    but not recomputed (chunked prefill and prefix-cache hits). MLA layers
-    write the chunk's latents first, then run the latent prefill kernel."""
+    [V] f32, k_cache, v_cache[, k_scales, v_scales]). ``history_len``
+    cached tokens are attended but not recomputed (chunked prefill and
+    prefix-cache hits). MLA layers write the chunk's latents first, then
+    run the latent prefill kernel. With the scale planes (int8 cache, GQA)
+    the chunk lands quantized, growing its pages' scales, and attention
+    reads every page through the updated planes."""
+    quantized = _check_planes(cfg, k_scales, v_scales)
     dev = tokens.device
     T = tokens.shape[0]
     history_len, valid_len = int(history_len), int(valid_len)
@@ -505,27 +591,42 @@ def prefill(
         else:
             q, k, v = _qkv(lp, cfg, h)
             q, k = rotate(q, rope), rotate(k, rope)
-            att.write_slots(k_cache[l], k, blk, off)
-            att.write_slots(v_cache[l], v, blk, off)
+            ks_l = vs_l = None
+            if quantized:
+                _, ks_l = att.write_chunk_to_cache_quantized(
+                    k_cache[l], k_scales[l], k, block_table, history_len, valid)
+                _, vs_l = att.write_chunk_to_cache_quantized(
+                    v_cache[l], v_scales[l], v, block_table, history_len, valid)
+                k_scales[l], v_scales[l] = ks_l, vs_l
+            else:
+                att.write_slots(k_cache[l], k, blk, off)
+                att.write_slots(v_cache[l], v, blk, off)
             o = att.chunk_attention_with_cache(
                 q, k, v, k_cache[l], v_cache[l], block_table, hist, valid, scale,
+                k_scales=ks_l, v_scales=vs_l,
             ).reshape(T, -1)
         x = _layer_tail(x, lp, o, cfg)
     x = rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
     last = min(max(valid_len - 1, 0), T - 1)
-    return _logits(params, cfg, x[last]), k_cache, v_cache
+    out = (_logits(params, cfg, x[last]), k_cache, v_cache)
+    return out + (k_scales, v_scales) if quantized else out
 
 
 # ---------------- merged decode ----------------
 
 
 def _decode_body(params, cfg, tokens, positions, block_tables, seq_lens,
-                 k_cache, v_cache):
+                 k_cache, v_cache, k_scales=None, v_scales=None):
     """One decode step for all sequences, the MERGED one-write path:
     attention handles the current token out of the cache (flash merge over
     the stats-emitting paged kernel: GQA, or the latent kernel for MLA),
     then ONE in-place append writes every layer's new K/V (or c_kv/k_pe).
-    Returns (logits [B, V] f32, k_cache, v_cache)."""
+    With the scale planes, history pages read through the step-entry
+    planes, the current token merges in at full precision, and ONE
+    ``kv_cache_append_quantized`` writes all layers and grows the planes
+    (in place). Returns (logits [B, V] f32, k_cache, v_cache[, k_scales,
+    v_scales, n_requants])."""
+    quantized = _check_planes(cfg, k_scales, v_scales)
     x = _embed(params, cfg, tokens)  # [B, E]
     B = x.shape[0]
     if cfg.is_mla:
@@ -556,14 +657,22 @@ def _decode_body(params, cfg, tokens, positions, block_tables, seq_lens,
             v_news.append(v)
             o = att.decode_attention_merged(
                 q, k, v, k_cache[l], v_cache[l], block_tables, hist_lens, scale,
+                k_scales=k_scales[l] if quantized else None,
+                v_scales=v_scales[l] if quantized else None,
             ).reshape(B, -1)
         x = _layer_tail(x, lp, o, cfg)
-    kv_cache_append(
-        torch.stack(k_news), torch.stack(v_news), k_cache, v_cache,
-        blk.to(torch.int32), off.to(torch.int32),
-    )
+    blk, off = blk.to(torch.int32), off.to(torch.int32)
+    k_new, v_new = torch.stack(k_news), torch.stack(v_news)
     x = rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
-    return _logits(params, cfg, x), k_cache, v_cache
+    logits = _logits(params, cfg, x)
+    if not quantized:
+        kv_cache_append(k_new, v_new, k_cache, v_cache, blk, off)
+        return logits, k_cache, v_cache
+    _, _, new_ks, new_vs, n_req = kv_cache_append_quantized(
+        k_new, v_new, k_cache, v_cache, k_scales, v_scales, blk, off)
+    k_scales.copy_(new_ks)
+    v_scales.copy_(new_vs)
+    return logits, k_cache, v_cache, k_scales, v_scales, n_req
 
 
 def _sample_step(logits, seeds, steps, temps, temps_host, top_ks, top_ps,
@@ -608,12 +717,19 @@ def decode_window(
     counts: Optional[torch.Tensor] = None,  # [B, V] int32, bumped IN PLACE
     prompt_mask: Optional[torch.Tensor] = None,  # [B, V] bool
     with_logprobs: bool = False,
+    k_scales: Optional[torch.Tensor] = None,  # [L, N] f32 (int8 cache), IN PLACE
+    v_scales: Optional[torch.Tensor] = None,
 ):
     """``n_steps`` decode+sample steps; the sampled token of step i feeds
     step i+1 on the device. Returns (tokens [n_steps, B] int32, k_cache,
-    v_cache[, counts][, (chosen_lp, top_ids, top_lps) each [n_steps, ...]])
-    — counts only with penalties. Callers pre-allocate KV blocks for
+    v_cache[, k_scales, v_scales, n_requants][, counts][, (chosen_lp,
+    top_ids, top_lps) each [n_steps, ...]]) — the planes and the device
+    int32 count of scale entries that grew in the window with the int8
+    cache, counts only with penalties. Callers pre-allocate KV blocks for
     ``n_steps`` new tokens per sequence."""
+    quantized = _check_planes(cfg, k_scales, v_scales)
+    n_req = (torch.zeros((), dtype=torch.int32, device=tokens.device)
+             if quantized else None)
     penalties = (
         None if counts is None
         else (freq_pens, pres_pens, rep_pens, counts, prompt_mask)
@@ -623,10 +739,13 @@ def decode_window(
     temps_host = temps.tolist()
     toks, lps = [], []
     for i in range(n_steps):
-        logits, k_cache, v_cache = _decode_body(
+        out = _decode_body(
             params, cfg, tokens, positions, block_tables, seq_lens,
-            k_cache, v_cache,
+            k_cache, v_cache, k_scales, v_scales,
         )
+        logits = out[0]
+        if quantized:
+            n_req = n_req + out[5]
         nxt, lp = _sample_step(
             logits, seeds, [s + i for s in steps], temps, temps_host, top_ks,
             top_ps, penalties, with_logprobs,
@@ -635,6 +754,8 @@ def decode_window(
         lps.append(lp)
         tokens, positions, seq_lens = nxt, positions + 1, seq_lens + 1
     out = (torch.stack(toks), k_cache, v_cache)
+    if quantized:
+        out += (k_scales, v_scales, n_req)
     if penalties is not None:
         out += (counts,)
     if with_logprobs:
@@ -648,6 +769,7 @@ def decode_window(
 def _mixed_fused_forward(
     params, cfg, d_tokens, d_positions, d_tables, d_seq_lens,
     p_tokens, p_tables, p_hists, p_valids, k_cache, v_cache,
+    k_scales=None, v_scales=None,
 ):
     """Embeddings and every projection/FFN/logits GEMM run over the combined
     [B + MP*T] row axis; attention is ONE ragged paged-attention call per
@@ -655,8 +777,11 @@ def _mixed_fused_forward(
     each layer scatters the decode tokens' and the segments' K/V first
     (padded/dead segment rows land in trash page 0 through their zero
     table entries). GQA only: MLA takes :func:`_mixed_per_part` (there is
-    no latent ragged kernel). Returns (decode_logits [B, V] f32, p_logits
-    [MP, V] f32, k_cache, v_cache)."""
+    no latent ragged kernel). With the scale planes the writes are the
+    quantized ones (the decode rows, then each segment), and the ragged
+    kernel reads every page through the updated planes. Returns
+    (decode_logits [B, V] f32, p_logits [MP, V] f32, k_cache, v_cache)."""
+    quantized = _check_planes(cfg, k_scales, v_scales)
     B = d_tokens.shape[0]
     MP, T = p_tokens.shape
     bs = k_cache.shape[3]
@@ -675,11 +800,18 @@ def _mixed_fused_forward(
         h = rms_norm(x, lp["attn_norm"], cfg.rms_norm_eps)
         q, k, v = _qkv(lp, cfg, h)  # [B+MP*T, H/Hkv, D]
         q, k = rotate(q, rope), rotate(k, rope)
-        att.write_slots(k_cache[l], k, blk, off)
-        att.write_slots(v_cache[l], v, blk, off)
+        ks_l = vs_l = None
+        if quantized:
+            ks_l, vs_l = _write_mixed_quantized(
+                k_cache[l], v_cache[l], k_scales[l], v_scales[l], k, v, B, T,
+                d_tables, d_positions, p_tables, p_hists, p_valids)
+            k_scales[l], v_scales[l] = ks_l, vs_l
+        else:
+            att.write_slots(k_cache[l], k, blk, off)
+            att.write_slots(v_cache[l], v, blk, off)
         o = ragged_mixed_attention_rows(
             q, k_cache[l], v_cache[l], d_tables, d_seq_lens, p_tables,
-            p_hists, p_valids, scale, T,
+            p_hists, p_valids, scale, T, k_scales=ks_l, v_scales=vs_l,
         )
         x = _layer_tail(x, lp, o.reshape(o.shape[0], -1), cfg)
     x = rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
@@ -688,6 +820,24 @@ def _mixed_fused_forward(
     last = B + torch.arange(MP, device=dev) * T + (p_valids.long() - 1).clamp(0, T - 1)
     p_logits = _logits(params, cfg, x[last])
     return logits_d, p_logits, k_cache, v_cache
+
+
+def _write_mixed_quantized(kc_l, vc_l, ks_l, vs_l, k, v, B, T, d_tables,
+                           d_positions, p_tables, p_hists, p_valids):
+    """The fused step's quantized writes of one layer, in the reference's
+    order: the decode rows, then each segment's chunk. Returns the grown
+    scale slices."""
+    _, ks_l = att.write_decode_token_to_cache_quantized(
+        kc_l, ks_l, k[:B], d_tables, d_positions)
+    _, vs_l = att.write_decode_token_to_cache_quantized(
+        vc_l, vs_l, v[:B], d_tables, d_positions)
+    for m in range(p_tables.shape[0]):
+        rows = slice(B + m * T, B + (m + 1) * T)
+        _, ks_l = att.write_chunk_to_cache_quantized(
+            kc_l, ks_l, k[rows], p_tables[m], p_hists[m], p_valids[m])
+        _, vs_l = att.write_chunk_to_cache_quantized(
+            vc_l, vs_l, v[rows], p_tables[m], p_hists[m], p_valids[m])
+    return ks_l, vs_l
 
 
 def _mixed_per_part(
@@ -748,17 +898,30 @@ def mixed_step(
     counts: Optional[torch.Tensor] = None,
     prompt_mask: Optional[torch.Tensor] = None,
     with_logprobs: bool = False,
+    k_scales: Optional[torch.Tensor] = None,  # [L, N] f32 (int8 cache), IN PLACE
+    v_scales: Optional[torch.Tensor] = None,
 ):
     """ONE fused step: MP prefill chunks plus a decode token for every
     active sequence (GQA: combined-row GEMMs and one ragged attention call
     per layer; MLA: the per-part flavor). Returns (next_tokens [B],
-    p_logits [MP, V] f32, k_cache, v_cache[, counts][, (chosen_lp,
-    top_ids, top_lps)])."""
-    forward = _mixed_per_part if cfg.is_mla else _mixed_fused_forward
-    logits_d, p_logits, k_cache, v_cache = forward(
-        params, cfg, d_tokens, d_positions, d_tables, d_seq_lens,
-        p_tokens, p_tables, p_hists, p_valids, k_cache, v_cache,
-    )
+    p_logits [MP, V] f32, k_cache, v_cache[, k_scales, v_scales,
+    n_requants][, counts][, (chosen_lp, top_ids, top_lps)])."""
+    quantized = _check_planes(cfg, k_scales, v_scales)
+    if quantized:
+        # scales only grow within a step: entries above their step-entry
+        # value count the pages requantized by this dispatch
+        k_scales0, v_scales0 = k_scales.clone(), v_scales.clone()
+        logits_d, p_logits, k_cache, v_cache = _mixed_fused_forward(
+            params, cfg, d_tokens, d_positions, d_tables, d_seq_lens,
+            p_tokens, p_tables, p_hists, p_valids, k_cache, v_cache,
+            k_scales, v_scales,
+        )
+    else:
+        forward = _mixed_per_part if cfg.is_mla else _mixed_fused_forward
+        logits_d, p_logits, k_cache, v_cache = forward(
+            params, cfg, d_tokens, d_positions, d_tables, d_seq_lens,
+            p_tokens, p_tables, p_hists, p_valids, k_cache, v_cache,
+        )
     penalties = (
         None if counts is None
         else (freq_pens, pres_pens, rep_pens, counts, prompt_mask)
@@ -768,6 +931,10 @@ def mixed_step(
         temps.tolist(), top_ks, top_ps, penalties, with_logprobs,
     )
     out = (nxt, p_logits, k_cache, v_cache)
+    if quantized:
+        n_req = ((k_scales > k_scales0).sum()
+                 + (v_scales > v_scales0).sum()).to(torch.int32)
+        out += (k_scales, v_scales, n_req)
     if penalties is not None:
         out += (counts,)
     if with_logprobs:

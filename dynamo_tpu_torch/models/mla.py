@@ -27,6 +27,11 @@ from ..ops.mla_attention import gather_latents
 from .config import ModelConfig, is_yarn, yarn_mscale
 
 NEG_INF = -1e30
+MLA_INT8_NATIVE = (
+    "MLA with quantization='int8_native' is not supported: the absorbed "
+    "fold dequantizes wkv_b, which int8_native stores in its 'qn' form "
+    "(the JAX package fails on this pair too); use 'int8' or 'fp8_e4m3'"
+)
 
 
 def mla_rope_freqs(cfg: ModelConfig, device="cpu") -> tuple[torch.Tensor, float]:
@@ -73,9 +78,16 @@ def rope_rotate(x: torch.Tensor, positions: torch.Tensor,
 
 def _wkv_b_parts(lp: dict, cfg: ModelConfig):
     """Split the kv_b up-projection ``[C, H*(nope+v)]`` into
-    ``w_kc [C, H, nope]`` and ``w_vc [C, H, v]``."""
+    ``w_kc [C, H, nope]`` and ``w_vc [C, H, v]``. A quantized ``wkv_b``
+    dequantizes for the absorbed fold in bf16 whatever the model dtype, as
+    in the JAX package; its ``int8_native`` form is refused (the JAX
+    package reads ``w["q"]`` there and fails)."""
     H, dn, dv = cfg.num_heads, cfg.qk_nope_head_dim, cfg.v_head_dim
     w = lp["wkv_b"]
+    if isinstance(w, dict):
+        if "qn" in w:
+            raise ValueError(MLA_INT8_NATIVE)
+        w = w["q"].to(torch.bfloat16) * w["s"].to(torch.bfloat16)
     w = w.reshape(w.shape[0], H, dn + dv)
     return w[:, :, :dn], w[:, :, dn:]
 
@@ -88,17 +100,18 @@ def mla_q_and_latent(lp: dict, cfg: ModelConfig, x: torch.Tensor, rope):
     Returns (q_eff ``[..., H, C]``, q_pe ``[..., H, R]``, c_kv ``[..., C]``,
     k_pe ``[..., R]``); q_eff is the ABSORBED query (q_nope @ w_kc, f32
     product) scoring directly against cache latents."""
-    from .llama import rms_norm, rotate
+    from .llama import _mm, rms_norm, rotate
 
     H = cfg.num_heads
     dn = cfg.qk_nope_head_dim
     if cfg.q_lora_rank:
-        q = rms_norm(x @ lp["wq_a"], lp["q_norm"], cfg.rms_norm_eps) @ lp["wq_b"]
+        q = _mm(rms_norm(_mm(x, lp["wq_a"]), lp["q_norm"], cfg.rms_norm_eps),
+                lp["wq_b"])
     else:
-        q = x @ lp["wq"]
+        q = _mm(x, lp["wq"])
     q = q.reshape(*x.shape[:-1], H, -1)
     q_nope, q_pe = q[..., :dn], rotate(q[..., dn:], rope)
-    kv = x @ lp["wkv_a"]  # [..., C + R]
+    kv = _mm(x, lp["wkv_a"])  # [..., C + R]
     C = cfg.kv_lora_rank
     c_kv = rms_norm(kv[..., :C], lp["kv_norm"], cfg.rms_norm_eps)
     k_pe = rotate(kv[..., None, C:], rope)[..., 0, :]

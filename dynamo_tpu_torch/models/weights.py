@@ -10,7 +10,12 @@ the attention leaves (``wq``/``wk``/``wv``/``wo``, or MLA's ``wq`` or
 the norms, and the FFN (dense ``w_gate``/``w_up``/``w_down``, or MoE
 ``moe_gate``, ``we_*`` expert stacks and ``shared_*``). The port keeps that
 exact tree (models/llama.py), so carrying weights over is a dtype and
-device move per leaf. A safetensors checkpoint loader is not ported yet.
+device move per leaf. Quantized nodes (``{"q" | "qn": codes, "s": f32}``,
+models/quant.py) carry over code for code: int8 as ``torch.int8``, fp8 as
+``torch.float8_e4m3fn`` (numpy holds JAX's fp8 as an ``ml_dtypes`` type
+that ``torch.from_numpy`` refuses, so its bytes pass as uint8;
+``int8_native`` codes land column-major, ``quant.native_layout``). A
+safetensors checkpoint loader is not ported yet.
 """
 
 from __future__ import annotations
@@ -20,16 +25,28 @@ import torch
 
 from .config import ModelConfig
 from .llama import _dtype, check_supported, init_params
+from .quant import native_layout
 
 #: leaves kept in float32 whatever the model dtype (as in the JAX tree)
 _F32_LEAVES = ("moe_gate_bias",)
 
 
-def _leaf(x, dtype: torch.dtype, device) -> torch.Tensor:
-    if isinstance(x, dict):
-        raise NotImplementedError(
-            "quantized weight leaves ({'q', 's'}) are not ported yet"
-        )
+def _codes(x, device) -> torch.Tensor:
+    """Quantized codes, bit for bit: int8 as int8, fp8 e4m3 by its bytes."""
+    a = np.asarray(x)
+    if a.dtype == np.int8:
+        return torch.from_numpy(a.copy()).to(device)
+    if a.dtype.itemsize == 1 and "float8_e4m3" in str(a.dtype):
+        return torch.from_numpy(a.view(np.uint8).copy()).view(
+            torch.float8_e4m3fn).to(device)
+    raise ValueError(f"quantized codes of dtype {a.dtype} are not supported")
+
+
+def _leaf(x, dtype: torch.dtype, device):
+    if isinstance(x, dict):  # a quantized node: codes + f32 scales
+        return {k: (_leaf(v, torch.float32, device) if k == "s"
+                    else native_layout(_codes(v, device)) if k == "qn"
+                    else _codes(v, device)) for k, v in x.items()}
     # numpy has no bfloat16: widen to f32 on the host, narrow on the way in
     return torch.from_numpy(np.array(x, dtype=np.float32)).to(
         device=device, dtype=dtype

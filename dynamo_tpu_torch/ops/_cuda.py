@@ -36,15 +36,19 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SOURCES = {
     "kv_cache_append.cu": {
         "kv_cache_append_launch": [_P] * 6 + [_I] * 8 + [_P],
+        "kv_cache_append_quantized_launch": [_P] * 8 + [_I] * 7 + [_P],
     },
     "mla_attention.cu": {
         "mla_attention_launch": (
             [_P] * 11 + [_I] * 8 + [_F] + [_I] * 3 + [_P, _I, _P]
         ),
     },
+    "moe_gmm.cu": {
+        "ragged_int8_gmm_launch": [_P] * 5 + [_I] * 6 + [_P],
+    },
     "paged_attention.cu": {
         "paged_attention_launch": (
-            [_P] * 8 + [_I] + [_P] * 3 + [_I] * 9 + [_F, _I, _P, _I, _P]
+            [_P] * 8 + [_I] + [_P] * 3 + [_I] * 9 + [_F, _I, _P, _I, _P, _P, _I, _P]
         ),
     },
 }

@@ -21,6 +21,14 @@ reserved as trash; sequence lengths mask the unused tail.
     ``write_decode_token_to_cache`` are the slot-mapping writers. Unlike
     the JAX functions (which return an updated copy), the writers update
     the cache layer IN PLACE and return it.
+  * The int8-with-scales cache: every attention path takes ``k_scales`` /
+    ``v_scales`` (this layer's ``[N]`` f32 slice of the scale planes; the
+    pages dequantize as they are read), and
+    ``write_chunk_to_cache_quantized`` / ``write_decode_token_to_cache_quantized``
+    grow the written pages' scales, requantize their resident rows and land
+    the new rows quantized (plain PyTorch, as they are XLA in the JAX
+    package). They update the cache layer in place and return the grown
+    scale slice as a new tensor.
 """
 
 from __future__ import annotations
@@ -29,6 +37,7 @@ from typing import Optional
 
 import torch
 
+from ..models.quant import KV_INT8_QMAX, KV_SCALE_EPS
 from .paged_attention import (
     NEG_INF,
     gather_pages,
@@ -37,11 +46,10 @@ from .paged_attention import (
 )
 
 
-def _no_extras(fn: str, window=0, sinks=None, cap=0.0, k_scales=None):
-    if window or sinks is not None or cap or k_scales is not None:
+def _no_extras(fn: str, window=0, sinks=None, cap=0.0):
+    if window or sinks is not None or cap:
         raise NotImplementedError(
-            f"{fn}: sliding windows, sinks, softcap and per-page KV scales "
-            "are not ported yet"
+            f"{fn}: sliding windows, sinks and softcap are not ported yet"
         )
 
 
@@ -63,11 +71,13 @@ def decode_attention_merged(
     history from the stats-emitting paged kernel, the current token folded
     in with the flash merge. It removes the write-before-attend dependency,
     so all layers' cache writes batch into one in-place
-    :func:`~dynamo_tpu_torch.ops.kv_cache_update.kv_cache_append`."""
-    _no_extras("decode_attention_merged", window, sinks, 0.0, k_scales)
+    :func:`~dynamo_tpu_torch.ops.kv_cache_update.kv_cache_append` (or its
+    quantized twin; the current token merges in at full precision)."""
+    _no_extras("decode_attention_merged", window, sinks)
     return verify_attention(
         q[:, None], k_new[:, None], v_new[:, None], k_cache_layer,
         v_cache_layer, block_tables, hist_lens, scale,
+        k_scales=k_scales, v_scales=v_scales,
     )[:, 0]
 
 
@@ -90,7 +100,7 @@ def verify_attention(
     the stats-emitting decode kernel: the T*G rows of a kv head pack into
     its query-row dimension) plus the causal prefix of the window (dense,
     tiny), merged with the flash-decoding rule."""
-    _no_extras("verify_attention", window, sinks, cap, k_scales)
+    _no_extras("verify_attention", window, sinks, cap)
     B, T, H, D = q.shape
     Hkv = k_cache_layer.shape[0]
     G = H // Hkv
@@ -99,7 +109,7 @@ def verify_attention(
     o_h, m_h, l_h = paged_decode_attention(
         qp.reshape(B, Hkv * T * G, D).contiguous(), k_cache_layer,
         v_cache_layer, block_tables, hist_lens, scale, return_stats=True,
-        q_pos_offset=1, group=G,
+        q_pos_offset=1, group=G, k_scales=k_scales, v_scales=v_scales,
     )
     o_h = o_h.reshape(B, Hkv, T, G, D).float()
     m_h = m_h.reshape(B, Hkv, T, G)
@@ -126,6 +136,8 @@ def _history_attention_xla(
     block_tables: torch.Tensor,
     hist_lens: torch.Tensor,
     scale: float,
+    k_scales: Optional[torch.Tensor] = None,
+    v_scales: Optional[torch.Tensor] = None,
 ):
     """Dense twin of the stats-emitting kernel path: history-only attention
     with raw softmax stats (o normalized, m row max, l normalizer) in the
@@ -133,8 +145,8 @@ def _history_attention_xla(
     B, T, H, D = q.shape
     Hkv = k_cache_layer.shape[0]
     G = H // Hkv
-    k = gather_pages(k_cache_layer, block_tables).float()  # [Hkv, B, S, D]
-    v = gather_pages(v_cache_layer, block_tables).float()
+    k = gather_pages(k_cache_layer, block_tables, k_scales).float()  # [Hkv, B, S, D]
+    v = gather_pages(v_cache_layer, block_tables, v_scales).float()
     qg = q.reshape(B, T, Hkv, G, D).float() * scale
     s = torch.einsum("btkgd,kbsd->bktgs", qg, k)
     valid = torch.arange(k.shape[2], device=q.device)[None, :] < hist_lens[:, None]
@@ -153,14 +165,17 @@ def decode_attention_xla(
     block_tables: torch.Tensor,  # [B, M] int32
     seq_lens: torch.Tensor,  # [B] int32 (includes the new token)
     scale: float,
+    k_scales: Optional[torch.Tensor] = None,  # [N] f32 with int8 pages
+    v_scales: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:  # [B, H, D]
     """Dense gather + masked softmax in the query dtype (the JAX XLA path's
-    arithmetic: scores in the compute dtype, softmax in f32)."""
+    arithmetic: scores in the compute dtype, softmax in f32; int8 pages
+    dequantize in f32, then cast to the query dtype)."""
     B, H, D = q.shape
     Hkv = k_cache_layer.shape[0]
     G = H // Hkv
-    k = gather_pages(k_cache_layer, block_tables).to(q.dtype)
-    v = gather_pages(v_cache_layer, block_tables).to(q.dtype)
+    k = gather_pages(k_cache_layer, block_tables, k_scales).to(q.dtype)
+    v = gather_pages(v_cache_layer, block_tables, v_scales).to(q.dtype)
     qg = q.reshape(B, Hkv, G, D)
     scores = torch.einsum("bkgd,kbtd->bkgt", qg * scale, k).float()
     mask = torch.arange(k.shape[2], device=q.device)[None, :] < seq_lens[:, None]
@@ -193,10 +208,10 @@ def chunk_attention_with_cache(
     :func:`chunk_attention_with_cache_xla`). Real rows (t < valid_len)
     agree between the two; padded rows come out zero (discarded by every
     caller)."""
-    _no_extras("chunk_attention_with_cache", window, sinks, cap, k_scales)
+    _no_extras("chunk_attention_with_cache", window, sinks, cap)
     return paged_prefill_attention(
         q, k_cache_layer, v_cache_layer, block_table, history_len, scale,
-        valid_len=valid_len,
+        valid_len=valid_len, k_scales=k_scales, v_scales=v_scales,
     )
 
 
@@ -210,9 +225,12 @@ def chunk_attention_with_cache_xla(
     history_len,  # tokens already in cache
     valid_len,  # real tokens in this chunk
     scale: float,
+    k_scales: Optional[torch.Tensor] = None,  # [N] f32 with int8 pages
+    v_scales: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """Queries attend cached history (read from the cache) plus the causal
-    prefix of the chunk (read from the arguments)."""
+    """Queries attend cached history (read from the cache, dequantized with
+    per-page scales) plus the causal prefix of the chunk (read from the
+    arguments, at full precision)."""
     T, H, D = q.shape
     Hkv, _, bs, _ = k_cache_layer.shape
     G = H // Hkv
@@ -220,8 +238,8 @@ def chunk_attention_with_cache_xla(
     dev = q.device
     hist = torch.as_tensor(history_len, device=dev).reshape(())
     valid = torch.as_tensor(valid_len, device=dev).reshape(())
-    k_hist = gather_pages(k_cache_layer, block_table).to(k_chunk.dtype)
-    v_hist = gather_pages(v_cache_layer, block_table).to(v_chunk.dtype)
+    k_hist = gather_pages(k_cache_layer, block_table, k_scales).to(k_chunk.dtype)
+    v_hist = gather_pages(v_cache_layer, block_table, v_scales).to(v_chunk.dtype)
     k_all = torch.cat([k_hist, k_chunk.transpose(0, 1)], dim=1)  # [Hkv, S, D]
     v_all = torch.cat([v_hist, v_chunk.transpose(0, 1)], dim=1)
     qg = q.reshape(T, Hkv, G, D)
@@ -305,3 +323,73 @@ def write_decode_token_to_cache(
 ) -> torch.Tensor:
     blk, off = decode_slot_indices(block_tables, positions, cache_layer.shape[2])
     return write_slots(cache_layer, token_kv, blk, off)
+
+
+def _requantize_and_write(cache_layer, scales, rows, blk, off, amax_rows,
+                          qmax: float, eps: float):
+    """The shared core of the quantized writers: grow the pages' scales by
+    a scatter-max of the rows' absmax / qmax, requantize every touched page
+    by its old/new ratio (duplicates carry identical ratios and contents,
+    so the scatter is deterministic), land the rows quantized against the
+    NEW scales. ``rows [R, Hkv, D]`` f32; returns the new scale slice."""
+    pages = blk.long()
+    # times the f32 reciprocal of qmax: the jitted reference's arithmetic
+    # (XLA rewrites a division by a constant so), bit for bit
+    new_scales = scales.scatter_reduce(
+        0, pages, torch.clamp_min(amax_rows * (1.0 / qmax), eps), reduce="amax",
+        include_self=True,
+    )
+    new_at = new_scales[pages]
+    r = scales[pages] / new_at  # [R], <= 1; == 1 round-trips exactly
+    resident = cache_layer[:, pages].float() * r[None, :, None, None]
+    cache_layer[:, pages] = torch.clamp(torch.round(resident), -qmax, qmax).to(
+        cache_layer.dtype)
+    q = torch.clamp(torch.round(rows / new_at[:, None, None]), -qmax, qmax)
+    cache_layer[:, pages, off.long()] = q.transpose(0, 1).to(cache_layer.dtype)
+    return new_scales
+
+
+def write_chunk_to_cache_quantized(
+    cache_layer: torch.Tensor,  # [Hkv, N, bs, D] int8 — updated IN PLACE
+    scales: torch.Tensor,  # [N] f32 this layer's per-page scale plane
+    chunk: torch.Tensor,  # [T, Hkv, D] full-precision K or V rows
+    block_table: torch.Tensor,  # [M]
+    start_pos,  # first absolute position of the chunk
+    valid_len,  # real (unpadded) tokens in the chunk
+    qmax: float = KV_INT8_QMAX,
+    eps: float = KV_SCALE_EPS,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """:func:`write_chunk_to_cache` for the int8-with-scales cache. Padded
+    tail rows are zeroed first, so they neither inflate a real page's scale
+    nor write garbage into its tail slots. Returns ``(cache_layer,
+    new_scales)``."""
+    T = chunk.shape[0]
+    blk, off = chunk_slot_indices(block_table, start_pos, T,
+                                  cache_layer.shape[2])
+    valid = torch.as_tensor(valid_len, device=chunk.device).reshape(())
+    real = torch.arange(T, device=chunk.device) < valid
+    cf = chunk.float() * real[:, None, None]
+    new_scales = _requantize_and_write(
+        cache_layer, scales, cf, blk, off, cf.abs().amax(dim=(1, 2)), qmax, eps)
+    return cache_layer, new_scales
+
+
+def write_decode_token_to_cache_quantized(
+    cache_layer: torch.Tensor,  # [Hkv, N, bs, D] int8 — updated IN PLACE
+    scales: torch.Tensor,  # [N] f32 this layer's per-page scale plane
+    token_kv: torch.Tensor,  # [B, Hkv, D] full-precision rows
+    block_tables: torch.Tensor,  # [B, M]
+    positions: torch.Tensor,  # [B] absolute position of the new token
+    qmax: float = KV_INT8_QMAX,
+    eps: float = KV_SCALE_EPS,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """:func:`write_decode_token_to_cache` for the int8-with-scales cache:
+    the same scale growth, page requantization and quantized row write, one
+    row per sequence. Padded batch rows target the trash page 0 (its scale
+    may grow and its content is garbage; page 0 is never read). Returns
+    ``(cache_layer, new_scales)``."""
+    blk, off = decode_slot_indices(block_tables, positions, cache_layer.shape[2])
+    xf = token_kv.float()
+    new_scales = _requantize_and_write(
+        cache_layer, scales, xf, blk, off, xf.abs().amax(dim=(1, 2)), qmax, eps)
+    return cache_layer, new_scales

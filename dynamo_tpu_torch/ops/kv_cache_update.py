@@ -12,6 +12,13 @@ Hkv, D], tiny) and writes them with ONE call after attention, which
 handled the current token out of the cache. The K and V rows may differ in
 width: MLA's k cache holds the latent ``c_kv`` ``[L, 1, N, bs, C]`` and its
 v cache the rotated ``k_pe`` ``[L, 1, N, bs, R]``.
+
+:func:`kv_cache_append_quantized` is the append of the int8-with-scales
+cache (``dynamo_tpu/ops/kv_cache_update_pallas.py::kv_cache_append_quantized``):
+the scale math in PyTorch (:func:`quant_scale_update`, a device
+``scatter_reduce`` with no host sync), then the page read-modify-write as a
+CUDA kernel (:func:`append_quantized_rows`; its plain twin
+:func:`append_quantized_rows_plain` on the CPU).
 """
 
 from __future__ import annotations
@@ -20,6 +27,7 @@ import ctypes
 
 import torch
 
+from ..models.quant import KV_INT8_QMAX, KV_SCALE_EPS
 from . import _cuda
 
 _SRC = "kv_cache_append.cu"
@@ -82,3 +90,132 @@ def kv_cache_append(
 
 
 kv_cache_append.launches = 0
+
+
+def quant_scale_update(x_new, scales, blk, qmax: float = KV_INT8_QMAX,
+                       eps: float = KV_SCALE_EPS):
+    """Scale-plane update for one appended row per sequence. ``x_new [L,
+    B, Hkv, D]`` new rows, ``scales [L, N]`` per-page f32, ``blk [B]``
+    target pages. Returns ``(new_scales, r, q)``: the grown plane (running
+    absmax / qmax per page, a scatter-max, so the duplicate trash page 0
+    resolves deterministically), the old/new ratio per (layer, row) and the
+    rows quantized against the NEW scales (int8)."""
+    xf = x_new.float()
+    # times the f32 reciprocal: what the jitted reference computes for its
+    # division by the constant qmax (XLA rewrites it so), bit for bit
+    amax = xf.abs().amax(dim=(2, 3)) * (1.0 / qmax)  # [L, B]
+    idx = blk.long()[None, :].expand(amax.shape[0], -1)
+    new_scales = scales.scatter_reduce(
+        1, idx, torch.clamp_min(amax, eps), reduce="amax", include_self=True
+    )
+    new_at = new_scales.gather(1, idx)
+    r = scales.gather(1, idx) / new_at  # [L, B], <= 1
+    q = torch.clamp(torch.round(xf / new_at[:, :, None, None]), -qmax, qmax)
+    return new_scales, r, q.to(torch.int8)
+
+
+def append_quantized_rows_plain(kq, vq, k_cache, v_cache, rk, rv, blk, off):
+    """The kernel's page read-modify-write in PyTorch: every target page
+    other than the trash page 0 requantized by its ratio, then the rows."""
+    L = kq.shape[0]
+    lidx = torch.arange(L, device=kq.device)[:, None]
+    pg = blk.long()[None, :]
+    real = (blk != 0)[None, :]
+    for cache, ratio in ((k_cache, rk), (v_cache, rv)):
+        pages = cache[lidx, :, pg]  # [L, B, Hkv, bs, D]
+        req = torch.clamp(torch.round(pages.float() * ratio[:, :, None, None, None]),
+                          -127, 127).to(cache.dtype)
+        cache[lidx, :, pg] = torch.where(real[..., None, None, None], req, pages)
+    offs = off.long()[None, :]
+    k_cache[lidx, :, pg, offs] = kq
+    v_cache[lidx, :, pg, offs] = vq
+    return k_cache, v_cache
+
+
+def _requants(new_ks, k_scales, new_vs, v_scales) -> torch.Tensor:
+    return ((new_ks > k_scales).sum() + (new_vs > v_scales).sum()).to(torch.int32)
+
+
+def append_quantized_rows(kq, vq, k_cache, v_cache, rk, rv, blk, off):
+    """The page read-modify-write of the quantized append: ``kq``/``vq``
+    ``[L, B, Hkv, D]`` int8 rows quantized against the new scales, ``rk``/
+    ``rv`` ``[L, B]`` f32 old/new ratios; the caches updated in place. The
+    CUDA kernel on the card (its launches count in
+    ``kv_cache_append_quantized.launches``), the plain twin on the CPU."""
+    if k_cache.device.type == "cpu":
+        return append_quantized_rows_plain(kq, vq, k_cache, v_cache, rk, rv,
+                                           blk, off)
+    name = "kv_cache_append_quantized"
+    _cuda.require_cuda(name, kq, vq, k_cache, v_cache, rk, rv, blk, off)
+    _cuda.require_int32(name, blk, off)
+    L, B, Hkv, Dk = kq.shape
+    Dv = vq.shape[-1]
+    N, bs = k_cache.shape[2:4]
+    if (
+        vq.shape != (L, B, Hkv, Dv)
+        or k_cache.shape != (L, Hkv, N, bs, Dk)
+        or v_cache.shape != (L, Hkv, N, bs, Dv)
+        or rk.shape != (L, B) or rv.shape != (L, B)
+        or blk.shape != (B,) or off.shape != (B,)
+    ):
+        raise ValueError(f"{name}: shapes do not fit: rows {tuple(kq.shape)}"
+                         f" / {tuple(vq.shape)}, caches "
+                         f"{tuple(k_cache.shape)} / {tuple(v_cache.shape)}")
+    if {kq.dtype, vq.dtype, k_cache.dtype, v_cache.dtype} != {torch.int8}:
+        raise ValueError(f"{name}: rows and caches must be int8")
+    if rk.dtype != torch.float32 or rv.dtype != torch.float32:
+        raise ValueError(f"{name}: ratios must be f32")
+    if Dk % 4 or Dv % 4:
+        raise ValueError(f"{name}: head dims {Dk}/{Dv} must be multiples of 4")
+    err = _cuda.lib(_SRC).kv_cache_append_quantized_launch(
+        ctypes.c_void_p(kq.data_ptr()), ctypes.c_void_p(vq.data_ptr()),
+        ctypes.c_void_p(k_cache.data_ptr()),
+        ctypes.c_void_p(v_cache.data_ptr()),
+        ctypes.c_void_p(rk.data_ptr()), ctypes.c_void_p(rv.data_ptr()),
+        ctypes.c_void_p(blk.data_ptr()), ctypes.c_void_p(off.data_ptr()),
+        L, B, Hkv, N, bs, Dk, Dv, ctypes.c_void_p(_cuda.stream_ptr(k_cache)),
+    )
+    _cuda.check(err, name)
+    kv_cache_append_quantized.launches += 1
+    return k_cache, v_cache
+
+
+def kv_cache_append_quantized_plain(k_new, v_new, k_cache, v_cache, k_scales,
+                                    v_scales, blk, off):
+    """:func:`kv_cache_append_quantized` with the plain read-modify-write."""
+    new_ks, rk, kq = quant_scale_update(k_new, k_scales, blk)
+    new_vs, rv, vq = quant_scale_update(v_new, v_scales, blk)
+    append_quantized_rows_plain(kq, vq, k_cache, v_cache, rk, rv, blk, off)
+    return (k_cache, v_cache, new_ks, new_vs,
+            _requants(new_ks, k_scales, new_vs, v_scales))
+
+
+def kv_cache_append_quantized(
+    k_new: torch.Tensor,  # [L, B, Hkv, D] this step's keys, full precision
+    v_new: torch.Tensor,  # [L, B, Hkv, D]
+    k_cache: torch.Tensor,  # [L, Hkv, N, bs, D] int8 — updated IN PLACE
+    v_cache: torch.Tensor,  # [L, Hkv, N, bs, D] int8 — updated IN PLACE
+    k_scales: torch.Tensor,  # [L, N] f32 per-page scale plane (not changed)
+    v_scales: torch.Tensor,  # [L, N] f32
+    blk: torch.Tensor,  # [B] int32
+    off: torch.Tensor,  # [B] int32
+):
+    """The append of the int8-with-scales cache: grow each written page's
+    running absmax scale, requantize the page when its scale grew, land
+    the new row quantized against the new scale. Returns ``(k_cache,
+    v_cache, k_scales, v_scales, n_requants)``: the caches updated in
+    place, the grown planes as new tensors, and the number of (layer,
+    page) scale entries that grew, an int32 scalar ON THE DEVICE."""
+    if k_scales.shape != (k_cache.shape[0], k_cache.shape[2]) or \
+            v_scales.shape != k_scales.shape:
+        raise ValueError(f"kv_cache_append_quantized: planes "
+                         f"{tuple(k_scales.shape)} do not fit the caches "
+                         f"{tuple(k_cache.shape)}")
+    new_ks, rk, kq = quant_scale_update(k_new, k_scales, blk)
+    new_vs, rv, vq = quant_scale_update(v_new, v_scales, blk)
+    append_quantized_rows(kq, vq, k_cache, v_cache, rk, rv, blk, off)
+    return (k_cache, v_cache, new_ks, new_vs,
+            _requants(new_ks, k_scales, new_vs, v_scales))
+
+
+kv_cache_append_quantized.launches = 0

@@ -12,7 +12,10 @@ on CUDA tensors and take their plain PyTorch version on CPU tensors:
     block table, causal at absolute positions ``history_len + t``.
 
 Cache layout (as in the JAX package): ``[Hkv, N, bs, D]`` per layer, block
-tables of physical page ids, page 0 reserved as trash.
+tables of physical page ids, page 0 reserved as trash. The pages are of the
+query dtype, or int8 with one f32 scale per physical page for K and for V
+(``k_scales`` / ``v_scales``, this layer's ``[N]`` slice of the engine's
+planes), dequantized as each page is read.
 """
 
 from __future__ import annotations
@@ -50,6 +53,8 @@ def launch_paged_attention(
     T: int = 0,
     Tq: int = 1,
     stats: bool = False,
+    k_scales: Optional[torch.Tensor] = None,  # [N] f32 with an int8 cache
+    v_scales: Optional[torch.Tensor] = None,
     name: str = "paged_attention",
 ):
     """Launch ``csrc/paged_attention.cu`` on its tile list: B one-token
@@ -69,8 +74,8 @@ def launch_paged_attention(
     _cuda.require_int32(name, *tensors[3:])
     if q.dtype not in _cuda.DTYPE_CODES:
         raise ValueError(f"{name}: dtype {q.dtype} not supported")
-    if k_cache_layer.dtype != q.dtype or v_cache_layer.dtype != q.dtype:
-        raise ValueError(f"{name}: cache dtype must equal the query dtype")
+    kv_dtype = _kv_dtype_code(name, q, k_cache_layer, v_cache_layer,
+                              k_scales, v_scales)
     if (Hc, Dc) != (Hkv, D) or v_cache_layer.shape != k_cache_layer.shape:
         raise ValueError(f"{name}: cache shape {tuple(k_cache_layer.shape)} "
                          f"does not fit q {tuple(q.shape)}")
@@ -104,20 +109,46 @@ def launch_paged_attention(
         _ptr(v_cache_layer), _ptr(d_tables), _ptr(d_seq_lens), B,
         _ptr(p_tables), _ptr(p_hists), _ptr(p_valids), MP, T, Tq, Hkv, Gq,
         N, bs, M, D, float(scale), n_split, _ptr(scratch),
-        _cuda.DTYPE_CODES[q.dtype], ctypes.c_void_p(_cuda.stream_ptr(q)),
+        _cuda.DTYPE_CODES[q.dtype], _ptr(k_scales), _ptr(v_scales), kv_dtype,
+        ctypes.c_void_p(_cuda.stream_ptr(q)),
     )
     _cuda.check(err, name)
     return o, m, l
 
 
+def _kv_dtype_code(name, q, k_cache_layer, v_cache_layer, k_scales, v_scales):
+    """The kernel's cache-type code: the query's own, or 2 for int8 pages
+    with their per-page f32 scales (both required, ``[N]`` each)."""
+    if k_cache_layer.dtype != v_cache_layer.dtype:
+        raise ValueError(f"{name}: k and v caches differ in dtype")
+    if k_cache_layer.dtype == torch.int8:
+        N = k_cache_layer.shape[1]
+        for s in (k_scales, v_scales):
+            if s is None or s.dtype != torch.float32 or s.shape != (N,):
+                raise ValueError(f"{name}: an int8 cache needs f32 [N={N}] "
+                                 "k_scales and v_scales")
+        _cuda.require_cuda(name, q, k_scales, v_scales)
+        return 2
+    if k_scales is not None or v_scales is not None:
+        raise ValueError(f"{name}: per-page scales come with an int8 cache")
+    if k_cache_layer.dtype != q.dtype:
+        raise ValueError(f"{name}: cache dtype must equal the query dtype "
+                         "(or be int8 with per-page scales)")
+    return _cuda.DTYPE_CODES[q.dtype]
+
+
 # ---------------- plain PyTorch twins (CPU path + kernel oracle) ----------------
 
 
-def gather_pages(cache_layer: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+def gather_pages(cache_layer: torch.Tensor, table: torch.Tensor,
+                 scales: Optional[torch.Tensor] = None) -> torch.Tensor:
     """``[Hkv, N, bs, D]`` pages of ``table [..., M]`` -> ``[Hkv, ...,
-    M*bs, D]`` (logical positions in order)."""
+    M*bs, D]`` (logical positions in order). With ``scales`` ([N] f32 per
+    page, an int8 cache) the pages come out dequantized, f32."""
     Hkv, _, bs, D = cache_layer.shape
     g = cache_layer[:, table.long()]
+    if scales is not None:  # [Hkv, ..., M, bs, D] * its page's scale
+        g = g.float() * scales[table.long()][..., None, None]
     return g.reshape(Hkv, *table.shape[:-1], table.shape[-1] * bs, D)
 
 
@@ -145,15 +176,17 @@ def masked_attention(
 
 def paged_decode_attention_plain(
     q, k_cache_layer, v_cache_layer, block_tables, seq_lens, scale,
-    return_stats: bool = False,
+    return_stats: bool = False, k_scales=None, v_scales=None,
 ):
-    """Gather the pages through the tables, masked softmax in f32."""
+    """Gather the pages through the tables (dequantized with per-page
+    scales), masked softmax in f32."""
     B, H, D = q.shape
     Hkv = k_cache_layer.shape[0]
     qg = q.reshape(B, Hkv, H // Hkv, D).float() * scale
     o, m, l = masked_attention(
-        qg, gather_pages(k_cache_layer, block_tables),
-        gather_pages(v_cache_layer, block_tables), seq_lens.long() - 1,
+        qg, gather_pages(k_cache_layer, block_tables, k_scales),
+        gather_pages(v_cache_layer, block_tables, v_scales),
+        seq_lens.long() - 1,
     )
     o = o.reshape(B, H, D).to(q.dtype)
     return (o, m, l) if return_stats else o
@@ -161,7 +194,7 @@ def paged_decode_attention_plain(
 
 def paged_prefill_attention_plain(
     q, k_cache_layer, v_cache_layer, block_table, history_len, scale,
-    valid_len=None,
+    valid_len=None, k_scales=None, v_scales=None,
 ):
     T, H, D = q.shape
     Hkv = k_cache_layer.shape[0]
@@ -173,8 +206,8 @@ def paged_prefill_attention_plain(
         limit = torch.where(t < valid, limit, -1)
     qg = q.reshape(T, Hkv, H // Hkv, D).float() * scale
     o, _, _ = masked_attention(
-        qg, gather_pages(k_cache_layer, block_table)[:, None],
-        gather_pages(v_cache_layer, block_table)[:, None], limit,
+        qg, gather_pages(k_cache_layer, block_table, k_scales)[:, None],
+        gather_pages(v_cache_layer, block_table, v_scales)[:, None], limit,
     )
     return o.reshape(T, H, D).to(q.dtype)
 
@@ -200,13 +233,13 @@ def paged_decode_attention(
     """GQA paged decode attention over ``seq_lens[b]`` cached positions.
 
     ``pages_per_step`` is the TPU kernel's DMA grouping and is ignored.
-    ``q_pos_offset``/``group`` only matter for a sliding window; windows
-    and per-page scales are not ported yet and raise. Rows with
-    ``seq_len == 0`` return o = 0, m = -1e30, l = 0."""
-    if window or k_scales is not None or v_scales is not None:
+    ``q_pos_offset``/``group`` only matter for a sliding window, which is
+    not ported yet and raises. ``k_scales``/``v_scales`` ([N] f32) come
+    with int8 pages. Rows with ``seq_len == 0`` return o = 0, m = -1e30,
+    l = 0."""
+    if window:
         raise NotImplementedError(
-            "paged_decode_attention: sliding windows and per-page KV "
-            "scales are not ported yet"
+            "paged_decode_attention: sliding windows are not ported yet"
         )
     B, H, D = q.shape
     Hkv = k_cache_layer.shape[0]
@@ -214,12 +247,12 @@ def paged_decode_attention(
     if q.device.type == "cpu":
         return paged_decode_attention_plain(
             q, k_cache_layer, v_cache_layer, block_tables, seq_lens, scale,
-            return_stats,
+            return_stats, k_scales, v_scales,
         )
     o, m, l = launch_paged_attention(
         q.reshape(B, Hkv, G, D), k_cache_layer, v_cache_layer, scale,
         d_tables=block_tables, d_seq_lens=seq_lens, stats=return_stats,
-        name="paged_decode_attention",
+        k_scales=k_scales, v_scales=v_scales, name="paged_decode_attention",
     )
     paged_decode_attention.launches += 1
     o = o.reshape(B, H, D)
@@ -253,11 +286,12 @@ def paged_prefill_attention(
     attends positions ``<= history_len + t``. Padded tail rows are
     discarded by every caller: as in the JAX kernel they compute values
     anyway, unless ``valid_len`` (the port's addition) says where the
-    padding starts — then they come out zero and cost nothing."""
-    if window or sinks is not None or k_scales is not None:
+    padding starts — then they come out zero and cost nothing.
+    ``k_scales``/``v_scales`` ([N] f32) come with int8 pages."""
+    if window or sinks is not None:
         raise NotImplementedError(
-            "paged_prefill_attention: sliding windows, sinks and per-page "
-            "KV scales are not ported yet"
+            "paged_prefill_attention: sliding windows and sinks are not "
+            "ported yet"
         )
     T, H, D = q.shape
     Hkv = k_cache_layer.shape[0]
@@ -265,7 +299,7 @@ def paged_prefill_attention(
     if q.device.type == "cpu":
         return paged_prefill_attention_plain(
             q, k_cache_layer, v_cache_layer, block_table, history_len, scale,
-            valid_len,
+            valid_len, k_scales, v_scales,
         )
 
     def dev_i32(x):
@@ -277,7 +311,8 @@ def paged_prefill_attention(
         q.reshape(T, Hkv, G, D), k_cache_layer, v_cache_layer, scale,
         p_tables=block_table.reshape(1, -1), p_hists=dev_i32(history_len),
         p_valids=None if valid_len is None else dev_i32(valid_len),
-        T=T, Tq=prefill_q_tile(G), name="paged_prefill_attention",
+        T=T, Tq=prefill_q_tile(G), k_scales=k_scales, v_scales=v_scales,
+        name="paged_prefill_attention",
     )
     paged_prefill_attention.launches += 1
     return o.reshape(T, H, D)

@@ -33,19 +33,19 @@ from .paged_attention import (
 
 def ragged_mixed_attention_plain(
     q_dec, q_chunks, k_cache_layer, v_cache_layer, d_tables, d_seq_lens,
-    p_tables, p_hists, p_valids, scale,
+    p_tables, p_hists, p_valids, scale, k_scales=None, v_scales=None,
 ):
-    """Gather pages per table, masked softmax in f32. Rows of a segment
-    past its ``p_valids`` (padding, dead segments) are zero, as in the
-    kernel."""
+    """Gather pages per table (dequantized with per-page scales), masked
+    softmax in f32. Rows of a segment past its ``p_valids`` (padding, dead
+    segments) are zero, as in the kernel."""
     B, H, D = q_dec.shape
     MP, T = q_chunks.shape[:2]
     Hkv = k_cache_layer.shape[0]
     G = H // Hkv
     o_dec, _, _ = masked_attention(
         q_dec.reshape(B, Hkv, G, D).float() * scale,
-        gather_pages(k_cache_layer, d_tables),
-        gather_pages(v_cache_layer, d_tables), d_seq_lens.long() - 1,
+        gather_pages(k_cache_layer, d_tables, k_scales),
+        gather_pages(v_cache_layer, d_tables, v_scales), d_seq_lens.long() - 1,
     )
     t = torch.arange(T, device=q_dec.device)
     outs = []
@@ -53,8 +53,8 @@ def ragged_mixed_attention_plain(
         real = t < p_valids[m]
         o, _, _ = masked_attention(
             q_chunks[m].reshape(T, Hkv, G, D).float() * scale,
-            gather_pages(k_cache_layer, p_tables[m])[:, None],
-            gather_pages(v_cache_layer, p_tables[m])[:, None],
+            gather_pages(k_cache_layer, p_tables[m], k_scales)[:, None],
+            gather_pages(v_cache_layer, p_tables[m], v_scales)[:, None],
             torch.where(real, p_hists[m].long() + t, -1),
         )
         outs.append(o)
@@ -88,23 +88,24 @@ def ragged_mixed_attention(
 ) -> tuple[torch.Tensor, torch.Tensor]:  # (o_dec [B,H,D], o_chunks [MP,T,H,D])
     """Decode row b sits at q_pos = d_seq_lens[b]-1; segment m's row t at
     p_hists[m] + t. Inactive decode slots (seq_len 0), dead segments
-    (p_valids[m] == 0) and padded segment rows emit zeros."""
-    if window or sinks is not None or k_scales is not None:
+    (p_valids[m] == 0) and padded segment rows emit zeros. ``k_scales`` /
+    ``v_scales`` ([N] f32) come with int8 pages."""
+    if window or sinks is not None:
         raise NotImplementedError(
-            "ragged_mixed_attention: sliding windows, sinks and per-page KV "
-            "scales are not ported yet"
+            "ragged_mixed_attention: sliding windows and sinks are not "
+            "ported yet"
         )
     B, H, D = q_dec.shape
     MP, T = q_chunks.shape[0], q_chunks.shape[1]
     if q_dec.device.type == "cpu":
         return ragged_mixed_attention_plain(
             q_dec, q_chunks, k_cache_layer, v_cache_layer, d_tables,
-            d_seq_lens, p_tables, p_hists, p_valids, scale,
+            d_seq_lens, p_tables, p_hists, p_valids, scale, k_scales, v_scales,
         )
     o = ragged_mixed_attention_rows(
         torch.cat([q_dec.reshape(B, H, D), q_chunks.reshape(MP * T, H, D)]),
         k_cache_layer, v_cache_layer, d_tables, d_seq_lens, p_tables,
-        p_hists, p_valids, scale, T, q_tile,
+        p_hists, p_valids, scale, T, q_tile, k_scales, v_scales,
     )
     return o[:B], o[B:].reshape(MP, T, H, D)
 
@@ -121,6 +122,8 @@ def ragged_mixed_attention_rows(
     scale: float,
     T: int,  # padded tokens per segment
     q_tile: int = 0,
+    k_scales: Optional[torch.Tensor] = None,  # [N] f32 with int8 pages
+    v_scales: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:  # [B + MP*T, H, D]
     """:func:`ragged_mixed_attention` on the flat row axis the mixed step
     already holds, so the kernel reads ``q`` and writes ``o`` with no
@@ -132,6 +135,7 @@ def ragged_mixed_attention_rows(
         o_dec, o_chunks = ragged_mixed_attention_plain(
             q[:B], q[B:].reshape(MP, T, H, D), k_cache_layer, v_cache_layer,
             d_tables, d_seq_lens, p_tables, p_hists, p_valids, scale,
+            k_scales, v_scales,
         )
         return torch.cat([o_dec, o_chunks.reshape(MP * T, H, D)])
     Hkv = k_cache_layer.shape[0]
@@ -140,7 +144,8 @@ def ragged_mixed_attention_rows(
         q.reshape(Ntok, Hkv, G, D), k_cache_layer, v_cache_layer, scale,
         d_tables=d_tables, d_seq_lens=d_seq_lens, p_tables=p_tables,
         p_hists=p_hists, p_valids=p_valids, T=T,
-        Tq=q_tile or prefill_q_tile(G), name="ragged_mixed_attention",
+        Tq=q_tile or prefill_q_tile(G), k_scales=k_scales, v_scales=v_scales,
+        name="ragged_mixed_attention",
     )
     ragged_mixed_attention.launches += 1
     return o.reshape(Ntok, H, D)

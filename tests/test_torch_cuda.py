@@ -130,3 +130,120 @@ def test_cuda_mla_kernels_match_plain_versions():
     kv_cache_append_plain(c_new, pe_new, kp, vp, blk, off)
     torch.cuda.synchronize()
     assert torch.equal(kc, kp) and torch.equal(vc, vp)
+
+
+@pytest.mark.cuda
+def test_cuda_ragged_int8_gmm_matches_its_plain_twin():
+    """On the card: the quantized grouped GEMM against ragged_int8_plain
+    (the kernel's formula) for int8 and fp8 codes, f32 and bf16 rows,
+    empty experts and unowned rows (exact zeros); f32 sums in another
+    order: rtol 1e-4."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the chip)")
+    from dynamo_tpu_torch.models.quant import quantize_array
+    from dynamo_tpu_torch.ops.moe_gmm import ragged_int8_gmm, ragged_int8_plain
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(0)
+    X, K, N = 8, 160, 96
+    sizes = torch.tensor([5, 0, 70, 1, 0, 33, 2, 9], dtype=torch.int64, device=dev)
+    R = int(sizes.sum()) + 7  # seven rows no expert owns
+    w = torch.randn(X, K, N, generator=g, device=dev)
+    for mode in ("int8", "fp8_e4m3"):
+        qw = quantize_array(w, mode)
+        for dt in (torch.float32, torch.bfloat16):
+            lhs = torch.randn(R, K, generator=g, device=dev).to(dt)
+            got = ragged_int8_gmm(lhs, qw["q"], qw["s"], sizes)
+            ref = ragged_int8_plain(lhs, qw["q"], qw["s"], sizes)
+            torch.cuda.synchronize()
+            torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-4)
+            assert (got[R - 7:] == 0).all()
+
+
+@pytest.mark.cuda
+def test_cuda_quantized_append_and_scaled_attention_match_plain():
+    """On the card: the quantized append bit-exact with its plain twin
+    (page 0 excluded: padded rows race there), and the three attention
+    entry points over int8 pages with per-page scales against their plain
+    versions (bf16 outputs 2e-2, (m, l) 1e-3)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the chip)")
+    from dynamo_tpu_torch.ops import kv_cache_update as kvu
+    from dynamo_tpu_torch.ops.paged_attention import (
+        paged_decode_attention_plain,
+        paged_prefill_attention_plain,
+    )
+    from dynamo_tpu_torch.ops.ragged_paged_attention import (
+        ragged_mixed_attention_plain,
+    )
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(1)
+    L, B, Hkv, D, N, bs = 3, 6, 8, 128, 40, 16
+    k_new = torch.randn(L, B, Hkv, D, generator=g, device=dev).bfloat16()
+    v_new = torch.randn(L, B, Hkv, D, generator=g, device=dev).bfloat16()
+    caches = torch.randint(-127, 128, (2, L, Hkv, N, bs, D), generator=g,
+                           device=dev, dtype=torch.int8)
+    planes = torch.rand(2, L, N, generator=g, device=dev) * 0.03
+    blk = torch.tensor([3, 0, 9, 0, 17, 30], dtype=torch.int32, device=dev)
+    off = torch.tensor([0, 4, 15, 4, 7, 1], dtype=torch.int32, device=dev)
+    plain = caches.clone()
+    got = kvu.kv_cache_append_quantized(k_new, v_new, caches[0], caches[1],
+                                        planes[0], planes[1], blk, off)
+    ref = kvu.kv_cache_append_quantized_plain(k_new, v_new, plain[0], plain[1],
+                                              planes[0], planes[1], blk, off)
+    torch.cuda.synchronize()
+    assert torch.equal(caches[:, :, :, 1:], plain[:, :, :, 1:])
+    assert torch.equal(got[2], ref[2]) and torch.equal(got[3], ref[3])
+    assert int(got[4]) == int(ref[4]) > 0 and got[4].device.type == "cuda"
+    # attention over the int8 pages of layer 0
+    kc, vc, ks, vs = caches[0, 0], caches[1, 0], got[2][0], got[3][0]
+    G, M = 4, 2
+    H = Hkv * G
+    tables = torch.randperm(N - 1, generator=g, device=dev)[: 9 * M].add(1)
+    tables = tables.reshape(9, M).to(torch.int32)
+    lens = torch.tensor([0, 1, 17, 32, 5, 31, 20, 9], dtype=torch.int32,
+                        device=dev)
+    q = torch.randn(8, H, D, generator=g, device=dev).bfloat16()
+    tol = dict(atol=2e-2, rtol=2e-2)
+    sc = dict(k_scales=ks, v_scales=vs)
+    o, m, l = paged_decode_attention(q, kc, vc, tables[:8], lens, D ** -0.5,
+                                     return_stats=True, **sc)
+    ro, rm, rl = paged_decode_attention_plain(q, kc, vc, tables[:8], lens,
+                                              D ** -0.5, True, ks, vs)
+    torch.testing.assert_close(o.float(), ro.float(), **tol)
+    torch.testing.assert_close(m, rm, rtol=1e-3, atol=1e-3)
+    torch.testing.assert_close(l, rl, rtol=1e-3, atol=1e-3)
+    qp = torch.randn(16, H, D, generator=g, device=dev).bfloat16()
+    hist = torch.tensor([10], dtype=torch.int32, device=dev)
+    torch.testing.assert_close(
+        paged_prefill_attention(qp, kc, vc, tables[8], hist, D ** -0.5,
+                                **sc).float(),
+        paged_prefill_attention_plain(qp, kc, vc, tables[8], hist, D ** -0.5,
+                                      None, ks, vs).float(), **tol)
+    qc = torch.randn(2, 16, H, D, generator=g, device=dev).bfloat16()
+    p_tab = torch.stack([tables[8], torch.zeros_like(tables[8])])
+    p_h = torch.tensor([12, 0], dtype=torch.int32, device=dev)
+    p_v = torch.tensor([14, 0], dtype=torch.int32, device=dev)
+    args = (q, qc, kc, vc, tables[:8], lens, p_tab, p_h, p_v, D ** -0.5)
+    for a, b in zip(ragged_mixed_attention(*args, **sc),
+                    ragged_mixed_attention_plain(*args, ks, vs)):
+        torch.testing.assert_close(a.float(), b.float(), **tol)
+
+
+@pytest.mark.cuda
+def test_cuda_int8_native_mm_matches_cpu():
+    """On the card ``_mm``'s int8_native product is ``torch._int_mm`` (rows
+    padded past 16): exact int32 sums, so equal to the CPU's to f32
+    rounding of the epilogue."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the chip)")
+    from dynamo_tpu_torch.models.llama import _mm
+    from dynamo_tpu_torch.models.quant import quantize_array
+
+    g = torch.Generator().manual_seed(2)
+    w = quantize_array(torch.randn(64, 40, generator=g), "int8_native")
+    for rows in (3, 40):
+        x = torch.randn(rows, 64, generator=g)
+        got = _mm(x.cuda(), {k: v.cuda() for k, v in w.items()})
+        torch.testing.assert_close(got.cpu(), _mm(x, w), rtol=1e-6, atol=1e-6)

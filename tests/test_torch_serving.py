@@ -115,4 +115,6 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     assert out.returncode == 0, out.stderr
     assert len(modules) > 20
     assert {"dynamo_tpu_torch.models.mla",
-            "dynamo_tpu_torch.ops.mla_attention"} <= set(modules)
+            "dynamo_tpu_torch.ops.mla_attention",
+            "dynamo_tpu_torch.models.quant",
+            "dynamo_tpu_torch.ops.moe_gmm"} <= set(modules)
