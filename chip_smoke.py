@@ -16,7 +16,11 @@ Phases, in order; any failure raises and the script exits non-zero:
      atol=rtol=2e-2 (bf16 output, sums in another order), (m, l) within
      rtol=1e-3 (f32, the order of the sums only), the KV append bit-exact
      at both the GQA and the MLA widths and the quantized append bit-exact
-     at the Llama widths (the trash page 0 excluded); the int8/fp8 grouped
+     at the Llama widths (the trash page 0 excluded); the multi-token
+     append of the speculative verify bit-exact at both widths (B=8, T=4
+     and T=16 windows crossing pages, padded slots on page 0 excluded), the
+     verify's attention (T*G=16 rows per kv head, T*H=64 latent rows per
+     token) against the plain twins at the same tolerances; the int8/fp8 grouped
      GEMM at DeepSeek-V2-Lite's expert shapes (64 experts, 2048 x 1408 and
      1408 x 2048; 48 decode rows and 7206 prefill rows) within 2e-2 of its
      plain twin, unowned rows exactly 0; the int8_native ``_mm``
@@ -24,20 +28,27 @@ Phases, in order; any failure raises and the script exits non-zero:
      four tiny models (dense GQA, MLA + MoE, and each again quantized:
      int8 KV + fp8 weights, int8 experts) through prefill / mixed step /
      decode window on the card against the same functions on the CPU
-     (f32, TF32 off);
-  3. serving: the port's OpenAI HTTP service in-process, four drives one
+     (f32, TF32 off), the dense and MLA ones through the speculative
+     verify_window too (tokens and accepted counts exact, logits 1e-3),
+     and a tiny TorchEngine with spec_gamma=3 against spec_gamma=0 (the
+     same greedy stream, proposals accepted);
+  3. serving: the port's OpenAI HTTP service in-process, six drives one
      after the other (each model's memory freed before the next):
      llama3-8b-sim, deepseek-v2-lite-sim, deepseek-v2-lite-sim with int8
      weights (experts through ragged_int8_gmm), llama3-8b-sim with fp8
-     weights and the int8 KV cache (random weights from a seed, byte
-     tokenizer, full width and depth) at the reference defaults — one
+     weights and the int8 KV cache, then llama3-8b-sim and
+     deepseek-v2-lite-sim with speculative decoding (spec_gamma=3; their
+     acceptance, and the share of answers equal to the plain drive's)
+     (random weights from a seed, byte tokenizer, full width and depth)
+     at the reference defaults otherwise — one
      request alone (the dedicated prefill), then several more of 64-1500
      bytes while it decodes (fused mixed steps), one of them a streaming
      chat; every response must be 200 and non-empty, and every kernel of
      the drive's path, its launch counter zeroed just before the drive,
-     must have launched; then each drive's step anatomy, and the dense
-     projections' cost per decode step in each weight form (bf16 drive)
-     or the plain dequantize's (quantized drives);
+     must have launched; then each drive's step anatomy (the spec drives:
+     one verify forward), and the dense projections' cost per decode step
+     in each weight form (bf16 drive) or the plain dequantize's (quantized
+     drives);
   4. timing: median time per launch of each kernel with L2 flushed
      between launches, its plain version's and a library yardstick's
      (scaled_dot_product_attention / index_put_ / torch._grouped_mm over
@@ -114,10 +125,31 @@ KERNELS = {
         "dynamo_tpu_torch/csrc/paged_attention.cu",
         "dynamo_tpu/ops/ragged_paged_attention_pallas.py:225",
     ),
+    "kv_cache_append_tokens": (
+        "dynamo_tpu_torch/csrc/kv_cache_append.cu",
+        "dynamo_tpu/ops/kv_cache_update_pallas.py:383",
+    ),
+    "kv_cache_append_tokens (MLA widths)": (
+        "dynamo_tpu_torch/csrc/kv_cache_append.cu",
+        "dynamo_tpu/ops/kv_cache_update_pallas.py:383",
+    ),
+    "paged_decode_attention (verify rows)": (
+        "dynamo_tpu_torch/csrc/paged_attention.cu",
+        "dynamo_tpu/ops/paged_attention_pallas.py:184",
+    ),
+    "mla_paged_decode_attention (verify rows)": (
+        "dynamo_tpu_torch/csrc/mla_attention.cu",
+        "dynamo_tpu/ops/mla_attention_pallas.py:132",
+    ),
 }
 #: the int8-KV variant of each GQA kernel shares the kernel's counter; the
 #: int8-KV drive's launches land under the variant's name
 INT8_KV = " (int8 KV)"
+#: the spec drives' verify forwards: a decode attention launch whose rows
+#: pack T tokens counts in the wrapper's ``verify_launches`` too, and the
+#: multi-token append of each spec drive lands under its width's row
+VERIFY = " (verify rows)"
+SPEC_GAMMA = 3
 
 
 def log(*a):
@@ -173,6 +205,14 @@ class KernelInputs:
         self.a_off = torch.randint(0, bs, (8,), generator=g, device=dev,
                                    dtype=torch.int32)
         self.sc = {}  # per-page scales of an int8 cache (see scaled())
+        # the verify: T=4 in-flight tokens of the 8 decode rows over the
+        # same histories, their window K/V; the history pass packs T*G=16
+        # rows per kv head (token-major within the head)
+        T, G = SPEC_GAMMA + 1, H // Hkv
+        self.q_ver = randn(8, T, H, D)
+        self.k_win, self.v_win = randn(8, T, Hkv, D), randn(8, T, Hkv, D)
+        self.q_rows = self.q_ver.reshape(8, T, Hkv, G, D).permute(
+            0, 2, 1, 3, 4).reshape(8, Hkv * T * G, D).contiguous()
 
     def scaled(self):
         """The same queries and tables over an int8 copy of the caches with
@@ -264,6 +304,22 @@ class KernelInputs:
         return fn(self.k_new, self.v_new, self.a_kc if kc is None else kc,
                   self.a_vc if vc is None else vc, self.a_blk, self.a_off)
 
+    def verify_rows(self, fn):
+        """The verify's history pass: the decode kernel (``group`` = G
+        marks the packed rows) or its plain twin, with (m, l)."""
+        from dynamo_tpu_torch.ops import paged_attention as pa
+
+        kw = {"group": self.H // self.Hkv} if fn is pa.paged_decode_attention else {}
+        return fn(self.q_rows, self.kc, self.vc, self.d_tables, self.d_lens,
+                  self.scale, return_stats=True, **kw)
+
+    def verify(self, fn, dev=None):
+        """``verify_attention`` (history pass + the dense causal window) on
+        ``dev`` (the CPU takes the plain twin)."""
+        args = (self.q_ver, self.k_win, self.v_win, self.kc, self.vc,
+                self.d_tables, self.d_lens)
+        return fn(*(a if dev is None else a.to(dev) for a in args), self.scale)
+
 
 class MlaInputs:
     """Synthetic latent caches and queries at the DeepSeek-V2-Lite shapes:
@@ -302,10 +358,29 @@ class MlaInputs:
         self.a_blk = (torch.randperm(255, generator=g, device=dev)[:8] + 1).to(torch.int32)
         self.a_off = torch.randint(0, bs, (8,), generator=g, device=dev,
                                    dtype=torch.int32)
+        # the verify: T=4 in-flight tokens of the 8 decode rows, whose
+        # history pass packs T*H=64 latent query rows per token
+        T = SPEC_GAMMA + 1
+        self.qe_ver, self.qp_ver = randn(8, T, H, C), randn(8, T, H, R)
+        self.c_win, self.pe_win = randn(8, T, C), randn(8, T, R)
 
     def decode(self, fn):
         return fn(self.qe_dec, self.qp_dec, self.cc, self.pc, self.d_tables,
                   self.d_lens, self.scale, return_stats=True)
+
+    def verify_rows(self, fn):
+        """The verify's history pass ``[B, T*H, C]`` with (m, l)."""
+        from dynamo_tpu_torch.ops import mla_attention as mla
+
+        B, T, H, C = self.qe_ver.shape
+        kw = {"tokens": T} if fn is mla.mla_paged_decode_attention else {}
+        return fn(self.qe_ver.reshape(B, T * H, C),
+                  self.qp_ver.reshape(B, T * H, -1), self.cc, self.pc,
+                  self.d_tables, self.d_lens, self.scale, return_stats=True, **kw)
+
+    def verify(self, fn):
+        return fn(self.qe_ver, self.qp_ver, self.c_win, self.pe_win, self.cc,
+                  self.pc, self.d_tables, self.d_lens, self.scale)
 
     def prefill(self, fn):
         return fn(self.qe_pre, self.qp_pre, self.cc, self.pc, self.p_table,
@@ -329,6 +404,113 @@ class MlaInputs:
     def append(self, fn, kc=None, vc=None):
         return fn(self.c_new, self.pe_new, self.a_kc if kc is None else kc,
                   self.a_vc if vc is None else vc, self.a_blk, self.a_off)
+
+
+class TokenAppendInputs:
+    """``kv_cache_append_tokens``' inputs: B=8 sequences of T=4 in-flight
+    rows (and again of T = bs = 16), four pages each from a 256-page pool:
+    windows starting at rows 14, 3, 29, 45 and 8 (the T=4 ones at 14 and
+    29 cross a page boundary), one at row 0 of its second page (16), and
+    two padded slots with every row on the trash page 0. Over the Llama
+    widths' append caches (L=32, Hkv=8, D=128) of :class:`KernelInputs`
+    and the V2-Lite latent caches (L=27, C=512, R=64) of
+    :class:`MlaInputs`, bf16."""
+
+    STARTS = (14, 16, 3, 29, 0, 45, 8, 0)
+    PADDED = (4, 7)
+
+    def __init__(self, torch, dev, inp: KernelInputs, mi: MlaInputs):
+        self.torch = torch
+        g = torch.Generator(device=dev).manual_seed(5)
+        bs, B = inp.bs, len(self.STARTS)
+        pages = (torch.randperm(inp.a_kc.shape[2] - 1, generator=g, device=dev)
+                 [: B * 4] + 1).reshape(B, 4)
+        self.caches = {"gqa": (inp.a_kc, inp.a_vc), "mla": (mi.a_kc, mi.a_vc)}
+        self.idx, self.new = {}, {}
+        for T in (SPEC_GAMMA + 1, bs):
+            pos = (torch.tensor(self.STARTS, device=dev)[:, None]
+                   + torch.arange(T, device=dev)[None, :])
+            blk = torch.gather(pages, 1, pos // bs)
+            blk[list(self.PADDED)] = 0
+            pos[list(self.PADDED)] = torch.arange(T, device=dev)
+            self.idx[T] = (blk.to(torch.int32), (pos % bs).to(torch.int32))
+            for w, (kc, vc) in self.caches.items():
+                L, Hkv, Dk, Dv = kc.shape[0], kc.shape[1], kc.shape[-1], vc.shape[-1]
+                self.new[w, T] = tuple(
+                    torch.randn(L, B, T, Hkv, d, generator=g, device=dev).bfloat16()
+                    for d in (Dk, Dv))
+
+    def append(self, fn, width="gqa", T=SPEC_GAMMA + 1, caches=None):
+        kc, vc = self.caches[width] if caches is None else caches
+        return fn(*self.new[width, T], kc, vc, *self.idx[T])
+
+    def index_put(self, width="gqa", T=SPEC_GAMMA + 1):
+        """The library yardstick: one advanced-index assignment per cache
+        with the indices already widened (timed only)."""
+        kc, vc = self.caches[width]
+        blk, off = (x.long()[None] for x in self.idx[T])
+        lidx = self.torch.arange(kc.shape[0], device=kc.device)[:, None, None]
+        k_new, v_new = self.new[width, T]
+
+        def call():
+            kc[lidx, :, blk, off] = k_new
+            vc[lidx, :, blk, off] = v_new
+        return call
+
+
+def check_spec_kernels(torch, inp: KernelInputs, mi: MlaInputs,
+                       ta: TokenAppendInputs) -> dict:
+    """The speculative path's kernels at its shapes: the multi-token append
+    bit-exact with its plain twin at both widths and both window lengths
+    (page 0 excluded: the padded slots race there); the verify attention
+    (GQA, MLA) against the plain twins, outputs 2e-2, the history pass's
+    (m, l) rtol 1e-3."""
+    from dynamo_tpu_torch.ops import attention as att
+    from dynamo_tpu_torch.ops import kv_cache_update as kvu
+    from dynamo_tpu_torch.ops import mla_attention as mla
+    from dynamo_tpu_torch.ops import paged_attention as pa
+
+    errs = {}
+    for width, label in (("gqa", "kv_cache_append_tokens"),
+                         ("mla", "kv_cache_append_tokens (MLA widths)")):
+        for T in sorted({t for _w, t in ta.new}):
+            kc, vc = (c.clone() for c in ta.caches[width])
+            pk, pv = (c.clone() for c in ta.caches[width])
+            ta.append(kvu.kv_cache_append_tokens, width, T, (kc, vc))
+            ta.append(kvu.kv_cache_append_tokens_plain, width, T, (pk, pv))
+            torch.cuda.synchronize()
+            if not (torch.equal(kc[:, :, 1:], pk[:, :, 1:])
+                    and torch.equal(vc[:, :, 1:], pv[:, :, 1:])):
+                raise AssertionError(f"{label}, T={T}: not bit-exact with "
+                                     "index_put_")
+            del kc, vc, pk, pv
+        errs[label] = 0.0
+        log(f"  {label} (B=8, T=4 and T=16, windows crossing pages, padded "
+            "slots on page 0): bit-exact except the trash page  OK")
+    o, m, l = inp.verify_rows(pa.paged_decode_attention)
+    ro, rm, rl = inp.verify_rows(pa.paged_decode_attention_plain)
+    torch.cuda.synchronize()
+    err = close("verify rows o", o, ro, 2e-2, 2e-2)
+    close_stats("verify rows", (m, l), (rm, rl))
+    got = inp.verify(att.verify_attention)
+    ref = inp.verify(att.verify_attention, "cpu")
+    errs["paged_decode_attention" + VERIFY] = max(
+        err, close("verify_attention", got.cpu(), ref, 2e-2, 2e-2))
+    o, m, l = mi.verify_rows(mla.mla_paged_decode_attention)
+    ro, rm, rl = mi.verify_rows(mla.mla_paged_decode_attention_plain)
+    torch.cuda.synchronize()
+    err = close("mla verify rows o", o, ro, 2e-2, 2e-2)
+    close_stats("mla verify rows", (m, l), (rm, rl))
+    got = mi.verify(mla.mla_verify_attention)
+    ref = mi.verify(mla.mla_verify_attention_xla)
+    torch.cuda.synchronize()
+    errs["mla_paged_decode_attention" + VERIFY] = max(
+        err, close("mla_verify_attention", got, ref, 2e-2, 2e-2))
+    for name, rows in (("paged_decode_attention" + VERIFY, "16 rows per kv head"),
+                       ("mla_paged_decode_attention" + VERIFY, "64 rows per token")):
+        log(f"  {name} ({rows}) and the merged verify attention: max |err| "
+            f"{errs[name]:.3e}, (m, l) within 1e-3  OK")
+    return errs
 
 
 class QuantInputs:
@@ -599,15 +781,9 @@ def check_model_on_card(torch, dev, label, cfg, quantization="none",
     """A tiny model's three main-path functions on the card (kernels)
     against the same functions on the CPU (plain versions), f32."""
     from dynamo_tpu_torch.models import llama
-    from dynamo_tpu_torch.models.quant import KV_SCALE_EPS, quantize_params
+    from dynamo_tpu_torch.models.quant import KV_SCALE_EPS
 
-    params = llama.init_params(cfg, torch.Generator().manual_seed(1), "cpu")
-    # weights x5 (std 0.1): decisive logits and expert routing, so a token
-    # or an expert choice is never a near-tie that the sum order can flip
-    params = {k: ({kk: vv * (5.0 if vv.dim() > 1 else 1.0) for kk, vv in v.items()}
-                  if isinstance(v, dict) else v * (5.0 if v.dim() > 1 else 1.0))
-              for k, v in params.items()}
-    params = quantize_params(params, cfg, quantization)
+    params = tiny_params(torch, cfg, quantization)
     gparams = to_device(params, dev)
     kc, vc = llama.init_kv_cache(cfg, 64, 16, dtype=torch.int8 if kv_int8 else None)
     gkc, gvc = kc.to(dev), vc.to(dev)
@@ -658,6 +834,129 @@ def check_model_on_card(torch, dev, label, cfg, quantization="none",
         )
     log(f"  {label} on the card vs CPU: prefill max |dlogit| {err:.2e}, "
         f"mixed-step max |dlogit| {perr:.2e}, tokens equal  OK")
+
+
+def tiny_params(torch, cfg, quantization="none"):
+    """Seeded tiny-model weights on the CPU, matrices x5 (std 0.1):
+    decisive logits and expert routing, so a token or an expert choice is
+    never a near-tie that the sum order can flip."""
+    from dynamo_tpu_torch.models import llama
+    from dynamo_tpu_torch.models.quant import quantize_params
+
+    params = llama.init_params(cfg, torch.Generator().manual_seed(1), "cpu")
+    params = {k: ({kk: vv * (5.0 if vv.dim() > 1 else 1.0) for kk, vv in v.items()}
+                  if isinstance(v, dict) else v * (5.0 if v.dim() > 1 else 1.0))
+              for k, v in params.items()}
+    return quantize_params(params, cfg, quantization)
+
+
+def check_verify_on_card(torch, dev, label, cfg) -> None:
+    """A tiny model's speculative verify_window (gamma=3) on the card
+    against the same function on the CPU, f32, from the same cache: a
+    greedy row proposing its plain greedy chain with a miss at t=2, a
+    seeded sampled row (top-k) proposing the same chain, an empty slot
+    with no proposals. out_tokens and n_acc exact, the forward's logits
+    within 1e-3, the caches after the append within 1e-3."""
+    from dynamo_tpu_torch.models import llama
+
+    g = SPEC_GAMMA
+    params = tiny_params(torch, cfg)
+    gparams = to_device(params, dev)
+    kc, vc = llama.init_kv_cache(cfg, 64, 16)
+    gen = torch.Generator().manual_seed(3)
+    tables = torch.stack([torch.arange(1, 9), torch.arange(9, 17),
+                          torch.zeros(8, dtype=torch.int64)]).to(torch.int32)
+    lens = torch.tensor([50, 37, 0], dtype=torch.int32)
+    for b in range(2):
+        toks = torch.randint(0, cfg.vocab_size, (64,), generator=gen,
+                             dtype=torch.int32)
+        llama.prefill(params, cfg, toks, tables[b], 0, int(lens[b]), kc, vc)
+    last = torch.randint(0, cfg.vocab_size, (3,), generator=gen, dtype=torch.int32)
+    positions = (lens - 1).clamp(min=0)
+    greedy = (torch.zeros(3), torch.zeros(3, dtype=torch.int32), torch.ones(3))
+    chain = llama.decode_window(params, cfg, last, positions, tables, lens,
+                                [0] * 3, [0] * 3, *greedy, kc.clone(),
+                                vc.clone(), n_steps=g)[0].T  # [3, g]
+    props = chain.clone()
+    props[0, 2] = (props[0, 2] + 1) % cfg.vocab_size
+    props[1] = chain[0]
+    props[2] = -1
+    window = torch.cat([last[:, None], props.clamp(min=0)], dim=1)
+    samp = (torch.tensor([0.0, 0.8, 0.0]), torch.tensor([0, 8, 0], dtype=torch.int32),
+            torch.ones(3))
+    outs = []
+    for where, p in (("cpu", params), (dev, gparams)):
+        mv = lambda t: t.to(where)  # noqa: E731
+        k, v = kc.clone().to(where), vc.clone().to(where)
+        out, n_acc = llama.verify_window(
+            p, cfg, *map(mv, (window, props, positions, tables, lens)),
+            [3, 4, 0], [7, 2, 0], *map(mv, samp), k, v, n_spec=g)[:2]
+        logits = llama._verify_forward(
+            p, cfg, *map(mv, (window, positions, tables, lens)),
+            kc.clone().to(where), vc.clone().to(where), g)[0]
+        outs.append((out.cpu(), n_acc.cpu(), logits.cpu(), k.cpu(), v.cpu()))
+    (o0, n0, l0, k0, v0), (o1, n1, l1, k1, v1) = outs
+    lerr = float((l1[:2] - l0[:2]).abs().max())
+    kerr = max(float((k1 - k0)[:, :, 1:].abs().max()),
+               float((v1 - v0)[:, :, 1:].abs().max()))
+    if not (torch.equal(o0, o1) and torch.equal(n0, n1) and lerr < 1e-3
+            and kerr < 1e-3 and int(n0[0]) == 2):
+        raise AssertionError(
+            f"{label} verify_window on the card disagrees with the CPU: tokens "
+            f"{o1.tolist()} vs {o0.tolist()}, n_acc {n1.tolist()} vs "
+            f"{n0.tolist()}, max |dlogit| {lerr}, caches {kerr}")
+    log(f"  {label} verify_window (gamma={g}) on the card vs CPU: tokens and "
+        f"n_acc {n1.tolist()} equal, max |dlogit| {lerr:.2e}, caches "
+        f"{kerr:.2e}  OK")
+
+
+def check_engine_spec_on_card(torch, dev) -> None:
+    """A tiny f32 TorchEngine on the card with spec_gamma=3 against
+    spec_gamma=0 on the reference's repetitive prompt: the same greedy
+    stream, with the spec engine's proposer fed the plain stream's true
+    continuation (tests/test_speculative.py's device: organic n-gram hits
+    depend on the random model), so every proposal is accepted."""
+    from dynamo_tpu_torch.engine import EngineConfig, TorchEngine
+    from dynamo_tpu_torch.protocols.common import (
+        PreprocessedRequest,
+        SamplingOptions,
+        StopConditions,
+    )
+    from dynamo_tpu_torch.runtime import Context, collect
+
+    cfg = tiny_models()[0][1]
+    params = to_device(tiny_params(torch, cfg), dev)
+    req = PreprocessedRequest(
+        token_ids=[7, 8, 9, 10] * 6, stop_conditions=StopConditions(max_tokens=20),
+        sampling_options=SamplingOptions(temperature=0.0), eos_token_ids=[])
+    streams, stats = {}, {}
+    for gamma in (0, SPEC_GAMMA):
+        eng = TorchEngine(EngineConfig(model=cfg, num_blocks=64, block_size=16,
+                                       max_batch_size=2, decode_window=4,
+                                       spec_gamma=gamma), params=params,
+                          device=dev)
+        if gamma:
+            drafts = {tuple(req.token_ids): streams[0]}
+            eng._propose_ngram = lambda eng=eng: oracle_drafts(eng, drafts)
+
+        async def run(eng=eng):
+            try:
+                return await collect(eng.generate(Context(req)))
+            finally:
+                await eng.close()
+
+        streams[gamma] = [t for o in asyncio.run(run()) for t in o.token_ids]
+        stats[gamma] = dict(eng.stats)
+    st = stats[SPEC_GAMMA]
+    if not (streams[0] == streams[SPEC_GAMMA] and len(streams[0]) == 20
+            and st["spec_accepted"] > 0
+            and st["decode_steps"] < stats[0]["decode_steps"]):
+        raise AssertionError(f"tiny engine with spec on the card: streams "
+                             f"{streams}, stats {st}")
+    log(f"  tiny TorchEngine, spec_gamma={SPEC_GAMMA} vs 0 on the card: the same "
+        f"greedy stream, {st['spec_accepted']}/{st['spec_proposed']} proposals "
+        f"accepted, {st['decode_steps']} decode steps vs "
+        f"{stats[0]['decode_steps']}  OK")
 
 
 # ---------------- phase 3: serving llama3-8b-sim over HTTP ----------------
@@ -722,6 +1021,7 @@ def drives():
     from dynamo_tpu_torch.ops.kv_cache_update import (
         kv_cache_append,
         kv_cache_append_quantized,
+        kv_cache_append_tokens,
     )
     from dynamo_tpu_torch.ops.mla_attention import (
         mla_paged_decode_attention,
@@ -765,14 +1065,35 @@ def drives():
           "paged_prefill_attention" + INT8_KV: paged_prefill_attention,
           "ragged_mixed_attention" + INT8_KV: ragged_mixed_attention,
           "kv_cache_append_quantized": kv_cache_append_quantized}),
+        # speculative decoding (prompt lookup, gamma=3), reference defaults
+        # otherwise: the verify forward's multi-token append and its decode
+        # attention at verify rows, beside the path's prefill kernels
+        ("llama3-8b-sim", ModelConfig.llama3_8b(),
+         dict(num_blocks=4096, block_size=16, max_batch_size=8, decode_window=4,
+              spec_gamma=SPEC_GAMMA),
+         {"paged_decode_attention": paged_decode_attention,
+          "paged_prefill_attention": paged_prefill_attention,
+          "ragged_mixed_attention": ragged_mixed_attention,
+          "kv_cache_append_tokens": kv_cache_append_tokens,
+          "paged_decode_attention" + VERIFY: (paged_decode_attention,
+                                              "verify_launches")}),
+        ("deepseek-v2-lite-sim", deepseek_v2_lite(), {**v2, "spec_gamma": SPEC_GAMMA},
+         {"mla_paged_decode_attention": mla_paged_decode_attention,
+          "mla_paged_prefill_attention": mla_paged_prefill_attention,
+          "kv_cache_append_tokens (MLA widths)": kv_cache_append_tokens,
+          "mla_paged_decode_attention" + VERIFY: (mla_paged_decode_attention,
+                                                  "verify_launches")}),
     ]
 
 
 async def serve(torch, dev, card: str, name: str, cfg, geometry: dict,
-                counted: dict) -> dict:
+                counted: dict, plain=None):
     """One serving drive of ``name`` over HTTP; returns the launch count of
-    each kernel of its path during the drive (counters zeroed just
-    before it)."""
+    each kernel of its path during the drive (counters zeroed just before
+    it) and its answers: (texts, {prompt ids: generated ids}). A spec drive
+    (``spec_gamma`` > 0) takes ``plain``, the plain drive's answers of the
+    same model, must accept proposals, and reports its acceptance and the
+    share of answers equal to the plain drive's."""
     from dynamo_tpu_torch.engine import EngineConfig, TorchEngine
     from dynamo_tpu_torch.http import HttpService, ModelManager
     from dynamo_tpu_torch.llm import ByteTokenizer
@@ -816,13 +1137,32 @@ async def serve(torch, dev, card: str, name: str, cfg, geometry: dict,
 
     counters = {k: c if isinstance(c, tuple) else (c, "launches")
                 for k, c in counted.items()}
-    for f, attr in counters.values():
-        setattr(f, attr, 0)
-    try:
+    spec = geometry.get("spec_gamma", 0) > 0
+    verifies = []  # (sequences verified, tokens they produced) per verify
+    answers = {}  # prompt ids -> generated ids, per finished request
+    dispatch, finish = engine._dispatch_verify, engine._finish
+
+    def counted_verify(window, proposals, steps):
+        out = dispatch(window, proposals, steps)
+        live = [i for i, q in enumerate(engine._active)
+                if q is not None and not q.finished]
+        verifies.append((len(live), sum(int(out[1][i]) + 1 for i in live)))
+        return out
+
+    def recorded_finish(seq, reason, emit=True):
+        if not seq.finished:
+            answers[tuple(seq.tokens[:seq.prompt_len])] = seq.tokens[seq.prompt_len:]
+        finish(seq, reason, emit)
+
+    engine._dispatch_verify, engine._finish = counted_verify, recorded_finish
+
+    async def requests():
+        """The drive's seven requests; returns (results, wall seconds)."""
         t_start = time.perf_counter()
+        n0 = engine.stats["tokens_generated"]
         # one request alone: the dedicated prefill program
         first = asyncio.create_task(http_request(svc.port, *completion(1200, True)))
-        while engine.stats["tokens_generated"] < 2 and not first.done():
+        while engine.stats["tokens_generated"] < n0 + 2 and not first.done():
             await asyncio.sleep(0.01)
         # more while it decodes: fused mixed steps
         more = [completion(n, n % 2 == 0) for n in (64, 333, 700, 1100, 1500)]
@@ -833,29 +1173,74 @@ async def serve(torch, dev, card: str, name: str, cfg, geometry: dict,
         }))
         results = [await first] + list(await asyncio.gather(
             *[http_request(svc.port, p, b) for p, b in more]))
-        wall = time.perf_counter() - t_start
+        return results, time.perf_counter() - t_start
+
+    def report(label, results, wall, before):
+        """Log one pass: its answers, schedule, TTFT / ITL / tok/s and, on
+        a spec drive, its speculation; returns the answers' texts and the
+        pass's engine counters."""
+        st = {k: v - before.get(k, 0) for k, v in engine.stats.items()
+              if isinstance(v, int)}
+        for i, (status, text, times) in enumerate(results):
+            if status != 200 or not text:
+                raise AssertionError(f"{name} request {i}: status {status}, "
+                                     f"text {text!r}")
+        streamed = [t for _s, _x, t in results if len(t) > 1]
+        ttft = [t[0] * 1e3 for t in streamed]
+        # per request: the mean gap from its first to its last text event
+        # (a decode window emits its tokens together: single gaps are bursty)
+        itl = [(t[-1] - t[0]) * 1e3 / (len(t) - 1) for t in streamed]
+        log(f"  {label}{len(results)} requests answered 200 with text; engine: "
+            f"{st['prefill_chunks']} dedicated prefill chunks, "
+            f"{st['mixed_steps']} mixed steps, {st['decode_windows']} decode "
+            f"windows ({st['decode_steps']} decode steps)")
+        log(f"  TTFT ms (streamed requests): {[round(x, 1) for x in ttft]}; "
+            f"ITL (per request, mean) median {statistics.median(itl):.2f} ms; "
+            f"{st['tokens_generated']} tokens in {wall:.2f} s = "
+            f"{st['tokens_generated'] / wall:.1f} tok/s  [{name}, {card}]")
+        texts = [text for _s, text, _t in results]
+        if spec:
+            n_ver, rows = len(verifies), sum(n for n, _ in verifies)
+            produced = sum(e for _, e in verifies)
+            verifies.clear()
+            same = sum(a == b for a, b in zip(texts, plain[0])) / len(texts)
+            log(f"  speculation: {st['spec_proposed']} proposed, "
+                f"{st['spec_accepted']} accepted "
+                f"({st['spec_accepted'] / max(st['spec_proposed'], 1):.1%}); "
+                f"{n_ver} verifies ({rows} sequence rows) produced {produced} "
+                f"tokens ({produced / max(n_ver, 1):.2f} per verify, "
+                f"{produced / max(rows, 1):.2f} per row); answers equal to "
+                f"the plain drive's: {same:.0%}  [{name}, {card}]")
+        return texts, st
+
+    for f, attr in counters.values():
+        setattr(f, attr, 0)
+    try:
+        if not spec:
+            texts, _ = report("", *await requests(), {})
+        else:
+            # a random model's answers never repeat an n-gram of their
+            # context, so prompt lookup finds nothing to propose (the
+            # second pass shows it). The first pass proposes what a draft
+            # that always agrees with the target would: each request's
+            # plain-drive answer (as tests/test_speculative.py does), on a
+            # fresh engine whose prefills match the plain drive's; its
+            # acceptance is then how often the verify's argmax agrees with
+            # the plain decode path's at this model's width
+            engine._propose_ngram = lambda: oracle_drafts(engine, plain[1])
+            texts, st = report("drafts from the plain drive's answers: ",
+                               *await requests(), {})
+            accepted = st["spec_accepted"]
+            del engine._propose_ngram  # the engine's own prompt lookup
+            before = dict(engine.stats)
+            report("prompt lookup (prefixes cached by the first pass): ",
+                   *await requests(), before)
+            if accepted <= 0:
+                raise AssertionError(f"{name}: no proposal accepted while serving")
     finally:
         await svc.close()
         await engine.close()
     launches = {k: getattr(f, attr) for k, (f, attr) in counters.items()}
-    for i, (status, text, times) in enumerate(results):
-        if status != 200 or not text:
-            raise AssertionError(f"{name} request {i}: status {status}, text {text!r}")
-    streamed = [t for _s, _x, t in results if len(t) > 1]
-    ttft = [t[0] * 1e3 for t in streamed]
-    # per request: the mean gap from its first to its last text event (a
-    # decode window emits its tokens together, so single gaps are bursty)
-    itl = [(t[-1] - t[0]) * 1e3 / (len(t) - 1) for t in streamed]
-    tokens = engine.stats["tokens_generated"]
-    log(f"  {len(results)} requests answered 200 with text; engine: "
-        f"{engine.stats['prefill_chunks']} dedicated prefill chunks, "
-        f"{engine.stats['mixed_steps']} mixed steps, "
-        f"{engine.stats['decode_windows']} decode windows "
-        f"({engine.stats['decode_steps']} decode steps)")
-    log(f"  TTFT ms (streamed requests): {[round(x, 1) for x in ttft]}; "
-        f"ITL (per request, mean) median {statistics.median(itl):.2f} ms; "
-        f"{tokens} tokens in "
-        f"{wall:.2f} s = {tokens / wall:.1f} tok/s  [{name}, {card}]")
     log(f"  launches during serving: {launches}")
     if planes:
         lm = engine.load_metrics()
@@ -875,12 +1260,15 @@ async def serve(torch, dev, card: str, name: str, cfg, geometry: dict,
         1, 8, dtype=torch.int32, device=dev), 0, 64, kc, vc, **small)[0]
     if logits.shape != (cfg.vocab_size,) or not bool(torch.isfinite(logits).all()):
         raise AssertionError(f"{name} prefill logits not finite [V]")
+    if spec:
+        verify_anatomy(torch, dev, params, cfg, engine.k_cache, engine.v_cache)
+        return launches, (texts, answers)
     step_anatomy(torch, dev, params, cfg, engine.k_cache, engine.v_cache, planes)
     if quant != "none":
         dequant_cost(torch, params)
     elif not cfg.is_mla:
         dense_mm_cost(torch, dev, params, cfg)
-    return launches
+    return launches, (texts, answers)
 
 
 def anatomy(torch, label: str, fn, n: int) -> None:
@@ -919,10 +1307,17 @@ def anatomy(torch, label: str, fn, n: int) -> None:
         by_name[e.name] += e.device_time_total / 1e3 / n
     busy = sum(by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:3]
+    # the host side under the profiler (which slows it): the operators
+    # taking the most CPU time themselves, and the launch calls' share
+    host = sorted(((a.key, a.self_cpu_time_total / 1e3 / n)
+                   for a in prof.key_averages() if a.self_cpu_time_total > 0),
+                  key=lambda kv: -kv[1])
     log(f"  {label}: {wall:.2f} ms wall per step, {busy:.2f} ms of kernels "
         f"({busy / wall:.0%} busy), {len(kernels) / n:.0f} kernel launches "
         f"and {syncs / n:.2f} host syncs per step; top: "
-        + "; ".join(f"{k[:48]} {v:.2f} ms" for k, v in top))
+        + "; ".join(f"{k[:48]} {v:.2f} ms" for k, v in top)
+        + "; host (profiled) top: "
+        + "; ".join(f"{k[:40]} {v:.2f} ms" for k, v in host[:4]))
 
 
 def dequant_cost(torch, params) -> None:
@@ -1021,6 +1416,58 @@ def step_anatomy(torch, dev, params, cfg, k_cache, v_cache, planes=None) -> None
                                   k_cache, v_cache, **planes), 1)
 
 
+def oracle_drafts(engine, answers: dict):
+    """Proposals for a spec drive's second pass: each active request's next
+    ``spec_gamma`` tokens of its answer in the first pass (``answers``:
+    prompt ids -> generated ids), -1 where it has none; None when no slot
+    has one (the engine's ``_propose_ngram`` contract)."""
+    import numpy as np
+
+    g = engine.cfg.spec_gamma
+    prop = np.full((engine.cfg.max_batch_size, g), -1, np.int64)
+    for i, seq in enumerate(engine._active):
+        if seq is None or seq.finished:
+            continue
+        ref = answers.get(tuple(seq.tokens[: seq.prompt_len]), [])
+        nxt = ref[seq.generated: seq.generated + g]
+        prop[i, : len(nxt)] = nxt
+    return prop if (prop >= 0).any() else None
+
+
+def verify_anatomy(torch, dev, params, cfg, k_cache, v_cache) -> None:
+    """One speculative verify forward (B=8 at ~1k context, T=4: the last
+    token and three proposals each, greedy) of the served model on its
+    serving cache; first, how far its t=0 rows (the same function as a
+    decode step's) lie from the merged decode step's logits on the same
+    cache: the bf16 sums differ in order and shape, and a random model's
+    top-2 logits lie close."""
+    from dynamo_tpu_torch.models import llama
+
+    B, T = 8, SPEC_GAMMA + 1
+    tables = torch.arange(1, 1 + B * 80, dtype=torch.int32, device=dev).reshape(B, 80)
+    lens = torch.arange(1000, 1000 + B, dtype=torch.int32, device=dev)
+    window = (torch.arange(B * T, dtype=torch.int32, device=dev) % 250 + 3).reshape(B, T)
+    samp = (torch.zeros(B, device=dev), torch.zeros(B, dtype=torch.int32, device=dev),
+            torch.ones(B, device=dev))
+    with torch.no_grad():
+        dec = llama._decode_body(params, cfg, window[:, 0], lens - 1, tables, lens,
+                                 k_cache, v_cache)[0]
+        ver = llama._verify_forward(params, cfg, window, lens - 1, tables, lens,
+                                    k_cache, v_cache, SPEC_GAMMA)[0][:, 0]
+    top2 = dec.topk(2, dim=-1).values
+    log(f"  verify t=0 rows vs the decode step (B=8, same cache): max |dlogit| "
+        f"{float((ver - dec).abs().max()):.4f}, logit std "
+        f"{float(dec.std()):.3f}, median top-1 - top-2 gap "
+        f"{float((top2[:, 0] - top2[:, 1]).median()):.4f}, argmax equal in "
+        f"{int((ver.argmax(-1) == dec.argmax(-1)).sum())} of {B} rows")
+    props = window[:, 1:].contiguous()
+    anatomy(torch, f"verify forward (B=8, T={T}, ~1k context; 4 in a row)",
+            lambda: [llama.verify_window(
+                params, cfg, window, props, lens - 1, tables, lens, [0] * B,
+                [0] * B, *samp, k_cache, v_cache, n_spec=SPEC_GAMMA)
+                for _ in range(4)], 4)
+
+
 # ---------------- phase 4: timing ----------------
 
 
@@ -1107,11 +1554,15 @@ def library_calls(torch, inp: KernelInputs):
         inp.a_kc[:, :, idx[0], idx[1]] = kvals
         inp.a_vc[:, :, idx[0], idx[1]] = vvals
 
+    # the verify's history pass: each sequence's T tokens as T query
+    # positions over its history (no causal part inside the history)
+    vq = inp.q_ver.transpose(1, 2).contiguous()  # [B, H, T, D]
     return {
         "paged_decode_attention": lambda: sdpa(dq, dk, dv, dmask),
         "paged_prefill_attention": lambda: sdpa(*pre),
         "ragged_mixed_attention": ragged,
         "kv_cache_append": append,
+        "paged_decode_attention" + VERIFY: lambda: sdpa(vq, dk, dv, dmask),
     }
 
 
@@ -1265,10 +1716,49 @@ def mla_library_calls(torch, mi: MlaInputs) -> dict:
     pq = torch.cat([mi.qe_pre, mi.qp_pre], -1).transpose(0, 1)[None]  # [1, H, T, C+R]
     pmask = (torch.arange(hist + T, device=dev)[None]
              <= hist + torch.arange(T, device=dev)[:, None])
+    # the verify's history pass: T*H rows per sequence, one shared kv head
+    B, Tv, H = mi.qe_ver.shape[:3]
+    vq = torch.cat([mi.qe_ver, mi.qp_ver], -1).reshape(B, Tv * H, 1, -1)
     return {
         "mla_paged_decode_attention": lambda: sdpa(dq, dk, dv, dmask),
         "mla_paged_prefill_attention": lambda: sdpa(pq, pk[None], pv[None], pmask),
+        "mla_paged_decode_attention" + VERIFY: lambda: sdpa(vq, dk, dv, dmask),
     }
+
+
+def spec_work(inp: KernelInputs, mi: MlaInputs, ta: TokenAppendInputs) -> dict:
+    """(bytes, flops) of the speculative path's kernels on these inputs.
+    The multi-token append: the new rows read and written once, the
+    [B, T] page and row indices read. The verify's history pass, counted
+    like :func:`work` / :func:`mla_work` with T tokens' query rows per
+    sequence: queries of sequences that attend something, every output row
+    and its (m, l), the cached rows attended and the table entries that
+    reach them, 2 flops per multiply-add."""
+    out = {}
+    for width, name in (("gqa", "kv_cache_append_tokens"),
+                        ("mla", "kv_cache_append_tokens (MLA widths)")):
+        k_new, v_new = ta.new[width, SPEC_GAMMA + 1]
+        nbytes = 2 * (k_new.numel() + v_new.numel()) * k_new.element_size()
+        out[name] = (nbytes + 2 * ta.idx[SPEC_GAMMA + 1][0].numel() * 4, 0)
+    B, T, H, D = inp.q_ver.shape
+    bs = inp.bs
+    lens = [int(x) for x in inp.d_lens]
+    live = sum(1 for n in lens if n > 0)
+    pages = sum(-(-n // bs) for n in lens)
+    kv_row = inp.Hkv * D * 2 * 2
+    out["paged_decode_attention" + VERIFY] = (
+        live * T * H * D * 2 + B * T * H * (D * 2 + 8) + sum(lens) * kv_row
+        + pages * 4 + B * 4, 4 * T * H * D * sum(lens))
+    C, R = mi.C, mi.R
+    Hm = mi.qe_ver.shape[2]
+    lens = [int(x) for x in mi.d_lens]
+    live = sum(1 for n in lens if n > 0)
+    pages = sum(-(-n // mi.bs) for n in lens)
+    out["mla_paged_decode_attention" + VERIFY] = (
+        live * T * Hm * (C + R) * 2 + B * T * Hm * (C * 2 + 8)
+        + sum(lens) * (C + R) * 2 + pages * 4 + B * 4,
+        2 * T * Hm * (2 * C + R) * sum(lens))
+    return out
 
 
 def sdpa_backend(torch, fn) -> str:
@@ -1289,7 +1779,7 @@ def sdpa_backend(torch, fn) -> str:
 
 
 def timing(torch, dev, inp: KernelInputs, mi: MlaInputs, qi: QuantInputs,
-           errs: dict, launches: dict) -> list:
+           ta: TokenAppendInputs, errs: dict, launches: dict) -> list:
     from dynamo_tpu_torch.ops import kv_cache_update as kvu
     from dynamo_tpu_torch.ops import mla_attention as mla
     from dynamo_tpu_torch.ops import moe_gmm
@@ -1316,6 +1806,13 @@ def timing(torch, dev, inp: KernelInputs, mi: MlaInputs, qi: QuantInputs,
             lambda: sinp.prefill(pa.paged_prefill_attention),
         "ragged_mixed_attention" + INT8_KV:
             lambda: sinp.ragged(rpa.ragged_mixed_attention),
+        "kv_cache_append_tokens": lambda: ta.append(kvu.kv_cache_append_tokens),
+        "kv_cache_append_tokens (MLA widths)":
+            lambda: ta.append(kvu.kv_cache_append_tokens, "mla"),
+        "paged_decode_attention" + VERIFY:
+            lambda: inp.verify_rows(pa.paged_decode_attention),
+        "mla_paged_decode_attention" + VERIFY:
+            lambda: mi.verify_rows(mla.mla_paged_decode_attention),
     }
     plain = {
         "paged_decode_attention": lambda: inp.decode(pa.paged_decode_attention_plain),
@@ -1337,13 +1834,24 @@ def timing(torch, dev, inp: KernelInputs, mi: MlaInputs, qi: QuantInputs,
             lambda: sinp.prefill(pa.paged_prefill_attention_plain),
         "ragged_mixed_attention" + INT8_KV:
             lambda: sinp.ragged(rpa.ragged_mixed_attention_plain),
+        "kv_cache_append_tokens":
+            lambda: ta.append(kvu.kv_cache_append_tokens_plain),
+        "kv_cache_append_tokens (MLA widths)":
+            lambda: ta.append(kvu.kv_cache_append_tokens_plain, "mla"),
+        "paged_decode_attention" + VERIFY:
+            lambda: inp.verify_rows(pa.paged_decode_attention_plain),
+        "mla_paged_decode_attention" + VERIFY:
+            lambda: mi.verify_rows(mla.mla_paged_decode_attention_plain),
     }
     scaled_library = {k + INT8_KV: f for k, f in
                       library_calls(torch, sinp.dequantized()).items()
-                      if k != "kv_cache_append"}
+                      if k + INT8_KV in KERNELS}
     library = {**library_calls(torch, inp), **mla_library_calls(torch, mi),
-               **scaled_library, **quant_library_calls(torch, qi)}
-    bounds = {**work(inp), **mla_work(mi), **work(sinp), **quant_work(torch, qi)}
+               **scaled_library, **quant_library_calls(torch, qi),
+               "kv_cache_append_tokens": ta.index_put("gqa"),
+               "kv_cache_append_tokens (MLA widths)": ta.index_put("mla")}
+    bounds = {**work(inp), **mla_work(mi), **work(sinp), **quant_work(torch, qi),
+              **spec_work(inp, mi, ta)}
     rows = []
     for name, (source, replaces) in KERNELS.items():
         nbytes, flops = bounds[name]
@@ -1358,7 +1866,7 @@ def timing(torch, dev, inp: KernelInputs, mi: MlaInputs, qi: QuantInputs,
                            if name in library else None),
         }
         extra = ""
-        if name.startswith("mla_"):
+        if name.startswith("mla_") and name in library:
             extra = f", SDPA backend {sdpa_backend(torch, library[name])}"
         lib = ("none" if row["library_ms"] is None
                else f"{row['library_ms']:.4f} ms")
@@ -1423,24 +1931,31 @@ def main() -> int:
     errs = check_kernels(torch, dev, inp)
     mi = MlaInputs(torch, dev)
     errs.update(check_mla_kernels(torch, mi))
+    ta = TokenAppendInputs(torch, dev, inp, mi)
+    errs.update(check_spec_kernels(torch, inp, mi, ta))
     for label, cfg, quantization, kv_int8 in tiny_models():
         check_model_on_card(torch, dev, label, cfg, quantization, kv_int8)
+        if quantization == "none" and not kv_int8:
+            check_verify_on_card(torch, dev, label, cfg)
+    check_engine_spec_on_card(torch, dev)
     qi = QuantInputs(torch, dev)
     errs.update(check_quant_kernels(torch, qi))
     check_int8_native_mm(torch, dev)
     log("[3/4] serving over HTTP: llama3-8b-sim, deepseek-v2-lite-sim, "
         "deepseek-v2-lite-sim (int8 weights), llama3-8b-sim (fp8 weights, "
-        "int8 KV)")
-    launches = {}
+        f"int8 KV), llama3-8b-sim and deepseek-v2-lite-sim (spec_gamma={SPEC_GAMMA})")
+    launches, plain = {}, {}
     for name, cfg, geometry, counted in drives():
-        got = asyncio.run(serve(torch, dev, card, name, cfg, geometry, counted))
+        got, answers = asyncio.run(serve(torch, dev, card, name, cfg, geometry,
+                                         counted, plain.get(name)))
+        plain.setdefault(name, answers)  # the first (bf16) drive of each model
         # a kernel shared by several drives (the append) counts them all
         for k, n in got.items():
             launches[k] = launches.get(k, 0) + n
         gc.collect()
         torch.cuda.empty_cache()
     log("[4/4] timing (median per launch, L2 flushed)  [" + card + "]")
-    rows = timing(torch, dev, inp, mi, qi, errs, launches)
+    rows = timing(torch, dev, inp, mi, qi, ta, errs, launches)
     torch.cuda.synchronize()
     log(f"all phases passed in {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": rows}))

@@ -1,28 +1,37 @@
-// In-place append of one new token's K/V per sequence, all layers at once.
+// In-place append of new tokens' K/V, all layers at once: T consecutive
+// rows per sequence (T = 1 for decode).
 //
-// Replaces the Pallas TPU kernel
-// dynamo_tpu/ops/kv_cache_update_pallas.py::kv_cache_append (_append_call /
-// _append_kernel): there, input_output_aliases pin the cache so only the
-// touched page tiles move (a read-modify-write of each page). Here the cache
-// is simply written in place: the wrapper hands the kernel the cache's own
-// pointers and the kernel stores one [Hkv, Dk] K row and one [Hkv, Dv] V row
-// per (layer, sequence). The two widths differ for MLA, whose k cache holds
-// the latent c_kv (Dk = kv_lora_rank) and whose v cache holds the rotated
-// rope key (Dv = qk_rope_head_dim), one "head" each; GQA has Dk == Dv.
+// Replaces two Pallas TPU kernels of the JAX package with ONE kernel body:
+//   * dynamo_tpu/ops/kv_cache_update_pallas.py::kv_cache_append
+//     (_append_call / _append_kernel): one new token per sequence;
+//   * dynamo_tpu/ops/kv_cache_update_pallas.py::kv_cache_append_tokens
+//     (_append_tokens_kernel): T <= bs consecutive rows per sequence, the
+//     speculative verify's in-flight window.
+// There, input_output_aliases pin the cache and every grid step
+// read-modify-writes a whole page tile, so the multi-token version chains
+// two pallas_calls (the window's first page, then the spill into the next)
+// with a trash-page passthrough for windows that do not cross. Here a row
+// is simply stored where it lands: the wrapper hands the kernel the
+// caches' own pointers and the kernel writes one [Hkv, Dk] K row and one
+// [Hkv, Dv] V row per (layer, sequence, token) at (blk, off) of that
+// token. The two widths differ for MLA, whose k cache holds the latent
+// c_kv (Dk = kv_lora_rank) and whose v cache holds the rotated rope key
+// (Dv = qk_rope_head_dim), one "head" each; GQA has Dk == Dv.
 //
-// What bounds it on an H100: bytes, and at decode sizes launch latency. It
-// reads L * B * Hkv * (Dk + Dv) new values and writes as many into the
-// caches (about 1 MB per step for Llama-3-8B at B = 8, 0.25 MB for
-// DeepSeek-V2-Lite); at 3.35 TB/s that is well under the few microseconds
-// one launch costs.
+// What bounds it on an H100: bytes, and at these sizes launch latency. It
+// reads L * B * T * Hkv * (Dk + Dv) new values and writes as many into the
+// caches (2 MB for Llama-3-8B at B = 8, T = 1; 8.4 MB at T = 4); at
+// 3.35 TB/s that is 0.6-2.5 us, under the few microseconds of a launch.
 //
 // What the design does about it: one launch for all layers (the merged
-// decode path batches every layer's new K/V into one call instead of 2L
-// scatters), grid (L, B), threads striding over Hkv * max(Dk, Dv) so
-// neighbouring threads store neighbouring elements of one cache row. Padded
-// batch rows all point at trash page 0; their writes race there harmlessly
-// (page 0 is never read). Live rows have distinct pages (the allocator gives
-// every sequence its own tail page), so they never race.
+// decode and the verify batch every layer's new rows into one call instead
+// of 2L scatters), grid (L, B), a block's threads striding over its
+// sequence's T x Hkv head rows in 16-byte stores (neighbouring threads on
+// neighbouring bytes of a row) when every row is a whole number of 16-byte
+// words, element stores otherwise. Padded batch rows all point at trash
+// page 0; their writes race there harmlessly (page 0 is never read). Live
+// rows never race: the allocator gives every sequence its own pages, and
+// a sequence's T rows sit at T distinct consecutive positions.
 //
 // kv_cache_append_quantized_launch replaces the Pallas TPU kernel
 // dynamo_tpu/ops/kv_cache_update_pallas.py::kv_cache_append_quantized
@@ -47,42 +56,55 @@
 
 namespace {
 
-template <typename T>
-__global__ void kv_cache_append_kernel(const T* __restrict__ k_new,
-                                       const T* __restrict__ v_new,
-                                       T* __restrict__ k_cache,
-                                       T* __restrict__ v_cache,
-                                       const int* __restrict__ blk,
-                                       const int* __restrict__ off, int B,
-                                       int Hkv, int N, int bs, int Dk,
-                                       int Dv) {
-  const int l = blockIdx.x;
-  const int b = blockIdx.y;
-  const size_t slot = (size_t)blk[b] * bs + off[b];
-  const int kw = Hkv * Dk, vw = Hkv * Dv;
-  const size_t src = (size_t)l * B + b;
-  for (int e = threadIdx.x; e < kw; e += blockDim.x) {
-    const int h = e / Dk, d = e % Dk;
-    k_cache[(((size_t)l * Hkv + h) * N * bs + slot) * Dk + d] =
-        k_new[src * kw + e];
-  }
-  for (int e = threadIdx.x; e < vw; e += blockDim.x) {
-    const int h = e / Dv, d = e % Dv;
-    v_cache[(((size_t)l * Hkv + h) * N * bs + slot) * Dv + d] =
-        v_new[src * vw + e];
+// The T rows of one (layer, sequence) into one cache: rows of `w` words
+// of type W per head, source [T, Hkv, w] contiguous, destination row of
+// head h at slot s: ((l * Hkv + h) * N * bs + s) * w.
+template <typename W>
+__device__ __forceinline__ void store_rows(const W* __restrict__ src,
+                                           W* __restrict__ cache,
+                                           const int* __restrict__ blk,
+                                           const int* __restrict__ off,
+                                           size_t l, int T, int Hkv, int N,
+                                           int bs, int w) {
+  const int hw = Hkv * w;
+  for (int e = threadIdx.x; e < T * hw; e += blockDim.x) {
+    const int t = e / hw, r = e % hw;
+    const int h = r / w, d = r % w;
+    const size_t slot = (size_t)blk[t] * bs + off[t];
+    cache[((l * Hkv + h) * N * bs + slot) * w + d] = src[e];
   }
 }
 
-template <typename T>
-cudaError_t launch_typed(const void* k_new, const void* v_new, void* k_cache,
+// k_new [L, B, T, Hkv, kw], v_new [L, B, T, Hkv, vw] in words of W;
+// blk/off [B, T]
+template <typename W>
+__global__ void kv_cache_append_kernel(const W* __restrict__ k_new,
+                                       const W* __restrict__ v_new,
+                                       W* __restrict__ k_cache,
+                                       W* __restrict__ v_cache,
+                                       const int* __restrict__ blk,
+                                       const int* __restrict__ off, int B,
+                                       int T, int Hkv, int N, int bs, int kw,
+                                       int vw) {
+  const size_t l = blockIdx.x;
+  const int b = blockIdx.y;
+  const size_t src = (l * B + b) * T * Hkv;  // first head row of (l, b)
+  store_rows(k_new + src * kw, k_cache, blk + b * T, off + b * T, l, T, Hkv,
+             N, bs, kw);
+  store_rows(v_new + src * vw, v_cache, blk + b * T, off + b * T, l, T, Hkv,
+             N, bs, vw);
+}
+
+template <typename W>
+cudaError_t launch_words(const void* k_new, const void* v_new, void* k_cache,
                          void* v_cache, const int* blk, const int* off, int L,
-                         int B, int Hkv, int N, int bs, int Dk, int Dv,
+                         int B, int T, int Hkv, int N, int bs, int kw, int vw,
                          cudaStream_t stream) {
   dim3 grid(L, B);
-  kv_cache_append_kernel<T><<<grid, 256, 0, stream>>>(
-      static_cast<const T*>(k_new), static_cast<const T*>(v_new),
-      static_cast<T*>(k_cache), static_cast<T*>(v_cache), blk, off, B, Hkv,
-      N, bs, Dk, Dv);
+  kv_cache_append_kernel<W><<<grid, 256, 0, stream>>>(
+      static_cast<const W*>(k_new), static_cast<const W*>(v_new),
+      static_cast<W*>(k_cache), static_cast<W*>(v_cache), blk, off, B, T,
+      Hkv, N, bs, kw, vw);
   return cudaGetLastError();
 }
 
@@ -132,23 +154,30 @@ __global__ void kv_cache_append_quant_kernel(
 }  // namespace
 
 // Plain C interface, loaded with ctypes. dtype: 0 = float32, 1 = bfloat16
-// (k_new/v_new and the caches share it). k rows are Dk wide, v rows Dv.
-// Returns the launch's cudaError_t.
-extern "C" int kv_cache_append_launch(const void* k_new, const void* v_new,
-                                      void* k_cache, void* v_cache,
-                                      const int* blk, const int* off, int L,
-                                      int B, int Hkv, int N, int bs, int Dk,
-                                      int Dv, int dtype, void* stream) {
-  if (L == 0 || B == 0) return 0;
+// (k_new/v_new and the caches share it). k_new [L, B, T, Hkv, Dk], v_new
+// [L, B, T, Hkv, Dv], blk/off [B, T]; the wrapper checks T <= bs. Returns
+// the launch's cudaError_t.
+extern "C" int kv_cache_append_tokens_launch(
+    const void* k_new, const void* v_new, void* k_cache, void* v_cache,
+    const int* blk, const int* off, int L, int B, int T, int Hkv, int N,
+    int bs, int Dk, int Dv, int dtype, void* stream) {
+  if (L == 0 || B == 0 || T == 0) return 0;
+  if (dtype != 0 && dtype != 1) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int elem = dtype == 0 ? 4 : 2;
+  const size_t kb = (size_t)Dk * elem, vb = (size_t)Dv * elem;
+  const uintptr_t ptrs = (uintptr_t)k_new | (uintptr_t)v_new |
+                         (uintptr_t)k_cache | (uintptr_t)v_cache;
+  if (kb % 16 == 0 && vb % 16 == 0 && ptrs % 16 == 0)
+    return (int)launch_words<uint4>(k_new, v_new, k_cache, v_cache, blk, off,
+                                    L, B, T, Hkv, N, bs, (int)(kb / 16),
+                                    (int)(vb / 16), st);
   if (dtype == 0)
-    return (int)launch_typed<float>(k_new, v_new, k_cache, v_cache, blk, off,
-                                    L, B, Hkv, N, bs, Dk, Dv, st);
-  if (dtype == 1)
-    return (int)launch_typed<__nv_bfloat16>(k_new, v_new, k_cache, v_cache,
-                                            blk, off, L, B, Hkv, N, bs, Dk,
-                                            Dv, st);
-  return (int)cudaErrorInvalidValue;
+    return (int)launch_words<float>(k_new, v_new, k_cache, v_cache, blk, off,
+                                    L, B, T, Hkv, N, bs, Dk, Dv, st);
+  return (int)launch_words<__nv_bfloat16>(k_new, v_new, k_cache, v_cache,
+                                          blk, off, L, B, T, Hkv, N, bs, Dk,
+                                          Dv, st);
 }
 
 // The quantized append: kq/vq [L, B, Hkv, D] int8 rows already quantized

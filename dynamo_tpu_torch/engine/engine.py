@@ -15,6 +15,10 @@
     dispatch (``llama.decode_window``), clamped to every sequence's
     stop/context headroom and to one step while admission work is
     actionable,
+  * **speculative verifies** (``spec_gamma`` > 0): where a multi-step window
+    would run and prompt lookup finds an n-gram match, ONE fused forward
+    verifies ``spec_gamma`` proposals per sequence
+    (``llama.verify_window``) and emits the accepted run plus one token,
   * **emission**: sampled tokens stream into per-request asyncio queues,
     with stop conditions, cancellation, penalties, logprobs and
     preemption by recompute under pool pressure.
@@ -30,9 +34,9 @@ one scatter on the next dispatch, prefix-cache claims keep theirs, and the
 device count of requantized pages folds into the stats only when
 ``load_metrics`` is scraped. Device work runs in the loop's executor under
 one lock, so the event loop stays live while the card computes. Left out of
-this slice (ROADMAP queue A): offload tiers, disaggregation, speculative
-decoding, adapters, live reshard, the pipelined decode, multi-host
-mirrors, tracing / flight recorder and the compile ledger. PyTorch runs
+this slice (ROADMAP queue A): offload tiers, disaggregation, adapters,
+live reshard, the pipelined decode, multi-host mirrors, tracing / flight
+recorder and the compile ledger. PyTorch runs
 eagerly, so there are no
 compiled program buckets; prompt chunks are still padded to the
 reference's buckets so both engines run the same shapes.
@@ -56,7 +60,7 @@ from ..models import llama
 from ..models.config import ModelConfig
 from ..models.mla import MLA_INT8_NATIVE
 from ..models.quant import KV_SCALE_EPS, kv_cache_dtype, quantize_params
-from ..ops import mla_attention
+from ..ops import mla_attention, paged_attention
 from ..ops.sampling import make_keys, sample_first_token, token_logprobs
 from ..protocols.common import FinishReason, LLMEngineOutput, PreprocessedRequest
 from ..runtime.engine import AsyncEngine, Context
@@ -115,8 +119,23 @@ class EngineConfig:
     # KV cache storage: "model" | "bfloat16" | "int8" (int8 with per-page
     # f32 scale planes); "float8_e4m3" is not ported yet and raises
     kv_cache_dtype: str = "model"
+    # speculative decoding via prompt-lookup (n-gram) drafts: propose up to
+    # spec_gamma continuation tokens from the sequence's own history (its
+    # last spec_ngram tokens matched against an earlier occurrence) and
+    # verify them in ONE fused forward (llama.verify_window). Greedy rows
+    # accept argmax-matching proposals, sampled rows by rejection sampling
+    # (lossless in distribution). Greedy streams equal plain decode's
+    # except at exact logit ties. 0 = off.
+    spec_gamma: int = 0
+    spec_ngram: int = 3
 
     def __post_init__(self):
+        if self.spec_gamma > 0 and self.decode_window < 2:
+            raise ValueError(
+                "spec_gamma requires decode_window >= 2: the speculative "
+                "path only engages when the scheduler picks multi-step "
+                "windows (decode_window=1 would silently disable it)"
+            )
         if self.max_context == 0:
             self.max_context = self.model.max_position_embeddings
         if self.mixed_step_budget < 0:
@@ -202,6 +221,26 @@ class TorchEngine(AsyncEngine):
                 "kv_cache_dtype='int8' is not supported for MLA models: the "
                 "absorbed-matmul latent path has no per-page scale stream"
             )
+        if cache_dt == torch.int8 and cfg.spec_gamma > 0:
+            logger.warning(
+                "kv_cache_dtype='int8': speculative (prompt-lookup) decoding "
+                "is disabled — the fused verify forward has no scale-plane "
+                "stream; decode runs plain windows"
+            )
+        elif (self.device.type == "cuda" and cfg.spec_gamma > 0
+              and not mcfg.is_mla):
+            G = mcfg.num_heads // mcfg.num_kv_heads
+            rows = (cfg.spec_gamma + 1) * G
+            if rows > paged_attention.MAX_TILE_ROWS:
+                # the verify packs T*G query rows per kv head into one tile
+                # of the decode kernel: refused here, not at the first verify
+                raise ValueError(
+                    f"spec_gamma={cfg.spec_gamma}: the verify packs "
+                    f"(spec_gamma + 1) x {G} = {rows} query rows per kv head, "
+                    f"more than the paged attention kernel's "
+                    f"{paged_attention.MAX_TILE_ROWS} rows per tile "
+                    "(MAX_TILE_ROWS)"
+                )
         if params is None:
             gen = torch.Generator(device=self.device).manual_seed(seed)
             params = llama.init_params(mcfg, gen, self.device)
@@ -288,6 +327,8 @@ class TorchEngine(AsyncEngine):
             "mixed_steps": 0,
             "mixed_prefill_segments": 0,
             "preemptions": 0,
+            "spec_proposed": 0,
+            "spec_accepted": 0,
             "kv_device_quant_pages": 0,
             "kv_device_requants_total": 0,
             "kv_device_bytes_saved_total": 0,
@@ -861,6 +902,20 @@ class TorchEngine(AsyncEngine):
         self._provision(n)
         if self._n_active == 0:
             return
+        # speculative decoding: batches with an n-gram match verify
+        # spec_gamma proposals in one fused forward instead of a decode
+        # window; it bails to the window when blocks are short or nothing
+        # matched. Not with the int8-with-scales cache: the verify forward
+        # has no scale-plane stream (warned at init).
+        if (
+            self.cfg.spec_gamma > 0
+            and n > 1
+            and not self._prefill_states
+            and self.k_scales is None
+        ):
+            proposals = self._propose_ngram()
+            if proposals is not None and await self._spec_verify_once(proposals):
+                return
         # a preemption may have made admission actionable: never grow past
         # what was provisioned
         n = min(n, self._pick_window())
@@ -873,6 +928,114 @@ class TorchEngine(AsyncEngine):
                 None, self._dispatch_window, steps, n
             )
         self._emit_window(toks, lps, n, slots)
+
+    def _propose_ngram(self) -> Optional[np.ndarray]:
+        """Prompt-lookup drafts: match each sequence's trailing n-gram
+        against its own earlier tokens and propose the continuation that
+        followed last time. Returns [B, gamma] with -1 padding (never
+        matches a real token id), or None when no slot produced a
+        proposal."""
+        g, ng = self.cfg.spec_gamma, self.cfg.spec_ngram
+        out = np.full((self.cfg.max_batch_size, g), -1, np.int64)
+        found = False
+        for i, seq in enumerate(self._active):
+            if seq is None or seq.finished:
+                continue
+            toks = seq.tokens
+            if len(toks) < ng + 2:
+                continue
+            # vectorized sliding match over a bounded tail window
+            arr = np.asarray(toks[-4097:], np.int64)
+            key = arr[-ng:]
+            hay = arr[:-1]  # a match ending at the tail itself is useless
+            hits = hay[: len(hay) - ng + 1] == key[0]
+            for k in range(1, ng):
+                hits &= hay[k : len(hay) - ng + 1 + k] == key[k]
+            idx = np.flatnonzero(hits)
+            # the most recent occurrence BEFORE the trailing one
+            idx = idx[idx < len(arr) - ng]
+            if idx.size == 0:
+                continue
+            j = int(idx[-1])
+            cont = arr[j + ng : j + ng + g]
+            if cont.size:
+                out[i, : cont.size] = cont
+                found = True
+        return out if found else None
+
+    async def _spec_verify_once(self, proposals: np.ndarray) -> bool:
+        """One fused verify of gamma proposals + bonus token per slot.
+        Returns False (the caller falls back to a plain window) when block
+        headroom for the in-flight rows isn't available without preempting
+        — speculation never causes a preemption."""
+        cfg = self.cfg
+        g = cfg.spec_gamma
+        T = g + 1
+        if T > cfg.block_size:
+            return False  # in-flight rows must fit a page (the append)
+        for seq in list(self._active):
+            if seq is None or seq.finished or seq.slot < 0:
+                continue
+            while seq.seq_len + g > len(seq.blocks) * cfg.block_size:
+                if len(seq.blocks) >= cfg.max_blocks_per_seq:
+                    return False  # near the context limit: plain windows clamp
+                extra = self.allocator.allocate(1)
+                if extra is None:
+                    return False
+                seq.blocks.extend(extra)
+                self._block_tables[seq.slot] = self._table_for(seq)
+        # window tokens: last accepted token + proposals (-1 -> 0 for a safe
+        # embed; acceptance reads the ORIGINAL -1s, which never accept)
+        window = np.zeros((cfg.max_batch_size, T), np.int32)
+        window[:, 0] = self._last_tokens
+        window[:, 1:] = np.maximum(proposals, 0)
+        steps = np.asarray(
+            [s.generated if s else 0 for s in self._active], np.int64
+        )
+        async with self._device_lock:
+            out_toks, n_accs, lps = await asyncio.get_running_loop().run_in_executor(
+                None, self._dispatch_verify, window,
+                proposals.astype(np.int32), steps,
+            )
+        self.stats["decode_steps"] += 1
+        for i, seq in list(enumerate(self._active)):
+            if seq is None or seq.finished:
+                continue
+            n_acc = int(n_accs[i])
+            self.stats["spec_proposed"] += int((proposals[i] >= 0).sum())
+            self.stats["spec_accepted"] += n_acc
+            for t in range(n_acc + 1):
+                if seq.finished:
+                    break
+                self._emit_token(seq, int(out_toks[i, t]), self._lp_entry(lps, i, t))
+            if seq.finished or self._active[i] is not seq:
+                continue
+            self._seq_lens[i] = seq.seq_len
+            self._last_tokens[i] = seq.tokens[-1]
+            # the last emitted token's KV lands with the NEXT dispatch
+            self._commit_full_blocks(seq, written_len=seq.seq_len - 1)
+        return True
+
+    def _dispatch_verify(self, window: np.ndarray, proposals: np.ndarray,
+                         steps: np.ndarray):
+        """Executor thread: fused verify forward + on-device acceptance.
+        Returns (out_tokens [B, T], n_acc [B], logprob arrays [T, B, ...] or
+        None) as host arrays."""
+        cfg = self.cfg
+        positions = np.maximum(self._seq_lens - 1, 0).astype(np.int32)
+        want_lp = self._logprobs_active()
+        out = llama.verify_window(
+            self.params, cfg.model, self._dev(window), self._dev(proposals),
+            self._dev(positions), self._dev(self._block_tables),
+            self._dev(self._seq_lens), self._seeds.tolist(), steps.tolist(),
+            *self._sampling_tensors(), self.k_cache, self.v_cache,
+            n_spec=cfg.spec_gamma, with_logprobs=want_lp,
+            **self._penalty_kwargs(),
+        )
+        lps = None
+        if want_lp:  # step-major, as _lp_entry reads a window's arrays
+            lps = tuple(a.transpose(0, 1).cpu().numpy() for a in out[-1])
+        return out[0].cpu().numpy(), out[1].cpu().numpy(), lps
 
     def _sampling_tensors(self):
         return (

@@ -17,6 +17,8 @@ Examples::
       --model-path tiny --device cpu
   python -m dynamo_tpu_torch.launch.dynamo_run in=http out=torch \\
       --model-path llama3-8b-sim --quantization fp8_e4m3 --kv-cache-dtype int8
+  python -m dynamo_tpu_torch.launch.dynamo_run in=http out=torch \
+      --model-path llama3-8b-sim --spec-gamma 3
 
 Model presets (random weights from seed 0, byte tokenizer): ``tiny``,
 ``llama3-8b-sim`` (the full Llama-3-8B architecture) and
@@ -76,6 +78,8 @@ def engine_config(args, cfg: ModelConfig) -> EngineConfig:
         mixed_max_prefills=args.mixed_max_prefills,
         quantization=args.quantization,
         kv_cache_dtype=args.kv_cache_dtype,
+        spec_gamma=args.spec_gamma,
+        spec_ngram=args.spec_ngram,
     )
 
 
@@ -131,6 +135,10 @@ def parse_args(argv=None):
     p.add_argument("--num-blocks", type=int, default=512)
     p.add_argument("--block-size", type=int, default=16)
     p.add_argument("--max-batch", type=int, default=8)
+    p.add_argument("--spec-gamma", type=int, default=0,
+                   help="speculative decoding: proposals per verify (0=off)")
+    p.add_argument("--spec-ngram", type=int, default=3,
+                   help="speculative decoding: lookup n-gram length")
     p.add_argument("--max-context", type=int, default=0)
     p.add_argument("--decode-window", type=int, default=4,
                    help="fused decode steps per device dispatch")

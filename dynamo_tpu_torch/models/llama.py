@@ -3,8 +3,8 @@ DeepSeek MLA, with dense or MoE FFNs.
 
 Counterpart of ``dynamo_tpu/models/llama.py`` for the main serving path:
 chunked prefill into the paged cache (:func:`prefill`), merged decode
-windows (:func:`decode_window`), and the fused mixed prefill+decode step
-(:func:`mixed_step`). Public functions keep the JAX signatures, with the
+windows (:func:`decode_window`), the fused mixed prefill+decode step
+(:func:`mixed_step`), and the speculative verify (:func:`verify_window`). Public functions keep the JAX signatures, with the
 JAX-only knobs (``use_pallas``, ``mesh``, ``interpret``...) dropped: each
 op dispatches on its tensors' device (CUDA kernel on the card, plain
 PyTorch on the CPU).
@@ -46,10 +46,15 @@ import torch
 import torch.nn.functional as F
 
 from ..ops import attention as att
-from ..ops.kv_cache_update import kv_cache_append, kv_cache_append_quantized
+from ..ops.kv_cache_update import (
+    kv_cache_append,
+    kv_cache_append_quantized,
+    kv_cache_append_tokens,
+)
 from ..ops.mla_attention import (
     mla_decode_attention_merged,
     mla_paged_prefill_attention,
+    mla_verify_attention,
 )
 from ..ops.moe_gmm import ragged_int8_gmm
 from ..ops.ragged_paged_attention import ragged_mixed_attention_rows
@@ -58,6 +63,7 @@ from ..ops.sampling import (
     bump_counts,
     make_keys,
     sample_tokens,
+    speculative_accept,
     token_logprobs,
 )
 from . import mla
@@ -940,3 +946,157 @@ def mixed_step(
     if with_logprobs:
         out += (lps,)
     return out
+
+
+# ---------------- speculative verify (prompt-lookup decoding) ----------------
+
+
+def _verify_forward(params, cfg, tokens, positions, block_tables, seq_lens,
+                    k_cache, v_cache, n_spec: int):
+    """The fused multi-token forward of the speculative verify: logits ``[B,
+    T, V]`` f32 for T = n_spec + 1 in-flight tokens per sequence in one pass
+    (the weight stream amortizes over T), attention reading the caches as
+    history only (``seq_lens - 1`` rows) with the window out of the cache,
+    then ONE ``kv_cache_append_tokens`` of every layer's T rows. Rows past
+    the accepted run hold rejected proposals' K/V above the commit horizon,
+    overwritten before any read (as a discarded decode-window tail)."""
+    T = n_spec + 1
+    B = tokens.shape[0]
+    dev = tokens.device
+    pos_bt = positions.long()[:, None] + torch.arange(T, device=dev)[None, :]
+    hist_lens = seq_lens - 1  # cache rows before the in-flight window
+    x = _embed(params, cfg, tokens.reshape(-1))  # [B*T, E]
+    blk, off = att.chunk_slot_indices(block_tables, positions, T,
+                                      k_cache.shape[3])  # [B, T]
+    if cfg.is_mla:
+        inv_freq, msc = mla.mla_rope_freqs(cfg, dev)
+        scale = cfg.mla_softmax_scale()
+    else:
+        inv_freq, msc = _rope_freqs(cfg, dev), 1.0
+        scale = attn_query_scale(cfg)
+    rope = rope_tables(pos_bt.reshape(-1), inv_freq, msc)
+    k_news, v_news = [], []
+    for l, lp in _layers(params, cfg):
+        h = rms_norm(x, lp["attn_norm"], cfg.rms_norm_eps)
+        if cfg.is_mla:
+            q_eff, q_pe, c_kv, k_pe = mla.mla_q_and_latent(lp, cfg, h, rope)
+            c_kv, k_pe = c_kv.reshape(B, T, -1), k_pe.reshape(B, T, -1)
+            k_news.append(c_kv[:, :, None])  # [B, T, 1, C]
+            v_news.append(k_pe[:, :, None])  # [B, T, 1, R]
+            o_lat = mla_verify_attention(
+                q_eff.reshape(B, T, *q_eff.shape[1:]),
+                q_pe.reshape(B, T, *q_pe.shape[1:]), c_kv, k_pe, k_cache[l],
+                v_cache[l], block_tables, hist_lens, scale,
+            )
+            o = mla._o_proj(lp, cfg, o_lat).to(x.dtype).reshape(B * T, -1)
+        else:
+            q, k, v = _qkv(lp, cfg, h)  # [B*T, H/Hkv, D]
+            q, k = rotate(q, rope), rotate(k, rope)
+            k, v = k.reshape(B, T, *k.shape[1:]), v.reshape(B, T, *v.shape[1:])
+            k_news.append(k)
+            v_news.append(v)
+            o = att.verify_attention(
+                q.reshape(B, T, *q.shape[1:]), k, v, k_cache[l], v_cache[l],
+                block_tables, hist_lens, scale,
+            ).reshape(B * T, -1)
+        x = _layer_tail(x, lp, o, cfg)
+    x = rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
+    logits = _logits(params, cfg, x).reshape(B, T, -1)
+    kv_cache_append_tokens(torch.stack(k_news), torch.stack(v_news), k_cache,
+                           v_cache, blk.to(torch.int32), off.to(torch.int32))
+    return logits, k_cache, v_cache
+
+
+@torch.no_grad()
+def verify_window(
+    params: dict,
+    cfg: ModelConfig,
+    tokens: torch.Tensor,  # [B, T]: t=0 last accepted token, t>=1 proposals
+    proposals: torch.Tensor,  # [B, n_spec] int32, -1 = no proposal
+    positions: torch.Tensor,  # [B] absolute position of tokens[:, 0]
+    block_tables: torch.Tensor,  # [B, M] int32
+    seq_lens: torch.Tensor,  # [B] int32, length INCLUDING tokens[:, 0]
+    seeds,  # [B] int sampling seeds (host sequence or tensor)
+    steps,  # [B] int per-request generation counters
+    temps: torch.Tensor,  # [B] float32; 0 = greedy row
+    top_ks: torch.Tensor,  # [B] int32
+    top_ps: torch.Tensor,  # [B] float32
+    k_cache: torch.Tensor,  # updated IN PLACE; holds history only
+    v_cache: torch.Tensor,
+    n_spec: int,
+    freq_pens: Optional[torch.Tensor] = None,
+    pres_pens: Optional[torch.Tensor] = None,
+    rep_pens: Optional[torch.Tensor] = None,
+    counts: Optional[torch.Tensor] = None,  # [B, V] int32, bumped IN PLACE
+    prompt_mask: Optional[torch.Tensor] = None,  # [B, V] bool
+    with_logprobs: bool = False,
+):
+    """Speculative verify + acceptance, greedy and sampled rows:
+
+      * greedy rows accept proposals matching the argmax chain;
+      * sampled rows use rejection sampling against the deterministic draft
+        (``sampling.speculative_accept``); the accept draws come from the
+        ``seed ^ 0x5EC`` stream at ``step + t``, the corrections and the
+        bonus from the plain ``(seed, step + t)`` stream, so the emitted
+        tokens' keys are the plain decode's.
+
+    Penalties (with ``counts``) follow plain decode's SEQUENTIAL semantics
+    inside the window: position t is penalized by the base counts plus the
+    window's proposals before t, and the counts gain every emitted token.
+    Acceptance and the greedy argmax read the penalized logits; logprobs
+    report the model's raw distribution (as :func:`decode_window`).
+
+    Returns (out_tokens [B, T] int32, n_acc [B] int32, k_cache, v_cache[,
+    counts][, (chosen_lp [B, T], top_ids [B, T, K], top_lps [B, T, K])]):
+    the caller emits ``out_tokens[:, :n_acc + 1]``."""
+    T = n_spec + 1
+    B = tokens.shape[0]
+    dev = tokens.device
+    # read once before the forward is queued (as decode_window does), so
+    # an all-greedy verify never waits for the card mid-stream
+    sampled = any(t > 0.0 for t in temps.tolist())
+    logits, k_cache, v_cache = _verify_forward(
+        params, cfg, tokens, positions, block_tables, seq_lens, k_cache,
+        v_cache, n_spec,
+    )
+    raw = logits.float()
+    V = raw.shape[-1]
+    sample_logits = raw
+    if counts is not None:
+        # window bumps BEFORE each position: proposal t bumps positions > t
+        # (an unproposed slot bumps nothing)
+        oh = torch.zeros(B, n_spec, V, dtype=torch.int32, device=dev)
+        oh.scatter_(2, proposals.clamp_min(0).long()[..., None],
+                    (proposals >= 0).to(torch.int32)[..., None])
+        cum = torch.cat([oh.new_zeros(B, 1, V), torch.cumsum(oh, dim=1)], dim=1)
+        cnt_t = (counts[:, None] + cum).reshape(B * T, V)
+        sample_logits = apply_penalties(
+            raw.reshape(B * T, V), cnt_t, prompt_mask.repeat_interleave(T, 0),
+            freq_pens.repeat_interleave(T), pres_pens.repeat_interleave(T),
+            rep_pens.repeat_interleave(T),
+        ).reshape(B, T, V)
+    seeds = [int(s) for s in seeds]
+    steps = [int(s) for s in steps]
+    keys_accept = keys_sample = None
+    if sampled:
+        keys_accept = torch.stack(
+            [make_keys([s ^ 0x5EC for s in seeds], [s + t for s in steps], dev)
+             for t in range(n_spec)], dim=1) if n_spec else torch.zeros(
+                 B, 0, 2, dtype=torch.int64, device=dev)
+        keys_sample = torch.stack(
+            [make_keys(seeds, [s + t for s in steps], dev) for t in range(T)],
+            dim=1)
+    out, n_acc = speculative_accept(sample_logits, proposals, keys_accept,
+                                    keys_sample, temps, top_ks, top_ps)
+    result = (out, n_acc, k_cache, v_cache)
+    if counts is not None:
+        # every emitted token (t <= n_acc) counts once
+        emitted = torch.arange(T, device=dev)[None, :] <= n_acc[:, None]
+        counts.scatter_add_(1, out.long(), emitted.to(counts.dtype))
+        result += (counts,)
+    if with_logprobs:
+        chosen, top_ids, top_lps = token_logprobs(raw.reshape(B * T, V),
+                                                  out.reshape(-1))
+        result += ((chosen.reshape(B, T), top_ids.reshape(B, T, -1),
+                    top_lps.reshape(B, T, -1)),)
+    return result

@@ -1,17 +1,20 @@
-"""In-place KV-cache append: one new token per sequence, all layers at once.
+"""In-place KV-cache appends, all layers at once.
 
-Counterpart of ``dynamo_tpu/ops/kv_cache_update_pallas.py::kv_cache_append``.
-The JAX version DONATES the caches and returns aliased outputs; this port
-MUTATES ``k_cache``/``v_cache`` in place (and returns them, so call sites
-read like the reference). On CUDA tensors it launches
-``csrc/kv_cache_append.cu``; on CPU tensors it takes the plain version
-(``index_put_``).
+Counterparts of ``dynamo_tpu/ops/kv_cache_update_pallas.py``:
+:func:`kv_cache_append` (one new token per sequence) and
+:func:`kv_cache_append_tokens` (T <= bs consecutive rows per sequence, the
+speculative verify's in-flight window). The JAX versions DONATE the caches
+and return aliased outputs; this port MUTATES ``k_cache``/``v_cache`` in
+place (and returns them, so call sites read like the reference). On CUDA
+tensors both launch the one row-store kernel of ``csrc/kv_cache_append.cu``
+(the one-token append is its T = 1 case); on CPU tensors they take the
+plain version (``index_put_``).
 
-Merged decode uses it: the layer loop stacks each layer's new K/V ([L, B,
-Hkv, D], tiny) and writes them with ONE call after attention, which
-handled the current token out of the cache. The K and V rows may differ in
-width: MLA's k cache holds the latent ``c_kv`` ``[L, 1, N, bs, C]`` and its
-v cache the rotated ``k_pe`` ``[L, 1, N, bs, R]``.
+Merged decode and the verify use them: the layer loop stacks each layer's
+new K/V ([L, B, (T,) Hkv, D], tiny) and writes them with ONE call after
+attention, which handled the new tokens out of the cache. The K and V rows
+may differ in width: MLA's k cache holds the latent ``c_kv`` ``[L, 1, N,
+bs, C]`` and its v cache the rotated ``k_pe`` ``[L, 1, N, bs, R]``.
 
 :func:`kv_cache_append_quantized` is the append of the int8-with-scales
 cache (``dynamo_tpu/ops/kv_cache_update_pallas.py::kv_cache_append_quantized``):
@@ -33,12 +36,56 @@ from . import _cuda
 _SRC = "kv_cache_append.cu"
 
 
+def kv_cache_append_tokens_plain(k_new, v_new, k_cache, v_cache, blk, off):
+    """``cache[l, :, blk[b, t], off[b, t]] = new[l, b, t]`` through
+    ``index_put_``."""
+    lidx = torch.arange(k_new.shape[0], device=k_new.device)[:, None, None]
+    b, o = blk.long()[None], off.long()[None]
+    k_cache[lidx, :, b, o] = k_new.to(k_cache.dtype)
+    v_cache[lidx, :, b, o] = v_new.to(v_cache.dtype)
+    return k_cache, v_cache
+
+
 def kv_cache_append_plain(k_new, v_new, k_cache, v_cache, blk, off):
     """``cache[l, :, blk[b], off[b]] = new[l, b]`` through ``index_put_``."""
-    idx = (blk.long(), off.long())
-    k_cache[:, :, idx[0], idx[1]] = k_new.permute(0, 2, 1, 3).to(k_cache.dtype)
-    v_cache[:, :, idx[0], idx[1]] = v_new.permute(0, 2, 1, 3).to(v_cache.dtype)
-    return k_cache, v_cache
+    return kv_cache_append_tokens_plain(k_new[:, :, None], v_new[:, :, None],
+                                        k_cache, v_cache, blk[:, None],
+                                        off[:, None])
+
+
+def _launch_rows(name, k_new, v_new, k_cache, v_cache, blk, off) -> None:
+    """Validate and launch ``kv_cache_append_tokens_launch``: ``k_new [L,
+    B, T, Hkv, Dk]``, ``v_new [L, B, T, Hkv, Dv]``, ``blk``/``off [B, T]``
+    int32, every tensor contiguous on one card, one dtype. Raises on what
+    the kernel does not take."""
+    _cuda.require_cuda(name, k_new, v_new, k_cache, v_cache, blk, off)
+    _cuda.require_int32(name, blk, off)
+    L, B, T, Hkv, Dk = k_new.shape
+    Dv = v_new.shape[-1]
+    N, bs = k_cache.shape[2:4]
+    if (
+        v_new.shape != (L, B, T, Hkv, Dv)
+        or k_cache.shape != (L, Hkv, N, bs, Dk)
+        or v_cache.shape != (L, Hkv, N, bs, Dv)
+        or blk.shape != (B, T) or off.shape != (B, T)
+    ):
+        raise ValueError(f"{name}: shapes do not fit: new {tuple(k_new.shape)}"
+                         f" / {tuple(v_new.shape)}, caches "
+                         f"{tuple(k_cache.shape)} / {tuple(v_cache.shape)}, "
+                         f"blk {tuple(blk.shape)}")
+    dtypes = {k_new.dtype, v_new.dtype, k_cache.dtype, v_cache.dtype}
+    if len(dtypes) != 1 or k_cache.dtype not in _cuda.DTYPE_CODES:
+        raise ValueError(f"{name}: new rows and caches must share one of "
+                         f"{list(_cuda.DTYPE_CODES)}, got {dtypes}")
+    err = _cuda.lib(_SRC).kv_cache_append_tokens_launch(
+        ctypes.c_void_p(k_new.data_ptr()), ctypes.c_void_p(v_new.data_ptr()),
+        ctypes.c_void_p(k_cache.data_ptr()),
+        ctypes.c_void_p(v_cache.data_ptr()),
+        ctypes.c_void_p(blk.data_ptr()), ctypes.c_void_p(off.data_ptr()),
+        L, B, T, Hkv, N, bs, Dk, Dv, _cuda.DTYPE_CODES[k_cache.dtype],
+        ctypes.c_void_p(_cuda.stream_ptr(k_cache)),
+    )
+    _cuda.check(err, name)
 
 
 def kv_cache_append(
@@ -56,40 +103,45 @@ def kv_cache_append(
     where their writes race harmlessly."""
     if k_cache.device.type == "cpu":
         return kv_cache_append_plain(k_new, v_new, k_cache, v_cache, blk, off)
-    name = "kv_cache_append"
-    _cuda.require_cuda(name, k_new, v_new, k_cache, v_cache, blk, off)
-    _cuda.require_int32(name, blk, off)
-    L, B, Hkv, Dk = k_new.shape
-    Dv = v_new.shape[-1]
-    N, bs = k_cache.shape[2:4]
-    if (
-        v_new.shape != (L, B, Hkv, Dv)
-        or k_cache.shape != (L, Hkv, N, bs, Dk)
-        or v_cache.shape != (L, Hkv, N, bs, Dv)
-        or blk.shape != (B,) or off.shape != (B,)
-    ):
-        raise ValueError(f"{name}: shapes do not fit: new {tuple(k_new.shape)}"
-                         f" / {tuple(v_new.shape)}, caches "
-                         f"{tuple(k_cache.shape)} / {tuple(v_cache.shape)}, "
-                         f"blk {tuple(blk.shape)}")
-    dtypes = {k_new.dtype, v_new.dtype, k_cache.dtype, v_cache.dtype}
-    if len(dtypes) != 1 or k_cache.dtype not in _cuda.DTYPE_CODES:
-        raise ValueError(f"{name}: new rows and caches must share one of "
-                         f"{list(_cuda.DTYPE_CODES)}, got {dtypes}")
-    err = _cuda.lib(_SRC).kv_cache_append_launch(
-        ctypes.c_void_p(k_new.data_ptr()), ctypes.c_void_p(v_new.data_ptr()),
-        ctypes.c_void_p(k_cache.data_ptr()),
-        ctypes.c_void_p(v_cache.data_ptr()),
-        ctypes.c_void_p(blk.data_ptr()), ctypes.c_void_p(off.data_ptr()),
-        L, B, Hkv, N, bs, Dk, Dv, _cuda.DTYPE_CODES[k_cache.dtype],
-        ctypes.c_void_p(_cuda.stream_ptr(k_cache)),
-    )
-    _cuda.check(err, name)
+    if k_new.dim() != 4 or blk.dim() != 1:
+        raise ValueError(f"kv_cache_append: new rows [L, B, Hkv, D] and "
+                         f"blk [B], got {tuple(k_new.shape)} / "
+                         f"{tuple(blk.shape)}")
+    _launch_rows("kv_cache_append", k_new[:, :, None], v_new[:, :, None],
+                 k_cache, v_cache, blk[:, None], off[:, None])
     kv_cache_append.launches += 1
     return k_cache, v_cache
 
 
 kv_cache_append.launches = 0
+
+
+def kv_cache_append_tokens(
+    k_new: torch.Tensor,  # [L, B, T, Hkv, Dk] T in-flight tokens per sequence
+    v_new: torch.Tensor,  # [L, B, T, Hkv, Dv]
+    k_cache: torch.Tensor,  # [L, Hkv, N, bs, Dk] — updated IN PLACE
+    v_cache: torch.Tensor,  # [L, Hkv, N, bs, Dv] — updated IN PLACE
+    blk: torch.Tensor,  # [B, T] int32 physical page per (sequence, token)
+    off: torch.Tensor,  # [B, T] int32 row within the page
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Multi-token :func:`kv_cache_append` (the speculative verify): writes
+    T consecutive-position rows per sequence, all layers, in place.
+    Requires T <= block_size, as the reference does (its window spans at
+    most two pages). Padded sequences may point all T rows at trash page
+    0, where their writes race harmlessly."""
+    T, bs = k_new.shape[2], k_cache.shape[3]
+    if T > bs:
+        raise ValueError(f"T={T} in-flight rows must fit a page (bs={bs})")
+    if k_cache.device.type == "cpu":
+        return kv_cache_append_tokens_plain(k_new, v_new, k_cache, v_cache,
+                                            blk, off)
+    _launch_rows("kv_cache_append_tokens", k_new, v_new, k_cache, v_cache,
+                 blk, off)
+    kv_cache_append_tokens.launches += 1
+    return k_cache, v_cache
+
+
+kv_cache_append_tokens.launches = 0
 
 
 def quant_scale_update(x_new, scales, blk, qmax: float = KV_INT8_QMAX,

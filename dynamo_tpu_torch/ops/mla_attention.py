@@ -13,7 +13,12 @@ position s as ``q_eff . c[s] + q_pe . pe[s]`` (scaled), fp32 softmax.
     kernel's statistics over the history plus the flash merge of the
     current token, which is NOT in the cache;
   * :func:`mla_paged_prefill_attention` — a chunk of T tokens over history
-    plus the chunk itself (already written), causal at absolute positions.
+    plus the chunk itself (already written), causal at absolute positions;
+  * :func:`mla_verify_attention` — the speculative verify's T in-flight
+    tokens, NOT in the cache: the kernel's statistics over the history
+    (the T*H query rows packed into its head dimension) plus the dense
+    causal window, merged with the flash rule; :func:`mla_verify_attention_xla`
+    is its plain twin (the reference's XLA branch).
 
 On CUDA tensors the entry points launch ``csrc/mla_attention.cu`` (one
 kernel body for both); on CPU tensors they take their plain twins below.
@@ -193,10 +198,13 @@ def mla_paged_decode_attention(
     scale: float,
     pages_per_step: int = 0,
     return_stats: bool = False,
+    tokens: int = 1,
 ):  # [B, H, C] in q's dtype, or (out, m [B, H], l [B, H]) with return_stats
     """MLA latent decode over ``seq_lens[b]`` cached positions.
     ``pages_per_step`` is the TPU kernel's DMA grouping and is ignored.
-    Rows with ``seq_len == 0`` return o = 0, m = -1e30, l = 0."""
+    ``tokens`` > 1 says the H rows pack that many in-flight tokens' heads
+    (the verify): such a launch also counts in ``verify_launches``. Rows
+    with ``seq_len == 0`` return o = 0, m = -1e30, l = 0."""
     if q_eff.device.type == "cpu":
         return mla_paged_decode_attention_plain(
             q_eff, q_pe, c_cache_layer, pe_cache_layer, block_tables,
@@ -208,10 +216,13 @@ def mla_paged_decode_attention(
         name="mla_paged_decode_attention",
     )
     mla_paged_decode_attention.launches += 1
+    if tokens > 1:
+        mla_paged_decode_attention.verify_launches += 1
     return (o, m, l) if return_stats else o
 
 
 mla_paged_decode_attention.launches = 0
+mla_paged_decode_attention.verify_launches = 0
 
 
 def mla_decode_attention_merged(
@@ -241,6 +252,72 @@ def mla_decode_attention_merged(
     p_new = torch.exp(s_new - m_f)
     num = kept[..., None] * o_h.float() + p_new[..., None] * c_new[:, None, :].float()
     return num / (kept + p_new)[..., None]  # >= p_new > 0: the token is live
+
+
+def _merge_window(q_eff, q_pe, c_win, pe_win, o_h, m_h, l_h, scale):
+    """Fold the in-flight window's causal part into the history's (o, m, l)
+    ``[B, T, H(, C)]`` with the flash rule. Returns ``[B, T, H, C]`` f32."""
+    T = q_eff.shape[1]
+    s_w = (torch.einsum("bthc,buc->bthu", q_eff.float(), c_win.float())
+           + torch.einsum("bthr,bur->bthu", q_pe.float(), pe_win.float())) * scale
+    causal = torch.ones(T, T, dtype=torch.bool, device=q_eff.device).tril()
+    s_w = s_w.masked_fill(~causal[:, None, :], NEG_INF)
+    m_f = torch.maximum(m_h, s_w.amax(-1))
+    alpha = torch.exp(m_h - m_f)  # the history's share of the normalizer
+    p_w = torch.exp(s_w - m_f[..., None])
+    o_w = torch.einsum("bthu,buc->bthc", p_w, c_win.float())
+    num = (l_h * alpha)[..., None] * o_h + o_w
+    den = l_h * alpha + p_w.sum(-1)  # >= the diagonal term (u == t) > 0
+    return num / den[..., None]
+
+
+def mla_verify_attention(
+    q_eff: torch.Tensor,  # [B, T, H, C] T in-flight tokens' absorbed queries
+    q_pe: torch.Tensor,  # [B, T, H, R]
+    c_win: torch.Tensor,  # [B, T, C] their latents (NOT in cache)
+    pe_win: torch.Tensor,  # [B, T, R]
+    c_cache_layer: torch.Tensor,  # [1, N, bs, C] history only
+    pe_cache_layer: torch.Tensor,  # [1, N, bs, R]
+    block_tables: torch.Tensor,  # [B, M] int32
+    hist_lens: torch.Tensor,  # [B] int32 tokens in cache (before the window)
+    scale: float,
+) -> torch.Tensor:  # [B, T, H, C] f32 latent outputs
+    """Multi-token latent attention for the speculative verify, with the
+    whole in-flight window OUT of the cache: every history row precedes
+    every window position, so the T*H query rows simply pack the
+    stats-emitting decode kernel's head dimension (token-major); the tiny
+    [T, T'] causal window part is dense and folds in with the flash merge.
+    Keeping the window out of the cache lets the caller batch all layers'
+    latent writes into ONE ``kv_cache_append_tokens``."""
+    B, T, H, C = q_eff.shape
+    R = q_pe.shape[-1]
+    o_h, m_h, l_h = mla_paged_decode_attention(
+        q_eff.reshape(B, T * H, C), q_pe.reshape(B, T * H, R), c_cache_layer,
+        pe_cache_layer, block_tables, hist_lens, scale, return_stats=True,
+        tokens=T,
+    )
+    return _merge_window(q_eff, q_pe, c_win, pe_win,
+                         o_h.reshape(B, T, H, C).float(), m_h.reshape(B, T, H),
+                         l_h.reshape(B, T, H), scale)
+
+
+def mla_verify_attention_xla(q_eff, q_pe, c_win, pe_win, c_cache_layer,
+                             pe_cache_layer, block_tables, hist_lens, scale):
+    """:func:`mla_verify_attention` with the history through a dense gather
+    and a masked f32 softmax (the reference's XLA branch): the plain twin
+    the tests hold the kernel path to."""
+    ck = gather_latents(c_cache_layer, block_tables).float()  # [B, S, C]
+    kp = gather_latents(pe_cache_layer, block_tables).float()
+    s = (torch.einsum("bthc,bsc->bths", q_eff.float() * scale, ck)
+         + torch.einsum("bthr,bsr->bths", q_pe.float() * scale, kp))
+    valid = (torch.arange(ck.shape[1], device=ck.device)[None, :]
+             < hist_lens[:, None])[:, None, None, :]
+    s = s.masked_fill(~valid, NEG_INF)
+    m_h = s.amax(-1)  # [B, T, H]
+    p = torch.exp(s - m_h[..., None]) * valid
+    l_h = p.sum(-1)
+    o_h = torch.einsum("bths,bsc->bthc", p, ck) / l_h.clamp_min(1e-20)[..., None]
+    return _merge_window(q_eff, q_pe, c_win, pe_win, o_h, m_h, l_h, scale)
 
 
 def mla_paged_prefill_attention(

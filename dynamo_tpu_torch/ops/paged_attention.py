@@ -233,10 +233,12 @@ def paged_decode_attention(
     """GQA paged decode attention over ``seq_lens[b]`` cached positions.
 
     ``pages_per_step`` is the TPU kernel's DMA grouping and is ignored.
-    ``q_pos_offset``/``group`` only matter for a sliding window, which is
-    not ported yet and raises. ``k_scales``/``v_scales`` ([N] f32) come
-    with int8 pages. Rows with ``seq_len == 0`` return o = 0, m = -1e30,
-    l = 0."""
+    ``group`` is the query heads per kv head of ONE token where the rows
+    pack several (the verify's T*G rows per kv head): a launch with more
+    rows than that also counts in ``verify_launches``. ``q_pos_offset``
+    only matters for a sliding window, which is not ported yet and raises.
+    ``k_scales``/``v_scales`` ([N] f32) come with int8 pages. Rows with
+    ``seq_len == 0`` return o = 0, m = -1e30, l = 0."""
     if window:
         raise NotImplementedError(
             "paged_decode_attention: sliding windows are not ported yet"
@@ -255,11 +257,14 @@ def paged_decode_attention(
         k_scales=k_scales, v_scales=v_scales, name="paged_decode_attention",
     )
     paged_decode_attention.launches += 1
+    if group and G > group:
+        paged_decode_attention.verify_launches += 1
     o = o.reshape(B, H, D)
     return (o, m, l) if return_stats else o
 
 
 paged_decode_attention.launches = 0
+paged_decode_attention.verify_launches = 0
 
 
 def prefill_q_tile(G: int) -> int:

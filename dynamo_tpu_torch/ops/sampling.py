@@ -92,9 +92,27 @@ def sample_tokens(
     scaled = logits / temperature.clamp_min(1e-6)[:, None]
     if bool(((top_k > 0) | (top_p < 1.0)).any()):
         scaled = _apply_topk_topp(scaled, top_k, top_p)
-    gumbel = -torch.log(-torch.log(_uniform(keys, scaled.shape[-1], logits.device)))
-    sampled = torch.argmax(gumbel + scaled, dim=-1).to(torch.int32)
+    sampled = _categorical(keys, scaled)
     return torch.where(temperature <= 0.0, greedy, sampled)
+
+
+def _categorical(keys: torch.Tensor, logits: torch.Tensor) -> torch.Tensor:
+    """``jax.random.categorical(key, row)`` per row of ``logits [R, V]``
+    under ``keys [R, 2]``: the argmax of Gumbel noise plus the logits."""
+    gumbel = -torch.log(-torch.log(_uniform(keys, logits.shape[-1], logits.device)))
+    return torch.argmax(gumbel + logits, dim=-1).to(torch.int32)
+
+
+def _uniform_scalar(keys: torch.Tensor) -> torch.Tensor:
+    """``jax.random.uniform(key)`` (shape ``()``, minval 0, maxval 1) per
+    key of ``keys [..., 2]``: the hash of the counter pair ``(0, 0)``,
+    XORed, 23 bits filling a float in [1, 2), minus 1. Unlike
+    :func:`_uniform` (the Gumbel draw's ``minval=tiny``) nothing is
+    rescaled or clamped: 0 is a possible draw."""
+    zero = torch.zeros_like(keys[..., 0])
+    b1, b2 = threefry2x32(keys[..., 0], keys[..., 1], zero, zero)
+    bits = (((b1 ^ b2) >> 9) | 0x3F800000).to(torch.int32)
+    return bits.view(torch.float32) - 1.0
 
 
 def _apply_topk_topp(
@@ -111,6 +129,76 @@ def _apply_topk_topp(
     inside = cum - probs_sorted < top_p[:, None]
     thresh = torch.where(inside, sorted_desc, float("inf")).amin(-1, keepdim=True)
     return torch.where(scaled < thresh, NEG_INF, scaled)
+
+
+def filtered_dist(
+    logits: torch.Tensor,  # [B, V] float32
+    temperature: torch.Tensor,  # [B]
+    top_k: torch.Tensor,  # [B]
+    top_p: torch.Tensor,  # [B]
+) -> torch.Tensor:
+    """The exact masked/temperature-scaled logits sample_tokens draws from
+    (speculative acceptance scores proposals against the SAME distribution
+    the plain sampler uses)."""
+    return _apply_topk_topp(logits / temperature.clamp_min(1e-6)[:, None],
+                            top_k, top_p)
+
+
+def speculative_accept(
+    logits: torch.Tensor,  # [B, T, V] f32: position t predicts token t+1
+    proposals: torch.Tensor,  # [B, T-1] int32, -1 = no proposal (never accepts)
+    keys_accept: Optional[torch.Tensor],  # [B, T-1, 2] accept draws; None = all greedy
+    keys_sample: Optional[torch.Tensor],  # [B, T, 2] correction/bonus draws
+    temperature: torch.Tensor,  # [B] 0 => greedy rows
+    top_k: torch.Tensor,  # [B]
+    top_p: torch.Tensor,  # [B]
+) -> tuple[torch.Tensor, torch.Tensor]:  # (out_tokens [B, T] int32, n_acc [B])
+    """Rejection-sampling acceptance for deterministic (prompt-lookup)
+    drafts: the draft distribution is a point mass on the proposal, so
+
+      * proposal d_t is accepted with probability p_t(d_t);
+      * on rejection the correction is drawn from the residual, p with d_t
+        masked out (lossless in distribution);
+      * greedy rows (temperature 0) accept iff d_t is the argmax, and their
+        correction is the argmax.
+
+    The full-acceptance bonus position (t = T-1) samples normally.
+    ``out_tokens[:, t]`` is d_t for t < n_acc and the correction/bonus at t
+    = n_acc; the caller emits exactly n_acc + 1 tokens per row. An
+    all-greedy batch (callers pass no keys) never sorts and draws nothing,
+    as in :func:`sample_tokens`."""
+    B, T, V = logits.shape
+    g = T - 1
+    greedy = torch.argmax(logits, dim=-1).to(torch.int32)  # [B, T]
+    d = proposals.clamp_min(0).to(torch.int32)  # safe gather index
+    valid = proposals >= 0
+    accept = (d == greedy[:, :g]) & valid
+    corr = greedy
+    if keys_sample is not None:
+        is_greedy = (temperature <= 0.0)[:, None]
+        scaled = filtered_dist(
+            logits.reshape(B * T, V), temperature.repeat_interleave(T),
+            top_k.repeat_interleave(T), top_p.repeat_interleave(T),
+        ).reshape(B, T, V)
+        probs = torch.softmax(scaled, dim=-1)
+        p_d = torch.gather(probs[:, :g], 2, d.long()[..., None])[..., 0]
+        u = _uniform_scalar(keys_accept.to(logits.device))  # [B, g]
+        accept = torch.where(is_greedy, accept, (u < p_d) & valid)
+        # the residual: each position's proposal masked out (none at the
+        # bonus position and where nothing was proposed)
+        masked = torch.cat([valid, valid.new_zeros(B, 1)], dim=1)  # [B, T]
+        d_full = torch.cat([d, d.new_zeros(B, 1)], dim=1).long()
+        mask = torch.zeros(B, T, V, dtype=torch.bool, device=logits.device)
+        mask.scatter_(2, d_full[..., None], masked[..., None])
+        resid = scaled.masked_fill(mask, NEG_INF)
+        drawn = _categorical(keys_sample.reshape(B * T, 2),
+                             resid.reshape(B * T, V)).reshape(B, T)
+        corr = torch.where(is_greedy, greedy, drawn)
+    n_acc = torch.cumprod(accept.to(torch.int32), dim=1).sum(dim=1)  # [B]
+    t_idx = torch.arange(T, device=logits.device)[None, :]
+    ahead = torch.cat([d, d.new_zeros(B, 1)], dim=1)
+    out = torch.where(t_idx < n_acc[:, None], ahead, corr).to(torch.int32)
+    return out, n_acc.to(torch.int32)
 
 
 def apply_penalties(

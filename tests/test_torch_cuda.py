@@ -247,3 +247,65 @@ def test_cuda_int8_native_mm_matches_cpu():
         x = torch.randn(rows, 64, generator=g)
         got = _mm(x.cuda(), {k: v.cuda() for k, v in w.items()})
         torch.testing.assert_close(got.cpu(), _mm(x, w), rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.cuda
+def test_cuda_append_tokens_and_verify_rows_match_plain():
+    """On the card: kv_cache_append_tokens bit-exact with its plain twin
+    at GQA widths (bf16 and f32, 16-byte and element stores) and at MLA's
+    Dk != Dv, windows crossing pages and of T = bs rows (page 0 excluded:
+    padded rows race there); the verify's attention (T*G rows per kv head,
+    T*H latent rows per token) against the plain twins (2e-2)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the chip)")
+    from dynamo_tpu_torch.ops import attention as att
+    from dynamo_tpu_torch.ops import kv_cache_update as kvu
+    from dynamo_tpu_torch.ops import mla_attention as mla
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(3)
+    bs, N = 16, 40
+    for T, dt, (Hkv, Dk, Dv) in ((4, torch.bfloat16, (8, 128, 128)),
+                                 (bs, torch.bfloat16, (1, 512, 64)),
+                                 (3, torch.float32, (2, 6, 6))):
+        L, B = 3, 4
+        k_new = torch.randn(L, B, T, Hkv, Dk, generator=g, device=dev).to(dt)
+        v_new = torch.randn(L, B, T, Hkv, Dv, generator=g, device=dev).to(dt)
+        kc = torch.randn(L, Hkv, N, bs, Dk, generator=g, device=dev).to(dt)
+        vc = torch.randn(L, Hkv, N, bs, Dv, generator=g, device=dev).to(dt)
+        start = torch.tensor([bs - 2, bs, 5, 0], device=dev)[:, None]
+        pos = start + torch.arange(T, device=dev)[None, :]
+        tables = torch.tensor([[3, 7, 9], [5, 2, 11], [20, 21, 22], [0, 0, 0]],
+                              dtype=torch.int32, device=dev)
+        blk = torch.gather(tables, 1, pos // bs).to(torch.int32)
+        off = (pos % bs).to(torch.int32)
+        kp, vp = kc.clone(), vc.clone()
+        kvu.kv_cache_append_tokens(k_new, v_new, kc, vc, blk, off)
+        kvu.kv_cache_append_tokens_plain(k_new, v_new, kp, vp, blk, off)
+        torch.cuda.synchronize()
+        assert torch.equal(kc[:, :, 1:], kp[:, :, 1:])
+        assert torch.equal(vc[:, :, 1:], vp[:, :, 1:])
+    tol = dict(atol=2e-2, rtol=2e-2)
+    B, T, Hkv, G, D, M = 4, 4, 8, 4, 128, 8
+    kc = torch.randn(Hkv, N, bs, D, generator=g, device=dev).bfloat16()
+    vc = torch.randn(Hkv, N, bs, D, generator=g, device=dev).bfloat16()
+    tables = torch.randperm(N - 1, generator=g, device=dev)[: B * M].add(1)
+    tables = tables.reshape(B, M).to(torch.int32)
+    hist = torch.tensor([-1, 0, 37, 120], dtype=torch.int32, device=dev)
+    q = torch.randn(B, T, Hkv * G, D, generator=g, device=dev).bfloat16()
+    kw = torch.randn(B, T, Hkv, D, generator=g, device=dev).bfloat16()
+    vw = torch.randn(B, T, Hkv, D, generator=g, device=dev).bfloat16()
+    args = (q, kw, vw, kc, vc, tables, hist, D ** -0.5)
+    ref = att.verify_attention(*(a.cpu() if torch.is_tensor(a) else a for a in args))
+    torch.testing.assert_close(att.verify_attention(*args).float().cpu(),
+                               ref.float(), **tol)
+    H, C, R = 16, 512, 64
+    cc = torch.randn(1, N, bs, C, generator=g, device=dev).bfloat16()
+    pc = torch.randn(1, N, bs, R, generator=g, device=dev).bfloat16()
+    margs = (torch.randn(B, T, H, C, generator=g, device=dev).bfloat16(),
+             torch.randn(B, T, H, R, generator=g, device=dev).bfloat16(),
+             torch.randn(B, T, C, generator=g, device=dev).bfloat16(),
+             torch.randn(B, T, R, generator=g, device=dev).bfloat16(),
+             cc, pc, tables, hist.clamp_min(0), 0.05)
+    torch.testing.assert_close(mla.mla_verify_attention(*margs),
+                               mla.mla_verify_attention_xla(*margs), **tol)

@@ -117,4 +117,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     assert {"dynamo_tpu_torch.models.mla",
             "dynamo_tpu_torch.ops.mla_attention",
             "dynamo_tpu_torch.models.quant",
-            "dynamo_tpu_torch.ops.moe_gmm"} <= set(modules)
+            "dynamo_tpu_torch.ops.moe_gmm",
+            # the speculative path's modules
+            "dynamo_tpu_torch.ops.kv_cache_update",
+            "dynamo_tpu_torch.ops.sampling",
+            "dynamo_tpu_torch.models.llama",
+            "dynamo_tpu_torch.engine.engine"} <= set(modules)
