@@ -31,7 +31,11 @@ Phases, in order; any failure raises and the script exits non-zero:
      (f32, TF32 off), the dense and MLA ones through the speculative
      verify_window too (tokens and accepted counts exact, logits 1e-3),
      and a tiny TorchEngine with spec_gamma=3 against spec_gamma=0 (the
-     same greedy stream, proposals accepted);
+     same greedy stream, proposals accepted); a head layout the Llama
+     shapes miss (G=7, an unaligned history, padded rows and a dead
+     segment) through the tensor-core prefill and ragged tiles, bf16 and
+     int8 pages, with (m, l); the bf16 MoE FFN at DeepSeek-V2-Lite's
+     widths run twice, bit-equal, each stage compared;
   3. serving: the port's OpenAI HTTP service in-process, six drives one
      after the other (each model's memory freed before the next):
      llama3-8b-sim, deepseek-v2-lite-sim, deepseek-v2-lite-sim with int8
@@ -45,10 +49,13 @@ Phases, in order; any failure raises and the script exits non-zero:
      bytes while it decodes (fused mixed steps), one of them a streaming
      chat; every response must be 200 and non-empty, and every kernel of
      the drive's path, its launch counter zeroed just before the drive,
-     must have launched; then each drive's step anatomy (the spec drives:
-     one verify forward), and the dense projections' cost per decode step
-     in each weight form (bf16 drive) or the plain dequantize's (quantized
-     drives);
+     must have launched; then each drive's step anatomy (decode window,
+     dedicated prefill and, for GQA, a fused mixed step; the spec drives:
+     one verify forward), on the bf16 drives a run-to-run probe (the same
+     prefill and decode step twice: bit-equal logits?) and what a
+     prefix-cache hit changes, and the dense projections' cost per decode
+     step in each weight form (bf16 drive) or the plain dequantize's
+     (quantized drives);
   4. timing: median time per launch of each kernel with L2 flushed
      between launches, its plain version's and a library yardstick's
      (scaled_dot_product_attention / index_put_ / torch._grouped_mm over
@@ -219,14 +226,9 @@ class KernelInputs:
         one f32 absmax scale per page (K and V): the int8-KV variants."""
         import copy
 
-        torch = self.torch
         other = copy.copy(self)
-        for name, skey in (("kc", "k_scales"), ("vc", "v_scales")):
-            c = getattr(self, name).float()  # [Hkv, N, bs, D]
-            s = (c.abs().amax(dim=(0, 2, 3)) / 127.0).clamp_min(1e-12)  # [N]
-            q = torch.clamp(torch.round(c / s[None, :, None, None]), -127, 127)
-            setattr(other, name, q.to(torch.int8))
-            other.sc = {**other.sc, skey: s}
+        other.kc, other.vc, ks, vs = quantized_pages(self.torch, self.kc, self.vc)
+        other.sc = {**other.sc, "k_scales": ks, "v_scales": vs}
         return other
 
     def dequantized(self):
@@ -263,7 +265,7 @@ class KernelInputs:
         G = self.H // self.Hkv
         _, m, l = pa.launch_paged_attention(
             q.reshape(-1, self.Hkv, G, self.D), self.kc, self.vc, self.scale,
-            T=T, Tq=pa.prefill_q_tile(G), stats=True, **tables, **self.sc)
+            T=T, stats=True, **tables, **self.sc)
         return m, l
 
     def plain_stats(self, q, table, limit):
@@ -748,6 +750,134 @@ def check_kernels(torch, dev, inp: KernelInputs) -> dict:
     return errs
 
 
+def check_odd_group(torch, dev) -> dict:
+    """A head layout the Llama shapes do not reach: G = 7 (H=28, Hkv=4,
+    D=128, Qwen2-7B's), so a tensor-core tile's rows (18 tokens x 7 heads)
+    do not fill its last 16-row group; a ragged launch of 3 decode rows
+    (one inactive) and 2 segments of T=160: history 333 (no multiple of 16
+    or 64) with 117 real rows, and a dead one; bf16 and int8 pages. o
+    within 2e-2 of the plain versions, (m, l) within rtol 1e-3 of the plain
+    softmax, dead rows o = 0, m = -1e30, l = 0. Also the prefill entry
+    point with valid_len over the same rows."""
+    from dynamo_tpu_torch.ops import paged_attention as pa
+    from dynamo_tpu_torch.ops import ragged_paged_attention as rpa
+
+    g = torch.Generator(device=dev).manual_seed(7)
+    Hkv, G, D, bs, M, N = 4, 7, 128, 16, 40, 400
+    H, T, valid, hist, scale = Hkv * G, 160, 117, 333, D ** -0.5
+    tables = (torch.randperm(N - 1, generator=g, device=dev)[: 5 * M] + 1)
+    tables = tables.reshape(5, M).to(torch.int32)
+    lens = torch.tensor([0, 17, 611], dtype=torch.int32, device=dev)
+    qd = torch.randn(3, H, D, generator=g, device=dev).bfloat16()
+    qc = torch.randn(2, T, H, D, generator=g, device=dev).bfloat16()
+    p_tab = torch.stack([tables[3], torch.zeros_like(tables[3])])
+    p_h = torch.tensor([hist, 0], dtype=torch.int32, device=dev)
+    p_v = torch.tensor([valid, 0], dtype=torch.int32, device=dev)
+    kc = torch.randn(Hkv, N, bs, D, generator=g, device=dev).bfloat16()
+    vc = torch.randn(Hkv, N, bs, D, generator=g, device=dev).bfloat16()
+    errs = {}
+    for label, caches in (("bf16", (kc, vc, None, None)),
+                          ("int8 pages", quantized_pages(torch, kc, vc))):
+        k, v, ks, vs = caches
+        sc = {} if ks is None else {"k_scales": ks, "v_scales": vs}
+        args = (qd, qc, k, v, tables[:3], lens, p_tab, p_h, p_v, scale)
+        got = rpa.ragged_mixed_attention(*args, **sc)
+        ref = rpa.ragged_mixed_attention_plain(*args, ks, vs)
+        pre = pa.paged_prefill_attention(qc[0], k, v, tables[3], p_h[:1], scale,
+                                         valid_len=valid, **sc)
+        pre_ref = pa.paged_prefill_attention_plain(qc[0], k, v, tables[3],
+                                                   p_h[:1], scale, valid, ks, vs)
+        o, m, l = pa.launch_paged_attention(
+            torch.cat([qd, qc.reshape(2 * T, H, D)]).reshape(-1, Hkv, G, D), k, v,
+            scale, d_tables=tables[:3], d_seq_lens=lens, p_tables=p_tab,
+            p_hists=p_h, p_valids=p_v, T=T, stats=True, **sc)
+        torch.cuda.synchronize()
+        err = max(close(f"G=7 ragged decode rows, {label}", got[0], ref[0], 2e-2, 2e-2),
+                  close(f"G=7 ragged segments, {label}", got[1], ref[1], 2e-2, 2e-2),
+                  close(f"G=7 prefill, {label}", pre, pre_ref, 2e-2, 2e-2))
+        gk = pa.gather_pages(k, tables[:3], ks).float()
+        gv = pa.gather_pages(v, tables[:3], vs).float()
+        parts = [pa.masked_attention(qd.reshape(3, Hkv, G, D).float() * scale, gk,
+                                     gv, lens.long() - 1)[1:]]
+        t = torch.arange(T, device=dev)
+        for mseg in range(2):
+            limit = torch.where(t < p_v[mseg], p_h[mseg].long() + t, -1)
+            gk = pa.gather_pages(k, p_tab[mseg], ks).float()[:, None]
+            gv = pa.gather_pages(v, p_tab[mseg], vs).float()[:, None]
+            parts.append(pa.masked_attention(
+                qc[mseg].reshape(T, Hkv, G, D).float() * scale, gk, gv, limit)[1:])
+        close_stats(f"G=7 ragged, {label}", (m, l),
+                    tuple(torch.cat(x) for x in zip(*parts)))
+        dead = [0] + list(range(3 + valid, 3 + 2 * T))
+        if not (bool((o[dead] == 0).all()) and bool((m[dead] == -1e30).all())
+                and bool((l[dead] == 0).all())):
+            raise AssertionError(f"G=7 ragged, {label}: rows that attend nothing "
+                                 "must give o=0, m=-1e30, l=0")
+        errs[label] = err
+        log(f"  G=7 (H=28, Hkv=4), history 333, valid 117 of 160, a dead segment, "
+            f"{label}: prefill and ragged vs plain max |err| {err:.3e}, (m, l) "
+            "within 1e-3, dead rows zero  OK")
+    return errs
+
+
+def quantized_pages(torch, kc, vc):
+    """int8 codes of two bf16 caches with one f32 absmax scale per page
+    (K and V): (k codes, v codes, k scales, v scales)."""
+    out = []
+    for c in (kc, vc):
+        f = c.float()
+        s = (f.abs().amax(dim=(0, 2, 3)) / 127.0).clamp_min(1e-12)
+        out.append((torch.clamp(torch.round(f / s[None, :, None, None]), -127, 127)
+                    .to(torch.int8), s))
+    (k, ks), (v, vs) = out
+    return k, v, ks, vs
+
+
+def check_moe_deterministic(torch, dev) -> None:
+    """The bf16 MoE FFN run to run on the card, at deepseek-v2-lite-sim's
+    widths (64 experts top-6 + 2 shared, hidden 2048, expert width 1408)
+    with one layer's random expert weights and 512 tokens: moe_ffn twice
+    must give the same bits. Each stage (routing, the three grouped GEMMs,
+    the combine) is compared too, and the index_add_ combine it replaced,
+    as evidence of where run-to-run differences come from."""
+    from dynamo_tpu_torch.models import llama
+    from dynamo_tpu_torch.models.config import deepseek_v2_lite
+
+    g = torch.Generator(device=dev).manual_seed(8)
+    cfg = deepseek_v2_lite()
+    E, X, Fm = cfg.hidden_size, cfg.num_experts, cfg.moe_intermediate_size
+    Fs = cfg.shared_expert_size or Fm * cfg.num_shared_experts
+    shapes = dict(moe_gate=(E, X), we_gate=(X, E, Fm), we_up=(X, E, Fm),
+                  we_down=(X, Fm, E), shared_gate=(E, Fs), shared_up=(E, Fs),
+                  shared_down=(Fs, E))
+    lp = {n: (torch.randn(v, generator=g, device=dev) * 0.02).bfloat16()
+          for n, v in shapes.items()}
+    x = torch.randn(512, E, generator=g, device=dev).bfloat16()
+    runs = []
+    for _ in range(2):
+        t_sorted, w_sorted, sizes = llama._moe_route(lp, cfg, x)
+        xs = x[t_sorted]
+        gate = llama._ragged_mm(xs, lp["we_gate"], sizes)
+        up = llama._ragged_mm(xs, lp["we_up"], sizes)
+        down = llama._ragged_mm(llama._expert_act(cfg, gate, up), lp["we_down"], sizes)
+        weighted = down * w_sorted[:, None].to(x.dtype)
+        runs.append({
+            "routing": torch.cat([t_sorted.float(), w_sorted, sizes.float()]),
+            "gate GEMM": gate, "up GEMM": up, "down GEMM": down,
+            "combine": llama._moe_combine(down, t_sorted, w_sorted, x.shape[0], x.dtype),
+            "index_add_ combine (replaced)": torch.zeros_like(x).index_add_(
+                0, t_sorted, weighted),
+            "moe_ffn": llama.moe_ffn(lp, cfg, x),
+        })
+    torch.cuda.synchronize()
+    same = {k: torch.equal(runs[0][k], runs[1][k]) for k in runs[0]}
+    log("  bf16 MoE at deepseek-v2-lite-sim widths (512 tokens, one layer), run "
+        "twice, bits equal: " + ", ".join(f"{k} {v}" for k, v in same.items()))
+    if not (same["moe_ffn"] and bool(torch.isfinite(runs[0]["moe_ffn"].float()).all())):
+        raise AssertionError("moe_ffn is not bit-equal run to run on the card: "
+                             f"{same}")
+
+
 def tiny_models():
     """(label, config, weight quantization, int8 KV cache) of the tiny
     models held on the card to the CPU: dense GQA, and MLA (q-lora, the
@@ -1203,14 +1333,14 @@ async def serve(torch, dev, card: str, name: str, cfg, geometry: dict,
             n_ver, rows = len(verifies), sum(n for n, _ in verifies)
             produced = sum(e for _, e in verifies)
             verifies.clear()
-            same = sum(a == b for a, b in zip(texts, plain[0])) / len(texts)
+            same = sum(a == b for a, b in zip(texts, plain[0]))
             log(f"  speculation: {st['spec_proposed']} proposed, "
                 f"{st['spec_accepted']} accepted "
                 f"({st['spec_accepted'] / max(st['spec_proposed'], 1):.1%}); "
                 f"{n_ver} verifies ({rows} sequence rows) produced {produced} "
                 f"tokens ({produced / max(n_ver, 1):.2f} per verify, "
                 f"{produced / max(rows, 1):.2f} per row); answers equal to "
-                f"the plain drive's: {same:.0%}  [{name}, {card}]")
+                f"the plain drive's: {same} of {len(texts)}  [{name}, {card}]")
         return texts, st
 
     for f, attr in counters.values():
@@ -1266,8 +1396,10 @@ async def serve(torch, dev, card: str, name: str, cfg, geometry: dict,
     step_anatomy(torch, dev, params, cfg, engine.k_cache, engine.v_cache, planes)
     if quant != "none":
         dequant_cost(torch, params)
-    elif not cfg.is_mla:
-        dense_mm_cost(torch, dev, params, cfg)
+    else:
+        determinism_probe(torch, dev, params, cfg, engine.k_cache, engine.v_cache)
+        if not cfg.is_mla:
+            dense_mm_cost(torch, dev, params, cfg)
     return launches, (texts, answers)
 
 
@@ -1393,9 +1525,11 @@ def dense_mm_cost(torch, dev, params, cfg) -> None:
 
 
 def step_anatomy(torch, dev, params, cfg, k_cache, v_cache, planes=None) -> None:
-    """A 4-step decode window (B=8 at ~1k context) and a lone prompt's
-    dedicated prefill (1201 tokens in the 2048 bucket) of the served model
-    on its serving cache (and scale planes, with the int8 cache)."""
+    """A 4-step decode window (B=8 at ~1k context), a lone prompt's
+    dedicated prefill (1201 tokens in the 2048 bucket) and, for GQA, a
+    fused mixed step (the same decode rows and a 512-token segment) of the
+    served model on its serving cache (and scale planes, with the int8
+    cache)."""
     planes = planes or {}
     from dynamo_tpu_torch.models import llama
 
@@ -1414,6 +1548,50 @@ def step_anatomy(torch, dev, params, cfg, k_cache, v_cache, planes=None) -> None
     anatomy(torch, "dedicated prefill (1201 tokens, 2048 bucket)",
             lambda: llama.prefill(params, cfg, prompt, table, 0, 1201,
                                   k_cache, v_cache, **planes), 1)
+    if cfg.is_mla:
+        return
+    # the fused step: the 8 decode rows plus one 512-token segment (400
+    # real) on its own pages, one ragged attention launch per layer
+    seg = (torch.arange(512, dtype=torch.int32, device=dev) % 250 + 3)[None]
+    seg_table = torch.arange(900, 980, dtype=torch.int32, device=dev)[None]
+    zero = torch.zeros(1, dtype=torch.int32, device=dev)
+    anatomy(torch, "mixed step (B=8 at ~1k + a 512-token segment, 400 real)",
+            lambda: llama.mixed_step(
+                params, cfg, toks, lens - 1, tables, lens, [0] * B, [0] * B,
+                *samp, seg, seg_table, zero, zero + 400, k_cache, v_cache,
+                **planes), 1)
+
+
+def determinism_probe(torch, dev, params, cfg, k_cache, v_cache) -> None:
+    """Run to run on the card, for a bf16 model: the same dedicated prefill
+    (1201 tokens) twice, and the same merged decode step (B=8 at ~1k) twice,
+    on the same cache: are the logits the same bits? Then what a prefix-
+    cache hit changes: the same prompt with its first 1184 tokens cached
+    (74 pages, written by that prefill) and its last 17 as a chunk, against
+    the one-chunk prefill's logits (other GEMM shapes, other bf16 sums)."""
+    from dynamo_tpu_torch.models import llama
+
+    B = 8
+    tables = torch.arange(1, 1 + B * 80, dtype=torch.int32, device=dev).reshape(B, 80)
+    lens = torch.arange(1000, 1000 + B, dtype=torch.int32, device=dev)
+    toks = torch.arange(300, 300 + B, dtype=torch.int32, device=dev)
+    prompt = torch.zeros(2048, dtype=torch.int32, device=dev)
+    prompt[:1201] = torch.arange(1201, device=dev) % 250 + 3
+    table = torch.arange(700, 828, dtype=torch.int32, device=dev)
+    with torch.no_grad():
+        pre = [llama.prefill(params, cfg, prompt, table, 0, 1201, k_cache,
+                             v_cache)[0] for _ in range(2)]
+        dec = [llama._decode_body(params, cfg, toks, lens - 1, tables, lens,
+                                  k_cache, v_cache)[0] for _ in range(2)]
+        hit = llama.prefill(params, cfg, prompt[1184:1216].contiguous(), table,
+                            1184, 17, k_cache, v_cache)[0]
+    top2 = pre[0].topk(2).values
+    log(f"  run to run on the card: prefill logits bit-equal "
+        f"{torch.equal(pre[0], pre[1])}, decode-step logits bit-equal "
+        f"{torch.equal(dec[0], dec[1])}; 1184 cached + 17 vs one 1201-token "
+        f"chunk: max |dlogit| {float((hit - pre[0]).abs().max()):.4f} (top-1 - "
+        f"top-2 gap {float(top2[0] - top2[1]):.4f}), argmax equal "
+        f"{int(hit.argmax()) == int(pre[0].argmax())}")
 
 
 def oracle_drafts(engine, answers: dict):
@@ -1929,6 +2107,8 @@ def main() -> int:
         "DeepSeek-V2-Lite shapes, bf16)")
     inp = KernelInputs(torch, dev)
     errs = check_kernels(torch, dev, inp)
+    check_odd_group(torch, dev)
+    check_moe_deterministic(torch, dev)
     mi = MlaInputs(torch, dev)
     errs.update(check_mla_kernels(torch, mi))
     ta = TokenAppendInputs(torch, dev, inp, mi)

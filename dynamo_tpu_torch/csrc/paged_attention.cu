@@ -1,6 +1,6 @@
 // Paged attention over the block-table-indirect KV cache, for sm_90a.
 //
-// Replaces three Pallas TPU kernels of the JAX package with ONE kernel body:
+// Replaces three Pallas TPU kernels of the JAX package:
 //   * dynamo_tpu/ops/paged_attention_pallas.py::paged_decode_attention
 //     (_decode_kernel; with return_stats, the (m, l) softmax statistics),
 //   * dynamo_tpu/ops/paged_attention_pallas.py::paged_prefill_attention
@@ -11,44 +11,71 @@
 // sequence's block table, to every cached position kv_pos <= q_pos, with an
 // fp32 online softmax. Decode is the ragged case with one token per tile and
 // no segments; prefill is the ragged case with no decode rows and one
-// segment.
+// segment. Rows that attend nothing (inactive decode slots, dead segments,
+// padded rows past p_valids) write o = 0, m = -1e30, l = 0, exactly what the
+// TPU kernel emits and what the flash merge in verify_attention relies on.
 //
-// What bounds it on an H100: device-memory bytes. Every cached K/V row a
-// tile needs is read once per (tile, kv head); at decode (one query token
-// per sequence) the arithmetic per byte read is ~G*2 flops, far below the
-// card's ~295 flops/byte ridge. Prefill tiles of Tq tokens raise that to
-// Tq*G*2 flops/byte, still memory-side for the tile sizes used here.
+// Two tile bodies, chosen by tile type and dtype (an explicit dispatch, not
+// a fallback):
 //
-// What the design does about it: a block owns one (tile, kv head, split)
-// and loops over its share of the tile's causal horizon in KT-position
-// steps. Each step looks up the KT positions' pages once (through the block
-// table, so any block size works) and loads their K/V rows ONCE into shared
-// memory with 16-byte vector loads, converted to fp32; every query row of
-// the tile (all G query heads of the kv head, times Tq tokens) reuses them
-// from shared memory: GQA and the query tile both divide the device-memory
-// traffic. One warp owns up to RPW query rows and keeps each row's scaled
-// query, output accumulator and (m, l) in registers; a row's score is a
-// warp-wide dot product (each lane holds D/32 dimensions). Decode has only
-// B x Hkv tiles, too few blocks for the card, so the wrapper splits every
-// tile's horizon into n_split equal parts (flash-decoding): each split
-// writes its normalized partial (o, m, l) to f32 scratch and a small
-// combine kernel merges them with the flash rule. Tiles whose horizon is
-// empty (inactive decode slots, dead segments) attend nothing and write
-// zeros, m = -1e30, l = 0, exactly what the TPU kernel emits and what the
-// flash merge in verify_attention relies on. Not done yet (later work):
-// tensor-core (wgmma) score tiles, TMA page loads, double buffering.
+// 1. Segment tiles of a bf16 launch (the query bf16, the cache bf16 or int8
+//    with per-page scales): the tensor-core body, tc_segment_tile. What
+//    bounds it on an H100: operations. Every query row of a chunk's T x G
+//    rows per kv head reads the same K/V rows, 4*D flops per position
+//    against 4*D bytes of K and V, so the chunk does about T*G/2 flops per
+//    byte (T = 512, G = 4: ~1000), above the card's ~295 flops/byte ridge;
+//    a tile of 128 rows re-reads its horizon from L2 at ~128 flops per
+//    byte. The design, an FA2-style tile on mma.sync for Hopper's shared
+//    memory and asynchronous copies:
+//    * a block (8 warps) owns TC_ROWS = 128 query rows of one kv head,
+//      Tq = 128 / G tokens x all G heads, row r -> (t = r / G, g = r % G);
+//      each warp owns 16 rows; the ragged last row group is masked;
+//    * the horizon is walked in steps of TC_KV = 64 positions aligned to
+//      absolute multiples of 64; each position's row is addressed through
+//      the block table (one page id per row per step, fetched a step
+//      ahead), so any block size works; when bs divides 64 (bs = 16: a step
+//      is 4 whole pages) a row's page and offset within the step are worked
+//      out once per tile, not divided out per step;
+//    * page rows land with 16-byte cp.async.cg (zero-filled past the
+//      horizon) in a 2-stage ring of XOR-swizzled bf16 tiles (dynamic
+//      shared memory, 64 KB at D = 128): one barrier per step, the next
+//      step's copy in flight during this step's products. int8 codes land
+//      in a staging area and the copying thread widens its own chunks to
+//      bf16 (exact: |code| <= 127; byte permutes and adds, no int-to-float
+//      conversion) in the ring before the step's barrier;
+//    * Q is loaded once per tile into registers (ldmatrix); S = Q K^T with
+//      mma.m16n8k16 bf16 -> f32; the softmax scale and log2(e) multiply the
+//      f32 accumulator (with int8 pages also the K page scale: each S column
+//      is one position of one page) and exp2f takes it; masks apply only on
+//      steps that cross a row's causal limit;
+//    * O += P V with P rounded to bf16 in registers and reused directly as
+//      the A fragment; V fragments by ldmatrix.trans; l sums the f32 p before
+//      rounding; with int8 pages the V page scale multiplies p in f32 before
+//      the rounding, so no int8 row is rounded through code x scale;
+//    * segment blocks come first in the grid, longest horizon first (the
+//      last tile of every segment, then the one before), so the last wave
+//      is short; they take no horizon split and no combine.
 //
-// The int8-with-scales device cache (the Pallas kernels' k_scales /
-// v_scales option, paged_attention_pallas.py:197 and :451,
-// ragged_paged_attention_pallas.py:240): the cache element type is a
-// template parameter apart from the q/o type. An int8 page carries one f32
-// scale per physical page for K and one for V; the step's page lookup reads
-// them beside the row offsets, and each int8 row is widened and multiplied
-// by its page's scale as it lands in shared memory (8 codes per 8-byte load:
-// a thread converts as many elements as in the bf16 kernel, which keeps the
-// register count, and one pass still covers a KT x D step), so everything
-// after the load is the bf16/f32 kernel unchanged and the bytes read from
-// the cache halve against bf16.
+// 2. Decode tiles, and every tile of an f32 launch (the tiny f32 models,
+//    whose greedy tokens must match the CPU's exactly): the CUDA-core body,
+//    core_tile. What bounds decode on an H100: device-memory bytes; every
+//    cached K/V row is read once per (tile, kv head) and at one query token
+//    per sequence the arithmetic per byte is ~G*2 flops, far below the
+//    ridge. A block owns one (tile, kv head, split) and loops over its share
+//    of the horizon in KT-position steps: the step's K/V rows are loaded
+//    ONCE into shared memory as fp32 with 16-byte vector loads and reused by
+//    every query row of the tile (GQA and the query tile both divide the
+//    traffic); one warp owns up to RPW rows, a row's score is a warp-wide
+//    dot product. Decode has too few tiles for the card, so every tile's
+//    horizon is split into n_split parts (flash-decoding): each split writes
+//    its normalized partial (o, m, l) to f32 scratch and combine_splits_kernel
+//    merges them with the flash rule. In the ragged launch the decode tiles
+//    are dispatched by blockIdx after the segment tiles, in the same launch,
+//    and only they are split. With int8 pages each row is widened and
+//    multiplied by its page's scale as it lands (8 codes per 8-byte load).
+//
+// Later work on this body: wgmma with TMA page loads and warp specialisation
+// for the segment tiles.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -59,9 +86,16 @@
 namespace {
 
 constexpr float kNegInf = -1e30f;  // the TPU kernels' _NEG_INF, not -inf
-constexpr int KT = 16;             // kv positions per shared-memory step
-constexpr int NW = 8;              // warps per block
-constexpr int RPW = 8;             // query rows per warp (max)
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
+constexpr int KT = 16;             // CUDA-core body: kv positions per step
+constexpr int NW = 8;              // warps per block (both bodies)
+constexpr int RPW = 8;             // CUDA-core body: query rows per warp
+constexpr int TC_ROWS = NW * 16;   // tensor-core body: query rows per tile
+constexpr int TC_KV = 64;          // tensor-core body: kv positions per step
+constexpr int TC_STAGES = 2;       // tensor-core body: steps in the ring
+
+using bf16 = __nv_bfloat16;
 
 struct Params {
   const void* q;     // [Ntok, Hkv, Gq, D]
@@ -81,23 +115,23 @@ struct Params {
   int MP, T, Tq, nT;
   int Hkv, Gq, N, bs, M;
   float scale;
-  int n_split;     // horizon splits per tile (grid.z)
-  float* part_o;   // [n_split, R, D] f32 partials when n_split > 1
-  float* part_m;   // [n_split, R]
-  float* part_l;   // [n_split, R]
+  int n_split;     // horizon splits per split tile
+  size_t R_part;   // rows the partials cover (the split tiles' rows first)
+  int n_seg_blocks;  // tensor-core launch: segment blocks before decode ones
+  float* part_o;   // [n_split, R_part, D] f32 partials when n_split > 1
+  float* part_m;   // [n_split, R_part]
+  float* part_l;   // [n_split, R_part]
 };
 
 __device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
+__device__ __forceinline__ float to_f(bf16 x) { return __bfloat162float(x); }
 __device__ __forceinline__ float to_f(int8_t x) { return (float)x; }
 template <typename T>
 __device__ __forceinline__ T from_f(float x);
 template <>
 __device__ __forceinline__ float from_f<float>(float x) { return x; }
 template <>
-__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
+__device__ __forceinline__ bf16 from_f<bf16>(float x) {
   return __float2bfloat16(x);
 }
 
@@ -119,11 +153,14 @@ __device__ __forceinline__ void load_lane(const float* p, float (&out)[DPL]) {
   }
 }
 
-// T: the q/o type; TC: the cache type (T itself, or int8_t with per-page
-// scales)
+// ---------------- the CUDA-core body ----------------
+
+// One (tile s, kv head h, split z) on CUDA cores. T: the q/o type; TC: the
+// cache type (T itself, or int8_t with per-page scales). Tiles s < B are
+// decode rows; the others are Tq-token slices of the segments.
 template <typename T, typename TC, int D>
-__global__ void __launch_bounds__(NW * 32)
-paged_attention_kernel(const Params p) {
+__device__ __forceinline__ void core_tile(const Params& p, const int s,
+                                          const int h, const int z) {
   constexpr int DPL = D / 32;
   constexpr bool kScaled = std::is_same<TC, int8_t>::value;
   // elements per load: 16 bytes of bf16/f32, 8 bytes of int8
@@ -134,9 +171,6 @@ paged_attention_kernel(const Params p) {
   __shared__ long long row_base[KT];  // element offset of a position's row
   __shared__ float row_ks[KT], row_vs[KT];  // its page's scales (int8 cache)
 
-  const int s = blockIdx.x;  // tile
-  const int h = blockIdx.y;  // kv head
-  const int z = blockIdx.z;  // horizon split
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
 
@@ -289,7 +323,6 @@ paged_attention_kernel(const Params p) {
   }
 
   T* o = static_cast<T*>(p.o);
-  const size_t R = (size_t)(p.B + p.MP * p.T) * p.Hkv * p.Gq;
 #pragma unroll
   for (int i = 0; i < RPW; ++i) {
     const int r = warp + i * NW;
@@ -298,7 +331,7 @@ paged_attention_kernel(const Params p) {
     const size_t row = ((size_t)(tok0 + t) * p.Hkv + h) * p.Gq + g;
     const float inv = 1.f / fmaxf(lr[i], 1e-20f);
     if (p.n_split > 1) {  // normalized partial for the combine kernel
-      const size_t prow = (size_t)z * R + row;
+      const size_t prow = (size_t)z * p.R_part + row;
       float* op = p.part_o + prow * D + lane * DPL;
 #pragma unroll
       for (int d = 0; d < DPL; ++d) op[d] = acc[i][d] * inv;
@@ -318,12 +351,438 @@ paged_attention_kernel(const Params p) {
   }
 }
 
+// Every tile on CUDA cores: grid (tiles, Hkv, n_split), every tile split.
+template <typename T, typename TC, int D>
+__global__ void __launch_bounds__(NW * 32)
+paged_attention_kernel(const Params p) {
+  core_tile<T, TC, D>(p, blockIdx.x, blockIdx.y, blockIdx.z);
+}
+
+// ---------------- the tensor-core body ----------------
+
+__device__ __forceinline__ unsigned smem_u32(const void* ptr) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(ptr));
+}
+
+// 16 bytes global -> shared, bypassing L1; src_bytes = 0 writes zeros
+__device__ __forceinline__ void cp_async16(unsigned dst, const void* src,
+                                           int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4(unsigned addr, uint32_t (&r)[4]) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+__device__ __forceinline__ void ldsm_x4_t(unsigned addr, uint32_t (&r)[4]) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+// d += a (16x16 bf16, row) * b (16x8 bf16, col), f32 accumulate
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// four int8 codes (one word) -> four bf16, exact (|code| <= 127): each
+// code + 128 goes into the low mantissa byte of 2^23 (full-rate byte
+// permutes and adds, no int-to-float conversion), and an integer below 2^8
+// in f32 is its bf16 in the top 16 bits
+__device__ __forceinline__ uint2 widen4(uint32_t codes) {
+  const uint32_t u = codes ^ 0x80808080u;  // code + 128, as unsigned bytes
+  uint32_t f[4];
+#pragma unroll
+  for (int k = 0; k < 4; ++k)
+    f[k] = __float_as_uint(
+        __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7540 + k)) -
+        8388736.0f);  // 2^23 + 128
+  return make_uint2(__byte_perm(f[0], f[1], 0x7632),
+                    __byte_perm(f[2], f[3], 0x7632));
+}
+
+// element offset of 16-byte chunk `chunk` of row `row` in a swizzled tile
+// with D / 8 chunks per row: the chunk index XOR (row % 8), so the 8 rows
+// an ldmatrix reads at one logical chunk hit 8 different bank groups
+template <int D>
+__device__ __forceinline__ int swz(int row, int chunk) {
+  return (row * (D / 8) + (chunk ^ (row & 7))) * 8;
+}
+
+// dynamic shared memory of a tensor-core block: the K/V ring (bf16), then
+// with int8 pages the code staging of the steps in flight and the ring's
+// page scales
+template <typename TC, int D>
+constexpr int tc_smem_bytes() {
+  return TC_STAGES * 2 * TC_KV * D * 2 +
+         (std::is_same<TC, int8_t>::value
+              ? (TC_STAGES - 1) * 2 * TC_KV * D + TC_STAGES * 2 * TC_KV * 4
+              : 0);
+}
+
+// One segment tile (TC_ROWS query rows of one kv head) on the tensor cores.
+// blk: this block's index among the segment blocks.
+template <typename TC, int D>
+__device__ __forceinline__ void tc_segment_tile(const Params& p, const int blk,
+                                                unsigned char* smem) {
+  constexpr bool kScaled = std::is_same<TC, int8_t>::value;
+  constexpr int NT = NW * 32;
+  constexpr int CPR = D / 8;                // bf16 chunks per tile row
+  constexpr int EB = kScaled ? 1 : 2;       // cache bytes per element
+  constexpr int LCPR = D * EB / 16;         // 16-byte copies per cache row
+  constexpr int RSTEP = NT / LCPR;          // rows between a thread's copies
+  constexpr int U = TC_KV / RSTEP;          // copies per thread per K tile
+  constexpr int TILE = TC_KV * D;           // elements of one K or V tile
+  static_assert(NT % LCPR == 0 && TC_KV % RSTEP == 0, "copy split");
+  static_assert(TC_ROWS * D == 2 * TILE, "Q staging fits one stage");
+
+  constexpr int S = TC_STAGES;
+  bf16* ring = reinterpret_cast<bf16*>(smem);  // [stage][K|V][TC_KV][D]
+  int8_t* codes =  // [step in flight][K|V][TC_KV][D] int8
+      reinterpret_cast<int8_t*>(smem + S * 2 * TILE * 2);
+  float* pscl = reinterpret_cast<float*>(  // [stage][K|V][TC_KV]
+      smem + S * 2 * TILE * 2 + (S - 1) * 2 * TILE);
+
+  const int h = blk % p.Hkv;
+  const int item = blk / p.Hkv;
+  const int m = item % p.MP;
+  const int j = p.nT - 1 - item / p.MP;  // longest horizon first
+  const int G = p.Gq;
+  const int tok0 = p.B + m * p.T + j * p.Tq;
+  const int ntok = min(p.Tq, p.T - j * p.Tq);
+  const int q0 = p.p_hists[m] + j * p.Tq;
+  const int valid = p.p_valids ? p.p_valids[m] : p.T;
+  const int real = max(0, min(valid - j * p.Tq, ntok));
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  bf16* o = static_cast<bf16*>(p.o);
+
+  if (real == 0) {  // a dead tile: zeros, m = -1e30, l = 0
+    for (int e = tid; e < ntok * G * CPR; e += NT) {
+      const int r = e / CPR, t = r / G, g = r % G;
+      const size_t row = ((size_t)(tok0 + t) * p.Hkv + h) * G + g;
+      reinterpret_cast<uint4*>(o + row * D)[e % CPR] = make_uint4(0, 0, 0, 0);
+      if (p.m_out != nullptr && e % CPR == 0) {
+        p.m_out[row] = kNegInf;
+        p.l_out[row] = 0.f;
+      }
+    }
+    return;
+  }
+  const int last = q0 + real - 1;  // the tile's causal horizon
+  const int nsteps = last / TC_KV + 1;
+  const int lim = min(last + 1, p.M * p.bs);  // positions loaded
+  const int* table = p.p_tables + (size_t)m * p.M;
+  const TC* kc = static_cast<const TC*>(p.kc);
+  const TC* vc = static_cast<const TC*>(p.vc);
+
+  // this thread's two rows (lane / 4 and lane / 4 + 8 of its warp's 16)
+  const int live_rows = real * G;
+  int qpos[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = warp * 16 + (lane >> 2) + i * 8;
+    qpos[i] = r < live_rows ? q0 + r / G : -1;
+  }
+  const int w0 = warp * 16;
+  const int qmin = q0 + w0 / G;  // the warp's first row's limit
+  const int qmax = w0 < live_rows ? q0 + min(w0 + 15, live_rows - 1) / G : -1;
+
+  // ---- Q: staged through the ring's last stage, then held in registers ----
+  bf16* qs = ring + (S - 1) * 2 * TILE;
+  {
+    const bf16* q = static_cast<const bf16*>(p.q);
+    for (int e = tid; e < TC_ROWS * CPR; e += NT) {
+      const int r = e / CPR, c = e % CPR, t = r / G, g = r % G;
+      const bool ok = r < live_rows;
+      const bf16* src =
+          ok ? q + (((size_t)(tok0 + t) * p.Hkv + h) * G + g) * D + c * 8 : q;
+      cp_async16(smem_u32(qs + swz<D>(r, c)), src, ok ? 16 : 0);
+    }
+    cp_async_commit();
+  }
+
+  // ---- the K/V ring: page ids fetched a step before their copies ----
+  const int row0 = tid / LCPR, cc = tid % LCPR;
+  // when bs divides a step (bs = 16: 4 whole pages), a row's page within
+  // the step and its offset in the page are the same every step
+  const bool aligned = TC_KV % p.bs == 0;
+  const int step_pages = aligned ? TC_KV / p.bs : 0;
+  int rpage[U], roff[U];
+#pragma unroll
+  for (int u = 0; u < U; ++u) {
+    rpage[u] = (row0 + u * RSTEP) / p.bs;
+    roff[u] = (row0 + u * RSTEP) % p.bs;
+  }
+  const TC* kch = kc + (size_t)h * p.N * p.bs * D + cc * (16 / EB);
+  const TC* vch = vc + (size_t)h * p.N * p.bs * D + cc * (16 / EB);
+  int pg[U];
+  float psk[U], psv[U];
+  auto fetch = [&](int step) {
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int pos = step * TC_KV + row0 + u * RSTEP;
+      const int idx = aligned ? step * step_pages + rpage[u] : pos / p.bs;
+      pg[u] = pos < lim ? table[idx] : -1;
+      if constexpr (kScaled) {
+        if (cc == 0) {
+          psk[u] = pg[u] >= 0 ? p.k_scales[pg[u]] : 0.f;
+          psv[u] = pg[u] >= 0 ? p.v_scales[pg[u]] : 0.f;
+        }
+      }
+    }
+  };
+  auto copy_step = [&](int step) {
+    const int st = step % S;
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int row = row0 + u * RSTEP;
+      const int off_in_page =
+          aligned ? roff[u] : (step * TC_KV + row) % p.bs;
+      const bool ok = pg[u] >= 0;
+      const size_t off =
+          ok ? ((size_t)pg[u] * p.bs + off_in_page) * D : 0;
+      if constexpr (kScaled) {
+        int8_t* ct = codes + (step % (S - 1)) * 2 * TILE + row * D + cc * 16;
+        cp_async16(smem_u32(ct), kch + off, ok ? 16 : 0);
+        cp_async16(smem_u32(ct + TILE), vch + off, ok ? 16 : 0);
+        if (cc == 0) {
+          pscl[(st * 2) * TC_KV + row] = psk[u];
+          pscl[(st * 2 + 1) * TC_KV + row] = psv[u];
+        }
+      } else {
+        bf16* kt = ring + st * 2 * TILE;
+        cp_async16(smem_u32(kt + swz<D>(row, cc)), kch + off, ok ? 16 : 0);
+        cp_async16(smem_u32(kt + TILE + swz<D>(row, cc)), vch + off,
+                   ok ? 16 : 0);
+      }
+    }
+  };
+  // int8: the copying thread widens its own chunks into the ring (exact)
+  auto widen = [&](int step) {
+    const int st = step % S;
+    bf16* kt = ring + st * 2 * TILE;
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int row = row0 + u * RSTEP;
+#pragma unroll
+      for (int kv = 0; kv < 2; ++kv) {
+        const uint4 raw = *reinterpret_cast<const uint4*>(
+            codes + ((step % (S - 1)) * 2 + kv) * TILE + row * D + cc * 16);
+        const uint2 w0 = widen4(raw.x), w1 = widen4(raw.y);
+        const uint2 w2 = widen4(raw.z), w3 = widen4(raw.w);
+        bf16* dst = kt + kv * TILE;
+        *reinterpret_cast<uint4*>(dst + swz<D>(row, 2 * cc)) =
+            make_uint4(w0.x, w0.y, w1.x, w1.y);
+        *reinterpret_cast<uint4*>(dst + swz<D>(row, 2 * cc + 1)) =
+            make_uint4(w2.x, w2.y, w3.x, w3.y);
+      }
+    }
+  };
+
+  // the first S - 1 steps in flight, one commit group each (after Q's)
+  fetch(0);
+#pragma unroll
+  for (int i = 0; i < S - 1; ++i) {
+    if (i < nsteps) copy_step(i);
+    cp_async_commit();
+    if (i + 1 < nsteps) fetch(i + 1);
+  }
+
+  uint32_t qf[D / 16][4];
+  cp_async_wait<S - 1>();  // Q landed (the steps may still be in flight)
+  __syncthreads();
+  {
+    const int r = w0 + (lane & 7) + (((lane >> 3) & 1) << 3);
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      ldsm_x4(smem_u32(qs + swz<D>(r, kk * 2 + (lane >> 4))), qf[kk]);
+  }
+
+  float acc[D / 8][4];
+#pragma unroll
+  for (int i = 0; i < D / 8; ++i)
+    acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
+  float mrow[2] = {kNegInf, kNegInf}, lrow[2] = {0.f, 0.f};
+  const float qk_scale = p.scale * kLog2e;
+  const float masked_out = __int_as_float(0xff800000);  // -inf
+
+  for (int s = 0; s < nsteps; ++s) {
+    cp_async_wait<S - 2>();  // this thread's copies of step s landed
+    if constexpr (kScaled) widen(s);
+    // the step's tiles are complete, and every warp is done with step s-1
+    // (whose stage the next copy overwrites; the first time, Q's)
+    __syncthreads();
+    if (s + S - 1 < nsteps) copy_step(s + S - 1);
+    cp_async_commit();
+    if (s + S < nsteps) fetch(s + S);
+
+    const int c = s * TC_KV;
+    if (c > qmax) continue;  // no row of this warp reaches this step
+    const bf16* kt = ring + (s % S) * 2 * TILE;
+    const bf16* vt = kt + TILE;
+    const float* ksc = pscl + (s % S) * 2 * TC_KV;
+    const float* vsc = ksc + TC_KV;
+
+    // ---- S = Q K^T: 16 rows x 64 positions per warp ----
+    float sacc[TC_KV / 8][4];
+#pragma unroll
+    for (int n = 0; n < TC_KV / 8; ++n)
+      sacc[n][0] = sacc[n][1] = sacc[n][2] = sacc[n][3] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+#pragma unroll
+      for (int nn = 0; nn < TC_KV / 16; ++nn) {
+        uint32_t b[4];
+        const int r = nn * 16 + (lane & 7) + ((lane >> 4) << 3);
+        ldsm_x4(smem_u32(kt + swz<D>(r, kk * 2 + ((lane >> 3) & 1))), b);
+        mma_bf16(sacc[2 * nn], qf[kk], b[0], b[1]);
+        mma_bf16(sacc[2 * nn + 1], qf[kk], b[2], b[3]);
+      }
+    }
+
+    // ---- scale (log2 domain), mask where the step crosses a limit ----
+    const bool masked = c + TC_KV - 1 > qmin;
+    float mx[2] = {mrow[0], mrow[1]};
+#pragma unroll
+    for (int n = 0; n < TC_KV / 8; ++n) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int col = n * 8 + 2 * (lane & 3) + e;
+        float f = qk_scale;
+        if constexpr (kScaled) f *= ksc[col];
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          float v = sacc[n][2 * i + e] * f;
+          if (masked && c + col > qpos[i]) v = masked_out;
+          sacc[n][2 * i + e] = v;
+          mx[i] = fmaxf(mx[i], v);
+        }
+      }
+    }
+    float alpha[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+      alpha[i] = exp2f(mrow[i] - mx[i]);
+      mrow[i] = mx[i];
+      lrow[i] *= alpha[i];
+    }
+#pragma unroll
+    for (int d = 0; d < D / 8; ++d) {
+      acc[d][0] *= alpha[0];
+      acc[d][1] *= alpha[0];
+      acc[d][2] *= alpha[1];
+      acc[d][3] *= alpha[1];
+    }
+#pragma unroll
+    for (int n = 0; n < TC_KV / 8; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float pe = exp2f(sacc[n][e] - mrow[e >> 1]);
+        lrow[e >> 1] += pe;  // l sums the f32 p, before any rounding
+        sacc[n][e] = pe;
+      }
+    }
+
+    // ---- O += P V: P rounded to bf16 in registers (A fragments) ----
+#pragma unroll
+    for (int kk = 0; kk < TC_KV / 16; ++kk) {
+      float v0 = 1.f, v1 = 1.f, v2 = 1.f, v3 = 1.f;
+      if constexpr (kScaled) {  // V page scales fold into p, in f32
+        const int col = kk * 16 + 2 * (lane & 3);
+        v0 = vsc[col];
+        v1 = vsc[col + 1];
+        v2 = vsc[col + 8];
+        v3 = vsc[col + 9];
+      }
+      const float* p0 = sacc[2 * kk];
+      const float* p1 = sacc[2 * kk + 1];
+      const uint32_t a[4] = {
+          pack_bf16(p0[0] * v0, p0[1] * v1), pack_bf16(p0[2] * v0, p0[3] * v1),
+          pack_bf16(p1[0] * v2, p1[1] * v3), pack_bf16(p1[2] * v2, p1[3] * v3)};
+#pragma unroll
+      for (int dd = 0; dd < D / 16; ++dd) {
+        uint32_t b[4];
+        const int r = kk * 16 + (lane & 7) + (((lane >> 3) & 1) << 3);
+        ldsm_x4_t(smem_u32(vt + swz<D>(r, dd * 2 + (lane >> 4))), b);
+        mma_bf16(acc[2 * dd], a, b[0], b[1]);
+        mma_bf16(acc[2 * dd + 1], a, b[2], b[3]);
+      }
+    }
+  }
+  cp_async_wait<0>();
+
+  // ---- write: o normalized (zeros for rows that attend nothing), (m, l) ----
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    lrow[i] += __shfl_xor_sync(0xffffffffu, lrow[i], 1);
+    lrow[i] += __shfl_xor_sync(0xffffffffu, lrow[i], 2);
+    const int r = w0 + (lane >> 2) + i * 8;
+    if (r >= ntok * G) continue;
+    const int t = r / G, g = r % G;
+    const size_t row = ((size_t)(tok0 + t) * p.Hkv + h) * G + g;
+    const bool live = qpos[i] >= 0;
+    const float inv = live ? 1.f / lrow[i] : 0.f;
+    uint32_t* op = reinterpret_cast<uint32_t*>(o + row * D) + (lane & 3);
+#pragma unroll
+    for (int d = 0; d < D / 8; ++d)
+      op[d * 4] = pack_bf16(acc[d][2 * i] * inv, acc[d][2 * i + 1] * inv);
+    if (p.m_out != nullptr && (lane & 3) == 0) {
+      p.m_out[row] = live ? mrow[i] * kLn2 : kNegInf;
+      p.l_out[row] = live ? lrow[i] : 0.f;
+    }
+  }
+}
+
+// A bf16 launch with segments: the segment tiles on the tensor cores
+// (blocks 0 .. n_seg_blocks-1, longest horizon first), then the decode
+// tiles on CUDA cores (B x n_split x Hkv blocks, each horizon split).
+template <typename TC, int D>
+__global__ void __launch_bounds__(NW * 32, 1)
+tc_attention_kernel(const Params p) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int blk = blockIdx.x;
+  if (blk < p.n_seg_blocks) {
+    tc_segment_tile<TC, D>(p, blk, smem);
+    return;
+  }
+  const int d = blk - p.n_seg_blocks;
+  const int rest = d / p.Hkv;
+  core_tile<bf16, TC, D>(p, rest / p.n_split, d % p.Hkv, rest % p.n_split);
+}
+
 // Merge the n_split partials of every row (one warp per row):
 // m = max m_z, l = sum l_z exp(m_z - m), o = sum l_z exp(m_z - m) o_z / l.
 template <typename T, int D>
 __global__ void __launch_bounds__(NW * 32)
-combine_splits_kernel(const Params p, size_t R) {
+combine_splits_kernel(const Params p) {
   constexpr int DPL = D / 32;
+  const size_t R = p.R_part;
   const size_t row = (size_t)blockIdx.x * NW + (threadIdx.x >> 5);
   const int lane = threadIdx.x & 31;
   if (row >= R) return;
@@ -350,23 +809,47 @@ combine_splits_kernel(const Params p, size_t R) {
   }
 }
 
+template <typename T, int D>
+void launch_combine(const Params& p, cudaStream_t stream) {
+  if (p.n_split > 1 && p.R_part > 0) {
+    const unsigned blocks = (unsigned)((p.R_part + NW - 1) / NW);
+    combine_splits_kernel<T, D><<<blocks, NW * 32, 0, stream>>>(p);
+  }
+}
+
 template <typename T, typename TC, int D>
-cudaError_t launch_d(const Params& p, int n_tiles, cudaStream_t stream) {
+cudaError_t launch_core(const Params& p, int n_tiles, cudaStream_t stream) {
   dim3 grid(n_tiles, p.Hkv, p.n_split);
   paged_attention_kernel<T, TC, D><<<grid, NW * 32, 0, stream>>>(p);
-  if (p.n_split > 1) {
-    const size_t R = (size_t)(p.B + p.MP * p.T) * p.Hkv * p.Gq;
-    const unsigned blocks = (unsigned)((R + NW - 1) / NW);
-    combine_splits_kernel<T, D><<<blocks, NW * 32, 0, stream>>>(p, R);
-  }
+  launch_combine<T, D>(p, stream);
+  return cudaGetLastError();
+}
+
+template <typename TC, int D>
+cudaError_t launch_tc(const Params& p, cudaStream_t stream) {
+  constexpr int smem = tc_smem_bytes<TC, D>();
+  cudaError_t err = cudaFuncSetAttribute(
+      tc_attention_kernel<TC, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (err != cudaSuccess) return err;
+  const int blocks = p.n_seg_blocks + p.B * p.n_split * p.Hkv;
+  tc_attention_kernel<TC, D><<<blocks, NW * 32, smem, stream>>>(p);
+  launch_combine<bf16, D>(p, stream);
   return cudaGetLastError();
 }
 
 template <typename T, typename TC>
-cudaError_t launch_typed(const Params& p, int D, int n_tiles,
+cudaError_t launch_typed(const Params& p, int D, int n_tiles, bool tc,
                          cudaStream_t stream) {
-  if (D == 128) return launch_d<T, TC, 128>(p, n_tiles, stream);
-  if (D == 64) return launch_d<T, TC, 64>(p, n_tiles, stream);
+  if constexpr (std::is_same<T, bf16>::value) {
+    if (tc) {
+      if (D == 128) return launch_tc<TC, 128>(p, stream);
+      if (D == 64) return launch_tc<TC, 64>(p, stream);
+      return cudaErrorInvalidValue;
+    }
+  }
+  if (D == 128) return launch_core<T, TC, 128>(p, n_tiles, stream);
+  if (D == 64) return launch_core<T, TC, 64>(p, n_tiles, stream);
   return cudaErrorInvalidValue;
 }
 
@@ -375,10 +858,15 @@ cudaError_t launch_typed(const Params& p, int D, int n_tiles,
 // Plain C interface, loaded with ctypes. dtype (q and o): 0 = float32,
 // 1 = bfloat16. kv_dtype: the same code as dtype for a cache of the q type,
 // 2 = int8 with per-page f32 scales k_scales / v_scales ([N] each).
-// Returns the cudaError_t of the launch (0 = success). Rows per tile
-// (tokens * Gq) must not exceed NW * RPW; the Python wrapper checks it.
-// With n_split > 1, ``scratch`` holds n_split * R * (D + 2) floats (R =
-// query tokens * Hkv * Gq) for the partials.
+// Returns the cudaError_t of the launch (0 = success).
+//
+// A bf16 launch with segments (MP > 0) takes the tensor-core segment tiles:
+// Tq * Gq <= TC_ROWS (128) rows per segment tile, and n_split splits only
+// the B decode tiles (each Gq <= NW * RPW = 64 rows). Every other launch
+// (f32, or decode only) runs every tile on CUDA cores with Tq * Gq <= 64
+// rows per tile, and n_split splits every tile. The Python wrapper checks
+// both. With n_split > 1, ``scratch`` holds n_split * R * (D + 2) floats,
+// R = the split tiles' query rows (tokens * Hkv * Gq) for the partials.
 extern "C" int paged_attention_launch(
     const void* q, void* o, float* m_out, float* l_out, const void* kc,
     const void* vc, const int* d_tables, const int* d_seq_lens, int B,
@@ -414,24 +902,29 @@ extern "C" int paged_attention_launch(
   p.scale = scale;
   const int n_tiles = B + MP * p.nT;
   if (n_tiles == 0) return 0;
-  const size_t R = (size_t)(B + MP * T) * Hkv * Gq;
+  const bool tc = dtype == 1 && MP > 0;
+  if (tc && Tq * Gq > TC_ROWS) return (int)cudaErrorInvalidValue;
+  if (!tc && Tq * Gq > NW * RPW) return (int)cudaErrorInvalidValue;
+  if (Gq > NW * RPW) return (int)cudaErrorInvalidValue;
+  p.n_seg_blocks = tc ? MP * p.nT * Hkv : 0;
+  p.R_part = (size_t)(tc ? B : B + MP * T) * Hkv * Gq;
   p.n_split = n_split > 1 ? n_split : 1;
   p.part_o = scratch;
-  p.part_m = scratch + (size_t)p.n_split * R * D;
-  p.part_l = p.part_m + (size_t)p.n_split * R;
+  p.part_m = scratch + (size_t)p.n_split * p.R_part * D;
+  p.part_l = p.part_m + (size_t)p.n_split * p.R_part;
   if (p.n_split > 1 && scratch == nullptr) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (kv_dtype == 2) {
     if (k_scales == nullptr || v_scales == nullptr)
       return (int)cudaErrorInvalidValue;
-    if (dtype == 0) return (int)launch_typed<float, int8_t>(p, D, n_tiles, st);
+    if (dtype == 0)
+      return (int)launch_typed<float, int8_t>(p, D, n_tiles, tc, st);
     if (dtype == 1)
-      return (int)launch_typed<__nv_bfloat16, int8_t>(p, D, n_tiles, st);
+      return (int)launch_typed<bf16, int8_t>(p, D, n_tiles, tc, st);
     return (int)cudaErrorInvalidValue;
   }
   if (kv_dtype != dtype) return (int)cudaErrorInvalidValue;
-  if (dtype == 0) return (int)launch_typed<float, float>(p, D, n_tiles, st);
-  if (dtype == 1)
-    return (int)launch_typed<__nv_bfloat16, __nv_bfloat16>(p, D, n_tiles, st);
+  if (dtype == 0) return (int)launch_typed<float, float>(p, D, n_tiles, tc, st);
+  if (dtype == 1) return (int)launch_typed<bf16, bf16>(p, D, n_tiles, tc, st);
   return (int)cudaErrorInvalidValue;
 }

@@ -452,9 +452,22 @@ def _ragged_mm(xs: torch.Tensor, w, group_sizes: torch.Tensor) -> torch.Tensor:
 
 
 def _moe_combine(o, t_sorted, w_sorted, T: int, dtype):
-    """Scatter-add the weighted expert outputs back to their token rows."""
-    out = torch.zeros(T, o.shape[-1], dtype=dtype, device=o.device)
-    return out.index_add_(0, t_sorted, o * w_sorted[:, None].to(dtype))
+    """Add the weighted expert outputs back to their token rows, each
+    token's k rows in the order the reference's ``.at[t_sorted].add`` meets
+    them (the expert-sorted order), one add at a time in ``dtype``. A
+    stable sort of ``t_sorted`` lists every token's rows in that order; a
+    gather and k - 1 adds follow. One path on the CPU and the card, no
+    atomics: the same bits on every run (``index_add_`` on the card adds
+    in no fixed order)."""
+    k = t_sorted.numel() // max(T, 1)
+    if k == 0:
+        return torch.zeros(T, o.shape[-1], dtype=dtype, device=o.device)
+    rows = torch.argsort(t_sorted, stable=True).reshape(T, k)
+    weighted = (o * w_sorted[:, None].to(dtype))[rows]  # [T, k, D]
+    out = weighted[:, 0]
+    for j in range(1, k):
+        out = out + weighted[:, j]
+    return out
 
 
 def moe_ffn(lp: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:

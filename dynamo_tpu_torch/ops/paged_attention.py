@@ -11,6 +11,13 @@ on CUDA tensors and take their plain PyTorch version on CPU tensors:
     plus the chunk itself, already written into the cache, through one
     block table, causal at absolute positions ``history_len + t``.
 
+A bf16 launch with segments runs its segment tiles on the tensor cores
+(``TC_TILE_ROWS`` query rows per tile, ``mma.sync`` over 64-position steps)
+and its decode tiles on the CUDA-core body; an f32 launch, and a decode
+launch, run every tile on the CUDA-core body (``MAX_TILE_ROWS`` rows per
+tile). The choice is by dtype and tile type, stated in the kernel's source
+note; no launch falls back to another body.
+
 Cache layout (as in the JAX package): ``[Hkv, N, bs, D]`` per layer, block
 tables of physical page ids, page 0 reserved as trash. The pages are of the
 query dtype, or int8 with one f32 scale per physical page for K and for V
@@ -28,8 +35,12 @@ import torch
 from . import _cuda
 
 NEG_INF = -1e30
-#: query rows one kernel block holds (8 warps x 8 rows, csrc NW * RPW)
+#: query rows one block of the CUDA-core body holds (8 warps x 8 rows, csrc
+#: NW * RPW): a decode tile, or any tile of an f32 launch
 MAX_TILE_ROWS = 64
+#: query rows of one tensor-core segment tile (8 warps x 16 rows, csrc
+#: TC_ROWS): the segment tiles of a bf16 launch
+TC_TILE_ROWS = 128
 #: most horizon splits per tile (flash-decoding partials)
 MAX_SPLITS = 16
 _SRC = "paged_attention.cu"
@@ -51,17 +62,17 @@ def launch_paged_attention(
     p_hists: Optional[torch.Tensor] = None,  # [MP] int32
     p_valids: Optional[torch.Tensor] = None,  # [MP] int32 or None (= T)
     T: int = 0,
-    Tq: int = 1,
+    Tq: int = 0,  # tokens per segment tile; 0 -> as many as fill a tile
     stats: bool = False,
     k_scales: Optional[torch.Tensor] = None,  # [N] f32 with an int8 cache
     v_scales: Optional[torch.Tensor] = None,
     name: str = "paged_attention",
 ):
     """Launch ``csrc/paged_attention.cu`` on its tile list: B one-token
-    decode tiles, then MP segments of T tokens in Tq-token tiles. Returns
-    ``o`` (like ``q``) and, with ``stats``, ``m``/``l`` f32 ``[Ntok, Hkv,
-    Gq]``. Validates every input and raises on what the kernel does not
-    take."""
+    decode tiles, then MP segments of T tokens in Tq-token tiles (on the
+    tensor cores when ``q`` is bf16). Returns ``o`` (like ``q``) and, with
+    ``stats``, ``m``/``l`` f32 ``[Ntok, Hkv, Gq]``. Validates every input
+    and raises on what the kernel does not take."""
     Ntok, Hkv, Gq, D = q.shape
     Hc, N, bs, Dc = k_cache_layer.shape
     B = 0 if d_tables is None else d_tables.shape[0]
@@ -84,9 +95,16 @@ def launch_paged_attention(
     if Ntok != B + MP * T:
         raise ValueError(f"{name}: {Ntok} query tokens for B={B} + "
                          f"MP={MP} x T={T}")
-    if max(1 if B else 0, Tq if MP else 0) * Gq > MAX_TILE_ROWS:
-        raise ValueError(f"{name}: {Tq} tokens x {Gq} rows exceeds the "
-                         f"kernel's {MAX_TILE_ROWS} rows per tile")
+    # a bf16 query (over bf16 or int8 pages) with segments runs them on the
+    # tensor cores; f32 launches (the tiny f32 models) and decode launches
+    # keep the CUDA-core body
+    tc = q.dtype == torch.bfloat16 and MP > 0
+    seg_rows = TC_TILE_ROWS if tc else MAX_TILE_ROWS
+    Tq = Tq or max(1, seg_rows // Gq)
+    if (B and Gq > MAX_TILE_ROWS) or (MP and Tq * Gq > seg_rows):
+        raise ValueError(
+            f"{name}: {Gq} rows per decode tile (at most {MAX_TILE_ROWS}) or "
+            f"{Tq} tokens x {Gq} rows per segment tile (at most {seg_rows})")
     M = (d_tables if B else p_tables).shape[1] if (B or MP) else 0
     if B and MP and p_tables.shape[1] != M:
         raise ValueError(f"{name}: decode and prefill tables differ in width")
@@ -95,14 +113,18 @@ def launch_paged_attention(
     if stats:
         m = torch.empty((Ntok, Hkv, Gq), dtype=torch.float32, device=q.device)
         l = torch.empty_like(m)
-    # split every tile's horizon until the grid holds ~2 blocks per SM
-    # (decode: B x Hkv tiles alone leave most of the card idle)
-    blocks = (B + MP * -(-T // Tq)) * Hkv
-    n_split = min(MAX_SPLITS,
-                  max(1, -(-2 * _cuda.sm_count(q.device) // max(blocks, 1))))
+    # split every CUDA-core tile's horizon until those tiles alone hold ~2
+    # blocks per SM (decode: B x Hkv tiles leave most of the card idle);
+    # tensor-core segment tiles take no split
+    split_tiles = B if tc else B + MP * -(-T // Tq)
+    n_split = 1
+    if split_tiles:
+        n_split = min(MAX_SPLITS, max(1, -(-2 * _cuda.sm_count(q.device)
+                                           // (split_tiles * Hkv))))
     scratch = None
     if n_split > 1:
-        scratch = torch.empty(n_split * Ntok * Hkv * Gq * (D + 2),
+        split_rows = (B if tc else Ntok) * Hkv * Gq
+        scratch = torch.empty(n_split * split_rows * (D + 2),
                               dtype=torch.float32, device=q.device)
     err = _cuda.lib(_SRC).paged_attention_launch(
         _ptr(q), _ptr(o), _ptr(m), _ptr(l), _ptr(k_cache_layer),
@@ -267,11 +289,6 @@ paged_decode_attention.launches = 0
 paged_decode_attention.verify_launches = 0
 
 
-def prefill_q_tile(G: int) -> int:
-    """Query tokens per kernel tile: as many as fill the block's rows."""
-    return max(1, MAX_TILE_ROWS // G)
-
-
 def paged_prefill_attention(
     q: torch.Tensor,  # [T, H, D] chunk queries
     k_cache_layer: torch.Tensor,  # [Hkv, N, bs, D] — chunk ALREADY written
@@ -316,7 +333,7 @@ def paged_prefill_attention(
         q.reshape(T, Hkv, G, D), k_cache_layer, v_cache_layer, scale,
         p_tables=block_table.reshape(1, -1), p_hists=dev_i32(history_len),
         p_valids=None if valid_len is None else dev_i32(valid_len),
-        T=T, Tq=prefill_q_tile(G), k_scales=k_scales, v_scales=v_scales,
+        T=T, k_scales=k_scales, v_scales=v_scales,
         name="paged_prefill_attention",
     )
     paged_prefill_attention.launches += 1

@@ -6,7 +6,9 @@ its own block table and length) and MP prefill segments (each against its
 own sequence's history plus the causal prefix of the segment). Everything
 is write-before-attend, so every row attends ``kv_pos <= q_pos`` through
 its table. On CUDA tensors it launches ``csrc/paged_attention.cu`` over the
-ragged tile list; on CPU tensors it takes the plain version below.
+ragged tile list (bf16: the segment tiles on the tensor cores, the decode
+tiles on CUDA cores with split horizons, in one launch); on CPU tensors it
+takes the plain version below.
 
 The JAX wrapper builds per-tile metadata (``tile_seq``, ``tile_q0``,
 ``tile_last``; ragged_paged_attention_pallas.py:299-318) and scalar-
@@ -27,7 +29,6 @@ from .paged_attention import (
     gather_pages,
     launch_paged_attention,
     masked_attention,
-    prefill_q_tile,
 )
 
 
@@ -144,7 +145,7 @@ def ragged_mixed_attention_rows(
         q.reshape(Ntok, Hkv, G, D), k_cache_layer, v_cache_layer, scale,
         d_tables=d_tables, d_seq_lens=d_seq_lens, p_tables=p_tables,
         p_hists=p_hists, p_valids=p_valids, T=T,
-        Tq=q_tile or prefill_q_tile(G), k_scales=k_scales, v_scales=v_scales,
+        Tq=q_tile, k_scales=k_scales, v_scales=v_scales,
         name="ragged_mixed_attention",
     )
     ragged_mixed_attention.launches += 1

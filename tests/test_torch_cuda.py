@@ -81,6 +81,118 @@ def test_cuda_kernels_match_plain_versions():
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("bs", [16, 24, 32])
+@pytest.mark.parametrize("G", [1, 4, 7])
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("int8_pages", [False, True], ids=["bf16", "int8"])
+def test_cuda_tensor_core_tiles_match_plain(int8_pages, D, G, bs):
+    """On the card: the tensor-core segment tiles of a bf16 launch (bf16 or
+    int8 pages) against the plain versions, prefill and ragged: a history
+    of 333 (no multiple of 16 or 64), valid 77 of T = 100 (padded rows
+    zero), a dead segment, decode rows beside them (CUDA-core body, split);
+    block sizes that divide a 64-position step (16, 32) and one that does
+    not (24); o within 2e-2, (m, l) within rtol 1e-3 of the plain f32
+    softmax, the dead rows' o = 0, m = -1e30, l = 0."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the chip)")
+    from dynamo_tpu_torch.ops import paged_attention as pa
+    from dynamo_tpu_torch.ops.paged_attention import paged_prefill_attention_plain
+    from dynamo_tpu_torch.ops.ragged_paged_attention import (
+        ragged_mixed_attention_plain,
+    )
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(4)
+    Hkv, M, N = 4, 32, 200
+    H, T, valid, hist = Hkv * G, 100, 77, 333
+    if int8_pages:
+        kc, vc = (torch.randint(-127, 128, (Hkv, N, bs, D), generator=g,
+                                device=dev, dtype=torch.int8) for _ in range(2))
+        ks, vs = (torch.rand(N, generator=g, device=dev) * 0.02 + 0.002
+                  for _ in range(2))
+        sc = dict(k_scales=ks, v_scales=vs)
+    else:
+        kc, vc = (torch.randn(Hkv, N, bs, D, generator=g, device=dev).bfloat16()
+                  for _ in range(2))
+        ks = vs = None
+        sc = {}
+    tables = torch.randperm(N - 1, generator=g, device=dev)[: 6 * M].add(1)
+    tables = tables.reshape(6, M).to(torch.int32)
+    q = torch.randn(T, H, D, generator=g, device=dev).bfloat16()
+    scale = D ** -0.5
+    tol = dict(atol=2e-2, rtol=2e-2)
+    hist_t = torch.tensor([hist], dtype=torch.int32, device=dev)
+    got = paged_prefill_attention(q, kc, vc, tables[0], hist_t, scale,
+                                  valid_len=valid, **sc)
+    ref = paged_prefill_attention_plain(q, kc, vc, tables[0], hist_t, scale,
+                                        valid, ks, vs)
+    torch.testing.assert_close(got.float(), ref.float(), **tol)
+
+    def plain_stats(rows, table, limit):
+        qg = rows.reshape(rows.shape[0], Hkv, G, D).float() * scale
+        k = pa.gather_pages(kc, table, ks).float()
+        v = pa.gather_pages(vc, table, vs).float()
+        if table.dim() == 1:
+            k, v = k[:, None], v[:, None]
+        return pa.masked_attention(qg, k, v, limit)[1:]
+
+    # the ragged launch: 3 decode rows (one inactive), the prefill rows as
+    # segment 0, a dead segment 1
+    lens = torch.tensor([0, 17, 411], dtype=torch.int32, device=dev)
+    qd = torch.randn(3, H, D, generator=g, device=dev).bfloat16()
+    qc = torch.stack([q, torch.randn(T, H, D, generator=g, device=dev).bfloat16()])
+    p_tab = torch.stack([tables[0], torch.zeros_like(tables[0])])
+    p_h = torch.tensor([hist, 0], dtype=torch.int32, device=dev)
+    p_v = torch.tensor([valid, 0], dtype=torch.int32, device=dev)
+    args = (qd, qc, kc, vc, tables[1:4], lens, p_tab, p_h, p_v, scale)
+    o_dec, o_chunks = ragged_mixed_attention(*args, **sc)
+    r_dec, r_chunks = ragged_mixed_attention_plain(*args, ks, vs)
+    torch.testing.assert_close(o_dec.float(), r_dec.float(), **tol)
+    torch.testing.assert_close(o_chunks.float(), r_chunks.float(), **tol)
+    o, m, l = pa.launch_paged_attention(
+        torch.cat([qd, qc.reshape(2 * T, H, D)]).reshape(-1, Hkv, G, D), kc, vc,
+        scale, d_tables=tables[1:4], d_seq_lens=lens, p_tables=p_tab,
+        p_hists=p_h, p_valids=p_v, T=T, stats=True, **sc)
+    t = torch.arange(T, device=dev)
+    limit = torch.where(t < valid, hist + t, -1)
+    parts = [plain_stats(qd, tables[1:4], lens.long() - 1),
+             plain_stats(q, tables[0], limit),
+             plain_stats(qc[1], p_tab[1], torch.full_like(t, -1))]
+    rm, rl = (torch.cat(x) for x in zip(*parts))
+    torch.testing.assert_close(m, rm, rtol=1e-3, atol=1e-3)
+    torch.testing.assert_close(l, rl, rtol=1e-3, atol=1e-3)
+    dead = [0] + list(range(3 + valid, 3 + 2 * T))
+    assert (o[dead] == 0).all() and (m[dead] == -1e30).all() and (l[dead] == 0).all()
+
+
+@pytest.mark.cuda
+def test_cuda_moe_ffn_is_bit_equal_run_to_run():
+    """On the card: one bf16 MoE layer at DeepSeek-V2-Lite's widths (64
+    experts top-6 + 2 shared, hidden 2048, expert width 1408), random
+    weights, 512 tokens: two calls of moe_ffn give the same bits (the
+    combine adds in a fixed order; no atomics)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the chip)")
+    from dynamo_tpu_torch.models import llama
+    from dynamo_tpu_torch.models.config import deepseek_v2_lite
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(6)
+    cfg = deepseek_v2_lite()
+    E, X, Fm = cfg.hidden_size, cfg.num_experts, cfg.moe_intermediate_size
+    Fs = cfg.shared_expert_size or Fm * cfg.num_shared_experts
+    shapes = dict(moe_gate=(E, X), we_gate=(X, E, Fm), we_up=(X, E, Fm),
+                  we_down=(X, Fm, E), shared_gate=(E, Fs), shared_up=(E, Fs),
+                  shared_down=(Fs, E))
+    lp = {n: (torch.randn(v, generator=g, device=dev) * 0.02).bfloat16()
+          for n, v in shapes.items()}
+    x = torch.randn(512, E, generator=g, device=dev).bfloat16()
+    a, b = llama.moe_ffn(lp, cfg, x), llama.moe_ffn(lp, cfg, x)
+    torch.cuda.synchronize()
+    assert torch.isfinite(a.float()).all() and torch.equal(a, b)
+
+
+@pytest.mark.cuda
 def test_cuda_mla_kernels_match_plain_versions():
     """On the card: the latent decode (with stats and an empty slot) and
     prefill kernels and the append at MLA widths against their plain

@@ -216,6 +216,49 @@ def test_moe_ffn_matches_jax_ragged_and_dense(routing):
     _close(llama.moe_ffn_dense(tlp, cfg, torch.from_numpy(x)), got, 1e-5)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_moe_combine_fixed_order_matches_jax(dtype):
+    """The combine adds each token's k weighted expert rows one at a time
+    in the expert-sorted order, as the reference's ``.at[t_sorted].add``
+    does: bit-equal to JAX's ``_moe_combine`` in f32 and in bf16 (the same
+    adds in the same order), and twice the same bits. ``moe_ffn`` against
+    JAX's: f32 within 1e-5; bf16 within 2**-6 of the largest |output|
+    (two bf16 steps at that magnitude: the products round in bf16 and
+    their sums run in another order)."""
+    rng = np.random.default_rng(11)
+    T, k, D, X = 13, 3, 40, 8
+    tdt, jdt = getattr(torch, dtype), getattr(jnp, dtype)
+    idx = np.stack([rng.choice(X, k, replace=False) for _ in range(T)])
+    t_sorted = np.argsort(idx.reshape(-1), kind="stable") // k
+    o = rng.standard_normal((T * k, D)).astype(np.float32)
+    w = rng.random(T * k).astype(np.float32)
+    args = (torch.from_numpy(o).to(tdt), torch.from_numpy(t_sorted),
+            torch.from_numpy(w), T, tdt)
+    got = llama._moe_combine(*args)
+    ref = jllama._moe_combine(jnp.asarray(o, jdt), jnp.asarray(t_sorted),
+                              jnp.asarray(w), T, jdt)
+    assert got.dtype == tdt and torch.equal(got, llama._moe_combine(*args))
+    np.testing.assert_array_equal(_np(got), _np(ref))
+    jcfg = JaxModelConfig.tiny(**{**MOE, "dtype": dtype})
+    cfg = ModelConfig.tiny(**{**MOE, "dtype": dtype})
+    E, Fm = cfg.hidden_size, cfg.moe_intermediate_size
+    shapes = dict(moe_gate=(E, X), we_gate=(X, E, Fm), we_up=(X, E, Fm),
+                  we_down=(X, Fm, E), shared_gate=(E, Fm), shared_up=(E, Fm),
+                  shared_down=(Fm, E))
+    lp = {n: (rng.standard_normal(v) * 0.2).astype(np.float32)
+          for n, v in shapes.items()}
+    x = rng.standard_normal((T, E)).astype(np.float32)
+    tlp = {n: torch.from_numpy(v).to(tdt) for n, v in lp.items()}
+    got = llama.moe_ffn(tlp, cfg, torch.from_numpy(x).to(tdt))
+    jref = jax.jit(functools.partial(jllama.moe_ffn, cfg=jcfg))(
+        {n: jnp.asarray(v, jdt) for n, v in lp.items()}, x=jnp.asarray(x, jdt))
+    if dtype == "float32":
+        _close(got, jref, 1e-5)
+    else:
+        top = float(np.abs(_np(jref)).max())
+        np.testing.assert_allclose(_np(got), _np(jref), rtol=0, atol=top * 2**-6)
+
+
 @functools.lru_cache(maxsize=1)
 def _weights():
     """One tiny MLA + MoE model for the forward tests, drawn once as numpy

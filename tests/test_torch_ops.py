@@ -26,7 +26,7 @@ from dynamo_tpu.ops.ragged_paged_attention_pallas import (
     ragged_mixed_attention as j_ragged,
 )
 from dynamo_tpu_torch.ops import attention as att
-from dynamo_tpu_torch.ops import sampling
+from dynamo_tpu_torch.ops import paged_attention, sampling
 from dynamo_tpu_torch.ops.kv_cache_update import kv_cache_append
 from dynamo_tpu_torch.ops.paged_attention import (
     paged_decode_attention,
@@ -183,6 +183,118 @@ def test_ragged_mixed_attention_matches_pallas():
     assert (o_dec[1] == 0).all() and (o_chunks[1] == 0).all()
     assert (o_chunks[0, 13:] == 0).all()
     np.testing.assert_array_equal(np.asarray(jo_chunks)[1], 0.0)
+
+
+LOG2E, LN2 = 1.4426950408889634, 0.6931471805599453
+
+
+def _tc_tile_arithmetic(q, kc, vc, table, limit, scale, ks=None, vs=None):
+    """The tensor-core segment tiles' arithmetic (csrc/paged_attention.cu,
+    tc_segment_tile) in torch, for the rows ``q [R, Hkv, G, D]`` (bf16) of
+    one sequence's ``table``, row r attending ``0..limit[r]``: 64-position
+    steps; S from the bf16 operands summed in f32 (int8 codes are exact in
+    bf16), times scale * log2(e) and, with int8 pages, the K page's scale
+    per column; an exp2 online softmax in f32 whose l sums the f32 p; P
+    times the V page's scale, rounded to bf16, then P V over the codes.
+    Returns o (f32) ``[R, Hkv, G, D]`` and m, l ``[R, Hkv, G]``; rows that
+    attend nothing give 0, -1e30, 0."""
+    R, Hkv, G, D = q.shape
+    bs = kc.shape[2]
+    S = table.numel() * bs
+    page = table.long().repeat_interleave(bs)  # the page of each position
+    slot = page * bs + torch.arange(S) % bs
+    k = kc.reshape(Hkv, -1, D)[:, slot].float()  # [Hkv, S, D]
+    v = vc.reshape(Hkv, -1, D)[:, slot].float()
+    kcol = torch.ones(S) if ks is None else ks[page]
+    vcol = torch.ones(S) if vs is None else vs[page]
+    qf = q.float().permute(1, 0, 2, 3).reshape(Hkv, R * G, D)
+    lim = limit.long().repeat_interleave(G)  # row r * G + g
+    m = torch.full((Hkv, R * G), -1e30)
+    l = torch.zeros(Hkv, R * G)
+    acc = torch.zeros(Hkv, R * G, D)
+    for c in range(0, int(lim.max()) + 1, 64):
+        pos = torch.arange(c, min(c + 64, S))
+        s2 = qf @ k[:, pos].transpose(1, 2) * (scale * LOG2E) * kcol[pos]
+        s2 = s2.masked_fill(pos[None, None] > lim[None, :, None], -float("inf"))
+        m_new = torch.maximum(m, s2.amax(-1))
+        alpha = torch.exp2(m - m_new)
+        p = torch.exp2(s2 - m_new[..., None])
+        l = l * alpha + p.sum(-1)
+        pb = (p * vcol[pos]).bfloat16().float()
+        acc = acc * alpha[..., None] + pb @ v[:, pos]
+        m = m_new
+    live = lim >= 0
+    o = torch.where(live[None, :, None], acc / l.clamp_min(1e-20)[..., None], 0.0)
+    m = torch.where(live, m * LN2, -1e30)
+    l = torch.where(live, l, 0.0)
+    back = lambda x: x.reshape(Hkv, R, G, *x.shape[2:]).transpose(0, 1)  # noqa: E731
+    return back(o), back(m), back(l)
+
+
+@pytest.mark.parametrize("int8_pages", [False, True], ids=["bf16", "int8"])
+def test_tensor_core_tile_arithmetic_fits_pallas(int8_pages):
+    """The reorganised arithmetic of the bf16 launches' segment tiles (P in
+    bf16, int8 codes exact with the page scales on S columns and folded
+    into P) against the JAX Pallas prefill and ragged kernels in interpret
+    mode, at the card's kernel-vs-plain tolerances: o within 2e-2 (bf16
+    output, P rounded), (m, l) within rtol 1e-3 of the plain f32 softmax.
+    G = 3 (rows do not fill a 16-row group), a history of 75 (no multiple
+    of 16 or 64), valid 33 of T = 40, and a dead segment."""
+    rng = np.random.default_rng(6)
+    Hkv, G, D, bs, M = 2, 3, 64, 16, 8
+    H, T, valid, hist = Hkv * G, 40, 33, 75
+    N = 2 * M + 1
+
+    def bf(*shape):  # bf16 values, shared exactly by both sides
+        return torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).bfloat16()
+
+    if int8_pages:
+        codes = rng.integers(-127, 128, (2, Hkv, N, bs, D)).astype(np.int8)
+        kc, vc = torch.from_numpy(codes[0]), torch.from_numpy(codes[1])
+        ks, vs = (torch.from_numpy(rng.uniform(0.002, 0.02, N).astype(np.float32))
+                  for _ in range(2))
+        jsc = dict(k_scales=jnp.asarray(ks.numpy()), v_scales=jnp.asarray(vs.numpy()))
+        jk, jv = jnp.asarray(kc.numpy()), jnp.asarray(vc.numpy())
+    else:
+        kc, vc, ks, vs, jsc = bf(Hkv, N, bs, D), bf(Hkv, N, bs, D), None, None, {}
+        jk, jv = (jnp.asarray(c.float().numpy(), jnp.bfloat16) for c in (kc, vc))
+    tables = torch.from_numpy(_tables(rng, 2, M, N))
+    q = bf(T, H, D)
+    jq = jnp.asarray(q.float().numpy(), jnp.bfloat16)
+    scale = D ** -0.5
+    t = torch.arange(T)
+    limit = torch.where(t < valid, hist + t, -1)
+    o, m, l = _tc_tile_arithmetic(q.reshape(T, Hkv, G, D), kc, vc, tables[0],
+                                  limit, scale, ks, vs)
+    ref = j_prefill(jq, jk, jv, jnp.asarray(tables[0].numpy()), jnp.int32(hist),
+                    scale, interpret=True, **jsc)
+    o = o.reshape(T, H, D)
+    ref = np.asarray(ref.astype(jnp.float32))
+    _close(o[:valid], ref[:valid], rtol=2e-2, atol=2e-2)
+    assert (o[valid:] == 0).all() and (m[valid:] == -1e30).all() and (l[valid:] == 0).all()
+    qg = q.reshape(T, Hkv, G, D).float() * scale
+    k = paged_attention.gather_pages(kc, tables[0], ks)[:, None]
+    v = paged_attention.gather_pages(vc, tables[0], vs)[:, None]
+    _, pm, pl = paged_attention.masked_attention(qg, k.float(), v.float(), limit)
+    _close(m[:valid], pm[:valid], rtol=1e-3, atol=1e-3)
+    _close(l[:valid], pl[:valid], rtol=1e-3, atol=1e-3)
+    # the same rows as the first segment of a ragged call beside a dead
+    # segment and two decode rows (the decode rows keep the CUDA-core body)
+    q_dec = bf(2, H, D)
+    qc = torch.stack([q, bf(T, H, D)])
+    jargs = (jnp.asarray(q_dec.float().numpy(), jnp.bfloat16),
+             jnp.asarray(qc.float().numpy(), jnp.bfloat16), jk, jv,
+             jnp.asarray(tables.numpy()), jnp.asarray([9, 0], jnp.int32),
+             jnp.asarray(tables.numpy()), jnp.asarray([hist, 0], jnp.int32),
+             jnp.asarray([valid, 0], jnp.int32))
+    _, jo_chunks = j_ragged(*jargs, scale, q_tile=8, interpret=True, **jsc)
+    jo_chunks = np.asarray(jo_chunks.astype(jnp.float32))
+    _close(o[:valid], jo_chunks[0, :valid], rtol=2e-2, atol=2e-2)
+    dead, dm, dl = _tc_tile_arithmetic(qc[1].reshape(T, Hkv, G, D), kc, vc,
+                                       tables[1], torch.full((T,), -1), scale,
+                                       ks, vs)
+    assert (dead == 0).all() and (dm == -1e30).all() and (dl == 0).all()
+    np.testing.assert_array_equal(jo_chunks[1], 0.0)
 
 
 def test_kv_cache_append_bit_exact_vs_pallas():
