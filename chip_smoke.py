@@ -30,17 +30,23 @@ Phases, in order; any failure raises and the script exits non-zero:
      decode window on the card against the same functions on the CPU
      (f32, TF32 off), the dense and MLA ones through the speculative
      verify_window too (tokens and accepted counts exact, logits 1e-3),
-     and a tiny TorchEngine with spec_gamma=3 against spec_gamma=0 (the
-     same greedy stream, proposals accepted); a head layout the Llama
-     shapes miss (G=7, an unaligned history, padded rows and a dead
-     segment) through the tensor-core prefill and ragged tiles, bf16 and
-     int8 pages, with (m, l); the bf16 MoE FFN at DeepSeek-V2-Lite's
-     widths run twice, bit-equal, each stage compared;
-  3. serving: the port's OpenAI HTTP service in-process, six drives one
+     and a tiny TorchEngine with spec_gamma=3, and with spec_gamma=16 (68
+     verify rows per kv head), against spec_gamma=0 (the same greedy
+     stream, proposals accepted); a head layout the Llama shapes miss (G=7,
+     an unaligned history, padded rows, a dead segment, an inactive decode
+     slot) through the tensor-core prefill, ragged and decode tiles, bf16
+     and int8 pages, with (m, l); the decode kernel at 68 and 70 verify
+     rows per kv head (G=4, gamma=16; G=7, gamma=9); the latent kernels at
+     MiniCPM3-4B's widths (C=256, R=32); the grouped GEMM's tiled blocks
+     (experts of 1 to 200 rows and an empty one at V2-Lite's gate shape,
+     then K=7168 at N=256); the bf16 MoE FFN at DeepSeek-V2-Lite's widths
+     run twice, bit-equal, each stage compared;
+  3. serving: the port's OpenAI HTTP service in-process, eight drives one
      after the other (each model's memory freed before the next):
-     llama3-8b-sim, deepseek-v2-lite-sim, deepseek-v2-lite-sim with int8
-     weights (experts through ragged_int8_gmm), llama3-8b-sim with fp8
-     weights and the int8 KV cache, then llama3-8b-sim and
+     llama3-8b-sim and deepseek-v2-lite-sim, each twice on fresh engines
+     (how many greedy answers the two drives share), deepseek-v2-lite-sim
+     with int8 weights (experts through ragged_int8_gmm), llama3-8b-sim
+     with fp8 weights and the int8 KV cache, then llama3-8b-sim and
      deepseek-v2-lite-sim with speculative decoding (spec_gamma=3; their
      acceptance, and the share of answers equal to the plain drive's)
      (random weights from a seed, byte tokenizer, full width and depth)
@@ -74,6 +80,7 @@ from __future__ import annotations
 import asyncio
 import gc
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -753,12 +760,13 @@ def check_kernels(torch, dev, inp: KernelInputs) -> dict:
 def check_odd_group(torch, dev) -> dict:
     """A head layout the Llama shapes do not reach: G = 7 (H=28, Hkv=4,
     D=128, Qwen2-7B's), so a tensor-core tile's rows (18 tokens x 7 heads)
-    do not fill its last 16-row group; a ragged launch of 3 decode rows
-    (one inactive) and 2 segments of T=160: history 333 (no multiple of 16
-    or 64) with 117 real rows, and a dead one; bf16 and int8 pages. o
-    within 2e-2 of the plain versions, (m, l) within rtol 1e-3 of the plain
-    softmax, dead rows o = 0, m = -1e30, l = 0. Also the prefill entry
-    point with valid_len over the same rows."""
+    do not fill its last 16-row group, nor do a decode block's 7 rows; a
+    ragged launch of 3 decode rows (one inactive) and 2 segments of T=160:
+    history 333 (no multiple of 16 or 64) with 117 real rows, and a dead
+    one; bf16 and int8 pages. o within 2e-2 of the plain versions, (m, l)
+    within rtol 1e-3 of the plain softmax, dead rows o = 0, m = -1e30,
+    l = 0. Also the prefill entry point with valid_len over the same rows,
+    and the decode entry point over the same decode rows."""
     from dynamo_tpu_torch.ops import paged_attention as pa
     from dynamo_tpu_torch.ops import ragged_paged_attention as rpa
 
@@ -813,11 +821,130 @@ def check_odd_group(torch, dev) -> dict:
                 and bool((l[dead] == 0).all())):
             raise AssertionError(f"G=7 ragged, {label}: rows that attend nothing "
                                  "must give o=0, m=-1e30, l=0")
+        # the same decode rows as a decode launch (the decode body alone)
+        do, dm, dl = pa.paged_decode_attention(qd, k, v, tables[:3], lens, scale,
+                                               return_stats=True, **sc)
+        ro, rm, rl = pa.paged_decode_attention_plain(qd, k, v, tables[:3], lens,
+                                                     scale, True, ks, vs)
+        torch.cuda.synchronize()
+        err = max(err, close(f"G=7 decode, {label}", do, ro, 2e-2, 2e-2))
+        close_stats(f"G=7 decode, {label}", (dm, dl), (rm, rl))
+        if not (bool((do[0] == 0).all()) and bool((dm[0] == -1e30).all())
+                and bool((dl[0] == 0).all())):
+            raise AssertionError(f"G=7 decode, {label}: the inactive slot must "
+                                 "give o=0, m=-1e30, l=0")
         errs[label] = err
         log(f"  G=7 (H=28, Hkv=4), history 333, valid 117 of 160, a dead segment, "
-            f"{label}: prefill and ragged vs plain max |err| {err:.3e}, (m, l) "
-            "within 1e-3, dead rows zero  OK")
+            f"{label}: prefill, ragged and decode vs plain max |err| {err:.3e}, "
+            "(m, l) within 1e-3, dead rows and the inactive slot zero  OK")
     return errs
+
+
+def check_decode_rows(torch, inp: KernelInputs) -> None:
+    """C.6: the decode body at (gamma + 1) * G verify rows per kv head,
+    more than one 16-row block each: G = 4, gamma = 16 (68 rows) and G = 7,
+    gamma = 9 (70 rows), over the Llama-3-8B caches and tables of phase 2
+    (Hkv = 8, D = 128, B = 8 up to 2048 with an inactive slot), bf16 and
+    int8 pages, with (m, l): o within 2e-2 of the plain version, (m, l)
+    within rtol 1e-3, the inactive slot o = 0, m = -1e30, l = 0."""
+    from dynamo_tpu_torch.ops import paged_attention as pa
+
+    g = torch.Generator(device=inp.kc.device).manual_seed(12)
+    for G, gamma in ((4, 16), (7, 9)):
+        rows = (gamma + 1) * G
+        q = torch.randn(8, inp.Hkv * rows, inp.D, generator=g,
+                        device=inp.kc.device).bfloat16()
+        for label, x in (("bf16", inp), ("int8 pages", inp.scaled())):
+            args = (q, x.kc, x.vc, x.d_tables, x.d_lens, inp.scale)
+            o, m, l = pa.paged_decode_attention(*args, return_stats=True,
+                                                group=G, **x.sc)
+            ro, rm, rl = pa.paged_decode_attention_plain(*args, return_stats=True,
+                                                         **x.sc)
+            torch.cuda.synchronize()
+            err = close(f"{rows} verify rows, {label}", o, ro, 2e-2, 2e-2)
+            close_stats(f"{rows} verify rows, {label}", (m, l), (rm, rl))
+            if not (bool((o[7] == 0).all()) and bool((m[7] == -1e30).all())
+                    and bool((l[7] == 0).all())):
+                raise AssertionError(f"{rows} verify rows: the empty slot must "
+                                     "give o=0, m=-1e30, l=0")
+            log(f"  paged_decode_attention, {rows} rows per kv head (G={G}, "
+                f"gamma={gamma}), {label}: max |err| {err:.3e}, (m, l) within "
+                "1e-3, empty slot zero  OK")
+
+
+def check_gmm_tiles(torch, dev) -> None:
+    """The grouped GEMM's tiled blocks beside the few-rows mode in one
+    launch, at DeepSeek-V2-Lite's gate shape (K = 2048, N = 1408): experts
+    of 9 and 16 rows, of 200 and 130 (two row tiles), of 3 and 1 and an
+    empty one; then K = 7168 (DeepSeek-V3's hidden width) at N = 256 over
+    three experts (140, 2 and 9 rows); int8 and e4m3 codes, bf16 rows,
+    within 2e-2 of the plain twin, the unowned rows exactly 0."""
+    from dynamo_tpu_torch.models.quant import quantize_array
+    from dynamo_tpu_torch.ops import moe_gmm
+
+    g = torch.Generator(device=dev).manual_seed(13)
+    for K, N, sizes in ((2048, 1408, [9, 0, 200, 3, 16, 130, 1]),
+                        (7168, 256, [140, 2, 9])):
+        X = len(sizes)
+        sizes = torch.tensor(sizes, dtype=torch.int64, device=dev)
+        R = int(sizes.sum()) + 16
+        w = torch.randn(X, K, N, generator=g, device=dev).bfloat16()
+        lhs = torch.randn(R, K, generator=g, device=dev).bfloat16()
+        for mode in ("int8", "fp8_e4m3"):
+            qw = quantize_array(w, mode)
+            got = moe_gmm.ragged_int8_gmm(lhs, qw["q"], qw["s"], sizes)
+            ref = moe_gmm.ragged_int8_plain(lhs, qw["q"], qw["s"], sizes)
+            torch.cuda.synchronize()
+            if not bool((got[R - 16:] == 0).all()):
+                raise AssertionError("ragged_int8_gmm tiles: unowned rows must "
+                                     "be exactly 0")
+            err = close(f"ragged_int8_gmm K={K} {mode}", got, ref, 2e-2, 2e-2)
+            log(f"  ragged_int8_gmm tiles, K={K} N={N}, experts "
+                f"{sizes.tolist()} rows, {mode}: max |err| {err:.3e}, "
+                "unowned rows 0  OK")
+
+
+def check_mla_minicpm3(torch, dev) -> None:
+    """C.7: both latent kernels at MiniCPM3-4B's latent widths (its
+    config.json: kv_lora_rank C = 256, qk_rope_head_dim R = 32), H = 16,
+    bs = 16: decode B = 4 up to 700 positions with an empty slot and
+    (m, l), prefill T = 96 on 300 cached with and without valid_len,
+    against the plain versions (2e-2; (m, l) rtol 1e-3)."""
+    from dynamo_tpu_torch.ops import mla_attention as mla
+
+    g = torch.Generator(device=dev).manual_seed(14)
+    H, C, R, bs, M, N = 16, 256, 32, 16, 48, 400
+    cc = torch.randn(1, N, bs, C, generator=g, device=dev).bfloat16()
+    pc = torch.randn(1, N, bs, R, generator=g, device=dev).bfloat16()
+    tables = (torch.randperm(N - 1, generator=g, device=dev)[: 5 * M] + 1)
+    tables = tables.reshape(5, M).to(torch.int32)
+    lens = torch.tensor([700, 0, 333, 17], dtype=torch.int32, device=dev)
+    qe = torch.randn(4, H, C, generator=g, device=dev).bfloat16()
+    qp = torch.randn(4, H, R, generator=g, device=dev).bfloat16()
+    scale = (192 + R) ** -0.5
+    o, m, l = mla.mla_paged_decode_attention(qe, qp, cc, pc, tables[:4], lens,
+                                             scale, return_stats=True)
+    ro, rm, rl = mla.mla_paged_decode_attention_plain(qe, qp, cc, pc, tables[:4],
+                                                      lens, scale, return_stats=True)
+    torch.cuda.synchronize()
+    err = close("MiniCPM3 widths decode", o, ro, 2e-2, 2e-2)
+    close_stats("MiniCPM3 widths decode", (m, l), (rm, rl))
+    if not (bool((o[1] == 0).all()) and bool((m[1] == -1e30).all())):
+        raise AssertionError("MiniCPM3 widths decode: the empty slot must give "
+                             "o=0, m=-1e30")
+    qe = torch.randn(96, H, C, generator=g, device=dev).bfloat16()
+    qp = torch.randn(96, H, R, generator=g, device=dev).bfloat16()
+    hist = torch.tensor([300], dtype=torch.int32, device=dev)
+    for valid in (None, 70):
+        got = mla.mla_paged_prefill_attention(qe, qp, cc, pc, tables[4], hist,
+                                              scale, valid_len=valid)
+        ref = mla.mla_paged_prefill_attention_plain(qe, qp, cc, pc, tables[4],
+                                                    hist, scale, valid)
+        torch.cuda.synchronize()
+        err = max(err, close(f"MiniCPM3 widths prefill (valid {valid})", got, ref,
+                             2e-2, 2e-2))
+    log(f"  MLA latent kernels at MiniCPM3-4B widths (C=256, R=32, H=16): decode "
+        f"and prefill vs plain max |err| {err:.3e}, (m, l) within 1e-3  OK")
 
 
 def quantized_pages(torch, kc, vc):
@@ -1041,11 +1168,14 @@ def check_verify_on_card(torch, dev, label, cfg) -> None:
 
 
 def check_engine_spec_on_card(torch, dev) -> None:
-    """A tiny f32 TorchEngine on the card with spec_gamma=3 against
+    """A tiny f32 TorchEngine on the card with speculation against
     spec_gamma=0 on the reference's repetitive prompt: the same greedy
     stream, with the spec engine's proposer fed the plain stream's true
     continuation (tests/test_speculative.py's device: organic n-gram hits
-    depend on the random model), so every proposal is accepted."""
+    depend on the random model), so every proposal is accepted. Twice:
+    spec_gamma=3 on 16-token pages, and spec_gamma=16 on 32-token pages (a
+    verify's 17 in-flight rows fit one page, as the reference requires):
+    17 x G = 68 verify rows per kv head (C.6)."""
     from dynamo_tpu_torch.engine import EngineConfig, TorchEngine
     from dynamo_tpu_torch.protocols.common import (
         PreprocessedRequest,
@@ -1055,38 +1185,42 @@ def check_engine_spec_on_card(torch, dev) -> None:
     from dynamo_tpu_torch.runtime import Context, collect
 
     cfg = tiny_models()[0][1]
+    G = cfg.num_heads // cfg.num_kv_heads
     params = to_device(tiny_params(torch, cfg), dev)
-    req = PreprocessedRequest(
-        token_ids=[7, 8, 9, 10] * 6, stop_conditions=StopConditions(max_tokens=20),
-        sampling_options=SamplingOptions(temperature=0.0), eos_token_ids=[])
-    streams, stats = {}, {}
-    for gamma in (0, SPEC_GAMMA):
-        eng = TorchEngine(EngineConfig(model=cfg, num_blocks=64, block_size=16,
-                                       max_batch_size=2, decode_window=4,
-                                       spec_gamma=gamma), params=params,
-                          device=dev)
-        if gamma:
-            drafts = {tuple(req.token_ids): streams[0]}
-            eng._propose_ngram = lambda eng=eng: oracle_drafts(eng, drafts)
+    for spec_gamma, bs, n_tokens in ((SPEC_GAMMA, 16, 20), (16, 32, 40)):
+        req = PreprocessedRequest(
+            token_ids=[7, 8, 9, 10] * 6,
+            stop_conditions=StopConditions(max_tokens=n_tokens),
+            sampling_options=SamplingOptions(temperature=0.0), eos_token_ids=[])
+        streams, stats = {}, {}
+        for gamma in (0, spec_gamma):
+            eng = TorchEngine(EngineConfig(model=cfg, num_blocks=2048 // bs,
+                                           block_size=bs, max_batch_size=2,
+                                           decode_window=4, spec_gamma=gamma),
+                              params=params, device=dev)
+            if gamma:
+                drafts = {tuple(req.token_ids): streams[0]}
+                eng._propose_ngram = lambda eng=eng: oracle_drafts(eng, drafts)
 
-        async def run(eng=eng):
-            try:
-                return await collect(eng.generate(Context(req)))
-            finally:
-                await eng.close()
+            async def run(eng=eng):
+                try:
+                    return await collect(eng.generate(Context(req)))
+                finally:
+                    await eng.close()
 
-        streams[gamma] = [t for o in asyncio.run(run()) for t in o.token_ids]
-        stats[gamma] = dict(eng.stats)
-    st = stats[SPEC_GAMMA]
-    if not (streams[0] == streams[SPEC_GAMMA] and len(streams[0]) == 20
-            and st["spec_accepted"] > 0
-            and st["decode_steps"] < stats[0]["decode_steps"]):
-        raise AssertionError(f"tiny engine with spec on the card: streams "
-                             f"{streams}, stats {st}")
-    log(f"  tiny TorchEngine, spec_gamma={SPEC_GAMMA} vs 0 on the card: the same "
-        f"greedy stream, {st['spec_accepted']}/{st['spec_proposed']} proposals "
-        f"accepted, {st['decode_steps']} decode steps vs "
-        f"{stats[0]['decode_steps']}  OK")
+            streams[gamma] = [t for o in asyncio.run(run()) for t in o.token_ids]
+            stats[gamma] = dict(eng.stats)
+        st = stats[spec_gamma]
+        if not (streams[0] == streams[spec_gamma] and len(streams[0]) == n_tokens
+                and st["spec_accepted"] > 0
+                and st["decode_steps"] < stats[0]["decode_steps"]):
+            raise AssertionError(f"tiny engine with spec_gamma={spec_gamma} on the "
+                                 f"card: streams {streams}, stats {st}")
+        log(f"  tiny TorchEngine, spec_gamma={spec_gamma} ({(spec_gamma + 1) * G} "
+            f"verify rows per kv head, {bs}-token pages) vs 0 on the card: the "
+            f"same greedy stream, {st['spec_accepted']}/{st['spec_proposed']} "
+            f"proposals accepted, {st['decode_steps']} decode steps vs "
+            f"{stats[0]['decode_steps']}  OK")
 
 
 # ---------------- phase 3: serving llama3-8b-sim over HTTP ----------------
@@ -1217,13 +1351,17 @@ def drives():
 
 
 async def serve(torch, dev, card: str, name: str, cfg, geometry: dict,
-                counted: dict, plain=None):
+                counted: dict, plain=None, repeat: bool = False):
     """One serving drive of ``name`` over HTTP; returns the launch count of
     each kernel of its path during the drive (counters zeroed just before
     it) and its answers: (texts, {prompt ids: generated ids}). A spec drive
     (``spec_gamma`` > 0) takes ``plain``, the plain drive's answers of the
     same model, must accept proposals, and reports its acceptance and the
-    share of answers equal to the plain drive's."""
+    share of answers equal to the plain drive's. A ``repeat`` drive is the
+    plain drive again on a fresh engine (nothing cached, no prefix shared
+    with the first): it reports how many of its greedy answers equal the
+    first drive's, and where the first different token of each other
+    answer lies (C.4), and skips the anatomy."""
     from dynamo_tpu_torch.engine import EngineConfig, TorchEngine
     from dynamo_tpu_torch.http import HttpService, ModelManager
     from dynamo_tpu_torch.llm import ByteTokenizer
@@ -1346,7 +1484,20 @@ async def serve(torch, dev, card: str, name: str, cfg, geometry: dict,
     for f, attr in counters.values():
         setattr(f, attr, 0)
     try:
-        if not spec:
+        if repeat:
+            texts, _ = report("fresh engine, the plain drive again: ",
+                              *await requests(), {})
+            same = sum(a == b for a, b in zip(texts, plain[0]))
+            first_diff = []
+            for prompt, ids in answers.items():
+                ref = plain[1].get(prompt, [])
+                if ids != ref:
+                    first_diff.append(next((i for i, (a, b) in enumerate(zip(ids, ref))
+                                            if a != b), min(len(ids), len(ref))))
+            log(f"  C.4 run to run on fresh engines: greedy answers equal to the "
+                f"first drive's: {same} of {len(texts)}; first different token "
+                f"of the others at {sorted(first_diff)}  [{name}, {card}]")
+        elif not spec:
             texts, _ = report("", *await requests(), {})
         else:
             # a random model's answers never repeat an n-gram of their
@@ -1390,6 +1541,8 @@ async def serve(torch, dev, card: str, name: str, cfg, geometry: dict,
         1, 8, dtype=torch.int32, device=dev), 0, 64, kc, vc, **small)[0]
     if logits.shape != (cfg.vocab_size,) or not bool(torch.isfinite(logits).all()):
         raise AssertionError(f"{name} prefill logits not finite [V]")
+    if repeat:
+        return launches, (texts, answers)
     if spec:
         verify_anatomy(torch, dev, params, cfg, engine.k_cache, engine.v_cache)
         return launches, (texts, answers)
@@ -1407,9 +1560,9 @@ def anatomy(torch, label: str, fn, n: int) -> None:
     """Wall time of ``fn`` per step (``n`` steps per call, profiler off),
     the host syncs it makes (CUDA sync debug mode: each call that waits
     for the card, such as ``.tolist()`` of a device tensor), then under
-    torch.profiler the card's kernel time, launch count and the three
-    kernels that take most of it: how much of a step the card is busy, and
-    with what."""
+    torch.profiler the card's kernel time, launch count, the three kernels
+    that take most of it and the time of each of the port's own kernels:
+    how much of a step the card is busy, and with what."""
     import warnings
     from collections import defaultdict
 
@@ -1439,6 +1592,12 @@ def anatomy(torch, label: str, fn, n: int) -> None:
         by_name[e.name] += e.device_time_total / 1e3 / n
     busy = sum(by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:3]
+    # the port's own kernels (the __global__ functions of csrc/*.cu) by name
+    ours, port = defaultdict(float), port_kernel_names()
+    for name, ms in by_name.items():
+        for k in port:
+            if re.search(rf"\b{k}\b", name):
+                ours[k] += ms
     # the host side under the profiler (which slows it): the operators
     # taking the most CPU time themselves, and the launch calls' share
     host = sorted(((a.key, a.self_cpu_time_total / 1e3 / n)
@@ -1448,8 +1607,22 @@ def anatomy(torch, label: str, fn, n: int) -> None:
         f"({busy / wall:.0%} busy), {len(kernels) / n:.0f} kernel launches "
         f"and {syncs / n:.2f} host syncs per step; top: "
         + "; ".join(f"{k[:48]} {v:.2f} ms" for k, v in top)
+        + "; the port's kernels: "
+        + "; ".join(f"{k} {v:.2f} ms" for k, v in sorted(ours.items()))
         + "; host (profiled) top: "
         + "; ".join(f"{k[:40]} {v:.2f} ms" for k, v in host[:4]))
+
+
+def port_kernel_names() -> set:
+    """The names of the __global__ functions in the port's CUDA sources."""
+    from dynamo_tpu_torch.ops import _cuda
+
+    names = set()
+    for src in _cuda.SOURCES:
+        names |= set(re.findall(
+            r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s*)?(\w+)\s*\(",
+            (_cuda.SRC_DIR / src).read_text()))
+    return names
 
 
 def dequant_cost(torch, params) -> None:
@@ -2108,9 +2281,11 @@ def main() -> int:
     inp = KernelInputs(torch, dev)
     errs = check_kernels(torch, dev, inp)
     check_odd_group(torch, dev)
+    check_decode_rows(torch, inp)
     check_moe_deterministic(torch, dev)
     mi = MlaInputs(torch, dev)
     errs.update(check_mla_kernels(torch, mi))
+    check_mla_minicpm3(torch, dev)
     ta = TokenAppendInputs(torch, dev, inp, mi)
     errs.update(check_spec_kernels(torch, inp, mi, ta))
     for label, cfg, quantization, kv_int8 in tiny_models():
@@ -2120,20 +2295,26 @@ def main() -> int:
     check_engine_spec_on_card(torch, dev)
     qi = QuantInputs(torch, dev)
     errs.update(check_quant_kernels(torch, qi))
+    check_gmm_tiles(torch, dev)
     check_int8_native_mm(torch, dev)
-    log("[3/4] serving over HTTP: llama3-8b-sim, deepseek-v2-lite-sim, "
-        "deepseek-v2-lite-sim (int8 weights), llama3-8b-sim (fp8 weights, "
-        f"int8 KV), llama3-8b-sim and deepseek-v2-lite-sim (spec_gamma={SPEC_GAMMA})")
+    log("[3/4] serving over HTTP: llama3-8b-sim and deepseek-v2-lite-sim, each "
+        "twice on fresh engines, deepseek-v2-lite-sim (int8 weights), "
+        "llama3-8b-sim (fp8 weights, int8 KV), llama3-8b-sim and "
+        f"deepseek-v2-lite-sim (spec_gamma={SPEC_GAMMA})")
     launches, plain = {}, {}
     for name, cfg, geometry, counted in drives():
-        got, answers = asyncio.run(serve(torch, dev, card, name, cfg, geometry,
-                                         counted, plain.get(name)))
-        plain.setdefault(name, answers)  # the first (bf16) drive of each model
-        # a kernel shared by several drives (the append) counts them all
-        for k, n in got.items():
-            launches[k] = launches.get(k, 0) + n
-        gc.collect()
-        torch.cuda.empty_cache()
+        # the first (bf16) drive of each model runs twice, the second time
+        # on a fresh engine (C.4)
+        for repeat in (False, True) if name not in plain else (False,):
+            got, answers = asyncio.run(serve(
+                torch, dev, card, name, cfg, geometry, counted,
+                plain.get(name), repeat=repeat))
+            plain.setdefault(name, answers)
+            # a kernel shared by several drives (the append) counts them all
+            for k, n in got.items():
+                launches[k] = launches.get(k, 0) + n
+            gc.collect()
+            torch.cuda.empty_cache()
     log("[4/4] timing (median per launch, L2 flushed)  [" + card + "]")
     rows = timing(torch, dev, inp, mi, qi, ta, errs, launches)
     torch.cuda.synchronize()

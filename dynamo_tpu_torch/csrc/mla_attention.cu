@@ -7,7 +7,9 @@
 //   * dynamo_tpu/ops/mla_attention_pallas.py::mla_paged_prefill_attention
 //     (_mla_prefill_kernel: a chunk over history + the already-written
 //     chunk, causal at absolute positions).
-// Both compute the same thing. The cache holds ONE latent stream per token
+// Both compute the same thing, at the latent widths the column tiling takes:
+// kv_lora_rank C in {128, 256, 512} and rope width R in {32, 64}, each a
+// template instance. The cache holds ONE latent stream per token
 // (c [N, bs, C] and the rotated pe [N, bs, R]) shared by all H query heads:
 // attention is MQA-shaped. A query row (token, head) scores position s as
 // q_eff . c[s] + q_pe . pe[s] (scaled), and the VALUES are the latents c
@@ -417,21 +419,28 @@ cudaError_t launch_cfg(const Params& p, int n_tiles, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+template <typename T, int R, int RMAX>
+cudaError_t launch_c(const Params& p, int C, int n_tiles, cudaStream_t st) {
+  if (C == 512) return launch_cfg<T, 512, R, RMAX>(p, n_tiles, st);
+  if (C == 256) return launch_cfg<T, 256, R, RMAX>(p, n_tiles, st);
+  if (C == 128) return launch_cfg<T, 128, R, RMAX>(p, n_tiles, st);
+  return cudaErrorInvalidValue;
+}
+
+// the rope widths: 64 (DeepSeek-V2/V3), 32 (MiniCPM3)
 template <typename T, int RMAX>
-cudaError_t launch_c(const Params& p, int C, int R, int n_tiles,
+cudaError_t launch_r(const Params& p, int C, int R, int n_tiles,
                      cudaStream_t st) {
-  if (R != 64) return cudaErrorInvalidValue;
-  if (C == 512) return launch_cfg<T, 512, 64, RMAX>(p, n_tiles, st);
-  if (C == 256) return launch_cfg<T, 256, 64, RMAX>(p, n_tiles, st);
-  if (C == 128) return launch_cfg<T, 128, 64, RMAX>(p, n_tiles, st);
+  if (R == 64) return launch_c<T, 64, RMAX>(p, C, n_tiles, st);
+  if (R == 32) return launch_c<T, 32, RMAX>(p, C, n_tiles, st);
   return cudaErrorInvalidValue;
 }
 
 template <typename T>
 cudaError_t launch_typed(const Params& p, int C, int R, int rmax, int n_tiles,
                          cudaStream_t st) {
-  if (rmax == 16) return launch_c<T, 16>(p, C, R, n_tiles, st);
-  if (rmax == 32) return launch_c<T, 32>(p, C, R, n_tiles, st);
+  if (rmax == 16) return launch_r<T, 16>(p, C, R, n_tiles, st);
+  if (rmax == 32) return launch_r<T, 32>(p, C, R, n_tiles, st);
   return cudaErrorInvalidValue;
 }
 
@@ -441,7 +450,7 @@ cudaError_t launch_typed(const Params& p, int C, int R, int rmax, int n_tiles,
 // (queries and caches share it; the output is that dtype, or float32 with
 // out_f32). Decode: B > 0 sequences, one token each, tables [B, M],
 // seq_lens [B]. Prefill: B == 0, one sequence of T tokens, tables [M],
-// hist [1], valid [1] or null. C in {128, 256, 512}, R == 64, rmax in
+// hist [1], valid [1] or null. C in {128, 256, 512}, R in {32, 64}, rmax in
 // {16, 32} query rows per block. With n_split > 1, ``scratch`` holds
 // n_split * R_total * (C + 2) floats (R_total = query rows). Returns the
 // cudaError_t of the launch (0 = success).

@@ -15,8 +15,8 @@
 // padded rows past p_valids) write o = 0, m = -1e30, l = 0, exactly what the
 // TPU kernel emits and what the flash merge in verify_attention relies on.
 //
-// Two tile bodies, chosen by tile type and dtype (an explicit dispatch, not
-// a fallback):
+// Three tile bodies, chosen by tile type and dtype (an explicit dispatch,
+// not a fallback):
 //
 // 1. Segment tiles of a bf16 launch (the query bf16, the cache bf16 or int8
 //    with per-page scales): the tensor-core body, tc_segment_tile. What
@@ -56,26 +56,56 @@
 //      last tile of every segment, then the one before), so the last wave
 //      is short; they take no horizon split and no combine.
 //
-// 2. Decode tiles, and every tile of an f32 launch (the tiny f32 models,
-//    whose greedy tokens must match the CPU's exactly): the CUDA-core body,
-//    core_tile. What bounds decode on an H100: device-memory bytes; every
-//    cached K/V row is read once per (tile, kv head) and at one query token
-//    per sequence the arithmetic per byte is ~G*2 flops, far below the
-//    ridge. A block owns one (tile, kv head, split) and loops over its share
-//    of the horizon in KT-position steps: the step's K/V rows are loaded
-//    ONCE into shared memory as fp32 with 16-byte vector loads and reused by
-//    every query row of the tile (GQA and the query tile both divide the
-//    traffic); one warp owns up to RPW rows, a row's score is a warp-wide
-//    dot product. Decode has too few tiles for the card, so every tile's
-//    horizon is split into n_split parts (flash-decoding): each split writes
-//    its normalized partial (o, m, l) to f32 scratch and combine_splits_kernel
-//    merges them with the flash rule. In the ragged launch the decode tiles
-//    are dispatched by blockIdx after the segment tiles, in the same launch,
-//    and only they are split. With int8 pages each row is widened and
-//    multiplied by its page's scale as it lands (8 codes per 8-byte load).
+// 2. Decode tiles of a bf16 launch (paged_decode_attention's tiles, the
+//    verify's T*G rows per kv head, and the decode rows of
+//    ragged_mixed_attention): the tensor-core decode body, tc_decode_tile.
+//    What bounds it on an H100: device-memory bytes. Every cached K/V row is
+//    read once per (tile, kv head), and at one query token per sequence the
+//    arithmetic is ~2*G flops per byte, far below the ridge; the kernel has
+//    to keep enough bytes in flight. The design:
+//    * a block owns one row group of 16 query rows of one (tile, kv head)
+//      (G = 4 pads to 16; verify rows of T*G fill them); a tile with more
+//      than 16 rows spans several blocks, one per row group, so any number
+//      of rows per kv head is taken;
+//    * S = Q K^T and O += P V on mma.m16n8k16 with the fragment code of the
+//      segment tiles; P rounds to bf16 in registers, l sums the f32 p; with
+//      int8 pages the K page scale multiplies S columns and the V page scale
+//      folds into p before the rounding. The padded rows cost tensor-core
+//      work this kernel has to spare; what it saves is the CUDA-core body's
+//      per-position warp-wide dot products and shuffles;
+//    * the block's horizon is cut into 8 runs of DKT = 16-position steps,
+//      one per warp. Each warp walks its run alone with its own (m, l, O)
+//      and its own 3-stage ring of K/V rows in shared memory (16-byte
+//      cp.async.cg, zero-filled past the horizon; page ids, and with int8
+//      the page scales, fetched a step ahead; int8 codes widened by the
+//      copying lane into one bf16 tile per warp): no block barrier per
+//      step, and 2 steps (16 KB at D = 128) in flight per warp, ~128 KB
+//      per SM. The warps merge through shared memory with the flash rule;
+//    * the 16 query rows land with cp.async while each warp's first page
+//      loads are in flight, and are held in registers (ldmatrix);
+//    * across blocks the horizon splits only as far as fills the card (the
+//      wrapper's n_split: one block per SM, this body's occupancy), and a
+//      split never takes fewer than DMIN_STEPS steps of a horizon that has
+//      them. The splits merge in the same launch: each writes its
+//      normalized partial (o, m, l) to f32 scratch, and the last block of a
+//      (tile, kv head, row group) to take the ticket (an atomic add after
+//      __threadfence) combines them and zeroes the ticket for the next
+//      launch. No second launch, no host sync.
 //
-// Later work on this body: wgmma with TMA page loads and warp specialisation
-// for the segment tiles.
+// 3. Every tile of an f32 launch (the tiny f32 models, whose greedy tokens
+//    must match the CPU's exactly): the CUDA-core body, core_tile. A block
+//    owns one (tile, kv head, split, chunk of up to 64 rows) and loops over
+//    its share of the horizon in KT-position steps: the step's K/V rows are
+//    loaded ONCE into shared memory as fp32 and reused by every query row of
+//    the chunk; one warp owns up to RPW rows, a row's score is a warp-wide
+//    dot product. Every tile's horizon is split into n_split parts
+//    (flash-decoding) and combine_splits_kernel merges the partials in a
+//    second launch. With int8 pages each row is widened and multiplied by
+//    its page's scale as it lands.
+//
+// Later work: wgmma with TMA page loads and warp specialisation for the
+// segment tiles; TMA bulk page copies for the decode body, which stays well
+// above its bytes bound (PERF.md).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -94,6 +124,10 @@ constexpr int RPW = 8;             // CUDA-core body: query rows per warp
 constexpr int TC_ROWS = NW * 16;   // tensor-core body: query rows per tile
 constexpr int TC_KV = 64;          // tensor-core body: kv positions per step
 constexpr int TC_STAGES = 2;       // tensor-core body: steps in the ring
+constexpr int DROWS = 16;          // decode body: query rows per block
+constexpr int DKT = 16;            // decode body: kv positions per warp step
+constexpr int DST = 3;             // decode body: steps in a warp's ring
+constexpr int DMIN_STEPS = 8;      // decode body: least steps per split
 
 using bf16 = __nv_bfloat16;
 
@@ -121,19 +155,15 @@ struct Params {
   float* part_o;   // [n_split, R_part, D] f32 partials when n_split > 1
   float* part_m;   // [n_split, R_part]
   float* part_l;   // [n_split, R_part]
+  int* tickets;    // decode body: [B, Hkv, row groups] split counters, zero
 };
 
 __device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(bf16 x) { return __bfloat162float(x); }
 __device__ __forceinline__ float to_f(int8_t x) { return (float)x; }
 template <typename T>
 __device__ __forceinline__ T from_f(float x);
 template <>
 __device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ bf16 from_f<bf16>(float x) {
-  return __float2bfloat16(x);
-}
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
@@ -155,12 +185,14 @@ __device__ __forceinline__ void load_lane(const float* p, float (&out)[DPL]) {
 
 // ---------------- the CUDA-core body ----------------
 
-// One (tile s, kv head h, split z) on CUDA cores. T: the q/o type; TC: the
-// cache type (T itself, or int8_t with per-page scales). Tiles s < B are
-// decode rows; the others are Tq-token slices of the segments.
+// One (tile s, kv head h, split z, rows rbase .. rbase + NW * RPW - 1) on
+// CUDA cores. T: the q/o type; TC: the cache type (T itself, or int8_t with
+// per-page scales). Tiles s < B are decode rows (more than NW * RPW of them
+// span several blocks); the others are Tq-token slices of the segments.
 template <typename T, typename TC, int D>
 __device__ __forceinline__ void core_tile(const Params& p, const int s,
-                                          const int h, const int z) {
+                                          const int h, const int z,
+                                          const int rbase) {
   constexpr int DPL = D / 32;
   constexpr bool kScaled = std::is_same<TC, int8_t>::value;
   // elements per load: 16 bytes of bf16/f32, 8 bytes of int8
@@ -208,7 +240,7 @@ __device__ __forceinline__ void core_tile(const Params& p, const int s,
   int qpos[RPW];
 #pragma unroll
   for (int i = 0; i < RPW; ++i) {
-    const int r = warp + i * NW;
+    const int r = rbase + warp + i * NW;
     mr[i] = kNegInf;
     lr[i] = 0.f;
     qpos[i] = -1;  // never attends: padded / unreal rows
@@ -325,7 +357,7 @@ __device__ __forceinline__ void core_tile(const Params& p, const int s,
   T* o = static_cast<T*>(p.o);
 #pragma unroll
   for (int i = 0; i < RPW; ++i) {
-    const int r = warp + i * NW;
+    const int r = rbase + warp + i * NW;
     if (r >= rows) continue;
     const int t = r / p.Gq, g = r % p.Gq;
     const size_t row = ((size_t)(tok0 + t) * p.Hkv + h) * p.Gq + g;
@@ -351,11 +383,18 @@ __device__ __forceinline__ void core_tile(const Params& p, const int s,
   }
 }
 
-// Every tile on CUDA cores: grid (tiles, Hkv, n_split), every tile split.
+// Every tile on CUDA cores: grid (B x rchunks decode pieces + segment
+// tiles, Hkv, n_split), every tile split.
 template <typename T, typename TC, int D>
 __global__ void __launch_bounds__(NW * 32)
 paged_attention_kernel(const Params p) {
-  core_tile<T, TC, D>(p, blockIdx.x, blockIdx.y, blockIdx.z);
+  const int rchunks = (p.Gq + NW * RPW - 1) / (NW * RPW);
+  const int bx = blockIdx.x;
+  if (bx < p.B * rchunks)
+    core_tile<T, TC, D>(p, bx / rchunks, blockIdx.y, blockIdx.z,
+                        (bx % rchunks) * NW * RPW);
+  else
+    core_tile<T, TC, D>(p, bx - p.B * rchunks + p.B, blockIdx.y, blockIdx.z, 0);
 }
 
 // ---------------- the tensor-core body ----------------
@@ -759,9 +798,405 @@ __device__ __forceinline__ void tc_segment_tile(const Params& p, const int blk,
   }
 }
 
-// A bf16 launch with segments: the segment tiles on the tensor cores
-// (blocks 0 .. n_seg_blocks-1, longest horizon first), then the decode
-// tiles on CUDA cores (B x n_split x Hkv blocks, each horizon split).
+// ---------------- the tensor-core decode body ----------------
+
+// one warp's shared memory in the decode body: its K/V ring (bf16), or with
+// int8 pages its ring of codes, one widened bf16 K|V tile and the ring's
+// page scales
+template <typename TC, int D>
+__host__ __device__ constexpr int dec_warp_bytes() {
+  return std::is_same<TC, int8_t>::value
+             ? DST * 2 * DKT * D + 2 * DKT * D * 2 + DST * 2 * DKT * 4
+             : DST * 2 * DKT * D * 2;
+}
+// dynamic shared memory of a decode block: the 16 query rows (bf16), then
+// the warps' rings; the warps' merge (16 x D f32 partial O and 16 (m, l)
+// each) reuses the rings
+template <typename TC, int D>
+__host__ __device__ constexpr int dec_smem_bytes() {
+  return DROWS * D * 2 + NW * dec_warp_bytes<TC, D>();
+}
+
+// One decode block: row group rg (16 query rows) of decode tile s, kv head
+// h, horizon split z. blk: this block's index among the decode blocks.
+template <typename TC, int D>
+__device__ __forceinline__ void tc_decode_tile(const Params& p, const int blk,
+                                               unsigned char* smem) {
+  constexpr bool kScaled = std::is_same<TC, int8_t>::value;
+  constexpr int NT = NW * 32;
+  constexpr int CPR = D / 8;            // bf16 chunks per tile row
+  constexpr int EB = kScaled ? 1 : 2;   // cache bytes per element
+  constexpr int LCPR = D * EB / 16;     // 16-byte copies per cache row
+  constexpr int RSTEP = 32 / LCPR;      // rows between a lane's copies
+  constexpr int U = DKT / RSTEP;        // copies per lane per K (or V) tile
+  constexpr int TILE = DKT * D;         // elements of one K or V tile
+  constexpr int CPT = D * DROWS / NT;   // output columns per thread
+  static_assert(32 % LCPR == 0 && DKT % RSTEP == 0, "copy split");
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int G = p.Gq;
+  const int rgs = (G + DROWS - 1) / DROWS;
+  const int z = blk % p.n_split;
+  int rest = blk / p.n_split;
+  const int h = rest % p.Hkv;
+  rest /= p.Hkv;
+  const int rg = rest % rgs;
+  const int s = rest / rgs;
+  const int r0 = rg * DROWS;
+  const int nrows = min(DROWS, G - r0);
+  const int last = min(p.d_seq_lens[s], p.M * p.bs) - 1;  // -1: inactive
+  const int* table = p.d_tables + (size_t)s * p.M;
+  const TC* kc = static_cast<const TC*>(p.kc);
+  const TC* vc = static_cast<const TC*>(p.vc);
+
+  // ---- this block's split of the horizon, then this warp's run ----
+  const int steps = (last + DKT) / DKT;
+  const int per = max((steps + p.n_split - 1) / p.n_split, DMIN_STEPS);
+  const int b0 = min(steps, z * per), b1 = min(steps, b0 + per);
+  const int wper = (b1 - b0 + NW - 1) / NW;
+  const int w0s = min(b1, b0 + warp * wper);
+  const int n = min(b1, w0s + wper) - w0s;  // this warp's steps
+
+  // ---- Q: the 16 rows (zeros past the tile's rows), copies in flight ----
+  bf16* qs = reinterpret_cast<bf16*>(smem);
+  {
+    const bf16* q = static_cast<const bf16*>(p.q);
+    const size_t qrow0 = ((size_t)s * p.Hkv + h) * G + r0;
+    for (int e = tid; e < DROWS * CPR; e += NT) {
+      const int r = e / CPR, c = e % CPR;
+      const bool ok = r < nrows;
+      cp_async16(smem_u32(qs + swz<D>(r, c)), ok ? q + (qrow0 + r) * D + c * 8 : q,
+                 ok ? 16 : 0);
+    }
+    cp_async_commit();
+  }
+
+  // ---- this warp's ring ----
+  unsigned char* wb = smem + DROWS * D * 2 + warp * dec_warp_bytes<TC, D>();
+  static_assert(DROWS * (D + 2) * 4 <= dec_warp_bytes<TC, D>(),
+                "the warps' merge fits in their rings");
+  bf16* ring = reinterpret_cast<bf16*>(wb);   // bf16: [DST][K|V][DKT][D]
+  int8_t* codes = reinterpret_cast<int8_t*>(wb);  // int8: [DST][K|V][DKT][D]
+  bf16* wide = reinterpret_cast<bf16*>(wb + DST * 2 * TILE);  // int8: [K|V][DKT][D]
+  float* pscl = reinterpret_cast<float*>(  // int8: [DST][K|V][DKT]
+      wb + DST * 2 * TILE + 2 * TILE * 2);
+
+  const int row0 = lane / LCPR, cc = lane % LCPR;
+  const TC* kch = kc + (size_t)h * p.N * p.bs * D + cc * (16 / EB);
+  const TC* vch = vc + (size_t)h * p.N * p.bs * D + cc * (16 / EB);
+  const bool page_steps = p.bs % DKT == 0;  // a step lies in one page
+  int pg[U], poff[U];
+  float psk[U], psv[U];
+  auto fetch = [&](int step) {
+    const int p0 = step * DKT;
+    const int pi = page_steps ? p0 / p.bs : 0;
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int pos = p0 + row0 + u * RSTEP;
+      int idx, off;
+      if (page_steps) {
+        idx = pi;
+        off = p0 - pi * p.bs + row0 + u * RSTEP;
+      } else {
+        idx = pos / p.bs;
+        off = pos - idx * p.bs;
+      }
+      pg[u] = pos <= last ? table[idx] : -1;
+      poff[u] = off;
+      if constexpr (kScaled) {
+        if (cc == 0) {
+          psk[u] = pg[u] >= 0 ? p.k_scales[pg[u]] : 0.f;
+          psv[u] = pg[u] >= 0 ? p.v_scales[pg[u]] : 0.f;
+        }
+      }
+    }
+  };
+  auto copy_step = [&](int i) {  // the warp's i-th step, into stage i % DST
+    const int st = i % DST;
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int row = row0 + u * RSTEP;
+      const bool ok = pg[u] >= 0;
+      const size_t off = ok ? ((size_t)pg[u] * p.bs + poff[u]) * D : 0;
+      if constexpr (kScaled) {
+        int8_t* ct = codes + st * 2 * TILE + row * D + cc * 16;
+        cp_async16(smem_u32(ct), kch + off, ok ? 16 : 0);
+        cp_async16(smem_u32(ct + TILE), vch + off, ok ? 16 : 0);
+        if (cc == 0) {
+          pscl[(st * 2) * DKT + row] = psk[u];
+          pscl[(st * 2 + 1) * DKT + row] = psv[u];
+        }
+      } else {
+        bf16* kt = ring + st * 2 * TILE;
+        cp_async16(smem_u32(kt + swz<D>(row, cc)), kch + off, ok ? 16 : 0);
+        cp_async16(smem_u32(kt + TILE + swz<D>(row, cc)), vch + off,
+                   ok ? 16 : 0);
+      }
+    }
+  };
+  // int8: the copying lane widens its own chunks into the warp's bf16 tile
+  auto widen = [&](int i) {
+    const int st = i % DST;
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int row = row0 + u * RSTEP;
+#pragma unroll
+      for (int kv = 0; kv < 2; ++kv) {
+        const uint4 raw = *reinterpret_cast<const uint4*>(
+            codes + (st * 2 + kv) * TILE + row * D + cc * 16);
+        const uint2 w0 = widen4(raw.x), w1 = widen4(raw.y);
+        const uint2 w2 = widen4(raw.z), w3 = widen4(raw.w);
+        bf16* dst = wide + kv * TILE;
+        *reinterpret_cast<uint4*>(dst + swz<D>(row, 2 * cc)) =
+            make_uint4(w0.x, w0.y, w1.x, w1.y);
+        *reinterpret_cast<uint4*>(dst + swz<D>(row, 2 * cc + 1)) =
+            make_uint4(w2.x, w2.y, w3.x, w3.y);
+      }
+    }
+  };
+
+  float acc[D / 8][4];
+#pragma unroll
+  for (int i = 0; i < D / 8; ++i)
+    acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
+  float mrow[2] = {kNegInf, kNegInf}, lrow[2] = {0.f, 0.f};
+  const float qk_scale = p.scale * kLog2e;
+  const float masked_out = __int_as_float(0xff800000);  // -inf
+
+  // the warp's first DST - 1 steps in flight (one commit group each, after
+  // Q's), then Q into registers while they land
+  if (n > 0) {
+    fetch(w0s);
+#pragma unroll
+    for (int i = 0; i < DST - 1; ++i) {
+      if (i < n) copy_step(i);
+      cp_async_commit();
+      if (i + 1 < n) fetch(w0s + i + 1);
+    }
+    cp_async_wait<DST - 1>();
+  } else {
+    cp_async_wait<0>();
+  }
+  __syncthreads();  // every thread's Q copies landed
+  uint32_t qf[D / 16][4];
+  {
+    const int r = (lane & 7) + (((lane >> 3) & 1) << 3);
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      ldsm_x4(smem_u32(qs + swz<D>(r, kk * 2 + (lane >> 4))), qf[kk]);
+  }
+  for (int i = 0; i < n; ++i) {
+    cp_async_wait<DST - 2>();  // this lane's copies of step i landed
+    // every lane's copies of step i are visible, and every lane is done
+    // with step i - 1 (whose stage, or bf16 tile, is overwritten next)
+    __syncwarp();
+    if constexpr (kScaled) {
+      widen(i);
+      __syncwarp();
+    }
+    if (i + DST - 1 < n) copy_step(i + DST - 1);
+    cp_async_commit();
+    if (i + DST < n) fetch(w0s + i + DST);
+
+    const int c = (w0s + i) * DKT;
+    const bf16* kt = kScaled ? wide : ring + (i % DST) * 2 * TILE;
+    const bf16* vt = kt + TILE;
+    const float* ksc = pscl + (i % DST) * 2 * DKT;
+    const float* vsc = ksc + DKT;
+
+    // ---- S = Q K^T: 16 rows x 16 positions ----
+    float sacc[2][4];
+#pragma unroll
+    for (int nn = 0; nn < 2; ++nn)
+      sacc[nn][0] = sacc[nn][1] = sacc[nn][2] = sacc[nn][3] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      uint32_t b[4];
+      const int r = (lane & 7) + ((lane >> 4) << 3);
+      ldsm_x4(smem_u32(kt + swz<D>(r, kk * 2 + ((lane >> 3) & 1))), b);
+      mma_bf16(sacc[0], qf[kk], b[0], b[1]);
+      mma_bf16(sacc[1], qf[kk], b[2], b[3]);
+    }
+
+    // ---- scale (log2 domain), mask the positions past the horizon ----
+    const bool masked = c + DKT - 1 > last;
+    float mx[2] = {mrow[0], mrow[1]};
+#pragma unroll
+    for (int nn = 0; nn < 2; ++nn) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int col = nn * 8 + 2 * (lane & 3) + e;
+        float f = qk_scale;
+        if constexpr (kScaled) f *= ksc[col];
+        const bool cut = masked && c + col > last;
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const float v = cut ? masked_out : sacc[nn][2 * r + e] * f;
+          sacc[nn][2 * r + e] = v;
+          mx[r] = fmaxf(mx[r], v);
+        }
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      const float alpha = exp2f(mrow[r] - mx[r]);
+      mrow[r] = mx[r];
+      lrow[r] *= alpha;
+#pragma unroll
+      for (int d = 0; d < D / 8; ++d) {
+        acc[d][2 * r] *= alpha;
+        acc[d][2 * r + 1] *= alpha;
+      }
+    }
+#pragma unroll
+    for (int nn = 0; nn < 2; ++nn) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float pe = exp2f(sacc[nn][e] - mrow[e >> 1]);
+        lrow[e >> 1] += pe;  // l sums the f32 p, before any rounding
+        sacc[nn][e] = pe;
+      }
+    }
+
+    // ---- O += P V: P rounded to bf16 in registers (the A fragment) ----
+    float v0 = 1.f, v1 = 1.f, v2 = 1.f, v3 = 1.f;
+    if constexpr (kScaled) {  // V page scales fold into p, in f32
+      const int col = 2 * (lane & 3);
+      v0 = vsc[col];
+      v1 = vsc[col + 1];
+      v2 = vsc[col + 8];
+      v3 = vsc[col + 9];
+    }
+    const uint32_t a[4] = {
+        pack_bf16(sacc[0][0] * v0, sacc[0][1] * v1),
+        pack_bf16(sacc[0][2] * v0, sacc[0][3] * v1),
+        pack_bf16(sacc[1][0] * v2, sacc[1][1] * v3),
+        pack_bf16(sacc[1][2] * v2, sacc[1][3] * v3)};
+#pragma unroll
+    for (int dd = 0; dd < D / 16; ++dd) {
+      uint32_t b[4];
+      const int r = (lane & 7) + (((lane >> 3) & 1) << 3);
+      ldsm_x4_t(smem_u32(vt + swz<D>(r, dd * 2 + (lane >> 4))), b);
+      mma_bf16(acc[2 * dd], a, b[0], b[1]);
+      mma_bf16(acc[2 * dd + 1], a, b[2], b[3]);
+    }
+  }
+  cp_async_wait<0>();
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    lrow[r] += __shfl_xor_sync(0xffffffffu, lrow[r], 1);
+    lrow[r] += __shfl_xor_sync(0xffffffffu, lrow[r], 2);
+  }
+
+  // ---- the warps merge through shared memory (flash rule, log2) ----
+  __syncthreads();  // every warp is done with its ring
+  float* mo = reinterpret_cast<float*>(smem + DROWS * D * 2);  // [NW][16][D]
+  float* mm = mo + NW * DROWS * D;                              // [NW][16]
+  float* ml = mm + NW * DROWS;                                  // [NW][16]
+  {
+    const int g = lane >> 2, q2 = 2 * (lane & 3);
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float* orow = mo + (warp * DROWS + g + 8 * r) * D + q2;
+#pragma unroll
+      for (int d = 0; d < D / 8; ++d)
+        *reinterpret_cast<float2*>(orow + d * 8) =
+            make_float2(acc[d][2 * r], acc[d][2 * r + 1]);
+      if ((lane & 3) == 0) {
+        mm[warp * DROWS + g + 8 * r] = mrow[r];
+        ml[warp * DROWS + g + 8 * r] = lrow[r];
+      }
+    }
+  }
+  __syncthreads();
+  const int row = tid / (NT / DROWS);          // NT / 16 threads per row
+  const int col0 = (tid % (NT / DROWS)) * CPT;  // CPT columns each
+  float M = kNegInf;
+#pragma unroll
+  for (int w = 0; w < NW; ++w) M = fmaxf(M, mm[w * DROWS + row]);
+  float L = 0.f, o[CPT];
+#pragma unroll
+  for (int j = 0; j < CPT; ++j) o[j] = 0.f;
+#pragma unroll
+  for (int w = 0; w < NW; ++w) {
+    const float wt = exp2f(mm[w * DROWS + row] - M);
+    L += ml[w * DROWS + row] * wt;
+    const float* src = mo + (w * DROWS + row) * D + col0;
+#pragma unroll
+    for (int j = 0; j < CPT; ++j) o[j] = fmaf(wt, src[j], o[j]);
+  }
+  const bool live = L > 0.f;  // something of this split is attended
+  const float inv = live ? 1.f / L : 0.f;
+  const float m_nat = live ? M * kLn2 : kNegInf;
+  const size_t grow = ((size_t)s * p.Hkv + h) * G + r0 + row;
+  const bool mine = row < nrows;
+  bf16* out = static_cast<bf16*>(p.o);
+
+  if (p.n_split == 1) {
+    if (mine) {
+#pragma unroll
+      for (int j = 0; j < CPT; ++j)
+        out[grow * D + col0 + j] = __float2bfloat16(o[j] * inv);
+      if (p.m_out != nullptr && col0 == 0) {
+        p.m_out[grow] = m_nat;
+        p.l_out[grow] = live ? L : 0.f;
+      }
+    }
+    return;
+  }
+  // ---- a split's partial, then the last split of the row group combines
+  if (mine) {
+    const size_t prow = (size_t)z * p.R_part + grow;
+#pragma unroll
+    for (int j = 0; j < CPT; ++j) p.part_o[prow * D + col0 + j] = o[j] * inv;
+    if (col0 == 0) {
+      p.part_m[prow] = m_nat;
+      p.part_l[prow] = live ? L : 0.f;
+    }
+  }
+  __threadfence();  // the partial is visible device-wide before the ticket
+  __syncthreads();
+  __shared__ int s_last;
+  int* ticket = p.tickets + ((size_t)s * p.Hkv + h) * rgs + rg;
+  if (tid == 0) s_last = atomicAdd(ticket, 1) == p.n_split - 1;
+  __syncthreads();
+  if (!s_last) return;
+  __threadfence();
+  if (mine) {
+    const size_t R = p.R_part;
+    float Mz = kNegInf;
+    for (int zz = 0; zz < p.n_split; ++zz)
+      Mz = fmaxf(Mz, __ldcg(p.part_m + zz * R + grow));
+    float Lz = 0.f;
+#pragma unroll
+    for (int j = 0; j < CPT; ++j) o[j] = 0.f;
+    for (int zz = 0; zz < p.n_split; ++zz) {
+      const size_t prow = zz * R + grow;
+      const float wt = __ldcg(p.part_l + prow) * __expf(__ldcg(p.part_m + prow) - Mz);
+      Lz += wt;
+#pragma unroll
+      for (int j = 0; j < CPT; ++j)
+        o[j] = fmaf(wt, __ldcg(p.part_o + prow * D + col0 + j), o[j]);
+    }
+    const float iz = 1.f / fmaxf(Lz, 1e-20f);
+#pragma unroll
+    for (int j = 0; j < CPT; ++j)
+      out[grow * D + col0 + j] = __float2bfloat16(o[j] * iz);
+    if (p.m_out != nullptr && col0 == 0) {
+      p.m_out[grow] = Mz;
+      p.l_out[grow] = Lz;
+    }
+  }
+  if (tid == 0) *ticket = 0;  // ready for the next launch
+}
+
+// A bf16 launch: the segment tiles on the tensor cores (blocks 0 ..
+// n_seg_blocks-1, longest horizon first), then the decode tiles on the
+// tensor-core decode body (B x row groups x Hkv x n_split blocks, the
+// splits of one row group adjacent, merged in the launch).
 template <typename TC, int D>
 __global__ void __launch_bounds__(NW * 32, 1)
 tc_attention_kernel(const Params p) {
@@ -771,9 +1206,7 @@ tc_attention_kernel(const Params p) {
     tc_segment_tile<TC, D>(p, blk, smem);
     return;
   }
-  const int d = blk - p.n_seg_blocks;
-  const int rest = d / p.Hkv;
-  core_tile<bf16, TC, D>(p, rest / p.n_split, d % p.Hkv, rest % p.n_split);
+  tc_decode_tile<TC, D>(p, blk - p.n_seg_blocks, smem);
 }
 
 // Merge the n_split partials of every row (one warp per row):
@@ -827,29 +1260,35 @@ cudaError_t launch_core(const Params& p, int n_tiles, cudaStream_t stream) {
 
 template <typename TC, int D>
 cudaError_t launch_tc(const Params& p, cudaStream_t stream) {
-  constexpr int smem = tc_smem_bytes<TC, D>();
-  cudaError_t err = cudaFuncSetAttribute(
-      tc_attention_kernel<TC, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
-  if (err != cudaSuccess) return err;
-  const int blocks = p.n_seg_blocks + p.B * p.n_split * p.Hkv;
-  tc_attention_kernel<TC, D><<<blocks, NW * 32, smem, stream>>>(p);
-  launch_combine<bf16, D>(p, stream);
+  constexpr int seg = tc_smem_bytes<TC, D>();
+  constexpr int dec = dec_smem_bytes<TC, D>();
+  static bool attr_set = false;  // above 48 KB needs the opt-in, once
+  if (!attr_set) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        tc_attention_kernel<TC, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        seg > dec ? seg : dec);
+    if (err != cudaSuccess) return err;
+    attr_set = true;
+  }
+  const int rgs = (p.Gq + DROWS - 1) / DROWS;
+  const int dec_blocks = p.B * rgs * p.Hkv * p.n_split;
+  const int smem = p.B == 0 ? seg : (p.n_seg_blocks == 0 ? dec : (seg > dec ? seg : dec));
+  tc_attention_kernel<TC, D><<<p.n_seg_blocks + dec_blocks, NW * 32, smem,
+                               stream>>>(p);
   return cudaGetLastError();
 }
 
+// bf16 launches on the tensor-core bodies, f32 launches on the CUDA-core one
 template <typename T, typename TC>
-cudaError_t launch_typed(const Params& p, int D, int n_tiles, bool tc,
+cudaError_t launch_typed(const Params& p, int D, int n_tiles,
                          cudaStream_t stream) {
   if constexpr (std::is_same<T, bf16>::value) {
-    if (tc) {
-      if (D == 128) return launch_tc<TC, 128>(p, stream);
-      if (D == 64) return launch_tc<TC, 64>(p, stream);
-      return cudaErrorInvalidValue;
-    }
+    if (D == 128) return launch_tc<TC, 128>(p, stream);
+    if (D == 64) return launch_tc<TC, 64>(p, stream);
+  } else {
+    if (D == 128) return launch_core<T, TC, 128>(p, n_tiles, stream);
+    if (D == 64) return launch_core<T, TC, 64>(p, n_tiles, stream);
   }
-  if (D == 128) return launch_core<T, TC, 128>(p, n_tiles, stream);
-  if (D == 64) return launch_core<T, TC, 64>(p, n_tiles, stream);
   return cudaErrorInvalidValue;
 }
 
@@ -860,20 +1299,24 @@ cudaError_t launch_typed(const Params& p, int D, int n_tiles, bool tc,
 // 2 = int8 with per-page f32 scales k_scales / v_scales ([N] each).
 // Returns the cudaError_t of the launch (0 = success).
 //
-// A bf16 launch with segments (MP > 0) takes the tensor-core segment tiles:
-// Tq * Gq <= TC_ROWS (128) rows per segment tile, and n_split splits only
-// the B decode tiles (each Gq <= NW * RPW = 64 rows). Every other launch
-// (f32, or decode only) runs every tile on CUDA cores with Tq * Gq <= 64
-// rows per tile, and n_split splits every tile. The Python wrapper checks
-// both. With n_split > 1, ``scratch`` holds n_split * R * (D + 2) floats,
-// R = the split tiles' query rows (tokens * Hkv * Gq) for the partials.
+// A bf16 launch (q bf16 over bf16 or int8 pages) runs its segment tiles on
+// the tensor-core segment body, Tq * Gq <= TC_ROWS (128) rows per tile, and
+// its decode tiles on the tensor-core decode body, any Gq (16 rows per
+// block), n_split splitting only the decode tiles and merged in the launch
+// through ``tickets`` (B * Hkv * ceil(Gq / 16) ints, zero before the launch
+// and zero after it). An f32 launch runs every tile on the CUDA-core body,
+// Tq * Gq <= 64 rows per segment tile and decode tiles in chunks of 64 rows,
+// n_split splitting every tile, merged by a second kernel. The Python
+// wrapper checks both. With n_split > 1, ``scratch`` holds
+// n_split * R * (D + 2) floats, R = the split tiles' query rows
+// (tokens * Hkv * Gq) for the partials.
 extern "C" int paged_attention_launch(
     const void* q, void* o, float* m_out, float* l_out, const void* kc,
     const void* vc, const int* d_tables, const int* d_seq_lens, int B,
     const int* p_tables, const int* p_hists, const int* p_valids, int MP,
     int T, int Tq, int Hkv, int Gq, int N, int bs, int M, int D, float scale,
     int n_split, float* scratch, int dtype, const float* k_scales,
-    const float* v_scales, int kv_dtype, void* stream) {
+    const float* v_scales, int kv_dtype, int* tickets, void* stream) {
   if (Tq < 1) Tq = 1;
   Params p;
   p.q = q;
@@ -900,12 +1343,13 @@ extern "C" int paged_attention_launch(
   p.bs = bs;
   p.M = M;
   p.scale = scale;
-  const int n_tiles = B + MP * p.nT;
-  if (n_tiles == 0) return 0;
-  const bool tc = dtype == 1 && MP > 0;
-  if (tc && Tq * Gq > TC_ROWS) return (int)cudaErrorInvalidValue;
-  if (!tc && Tq * Gq > NW * RPW) return (int)cudaErrorInvalidValue;
-  if (Gq > NW * RPW) return (int)cudaErrorInvalidValue;
+  p.tickets = tickets;
+  const bool tc = dtype == 1;
+  const int rchunks = (Gq + NW * RPW - 1) / (NW * RPW);
+  const int n_tiles = B * rchunks + MP * p.nT;  // the CUDA-core grid's x
+  if (B + MP * p.nT == 0) return 0;
+  if (MP > 0 && Tq * Gq > (tc ? TC_ROWS : NW * RPW))
+    return (int)cudaErrorInvalidValue;
   p.n_seg_blocks = tc ? MP * p.nT * Hkv : 0;
   p.R_part = (size_t)(tc ? B : B + MP * T) * Hkv * Gq;
   p.n_split = n_split > 1 ? n_split : 1;
@@ -913,18 +1357,20 @@ extern "C" int paged_attention_launch(
   p.part_m = scratch + (size_t)p.n_split * p.R_part * D;
   p.part_l = p.part_m + (size_t)p.n_split * p.R_part;
   if (p.n_split > 1 && scratch == nullptr) return (int)cudaErrorInvalidValue;
+  if (tc && B > 0 && p.n_split > 1 && tickets == nullptr)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (kv_dtype == 2) {
     if (k_scales == nullptr || v_scales == nullptr)
       return (int)cudaErrorInvalidValue;
     if (dtype == 0)
-      return (int)launch_typed<float, int8_t>(p, D, n_tiles, tc, st);
+      return (int)launch_typed<float, int8_t>(p, D, n_tiles, st);
     if (dtype == 1)
-      return (int)launch_typed<bf16, int8_t>(p, D, n_tiles, tc, st);
+      return (int)launch_typed<bf16, int8_t>(p, D, n_tiles, st);
     return (int)cudaErrorInvalidValue;
   }
   if (kv_dtype != dtype) return (int)cudaErrorInvalidValue;
-  if (dtype == 0) return (int)launch_typed<float, float>(p, D, n_tiles, tc, st);
-  if (dtype == 1) return (int)launch_typed<bf16, bf16>(p, D, n_tiles, tc, st);
+  if (dtype == 0) return (int)launch_typed<float, float>(p, D, n_tiles, st);
+  if (dtype == 1) return (int)launch_typed<bf16, bf16>(p, D, n_tiles, st);
   return (int)cudaErrorInvalidValue;
 }

@@ -45,7 +45,10 @@ reference's buckets so both engines run the same shapes.
 from __future__ import annotations
 
 import asyncio
+import hashlib
 import logging
+import os
+import socket
 import threading
 import time
 from collections import deque
@@ -60,11 +63,12 @@ from ..models import llama
 from ..models.config import ModelConfig
 from ..models.mla import MLA_INT8_NATIVE
 from ..models.quant import KV_SCALE_EPS, kv_cache_dtype, quantize_params
-from ..ops import mla_attention, paged_attention
+from ..ops import mla_attention
 from ..ops.sampling import make_keys, sample_first_token, token_logprobs
 from ..protocols.common import FinishReason, LLMEngineOutput, PreprocessedRequest
 from ..runtime.engine import AsyncEngine, Context
 from .allocator import Block, BlockAllocator, sequence_block_hashes
+from .hist import MS_BUCKETS, Histogram
 
 logger = logging.getLogger(__name__)
 
@@ -181,6 +185,7 @@ class _PrefillState:
 
     seq: _Sequence
     pos: int  # next prompt index to prefill
+    ms: float = 0.0  # wall time of the dispatches that carried its chunks
 
 
 class TorchEngine(AsyncEngine):
@@ -199,7 +204,7 @@ class TorchEngine(AsyncEngine):
         llama.check_supported(mcfg)
         if self.device.type == "cuda" and mcfg.is_mla and not (
             mcfg.kv_lora_rank in mla_attention.KERNEL_C
-            and mcfg.qk_rope_head_dim == mla_attention.KERNEL_R
+            and mcfg.qk_rope_head_dim in mla_attention.KERNEL_R
         ):
             # the JAX engine's MLA kernel gate (kv_lora_rank % 128 == 0),
             # narrowed to the widths the CUDA kernel is built for; where the
@@ -208,7 +213,7 @@ class TorchEngine(AsyncEngine):
             raise ValueError(
                 f"MLA latent widths C={mcfg.kv_lora_rank}, "
                 f"R={mcfg.qk_rope_head_dim}: the CUDA latent kernel takes C in "
-                f"{mla_attention.KERNEL_C} and R={mla_attention.KERNEL_R}"
+                f"{mla_attention.KERNEL_C} and R in {mla_attention.KERNEL_R}"
             )
         if mcfg.is_mla and cfg.quantization == "int8_native":
             raise ValueError(MLA_INT8_NATIVE)
@@ -227,20 +232,6 @@ class TorchEngine(AsyncEngine):
                 "is disabled — the fused verify forward has no scale-plane "
                 "stream; decode runs plain windows"
             )
-        elif (self.device.type == "cuda" and cfg.spec_gamma > 0
-              and not mcfg.is_mla):
-            G = mcfg.num_heads // mcfg.num_kv_heads
-            rows = (cfg.spec_gamma + 1) * G
-            if rows > paged_attention.MAX_TILE_ROWS:
-                # the verify packs T*G query rows per kv head into one tile
-                # of the decode kernel: refused here, not at the first verify
-                raise ValueError(
-                    f"spec_gamma={cfg.spec_gamma}: the verify packs "
-                    f"(spec_gamma + 1) x {G} = {rows} query rows per kv head, "
-                    f"more than the paged attention kernel's "
-                    f"{paged_attention.MAX_TILE_ROWS} rows per tile "
-                    "(MAX_TILE_ROWS)"
-                )
         if params is None:
             gen = torch.Generator(device=self.device).manual_seed(seed)
             params = llama.init_params(mcfg, gen, self.device)
@@ -334,6 +325,19 @@ class TorchEngine(AsyncEngine):
             "kv_device_bytes_saved_total": 0,
             "lowprec_tok_s": 0.0,
         }
+        # the worker's latency distributions in the reference's wire form
+        # (load_metrics' hist_* keys): admission wait and prefill wall per
+        # prompt, TTFT per served model ("" = the base model); this worker
+        # has no host tiers and no disaggregated handoff, so restore_ms and
+        # handoff_ms stay empty
+        self.hist = {k: Histogram(MS_BUCKETS) for k in (
+            "queue_wait_ms", "prefill_ms", "restore_ms", "handoff_ms")}
+        self.hist_ttft: dict[str, Histogram] = {}
+        # measured prefill throughput (the reference's transfer-cost model
+        # folds the same observations): chunks observed and an EWMA of
+        # their tokens per second
+        self._prefill_obs = 0
+        self._prefill_tok_s = 0.0
 
     # ---------------- public api ----------------
 
@@ -389,12 +393,40 @@ class TorchEngine(AsyncEngine):
                 return
 
     def load_metrics(self) -> dict:
-        """Worker stats under the JAX engine's keys (the ones
-        ``WorkerLoad.from_stats`` scrapes). The int8 cache's device
-        requant counter converts to a host number here, and only here."""
+        """Worker stats under exactly the JAX engine's keys (the ones
+        ``WorkerLoad.from_stats`` scrapes, and the rest of the reference's
+        scrape schema). Features this worker does not have report their
+        idle values: no XLA compile ledger, autopilot, drain, reshard, host
+        tiers, tier codec, weight prestaging or adapters; one device, one
+        served name. The int8 cache's device requant counter converts to a
+        host number here, and only here."""
         self._fold_quant_counters()
         hbm = self._hbm_stats()
         return {
+            "hist_queue_wait_ms": self.hist["queue_wait_ms"].to_vec(),
+            "hist_prefill_ms": self.hist["prefill_ms"].to_vec(),
+            "hist_restore_ms": self.hist["restore_ms"].to_vec(),
+            "hist_handoff_ms": self.hist["handoff_ms"].to_vec(),
+            "hist_ttft_ms": {m: h.to_vec() for m, h in self.hist_ttft.items()},
+            "xla_compiles_total": 0,
+            "xla_compile_ms_total": 0.0,
+            "xla_warm_buckets": 0,
+            "xla_reachable_buckets": 0,
+            "autopilot_warmups_applied": 0,
+            "autopilot_warmup_ms_total": 0.0,
+            "autopilot_quarantined": 0,
+            "autopilot_quarantines_total": 0,
+            "hbm_bytes_in_use": hbm["in_use"],
+            "hbm_bytes_limit": hbm["limit"],
+            "hbm_kv_pool_bytes": hbm["kv_pool"],
+            "hbm_weights_bytes": hbm["weights"],
+            # the reference's runtime-sanitizer counters: no sanitizer here
+            "san_loop_stalls": 0,
+            "san_loop_stall_max_ms": 0.0,
+            "san_lock_holds": 0,
+            "san_lock_hold_max_ms": 0.0,
+            "san_writers_leaked": 0,
+            "san_executor_pending_max": 0,
             "mixed_steps": self.stats["mixed_steps"],
             "mixed_prefill_segments": self.stats["mixed_prefill_segments"],
             "kv_active_blocks": self.allocator.used_count,
@@ -406,20 +438,49 @@ class TorchEngine(AsyncEngine):
             "requests_total": self.stats["requests_total"],
             "tokens_generated": self.stats["tokens_generated"],
             "prompt_tokens_total": self.stats["prompt_tokens_total"],
+            "draining": 0,
+            "drains_total": 0,
+            "drain_handoffs": 0,
+            "migration_resumes": 0,
             "kv_block_bytes": self.kv_block_bytes,
+            # no tier codec: tier and wire blocks move at full width
+            "kv_wire_block_bytes": self.kv_block_bytes,
+            "kv_quant_logprob_drift_max": 0.0,
             "kv_block_size": self.cfg.block_size,
-            "hbm_bytes_in_use": hbm["in_use"],
-            "hbm_bytes_limit": hbm["limit"],
-            "hbm_kv_pool_bytes": hbm["kv_pool"],
-            "hbm_weights_bytes": hbm["weights"],
+            "kv_slice_fp": self._slice_fp(),
+            "mesh_tp": 1,
+            "resharding": 0,
+            "resharded_total": 0,
+            "reshard_hold_ms": 0.0,
+            "reshard_kv_moved_blocks": 0,
+            "peer_serve_d2h_blocks_total": 0,
+            "weight_prestage_requests": 0,
+            "weight_prestage_bytes": 0,
+            "weight_prestage_hits": 0,
+            "served_models": [""],
             # int8-with-scales device-cache lane (zeros unless
             # kv_cache_dtype="int8")
             "kv_device_quant_pages": self.stats["kv_device_quant_pages"],
             "kv_device_requants_total": self.stats["kv_device_requants_total"],
             "kv_device_bytes_saved_total": self.stats[
                 "kv_device_bytes_saved_total"],
+            "kv_device_export_requant_total": 0,
             "lowprec_tok_s": self.stats["lowprec_tok_s"],
+            # the transfer-cost surface: measured prefill throughput; no
+            # host or peer links to calibrate
+            "kv_cost_obs_total": self._prefill_obs,
+            "kv_link_gbps": {},
+            "kv_link_lat_ms": {},
+            "kv_prefill_tok_s": round(self._prefill_tok_s, 3),
         }
+
+    def _slice_fp(self) -> str:
+        """Which device this worker dispatches to, as the reference's
+        slice fingerprint says it (host, process, device): equal values
+        mean KV could move device to device."""
+        h = hashlib.blake2b(digest_size=8)
+        h.update(f"{socket.gethostname()}:{os.getpid()}|{self.device}".encode())
+        return h.hexdigest()
 
     def _hbm_stats(self) -> dict:
         """Device-memory attribution: the KV pool (caches plus the int8
@@ -578,6 +639,11 @@ class TorchEngine(AsyncEngine):
                 )
                 continue
             ok = self._begin_prefill(seq)
+            if ok and seq.generated == 0:
+                # admission wait of a fresh prompt (a preemption replay is
+                # post-first-token work)
+                self.hist["queue_wait_ms"].observe(
+                    (time.monotonic() - seq.arrival_t) * 1e3)
             if ok and self._mixed_fusable():
                 continue  # rides the next fused step; keep packing
             if not ok:
@@ -640,6 +706,7 @@ class TorchEngine(AsyncEngine):
         if seq.context.is_stopped():
             self._abort_prefill(st, FinishReason.CANCELLED)
             return False
+        p0, t0 = st.pos, time.perf_counter()
         try:
             async with self._device_lock:
                 first = await asyncio.get_running_loop().run_in_executor(
@@ -649,13 +716,28 @@ class TorchEngine(AsyncEngine):
             logger.exception("prefill failed for request %s", seq.context.id)
             self._abort_prefill(st, FinishReason.ERROR)
             return False
+        self._note_prefill_time([(st, st.pos - p0)], time.perf_counter() - t0)
         if first is None:
             return False  # more chunks to go
         self._complete_prefill(st, first)
         return True
 
+    def _note_prefill_time(self, chunks, wall_s: float) -> None:
+        """One dispatch that carried prompt chunks [(state, tokens)]: its
+        wall time counts toward each prompt's prefill_ms, and its tokens
+        per second fold into the prefill-throughput EWMA (alpha 0.2)."""
+        tokens = sum(n for _, n in chunks)
+        for st, _ in chunks:
+            st.ms += wall_s * 1e3
+        if tokens > 0 and wall_s > 0:
+            rate = tokens / wall_s
+            self._prefill_tok_s = (rate if self._prefill_obs == 0 else
+                                   0.8 * self._prefill_tok_s + 0.2 * rate)
+            self._prefill_obs += 1
+
     def _complete_prefill(self, st: _PrefillState, first) -> None:
         seq = st.seq
+        self.hist["prefill_ms"].observe(st.ms)
         self._drop_prefill_state(st)
         self._commit_full_blocks(seq)
         self._emit_token(seq, *first)
@@ -1135,6 +1217,7 @@ class TorchEngine(AsyncEngine):
         steps = np.asarray(
             [s.generated if s else 0 for s in self._active], np.int64
         )
+        t0 = time.perf_counter()
         try:
             async with self._device_lock:
                 toks, lps, completed = await (
@@ -1142,6 +1225,7 @@ class TorchEngine(AsyncEngine):
                         None, self._dispatch_mixed, packed, steps
                     )
                 )
+            self._note_prefill_time(packed, time.perf_counter() - t0)
         except Exception:  # noqa: BLE001 — not attributable to one prompt
             logger.exception("mixed step failed for requests %s",
                              [st.seq.context.id for st, _ in packed])
@@ -1243,6 +1327,9 @@ class TorchEngine(AsyncEngine):
         seq.tokens.append(token)
         seq.generated += 1
         self.stats["tokens_generated"] += 1
+        if seq.generated == 1:  # arrival -> first token, the base model's
+            self.hist_ttft.setdefault("", Histogram(MS_BUCKETS)).observe(
+                (time.monotonic() - seq.arrival_t) * 1e3)
         finish: Optional[FinishReason] = None
         min_ok = seq.generated >= (sc.min_tokens or 0)
         if token in (sc.stop_token_ids or []):

@@ -48,7 +48,8 @@ SOURCES = {
     },
     "paged_attention.cu": {
         "paged_attention_launch": (
-            [_P] * 8 + [_I] + [_P] * 3 + [_I] * 9 + [_F, _I, _P, _I, _P, _P, _I, _P]
+            [_P] * 8 + [_I] + [_P] * 3 + [_I] * 9
+            + [_F, _I, _P, _I, _P, _P, _I, _P, _P]
         ),
     },
 }

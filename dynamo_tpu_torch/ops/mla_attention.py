@@ -36,9 +36,10 @@ from . import _cuda
 NEG_INF = -1e30
 #: most horizon splits per decode tile (flash-decoding partials)
 MAX_SPLITS = 16
-#: latent widths the kernel is built for (C, R)
+#: latent widths the kernel is built for: kv_lora_rank C (the column tiling
+#: splits C over 256 threads) and the rope width R
 KERNEL_C = (128, 256, 512)
-KERNEL_R = 64
+KERNEL_R = (32, 64)
 _SRC = "mla_attention.cu"
 
 
@@ -78,12 +79,12 @@ def launch_mla_attention(
                                        pe_cache_layer.dtype} != {dt}:
         raise ValueError(f"{name}: queries and caches must share one of "
                          f"{list(_cuda.DTYPE_CODES)}")
-    if (C not in KERNEL_C or R != KERNEL_R or Cc != C
+    if (C not in KERNEL_C or R not in KERNEL_R or Cc != C
             or q_pe.shape != (Ntok, H, R) or c_cache_layer.shape[0] != 1
             or pe_cache_layer.shape != (1, N, bs, R)):
         raise ValueError(
             f"{name}: latent widths C={C} (cache {Cc}), R={R} do not fit the "
-            f"kernel (C in {KERNEL_C}, R={KERNEL_R}) or the shapes disagree")
+            f"kernel (C in {KERNEL_C}, R in {KERNEL_R}) or the shapes disagree")
     if decode and (tables.dim() != 2 or tables.shape[0] != Ntok
                    or seq_lens.shape != (Ntok,)):
         raise ValueError(f"{name}: decode tables {tuple(tables.shape)} / "

@@ -32,14 +32,18 @@ import torch
 from . import _cuda
 
 _SRC = "moe_gmm.cu"
-#: output columns per kernel block (csrc TN): N must be a multiple
+#: output columns of a per-expert block (csrc TN): N must be a multiple
 TILE_N = 32
-#: an expert's rows the kernel's few-rows (decode) mode takes (csrc RS)
+#: an expert's rows the kernel's few-rows (decode) mode takes (csrc RS);
+#: a bf16 expert with more rows runs the tiled tensor-core blocks
 FEW_ROWS = 4
-#: shared memory the kernel takes for a contraction of K: the K x TN codes
-#: plus the staging buffer (csrc STAGE_BYTES: (2 x 128 + 32) x 72 bf16 for
-#: the tensor-core path, the largest of its three modes)
-_SMEM_FIXED = (2 * 128 + 32) * 72 * 2
+#: the tiled blocks' output tile (csrc BM x BN) and K chunk (csrc BK)
+TILE_M, TILE_NN, TILE_K = 128, 128, 64
+#: f32 lhs: an expert with more than FEW_ROWS rows holds its whole K x 32
+#: code tile in shared memory beside a 64 x 66 f32 row staging (csrc
+#: core_smem), so K is bounded there; bf16 lhs streams the codes and takes
+#: any K that is a multiple of 8
+_SMEM_F32_FIXED = 64 * 66 * 4
 _SMEM_MAX = 232448  # an H100 block's dynamic shared memory limit
 _W_CODES = {torch.int8: 0, torch.float8_e4m3fn: 1}
 
@@ -95,9 +99,15 @@ def ragged_int8_gmm(
         raise ValueError(f"{name}: shapes do not fit: lhs {tuple(lhs.shape)}, "
                          f"w_q {tuple(w_q.shape)}, w_s {tuple(w_s.shape)}, "
                          f"group_sizes {tuple(group_sizes.shape)}")
-    if N % TILE_N or K * TILE_N + _SMEM_FIXED > _SMEM_MAX:
-        raise ValueError(f"{name}: N={N} must be a multiple of {TILE_N} and "
-                         f"K={K} at most {(_SMEM_MAX - _SMEM_FIXED) // TILE_N}")
+    if N % TILE_N:
+        raise ValueError(f"{name}: N={N} must be a multiple of {TILE_N}")
+    if lhs.dtype == torch.bfloat16 and K % 8:
+        raise ValueError(f"{name}: bf16 rows stream in 16-byte copies: K={K} "
+                         "must be a multiple of 8")
+    if (lhs.dtype == torch.float32
+            and K * TILE_N + _SMEM_F32_FIXED > _SMEM_MAX):
+        raise ValueError(f"{name}: f32 rows take K at most "
+                         f"{(_SMEM_MAX - _SMEM_F32_FIXED) // TILE_N}, got {K}")
     if w_q.data_ptr() % 16 or lhs.data_ptr() % 16:
         raise ValueError(f"{name}: the rows and the code stack must be "
                          "16-byte aligned")

@@ -11,12 +11,14 @@ on CUDA tensors and take their plain PyTorch version on CPU tensors:
     plus the chunk itself, already written into the cache, through one
     block table, causal at absolute positions ``history_len + t``.
 
-A bf16 launch with segments runs its segment tiles on the tensor cores
-(``TC_TILE_ROWS`` query rows per tile, ``mma.sync`` over 64-position steps)
-and its decode tiles on the CUDA-core body; an f32 launch, and a decode
-launch, run every tile on the CUDA-core body (``MAX_TILE_ROWS`` rows per
-tile). The choice is by dtype and tile type, stated in the kernel's source
-note; no launch falls back to another body.
+A bf16 launch runs its segment tiles on the tensor cores (``TC_TILE_ROWS``
+query rows per tile, ``mma.sync`` over 64-position steps) and its decode
+tiles on the tensor-core decode body (``DECODE_ROWS`` rows of one kv head
+per block, any number of rows per kv head, the horizon split across warps
+and, as far as fills the card, across blocks merged in the same launch); an
+f32 launch runs every tile on the CUDA-core body (``MAX_TILE_ROWS`` rows per
+segment tile). The choice is by dtype and tile type, stated in the kernel's
+source note; no launch falls back to another body.
 
 Cache layout (as in the JAX package): ``[Hkv, N, bs, D]`` per layer, block
 tables of physical page ids, page 0 reserved as trash. The pages are of the
@@ -36,11 +38,14 @@ from . import _cuda
 
 NEG_INF = -1e30
 #: query rows one block of the CUDA-core body holds (8 warps x 8 rows, csrc
-#: NW * RPW): a decode tile, or any tile of an f32 launch
+#: NW * RPW): a segment tile of an f32 launch, or a chunk of a decode tile's
 MAX_TILE_ROWS = 64
 #: query rows of one tensor-core segment tile (8 warps x 16 rows, csrc
 #: TC_ROWS): the segment tiles of a bf16 launch
 TC_TILE_ROWS = 128
+#: query rows of one tensor-core decode block (csrc DROWS): a decode tile of
+#: a bf16 launch spans ceil(rows / 16) blocks per kv head
+DECODE_ROWS = 16
 #: most horizon splits per tile (flash-decoding partials)
 MAX_SPLITS = 16
 _SRC = "paged_attention.cu"
@@ -95,16 +100,14 @@ def launch_paged_attention(
     if Ntok != B + MP * T:
         raise ValueError(f"{name}: {Ntok} query tokens for B={B} + "
                          f"MP={MP} x T={T}")
-    # a bf16 query (over bf16 or int8 pages) with segments runs them on the
-    # tensor cores; f32 launches (the tiny f32 models) and decode launches
-    # keep the CUDA-core body
-    tc = q.dtype == torch.bfloat16 and MP > 0
+    # a bf16 query (over bf16 or int8 pages) runs on the tensor-core bodies;
+    # f32 launches (the tiny f32 models) keep the CUDA-core body
+    tc = q.dtype == torch.bfloat16
     seg_rows = TC_TILE_ROWS if tc else MAX_TILE_ROWS
     Tq = Tq or max(1, seg_rows // Gq)
-    if (B and Gq > MAX_TILE_ROWS) or (MP and Tq * Gq > seg_rows):
-        raise ValueError(
-            f"{name}: {Gq} rows per decode tile (at most {MAX_TILE_ROWS}) or "
-            f"{Tq} tokens x {Gq} rows per segment tile (at most {seg_rows})")
+    if MP and Tq * Gq > seg_rows:
+        raise ValueError(f"{name}: {Tq} tokens x {Gq} rows per segment tile "
+                         f"(at most {seg_rows})")
     M = (d_tables if B else p_tables).shape[1] if (B or MP) else 0
     if B and MP and p_tables.shape[1] != M:
         raise ValueError(f"{name}: decode and prefill tables differ in width")
@@ -113,29 +116,53 @@ def launch_paged_attention(
     if stats:
         m = torch.empty((Ntok, Hkv, Gq), dtype=torch.float32, device=q.device)
         l = torch.empty_like(m)
-    # split every CUDA-core tile's horizon until those tiles alone hold ~2
-    # blocks per SM (decode: B x Hkv tiles leave most of the card idle);
-    # tensor-core segment tiles take no split
-    split_tiles = B if tc else B + MP * -(-T // Tq)
+    # split horizons only as far as fills the card (decode: B x Hkv tiles
+    # leave most of it idle). A bf16 launch splits its decode row groups
+    # until they and the segment tiles (which take no split) hold a block
+    # per SM, the tensor-core bodies' one block per SM; an f32 launch splits
+    # every tile until they hold ~2 blocks per SM
+    sms = _cuda.sm_count(q.device) if (B or MP) else 0
+    if tc:
+        split_units = B * Hkv * -(-Gq // DECODE_ROWS)
+        want = max(sms - MP * -(-T // Tq) * Hkv, split_units)
+    else:
+        split_units = (B * -(-Gq // MAX_TILE_ROWS) + MP * -(-T // Tq)) * Hkv
+        want = 2 * sms
     n_split = 1
-    if split_tiles:
-        n_split = min(MAX_SPLITS, max(1, -(-2 * _cuda.sm_count(q.device)
-                                           // (split_tiles * Hkv))))
-    scratch = None
+    if split_units:
+        n_split = min(MAX_SPLITS, max(1, -(-want // split_units)))
+    scratch = tickets = None
     if n_split > 1:
         split_rows = (B if tc else Ntok) * Hkv * Gq
         scratch = torch.empty(n_split * split_rows * (D + 2),
                               dtype=torch.float32, device=q.device)
+        if tc and B:
+            tickets = _tickets(q.device, split_units)
     err = _cuda.lib(_SRC).paged_attention_launch(
         _ptr(q), _ptr(o), _ptr(m), _ptr(l), _ptr(k_cache_layer),
         _ptr(v_cache_layer), _ptr(d_tables), _ptr(d_seq_lens), B,
         _ptr(p_tables), _ptr(p_hists), _ptr(p_valids), MP, T, Tq, Hkv, Gq,
         N, bs, M, D, float(scale), n_split, _ptr(scratch),
         _cuda.DTYPE_CODES[q.dtype], _ptr(k_scales), _ptr(v_scales), kv_dtype,
-        ctypes.c_void_p(_cuda.stream_ptr(q)),
+        _ptr(tickets), ctypes.c_void_p(_cuda.stream_ptr(q)),
     )
     _cuda.check(err, name)
     return o, m, l
+
+
+_ticket_bufs: dict = {}
+
+
+def _tickets(device: torch.device, n: int) -> torch.Tensor:
+    """The decode body's split counters on ``device``: int32, zero between
+    launches (the block that combines a row group's splits zeroes its
+    counter), so one buffer serves every launch on the device's stream;
+    grown, zeroed, when a launch needs more."""
+    buf = _ticket_bufs.get(device)
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
+        _ticket_bufs[device] = buf
+    return buf
 
 
 def _kv_dtype_code(name, q, k_cache_layer, v_cache_layer, k_scales, v_scales):

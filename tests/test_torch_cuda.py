@@ -421,3 +421,185 @@ def test_cuda_append_tokens_and_verify_rows_match_plain():
              cc, pc, tables, hist.clamp_min(0), 0.05)
     torch.testing.assert_close(mla.mla_verify_attention(*margs),
                                mla.mla_verify_attention_xla(*margs), **tol)
+
+
+@pytest.mark.cuda
+def test_cuda_ragged_int8_gmm_tiles_and_wide_k():
+    """On the card: the tiled blocks' shapes beside the few-rows mode in one
+    launch (experts of 5-16 rows, of more than 128 rows: two row tiles, an
+    empty expert, experts of 1-4 rows, N with a partial 128-column tile) and
+    K = 7168 (DeepSeek-V3's hidden width) at small N with few experts; int8
+    and e4m3 codes, bf16 rows, against ragged_int8_plain at 2e-2 (bf16 rows,
+    K-long f32 sums in another order), unowned rows exactly 0."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the chip)")
+    from dynamo_tpu_torch.models.quant import quantize_array
+    from dynamo_tpu_torch.ops.moe_gmm import ragged_int8_gmm, ragged_int8_plain
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(9)
+    for K, N, sizes in ((512, 160, [7, 0, 300, 3, 16, 129, 1]),
+                        (7168, 64, [140, 2, 0, 9])):
+        X = len(sizes)
+        sizes = torch.tensor(sizes, dtype=torch.int64, device=dev)
+        R = int(sizes.sum()) + 5  # five rows no expert owns
+        w = torch.randn(X, K, N, generator=g, device=dev)
+        lhs = torch.randn(R, K, generator=g, device=dev).bfloat16()
+        for mode in ("int8", "fp8_e4m3"):
+            qw = quantize_array(w, mode)
+            got = ragged_int8_gmm(lhs, qw["q"], qw["s"], sizes)
+            ref = ragged_int8_plain(lhs, qw["q"], qw["s"], sizes)
+            torch.cuda.synchronize()
+            torch.testing.assert_close(got, ref, rtol=2e-2, atol=2e-2)
+            assert (got[R - 5:] == 0).all()
+
+
+def _decode_case(dev, g, B, Hkv, rows, D, bs, M, N, lens):
+    kc = torch.randn(Hkv, N, bs, D, generator=g, device=dev).bfloat16()
+    vc = torch.randn(Hkv, N, bs, D, generator=g, device=dev).bfloat16()
+    tables = torch.randperm(N - 1, generator=g, device=dev)[: B * M].add(1)
+    tables = tables.reshape(B, M).to(torch.int32)
+    q = torch.randn(B, Hkv * rows, D, generator=g, device=dev).bfloat16()
+    return q, kc, vc, tables, torch.tensor(lens, dtype=torch.int32, device=dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("G,T", [(4, 17), (7, 10), (7, 1)],
+                         ids=["68 rows", "70 rows", "G=7 decode"])
+@pytest.mark.parametrize("int8_pages", [False, True], ids=["bf16", "int8"])
+def test_cuda_decode_attention_takes_any_rows_per_kv_head(G, T, int8_pages):
+    """On the card: the tensor-core decode body at (gamma + 1) * G verify
+    rows per kv head (G = 4, gamma = 16: 68 rows; G = 7, gamma = 9: 70),
+    more than one 16-row block each, and a G = 7 decode; horizons of no
+    multiple of 16 (split across blocks, merged in the launch), an inactive
+    slot; bf16 and int8 pages, stats on and off. o within 2e-2 of the plain
+    version, (m, l) within rtol 1e-3, the inactive slot o = 0, m = -1e30,
+    l = 0."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the chip)")
+    from dynamo_tpu_torch.ops.paged_attention import (
+        paged_decode_attention,
+        paged_decode_attention_plain,
+    )
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(10)
+    Hkv, D, bs, M = 2, 128, 16, 80
+    q, kc, vc, tables, lens = _decode_case(dev, g, 4, Hkv, T * G, D, bs, M, 400,
+                                           [1000, 0, 333, 17])
+    sc = {}
+    if int8_pages:
+        ks = (kc.float().abs().amax(dim=(0, 2, 3)) / 127).clamp_min(1e-12)
+        vs = (vc.float().abs().amax(dim=(0, 2, 3)) / 127).clamp_min(1e-12)
+        kc = (kc.float() / ks[None, :, None, None]).round().to(torch.int8)
+        vc = (vc.float() / vs[None, :, None, None]).round().to(torch.int8)
+        sc = {"k_scales": ks, "v_scales": vs}
+    args = (q, kc, vc, tables, lens, D ** -0.5)
+    before = paged_decode_attention.verify_launches
+    o, m, l = paged_decode_attention(*args, return_stats=True, group=G, **sc)
+    ro, rm, rl = paged_decode_attention_plain(*args, return_stats=True, **sc)
+    o_only = paged_decode_attention(*args, group=G, **sc)
+    torch.cuda.synchronize()
+    tol = dict(atol=2e-2, rtol=2e-2)
+    torch.testing.assert_close(o.float(), ro.float(), **tol)
+    torch.testing.assert_close(o_only.float(), ro.float(), **tol)
+    torch.testing.assert_close(m, rm, rtol=1e-3, atol=1e-3)
+    torch.testing.assert_close(l, rl, rtol=1e-3, atol=1e-3)
+    assert (o[1] == 0).all() and (m[1] == -1e30).all() and (l[1] == 0).all()
+    assert paged_decode_attention.verify_launches - before == (2 if T > 1 else 0)
+
+
+@pytest.mark.cuda
+def test_cuda_mla_kernels_at_minicpm3_widths():
+    """On the card: both latent kernels at MiniCPM3-4B's latent widths
+    (kv_lora_rank C = 256, rope width R = 32; H = 8) against their plain
+    versions: decode with (m, l) and an empty slot, prefill with and
+    without valid_len (bf16: 2e-2, (m, l) rtol 1e-3)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the chip)")
+    from dynamo_tpu_torch.ops import mla_attention as mla
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(11)
+    H, C, R, bs, M, N = 8, 256, 32, 16, 16, 160
+    cc = torch.randn(1, N, bs, C, generator=g, device=dev).bfloat16()
+    pc = torch.randn(1, N, bs, R, generator=g, device=dev).bfloat16()
+    tables = torch.randperm(N - 1, generator=g, device=dev)[: 5 * M].add(1)
+    tables = tables.reshape(5, M).to(torch.int32)
+    lens = torch.tensor([0, 17, 200, 256], dtype=torch.int32, device=dev)
+    qe = torch.randn(4, H, C, generator=g, device=dev).bfloat16()
+    qp = torch.randn(4, H, R, generator=g, device=dev).bfloat16()
+    tol = dict(atol=2e-2, rtol=2e-2)
+    got = mla.mla_paged_decode_attention(qe, qp, cc, pc, tables[:4], lens, 0.06,
+                                         return_stats=True)
+    ref = mla.mla_paged_decode_attention_plain(qe, qp, cc, pc, tables[:4], lens,
+                                               0.06, return_stats=True)
+    torch.testing.assert_close(got[0].float(), ref[0].float(), **tol)
+    torch.testing.assert_close(got[1], ref[1], rtol=1e-3, atol=1e-3)
+    torch.testing.assert_close(got[2], ref[2], rtol=1e-3, atol=1e-3)
+    assert (got[0][0] == 0).all() and (got[1][0] == -1e30).all()
+    qe = torch.randn(48, H, C, generator=g, device=dev).bfloat16()
+    qp = torch.randn(48, H, R, generator=g, device=dev).bfloat16()
+    hist = torch.tensor([100], dtype=torch.int32, device=dev)
+    for valid in (None, 30):
+        torch.testing.assert_close(
+            mla.mla_paged_prefill_attention(qe, qp, cc, pc, tables[4], hist,
+                                            0.06, valid_len=valid),
+            mla.mla_paged_prefill_attention_plain(qe, qp, cc, pc, tables[4],
+                                                  hist, 0.06, valid), **tol)
+
+
+@pytest.mark.cuda
+def test_cuda_engine_serves_spec_gamma_16_at_four_heads_per_kv_head():
+    """On the card: a tiny f32 TorchEngine with G = 4 and spec_gamma=16
+    (the verify packs 17 x 4 = 68 rows per kv head; 32-token pages, since a
+    verify's 17 in-flight rows must fit one page, as in the reference) is
+    accepted at init and serves: fed the spec_gamma=0 stream as its
+    proposals, it produces the same greedy stream with fewer decode steps."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the chip)")
+    import asyncio
+
+    import numpy as np
+
+    from dynamo_tpu_torch.engine import EngineConfig, TorchEngine
+    from dynamo_tpu_torch.models.config import ModelConfig
+    from dynamo_tpu_torch.protocols.common import (
+        PreprocessedRequest,
+        SamplingOptions,
+        StopConditions,
+    )
+    from dynamo_tpu_torch.runtime import Context, collect
+
+    dev = torch.device("cuda")
+    cfg = ModelConfig.tiny(dtype="float32", head_dim=64, num_heads=8,
+                           num_kv_heads=2, hidden_size=128)
+    req = PreprocessedRequest(
+        token_ids=[7, 8, 9, 10] * 6, stop_conditions=StopConditions(max_tokens=40),
+        sampling_options=SamplingOptions(temperature=0.0), eos_token_ids=[])
+    streams, steps = {}, {}
+    for gamma in (0, 16):
+        eng = TorchEngine(EngineConfig(model=cfg, num_blocks=32, block_size=32,
+                                       max_batch_size=2, decode_window=4,
+                                       spec_gamma=gamma), seed=1, device=dev)
+        if gamma:
+            def drafts(eng=eng):
+                prop = np.full((eng.cfg.max_batch_size, gamma), -1, np.int64)
+                for i, seq in enumerate(eng._active):
+                    if seq is not None and not seq.finished:
+                        nxt = streams[0][seq.generated: seq.generated + gamma]
+                        prop[i, : len(nxt)] = nxt
+                return prop if (prop >= 0).any() else None
+            eng._propose_ngram = drafts
+
+        async def run(eng=eng):
+            try:
+                return await collect(eng.generate(Context(req)))
+            finally:
+                await eng.close()
+
+        streams[gamma] = [t for o in asyncio.run(run()) for t in o.token_ids]
+        steps[gamma] = dict(eng.stats)
+    assert streams[16] == streams[0] and len(streams[0]) == 40
+    assert steps[16]["spec_accepted"] > 0
+    assert steps[16]["decode_steps"] < steps[0]["decode_steps"]

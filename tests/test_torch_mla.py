@@ -413,13 +413,28 @@ def test_torch_engine_matches_jax_engine_on_mla_moe(run):
     assert teng.v_cache.shape[-1] == cfg.qk_rope_head_dim
 
 
-def test_torch_engine_refuses_mla_widths_the_kernel_lacks(monkeypatch):
+@pytest.mark.parametrize("widths", [{}, dict(kv_lora_rank=384, qk_rope_head_dim=64),
+                                    dict(kv_lora_rank=640, qk_rope_head_dim=64),
+                                    dict(kv_lora_rank=256, qk_rope_head_dim=16)],
+                         ids=["tiny", "C=384", "C=640", "R=16"])
+def test_torch_engine_refuses_mla_widths_the_kernel_lacks(monkeypatch, widths):
     """On the card the latent kernel runs or nothing does: the JAX
-    engine's kv_lora_rank % 128 gate raises instead of falling back."""
+    engine's kv_lora_rank % 128 gate raises instead of falling back, for
+    the widths the column tiling cannot take (C = 384, C above 512) and
+    rope widths other than 32 and 64."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     with pytest.raises(ValueError, match="latent kernel"):
-        TorchEngine(EngineConfig(model=ModelConfig.tiny_mla(**MOE), **GEOMETRY),
-                    device="cuda")
+        TorchEngine(EngineConfig(model=ModelConfig.tiny_mla(**{**MOE, **widths}),
+                                 **GEOMETRY), device="cuda")
+
+
+def test_torch_engine_takes_minicpm3_latent_widths_on_the_card(monkeypatch):
+    """MiniCPM3-4B's latent widths (kv_lora_rank 256, qk_rope_head_dim 32)
+    pass the card's gate: a CPU build stops only at the card allocation."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    cfg = ModelConfig.tiny_mla(**{**MOE, "kv_lora_rank": 256, "qk_rope_head_dim": 32})
+    with pytest.raises(RuntimeError, match="CUDA"):
+        TorchEngine(EngineConfig(model=cfg, **GEOMETRY), device="cuda")
 
 
 def test_from_hf_config_matches_jax_on_deepseek_v2_lite():

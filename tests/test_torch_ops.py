@@ -297,6 +297,130 @@ def test_tensor_core_tile_arithmetic_fits_pallas(int8_pages):
     np.testing.assert_array_equal(jo_chunks[1], 0.0)
 
 
+def _tc_decode_arithmetic(q, kc, vc, tables, seq_lens, scale, n_split,
+                          ks=None, vs=None, n_warps=8, kt=16, min_steps=8):
+    """The tensor-core decode body's arithmetic (csrc/paged_attention.cu,
+    tc_decode_tile) in torch, for ``q [B, Hkv, R, D]`` (bf16; R rows per kv
+    head, e.g. a verify's T*G): a tile's horizon in kt-position steps,
+    split into n_split block runs of at least min_steps steps (where the
+    horizon has them), each cut into n_warps warp runs; each warp an exp2
+    online softmax in f32 with the K page scale on S columns, P times the V
+    page scale rounded to bf16, l summing the f32 p; the warps merged by the
+    flash rule (log2), each block's normalized partial written in f32, the
+    splits merged by the flash rule (natural log). Returns o (f32) ``[B,
+    Hkv, R, D]`` and m, l ``[B, Hkv, R]``; an inactive slot gives 0, -1e30,
+    0."""
+    B, Hkv, R, D = q.shape
+    bs = kc.shape[2]
+    o = torch.zeros(B, Hkv, R, D)
+    m_out = torch.full((B, Hkv, R), -1e30)
+    l_out = torch.zeros(B, Hkv, R)
+    for b in range(B):
+        last = min(int(seq_lens[b]), tables.shape[1] * bs) - 1
+        steps = (last + kt) // kt
+        per = max(-(-steps // n_split), min_steps)
+        page = tables[b].long().repeat_interleave(bs)  # the page of a position
+        slot = page * bs + torch.arange(page.numel()) % bs
+        kcol = torch.ones(page.numel()) if ks is None else ks[page]
+        vcol = torch.ones(page.numel()) if vs is None else vs[page]
+        for h in range(Hkv):
+            k = kc[h].reshape(-1, D)[slot].float()
+            v = vc[h].reshape(-1, D)[slot].float()
+            qf = q[b, h].float()
+            parts = []
+            for z in range(n_split):
+                b0 = min(steps, z * per)
+                b1 = min(steps, b0 + per)
+                wper = -(-(b1 - b0) // n_warps)
+                warps = []
+                for w in range(n_warps):
+                    w0 = min(b1, b0 + w * wper)
+                    w1 = min(b1, w0 + wper)
+                    m = torch.full((R,), -1e30)
+                    l = torch.zeros(R)
+                    acc = torch.zeros(R, D)
+                    for st in range(w0, w1):
+                        pos = torch.arange(st * kt, st * kt + kt)
+                        s2 = qf @ k[pos].T * (scale * LOG2E) * kcol[pos]
+                        s2 = s2.masked_fill(pos[None] > last, -float("inf"))
+                        m_new = torch.maximum(m, s2.amax(-1))
+                        alpha = torch.exp2(m - m_new)
+                        p = torch.exp2(s2 - m_new[:, None])
+                        l = l * alpha + p.sum(-1)
+                        acc = acc * alpha[:, None] + (p * vcol[pos]).bfloat16().float() @ v[pos]
+                        m = m_new
+                    warps.append((m, l, acc))
+                M = torch.stack([w[0] for w in warps]).amax(0)
+                wt = [torch.exp2(w[0] - M) for w in warps]
+                L = sum(w[1] * x for w, x in zip(warps, wt))
+                O = sum(w[2] * x[:, None] for w, x in zip(warps, wt))
+                live = L > 0
+                parts.append((torch.where(live[:, None], O / L.clamp_min(1e-30)[:, None], 0.0),
+                              torch.where(live, M * LN2, -1e30), torch.where(live, L, 0.0)))
+            if n_split == 1:
+                o[b, h], m_out[b, h], l_out[b, h] = parts[0]
+                continue
+            Mz = torch.stack([x[1] for x in parts]).amax(0)
+            wz = [x[2] * torch.exp(x[1] - Mz) for x in parts]
+            Lz = sum(wz)
+            o[b, h] = sum(x[0] * w[:, None] for x, w in zip(parts, wz)) / Lz.clamp_min(1e-20)[:, None]
+            m_out[b, h], l_out[b, h] = Mz, Lz
+    return o, m_out, l_out
+
+
+@pytest.mark.parametrize("G,T", [(3, 1), (4, 17)], ids=["G=3", "68 verify rows"])
+@pytest.mark.parametrize("int8_pages", [False, True], ids=["bf16", "int8"])
+def test_tensor_core_decode_arithmetic_fits_pallas(int8_pages, G, T):
+    """The reorganised arithmetic of the bf16 launches' decode tiles (P in
+    bf16, int8 codes exact with the page scales on S columns and folded
+    into P, per-warp horizon runs and horizon splits merged by the flash
+    rule) against the JAX Pallas decode kernel in interpret mode, at the
+    card's kernel-vs-plain tolerances: o within 2e-2 (bf16 output, P
+    rounded), (m, l) within rtol 1e-3. G = 3 (a decode row group 3 of 16
+    rows full) and 68 verify-style rows (G = 4, T = 17: more than one 16-row
+    block); horizons of 37, 300 and 75 (no multiple of 16; 300 spans three
+    splits and every warp) and an inactive slot."""
+    rng = np.random.default_rng(7)
+    Hkv, D, bs, M, B = 2, 64, 16, 20, 4
+    R = T * G
+    N = B * M + 1
+
+    def bf(*shape):  # bf16 values, shared exactly by both sides
+        return torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).bfloat16()
+
+    if int8_pages:
+        codes = rng.integers(-127, 128, (2, Hkv, N, bs, D)).astype(np.int8)
+        kc, vc = torch.from_numpy(codes[0]), torch.from_numpy(codes[1])
+        ks, vs = (torch.from_numpy(rng.uniform(0.002, 0.02, N).astype(np.float32))
+                  for _ in range(2))
+        jsc = dict(k_scales=jnp.asarray(ks.numpy()), v_scales=jnp.asarray(vs.numpy()))
+        jk, jv = jnp.asarray(kc.numpy()), jnp.asarray(vc.numpy())
+    else:
+        kc, vc, ks, vs, jsc = bf(Hkv, N, bs, D), bf(Hkv, N, bs, D), None, None, {}
+        jk, jv = (jnp.asarray(c.float().numpy(), jnp.bfloat16) for c in (kc, vc))
+    tables = torch.from_numpy(_tables(rng, B, M, N))
+    lens = torch.tensor([37, 0, 300, 75], dtype=torch.int32)
+    q = bf(B, Hkv * R, D)
+    scale = D ** -0.5
+    o, m, l = _tc_decode_arithmetic(q.reshape(B, Hkv, R, D), kc, vc, tables, lens,
+                                    scale, 3, ks, vs)
+    jo, jm, jl = j_decode(jnp.asarray(q.float().numpy(), jnp.bfloat16), jk, jv,
+                          jnp.asarray(tables.numpy()), jnp.asarray(lens.numpy()),
+                          scale, return_stats=True, group=G, interpret=True, **jsc)
+    _close(o.reshape(B, Hkv * R, D), np.asarray(jo.astype(jnp.float32)),
+           rtol=2e-2, atol=2e-2)
+    live = [0, 2, 3]
+    _close(m[live], np.asarray(jm)[live], rtol=1e-3, atol=1e-3)
+    _close(l[live], np.asarray(jl)[live], rtol=1e-3, atol=1e-3)
+    assert (o[1] == 0).all() and (m[1] == -1e30).all() and (l[1] == 0).all()
+    # one split gives the same function (the warps' merge alone)
+    o1, m1, l1 = _tc_decode_arithmetic(q.reshape(B, Hkv, R, D), kc, vc, tables,
+                                       lens, scale, 1, ks, vs)
+    _close(o1, o, rtol=2e-2, atol=2e-2)
+    _close(m1, m, rtol=1e-5, atol=1e-5)
+    _close(l1, l, rtol=1e-4, atol=1e-4)
+
+
 def test_kv_cache_append_bit_exact_vs_pallas():
     rng = np.random.default_rng(4)
     L, B, Hkv, D, N, bs = 3, 4, 2, 16, 9, 8

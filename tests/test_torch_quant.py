@@ -267,6 +267,76 @@ def test_ragged_int8_plain_matches_pallas_interpret(case):
     np.testing.assert_array_equal(np.asarray(ref)[total:], 0.0)
 
 
+def _tiled_gmm_emulation(lhs, w_q, w_s, group_sizes):
+    """The CUDA kernel's block list (csrc/moe_gmm.cu) in torch, for bf16
+    rows: the tiled blocks' grid sized by the host bound, each block's row
+    tile found from the device cumsum ``ends`` as the kernel's warp scan
+    does (expert-local tiles of TILE_M rows for experts with more than
+    FEW_ROWS rows; surplus blocks write nothing), the tile's TILE_K-deep K
+    chunks accumulated in f32 over codes widened to bf16, the scale after
+    the K loop; then the per-expert blocks (experts of 1 to FEW_ROWS rows,
+    32 columns each) and the zero blocks. Returns the output (NaN where no
+    block wrote) and how many times each row was written per column tile."""
+    R, K = lhs.shape
+    X, _, N = w_q.shape
+    BM, BN, BK = moe_gmm.TILE_M, moe_gmm.TILE_NN, moe_gmm.TILE_K
+    ends = torch.cumsum(group_sizes, 0).tolist()
+    starts = [0] + ends[:-1]
+    out = torch.full((R, N), float("nan"))
+    writes = torch.zeros(R, N, dtype=torch.int32)
+    nb = -(-N // BN)
+    n_tiled = nb * (-(-R // BM) + min(X, R // (moe_gmm.FEW_ROWS + 1)))
+    for blk in range(n_tiled):
+        t, n0 = blk // nb, (blk % nb) * BN
+        found, carry = None, 0
+        for e in range(X):  # the running scan, one expert per lane
+            n = ends[e] - starts[e]
+            tiles = -(-n // BM) if n > moe_gmm.FEW_ROWS else 0
+            if carry <= t < carry + tiles:
+                r0 = starts[e] + (t - carry) * BM
+                found = (e, r0, min(BM, ends[e] - r0))
+            carry += tiles
+        if found is None:
+            continue  # a surplus block
+        e, r0, nr = found
+        cols = slice(n0, min(N, n0 + BN))
+        acc = torch.zeros(nr, cols.stop - cols.start)
+        for k0 in range(0, K, BK):
+            x = lhs[r0:r0 + nr, k0:k0 + BK].float()
+            acc += x @ w_q[e, k0:k0 + BK, cols].to(torch.bfloat16).float()
+        out[r0:r0 + nr, cols] = acc * w_s[e, cols]
+        writes[r0:r0 + nr, cols] += 1
+    for e in range(X):  # per-expert blocks: the few-rows mode
+        n = ends[e] - starts[e]
+        if 1 <= n <= moe_gmm.FEW_ROWS:
+            rows = slice(starts[e], ends[e])
+            out[rows] = (lhs[rows].float() @ w_q[e].to(torch.bfloat16).float()) * w_s[e]
+            writes[rows] += 1
+    total = ends[-1]
+    out[total:] = 0.0  # the zero blocks
+    writes[total:] += 1
+    return out, writes
+
+
+@pytest.mark.parametrize("sizes", [[9, 0, 200, 3, 16, 130, 1], [0, 0, 5, 0]],
+                         ids=["ragged tiles", "one expert of 5 rows"])
+def test_tiled_gmm_blocks_fit_plain_and_pallas(sizes):
+    """The tiled grouped GEMM's block list (row tiles from the device
+    cumsum, ragged row tiles, the few-rows experts beside them, empty
+    experts, zeroed unowned rows) covers every row of every column tile
+    exactly once and equals ragged_int8_plain (f32 sums in another order:
+    1e-5) and the JAX Pallas kernel in interpret mode; N = 160 leaves a
+    partial 128-column tile, K = 96 a partial 64-deep chunk."""
+    K, N = 96, 160
+    R = sum(sizes) + 6
+    t_args, j_args = _gmm_inputs(R, K, N, len(sizes), sizes, "int8", "bfloat16", 2)
+    got, writes = _tiled_gmm_emulation(*t_args)
+    assert (writes == 1).all()
+    _close(got, moe_gmm.ragged_int8_plain(*t_args), 1e-5)
+    _close(got, j_gmm(*j_args, interpret=True), 1e-5)
+    assert (got[sum(sizes):] == 0).all()
+
+
 @pytest.mark.parametrize("lhs_dt", ["float32", "bfloat16"])
 def test_ragged_int8_xla_matches_jax_fallback(lhs_dt):
     """The dequantize-then-grouped-product twin rounds like JAX's: equal to
