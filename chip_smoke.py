@@ -36,8 +36,10 @@ Phases, in order; any failure raises and the script exits non-zero:
      an unaligned history, padded rows, a dead segment, an inactive decode
      slot) through the tensor-core prefill, ragged and decode tiles, bf16
      and int8 pages, with (m, l); the decode kernel at 68 and 70 verify
-     rows per kv head (G=4, gamma=16; G=7, gamma=9); the latent kernels at
-     MiniCPM3-4B's widths (C=256, R=32); the grouped GEMM's tiled blocks
+     rows per kv head (G=4, gamma=16; G=7, gamma=9); the latent kernels
+     across the reference's widths (C=256/R=32 MiniCPM3-4B's, C=384/R=16,
+     C=640/R=64, C=128/R=8; 16, 64 and 272 rows per sequence; bf16, and
+     f32 at two of them); the grouped GEMM's tiled blocks
      (experts of 1 to 200 rows and an empty one at V2-Lite's gate shape,
      then K=7168 at N=256); the bf16 MoE FFN at DeepSeek-V2-Lite's widths
      run twice, bit-equal, each stage compared;
@@ -690,6 +692,27 @@ def check_mla_kernels(torch, mi: MlaInputs) -> dict:
             and bool((l[7] == 0).all())):
         raise AssertionError("mla decode: the empty slot must give o=0, "
                              "m=-1e30, l=0")
+    # one launch per decode call: the splits merge inside it (no combine).
+    # A trace that caught no kernel at all says nothing (the profiler now
+    # and then records no device events): it is taken again, up to 3 times
+    from torch.profiler import ProfilerActivity, profile
+
+    for what, call in (("decode", lambda: mi.decode(mla.mla_paged_decode_attention)),
+                       ("verify rows", lambda: mi.verify_rows(
+                           mla.mla_paged_decode_attention))):
+        for _ in range(3):
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                call()
+                torch.cuda.synchronize()
+            names = [e.name for e in prof.events()
+                     if e.device_type == torch.autograd.DeviceType.CUDA]
+            if names:
+                break
+        if len(names) != 1 or "mla_tc_kernel" not in names[0]:
+            raise AssertionError(f"mla {what}: one mla_tc_kernel launch per "
+                                 f"call, got {names}")
+    log("  mla_paged_decode_attention (decode, verify rows): one "
+        "mla_tc_kernel launch per call  OK")
     got = mi.prefill(mla.mla_paged_prefill_attention)
     ref = mi.prefill(mla.mla_paged_prefill_attention_plain)
     torch.cuda.synchronize()
@@ -904,47 +927,64 @@ def check_gmm_tiles(torch, dev) -> None:
                 "unowned rows 0  OK")
 
 
-def check_mla_minicpm3(torch, dev) -> None:
-    """C.7: both latent kernels at MiniCPM3-4B's latent widths (its
-    config.json: kv_lora_rank C = 256, qk_rope_head_dim R = 32), H = 16,
-    bs = 16: decode B = 4 up to 700 positions with an empty slot and
-    (m, l), prefill T = 96 on 300 cached with and without valid_len,
-    against the plain versions (2e-2; (m, l) rtol 1e-3)."""
+def check_mla_widths(torch, dev) -> None:
+    """C.7: both latent kernels across the widths the reference's kernels
+    take (kv_lora_rank % 128 == 0, any rope width up to 128): MiniCPM3-4B's
+    (its config.json: C = 256, R = 32), C = 384 with R = 16, C = 640 with
+    R = 64 (two column slabs), C = 128 with R = 8; H = 16, bs = 16: decode
+    B = 4 up to 700 positions with an empty slot and (m, l) at 16 rows per
+    sequence, 64 (a verify's 4 tokens) and 272 (spec_gamma = 16), one
+    launch each; prefill T = 90 on 300 cached (the last 64-row tile half
+    full) with and without valid_len; against the plain versions (bf16
+    2e-2, (m, l) rtol 1e-3). Then the same on the f32 CUDA-core body at
+    C = 384, R = 16 and C = 640, R = 64 (2e-5)."""
     from dynamo_tpu_torch.ops import mla_attention as mla
 
-    g = torch.Generator(device=dev).manual_seed(14)
-    H, C, R, bs, M, N = 16, 256, 32, 16, 48, 400
-    cc = torch.randn(1, N, bs, C, generator=g, device=dev).bfloat16()
-    pc = torch.randn(1, N, bs, R, generator=g, device=dev).bfloat16()
-    tables = (torch.randperm(N - 1, generator=g, device=dev)[: 5 * M] + 1)
-    tables = tables.reshape(5, M).to(torch.int32)
-    lens = torch.tensor([700, 0, 333, 17], dtype=torch.int32, device=dev)
-    qe = torch.randn(4, H, C, generator=g, device=dev).bfloat16()
-    qp = torch.randn(4, H, R, generator=g, device=dev).bfloat16()
-    scale = (192 + R) ** -0.5
-    o, m, l = mla.mla_paged_decode_attention(qe, qp, cc, pc, tables[:4], lens,
-                                             scale, return_stats=True)
-    ro, rm, rl = mla.mla_paged_decode_attention_plain(qe, qp, cc, pc, tables[:4],
-                                                      lens, scale, return_stats=True)
-    torch.cuda.synchronize()
-    err = close("MiniCPM3 widths decode", o, ro, 2e-2, 2e-2)
-    close_stats("MiniCPM3 widths decode", (m, l), (rm, rl))
-    if not (bool((o[1] == 0).all()) and bool((m[1] == -1e30).all())):
-        raise AssertionError("MiniCPM3 widths decode: the empty slot must give "
-                             "o=0, m=-1e30")
-    qe = torch.randn(96, H, C, generator=g, device=dev).bfloat16()
-    qp = torch.randn(96, H, R, generator=g, device=dev).bfloat16()
-    hist = torch.tensor([300], dtype=torch.int32, device=dev)
-    for valid in (None, 70):
-        got = mla.mla_paged_prefill_attention(qe, qp, cc, pc, tables[4], hist,
-                                              scale, valid_len=valid)
-        ref = mla.mla_paged_prefill_attention_plain(qe, qp, cc, pc, tables[4],
-                                                    hist, scale, valid)
-        torch.cuda.synchronize()
-        err = max(err, close(f"MiniCPM3 widths prefill (valid {valid})", got, ref,
-                             2e-2, 2e-2))
-    log(f"  MLA latent kernels at MiniCPM3-4B widths (C=256, R=32, H=16): decode "
-        f"and prefill vs plain max |err| {err:.3e}, (m, l) within 1e-3  OK")
+    H, bs, M, N = 16, 16, 48, 400
+    for (C, R), dtype in [((256, 32), torch.bfloat16), ((384, 16), torch.bfloat16),
+                          ((640, 64), torch.bfloat16), ((128, 8), torch.bfloat16),
+                          ((384, 16), torch.float32), ((640, 64), torch.float32)]:
+        g = torch.Generator(device=dev).manual_seed(14 + C + R)
+        tol = 2e-2 if dtype == torch.bfloat16 else 2e-5
+        tag = f"C={C} R={R} {str(dtype)[6:]}"
+        cc = torch.randn(1, N, bs, C, generator=g, device=dev).to(dtype)
+        pc = torch.randn(1, N, bs, R, generator=g, device=dev).to(dtype)
+        tables = (torch.randperm(N - 1, generator=g, device=dev)[: 5 * M] + 1)
+        tables = tables.reshape(5, M).to(torch.int32)
+        lens = torch.tensor([700, 0, 333, 17], dtype=torch.int32, device=dev)
+        scale = (192 + R) ** -0.5
+        err = 0.0
+        for rows in (16, 64, 272):
+            qe = torch.randn(4, rows, C, generator=g, device=dev).to(dtype)
+            qp = torch.randn(4, rows, R, generator=g, device=dev).to(dtype)
+            before = mla.mla_paged_decode_attention.launches
+            o, m, l = mla.mla_paged_decode_attention(
+                qe, qp, cc, pc, tables[:4], lens, scale, return_stats=True,
+                tokens=rows // H)
+            ro, rm, rl = mla.mla_paged_decode_attention_plain(
+                qe, qp, cc, pc, tables[:4], lens, scale, return_stats=True)
+            torch.cuda.synchronize()
+            err = max(err, close(f"{tag} decode {rows} rows", o, ro, tol, tol))
+            close_stats(f"{tag} decode {rows} rows", (m, l), (rm, rl))
+            if not (bool((o[1] == 0).all()) and bool((m[1] == -1e30).all())
+                    and bool((l[1] == 0).all())):
+                raise AssertionError(f"{tag} decode: the empty slot must give "
+                                     "o=0, m=-1e30, l=0")
+            if mla.mla_paged_decode_attention.launches - before != 1:
+                raise AssertionError(f"{tag} decode: one launch per call")
+        qe = torch.randn(90, H, C, generator=g, device=dev).to(dtype)
+        qp = torch.randn(90, H, R, generator=g, device=dev).to(dtype)
+        hist = torch.tensor([300], dtype=torch.int32, device=dev)
+        for valid in (None, 70):
+            got = mla.mla_paged_prefill_attention(qe, qp, cc, pc, tables[4], hist,
+                                                  scale, valid_len=valid)
+            ref = mla.mla_paged_prefill_attention_plain(qe, qp, cc, pc, tables[4],
+                                                        hist, scale, valid)
+            torch.cuda.synchronize()
+            err = max(err, close(f"{tag} prefill (valid {valid})", got, ref,
+                                 tol, tol))
+        log(f"  MLA latent kernels at {tag}, H={H}: decode (16, 64, 272 rows) "
+            f"and prefill vs plain max |err| {err:.3e}, (m, l) within 1e-3  OK")
 
 
 def quantized_pages(torch, kc, vc):
@@ -1585,19 +1625,22 @@ def anatomy(torch, label: str, fn, n: int) -> None:
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    by_name = defaultdict(float)
+    by_name, count = defaultdict(float), defaultdict(int)
     kernels = [e for e in prof.events()
                if e.device_type == torch.autograd.DeviceType.CUDA]
     for e in kernels:
         by_name[e.name] += e.device_time_total / 1e3 / n
+        count[e.name] += 1
     busy = sum(by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:3]
-    # the port's own kernels (the __global__ functions of csrc/*.cu) by name
-    ours, port = defaultdict(float), port_kernel_names()
+    # the port's own kernels (the __global__ functions of csrc/*.cu) by
+    # name: ms and launches per step
+    ours, ours_n, port = defaultdict(float), defaultdict(float), port_kernel_names()
     for name, ms in by_name.items():
         for k in port:
             if re.search(rf"\b{k}\b", name):
                 ours[k] += ms
+                ours_n[k] += count[name] / n
     # the host side under the profiler (which slows it): the operators
     # taking the most CPU time themselves, and the launch calls' share
     host = sorted(((a.key, a.self_cpu_time_total / 1e3 / n)
@@ -1608,7 +1651,8 @@ def anatomy(torch, label: str, fn, n: int) -> None:
         f"and {syncs / n:.2f} host syncs per step; top: "
         + "; ".join(f"{k[:48]} {v:.2f} ms" for k, v in top)
         + "; the port's kernels: "
-        + "; ".join(f"{k} {v:.2f} ms" for k, v in sorted(ours.items()))
+        + "; ".join(f"{k} {v:.2f} ms ({ours_n[k]:.0f} launches)"
+                    for k, v in sorted(ours.items()))
         + "; host (profiled) top: "
         + "; ".join(f"{k[:40]} {v:.2f} ms" for k, v in host[:4]))
 
@@ -2285,7 +2329,7 @@ def main() -> int:
     check_moe_deterministic(torch, dev)
     mi = MlaInputs(torch, dev)
     errs.update(check_mla_kernels(torch, mi))
-    check_mla_minicpm3(torch, dev)
+    check_mla_widths(torch, dev)
     ta = TokenAppendInputs(torch, dev, inp, mi)
     errs.update(check_spec_kernels(torch, inp, mi, ta))
     for label, cfg, quantization, kv_int8 in tiny_models():

@@ -1,43 +1,88 @@
 // Paged LATENT attention for Multi-Latent Attention (DeepSeek), for sm_90a.
 //
-// Replaces two Pallas TPU kernels of the JAX package with ONE kernel body:
+// Replaces two Pallas TPU kernels of the JAX package:
 //   * dynamo_tpu/ops/mla_attention_pallas.py::mla_paged_decode_attention
 //     (_mla_decode_kernel; with return_stats, the (m, l) statistics the
-//     flash merge of mla_decode_attention_merged needs),
+//     flash merge of mla_decode_attention_merged / mla_verify_attention
+//     needs),
 //   * dynamo_tpu/ops/mla_attention_pallas.py::mla_paged_prefill_attention
 //     (_mla_prefill_kernel: a chunk over history + the already-written
 //     chunk, causal at absolute positions).
-// Both compute the same thing, at the latent widths the column tiling takes:
-// kv_lora_rank C in {128, 256, 512} and rope width R in {32, 64}, each a
-// template instance. The cache holds ONE latent stream per token
-// (c [N, bs, C] and the rotated pe [N, bs, R]) shared by all H query heads:
-// attention is MQA-shaped. A query row (token, head) scores position s as
-// q_eff . c[s] + q_pe . pe[s] (scaled), and the VALUES are the latents c
-// themselves; fp32 online softmax over every kv_pos <= q_pos.
+// The cache holds ONE latent stream per token (c [N, bs, C] and the rotated
+// pe [N, bs, R]) shared by all query rows: attention is MQA-shaped. A query
+// row (token, head) scores position s as scale * (q_eff . c[s] + q_pe .
+// pe[s]), and the VALUES are the latents c themselves; f32 online softmax
+// over every kv_pos <= q_pos. Rows that attend nothing (an empty decode
+// slot, prefill padding past valid_len) emit o = 0, m = -1e30, l = 0, the
+// Pallas kernel's empty row. Widths: any kv_lora_rank C with C % 128 == 0
+// and any rope width R in 1..128, as long as a padded latent row (C + R
+// rounded up to 64) is at most DP_MAX = 768 values (C <= 640 at any R):
+// the tensor-core bodies keep a 64-row query tile and a 2-stage ring of
+// such rows in shared memory.
 //
-// What bounds it on an H100: decode is device-memory bytes (each position's
-// 576 latent values are read once per sequence: ~9 MB for 8 sequences at up
-// to 2k tokens); prefill is operations (a T-token chunk does 2 * T * H *
-// positions * (C + R + C) flops against a cache that stays in L2).
+// Two bodies, chosen by dtype (an explicit dispatch, never a fallback):
 //
-// What the design does about it: a block owns a tile of RMAX query rows
-// (the H heads of one decode token, or RMAX/H prefill tokens x H heads) and
-// walks its share of the tile's causal horizon in KT-position steps. Each
-// step looks the KT positions' pages up once through the block table and
-// loads their c and pe rows ONCE into shared memory (16-byte loads,
-// converted to fp32); every row of the tile scores them from there, so the
-// H heads (and the tile's tokens) divide the device-memory traffic by RMAX.
-// The [RMAX, C] fp32 accumulator is split across the block's 256 threads by
-// output column (C = 512: each thread owns two columns of every row, 64
-// registers), so no thread holds a whole row; the scaled queries live in
-// shared memory, the step's probabilities too (float4 broadcast reads).
-// Decode has few tiles (B sequences), so the wrapper splits every tile's
-// horizon into n_split parts (flash-decoding): each split writes its
-// normalized partial (o, m, l) to fp32 scratch and a combine kernel merges
-// them. Rows that attend nothing (an empty decode slot, prefill padding
-// past valid_len) emit o = 0, m = -1e30, l = 0, the Pallas kernel's empty
-// row. Scores and the PV product run on CUDA cores; tensor-core (mma /
-// wgmma) tiles, TMA page loads and double buffering are later work.
+// 1. bf16 launches: the tensor-core body, mla_tc_kernel, for both
+//    functions. What bounds it on an H100: a prefill chunk is operations
+//    (2 * rows * positions * (C + R + C) flops: 22 GFLOP for T = 512 on
+//    1000 cached at H = 16, the latents staying in L2); decode is
+//    device-memory bytes (each position's C + R latents read once per
+//    sequence). The design, an FA2-style tile on mma.sync m16n8k16 built
+//    from the GQA bodies' parts (csrc/paged_attention.cu tc_segment_tile,
+//    tc_decode_tile):
+//    * a block owns a tile of query rows, token-major: 64 rows (4 groups
+//      of 16; H = 16 -> 4 tokens) for a prefill chunk and for decode
+//      launches with more than 16 rows per sequence (the verify's T * H),
+//      16 rows (one group) for a plain decode launch. A sequence with more
+//      rows than a tile spans several tiles (272 rows at spec_gamma = 16:
+//      5), so any row count works;
+//    * the horizon is walked in steps of KVT positions (32 with 64-row
+//      tiles, 64 with 16-row tiles). Each step's c | pe rows land ONCE,
+//      in bf16, in an XOR-swizzled ring of 2 or 3 stages (16-byte
+//      cp.async.cg; the pe tail zero-filled up to a multiple of 16 values,
+//      element by element when a pe row is not whole 16-byte chunks), the
+//      next steps' copies in flight during this step's products; page
+//      slots are looked up a step ahead, one per copying thread;
+//    * the f32 O accumulator [rows, C] is split by output column: each
+//      row group's WPG warps (2 for 64-row tiles, 8 for 16-row tiles) own
+//      C / WPG columns each (C = 512: 256 columns, 128 registers). A C
+//      wider than 512 takes a grid dimension of column slabs of at most
+//      512; every slab recomputes the scores (at C = 640, 2 slabs of 384
+//      and 256: the score work of the chunk is done twice);
+//    * S is computed ONCE per row group: each of the group's WPG warps
+//      computes S = Q [c|pe]^T for its KVT / WPG positions of the step (Q
+//      fragments by ldmatrix from the resident Q tile, K fragments from
+//      the ring), scales it into the log2 domain and masks it where the
+//      step crosses a row's causal limit; the group exchanges its S tiles
+//      through shared memory (f32, one named barrier per group and step),
+//      and every warp of the group runs the same online softmax over the
+//      whole step, so (m, l) agree across the group with no more traffic;
+//    * O += P V with P rounded to bf16 as the A fragment (l sums the f32
+//      p) and V fragments by ldmatrix.trans from the SAME stage the K
+//      fragments came from: one load serves both products;
+//    * prefill tiles run longest horizon first and take no split. Decode
+//      tiles split their horizon across blocks only as far as fills the
+//      card once (the wrapper's n_split, no host read of seq_lens; on the
+//      device a split never takes fewer than min_steps steps, so short
+//      sequences use fewer splits and the others exit at once). Each live
+//      split writes its normalized partial o (bf16: the output is bf16)
+//      and its (m, l) (f32) to scratch; the last block of a (sequence, row
+//      tile, slab) to take the ticket (an atomic add after __threadfence)
+//      merges them with the flash rule, every split's chunk of a column
+//      range loaded before any is summed, and zeroes the ticket for the
+//      next launch: one launch, no combine kernel, no host sync. That
+//      merge is one block's work (a verify's 64 rows x 512 columns from
+//      up to 16 splits: 1 MB) and the largest share of a verify's time; a
+//      pairwise merge tree (log2(splits) levels of one partial each) was
+//      slower on the card, each level paying a write, a fence and a read.
+//
+// 2. f32 launches (the tiny f32 models, held token for token to the CPU):
+//    the CUDA-core body, mla_core_kernel: one warp per query row walks
+//    the row's horizon a position at a time (warp-wide dot product over
+//    C + R, f32 online softmax, the C accumulators in shared memory), any
+//    C and R, no split.
+//
+// Later work: wgmma with TMA page loads and warp specialisation.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -46,420 +91,688 @@
 namespace {
 
 constexpr float kNegInf = -1e30f;  // the TPU kernels' _NEG_INF, not -inf
-constexpr int NT = 256;            // threads per block
-constexpr int KT = 16;             // kv positions per shared-memory step
-constexpr int PAD = 4;             // fp32 padding per shared row (banks)
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
+constexpr int NW = 8;              // warps per block (both bodies)
+constexpr int NT = NW * 32;
+constexpr int SLAB = 512;          // most output columns per block
+constexpr int DP_MAX = 768;        // widest padded latent row (values)
+constexpr int MAX_SPLITS = 16;     // most decode splits (the merge's table)
+constexpr int SMEM_MAX = 231424;   // dynamic shared memory a block takes
+                                   // (227 KB less 1 KB for the static)
+
+using bf16 = __nv_bfloat16;
 
 struct Params {
-  const void* q_eff;  // [R_total, C] query rows (token-major, heads inner)
-  const void* q_pe;   // [R_total, R]
-  void* o;            // [R_total, C] in the input dtype, or f32 (out_f32)
-  float* m_out;       // [R_total] or null
-  float* l_out;       // [R_total] or null
-  const void* cc;     // [N, bs, C] latent cache layer
-  const void* pc;     // [N, bs, R] rope-key cache layer
-  const int* tables;  // decode: [B, M]; prefill: [M]
+  const void* q_eff;    // [rows, C] query rows (token-major, heads inner)
+  const void* q_pe;     // [rows, R]
+  void* o;              // [rows, C] in the input dtype, or f32 (out_f32)
+  float* m_out;         // [rows] or null
+  float* l_out;         // [rows] or null
+  const void* cc;       // [N, bs, C] latent cache layer
+  const void* pc;       // [N, bs, R] rope-key cache layer
+  const int* tables;    // decode: [B, M]; prefill: [M]
   const int* seq_lens;  // decode [B]: row attends kv_pos < seq_len
   const int* hist;      // prefill [1]: tokens cached before the chunk
   const int* valid;     // prefill [1]: real tokens, or null (= T)
   int B;                // decode sequences (0: prefill)
   int T;                // prefill chunk tokens
-  int H, N, bs, M;
-  int tiles_per_seq;    // decode: ceil(H / RMAX)
+  int H;                // query rows per token (prefill) / sequence (decode)
+  int N, bs, M, C, R;
   float scale;
   int out_f32;
-  int n_split;          // horizon splits per tile (grid.y)
-  float* part_o;        // [n_split, R_total, C] when n_split > 1
-  float* part_m;        // [n_split, R_total]
-  float* part_l;        // [n_split, R_total]
+  // the tensor-core body's plan
+  int DP;         // padded shared-memory row: C + R rounded up to 64
+  int KD;         // score depth: C + R rounded up to 16
+  int stages;     // ring stages (2 or 3)
+  int slab_w;     // output columns per slab (a multiple of 128)
+  int n_slabs;
+  int n_rt;       // row tiles per sequence (decode) / of the chunk
+  int n_split;    // decode: horizon splits per (sequence, row tile, slab)
+  int min_steps;  // decode: least steps per split
+  float* part;    // decode partials when n_split > 1
+  int* tickets;   // decode: [B, n_rt, n_slabs] split counters, zero
 };
 
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-template <typename T>
-__device__ __forceinline__ T from_f(float x);
-template <>
-__device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-
-// VEC consecutive elements (16 bytes) as fp32 times `mul`.
-template <typename T, int VEC>
-__device__ __forceinline__ void load16(const T* src, float mul, float* dst) {
-  const uint4 raw = *reinterpret_cast<const uint4*>(src);
-  const T* v = reinterpret_cast<const T*>(&raw);
+__device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
-  for (int u = 0; u < VEC; u += 4) {
-    *reinterpret_cast<float4*>(dst + u) =
-        make_float4(to_f(v[u]) * mul, to_f(v[u + 1]) * mul,
-                    to_f(v[u + 2]) * mul, to_f(v[u + 3]) * mul);
-  }
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
 }
 
-template <int VEC>
-__device__ __forceinline__ void zero16(float* dst) {
-#pragma unroll
-  for (int u = 0; u < VEC; u += 4)
-    *reinterpret_cast<float4*>(dst + u) = make_float4(0.f, 0.f, 0.f, 0.f);
-}
+// ---------------- the CUDA-core body (f32 launches) ----------------
 
-template <int C, int R, int RMAX>
-constexpr size_t smem_bytes() {
-  return (size_t)(RMAX + KT) * (C + R + PAD) * 4  // queries, kv step
-         + (size_t)RMAX * KT * 4                 // scores / probabilities
-         + (size_t)RMAX * 4 * 4                  // m, l, alpha, limit
-         + (size_t)KT * 8 * 2;                   // page offsets
-}
-
-template <typename T, int C, int R, int RMAX>
-__global__ void __launch_bounds__(NT, 2)
-mla_attention_kernel(const Params p) {
-  constexpr int D = C + R;
-  constexpr int DP = D + PAD;
-  constexpr int VEC = 16 / sizeof(T);
-  constexpr int CH = D / VEC;  // 16-byte chunks per query / kv row
-  constexpr int CPT = C >= NT ? C / NT : 1;  // output columns per thread
-  constexpr int RG = C >= NT ? 1 : NT / C;   // row groups
-  constexpr int RPT = RMAX / RG;             // rows per thread
-  constexpr int SPT = RMAX * KT / NT;        // scores per thread per step
-  static_assert(C % VEC == 0 && R % VEC == 0, "16-byte rows");
-  static_assert(SPT >= 1 && (RMAX * KT) % NT == 0, "score tiling");
-  static_assert(C % NT == 0 || NT % C == 0, "column tiling");
-
-  extern __shared__ __align__(16) float smem[];
-  float* qs = smem;                 // [RMAX][DP] scaled queries
-  float* kvs = qs + RMAX * DP;      // [KT][DP] this step's c | pe rows
-  float* ps = kvs + KT * DP;        // [RMAX][KT] scores, then probabilities
-  float* m_s = ps + RMAX * KT;      // [RMAX] running max
-  float* l_s = m_s + RMAX;          // [RMAX] running normalizer
-  float* a_s = l_s + RMAX;          // [RMAX] this step's rescale
-  int* lim_s = reinterpret_cast<int*>(a_s + RMAX);  // [RMAX] causal limit
-  long long* cbase = reinterpret_cast<long long*>(lim_s + RMAX);  // [KT]
-  long long* pbase = cbase + KT;                                  // [KT]
-
-  const int t = threadIdx.x;
-  const int s = blockIdx.x;  // tile
-  const int z = blockIdx.y;  // horizon split
-
-  // ---- tile metadata: rows g0 .. g0+nrows-1 and their causal horizon ----
-  int g0, nrows, last, hist = 0, valid = 0;
+// One warp per query row; a row's C accumulators and its scaled query live
+// in the warp's share of shared memory, so any width fits.
+__global__ void __launch_bounds__(NT) mla_core_kernel(const Params p) {
+  extern __shared__ __align__(16) float fsm[];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int C = p.C, R = p.R;
+  const long long rows = p.B > 0 ? (long long)p.B * p.H : (long long)p.T * p.H;
+  const long long g = (long long)blockIdx.x * NW + warp;
+  if (g >= rows) return;
+  float* qv = fsm + (size_t)warp * (2 * C + R);  // [C + R] scaled query
+  float* ov = qv + C + R;                         // [C] accumulators
+  int lim;
   const int* table;
   if (p.B > 0) {
-    const int b = s / p.tiles_per_seq, rt = s % p.tiles_per_seq;
-    g0 = b * p.H + rt * RMAX;
-    nrows = min(RMAX, p.H - rt * RMAX);
-    last = p.seq_lens[b] - 1;  // -1: an empty slot attends nothing
+    const int b = (int)(g / p.H);
+    lim = min(p.seq_lens[b], p.M * p.bs) - 1;  // -1: an empty slot
     table = p.tables + (size_t)b * p.M;
   } else {
-    g0 = s * RMAX;
-    nrows = min(RMAX, p.T * p.H - g0);
-    hist = p.hist[0];
-    valid = p.valid ? p.valid[0] : p.T;
-    const int t_first = g0 / p.H, t_last = (g0 + nrows - 1) / p.H;
-    last = t_first < valid ? hist + min(t_last, valid - 1) : -1;
+    const int t = (int)(g / p.H);
+    const int valid = p.valid ? p.valid[0] : p.T;
+    lim = t < valid ? min(p.hist[0] + t, p.M * p.bs - 1) : -1;
     table = p.tables;
   }
-  if (t < RMAX) {
-    int lim = -1;
-    if (t < nrows) {
-      if (p.B > 0) {
-        lim = last;
-      } else {
-        const int tok = (g0 + t) / p.H;
-        lim = tok < valid ? hist + tok : -1;
-      }
-    }
-    lim_s[t] = lim;
-    m_s[t] = kNegInf;
-    l_s[t] = 0.f;
+  const float* qe = static_cast<const float*>(p.q_eff) + g * C;
+  const float* qp = static_cast<const float*>(p.q_pe) + g * R;
+  for (int k = lane; k < C; k += 32) {
+    qv[k] = qe[k] * p.scale;
+    ov[k] = 0.f;
   }
+  for (int k = lane; k < R; k += 32) qv[C + k] = qp[k] * p.scale;
+  __syncwarp();
+  const float* cc = static_cast<const float*>(p.cc);
+  const float* pc = static_cast<const float*>(p.pc);
+  float m = kNegInf, l = 0.f;
+  for (int pos = 0; pos <= lim; ++pos) {
+    const long long slot = (long long)table[pos / p.bs] * p.bs + pos % p.bs;
+    const float* cr = cc + slot * C;
+    const float* pr = pc + slot * R;
+    float s = 0.f;
+    for (int k = lane; k < C; k += 32) s = fmaf(qv[k], cr[k], s);
+    for (int k = lane; k < R; k += 32) s = fmaf(qv[C + k], pr[k], s);
+    s = warp_sum(s);
+    const float mn = fmaxf(m, s);
+    const float alpha = expf(m - mn), pe = expf(s - mn);
+    l = l * alpha + pe;
+    m = mn;
+    for (int k = lane; k < C; k += 32) ov[k] = fmaf(pe, cr[k], ov[k] * alpha);
+  }
+  const float inv = 1.f / fmaxf(l, 1e-20f);  // 0 / 1e-20 = 0 when dead
+  float* o = static_cast<float*>(p.o) + g * C;
+  for (int k = lane; k < C; k += 32) o[k] = ov[k] * inv;
+  if (p.m_out != nullptr && lane == 0) {
+    p.m_out[g] = m;
+    p.l_out[g] = l;
+  }
+}
 
-  // ---- the tile's queries, scaled, into shared memory ----
-  const T* qe = static_cast<const T*>(p.q_eff);
-  const T* qp = static_cast<const T*>(p.q_pe);
-  for (int idx = t; idx < RMAX * CH; idx += NT) {
-    const int r = idx / CH, k = (idx % CH) * VEC;
-    float* dst = qs + r * DP + k;
+// ---------------- the tensor-core body (bf16 launches) ----------------
+
+__device__ __forceinline__ unsigned smem_u32(const void* ptr) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(ptr));
+}
+
+// 16 bytes global -> shared, bypassing L1; src_bytes = 0 writes zeros
+__device__ __forceinline__ void cp_async16(unsigned dst, const void* src,
+                                           int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4(unsigned addr, uint32_t (&r)[4]) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+__device__ __forceinline__ void ldsm_x2(unsigned addr, uint32_t (&r)[2]) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
+      : "=r"(r[0]), "=r"(r[1])
+      : "r"(addr));
+}
+__device__ __forceinline__ void ldsm_x4_t(unsigned addr, uint32_t (&r)[4]) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+// d += a (16x16 bf16, row) * b (16x8 bf16, col), f32 accumulate
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// a group's named barrier (barrier 0 is __syncthreads)
+__device__ __forceinline__ void group_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// element offset of 16-byte chunk `chunk` of row `row` in a swizzled tile
+// of cpr chunks per row (a multiple of 8): the chunk index XOR (row % 8),
+// so the 8 rows an ldmatrix reads at one logical chunk hit 8 bank groups
+__device__ __forceinline__ int swz(int row, int chunk, int cpr) {
+  return (row * cpr + (chunk ^ (row & 7))) * 8;
+}
+
+// the shapes of a tensor-core tile: WPG warps per 16-row group, KVT
+// positions per step
+template <int WPG, int KVT>
+struct Tile {
+  static constexpr int RG = NW / WPG;        // row groups
+  static constexpr int RT = RG * 16;         // query rows per tile
+  static constexpr int SPW = KVT / WPG;      // score positions per warp
+  static constexpr int NS8 = SPW / 8;        // their n8 tiles
+  static constexpr int NC8 = SLAB / WPG / 8; // most output n8 tiles per warp
+  static constexpr int TPR = NT / KVT;       // copying threads per kv row
+  static constexpr int SXS = KVT + 8;        // S exchange row (floats)
+  static_assert(SXS >= 2 * MAX_SPLITS, "the merge's statistics fit the S area");
+  static_assert(SPW % 8 == 0 && NC8 % 2 == 0 && NT % KVT == 0, "tiling");
+};
+
+// bf16 copy of one 16-byte chunk of a pe row that is not whole 16-byte
+// chunks: element loads, zeros past R (a synchronous shared store)
+__device__ __forceinline__ void pe_chunk_elems(bf16* dst, const bf16* row,
+                                               int j0, int R, bool ok) {
+  uint4 v;
+  bf16* e = reinterpret_cast<bf16*>(&v);
+#pragma unroll
+  for (int u = 0; u < 8; ++u)
+    e[u] = (ok && j0 + u < R) ? row[j0 + u] : __float2bfloat16(0.f);
+  *reinterpret_cast<uint4*>(dst) = v;
+}
+
+template <int WPG, int KVT>
+__global__ void __launch_bounds__(NT, 1) mla_tc_kernel(const Params p) {
+  using TL = Tile<WPG, KVT>;
+  constexpr int RT = TL::RT, SXS = TL::SXS, NS8 = TL::NS8, NC8 = TL::NC8;
+  constexpr int TPR = TL::TPR;
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int DP = p.DP, CPR = DP / 8, KC = p.KD / 8, C8 = p.C / 8;
+  const int C = p.C, R = p.R, ST = p.stages;
+  bf16* qs = reinterpret_cast<bf16*>(smem);               // [RT][DP]
+  bf16* ring = qs + RT * DP;                              // [ST][KVT][DP]
+  float* sx = reinterpret_cast<float*>(ring + ST * KVT * DP);  // [RT][SXS]
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int grp = warp / WPG, part = warp % WPG;
+  const int blk = blockIdx.x;
+
+  // ---- the tile: rows g0 .. g0 + nrows - 1, slab, split, horizon ----
+  int z = 0, slab, g0, nrows, last, hist = 0, valid = 0, unit = 0;
+  const int* table;
+  if (p.B > 0) {
+    z = blk % p.n_split;
+    int rest = blk / p.n_split;
+    slab = rest % p.n_slabs;
+    rest /= p.n_slabs;
+    const int rt = rest % p.n_rt, b = rest / p.n_rt;
+    unit = (b * p.n_rt + rt) * p.n_slabs + slab;
+    g0 = b * p.H + rt * RT;
+    nrows = min(RT, p.H - rt * RT);
+    last = min(p.seq_lens[b], p.M * p.bs) - 1;  // -1: an empty slot
+    table = p.tables + (size_t)b * p.M;
+  } else {
+    slab = blk % p.n_slabs;
+    const int tile = p.n_rt - 1 - blk / p.n_slabs;  // longest horizon first
+    g0 = tile * RT;
+    nrows = min(RT, p.T * p.H - g0);
+    hist = p.hist[0];
+    valid = p.valid ? min(p.valid[0], p.T) : p.T;
+    const int t_first = g0 / p.H, t_last = (g0 + nrows - 1) / p.H;
+    last = t_first < valid ? min(hist + min(t_last, valid - 1), p.M * p.bs - 1)
+                           : -1;
+    table = p.tables;
+  }
+  const int steps = (last + KVT) / KVT;
+  int s_begin = 0, s_end = steps, n_live = 1;
+  if (p.B > 0) {
+    const int per = max((steps + p.n_split - 1) / p.n_split, p.min_steps);
+    n_live = max(1, (steps + per - 1) / per);
+    if (z >= n_live) return;  // a split past this sequence's horizon
+    s_begin = z * per;
+    s_end = min(steps, s_begin + per);
+  }
+  const int c_end = min(last + 1, s_end * KVT);  // positions of this block
+
+  // this thread's two rows (lane / 4 and lane / 4 + 8 of its group) and
+  // their causal limits, clamped to this block's positions
+  int lim[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = grp * 16 + (lane >> 2) + 8 * i;
+    int l = -1;
     if (r < nrows) {
-      const size_t g = (size_t)g0 + r;
-      load16<T, VEC>(k < C ? qe + g * C + k : qp + g * R + (k - C), p.scale,
-                     dst);
+      if (p.B > 0) {
+        l = last;
+      } else {
+        const int t = (g0 + r) / p.H;
+        l = t < valid ? hist + t : -1;
+      }
+    }
+    lim[i] = min(l, c_end - 1);
+  }
+  int qmin = min(lim[0], lim[1]), qmax = max(lim[0], lim[1]);
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    qmin = min(qmin, __shfl_xor_sync(0xffffffffu, qmin, o));
+    qmax = max(qmax, __shfl_xor_sync(0xffffffffu, qmax, o));
+  }
+
+  // this warp's output columns: wn of them from wc0 (a multiple of 16)
+  const int col0 = slab * p.slab_w;
+  const int wc0 = col0 + part * (p.slab_w / WPG);
+  const int wn = max(0, min(p.slab_w / WPG, C - wc0));
+
+  const bf16* qe = static_cast<const bf16*>(p.q_eff);
+  const bf16* qp = static_cast<const bf16*>(p.q_pe);
+  const bf16* cc = static_cast<const bf16*>(p.cc);
+  const bf16* pc = static_cast<const bf16*>(p.pc);
+  const bool pe16 = (R & 7) == 0;  // pe rows are whole 16-byte chunks
+
+  // ---- Q: the tile's rows (zeros past nrows and past C + R) ----
+  for (int e = tid; e < RT * KC; e += NT) {
+    const int r = e / KC, k = e % KC;
+    bf16* dst = qs + swz(r, k, CPR);
+    const bool ok = r < nrows;
+    const size_t g = (size_t)g0 + r;
+    if (k < C8) {
+      cp_async16(smem_u32(dst), ok ? qe + g * C + k * 8 : qe, ok ? 16 : 0);
     } else {
-      zero16<VEC>(dst);
+      const int j0 = (k - C8) * 8;
+      if (pe16)
+        cp_async16(smem_u32(dst), ok && j0 < R ? qp + g * R + j0 : qp,
+                   ok && j0 < R ? 16 : 0);
+      else
+        pe_chunk_elems(dst, qp + g * R, j0, R, ok);
     }
   }
+  cp_async_commit();
 
-  // this split's share of the horizon [0, last], in whole KT steps
-  const int steps = (last + KT) / KT;
-  const int per = (steps + p.n_split - 1) / p.n_split;
-  const int c_begin = z * per * KT;
-  const int c_end = min(last + 1, (z + 1) * per * KT);
-
-  const int col0 = C >= NT ? t : t % C;
-  const int row0 = C >= NT ? 0 : t / C;
-  float acc[RPT][CPT];
-#pragma unroll
-  for (int k = 0; k < RPT; ++k)
-#pragma unroll
-    for (int i = 0; i < CPT; ++i) acc[k][i] = 0.f;
-
-  const T* cc = static_cast<const T*>(p.cc);
-  const T* pc = static_cast<const T*>(p.pc);
-  __syncthreads();
-
-  for (int c = c_begin; c < c_end; c += KT) {
-    // ---- one step: the KT positions' c | pe rows into shared memory ----
-    if (t < KT) {
-      const int pos = c + t;
-      if (pos < c_end) {
-        const long long slot =
-            (long long)table[pos / p.bs] * p.bs + pos % p.bs;
-        cbase[t] = slot * C;
-        pbase[t] = slot * R;
+  // ---- the ring: thread -> (row j of the step, chunks kq, kq + TPR, ..),
+  // the row's slot looked up a step before its copies ----
+  const int j = tid / TPR, kq = tid % TPR;
+  int slot = -1;
+  auto fetch = [&](int n) {
+    const int pos = n * KVT + j;
+    slot = pos < c_end ? table[pos / p.bs] * p.bs + pos % p.bs : -1;
+  };
+  auto copy_step = [&](int n) {
+    bf16* st = ring + (n % ST) * KVT * DP;
+    const bool ok = slot >= 0;
+    const bf16* cr = cc + (size_t)(ok ? slot : 0) * C;
+    const bf16* pr = pc + (size_t)(ok ? slot : 0) * R;
+    for (int k = kq; k < KC; k += TPR) {
+      bf16* dst = st + swz(j, k, CPR);
+      if (k < C8) {
+        cp_async16(smem_u32(dst), cr + k * 8, ok ? 16 : 0);
       } else {
-        cbase[t] = -1;
-        pbase[t] = -1;
+        const int j0 = (k - C8) * 8;
+        if (pe16)
+          cp_async16(smem_u32(dst), j0 < R ? pr + j0 : pr,
+                     ok && j0 < R ? 16 : 0);
+        else
+          pe_chunk_elems(dst, pr, j0, R, ok);
       }
     }
-    __syncthreads();
-    for (int idx = t; idx < KT * CH; idx += NT) {
-      const int j = idx / CH, k = (idx % CH) * VEC;
-      float* dst = kvs + j * DP + k;
-      if (cbase[j] >= 0) {
-        load16<T, VEC>(k < C ? cc + cbase[j] + k : pc + pbase[j] + (k - C),
-                       1.f, dst);
-      } else {
-        zero16<VEC>(dst);
-      }
-    }
-    __syncthreads();
+  };
 
-    // ---- scores: thread (j, rows t/KT + i*NT/KT), masked causally ----
-    {
-      const int j = t % KT;
-      float sc[SPT];
+  // the first ST - 1 steps in flight, one commit group each (after Q's)
+  if (s_begin < s_end) fetch(s_begin);
+  for (int i = 0; i < ST - 1; ++i) {
+    if (s_begin + i < s_end) copy_step(s_begin + i);
+    cp_async_commit();
+    if (s_begin + i + 1 < s_end) fetch(s_begin + i + 1);
+  }
+
+  float acc[NC8][4];
 #pragma unroll
-      for (int i = 0; i < SPT; ++i) sc[i] = 0.f;
-      const float* kr = kvs + j * DP;
+  for (int i = 0; i < NC8; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
+  float mrow[2] = {kNegInf, kNegInf}, lrow[2] = {0.f, 0.f};
+  const float qk_scale = p.scale * kLog2e;
+  const float masked_out = __int_as_float(0xff800000);  // -inf
+  const int qrow = grp * 16 + (lane & 7) + (((lane >> 3) & 1) << 3);
+  float* sxg = sx + grp * 16 * SXS;  // this group's S rows
+
+  for (int n = s_begin; n < s_end; ++n) {
+    if (ST == 3) cp_async_wait<1>(); else cp_async_wait<0>();
+    // step n's stage is complete, and every warp is done with step n - 1
+    // (whose stage the next copy overwrites, and the S exchange)
+    __syncthreads();
+    if (n + ST - 1 < s_end) copy_step(n + ST - 1);
+    cp_async_commit();
+    if (n + ST < s_end) fetch(n + ST);
+
+    const int c = n * KVT;
+    if (c > qmax) continue;  // no row of this group reaches this step
+    const bf16* kt = ring + (n % ST) * KVT * DP;
+
+    // ---- S = Q [c|pe]^T for this warp's SPW positions of the step ----
+    float sacc[NS8][4];
+#pragma unroll
+    for (int i = 0; i < NS8; ++i) sacc[i][0] = sacc[i][1] = sacc[i][2] = sacc[i][3] = 0.f;
+    const int pbase = part * TL::SPW;
 #pragma unroll 4
-      for (int k = 0; k < D; k += 4) {
-        const float4 kv = *reinterpret_cast<const float4*>(kr + k);
+    for (int kk = 0; kk < KC / 2; ++kk) {
+      uint32_t a[4];
+      ldsm_x4(smem_u32(qs + swz(qrow, kk * 2 + (lane >> 4), CPR)), a);
+      if constexpr (NS8 % 2 == 0) {
 #pragma unroll
-        for (int i = 0; i < SPT; ++i) {
-          const float4 q = *reinterpret_cast<const float4*>(
-              qs + (t / KT + i * (NT / KT)) * DP + k);
-          sc[i] = fmaf(q.x, kv.x, sc[i]);
-          sc[i] = fmaf(q.y, kv.y, sc[i]);
-          sc[i] = fmaf(q.z, kv.z, sc[i]);
-          sc[i] = fmaf(q.w, kv.w, sc[i]);
+        for (int nn = 0; nn < NS8 / 2; ++nn) {
+          uint32_t b[4];
+          const int r = pbase + nn * 16 + (lane & 7) + ((lane >> 4) << 3);
+          ldsm_x4(smem_u32(kt + swz(r, kk * 2 + ((lane >> 3) & 1), CPR)), b);
+          mma_bf16(sacc[2 * nn], a, b[0], b[1]);
+          mma_bf16(sacc[2 * nn + 1], a, b[2], b[3]);
         }
-      }
-#pragma unroll
-      for (int i = 0; i < SPT; ++i) {
-        const int r = t / KT + i * (NT / KT);
-        const int pos = c + j;
-        ps[r * KT + j] = (pos <= lim_s[r] && pos < c_end) ? sc[i] : kNegInf;
-      }
-    }
-    __syncthreads();
-
-    // ---- online softmax, one thread per row ----
-    if (t < RMAX) {
-      float* sr = ps + t * KT;
-      const int lim = min(lim_s[t], c_end - 1);
-      if (lim >= c) {  // position c is attended: the max is a real score
-        const float m_old = m_s[t];
-        float mx = m_old;
-#pragma unroll
-        for (int j = 0; j < KT; ++j) mx = fmaxf(mx, sr[j]);
-        const float alpha = __expf(m_old - mx);
-        float sum = 0.f;
-#pragma unroll
-        for (int j = 0; j < KT; ++j) {
-          const float e = (c + j <= lim) ? __expf(sr[j] - mx) : 0.f;
-          sr[j] = e;
-          sum += e;
-        }
-        l_s[t] = l_s[t] * alpha + sum;
-        m_s[t] = mx;
-        a_s[t] = alpha;
       } else {
-#pragma unroll
-        for (int j = 0; j < KT; ++j) sr[j] = 0.f;
-        a_s[t] = 1.f;
+        uint32_t b[2];
+        const int r = pbase + (lane & 7);
+        ldsm_x2(smem_u32(kt + swz(r, kk * 2 + ((lane >> 3) & 1), CPR)), b);
+        mma_bf16(sacc[0], a, b[0], b[1]);
       }
     }
-    __syncthreads();
 
-    // ---- rescale, then acc += P [rows, KT] x c [KT, C] ----
+    // ---- scale (log2 domain), mask where the step crosses a limit, and
+    // share with the group ----
+    const bool masked = c + KVT - 1 > qmin;
 #pragma unroll
-    for (int k = 0; k < RPT; ++k) {
-      const float a = a_s[row0 + k * RG];
+    for (int nn = 0; nn < NS8; ++nn) {
+      const int col = pbase + nn * 8 + 2 * (lane & 3);
 #pragma unroll
-      for (int i = 0; i < CPT; ++i) acc[k][i] *= a;
+      for (int i = 0; i < 2; ++i) {
+        float v0 = sacc[nn][2 * i] * qk_scale;
+        float v1 = sacc[nn][2 * i + 1] * qk_scale;
+        if (masked && c + col > lim[i]) v0 = masked_out;
+        if (masked && c + col + 1 > lim[i]) v1 = masked_out;
+        *reinterpret_cast<float2*>(sxg + ((lane >> 2) + 8 * i) * SXS + col) =
+            make_float2(v0, v1);
+      }
+    }
+    group_sync(1 + grp, WPG * 32);
+
+    // ---- online softmax over the whole step (every warp of the group) ----
+    float sf[KVT / 8][4];
+#pragma unroll
+    for (int nn = 0; nn < KVT / 8; ++nn) {
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const float2 v = *reinterpret_cast<const float2*>(
+            sxg + ((lane >> 2) + 8 * i) * SXS + nn * 8 + 2 * (lane & 3));
+        sf[nn][2 * i] = v.x;
+        sf[nn][2 * i + 1] = v.y;
+      }
+    }
+    float alpha[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      float mx = mrow[i];
+#pragma unroll
+      for (int nn = 0; nn < KVT / 8; ++nn)
+        mx = fmaxf(mx, fmaxf(sf[nn][2 * i], sf[nn][2 * i + 1]));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      alpha[i] = exp2f(mrow[i] - mx);
+      mrow[i] = mx;
+      lrow[i] *= alpha[i];
     }
 #pragma unroll
-    for (int j0 = 0; j0 < KT; j0 += 4) {
-      float v[4][CPT];
+    for (int nn = 0; nn < KVT / 8; ++nn) {
 #pragma unroll
-      for (int u = 0; u < 4; ++u)
+      for (int e = 0; e < 4; ++e) {
+        const float pe = exp2f(sf[nn][e] - mrow[e >> 1]);
+        lrow[e >> 1] += pe;  // l sums the f32 p, before any rounding
+        sf[nn][e] = pe;
+      }
+    }
 #pragma unroll
-        for (int i = 0; i < CPT; ++i) v[u][i] = kvs[(j0 + u) * DP + col0 + i * NT];
+    for (int d = 0; d < NC8; ++d) {
+      acc[d][0] *= alpha[0];
+      acc[d][1] *= alpha[0];
+      acc[d][2] *= alpha[1];
+      acc[d][3] *= alpha[1];
+    }
+
+    // ---- O += P V: P in bf16 registers, V from the K stage (c part) ----
 #pragma unroll
-      for (int k = 0; k < RPT; ++k) {
-        const float4 pp =
-            *reinterpret_cast<const float4*>(ps + (row0 + k * RG) * KT + j0);
+    for (int kk = 0; kk < KVT / 16; ++kk) {
+      const float* p0 = sf[2 * kk];
+      const float* p1 = sf[2 * kk + 1];
+      const uint32_t a[4] = {pack_bf16(p0[0], p0[1]), pack_bf16(p0[2], p0[3]),
+                             pack_bf16(p1[0], p1[1]), pack_bf16(p1[2], p1[3])};
+      const int r = kk * 16 + (lane & 7) + (((lane >> 3) & 1) << 3);
 #pragma unroll
-        for (int i = 0; i < CPT; ++i) {
-          float a = acc[k][i];
-          a = fmaf(pp.x, v[0][i], a);
-          a = fmaf(pp.y, v[1][i], a);
-          a = fmaf(pp.z, v[2][i], a);
-          a = fmaf(pp.w, v[3][i], a);
-          acc[k][i] = a;
+      for (int dd = 0; dd < NC8 / 2; ++dd) {
+        if (dd * 16 < wn) {
+          uint32_t b[4];
+          ldsm_x4_t(smem_u32(kt + swz(r, wc0 / 8 + dd * 2 + (lane >> 4), CPR)), b);
+          mma_bf16(acc[2 * dd], a, b[0], b[1]);
+          mma_bf16(acc[2 * dd + 1], a, b[2], b[3]);
         }
       }
     }
-    __syncthreads();
+  }
+  cp_async_wait<0>();
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    lrow[i] += __shfl_xor_sync(0xffffffffu, lrow[i], 1);
+    lrow[i] += __shfl_xor_sync(0xffffffffu, lrow[i], 2);
   }
 
-  // ---- emit: normalized rows (or this split's partial) and (m, l) ----
-  const size_t Rtot = p.B > 0 ? (size_t)p.B * p.H : (size_t)p.T * p.H;
+  // ---- emit: o normalized (0 where nothing is attended) and (m, l); or
+  // this split's partial, merged by the last split of the unit ----
+  const size_t rows_all = p.B > 0 ? (size_t)p.B * p.H : (size_t)p.T * p.H;
+  const bool split = n_live > 1;
+  // scratch: (m, l) f32 [n_split][n_slabs][rows_all][2], then the
+  // normalized partial o in bf16 [n_split][rows_all][C] (the output is
+  // bf16: the merge rounds once more, well inside a bf16 output's error)
+  const size_t ml_floats =
+      ((size_t)p.n_split * p.n_slabs * rows_all * 2 + 3) & ~(size_t)3;
+  bf16* po = split ? reinterpret_cast<bf16*>(p.part + ml_floats) +
+                         (size_t)z * rows_all * C
+                   : nullptr;
+  float* pm = split ? p.part + ((size_t)z * p.n_slabs + slab) * rows_all * 2
+                    : nullptr;
 #pragma unroll
-  for (int k = 0; k < RPT; ++k) {
-    const int r = row0 + k * RG;
+  for (int i = 0; i < 2; ++i) {
+    const int r = grp * 16 + (lane >> 2) + 8 * i;
     if (r >= nrows) continue;
     const size_t g = (size_t)g0 + r;
-    const float inv = 1.f / fmaxf(l_s[r], 1e-20f);
+    const bool live = lrow[i] > 0.f;
+    const float inv = live ? 1.f / lrow[i] : 0.f;
+    const float m_nat = live ? mrow[i] * kLn2 : kNegInf;
+    const int cq = wc0 + 2 * (lane & 3);
 #pragma unroll
-    for (int i = 0; i < CPT; ++i) {
-      const int col = col0 + i * NT;
-      const float val = acc[k][i] * inv;
-      if (p.n_split > 1) {
-        p.part_o[((size_t)z * Rtot + g) * C + col] = val;
+    for (int d = 0; d < NC8; ++d) {
+      if (d * 8 >= wn) continue;
+      const float v0 = acc[d][2 * i] * inv, v1 = acc[d][2 * i + 1] * inv;
+      const size_t idx = g * C + cq + d * 8;
+      if (split) {
+        *reinterpret_cast<uint32_t*>(po + idx) = pack_bf16(v0, v1);
       } else if (p.out_f32) {
-        static_cast<float*>(p.o)[g * C + col] = val;
+        *reinterpret_cast<float2*>(static_cast<float*>(p.o) + idx) =
+            make_float2(v0, v1);
       } else {
-        static_cast<T*>(p.o)[g * C + col] = from_f<T>(val);
+        *reinterpret_cast<uint32_t*>(static_cast<bf16*>(p.o) + idx) =
+            pack_bf16(v0, v1);
+      }
+    }
+    if (part == 0 && (lane & 3) == 0) {
+      if (split) {
+        *reinterpret_cast<float2*>(pm + g * 2) =
+            make_float2(m_nat, live ? lrow[i] : 0.f);
+      } else if (p.m_out != nullptr && slab == 0) {
+        p.m_out[g] = m_nat;
+        p.l_out[g] = live ? lrow[i] : 0.f;
       }
     }
   }
-  if (t < nrows) {
-    const size_t g = (size_t)g0 + t;
-    if (p.n_split > 1) {
-      p.part_m[(size_t)z * Rtot + g] = m_s[t];
-      p.part_l[(size_t)z * Rtot + g] = l_s[t];
-    } else if (p.m_out != nullptr) {
-      p.m_out[g] = m_s[t];
-      p.l_out[g] = l_s[t];
+  if (!split) return;
+
+  __threadfence();  // the partial is visible device-wide before the ticket
+  __syncthreads();
+  __shared__ int s_last;
+  int* ticket = p.tickets + unit;
+  if (tid == 0) s_last = atomicAdd(ticket, 1) == n_live - 1;
+  __syncthreads();
+  if (!s_last) return;
+  __threadfence();
+  // the merge. Every (row, split) statistic is loaded at once into the S
+  // area, then each row's weights w_z = l_z exp(m_z - M) / L, then the
+  // slab's columns, 8 per chunk, every split's chunk of EPT chunks loaded
+  // before any is summed (a chain of loads would each wait a round trip)
+  float* wts = sx;  // [RT][SXS]: m_z (then w_z) at z, l_z at MAX_SPLITS + z
+  for (int e = tid; e < nrows * n_live; e += NT) {
+    const int r = e / n_live, zz = e % n_live;
+    const float2 ml = __ldcg(reinterpret_cast<const float2*>(
+        p.part + ((size_t)zz * p.n_slabs + slab) * rows_all * 2 +
+        ((size_t)g0 + r) * 2));
+    wts[r * SXS + zz] = ml.x;
+    wts[r * SXS + MAX_SPLITS + zz] = ml.y;
+  }
+  __syncthreads();
+  if (tid < nrows) {
+    float* w = wts + tid * SXS;
+    float M = kNegInf, L = 0.f;
+    for (int zz = 0; zz < n_live; ++zz) M = fmaxf(M, w[zz]);
+    for (int zz = 0; zz < n_live; ++zz) {
+      w[zz] = w[MAX_SPLITS + zz] * __expf(w[zz] - M);
+      L += w[zz];
+    }
+    const float iz = 1.f / fmaxf(L, 1e-20f);
+    for (int zz = 0; zz < n_live; ++zz) w[zz] *= iz;
+    if (p.m_out != nullptr && slab == 0) {
+      p.m_out[(size_t)g0 + tid] = M;
+      p.l_out[(size_t)g0 + tid] = L;
     }
   }
-}
-
-// Merge the n_split partials of every row (one warp per row):
-// m = max m_z, l = sum l_z exp(m_z - m), o = sum l_z exp(m_z - m) o_z / l.
-template <typename T, int C>
-__global__ void __launch_bounds__(256)
-mla_combine_kernel(const Params p, size_t Rtot) {
-  constexpr int CPL = C / 32;
-  const size_t row = (size_t)blockIdx.x * 8 + (threadIdx.x >> 5);
-  const int lane = threadIdx.x & 31;
-  if (row >= Rtot) return;
-  float m = kNegInf;
-  for (int z = 0; z < p.n_split; ++z) m = fmaxf(m, p.part_m[z * Rtot + row]);
-  float l = 0.f, acc[CPL];
+  __syncthreads();
+  const bf16* pb = reinterpret_cast<const bf16*>(p.part + ml_floats);
+  const int q8 = min(p.slab_w, C - col0) / 8;
+  constexpr int EPT = 2;  // chunks per thread and round
+  for (int e0 = tid; e0 < nrows * q8; e0 += NT * EPT) {
+    uint4 v[EPT][MAX_SPLITS];
 #pragma unroll
-  for (int i = 0; i < CPL; ++i) acc[i] = 0.f;
-  for (int z = 0; z < p.n_split; ++z) {
-    const size_t prow = z * Rtot + row;
-    const float w = p.part_l[prow] * __expf(p.part_m[prow] - m);
-    l += w;
-    const float* op = p.part_o + prow * C + lane;
+    for (int u = 0; u < EPT; ++u) {
+      const int e = e0 + u * NT;
+      if (e >= nrows * q8) break;
+      const bf16* src = pb + ((size_t)g0 + e / q8) * C + col0 + (e % q8) * 8;
 #pragma unroll
-    for (int i = 0; i < CPL; ++i) acc[i] = fmaf(w, op[i * 32], acc[i]);
-  }
-  const float inv = 1.f / fmaxf(l, 1e-20f);
+      for (int zz = 0; zz < MAX_SPLITS; ++zz)
+        if (zz < n_live)
+          v[u][zz] = __ldcg(reinterpret_cast<const uint4*>(
+              src + (size_t)zz * rows_all * C));
+    }
 #pragma unroll
-  for (int i = 0; i < CPL; ++i) {
-    const size_t idx = row * C + lane + i * 32;
-    if (p.out_f32) {
-      static_cast<float*>(p.o)[idx] = acc[i] * inv;
-    } else {
-      static_cast<T*>(p.o)[idx] = from_f<T>(acc[i] * inv);
+    for (int u = 0; u < EPT; ++u) {
+      const int e = e0 + u * NT;
+      if (e >= nrows * q8) break;
+      const int r = e / q8;
+      float sum[8];
+#pragma unroll
+      for (int k = 0; k < 8; ++k) sum[k] = 0.f;
+#pragma unroll
+      for (int zz = 0; zz < MAX_SPLITS; ++zz) {
+        if (zz >= n_live) break;
+        const float w = wts[r * SXS + zz];
+        const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&v[u][zz]);
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          const float2 f = __bfloat1622float2(h[k]);
+          sum[2 * k] = fmaf(w, f.x, sum[2 * k]);
+          sum[2 * k + 1] = fmaf(w, f.y, sum[2 * k + 1]);
+        }
+      }
+      const size_t idx = ((size_t)g0 + r) * C + col0 + (e % q8) * 8;
+      if (p.out_f32) {
+        float4* d = reinterpret_cast<float4*>(static_cast<float*>(p.o) + idx);
+        d[0] = make_float4(sum[0], sum[1], sum[2], sum[3]);
+        d[1] = make_float4(sum[4], sum[5], sum[6], sum[7]);
+      } else {
+        *reinterpret_cast<uint4*>(static_cast<bf16*>(p.o) + idx) = make_uint4(
+            pack_bf16(sum[0], sum[1]), pack_bf16(sum[2], sum[3]),
+            pack_bf16(sum[4], sum[5]), pack_bf16(sum[6], sum[7]));
+      }
     }
   }
-  if (p.m_out != nullptr && lane == 0) {
-    p.m_out[row] = m;
-    p.l_out[row] = l;
-  }
+  if (tid == 0) *ticket = 0;  // ready for the next launch
 }
 
-template <typename T, int C, int R, int RMAX>
-cudaError_t launch_cfg(const Params& p, int n_tiles, cudaStream_t stream) {
-  constexpr size_t smem = smem_bytes<C, R, RMAX>();
+template <int WPG, int KVT>
+int tc_smem(int DP, int stages) {
+  using TL = Tile<WPG, KVT>;
+  return TL::RT * DP * 2 + stages * KVT * DP * 2 + TL::RT * TL::SXS * 4;
+}
+
+template <int WPG, int KVT>
+cudaError_t launch_tc(const Params& p, cudaStream_t stream) {
   static bool attr_set = false;  // above 48 KB needs the opt-in, once
   if (!attr_set) {
     const cudaError_t e = cudaFuncSetAttribute(
-        mla_attention_kernel<T, C, R, RMAX>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return e;
+        mla_tc_kernel<WPG, KVT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        SMEM_MAX);
+    if (e != cudaSuccess) return cudaGetLastError();
     attr_set = true;
   }
-  dim3 grid(n_tiles, p.n_split);
-  mla_attention_kernel<T, C, R, RMAX><<<grid, NT, smem, stream>>>(p);
-  if (p.n_split > 1) {
-    const size_t Rtot = p.B > 0 ? (size_t)p.B * p.H : (size_t)p.T * p.H;
-    const unsigned blocks = (unsigned)((Rtot + 7) / 8);
-    mla_combine_kernel<T, C><<<blocks, 256, 0, stream>>>(p, Rtot);
-  }
+  const int smem = tc_smem<WPG, KVT>(p.DP, p.stages);
+  if (smem > SMEM_MAX) return cudaErrorInvalidValue;
+  const int blocks = p.B > 0 ? p.B * p.n_rt * p.n_slabs * p.n_split
+                             : p.n_rt * p.n_slabs;
+  mla_tc_kernel<WPG, KVT><<<blocks, NT, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
-template <typename T, int R, int RMAX>
-cudaError_t launch_c(const Params& p, int C, int n_tiles, cudaStream_t st) {
-  if (C == 512) return launch_cfg<T, 512, R, RMAX>(p, n_tiles, st);
-  if (C == 256) return launch_cfg<T, 256, R, RMAX>(p, n_tiles, st);
-  if (C == 128) return launch_cfg<T, 128, R, RMAX>(p, n_tiles, st);
-  return cudaErrorInvalidValue;
-}
-
-// the rope widths: 64 (DeepSeek-V2/V3), 32 (MiniCPM3)
-template <typename T, int RMAX>
-cudaError_t launch_r(const Params& p, int C, int R, int n_tiles,
-                     cudaStream_t st) {
-  if (R == 64) return launch_c<T, 64, RMAX>(p, C, n_tiles, st);
-  if (R == 32) return launch_c<T, 32, RMAX>(p, C, n_tiles, st);
-  return cudaErrorInvalidValue;
-}
-
-template <typename T>
-cudaError_t launch_typed(const Params& p, int C, int R, int rmax, int n_tiles,
-                         cudaStream_t st) {
-  if (rmax == 16) return launch_r<T, 16>(p, C, R, n_tiles, st);
-  if (rmax == 32) return launch_r<T, 32>(p, C, R, n_tiles, st);
-  return cudaErrorInvalidValue;
+cudaError_t launch_core(const Params& p, size_t rows, cudaStream_t stream) {
+  const int smem = NW * (2 * p.C + p.R) * 4;
+  static bool attr_set = false;
+  if (!attr_set) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        mla_core_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        SMEM_MAX);
+    if (e != cudaSuccess) return cudaGetLastError();
+    attr_set = true;
+  }
+  if (smem > SMEM_MAX) return cudaErrorInvalidValue;
+  const unsigned blocks = (unsigned)((rows + NW - 1) / NW);
+  mla_core_kernel<<<blocks, NT, smem, stream>>>(p);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
-// Plain C interface, loaded with ctypes. dtype: 0 = float32, 1 = bfloat16
-// (queries and caches share it; the output is that dtype, or float32 with
-// out_f32). Decode: B > 0 sequences, one token each, tables [B, M],
-// seq_lens [B]. Prefill: B == 0, one sequence of T tokens, tables [M],
-// hist [1], valid [1] or null. C in {128, 256, 512}, R in {32, 64}, rmax in
-// {16, 32} query rows per block. With n_split > 1, ``scratch`` holds
-// n_split * R_total * (C + 2) floats (R_total = query rows). Returns the
-// cudaError_t of the launch (0 = success).
+// Plain C interface, loaded with ctypes. dtype: 0 = float32 (the CUDA-core
+// body), 1 = bfloat16 (the tensor-core body); queries and caches share it,
+// the output is that dtype, or float32 with out_f32. Decode: B > 0
+// sequences of H query rows each, tables [B, M], seq_lens [B]. Prefill:
+// B == 0, one chunk of T tokens x H heads, tables [M], hist [1], valid [1]
+// or null. C % 128 == 0, 1 <= R <= 128, C + R rounded up to 64 at most 768
+// (bf16). The tensor-core plan (the Python wrapper's tile_plan): wpg warps
+// per 16-row group (2: 64-row tiles, 32-position steps; 8: 16-row tiles,
+// 64-position steps), stages of the ring, slab_w output columns per block,
+// n_split decode splits of at least min_steps steps. With n_split > 1,
+// ``scratch`` holds n_split * rows * (2 * ceil(C / slab_w) + C / 2) + 4
+// floats and ``tickets`` B * ceil(H / rows per tile) * ceil(C / slab_w)
+// ints, zero before the launch and zero after it. Returns the cudaError_t of the
+// launch (0 = success).
 extern "C" int mla_attention_launch(
     const void* q_eff, const void* q_pe, void* o, float* m_out, float* l_out,
     const void* cc, const void* pc, const int* tables, const int* seq_lens,
     const int* hist, const int* valid, int B, int T, int H, int N, int bs,
-    int M, int C, int R, float scale, int out_f32, int rmax, int n_split,
-    float* scratch, int dtype, void* stream) {
+    int M, int C, int R, float scale, int out_f32, int wpg, int stages,
+    int slab_w, int n_split, int min_steps, float* scratch, int* tickets,
+    int dtype, void* stream) {
   Params p;
   p.q_eff = q_eff;
   p.q_pe = q_pe;
@@ -478,23 +791,41 @@ extern "C" int mla_attention_launch(
   p.N = N;
   p.bs = bs;
   p.M = M;
-  p.tiles_per_seq = (H + rmax - 1) / rmax;
+  p.C = C;
+  p.R = R;
   p.scale = scale;
   p.out_f32 = out_f32;
-  const size_t Rtot = B > 0 ? (size_t)B * H : (size_t)T * H;
-  if (Rtot == 0) return 0;
+  const size_t rows = B > 0 ? (size_t)B * H : (size_t)T * H;
+  if (rows == 0) return 0;
   if (B == 0 && (hist == nullptr || tables == nullptr))
     return (int)cudaErrorInvalidValue;
-  const int n_tiles =
-      B > 0 ? B * p.tiles_per_seq : (int)((Rtot + rmax - 1) / rmax);
-  p.n_split = n_split > 1 ? n_split : 1;
-  p.part_o = scratch;
-  p.part_m = scratch + (size_t)p.n_split * Rtot * C;
-  p.part_l = p.part_m + (size_t)p.n_split * Rtot;
-  if (p.n_split > 1 && scratch == nullptr) return (int)cudaErrorInvalidValue;
+  if (C <= 0 || C % 128 != 0 || R < 1 || R > 128)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return (int)launch_typed<float>(p, C, R, rmax, n_tiles, st);
-  if (dtype == 1)
-    return (int)launch_typed<__nv_bfloat16>(p, C, R, rmax, n_tiles, st);
+  if (dtype == 0) return (int)launch_core(p, rows, st);
+  if (dtype != 1) return (int)cudaErrorInvalidValue;
+  p.DP = C + (R + 63) / 64 * 64;
+  p.KD = C + (R + 15) / 16 * 16;
+  if (p.DP > DP_MAX || (stages != 2 && stages != 3) || slab_w <= 0 ||
+      slab_w % 128 != 0 || slab_w > SLAB)
+    return (int)cudaErrorInvalidValue;
+  p.stages = stages;
+  p.slab_w = slab_w;
+  p.n_slabs = (C + slab_w - 1) / slab_w;
+  p.n_split = B > 0 && n_split > 1 ? n_split : 1;
+  p.min_steps = min_steps > 0 ? min_steps : 1;
+  p.part = scratch;
+  p.tickets = tickets;
+  if (p.n_split > MAX_SPLITS) return (int)cudaErrorInvalidValue;
+  if (p.n_split > 1 && (scratch == nullptr || tickets == nullptr))
+    return (int)cudaErrorInvalidValue;
+  if (wpg == 2) {
+    p.n_rt = B > 0 ? (H + 63) / 64 : (int)((rows + 63) / 64);
+    return (int)launch_tc<2, 32>(p, st);
+  }
+  if (wpg == 8) {
+    p.n_rt = B > 0 ? (H + 15) / 16 : (int)((rows + 15) / 16);
+    return (int)launch_tc<8, 64>(p, st);
+  }
   return (int)cudaErrorInvalidValue;
 }

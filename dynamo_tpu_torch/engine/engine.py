@@ -203,17 +203,16 @@ class TorchEngine(AsyncEngine):
         self.device = resolve_device(device)
         llama.check_supported(mcfg)
         if self.device.type == "cuda" and mcfg.is_mla and not (
-            mcfg.kv_lora_rank in mla_attention.KERNEL_C
-            and mcfg.qk_rope_head_dim in mla_attention.KERNEL_R
+            mla_attention.takes_widths(mcfg.kv_lora_rank, mcfg.qk_rope_head_dim)
         ):
-            # the JAX engine's MLA kernel gate (kv_lora_rank % 128 == 0),
-            # narrowed to the widths the CUDA kernel is built for; where the
-            # JAX engine falls back to XLA, the card runs the kernel or
-            # nothing
+            # the JAX engine's MLA kernel gate (kv_lora_rank % 128 == 0);
+            # where the JAX engine falls back to XLA, the card runs the
+            # kernel or nothing
             raise ValueError(
                 f"MLA latent widths C={mcfg.kv_lora_rank}, "
-                f"R={mcfg.qk_rope_head_dim}: the CUDA latent kernel takes C in "
-                f"{mla_attention.KERNEL_C} and R in {mla_attention.KERNEL_R}"
+                f"R={mcfg.qk_rope_head_dim}: the CUDA latent kernels take "
+                f"kv_lora_rank % 128 == 0 and rope widths 1-128, C + R "
+                f"padded to 64 at most {mla_attention.TC_DP_MAX}"
             )
         if mcfg.is_mla and cfg.quantization == "int8_native":
             raise ValueError(MLA_INT8_NATIVE)

@@ -40,7 +40,7 @@ SOURCES = {
     },
     "mla_attention.cu": {
         "mla_attention_launch": (
-            [_P] * 11 + [_I] * 8 + [_F] + [_I] * 3 + [_P, _I, _P]
+            [_P] * 11 + [_I] * 8 + [_F] + [_I] * 6 + [_P, _P, _I, _P]
         ),
     },
     "moe_gmm.cu": {
@@ -155,6 +155,25 @@ def sm_count(device: torch.device) -> int:
     if idx not in _sm_counts:
         _sm_counts[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
     return _sm_counts[idx]
+
+
+_buffers: dict = {}
+
+
+def device_buffer(kind: str, device: torch.device, n: int,
+                  dtype: torch.dtype) -> torch.Tensor:
+    """One buffer per (kind, device), grown when a launch needs more, so a
+    launch on the device's stream allocates nothing. ``"tickets"``: the
+    split counters of the decode bodies, int32, zero when made and zero
+    between launches (the block that merges a unit's splits zeroes its
+    counter), shared by every kernel on the stream; any other kind is
+    scratch that each launch writes before it reads."""
+    buf = _buffers.get((kind, device))
+    if buf is None or buf.numel() < n:
+        make = torch.zeros if kind == "tickets" else torch.empty
+        buf = make(max(n, 1024), dtype=dtype, device=device)
+        _buffers[kind, device] = buf
+    return buf
 
 
 def require_cuda(name: str, *tensors: torch.Tensor) -> torch.device:

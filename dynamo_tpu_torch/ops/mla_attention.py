@@ -20,27 +20,106 @@ position s as ``q_eff . c[s] + q_pe . pe[s]`` (scaled), fp32 softmax.
     causal window, merged with the flash rule; :func:`mla_verify_attention_xla`
     is its plain twin (the reference's XLA branch).
 
-On CUDA tensors the entry points launch ``csrc/mla_attention.cu`` (one
-kernel body for both); on CPU tensors they take their plain twins below.
+On CUDA tensors the entry points launch ``csrc/mla_attention.cu`` (a
+tensor-core body for bf16, a CUDA-core body for f32, both functions in
+one launch each); on CPU tensors they take their plain twins below.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
 from . import _cuda
 
 NEG_INF = -1e30
-#: most horizon splits per decode tile (flash-decoding partials)
+#: the tensor-core body's two tile shapes: warps per 16-row group ->
+#: kv positions per step (2: 64-row tiles, the prefill chunks and decode
+#: launches of more than 16 rows per sequence; 8: 16-row decode tiles)
+TC_KVT = {2: 32, 8: 64}
+#: most output columns per block; a wider kv_lora_rank takes column slabs
+TC_SLAB = 512
+#: widest padded latent row (C + R rounded up to 64) the tiles hold
+TC_DP_MAX = 768
+#: most horizon splits per decode unit, and the fewest positions a split
+#: takes of a horizon that has them
 MAX_SPLITS = 16
-#: latent widths the kernel is built for: kv_lora_rank C (the column tiling
-#: splits C over 256 threads) and the rope width R
-KERNEL_C = (128, 256, 512)
-KERNEL_R = (32, 64)
+MIN_SPLIT_POSITIONS = 128
+_SMEM_MAX = 231424  # dynamic shared memory a block takes (csrc SMEM_MAX)
 _SRC = "mla_attention.cu"
+
+
+class TilePlan(NamedTuple):
+    """How a bf16 launch cuts its work into blocks (``csrc/mla_attention.cu``
+    mla_tc_kernel): tiles of ``rows`` query rows (``n_rt`` of them per
+    sequence, or of the prefill chunk), ``n_slabs`` slabs of ``slab``
+    output columns each, and for decode ``n_split`` horizon splits of at
+    least ``min_steps`` steps of ``kvt`` positions."""
+
+    wpg: int  # warps per 16-row group
+    kvt: int
+    rows: int
+    n_rt: int
+    slab: int
+    n_slabs: int
+    stages: int
+    n_split: int
+    min_steps: int
+
+
+def padded_row(C: int, R: int) -> int:
+    """A latent row in the tensor-core body's shared memory: C + R rounded
+    up to 64 values (whole swizzle rows)."""
+    return C + -(-R // 64) * 64
+
+
+def _tc_smem(wpg: int, dp: int, stages: int) -> int:
+    rows, kvt = 128 // wpg, TC_KVT[wpg]
+    return rows * dp * 2 + stages * kvt * dp * 2 + rows * (kvt + 8) * 4
+
+
+def takes_widths(C: int, R: int) -> bool:
+    """The latent widths both kernels take on the card: kv_lora_rank
+    ``C % 128 == 0`` (the reference engine's gate) and rope width ``R`` in
+    1..128, with a padded row of at most :data:`TC_DP_MAX` values (C <=
+    640 at any R: a 64-row query tile plus a 2-stage ring of such rows
+    fills the 227 KB a block can use)."""
+    return (C > 0 and C % 128 == 0 and 1 <= R <= 128
+            and padded_row(C, R) <= TC_DP_MAX)
+
+
+def tile_plan(C: int, R: int, rows: int, B: int = 0, sms: int = 132) -> TilePlan:
+    """The block plan of a bf16 launch: ``rows`` query rows per sequence
+    (decode, ``B`` sequences) or of the prefill chunk (``B == 0``). Decode
+    splits every (sequence, row tile, slab) unit's horizon until the grid
+    holds about one block per SM (the body's occupancy); the device then
+    takes only as many splits as :func:`split_ranges` says a sequence's
+    length needs, with no host read of the lengths."""
+    wpg = 8 if B and rows <= 16 else 2
+    kvt, rt = TC_KVT[wpg], 128 // wpg
+    dp = padded_row(C, R)
+    stages = 3 if _tc_smem(wpg, dp, 3) <= _SMEM_MAX else 2
+    n_slabs = -(-C // TC_SLAB)
+    slab = 128 * -(-(C // 128) // n_slabs)
+    n_rt = -(-rows // rt)
+    n_split = 1
+    if B:
+        n_split = min(MAX_SPLITS, max(1, -(-sms // (B * n_rt * n_slabs))))
+    return TilePlan(wpg, kvt, rt, n_rt, slab, n_slabs, stages, n_split,
+                    max(1, MIN_SPLIT_POSITIONS // kvt))
+
+
+def split_ranges(n: int, plan: TilePlan) -> list:
+    """The kv positions ``[begin, end)`` of each live split of a decode
+    horizon of ``n`` positions, as the kernel cuts it on the device (one
+    empty range when ``n == 0``: the block that writes the empty row)."""
+    steps = -(-n // plan.kvt)
+    per = max(-(-steps // plan.n_split), plan.min_steps)
+    live = max(1, -(-steps // per))
+    return [(z * per * plan.kvt, min(n, (z + 1) * per * plan.kvt))
+            for z in range(live)]
 
 
 def _ptr(t: Optional[torch.Tensor]):
@@ -63,10 +142,11 @@ def launch_mla_attention(
     name: str = "mla_attention",
 ):
     """Launch ``csrc/mla_attention.cu``: decode when ``seq_lens`` is given
-    (one token per table row), else prefill of one T-token chunk. Returns
-    ``o [Ntok, H, C]`` (q's dtype, or f32 with ``out_f32``) and, with
-    ``stats``, ``m``/``l`` f32 ``[Ntok, H]``. Validates every input and
-    raises on what the kernel does not take."""
+    (one table row per sequence, its H query rows), else prefill of one
+    T-token chunk. bf16 runs the tensor-core body, f32 the CUDA-core one.
+    Returns ``o [Ntok, H, C]`` (q's dtype, or f32 with ``out_f32``) and,
+    with ``stats``, ``m``/``l`` f32 ``[Ntok, H]``. Validates every input
+    and raises on what the kernel does not take."""
     Ntok, H, C = q_eff.shape
     _, N, bs, Cc = c_cache_layer.shape
     R = pe_cache_layer.shape[-1]
@@ -79,12 +159,13 @@ def launch_mla_attention(
                                        pe_cache_layer.dtype} != {dt}:
         raise ValueError(f"{name}: queries and caches must share one of "
                          f"{list(_cuda.DTYPE_CODES)}")
-    if (C not in KERNEL_C or R not in KERNEL_R or Cc != C
+    if (not takes_widths(C, R) or Cc != C
             or q_pe.shape != (Ntok, H, R) or c_cache_layer.shape[0] != 1
             or pe_cache_layer.shape != (1, N, bs, R)):
         raise ValueError(
             f"{name}: latent widths C={C} (cache {Cc}), R={R} do not fit the "
-            f"kernel (C in {KERNEL_C}, R in {KERNEL_R}) or the shapes disagree")
+            f"kernel (C % 128 == 0, 1 <= R <= 128, C + R padded to 64 at "
+            f"most {TC_DP_MAX}) or the shapes disagree")
     if decode and (tables.dim() != 2 or tables.shape[0] != Ntok
                    or seq_lens.shape != (Ntok,)):
         raise ValueError(f"{name}: decode tables {tuple(tables.shape)} / "
@@ -95,29 +176,32 @@ def launch_mla_attention(
     for t in (q_eff, q_pe, c_cache_layer, pe_cache_layer):
         if t.data_ptr() % 16:
             raise ValueError(f"{name}: tensors must be 16-byte aligned")
-    rmax = 16 if decode and H <= 16 else 32
+    dev = q_eff.device
     o = torch.empty((Ntok, H, C), dtype=torch.float32 if out_f32 else dt,
-                    device=q_eff.device)
+                    device=dev)
     m = l = None
     if stats:
-        m = torch.empty((Ntok, H), dtype=torch.float32, device=q_eff.device)
+        m = torch.empty((Ntok, H), dtype=torch.float32, device=dev)
         l = torch.empty_like(m)
-    rows = Ntok * H
-    tiles = Ntok * -(-H // rmax) if decode else -(-rows // rmax)
-    # split every tile's horizon while the grid holds fewer than ~2 blocks
-    # per SM (decode: B tiles alone leave most of the card idle)
-    n_split = min(MAX_SPLITS, max(1, 2 * _cuda.sm_count(q_eff.device) // max(tiles, 1)))
-    scratch = None
-    if n_split > 1:
-        scratch = torch.empty(n_split * rows * (C + 2), dtype=torch.float32,
-                              device=q_eff.device)
+    plan = tile_plan(C, R, H if decode else Ntok * H, Ntok if decode else 0,
+                     _cuda.sm_count(dev))
+    scratch = tickets = None
+    if dt == torch.bfloat16 and plan.n_split > 1:
+        rows = Ntok * H
+        scratch = _cuda.device_buffer(
+            "mla partials", dev,
+            plan.n_split * rows * (2 * plan.n_slabs + C // 2) + 4,
+            torch.float32)
+        tickets = _cuda.device_buffer("tickets", dev,
+                                      Ntok * plan.n_rt * plan.n_slabs, torch.int32)
     err = _cuda.lib(_SRC).mla_attention_launch(
         _ptr(q_eff), _ptr(q_pe), _ptr(o), _ptr(m), _ptr(l),
         _ptr(c_cache_layer), _ptr(pe_cache_layer), _ptr(tables),
         _ptr(seq_lens), _ptr(hist), _ptr(valid),
         Ntok if decode else 0, 0 if decode else Ntok, H, N, bs,
-        tables.shape[-1], C, R, float(scale), int(out_f32), rmax, n_split,
-        _ptr(scratch), _cuda.DTYPE_CODES[dt],
+        tables.shape[-1], C, R, float(scale), int(out_f32), plan.wpg,
+        plan.stages, plan.slab, plan.n_split, plan.min_steps, _ptr(scratch),
+        _ptr(tickets), _cuda.DTYPE_CODES[dt],
         ctypes.c_void_p(_cuda.stream_ptr(q_eff)),
     )
     _cuda.check(err, name)

@@ -137,7 +137,8 @@ def launch_paged_attention(
         scratch = torch.empty(n_split * split_rows * (D + 2),
                               dtype=torch.float32, device=q.device)
         if tc and B:
-            tickets = _tickets(q.device, split_units)
+            tickets = _cuda.device_buffer("tickets", q.device, split_units,
+                                          torch.int32)
     err = _cuda.lib(_SRC).paged_attention_launch(
         _ptr(q), _ptr(o), _ptr(m), _ptr(l), _ptr(k_cache_layer),
         _ptr(v_cache_layer), _ptr(d_tables), _ptr(d_seq_lens), B,
@@ -148,21 +149,6 @@ def launch_paged_attention(
     )
     _cuda.check(err, name)
     return o, m, l
-
-
-_ticket_bufs: dict = {}
-
-
-def _tickets(device: torch.device, n: int) -> torch.Tensor:
-    """The decode body's split counters on ``device``: int32, zero between
-    launches (the block that combines a row group's splits zeroes its
-    counter), so one buffer serves every launch on the device's stream;
-    grown, zeroed, when a launch needs more."""
-    buf = _ticket_bufs.get(device)
-    if buf is None or buf.numel() < n:
-        buf = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
-        _ticket_bufs[device] = buf
-    return buf
 
 
 def _kv_dtype_code(name, q, k_cache_layer, v_cache_layer, k_scales, v_scales):

@@ -192,49 +192,95 @@ def test_cuda_moe_ffn_is_bit_equal_run_to_run():
     assert torch.isfinite(a.float()).all() and torch.equal(a, b)
 
 
+# the latent widths of C.7: DeepSeek-V2/V3, MiniCPM3-4B, and kv_lora_rank
+# % 128 == 0 beyond them with narrow and unaligned rope widths
+MLA_WIDTHS = pytest.mark.parametrize(
+    "C,R", [(512, 64), (256, 32), (384, 16), (640, 64), (128, 8)],
+    ids=["C512-R64", "C256-R32", "C384-R16", "C640-R64", "C128-R8"])
+# bf16 runs the tensor-core body, f32 the CUDA-core one
+MLA_DTYPES = pytest.mark.parametrize(
+    "dtype,body", [(torch.bfloat16, "mla_tc_kernel"),
+                   (torch.float32, "mla_core_kernel")], ids=["bf16", "f32"])
+
+
+def _cuda_kernels(fn):
+    """The names of the CUDA kernels one call of ``fn`` launches. A trace
+    that caught no kernel at all says nothing (the profiler, run many
+    times in one process, now and then records no device events): it is
+    taken again, up to three times."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+        if names:
+            break
+    return names
+
+
+def _mla_caches(g, dev, C, R, dtype, N=160, bs=16):
+    cc = torch.randn(1, N, bs, C, generator=g, device=dev).to(dtype)
+    pc = torch.randn(1, N, bs, R, generator=g, device=dev).to(dtype)
+    return cc, pc
+
+
 @pytest.mark.cuda
-def test_cuda_mla_kernels_match_plain_versions():
-    """On the card: the latent decode (with stats and an empty slot) and
-    prefill kernels and the append at MLA widths against their plain
-    versions (DeepSeek-V2-Lite widths C=512, R=64, H=16; bf16: 2e-2)."""
+@MLA_WIDTHS
+@MLA_DTYPES
+def test_cuda_mla_kernels_match_plain_versions(C, R, dtype, body):
+    """On the card: the latent decode (with stats and an empty slot; one
+    launch, of the dtype's body, and no combine kernel) and prefill
+    kernels and the append at these widths against their plain versions
+    (H=16; bf16 outputs 2e-2, (m, l) rtol 1e-3; f32 2e-5)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (run on the chip)")
     from dynamo_tpu_torch.ops import mla_attention as mla
     from dynamo_tpu_torch.ops.kv_cache_update import kv_cache_append_plain
 
     dev = torch.device("cuda")
-    g = torch.Generator(device=dev).manual_seed(0)
-    H, C, R, bs, M, N = 16, 512, 64, 16, 16, 160
-    cc = torch.randn(1, N, bs, C, generator=g, device=dev).bfloat16()
-    pc = torch.randn(1, N, bs, R, generator=g, device=dev).bfloat16()
-    tables = torch.randperm(N - 1, generator=g, device=dev)[: 9 * M].add(1)
+    g = torch.Generator(device=dev).manual_seed(C + R)
+    H, bs, M = 16, 16, 16
+    cc, pc = _mla_caches(g, dev, C, R, dtype)
+    tables = torch.randperm(159, generator=g, device=dev)[: 9 * M].add(1)
     tables = tables.reshape(9, M).to(torch.int32)
     lens = torch.tensor([0, 1, 17, 100, 256, 31, 64, 200], dtype=torch.int32,
                         device=dev)
-    qe = torch.randn(8, H, C, generator=g, device=dev).bfloat16()
-    qp = torch.randn(8, H, R, generator=g, device=dev).bfloat16()
-    scale = 0.05
-    tol = dict(atol=2e-2, rtol=2e-2)
-    got = mla.mla_paged_decode_attention(qe, qp, cc, pc, tables[:8], lens, scale,
-                                         return_stats=True)
+    qe = torch.randn(8, H, C, generator=g, device=dev).to(dtype)
+    qp = torch.randn(8, H, R, generator=g, device=dev).to(dtype)
+    scale = (128 + R) ** -0.5
+    tol = (dict(atol=2e-2, rtol=2e-2) if dtype == torch.bfloat16
+           else dict(atol=2e-5, rtol=2e-5))
+
+    def decode():
+        return mla.mla_paged_decode_attention(qe, qp, cc, pc, tables[:8], lens,
+                                              scale, return_stats=True)
+
+    got = decode()
     ref = mla.mla_paged_decode_attention_plain(qe, qp, cc, pc, tables[:8], lens,
                                                scale, return_stats=True)
     torch.testing.assert_close(got[0].float(), ref[0].float(), **tol)
     torch.testing.assert_close(got[1], ref[1], rtol=1e-3, atol=1e-3)
     torch.testing.assert_close(got[2], ref[2], rtol=1e-3, atol=1e-3)
-    qe = torch.randn(64, H, C, generator=g, device=dev).bfloat16()
-    qp = torch.randn(64, H, R, generator=g, device=dev).bfloat16()
+    assert (got[0][0] == 0).all() and (got[1][0] == -1e30).all()
+    names = _cuda_kernels(decode)
+    assert len(names) == 1 and body in names[0], names
+    qe = torch.randn(64, H, C, generator=g, device=dev).to(dtype)
+    qp = torch.randn(64, H, R, generator=g, device=dev).to(dtype)
     hist = torch.tensor([100], dtype=torch.int32, device=dev)
     for valid in (None, 50):
+        got = mla.mla_paged_prefill_attention(qe, qp, cc, pc, tables[8], hist,
+                                              scale, valid_len=valid)
+        assert got.dtype == torch.float32
         torch.testing.assert_close(
-            mla.mla_paged_prefill_attention(qe, qp, cc, pc, tables[8], hist,
-                                            scale, valid_len=valid),
-            mla.mla_paged_prefill_attention_plain(qe, qp, cc, pc, tables[8],
-                                                  hist, scale, valid), **tol)
-    c_new = torch.randn(3, 8, 1, C, generator=g, device=dev).bfloat16()
-    pe_new = torch.randn(3, 8, 1, R, generator=g, device=dev).bfloat16()
-    kc = torch.randn(3, 1, 12, bs, C, generator=g, device=dev).bfloat16()
-    vc = torch.randn(3, 1, 12, bs, R, generator=g, device=dev).bfloat16()
+            got, mla.mla_paged_prefill_attention_plain(
+                qe, qp, cc, pc, tables[8], hist, scale, valid), **tol)
+    c_new = torch.randn(3, 8, 1, C, generator=g, device=dev).to(dtype)
+    pe_new = torch.randn(3, 8, 1, R, generator=g, device=dev).to(dtype)
+    kc = torch.randn(3, 1, 12, bs, C, generator=g, device=dev).to(dtype)
+    vc = torch.randn(3, 1, 12, bs, R, generator=g, device=dev).to(dtype)
     kp, vp = kc.clone(), vc.clone()
     blk = torch.arange(1, 9, dtype=torch.int32, device=dev)
     off = torch.arange(8, dtype=torch.int32, device=dev)
@@ -510,36 +556,52 @@ def test_cuda_decode_attention_takes_any_rows_per_kv_head(G, T, int8_pages):
 
 
 @pytest.mark.cuda
-def test_cuda_mla_kernels_at_minicpm3_widths():
+@MLA_WIDTHS
+@MLA_DTYPES
+@pytest.mark.parametrize("rows", [8, 16, 64, 272])
+def test_cuda_mla_kernels_at_minicpm3_widths(C, R, dtype, body, rows):
     """On the card: both latent kernels at MiniCPM3-4B's latent widths
-    (kv_lora_rank C = 256, rope width R = 32; H = 8) against their plain
-    versions: decode with (m, l) and an empty slot, prefill with and
-    without valid_len (bf16: 2e-2, (m, l) rtol 1e-3)."""
+    (C = 256, R = 32) and the others of C.7, with 8 rows per sequence (a
+    part of a 16-row tile), 16 (decode, H = 16), 64 (a verify's 4 tokens)
+    and 272 (spec_gamma = 16: 17 tokens) against their plain versions:
+    decode with (m, l) and an empty slot, one launch each (counted as a
+    verify's), prefill of 45 tokens x 8 heads (the last 64-row tile part
+    full) with and without valid_len (bf16: 2e-2, (m, l) rtol 1e-3; f32
+    2e-5)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (run on the chip)")
     from dynamo_tpu_torch.ops import mla_attention as mla
 
     dev = torch.device("cuda")
-    g = torch.Generator(device=dev).manual_seed(11)
-    H, C, R, bs, M, N = 8, 256, 32, 16, 16, 160
-    cc = torch.randn(1, N, bs, C, generator=g, device=dev).bfloat16()
-    pc = torch.randn(1, N, bs, R, generator=g, device=dev).bfloat16()
-    tables = torch.randperm(N - 1, generator=g, device=dev)[: 5 * M].add(1)
+    g = torch.Generator(device=dev).manual_seed(11 + rows)
+    H, M = 8, 16
+    cc, pc = _mla_caches(g, dev, C, R, dtype)
+    tables = torch.randperm(159, generator=g, device=dev)[: 5 * M].add(1)
     tables = tables.reshape(5, M).to(torch.int32)
     lens = torch.tensor([0, 17, 200, 256], dtype=torch.int32, device=dev)
-    qe = torch.randn(4, H, C, generator=g, device=dev).bfloat16()
-    qp = torch.randn(4, H, R, generator=g, device=dev).bfloat16()
-    tol = dict(atol=2e-2, rtol=2e-2)
+    qe = torch.randn(4, rows, C, generator=g, device=dev).to(dtype)
+    qp = torch.randn(4, rows, R, generator=g, device=dev).to(dtype)
+    tol = (dict(atol=2e-2, rtol=2e-2) if dtype == torch.bfloat16
+           else dict(atol=2e-5, rtol=2e-5))
+    tokens = max(1, rows // 16)
+    before = (mla.mla_paged_decode_attention.launches,
+              mla.mla_paged_decode_attention.verify_launches)
     got = mla.mla_paged_decode_attention(qe, qp, cc, pc, tables[:4], lens, 0.06,
-                                         return_stats=True)
+                                         return_stats=True, tokens=tokens)
     ref = mla.mla_paged_decode_attention_plain(qe, qp, cc, pc, tables[:4], lens,
                                                0.06, return_stats=True)
     torch.testing.assert_close(got[0].float(), ref[0].float(), **tol)
     torch.testing.assert_close(got[1], ref[1], rtol=1e-3, atol=1e-3)
     torch.testing.assert_close(got[2], ref[2], rtol=1e-3, atol=1e-3)
     assert (got[0][0] == 0).all() and (got[1][0] == -1e30).all()
-    qe = torch.randn(48, H, C, generator=g, device=dev).bfloat16()
-    qp = torch.randn(48, H, R, generator=g, device=dev).bfloat16()
+    assert (mla.mla_paged_decode_attention.launches - before[0],
+            mla.mla_paged_decode_attention.verify_launches - before[1]) == (
+                1, int(tokens > 1))
+    names = _cuda_kernels(lambda: mla.mla_paged_decode_attention(
+        qe, qp, cc, pc, tables[:4], lens, 0.06, return_stats=True))
+    assert len(names) == 1 and body in names[0], names
+    qe = torch.randn(45, H, C, generator=g, device=dev).to(dtype)
+    qp = torch.randn(45, H, R, generator=g, device=dev).to(dtype)
     hist = torch.tensor([100], dtype=torch.int32, device=dev)
     for valid in (None, 30):
         torch.testing.assert_close(

@@ -82,9 +82,16 @@ def _latents(rng, B, M, C=32, R=8, H=4):
     return f(B, H, C), f(B, H, R), f(1, N, BS, C), f(1, N, BS, R), tables
 
 
-def test_mla_decode_twin_matches_pallas_interpret():
+# the reference kernels' widths: the tiny model's, and kv_lora_rank % 128
+# == 0 beyond the three DeepSeek / MiniCPM3 ones (C.7)
+WIDTHS = pytest.mark.parametrize("C,R", [(32, 8), (384, 16), (640, 64)],
+                                 ids=["C32-R8", "C384-R16", "C640-R64"])
+
+
+@WIDTHS
+def test_mla_decode_twin_matches_pallas_interpret(C, R):
     rng = np.random.default_rng(0)
-    q_eff, q_pe, cc, pc, tables = _latents(rng, 4, 4)
+    q_eff, q_pe, cc, pc, tables = _latents(rng, 4, 4, C, R)
     lens = np.asarray([1, BS + 3, 0, 4 * BS], np.int32)  # ragged, one empty
     got = tmla.mla_paged_decode_attention(*_t(q_eff, q_pe, cc, pc, tables, lens),
                                           0.21, return_stats=True)
@@ -96,10 +103,11 @@ def test_mla_decode_twin_matches_pallas_interpret():
     assert bool((got[1][2] == -1e30).all())
 
 
+@WIDTHS
 @pytest.mark.parametrize("valid", [None, 9])
-def test_mla_prefill_twin_matches_pallas_interpret(valid):
+def test_mla_prefill_twin_matches_pallas_interpret(valid, C, R):
     rng = np.random.default_rng(1)
-    q_eff, q_pe, cc, pc, tables = _latents(rng, 16, 6)
+    q_eff, q_pe, cc, pc, tables = _latents(rng, 16, 6, C, R)
     table, hist = tables[3], 5
     got = tmla.mla_paged_prefill_attention(
         *_t(q_eff, q_pe, cc, pc, table), hist, 0.3, valid_len=valid)
@@ -413,15 +421,14 @@ def test_torch_engine_matches_jax_engine_on_mla_moe(run):
     assert teng.v_cache.shape[-1] == cfg.qk_rope_head_dim
 
 
-@pytest.mark.parametrize("widths", [{}, dict(kv_lora_rank=384, qk_rope_head_dim=64),
-                                    dict(kv_lora_rank=640, qk_rope_head_dim=64),
-                                    dict(kv_lora_rank=256, qk_rope_head_dim=16)],
-                         ids=["tiny", "C=384", "C=640", "R=16"])
+@pytest.mark.parametrize("widths", [{}, dict(kv_lora_rank=768, qk_rope_head_dim=64),
+                                    dict(kv_lora_rank=256, qk_rope_head_dim=160)],
+                         ids=["tiny", "C=768", "R=160"])
 def test_torch_engine_refuses_mla_widths_the_kernel_lacks(monkeypatch, widths):
-    """On the card the latent kernel runs or nothing does: the JAX
-    engine's kv_lora_rank % 128 gate raises instead of falling back, for
-    the widths the column tiling cannot take (C = 384, C above 512) and
-    rope widths other than 32 and 64."""
+    """On the card the latent kernels run or nothing does: the JAX
+    engine's kv_lora_rank % 128 gate raises instead of falling back (the
+    tiny model's C = 32), and so do the widths the kernels' shared memory
+    cannot hold (C + R padded to 64 above 768) and rope widths above 128."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     with pytest.raises(ValueError, match="latent kernel"):
         TorchEngine(EngineConfig(model=ModelConfig.tiny_mla(**{**MOE, **widths}),
@@ -433,6 +440,20 @@ def test_torch_engine_takes_minicpm3_latent_widths_on_the_card(monkeypatch):
     pass the card's gate: a CPU build stops only at the card allocation."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     cfg = ModelConfig.tiny_mla(**{**MOE, "kv_lora_rank": 256, "qk_rope_head_dim": 32})
+    with pytest.raises(RuntimeError, match="CUDA"):
+        TorchEngine(EngineConfig(model=cfg, **GEOMETRY), device="cuda")
+
+
+@pytest.mark.parametrize("widths", [dict(kv_lora_rank=384, qk_rope_head_dim=64),
+                                    dict(kv_lora_rank=640, qk_rope_head_dim=64),
+                                    dict(kv_lora_rank=256, qk_rope_head_dim=16)],
+                         ids=["C=384", "C=640", "R=16"])
+def test_torch_engine_takes_every_c128_latent_width_on_the_card(monkeypatch, widths):
+    """C.7: every kv_lora_rank % 128 == 0 the kernels hold, with any rope
+    width up to 128, passes the card's gate (the reference engine's): a
+    CPU build stops only at the card allocation."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    cfg = ModelConfig.tiny_mla(**{**MOE, **widths})
     with pytest.raises(RuntimeError, match="CUDA"):
         TorchEngine(EngineConfig(model=cfg, **GEOMETRY), device="cuda")
 
