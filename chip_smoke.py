@@ -39,10 +39,15 @@ Phases, in order; any failure raises and the script exits non-zero:
      rows per kv head (G=4, gamma=16; G=7, gamma=9); the latent kernels
      across the reference's widths (C=256/R=32 MiniCPM3-4B's, C=384/R=16,
      C=640/R=64, C=128/R=8; 16, 64 and 272 rows per sequence; bf16, and
-     f32 at two of them); the grouped GEMM's tiled blocks
-     (experts of 1 to 200 rows and an empty one at V2-Lite's gate shape,
-     then K=7168 at N=256); the bf16 MoE FFN at DeepSeek-V2-Lite's widths
-     run twice, bit-equal, each stage compared;
+     f32 at two of them; C.8: C=768/R=64, C=1024/R=64 and C=512/R=160,
+     wider than the tensor-core tiles, on the CUDA-core body in bf16 and
+     f32); the grouped GEMM's tiled blocks (experts of 1 to 200 rows and
+     an empty one at V2-Lite's gate shape, then K=7168 at N=256) and its
+     few-rows (decode) mode at V2-Lite's gate and down shapes and at
+     K=7168, N=256 (64 experts, 8 and 16 tokens routed top-6, two
+     launches bit-equal); the bf16
+     MoE FFN at DeepSeek-V2-Lite's widths run twice, bit-equal, each stage
+     compared;
   3. serving: the port's OpenAI HTTP service in-process, eight drives one
      after the other (each model's memory freed before the next):
      llama3-8b-sim and deepseek-v2-lite-sim, each twice on fresh engines
@@ -69,7 +74,10 @@ Phases, in order; any failure raises and the script exits non-zero:
      (scaled_dot_product_attention / index_put_ / torch._grouped_mm over
      the dequantized bf16 experts, timed only, never used by the port),
      and the least time the card could take (bytes over 3.35 TB/s or
-     operations over 989 TFLOP/s, from this run's inputs).
+     operations over 989 TFLOP/s, from this run's inputs); the grouped
+     GEMM's decode rows at the gate shape and, on their own line, at the
+     down projection's shape, and the latent kernels' CUDA-core body (bf16
+     at C=1024, R=64, C.8's widths; f32 at C=512, R=64).
 
 The second-to-last lines are the ``{"kernels": [...]}`` JSON and the
 card's ``nvidia-smi`` name and power limit; the last line is
@@ -90,6 +98,7 @@ import time
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core peak
+F32_FLOPS = 67e12  # H100 SXM float32 peak outside the tensor cores
 
 KERNELS = {
     # name -> (source, replaced TPU kernel)
@@ -334,24 +343,26 @@ class KernelInputs:
 
 class MlaInputs:
     """Synthetic latent caches and queries at the DeepSeek-V2-Lite shapes:
-    H=16 heads, kv_lora_rank C=512, rope dims R=64, bs=16, the model's own
-    softmax scale; decode B=8 over lengths up to 2048 with one empty slot,
-    prefill T=512 on 1000 cached tokens, the append over all 27 layers."""
+    H=16 heads, kv_lora_rank C=512, rope dims R=64 (or the C and R given),
+    bs=16, the model's own softmax scale, bf16 (or the dtype given); decode
+    B=8 over lengths up to 2048 with one empty slot, prefill T=512 on 1000
+    cached tokens, the append over all 27 layers."""
 
-    def __init__(self, torch, dev):
+    def __init__(self, torch, dev, C=None, R=None, dtype=None):
         from dynamo_tpu_torch.models.config import deepseek_v2_lite
 
         self.torch = torch
         g = torch.Generator(device=dev).manual_seed(1)
         cfg = deepseek_v2_lite()
-        self.H, self.C, self.R, self.bs = (cfg.num_heads, cfg.kv_lora_rank,
-                                           cfg.qk_rope_head_dim, 16)
+        self.H, self.C, self.R, self.bs = (cfg.num_heads, C or cfg.kv_lora_rank,
+                                           R or cfg.qk_rope_head_dim, 16)
         self.M, self.N = 128, 2048
         self.scale = cfg.mla_softmax_scale()
         H, C, R, bs, M, N = self.H, self.C, self.R, self.bs, self.M, self.N
 
         def randn(*shape):
-            return torch.randn(*shape, generator=g, device=dev).to(torch.bfloat16)
+            return torch.randn(*shape, generator=g, device=dev).to(
+                dtype or torch.bfloat16)
 
         self.cc, self.pc = randn(1, N, bs, C), randn(1, N, bs, R)
         pages = torch.randperm(N - 1, generator=g, device=dev) + 1
@@ -901,7 +912,12 @@ def check_gmm_tiles(torch, dev) -> None:
     of 9 and 16 rows, of 200 and 130 (two row tiles), of 3 and 1 and an
     empty one; then K = 7168 (DeepSeek-V3's hidden width) at N = 256 over
     three experts (140, 2 and 9 rows); int8 and e4m3 codes, bf16 rows,
-    within 2e-2 of the plain twin, the unowned rows exactly 0."""
+    within 2e-2 of the plain twin, the unowned rows exactly 0. Then the
+    few-rows (decode) mode at V2-Lite's gate and down shapes (K = 1408, N =
+    2048) and at K = 7168, N = 256 (K split across blocks), 64 experts
+    routed top-6 from 8 tokens (0-4 rows each) and from 16 tokens skewed
+    onto three experts (16 rows each, the others 0-3), each launched twice:
+    bit-equal."""
     from dynamo_tpu_torch.models.quant import quantize_array
     from dynamo_tpu_torch.ops import moe_gmm
 
@@ -925,28 +941,67 @@ def check_gmm_tiles(torch, dev) -> None:
             log(f"  ragged_int8_gmm tiles, K={K} N={N}, experts "
                 f"{sizes.tolist()} rows, {mode}: max |err| {err:.3e}, "
                 "unowned rows 0  OK")
+    X = 64
+    routes = []
+    for T, skew in ((8, 0.0), (16, 4.0)):
+        scores = torch.rand(T, X, generator=g, device=dev)
+        scores[:, :3] += skew  # skewed: every token on experts 0-2
+        sizes = torch.bincount(scores.topk(6, dim=-1).indices.reshape(-1),
+                               minlength=X)
+        routes.append((T, sizes))
+    for K, N in ((2048, 1408), (1408, 2048), (7168, 256)):
+        w = torch.randn(X, K, N, generator=g, device=dev).bfloat16()
+        for mode in ("int8", "fp8_e4m3"):
+            qw = quantize_array(w, mode)
+            err = 0.0
+            for T, sizes in routes:
+                R = int(sizes.sum()) + 16
+                lhs = torch.randn(R, K, generator=g, device=dev).bfloat16()
+                ref = moe_gmm.ragged_int8_plain(lhs, qw["q"], qw["s"], sizes)
+                got = moe_gmm.ragged_int8_gmm(lhs, qw["q"], qw["s"], sizes)
+                again = moe_gmm.ragged_int8_gmm(lhs, qw["q"], qw["s"], sizes)
+                torch.cuda.synchronize()
+                tag = f"ragged_int8_gmm decode K={K} N={N} {mode} T={T}"
+                if not bool((got[R - 16:] == 0).all()):
+                    raise AssertionError(f"{tag}: unowned rows must be exactly 0")
+                if not torch.equal(got, again):
+                    raise AssertionError(f"{tag}: two launches differ")
+                err = max(err, close(tag, got, ref, 2e-2, 2e-2))
+            del qw
+            log(f"  ragged_int8_gmm few-rows mode, K={K} N={N}, 64 experts, "
+                f"{mode}: experts of up to "
+                f"{max(int(s.max()) for _, s in routes)} rows, max |err| "
+                f"{err:.3e}, unowned rows 0, two launches bit-equal  OK")
+        del w
 
 
 def check_mla_widths(torch, dev) -> None:
-    """C.7: both latent kernels across the widths the reference's kernels
-    take (kv_lora_rank % 128 == 0, any rope width up to 128): MiniCPM3-4B's
+    """C.7, C.8: both latent kernels across the widths the reference's
+    kernels take (kv_lora_rank % 128 == 0, any rope width): MiniCPM3-4B's
     (its config.json: C = 256, R = 32), C = 384 with R = 16, C = 640 with
-    R = 64 (two column slabs), C = 128 with R = 8; H = 16, bs = 16: decode
-    B = 4 up to 700 positions with an empty slot and (m, l) at 16 rows per
-    sequence, 64 (a verify's 4 tokens) and 272 (spec_gamma = 16), one
-    launch each; prefill T = 90 on 300 cached (the last 64-row tile half
-    full) with and without valid_len; against the plain versions (bf16
-    2e-2, (m, l) rtol 1e-3). Then the same on the f32 CUDA-core body at
-    C = 384, R = 16 and C = 640, R = 64 (2e-5)."""
+    R = 64 (two column slabs), C = 128 with R = 8, all on the tensor-core
+    body; C = 768 and 1024 with R = 64 and C = 512 with R = 160, wider than
+    its tiles, on the CUDA-core body; H = 16, bs = 16: decode B = 4 up to
+    700 positions with an empty slot and (m, l) at 16 rows per sequence, 64
+    (a verify's 4 tokens) and 272 (spec_gamma = 16), one launch each;
+    prefill T = 90 on 300 cached (the last 64-row tile half full) with and
+    without valid_len; against the plain versions (bf16 2e-2, (m, l) rtol
+    1e-3). Then f32 (the CUDA-core body) at C = 384, R = 16, C = 640, R =
+    64 and the three C.8 widths (2e-5)."""
     from dynamo_tpu_torch.ops import mla_attention as mla
 
     H, bs, M, N = 16, 16, 48, 400
-    for (C, R), dtype in [((256, 32), torch.bfloat16), ((384, 16), torch.bfloat16),
-                          ((640, 64), torch.bfloat16), ((128, 8), torch.bfloat16),
-                          ((384, 16), torch.float32), ((640, 64), torch.float32)]:
+    c8 = [(768, 64), (1024, 64), (512, 160)]
+    for (C, R), dtype in ([((256, 32), torch.bfloat16), ((384, 16), torch.bfloat16),
+                           ((640, 64), torch.bfloat16), ((128, 8), torch.bfloat16)]
+                          + [(w, torch.bfloat16) for w in c8]
+                          + [((384, 16), torch.float32), ((640, 64), torch.float32)]
+                          + [(w, torch.float32) for w in c8]):
         g = torch.Generator(device=dev).manual_seed(14 + C + R)
         tol = 2e-2 if dtype == torch.bfloat16 else 2e-5
-        tag = f"C={C} R={R} {str(dtype)[6:]}"
+        body = ("tensor-core" if dtype == torch.bfloat16 and mla.tc_takes(C, R)
+                else "CUDA-core")
+        tag = f"C={C} R={R} {str(dtype)[6:]} ({body} body)"
         cc = torch.randn(1, N, bs, C, generator=g, device=dev).to(dtype)
         pc = torch.randn(1, N, bs, R, generator=g, device=dev).to(dtype)
         tables = (torch.randperm(N - 1, generator=g, device=dev)[: 5 * M] + 1)
@@ -1888,8 +1943,8 @@ def time_ms(torch, fn, reps: int, flush) -> float:
     return statistics.median(times)
 
 
-def bound_ms(nbytes: float, flops: float):
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS
+def bound_ms(nbytes: float, flops: float, peak: float = BF16_FLOPS):
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / peak
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -2014,16 +2069,8 @@ def quant_work(torch, qi: QuantInputs) -> dict:
     the page is not the trash page, its read and write."""
     from dynamo_tpu_torch.ops.kv_cache_update import quant_scale_update
 
-    out = {}
-    q, _ = qi.codes["int8", "gate"]
-    X, K, N = q.shape
-    for label, key in (("decode", "ragged_int8_gmm"),
-                       ("prefill", "ragged_int8_gmm (prefill rows)")):
-        _, sizes = qi.rows[label]
-        R = int(sizes.sum()) + 16
-        owned, experts = int(sizes.sum()), int((sizes > 0).sum())
-        nbytes = owned * K * 2 + R * N * 4 + experts * (K * N + N * 4) + X * 8
-        out[key] = (nbytes, 2 * owned * K * N)
+    out = {key: gmm_work(qi, label) for label, key in (
+        ("decode", "ragged_int8_gmm"), ("prefill", "ragged_int8_gmm (prefill rows)"))}
     # the page read-modify-write kernel alone: the int8 rows and the ratios
     # read, each row written, each grown page (not the trash page) read and
     # written
@@ -2039,42 +2086,61 @@ def quant_work(torch, qi: QuantInputs) -> dict:
     return out
 
 
+def gmm_work(qi: QuantInputs, label: str, proj: str = "gate"):
+    """(bytes, flops) of one ragged_int8_gmm launch (int8 codes): the rows
+    read (bf16) and written (f32), the codes and scales of the experts
+    that own a row (the others are never read), the int64 group sizes, 2
+    flops per multiply-add of the owned rows."""
+    q, _ = qi.codes["int8", proj]
+    X, K, N = q.shape
+    _, sizes = qi.rows[label]
+    R = int(sizes.sum()) + 16
+    owned, experts = int(sizes.sum()), int((sizes > 0).sum())
+    nbytes = owned * K * 2 + R * N * 4 + experts * (K * N + N * 4) + X * 8
+    return nbytes, 2 * owned * K * N
+
+
+def grouped_mm_call(torch, qi: QuantInputs, label: str, proj: str = "gate"):
+    """torch._grouped_mm over the bf16 experts dequantized OUTSIDE the
+    timed span, on the owned rows (the yardstick; never called by the
+    port)."""
+    q, sc = qi.codes["int8", proj]
+    w = (q.float() * sc[:, None, :]).bfloat16()
+    lhs, sizes = qi.rows[label]
+    x = lhs[q.shape[1]][: int(sizes.sum())]
+    offs = torch.cumsum(sizes, 0).to(torch.int32)
+    return lambda: torch._grouped_mm(x, w, offs=offs)
+
+
 def quant_library_calls(torch, qi: QuantInputs) -> dict:
     """torch._grouped_mm over the bf16 experts dequantized OUTSIDE the
     timed span (the yardstick of ragged_int8_gmm; timed only, never called
     by the port). No single PyTorch call computes the quantized append."""
-    q, sc = qi.codes["int8", "gate"]
-    w = (q.float() * sc[:, None, :]).bfloat16()
-    calls = {}
-    for label, key in (("decode", "ragged_int8_gmm"),
-                       ("prefill", "ragged_int8_gmm (prefill rows)")):
-        lhs, sizes = qi.rows[label]
-        x = lhs[q.shape[1]][: int(sizes.sum())]
-        offs = torch.cumsum(sizes, 0).to(torch.int32)
-        calls[key] = (lambda x=x, offs=offs: torch._grouped_mm(x, w, offs=offs))
-    return calls
+    return {key: grouped_mm_call(torch, qi, label) for label, key in (
+        ("decode", "ragged_int8_gmm"), ("prefill", "ragged_int8_gmm (prefill rows)"))}
 
 
 def mla_work(mi: MlaInputs) -> dict:
     """(bytes, flops) of the two latent kernels on these inputs, counted
     like :func:`work`: queries of rows that attend something, every output
-    row (decode in bf16 with f32 (m, l); prefill in f32), the latent rows
-    (C + R values) of the positions attended, the table entries that reach
-    them; 2 flops per multiply-add of the scores (C + R) and of the value
-    product (C)."""
+    row (decode in the inputs' dtype with f32 (m, l); prefill in f32), the
+    latent rows (C + R values) of the positions attended, the table entries
+    that reach them; 2 flops per multiply-add of the scores (C + R) and of
+    the value product (C)."""
     H, C, R, bs = mi.H, mi.C, mi.R, mi.bs
-    row = (C + R) * 2  # one position's latents, bf16
+    es = mi.cc.element_size()
+    row = (C + R) * es  # one position's latents
 
     def pages(n):
         return -(-n // bs)
 
     lens = [int(x) for x in mi.d_lens]
     live = sum(1 for n in lens if n > 0)
-    dec_bytes = (live * H * (C + R) * 2 + len(lens) * H * (C * 2 + 8)
+    dec_bytes = (live * H * (C + R) * es + len(lens) * H * (C * es + 8)
                  + sum(lens) * row + sum(pages(n) for n in lens) * 4 + len(lens) * 4)
     dec_flops = 2 * H * (2 * C + R) * sum(lens)
     hist, T = int(mi.hist), mi.qe_pre.shape[0]
-    pre_bytes = (T * H * (C + R) * 2 + T * H * C * 4 + (hist + T) * row
+    pre_bytes = (T * H * (C + R) * es + T * H * C * 4 + (hist + T) * row
                  + pages(hist + T) * 4)
     pre_flops = 2 * H * (2 * C + R) * sum(hist + t + 1 for t in range(T))
     return {
@@ -2292,6 +2358,34 @@ def timing(torch, dev, inp: KernelInputs, mi: MlaInputs, qi: QuantInputs,
         f"(bound {a_ms:.4f} ms by {a_by}, plain "
         f"{time_ms(torch, lambda: mi.append(kvu.kv_cache_append_plain), 5, flush):.3f}"
         f" ms, library {time_ms(torch, index_put, 10, flush):.4f} ms)")
+    # the decode rows at the down projection's shape (K = 1408, N = 2048)
+    d_ms, d_by = bound_ms(*gmm_work(qi, "decode", "down"))
+    log("  ragged_int8_gmm decode rows, down shape (K=1408, N=2048, "
+        f"{int(qi.rows['decode'][1].sum())} rows): "
+        f"{time_ms(torch, lambda: qi.gmm(moe_gmm.ragged_int8_gmm, proj='down'), 30, flush):.4f}"
+        f" ms (bound {d_ms:.4f} ms by {d_by}, plain "
+        f"{time_ms(torch, lambda: qi.gmm(moe_gmm.ragged_int8_plain, proj='down'), 5, flush):.3f}"
+        " ms, library "
+        f"{time_ms(torch, grouped_mm_call(torch, qi, 'decode', 'down'), 10, flush):.4f} ms)")
+    # the latent kernels' CUDA-core body, at phase 2's shapes: bf16 at
+    # C = 1024, R = 64, wider than the tensor-core tiles (C.8), and f32 at
+    # V2-Lite's widths (the body of the f32 models)
+    for label, inputs in (("C=1024, R=64, bf16", MlaInputs(torch, dev, C=1024, R=64)),
+                          ("C=512, R=64, f32",
+                           MlaInputs(torch, dev, dtype=torch.float32))):
+        for name, fn, plain_fn in (
+                ("mla_paged_decode_attention", mla.mla_paged_decode_attention,
+                 mla.mla_paged_decode_attention_plain),
+                ("mla_paged_prefill_attention", mla.mla_paged_prefill_attention,
+                 mla.mla_paged_prefill_attention_plain)):
+            call = inputs.decode if "decode" in name else inputs.prefill
+            w_ms, w_by = bound_ms(*mla_work(inputs)[name],
+                                  F32_FLOPS if "f32" in label else BF16_FLOPS)
+            log(f"  {name} at {label} (CUDA-core body): "
+                f"{time_ms(torch, lambda: call(fn), 10, flush):.4f} ms (bound "
+                f"{w_ms:.4f} ms by {w_by}, plain "
+                f"{time_ms(torch, lambda: call(plain_fn), 3, flush):.3f} ms)")
+        del inputs
     return rows
 
 

@@ -15,14 +15,16 @@
 // over every kv_pos <= q_pos. Rows that attend nothing (an empty decode
 // slot, prefill padding past valid_len) emit o = 0, m = -1e30, l = 0, the
 // Pallas kernel's empty row. Widths: any kv_lora_rank C with C % 128 == 0
-// and any rope width R in 1..128, as long as a padded latent row (C + R
-// rounded up to 64) is at most DP_MAX = 768 values (C <= 640 at any R):
-// the tensor-core bodies keep a 64-row query tile and a 2-stage ring of
-// such rows in shared memory.
+// and any rope width R >= 1 (the reference engine's gate), as far as a
+// row's f32 query and one warp's accumulators (2C + R values) fit a block's
+// shared memory (C up to ~28900).
 //
-// Two bodies, chosen by dtype (an explicit dispatch, never a fallback):
+// Two bodies, chosen by dtype and width (an explicit dispatch, never a
+// fallback after a failure):
 //
-// 1. bf16 launches: the tensor-core body, mla_tc_kernel, for both
+// 1. bf16 launches whose padded latent row (C + R rounded up to 64) is at
+//    most DP_MAX = 768 values and R <= 128 (C <= 640 at any such R; every
+//    published MLA width): the tensor-core body, mla_tc_kernel, for both
 //    functions. What bounds it on an H100: a prefill chunk is operations
 //    (2 * rows * positions * (C + R + C) flops: 22 GFLOP for T = 512 on
 //    1000 cached at H = 16, the latents staying in L2); decode is
@@ -76,17 +78,27 @@
 //      pairwise merge tree (log2(splits) levels of one partial each) was
 //      slower on the card, each level paying a write, a fence and a read.
 //
-// 2. f32 launches (the tiny f32 models, held token for token to the CPU):
-//    the CUDA-core body, mla_core_kernel: one warp per query row walks
-//    the row's horizon a position at a time (warp-wide dot product over
-//    C + R, f32 online softmax, the C accumulators in shared memory), any
-//    C and R, no split.
+// 2. f32 launches (the tiny f32 models, held token for token to the CPU),
+//    and bf16 launches of the widths the tensor-core tiles cannot hold
+//    (C >= 768 or R > 128: a 64-row query tile and two stages of whole
+//    rows outgrow 227 KB): the CUDA-core body, mla_core_kernel, f32 or bf16
+//    loads. One block per query row; each of its warps walks every nw-th
+//    position of the row's horizon (warp-wide dot product over C + R, f32
+//    online softmax, its C accumulators in shared memory), and the warps
+//    merge with the flash rule; any C and R. A block holds as many warps
+//    (at most 8) as their C f32 accumulators let into its shared memory
+//    beside the row's query. bf16 lanes load 8 latents per 16-byte load.
+//    It is a correctness body for widths no published model has: it reads
+//    the latents once per query row (L2 serves the repeats), a position
+//    per warp step (PERF.md has its times).
 //
 // Later work: wgmma with TMA page loads and warp specialisation.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -140,19 +152,30 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// ---------------- the CUDA-core body (f32 launches) ----------------
+// ------- the CUDA-core body (f32, and the widths the tiles cannot hold) -------
 
-// One warp per query row; a row's C accumulators and its scaled query live
-// in the warp's share of shared memory, so any width fits.
+__device__ __forceinline__ float to_f(float x) { return x; }
+__device__ __forceinline__ float to_f(bf16 x) { return __bfloat162float(x); }
+
+// One block per query row: its scaled query in shared memory, and each of
+// its warps walking every nw-th position of the row's horizon with its own
+// online softmax and C accumulators in shared memory; the warps' (m, l, o)
+// merge at the end with the flash rule. Any width fits. T: the element type
+// of queries and caches; f32 lanes take C elements lane, lane + 32, ...,
+// bf16 lanes 8 consecutive ones per 16-byte load.
+template <typename T>
 __global__ void __launch_bounds__(NT) mla_core_kernel(const Params p) {
   extern __shared__ __align__(16) float fsm[];
+  constexpr bool kBf16 = std::is_same<T, bf16>::value;
+  const int nw = blockDim.x >> 5;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int C = p.C, R = p.R;
-  const long long rows = p.B > 0 ? (long long)p.B * p.H : (long long)p.T * p.H;
-  const long long g = (long long)blockIdx.x * NW + warp;
-  if (g >= rows) return;
-  float* qv = fsm + (size_t)warp * (2 * C + R);  // [C + R] scaled query
-  float* ov = qv + C + R;                         // [C] accumulators
+  const long long g = blockIdx.x;
+  // [C + R] scaled query (rounded up to 4: 16-byte aligned), nw x [C]
+  // accumulators, nw (m, l)
+  float* qv = fsm;
+  float* ov = fsm + ((C + R + 3) & ~3) + (size_t)warp * C;
+  float* ml = fsm + ((C + R + 3) & ~3) + (size_t)nw * C;
   int lim;
   const int* table;
   if (p.B > 0) {
@@ -165,37 +188,84 @@ __global__ void __launch_bounds__(NT) mla_core_kernel(const Params p) {
     lim = t < valid ? min(p.hist[0] + t, p.M * p.bs - 1) : -1;
     table = p.tables;
   }
-  const float* qe = static_cast<const float*>(p.q_eff) + g * C;
-  const float* qp = static_cast<const float*>(p.q_pe) + g * R;
-  for (int k = lane; k < C; k += 32) {
-    qv[k] = qe[k] * p.scale;
-    ov[k] = 0.f;
-  }
-  for (int k = lane; k < R; k += 32) qv[C + k] = qp[k] * p.scale;
-  __syncwarp();
-  const float* cc = static_cast<const float*>(p.cc);
-  const float* pc = static_cast<const float*>(p.pc);
+  const T* qe = static_cast<const T*>(p.q_eff) + g * C;
+  const T* qp = static_cast<const T*>(p.q_pe) + g * R;
+  for (int k = threadIdx.x; k < C; k += blockDim.x) qv[k] = to_f(qe[k]) * p.scale;
+  for (int k = threadIdx.x; k < R; k += blockDim.x)
+    qv[C + k] = to_f(qp[k]) * p.scale;
+  for (int k = lane; k < C; k += 32) ov[k] = 0.f;
+  __syncthreads();
+  const T* cc = static_cast<const T*>(p.cc);
+  const T* pc = static_cast<const T*>(p.pc);
   float m = kNegInf, l = 0.f;
-  for (int pos = 0; pos <= lim; ++pos) {
+  for (int pos = warp; pos <= lim; pos += nw) {
     const long long slot = (long long)table[pos / p.bs] * p.bs + pos % p.bs;
-    const float* cr = cc + slot * C;
-    const float* pr = pc + slot * R;
+    const T* cr = cc + slot * C;
+    const T* pr = pc + slot * R;
     float s = 0.f;
-    for (int k = lane; k < C; k += 32) s = fmaf(qv[k], cr[k], s);
-    for (int k = lane; k < R; k += 32) s = fmaf(qv[C + k], pr[k], s);
+    if constexpr (kBf16) {
+      for (int k = 8 * lane; k < C; k += 256) {
+        const uint4 v = *reinterpret_cast<const uint4*>(cr + k);
+        const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&v);
+        const float4 q0 = *reinterpret_cast<const float4*>(qv + k);
+        const float4 q1 = *reinterpret_cast<const float4*>(qv + k + 4);
+        const float qf[8] = {q0.x, q0.y, q0.z, q0.w, q1.x, q1.y, q1.z, q1.w};
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          const float2 f = __bfloat1622float2(h[u]);
+          s = fmaf(qf[2 * u], f.x, s);
+          s = fmaf(qf[2 * u + 1], f.y, s);
+        }
+      }
+    } else {
+      for (int k = lane; k < C; k += 32) s = fmaf(qv[k], to_f(cr[k]), s);
+    }
+    for (int k = lane; k < R; k += 32) s = fmaf(qv[C + k], to_f(pr[k]), s);
     s = warp_sum(s);
     const float mn = fmaxf(m, s);
     const float alpha = expf(m - mn), pe = expf(s - mn);
     l = l * alpha + pe;
     m = mn;
-    for (int k = lane; k < C; k += 32) ov[k] = fmaf(pe, cr[k], ov[k] * alpha);
+    if constexpr (kBf16) {
+      for (int k = 8 * lane; k < C; k += 256) {
+        const uint4 v = *reinterpret_cast<const uint4*>(cr + k);
+        const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&v);
+        float4* o4 = reinterpret_cast<float4*>(ov + k);
+        float4 a = o4[0], b = o4[1];
+        const float2 f0 = __bfloat1622float2(h[0]), f1 = __bfloat1622float2(h[1]);
+        const float2 f2 = __bfloat1622float2(h[2]), f3 = __bfloat1622float2(h[3]);
+        o4[0] = make_float4(fmaf(pe, f0.x, a.x * alpha), fmaf(pe, f0.y, a.y * alpha),
+                            fmaf(pe, f1.x, a.z * alpha), fmaf(pe, f1.y, a.w * alpha));
+        o4[1] = make_float4(fmaf(pe, f2.x, b.x * alpha), fmaf(pe, f2.y, b.y * alpha),
+                            fmaf(pe, f3.x, b.z * alpha), fmaf(pe, f3.y, b.w * alpha));
+      }
+    } else {
+      for (int k = lane; k < C; k += 32)
+        ov[k] = fmaf(pe, to_f(cr[k]), ov[k] * alpha);
+    }
   }
-  const float inv = 1.f / fmaxf(l, 1e-20f);  // 0 / 1e-20 = 0 when dead
-  float* o = static_cast<float*>(p.o) + g * C;
-  for (int k = lane; k < C; k += 32) o[k] = ov[k] * inv;
-  if (p.m_out != nullptr && lane == 0) {
-    p.m_out[g] = m;
-    p.l_out[g] = l;
+  if (lane == 0) {
+    ml[2 * warp] = m;
+    ml[2 * warp + 1] = l;
+  }
+  __syncthreads();
+  // the flash merge of the warps, in warp order
+  float M = kNegInf, L = 0.f;
+  for (int w = 0; w < nw; ++w) M = fmaxf(M, ml[2 * w]);
+  for (int w = 0; w < nw; ++w) L += ml[2 * w + 1] * expf(ml[2 * w] - M);
+  const float inv = 1.f / fmaxf(L, 1e-20f);  // 0 / 1e-20 = 0 when dead
+  const float* ov0 = fsm + ((C + R + 3) & ~3);
+  for (int k = threadIdx.x; k < C; k += blockDim.x) {
+    float v = 0.f;
+    for (int w = 0; w < nw; ++w) v += ov0[(size_t)w * C + k] * expf(ml[2 * w] - M);
+    if (kBf16 && !p.out_f32)
+      static_cast<bf16*>(p.o)[g * C + k] = __float2bfloat16(v * inv);
+    else
+      static_cast<float*>(p.o)[g * C + k] = v * inv;
+  }
+  if (p.m_out != nullptr && threadIdx.x == 0) {
+    p.m_out[g] = M;
+    p.l_out[g] = L;
   }
 }
 
@@ -734,38 +804,44 @@ cudaError_t launch_tc(const Params& p, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+// the CUDA-core body: one block per query row, as many warps (at most NW)
+// as their f32 accumulators let into shared memory beside the query
+template <typename T>
 cudaError_t launch_core(const Params& p, size_t rows, cudaStream_t stream) {
-  const int smem = NW * (2 * p.C + p.R) * 4;
+  const long long fixed = 4ll * ((p.C + p.R + 3) & ~3);
+  const long long per_warp = 4ll * p.C + 8;
+  const long long fit = (SMEM_MAX - fixed) / per_warp;
+  const int nw = fit < NW ? (int)fit : NW;
+  if (nw < 1) return cudaErrorInvalidValue;
   static bool attr_set = false;
   if (!attr_set) {
     const cudaError_t e = cudaFuncSetAttribute(
-        mla_core_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        mla_core_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         SMEM_MAX);
     if (e != cudaSuccess) return cudaGetLastError();
     attr_set = true;
   }
-  if (smem > SMEM_MAX) return cudaErrorInvalidValue;
-  const unsigned blocks = (unsigned)((rows + NW - 1) / NW);
-  mla_core_kernel<<<blocks, NT, smem, stream>>>(p);
+  mla_core_kernel<T><<<(unsigned)rows, nw * 32, fixed + nw * per_warp, stream>>>(p);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// Plain C interface, loaded with ctypes. dtype: 0 = float32 (the CUDA-core
-// body), 1 = bfloat16 (the tensor-core body); queries and caches share it,
-// the output is that dtype, or float32 with out_f32. Decode: B > 0
-// sequences of H query rows each, tables [B, M], seq_lens [B]. Prefill:
-// B == 0, one chunk of T tokens x H heads, tables [M], hist [1], valid [1]
-// or null. C % 128 == 0, 1 <= R <= 128, C + R rounded up to 64 at most 768
-// (bf16). The tensor-core plan (the Python wrapper's tile_plan): wpg warps
-// per 16-row group (2: 64-row tiles, 32-position steps; 8: 16-row tiles,
-// 64-position steps), stages of the ring, slab_w output columns per block,
-// n_split decode splits of at least min_steps steps. With n_split > 1,
-// ``scratch`` holds n_split * rows * (2 * ceil(C / slab_w) + C / 2) + 4
+// Plain C interface, loaded with ctypes. dtype: 0 = float32, 1 = bfloat16;
+// queries and caches share it, the output is that dtype, or float32 with
+// out_f32. Decode: B > 0 sequences of H query rows each, tables [B, M],
+// seq_lens [B]. Prefill: B == 0, one chunk of T tokens x H heads, tables
+// [M], hist [1], valid [1] or null. C % 128 == 0, R >= 1. Bodies: bf16
+// with C + R rounded up to 64 at most 768 and R <= 128 runs the tensor-core
+// body; f32, and bf16 at wider latents, the CUDA-core one. The tensor-core
+// plan (the Python wrapper's tile_plan; ignored by the CUDA-core body): wpg
+// warps per 16-row group (2: 64-row tiles, 32-position steps; 8: 16-row
+// tiles, 64-position steps), stages of the ring, slab_w output columns per
+// block, n_split decode splits of at least min_steps steps. With n_split >
+// 1, ``scratch`` holds n_split * rows * (2 * ceil(C / slab_w) + C / 2) + 4
 // floats and ``tickets`` B * ceil(H / rows per tile) * ceil(C / slab_w)
-// ints, zero before the launch and zero after it. Returns the cudaError_t of the
-// launch (0 = success).
+// ints, zero before the launch and zero after it. Returns the cudaError_t of
+// the launch (0 = success).
 extern "C" int mla_attention_launch(
     const void* q_eff, const void* q_pe, void* o, float* m_out, float* l_out,
     const void* cc, const void* pc, const int* tables, const int* seq_lens,
@@ -799,14 +875,15 @@ extern "C" int mla_attention_launch(
   if (rows == 0) return 0;
   if (B == 0 && (hist == nullptr || tables == nullptr))
     return (int)cudaErrorInvalidValue;
-  if (C <= 0 || C % 128 != 0 || R < 1 || R > 128)
-    return (int)cudaErrorInvalidValue;
+  if (C <= 0 || C % 128 != 0 || R < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return (int)launch_core(p, rows, st);
+  if (dtype == 0) return (int)launch_core<float>(p, rows, st);
   if (dtype != 1) return (int)cudaErrorInvalidValue;
   p.DP = C + (R + 63) / 64 * 64;
   p.KD = C + (R + 15) / 16 * 16;
-  if (p.DP > DP_MAX || (stages != 2 && stages != 3) || slab_w <= 0 ||
+  // the width dispatch: what the tensor-core tiles cannot hold (C.8)
+  if (p.DP > DP_MAX || R > 128) return (int)launch_core<bf16>(p, rows, st);
+  if ((stages != 2 && stages != 3) || slab_w <= 0 ||
       slab_w % 128 != 0 || slab_w > SLAB)
     return (int)cudaErrorInvalidValue;
   p.stages = stages;

@@ -211,8 +211,7 @@ class TorchEngine(AsyncEngine):
             raise ValueError(
                 f"MLA latent widths C={mcfg.kv_lora_rank}, "
                 f"R={mcfg.qk_rope_head_dim}: the CUDA latent kernels take "
-                f"kv_lora_rank % 128 == 0 and rope widths 1-128, C + R "
-                f"padded to 64 at most {mla_attention.TC_DP_MAX}"
+                f"kv_lora_rank % 128 == 0 and rope widths >= 1"
             )
         if mcfg.is_mla and cfg.quantization == "int8_native":
             raise ValueError(MLA_INT8_NATIVE)

@@ -44,7 +44,7 @@ SOURCES = {
         ),
     },
     "moe_gmm.cu": {
-        "ragged_int8_gmm_launch": [_P] * 5 + [_I] * 6 + [_P],
+        "ragged_int8_gmm_launch": [_P] * 5 + [_I] * 5 + [_P] * 2 + [_I] * 2 + [_P],
     },
     "paged_attention.cu": {
         "paged_attention_launch": (

@@ -21,8 +21,9 @@ position s as ``q_eff . c[s] + q_pe . pe[s]`` (scaled), fp32 softmax.
     is its plain twin (the reference's XLA branch).
 
 On CUDA tensors the entry points launch ``csrc/mla_attention.cu`` (a
-tensor-core body for bf16, a CUDA-core body for f32, both functions in
-one launch each); on CPU tensors they take their plain twins below.
+tensor-core body for bf16 latents up to :func:`tc_takes`' widths, a
+CUDA-core body for f32 and for wider bf16 latents, both functions in one
+launch each); on CPU tensors they take their plain twins below.
 """
 
 from __future__ import annotations
@@ -82,12 +83,20 @@ def _tc_smem(wpg: int, dp: int, stages: int) -> int:
 
 def takes_widths(C: int, R: int) -> bool:
     """The latent widths both kernels take on the card: kv_lora_rank
-    ``C % 128 == 0`` (the reference engine's gate) and rope width ``R`` in
-    1..128, with a padded row of at most :data:`TC_DP_MAX` values (C <=
-    640 at any R: a 64-row query tile plus a 2-stage ring of such rows
-    fills the 227 KB a block can use)."""
-    return (C > 0 and C % 128 == 0 and 1 <= R <= 128
-            and padded_row(C, R) <= TC_DP_MAX)
+    ``C % 128 == 0`` and any rope width ``R >= 1`` (the reference engine's
+    gate), as far as the CUDA-core body holds a row's f32 query and one
+    warp's accumulators in a block's shared memory (C up to ~28900)."""
+    return (C > 0 and C % 128 == 0 and R >= 1
+            and 4 * (-(-(C + R) // 4) * 4 + C) + 8 <= _SMEM_MAX)
+
+
+def tc_takes(C: int, R: int) -> bool:
+    """The widths a bf16 launch runs on the tensor-core body: a padded row
+    of at most :data:`TC_DP_MAX` values and ``R <= 128`` (C <= 640 at any
+    such R: a 64-row query tile plus a 2-stage ring of such rows fills the
+    227 KB a block can use). Wider latents run the CUDA-core body (the
+    kernel's width dispatch)."""
+    return R <= 128 and padded_row(C, R) <= TC_DP_MAX
 
 
 def tile_plan(C: int, R: int, rows: int, B: int = 0, sms: int = 132) -> TilePlan:
@@ -145,8 +154,10 @@ def launch_mla_attention(
     (one table row per sequence, its H query rows), else prefill of one
     T-token chunk. bf16 runs the tensor-core body, f32 the CUDA-core one.
     Returns ``o [Ntok, H, C]`` (q's dtype, or f32 with ``out_f32``) and,
-    with ``stats``, ``m``/``l`` f32 ``[Ntok, H]``. Validates every input
-    and raises on what the kernel does not take."""
+    with ``stats``, ``m``/``l`` f32 ``[Ntok, H]``. bf16 runs the
+    tensor-core body where :func:`tc_takes` the widths, f32 and wider bf16
+    latents the CUDA-core body. Validates every input and raises on what
+    the kernel does not take."""
     Ntok, H, C = q_eff.shape
     _, N, bs, Cc = c_cache_layer.shape
     R = pe_cache_layer.shape[-1]
@@ -164,8 +175,7 @@ def launch_mla_attention(
             or pe_cache_layer.shape != (1, N, bs, R)):
         raise ValueError(
             f"{name}: latent widths C={C} (cache {Cc}), R={R} do not fit the "
-            f"kernel (C % 128 == 0, 1 <= R <= 128, C + R padded to 64 at "
-            f"most {TC_DP_MAX}) or the shapes disagree")
+            f"kernel (C % 128 == 0, R >= 1) or the shapes disagree")
     if decode and (tables.dim() != 2 or tables.shape[0] != Ntok
                    or seq_lens.shape != (Ntok,)):
         raise ValueError(f"{name}: decode tables {tuple(tables.shape)} / "
@@ -186,7 +196,7 @@ def launch_mla_attention(
     plan = tile_plan(C, R, H if decode else Ntok * H, Ntok if decode else 0,
                      _cuda.sm_count(dev))
     scratch = tickets = None
-    if dt == torch.bfloat16 and plan.n_split > 1:
+    if dt == torch.bfloat16 and tc_takes(C, R) and plan.n_split > 1:
         rows = Ntok * H
         scratch = _cuda.device_buffer(
             "mla partials", dev,

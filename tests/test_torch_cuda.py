@@ -197,7 +197,15 @@ def test_cuda_moe_ffn_is_bit_equal_run_to_run():
 MLA_WIDTHS = pytest.mark.parametrize(
     "C,R", [(512, 64), (256, 32), (384, 16), (640, 64), (128, 8)],
     ids=["C512-R64", "C256-R32", "C384-R16", "C640-R64", "C128-R8"])
-# bf16 runs the tensor-core body, f32 the CUDA-core one
+# C.8: widths the tensor-core tiles cannot hold (C >= 768, R > 128), which
+# bf16 launches run on the CUDA-core body
+MLA_WIDTHS_ALL = pytest.mark.parametrize(
+    "C,R", [(512, 64), (256, 32), (384, 16), (640, 64), (128, 8), (768, 64),
+            (1024, 64), (512, 160)],
+    ids=["C512-R64", "C256-R32", "C384-R16", "C640-R64", "C128-R8", "C768-R64",
+         "C1024-R64", "C512-R160"])
+# bf16 runs the tensor-core body where it holds the widths, f32 the
+# CUDA-core one
 MLA_DTYPES = pytest.mark.parametrize(
     "dtype,body", [(torch.bfloat16, "mla_tc_kernel"),
                    (torch.float32, "mla_core_kernel")], ids=["bf16", "f32"])
@@ -207,10 +215,11 @@ def _cuda_kernels(fn):
     """The names of the CUDA kernels one call of ``fn`` launches. A trace
     that caught no kernel at all says nothing (the profiler, run many
     times in one process, now and then records no device events): it is
-    taken again, up to three times."""
+    taken again, up to five times, each after the device is idle."""
     from torch.profiler import ProfilerActivity, profile
 
-    for _ in range(3):
+    for _ in range(5):
+        torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             fn()
             torch.cuda.synchronize()
@@ -228,17 +237,21 @@ def _mla_caches(g, dev, C, R, dtype, N=160, bs=16):
 
 
 @pytest.mark.cuda
-@MLA_WIDTHS
+@MLA_WIDTHS_ALL
 @MLA_DTYPES
 def test_cuda_mla_kernels_match_plain_versions(C, R, dtype, body):
     """On the card: the latent decode (with stats and an empty slot; one
-    launch, of the dtype's body, and no combine kernel) and prefill
-    kernels and the append at these widths against their plain versions
-    (H=16; bf16 outputs 2e-2, (m, l) rtol 1e-3; f32 2e-5)."""
+    launch, of the body the dtype and widths choose, and no combine
+    kernel) and prefill kernels and the append at these widths against
+    their plain versions (H=16; bf16 outputs 2e-2, (m, l) rtol 1e-3; f32
+    2e-5)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (run on the chip)")
     from dynamo_tpu_torch.ops import mla_attention as mla
     from dynamo_tpu_torch.ops.kv_cache_update import kv_cache_append_plain
+
+    if not mla.tc_takes(C, R):
+        body = "mla_core_kernel"  # the width dispatch (C.8)
 
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(C + R)
@@ -498,6 +511,42 @@ def test_cuda_ragged_int8_gmm_tiles_and_wide_k():
             torch.cuda.synchronize()
             torch.testing.assert_close(got, ref, rtol=2e-2, atol=2e-2)
             assert (got[R - 5:] == 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K,N", [(2048, 1408), (1408, 2048), (7168, 256)],
+                         ids=["v2lite-gate", "v2lite-down", "K7168-N256"])
+def test_cuda_ragged_int8_gmm_few_rows_mode(K, N):
+    """On the card: the few-rows (decode) blocks at DeepSeek-V2-Lite's gate
+    and down shapes and at K = 7168, N = 256 (K split across blocks): experts
+    of 1-16 rows beside a tiled one of 40 rows and empty ones, then the
+    same experts with the 40-row one cut to 15 (the few-rows blocks alone
+    take rows, the tiled ones exit), and with every expert cut to 8 rows;
+    int8 and e4m3 codes, bf16 rows, against ragged_int8_plain at 2e-2 (bf16 rows, K-long f32 sums in
+    another order), unowned rows exactly 0, two launches bit-equal."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the chip)")
+    from dynamo_tpu_torch.models.quant import quantize_array
+    from dynamo_tpu_torch.ops.moe_gmm import ragged_int8_gmm, ragged_int8_plain
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(K + N)
+    mixed = [1, 2, 0, 3, 4, 5, 8, 9, 16, 0, 40, 7, 1, 12, 0, 6]
+    cases = [mixed, [min(n, 15) for n in mixed], [min(n, 8) for n in mixed]]
+    w = torch.randn(len(mixed), K, N, generator=g, device=dev)
+    for mode in ("int8", "fp8_e4m3"):
+        qw = quantize_array(w, mode)
+        for sizes in cases:
+            sizes = torch.tensor(sizes, dtype=torch.int64, device=dev)
+            R = int(sizes.sum()) + 5  # five rows no expert owns
+            lhs = torch.randn(R, K, generator=g, device=dev).bfloat16()
+            got = ragged_int8_gmm(lhs, qw["q"], qw["s"], sizes)
+            again = ragged_int8_gmm(lhs, qw["q"], qw["s"], sizes)
+            ref = ragged_int8_plain(lhs, qw["q"], qw["s"], sizes)
+            torch.cuda.synchronize()
+            torch.testing.assert_close(got, ref, rtol=2e-2, atol=2e-2)
+            assert (got[R - 5:] == 0).all()
+            assert torch.equal(got, again)
 
 
 def _decode_case(dev, g, B, Hkv, rows, D, bs, M, N, lens):

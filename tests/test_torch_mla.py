@@ -421,14 +421,11 @@ def test_torch_engine_matches_jax_engine_on_mla_moe(run):
     assert teng.v_cache.shape[-1] == cfg.qk_rope_head_dim
 
 
-@pytest.mark.parametrize("widths", [{}, dict(kv_lora_rank=768, qk_rope_head_dim=64),
-                                    dict(kv_lora_rank=256, qk_rope_head_dim=160)],
-                         ids=["tiny", "C=768", "R=160"])
+@pytest.mark.parametrize("widths", [{}], ids=["tiny"])
 def test_torch_engine_refuses_mla_widths_the_kernel_lacks(monkeypatch, widths):
     """On the card the latent kernels run or nothing does: the JAX
     engine's kv_lora_rank % 128 gate raises instead of falling back (the
-    tiny model's C = 32), and so do the widths the kernels' shared memory
-    cannot hold (C + R padded to 64 above 768) and rope widths above 128."""
+    tiny model's C = 32)."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     with pytest.raises(ValueError, match="latent kernel"):
         TorchEngine(EngineConfig(model=ModelConfig.tiny_mla(**{**MOE, **widths}),
@@ -446,12 +443,17 @@ def test_torch_engine_takes_minicpm3_latent_widths_on_the_card(monkeypatch):
 
 @pytest.mark.parametrize("widths", [dict(kv_lora_rank=384, qk_rope_head_dim=64),
                                     dict(kv_lora_rank=640, qk_rope_head_dim=64),
-                                    dict(kv_lora_rank=256, qk_rope_head_dim=16)],
-                         ids=["C=384", "C=640", "R=16"])
+                                    dict(kv_lora_rank=256, qk_rope_head_dim=16),
+                                    dict(kv_lora_rank=768, qk_rope_head_dim=64),
+                                    dict(kv_lora_rank=256, qk_rope_head_dim=160),
+                                    dict(kv_lora_rank=1024, qk_rope_head_dim=64)],
+                         ids=["C=384", "C=640", "R=16", "C=768", "R=160", "C=1024"])
 def test_torch_engine_takes_every_c128_latent_width_on_the_card(monkeypatch, widths):
-    """C.7: every kv_lora_rank % 128 == 0 the kernels hold, with any rope
-    width up to 128, passes the card's gate (the reference engine's): a
-    CPU build stops only at the card allocation."""
+    """C.7, C.8: every kv_lora_rank % 128 == 0 with any rope width passes
+    the card's gate (the reference engine's): the tensor-core body's widths
+    (C = 384, 640; R = 16) and the wider ones the CUDA-core body takes
+    (C = 768, 1024; R = 160). A CPU build stops only at the card
+    allocation."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     cfg = ModelConfig.tiny_mla(**{**MOE, **widths})
     with pytest.raises(RuntimeError, match="CUDA"):

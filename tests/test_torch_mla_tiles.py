@@ -96,10 +96,13 @@ def test_mla_decode_tile_plan_fits_plain_and_pallas(rows, C, R):
 
 
 def test_mla_kernel_widths_are_the_reference_gate():
-    """kv_lora_rank % 128 == 0 and rope widths 1..128, within the tiles'
-    shared memory; every published MLA width among them."""
+    """kv_lora_rank % 128 == 0 and any rope width >= 1; every published MLA
+    width among them, and on the tensor-core body (the rest on the
+    CUDA-core body)."""
     for C, R in [(512, 64), (256, 32), (128, 64), (384, 16), (640, 64),
                  (640, 128), (128, 1), (128, 5)]:
-        assert tmla.takes_widths(C, R), (C, R)
-    for C, R in [(32, 8), (500, 64), (512, 0), (512, 129), (768, 64)]:
+        assert tmla.takes_widths(C, R) and tmla.tc_takes(C, R), (C, R)
+    for C, R in [(768, 64), (512, 129), (512, 160), (2048, 64)]:
+        assert tmla.takes_widths(C, R) and not tmla.tc_takes(C, R), (C, R)
+    for C, R in [(32, 8), (500, 64), (512, 0)]:
         assert not tmla.takes_widths(C, R), (C, R)

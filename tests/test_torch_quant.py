@@ -267,54 +267,91 @@ def test_ragged_int8_plain_matches_pallas_interpret(case):
     np.testing.assert_array_equal(np.asarray(ref)[total:], 0.0)
 
 
-def _tiled_gmm_emulation(lhs, w_q, w_s, group_sizes):
+def _find_tile(sizes, t, tm, lo, hi):
+    """The kernel's warp scan (csrc find_tile): tile ``t`` of the list that
+    walks the experts in order, an expert of n rows giving ceil(n / tm)
+    tiles when lo <= n <= hi; (expert, first row, rows) or None past the
+    last tile (a surplus block)."""
+    carry = start = 0
+    for e, n in enumerate(sizes):
+        tiles = -(-n // tm) if lo <= n <= hi else 0
+        if carry <= t < carry + tiles:
+            r0 = start + (t - carry) * tm
+            return e, r0, min(tm, start + n - r0)
+        carry += tiles
+        start += n
+    return None
+
+
+def _gmm_emulation(lhs, w_q, w_s, group_sizes, sms=132):
     """The CUDA kernel's block list (csrc/moe_gmm.cu) in torch, for bf16
-    rows: the tiled blocks' grid sized by the host bound, each block's row
-    tile found from the device cumsum ``ends`` as the kernel's warp scan
-    does (expert-local tiles of TILE_M rows for experts with more than
-    FEW_ROWS rows; surplus blocks write nothing), the tile's TILE_K-deep K
-    chunks accumulated in f32 over codes widened to bf16, the scale after
-    the K loop; then the per-expert blocks (experts of 1 to FEW_ROWS rows,
-    32 columns each) and the zero blocks. Returns the output (NaN where no
-    block wrote) and how many times each row was written per column tile."""
+    rows, every product in f32 over codes widened to bf16, the scale after
+    the sums: the tiled blocks, their grid sized by the host bound, each block's row tile found by the warp
+    scan (expert-local tiles of TILE_M rows of experts with more than
+    FEW_ROWS rows; surplus blocks write nothing), TILE_K-deep K chunks; the
+    few-rows blocks of ``few_rows_plan`` (16-row slots x FEW_TILE_N
+    columns x K splits; each warp's every FEW_WARPS-th 16-deep step, the
+    warps' partials summed in warp order, the splits' in split order);
+    then the zero blocks. Returns the output (NaN where no block wrote)
+    and how many times each element was written."""
     R, K = lhs.shape
     X, _, N = w_q.shape
-    BM, BN, BK = moe_gmm.TILE_M, moe_gmm.TILE_NN, moe_gmm.TILE_K
-    ends = torch.cumsum(group_sizes, 0).tolist()
-    starts = [0] + ends[:-1]
+    sizes = group_sizes.tolist()
     out = torch.full((R, N), float("nan"))
     writes = torch.zeros(R, N, dtype=torch.int32)
+    w = w_q.to(torch.bfloat16).float()
+    x = lhs.float()
+    plan = moe_gmm.few_rows_plan(R, K, N, X, sms)
+    BM, BN, BK = moe_gmm.TILE_M, moe_gmm.TILE_NN, moe_gmm.TILE_K
     nb = -(-N // BN)
     n_tiled = nb * (-(-R // BM) + min(X, R // (moe_gmm.FEW_ROWS + 1)))
     for blk in range(n_tiled):
-        t, n0 = blk // nb, (blk % nb) * BN
-        found, carry = None, 0
-        for e in range(X):  # the running scan, one expert per lane
-            n = ends[e] - starts[e]
-            tiles = -(-n // BM) if n > moe_gmm.FEW_ROWS else 0
-            if carry <= t < carry + tiles:
-                r0 = starts[e] + (t - carry) * BM
-                found = (e, r0, min(BM, ends[e] - r0))
-            carry += tiles
+        found = _find_tile(sizes, blk // nb, BM, moe_gmm.FEW_ROWS + 1, R)
         if found is None:
             continue  # a surplus block
         e, r0, nr = found
-        cols = slice(n0, min(N, n0 + BN))
+        cols = slice((blk % nb) * BN, min(N, (blk % nb + 1) * BN))
         acc = torch.zeros(nr, cols.stop - cols.start)
         for k0 in range(0, K, BK):
-            x = lhs[r0:r0 + nr, k0:k0 + BK].float()
-            acc += x @ w_q[e, k0:k0 + BK, cols].to(torch.bfloat16).float()
+            acc += x[r0:r0 + nr, k0:k0 + BK] @ w[e, k0:k0 + BK, cols]
         out[r0:r0 + nr, cols] = acc * w_s[e, cols]
         writes[r0:r0 + nr, cols] += 1
-    for e in range(X):  # per-expert blocks: the few-rows mode
-        n = ends[e] - starts[e]
-        if 1 <= n <= moe_gmm.FEW_ROWS:
-            rows = slice(starts[e], ends[e])
-            out[rows] = (lhs[rows].float() @ w_q[e].to(torch.bfloat16).float()) * w_s[e]
-            writes[rows] += 1
-    total = ends[-1]
-    out[total:] = 0.0  # the zero blocks
-    writes[total:] += 1
+    FS, FW = moe_gmm.FEW_K, moe_gmm.FEW_WARPS
+    nk = -(-K // FS)
+    for slot in range(plan.slots):
+        found = _find_tile(sizes, slot, moe_gmm.FEW_ROWS, 1, moe_gmm.FEW_ROWS)
+        if found is None:
+            continue  # a surplus block
+        e, r0, nr = found
+        rows = slice(r0, r0 + nr)
+        for ct in range(plan.n_tn):
+            cols = slice(ct * moe_gmm.FEW_TILE_N,
+                         min(N, (ct + 1) * moe_gmm.FEW_TILE_N))
+            seen, partials = [], []
+            for z in range(plan.n_split):
+                lo, end = z * plan.per, min(nk, (z + 1) * plan.per)
+                assert lo < end  # every split holds a step
+                warps = []
+                for wp in range(FW):
+                    acc = torch.zeros(nr, cols.stop - cols.start)
+                    for s in range(lo + wp, end, FW):
+                        seen.append(s)
+                        ks = slice(s * FS, (s + 1) * FS)
+                        acc += x[rows, ks] @ w[e, ks, cols]
+                    warps.append(acc)
+                block = warps[0]
+                for acc in warps[1:]:  # the warps in order
+                    block = block + acc
+                partials.append(block)
+            assert sorted(seen) == list(range(nk))  # K covered once
+            total = partials[0]
+            for p in partials[1:]:  # the splits in order
+                total = total + p
+            out[rows, cols] = total * w_s[e, cols]
+            writes[rows, cols] += 1
+    owned = sum(sizes)
+    out[owned:] = 0.0  # the zero blocks
+    writes[owned:] += 1
     return out, writes
 
 
@@ -322,7 +359,7 @@ def _tiled_gmm_emulation(lhs, w_q, w_s, group_sizes):
                          ids=["ragged tiles", "one expert of 5 rows"])
 def test_tiled_gmm_blocks_fit_plain_and_pallas(sizes):
     """The tiled grouped GEMM's block list (row tiles from the device
-    cumsum, ragged row tiles, the few-rows experts beside them, empty
+    scan, ragged row tiles, the few-rows experts beside them, empty
     experts, zeroed unowned rows) covers every row of every column tile
     exactly once and equals ragged_int8_plain (f32 sums in another order:
     1e-5) and the JAX Pallas kernel in interpret mode; N = 160 leaves a
@@ -330,7 +367,31 @@ def test_tiled_gmm_blocks_fit_plain_and_pallas(sizes):
     K, N = 96, 160
     R = sum(sizes) + 6
     t_args, j_args = _gmm_inputs(R, K, N, len(sizes), sizes, "int8", "bfloat16", 2)
-    got, writes = _tiled_gmm_emulation(*t_args)
+    got, writes = _gmm_emulation(*t_args)
+    assert (writes == 1).all()
+    _close(got, moe_gmm.ragged_int8_plain(*t_args), 1e-5)
+    _close(got, j_gmm(*j_args, interpret=True), 1e-5)
+    assert (got[sum(sizes):] == 0).all()
+
+
+@pytest.mark.parametrize("K,sms,n_split", [(520, 4, 1), (520, 16, 2), (776, 16, 3)],
+                         ids=["one split", "2-way K split", "3-way K split"])
+def test_few_rows_gmm_blocks_fit_plain_and_pallas(K, sms, n_split):
+    """The few-rows (decode) blocks' plan: experts of 1, 4, 5 and 16 rows
+    and empty ones, a 17-row expert on a tiled block beside the slots; K
+    not a multiple of the 16-deep step, split across as many blocks as the
+    grid needs to fill a card of ``sms`` SMs (a 4-SM card: none; a 16-SM
+    card: 2 at K = 520, 3 at K = 776); N = 160, a partial 128-column tile:
+    every element written once, K covered once per unit and merged in the
+    plan's order, equal to ragged_int8_plain and to the JAX Pallas kernel
+    in interpret mode (f32 sums in another order: 1e-5), unowned rows 0."""
+    sizes = [1, 0, 4, 5, 16, 0, 17]
+    N = 160
+    R = sum(sizes) + 5
+    t_args, j_args = _gmm_inputs(R, K, N, len(sizes), sizes, "fp8_e4m3", "bfloat16", 3)
+    plan = moe_gmm.few_rows_plan(R, K, N, len(sizes), sms)
+    assert plan.slots == len(sizes) and plan.n_split == n_split
+    got, writes = _gmm_emulation(*t_args, sms=sms)
     assert (writes == 1).all()
     _close(got, moe_gmm.ragged_int8_plain(*t_args), 1e-5)
     _close(got, j_gmm(*j_args, interpret=True), 1e-5)
