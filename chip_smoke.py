@@ -16,7 +16,10 @@ Phases, in order; any failure raises and the script exits non-zero:
      atol=rtol=2e-2 (bf16 output, sums in another order), (m, l) within
      rtol=1e-3 (f32, the order of the sums only), the KV append bit-exact
      at both the GQA and the MLA widths and the quantized append bit-exact
-     at the Llama widths (the trash page 0 excluded); the multi-token
+     at the Llama widths (the trash page 0 excluded), its in-place form
+     (one launch) at B = 1, 8 and 64 with 0, 2 and B - 1 padded rows, bf16
+     and f32 rows, pages that grow and pages that hold, planes and
+     n_requants equal, two launches bit-equal; the multi-token
      append of the speculative verify bit-exact at both widths (B=8, T=4
      and T=16 windows crossing pages, padded slots on page 0 excluded), the
      verify's attention (T*G=16 rows per kv head, T*H=64 latent rows per
@@ -69,8 +72,11 @@ Phases, in order; any failure raises and the script exits non-zero:
      prefix-cache hit changes, and the dense projections' cost per decode
      step in each weight form (bf16 drive) or the plain dequantize's
      (quantized drives);
-  4. timing: median time per launch of each kernel with L2 flushed
-     between launches, its plain version's and a library yardstick's
+  4. timing: the time of an empty launch (the floor of every row), then
+     the median time per launch of each kernel with L2 flushed between
+     launches (the quantized append: the whole function, one launch, its
+     planes reset before each call), its plain version's and a library
+     yardstick's
      (scaled_dot_product_attention / index_put_ / torch._grouped_mm over
      the dequantized bf16 experts, timed only, never used by the port),
      and the least time the card could take (bytes over 3.35 TB/s or
@@ -593,17 +599,11 @@ class QuantInputs:
         return fn(self.k_new, self.v_new, c[0], c[1], self.scales[0],
                   self.scales[1], self.blk, self.off)
 
-    def rmw(self, fn, caches):
-        """The page read-modify-write alone, on the rows and ratios that the
-        scale math gives for these inputs."""
-        from dynamo_tpu_torch.ops.kv_cache_update import quant_scale_update
-
-        if not hasattr(self, "_rmw"):
-            _, rk, kq = quant_scale_update(self.k_new, self.scales[0], self.blk)
-            _, rv, vq = quant_scale_update(self.v_new, self.scales[1], self.blk)
-            self._rmw = (kq, vq, rk, rv)
-        kq, vq, rk, rv = self._rmw
-        return fn(kq, vq, caches[0], caches[1], rk, rv, self.blk, self.off)
+    def append_in_place(self, fn, caches, planes):
+        """The in-place append (``append_quantized_rows`` or its plain
+        twin) into ``caches`` and ``planes`` ([2, L, N], grown in place)."""
+        return fn(self.k_new, self.v_new, caches[0], caches[1], planes[0],
+                  planes[1], self.blk, self.off)
 
 
 def check_quant_kernels(torch, qi: QuantInputs) -> dict:
@@ -640,10 +640,60 @@ def check_quant_kernels(torch, qi: QuantInputs) -> dict:
             and int(got[4]) == int(ref[4])):
         raise AssertionError("kv_cache_append_quantized: not bit-exact with "
                              "its plain twin")
-    errs["kv_cache_append_quantized"] = 0.0
     log(f"  kv_cache_append_quantized (L=32, B=8, {int(got[4])} scale entries "
         "grew): bit-exact except the trash page  OK")
+    del caches, plain
+    check_fused_append(torch, qi)
+    errs["kv_cache_append_quantized"] = 0.0
     return errs
+
+
+def check_fused_append(torch, qi: QuantInputs) -> None:
+    """The in-place quantized append (one ``kv_append_quant_kernel``
+    launch) against its plain twin at Llama-3-8B's widths over phase 2's
+    int8 pool: B = 1, 8 and 64 rows with 0, 2 and B - 1 of them padded
+    (on the trash page 0), bf16 and f32 rows, every other live page's
+    scale set high enough to hold. Codes bit-exact off page 0, both planes
+    grown in place and bit-equal, n_requants equal; a second launch on the
+    same inputs bit-equal to the first, page 0 included."""
+    from dynamo_tpu_torch.ops import kv_cache_update as kvu
+
+    dev = qi.caches.device
+    L, Hkv, N, bs, D = qi.caches.shape[1:]
+    for B, padded in ((1, 0), (8, 0), (8, 2), (8, 7), (64, 0), (64, 2), (64, 63)):
+        g = torch.Generator(device=dev).manual_seed(100 * B + padded)
+        blk = torch.randperm(N - 1, generator=g, device=dev)[:B] + 1
+        planes = qi.scales.clone()
+        planes[:, :, blk[::2]] = 1.0  # these pages keep their scale
+        blk[torch.randperm(B, generator=g, device=dev)[:padded]] = 0
+        blk = blk.to(torch.int32)
+        off = torch.randint(0, bs, (B,), generator=g, device=dev, dtype=torch.int32)
+        for dt in (torch.bfloat16, torch.float32):
+            # wider than the pool's rows, so most other pages grow
+            k_new = (torch.randn(L, B, Hkv, D, generator=g, device=dev) * 2).to(dt)
+            v_new = (torch.randn(L, B, Hkv, D, generator=g, device=dev) * 1.5).to(dt)
+            pc, pp = qi.caches.clone(), planes.clone()
+            n_ref = kvu.append_quantized_rows_plain(k_new, v_new, pc[0], pc[1],
+                                                    pp[0], pp[1], blk, off)
+            runs = []
+            for _ in range(2):
+                c, pl = qi.caches.clone(), planes.clone()
+                n = kvu.append_quantized_rows(k_new, v_new, c[0], c[1], pl[0],
+                                              pl[1], blk, off)
+                runs.append((c, pl, n))
+            torch.cuda.synchronize()
+            (c, pl, n), (c2, pl2, n2) = runs
+            tag = f"fused quantized append, B={B}, {padded} padded, {dt}"
+            if not (torch.equal(c[:, :, :, 1:], pc[:, :, :, 1:])
+                    and torch.equal(pl, pp) and int(n) == int(n_ref)):
+                raise AssertionError(f"{tag}: not bit-exact with its plain twin")
+            if not (torch.equal(c2, c) and torch.equal(pl2, pl) and int(n2) == int(n)):
+                raise AssertionError(f"{tag}: two launches differ")
+            del runs, c, pl, c2, pl2, pc, pp
+        log(f"  kv_cache_append_quantized in place (B={B}, {padded} padded, "
+            f"bf16 and f32 rows, {int(n)} scale entries grew): bit-exact off "
+            "the trash page, planes and n_requants equal, two launches "
+            "bit-equal  OK")
 
 
 def check_int8_native_mm(torch, dev) -> None:
@@ -1921,16 +1971,21 @@ def verify_anatomy(torch, dev, params, cfg, k_cache, v_cache) -> None:
 # ---------------- phase 4: timing ----------------
 
 
-def time_ms(torch, fn, reps: int, flush) -> float:
+def time_ms(torch, fn, reps: int, flush, setup=None) -> float:
     """Median ms per call, L2 flushed before each (CUDA events). A
     device-side spin after the flush keeps the card busy while the host
     enqueues the call, so the time of a kernel or of a library call of a
     few ops excludes the host's launch path (a plain version's many small
-    ops still pay their host gaps)."""
-    fn()
-    fn()
+    ops still pay their host gaps). ``setup``, when given, runs before
+    each call, outside the timed span (an in-place call's inputs reset)."""
+    for _ in range(2):
+        if setup:
+            setup()
+        fn()
     times = []
     for _ in range(reps):
+        if setup:
+            setup()
         flush.zero_()
         torch.cuda._sleep(2_000_000)  # ~1 ms at the H100's clock
         start = torch.cuda.Event(enable_timing=True)
@@ -2063,25 +2118,28 @@ def quant_work(torch, qi: QuantInputs) -> dict:
     written (f32), the codes and scales of the experts that own a row (the
     others are never read), 2 flops per multiply-add of the owned rows;
     the operations count at the bf16 rate (the reference widens the codes
-    to the rows' bf16). kv_cache_append_quantized: the new rows read
-    (bf16), the planes read and the grown planes written, and per (layer,
-    row) the int8 row written plus, where the page's scale grew (r < 1) and
-    the page is not the trash page, its read and write."""
+    to the rows' bf16). kv_cache_append_quantized, the whole function
+    (one launch): blk/off read; per cache the new rows read (bf16), the
+    old scale of each written (layer, page) read and the grown ones
+    written, each row written in int8, and each page whose scale grew (not
+    the trash page) read and written but for the row it replaces;
+    n_requants written."""
     from dynamo_tpu_torch.ops.kv_cache_update import quant_scale_update
 
     out = {key: gmm_work(qi, label) for label, key in (
         ("decode", "ragged_int8_gmm"), ("prefill", "ragged_int8_gmm (prefill rows)"))}
-    # the page read-modify-write kernel alone: the int8 rows and the ratios
-    # read, each row written, each grown page (not the trash page) read and
-    # written
     L, B, Hkv, D = qi.k_new.shape
     bs = qi.caches.shape[4]
-    page = Hkv * bs * D
-    nbytes = 2 * B * 4
+    row = Hkv * D
+    pages = len(set(qi.blk.tolist()))  # distinct pages written per layer
+    nbytes = 2 * B * 4 + 4
     for x, s in ((qi.k_new, qi.scales[0]), (qi.v_new, qi.scales[1])):
-        _, r, _ = quant_scale_update(x, s, qi.blk)
-        rmw = int(((r < 1) & (qi.blk != 0)[None, :]).sum())
-        nbytes += 2 * L * B * Hkv * D + L * B * 4 + rmw * 2 * page
+        new, _, _ = quant_scale_update(x, s, qi.blk)
+        grown = new > s  # [L, N]
+        rmw = int(grown[:, 1:].sum())
+        nbytes += (x.numel() * x.element_size() + L * pages * 4
+                   + int(grown.sum()) * 4 + L * B * row
+                   + rmw * 2 * (bs - 1) * row)
     out["kv_cache_append_quantized"] = (nbytes, 0)
     return out
 
@@ -2249,7 +2307,11 @@ def timing(torch, dev, inp: KernelInputs, mi: MlaInputs, qi: QuantInputs,
 
     flush = torch.empty(64 * 2**20, dtype=torch.uint8, device=dev)  # > 50 MB L2
     sinp = inp.scaled()
-    app_caches = qi.caches.clone()
+    app_caches, app_planes = qi.caches.clone(), qi.scales.clone()
+
+    def reset_planes():  # every timed call grows the same pages
+        app_planes.copy_(qi.scales)
+
     kernel = {
         "paged_decode_attention": lambda: inp.decode(pa.paged_decode_attention),
         "paged_prefill_attention": lambda: inp.prefill(pa.paged_prefill_attention),
@@ -2261,7 +2323,8 @@ def timing(torch, dev, inp: KernelInputs, mi: MlaInputs, qi: QuantInputs,
         "ragged_int8_gmm (prefill rows)":
             lambda: qi.gmm(moe_gmm.ragged_int8_gmm, "prefill"),
         "kv_cache_append_quantized":
-            lambda: qi.rmw(kvu.append_quantized_rows, app_caches),
+            lambda: qi.append_in_place(kvu.append_quantized_rows, app_caches,
+                                       app_planes),
         "paged_decode_attention" + INT8_KV: lambda: sinp.decode(pa.paged_decode_attention),
         "paged_prefill_attention" + INT8_KV:
             lambda: sinp.prefill(pa.paged_prefill_attention),
@@ -2288,7 +2351,8 @@ def timing(torch, dev, inp: KernelInputs, mi: MlaInputs, qi: QuantInputs,
         "ragged_int8_gmm (prefill rows)":
             lambda: qi.gmm(moe_gmm.ragged_int8_plain, "prefill"),
         "kv_cache_append_quantized":
-            lambda: qi.rmw(kvu.append_quantized_rows_plain, app_caches),
+            lambda: qi.append_in_place(kvu.append_quantized_rows_plain,
+                                       app_caches, app_planes),
         "paged_decode_attention" + INT8_KV:
             lambda: sinp.decode(pa.paged_decode_attention_plain),
         "paged_prefill_attention" + INT8_KV:
@@ -2313,15 +2377,21 @@ def timing(torch, dev, inp: KernelInputs, mi: MlaInputs, qi: QuantInputs,
                "kv_cache_append_tokens (MLA widths)": ta.index_put("mla")}
     bounds = {**work(inp), **mla_work(mi), **work(sinp), **quant_work(torch, qi),
               **spec_work(inp, mi, ta)}
+    setups = {"kv_cache_append_quantized": reset_planes}
+    # the floor of every row: an empty kernel (a spin of 0 cycles) under
+    # the same flush and spin
+    floor_ms = time_ms(torch, lambda: torch.cuda._sleep(0), 30, flush)
+    log(f"  empty launch (torch.cuda._sleep(0)): {floor_ms:.4f} ms")
     rows = []
     for name, (source, replaces) in KERNELS.items():
         nbytes, flops = bounds[name]
         b_ms, b_by = bound_ms(nbytes, flops)
+        setup = setups.get(name)
         row = {
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches[name], "max_abs_err": errs[name],
-            "ms": time_ms(torch, kernel[name], 30, flush),
-            "plain_ms": time_ms(torch, plain[name], 5, flush),
+            "ms": time_ms(torch, kernel[name], 30, flush, setup),
+            "plain_ms": time_ms(torch, plain[name], 5, flush, setup),
             "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": (time_ms(torch, library[name], 10, flush)
                            if name in library else None),
@@ -2347,12 +2417,6 @@ def timing(torch, dev, inp: KernelInputs, mi: MlaInputs, qi: QuantInputs,
         mi.a_kc[:, :, idx[0], idx[1]] = cvals
         mi.a_vc[:, :, idx[0], idx[1]] = pvals
 
-    log("  kv_cache_append_quantized, the whole function (the scale math in "
-        "PyTorch, then the kernel): "
-        f"{time_ms(torch, lambda: qi.append(kvu.kv_cache_append_quantized, app_caches), 30, flush):.4f}"
-        " ms (plain "
-        f"{time_ms(torch, lambda: qi.append(kvu.kv_cache_append_quantized_plain, app_caches), 5, flush):.3f}"
-        " ms)")
     log(f"  kv_cache_append at MLA widths (L={L}, B={B}, C={mi.C}, R={mi.R}): "
         f"{time_ms(torch, lambda: mi.append(kvu.kv_cache_append), 30, flush):.4f} ms "
         f"(bound {a_ms:.4f} ms by {a_by}, plain "

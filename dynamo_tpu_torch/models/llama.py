@@ -47,8 +47,8 @@ import torch.nn.functional as F
 
 from ..ops import attention as att
 from ..ops.kv_cache_update import (
+    append_quantized_rows,
     kv_cache_append,
-    kv_cache_append_quantized,
     kv_cache_append_tokens,
 )
 from ..ops.mla_attention import (
@@ -642,9 +642,9 @@ def _decode_body(params, cfg, tokens, positions, block_tables, seq_lens,
     then ONE in-place append writes every layer's new K/V (or c_kv/k_pe).
     With the scale planes, history pages read through the step-entry
     planes, the current token merges in at full precision, and ONE
-    ``kv_cache_append_quantized`` writes all layers and grows the planes
-    (in place). Returns (logits [B, V] f32, k_cache, v_cache[, k_scales,
-    v_scales, n_requants])."""
+    ``append_quantized_rows`` (the quantized append, one launch) writes
+    all layers and grows the planes in place. Returns (logits [B, V] f32,
+    k_cache, v_cache[, k_scales, v_scales, n_requants])."""
     quantized = _check_planes(cfg, k_scales, v_scales)
     x = _embed(params, cfg, tokens)  # [B, E]
     B = x.shape[0]
@@ -687,10 +687,8 @@ def _decode_body(params, cfg, tokens, positions, block_tables, seq_lens,
     if not quantized:
         kv_cache_append(k_new, v_new, k_cache, v_cache, blk, off)
         return logits, k_cache, v_cache
-    _, _, new_ks, new_vs, n_req = kv_cache_append_quantized(
-        k_new, v_new, k_cache, v_cache, k_scales, v_scales, blk, off)
-    k_scales.copy_(new_ks)
-    v_scales.copy_(new_vs)
+    n_req = append_quantized_rows(k_new, v_new, k_cache, v_cache, k_scales,
+                                  v_scales, blk, off)
     return logits, k_cache, v_cache, k_scales, v_scales, n_req
 
 

@@ -36,7 +36,7 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SOURCES = {
     "kv_cache_append.cu": {
         "kv_cache_append_tokens_launch": [_P] * 6 + [_I] * 9 + [_P],
-        "kv_cache_append_quantized_launch": [_P] * 8 + [_I] * 7 + [_P],
+        "kv_cache_append_quantized_launch": [_P] * 11 + [_I] * 8 + [_P],
     },
     "mla_attention.cu": {
         "mla_attention_launch": (

@@ -7,8 +7,9 @@ speculative verify's in-flight window). The JAX versions DONATE the caches
 and return aliased outputs; this port MUTATES ``k_cache``/``v_cache`` in
 place (and returns them, so call sites read like the reference). On CUDA
 tensors both launch the one row-store kernel of ``csrc/kv_cache_append.cu``
-(the one-token append is its T = 1 case); on CPU tensors they take the
-plain version (``index_put_``).
+(``kv_rows_kernel``, a block per (layer, sequence, token) row group; the
+one-token append is its T = 1 case); on CPU tensors they take the plain
+version (``index_put_``).
 
 Merged decode and the verify use them: the layer loop stacks each layer's
 new K/V ([L, B, (T,) Hkv, D], tiny) and writes them with ONE call after
@@ -18,10 +19,11 @@ bs, C]`` and its v cache the rotated ``k_pe`` ``[L, 1, N, bs, R]``.
 
 :func:`kv_cache_append_quantized` is the append of the int8-with-scales
 cache (``dynamo_tpu/ops/kv_cache_update_pallas.py::kv_cache_append_quantized``):
-the scale math in PyTorch (:func:`quant_scale_update`, a device
-``scatter_reduce`` with no host sync), then the page read-modify-write as a
-CUDA kernel (:func:`append_quantized_rows`; its plain twin
-:func:`append_quantized_rows_plain` on the CPU).
+the scale math, the page read-modify-write, the rows and ``n_requants`` in
+one CUDA launch (:func:`append_quantized_rows`, which grows the planes in
+place; merged decode calls it directly). Its plain twin
+:func:`append_quantized_rows_plain` (:func:`quant_scale_update`, then the
+read-modify-write in PyTorch) runs on the CPU.
 """
 
 from __future__ import annotations
@@ -166,9 +168,9 @@ def quant_scale_update(x_new, scales, blk, qmax: float = KV_INT8_QMAX,
     return new_scales, r, q.to(torch.int8)
 
 
-def append_quantized_rows_plain(kq, vq, k_cache, v_cache, rk, rv, blk, off):
-    """The kernel's page read-modify-write in PyTorch: every target page
-    other than the trash page 0 requantized by its ratio, then the rows."""
+def _requantize_pages_plain(kq, vq, k_cache, v_cache, rk, rv, blk, off):
+    """Every target page other than the trash page 0 requantized by its
+    ratio, then the rows quantized against the new scales."""
     L = kq.shape[0]
     lidx = torch.arange(L, device=kq.device)[:, None]
     pg = blk.long()[None, :]
@@ -181,65 +183,99 @@ def append_quantized_rows_plain(kq, vq, k_cache, v_cache, rk, rv, blk, off):
     offs = off.long()[None, :]
     k_cache[lidx, :, pg, offs] = kq
     v_cache[lidx, :, pg, offs] = vq
-    return k_cache, v_cache
 
 
-def _requants(new_ks, k_scales, new_vs, v_scales) -> torch.Tensor:
-    return ((new_ks > k_scales).sum() + (new_vs > v_scales).sum()).to(torch.int32)
+def append_quantized_rows_plain(k_new, v_new, k_cache, v_cache, k_scales,
+                                v_scales, blk, off) -> torch.Tensor:
+    """:func:`append_quantized_rows` in PyTorch: the scale math
+    (:func:`quant_scale_update`), the page read-modify-write, the planes
+    grown in place; returns ``n_requants``."""
+    new_ks, rk, kq = quant_scale_update(k_new, k_scales, blk)
+    new_vs, rv, vq = quant_scale_update(v_new, v_scales, blk)
+    _requantize_pages_plain(kq, vq, k_cache, v_cache, rk, rv, blk, off)
+    n = ((new_ks > k_scales).sum() + (new_vs > v_scales).sum()).to(torch.int32)
+    k_scales.copy_(new_ks)
+    v_scales.copy_(new_vs)
+    return n
 
 
-def append_quantized_rows(kq, vq, k_cache, v_cache, rk, rv, blk, off):
-    """The page read-modify-write of the quantized append: ``kq``/``vq``
-    ``[L, B, Hkv, D]`` int8 rows quantized against the new scales, ``rk``/
-    ``rv`` ``[L, B]`` f32 old/new ratios; the caches updated in place. The
-    CUDA kernel on the card (its launches count in
-    ``kv_cache_append_quantized.launches``), the plain twin on the CPU."""
+def append_quantized_rows(
+    k_new: torch.Tensor,  # [L, B, Hkv, Dk] this step's keys, bf16 or f32
+    v_new: torch.Tensor,  # [L, B, Hkv, Dv]
+    k_cache: torch.Tensor,  # [L, Hkv, N, bs, Dk] int8 — updated IN PLACE
+    v_cache: torch.Tensor,  # [L, Hkv, N, bs, Dv] int8 — updated IN PLACE
+    k_scales: torch.Tensor,  # [L, N] f32 per-page scales — grown IN PLACE
+    v_scales: torch.Tensor,  # [L, N] f32 — grown IN PLACE
+    blk: torch.Tensor,  # [B] int32
+    off: torch.Tensor,  # [B] int32
+) -> torch.Tensor:
+    """The quantized append in place, the whole function in ONE launch of
+    ``kv_append_quant_kernel`` on the card (no PyTorch op before it, no
+    host sync; launches count in ``kv_cache_append_quantized.launches``),
+    its plain twin on the CPU. Grows each written page's scale, requantizes
+    the pages that grew, lands the rows; returns ``n_requants``, the
+    (layer, page) scale entries that grew, an int32 scalar on the device."""
     if k_cache.device.type == "cpu":
-        return append_quantized_rows_plain(kq, vq, k_cache, v_cache, rk, rv,
-                                           blk, off)
+        return append_quantized_rows_plain(k_new, v_new, k_cache, v_cache,
+                                           k_scales, v_scales, blk, off)
     name = "kv_cache_append_quantized"
-    _cuda.require_cuda(name, kq, vq, k_cache, v_cache, rk, rv, blk, off)
+    dev = _cuda.require_cuda(name, k_new, v_new, k_cache, v_cache, k_scales,
+                             v_scales, blk, off)
     _cuda.require_int32(name, blk, off)
-    L, B, Hkv, Dk = kq.shape
-    Dv = vq.shape[-1]
+    L, B, Hkv, Dk = k_new.shape
+    Dv = v_new.shape[-1]
     N, bs = k_cache.shape[2:4]
     if (
-        vq.shape != (L, B, Hkv, Dv)
+        v_new.shape != (L, B, Hkv, Dv)
         or k_cache.shape != (L, Hkv, N, bs, Dk)
         or v_cache.shape != (L, Hkv, N, bs, Dv)
-        or rk.shape != (L, B) or rv.shape != (L, B)
+        or k_scales.shape != (L, N) or v_scales.shape != (L, N)
         or blk.shape != (B,) or off.shape != (B,)
     ):
-        raise ValueError(f"{name}: shapes do not fit: rows {tuple(kq.shape)}"
-                         f" / {tuple(vq.shape)}, caches "
-                         f"{tuple(k_cache.shape)} / {tuple(v_cache.shape)}")
-    if {kq.dtype, vq.dtype, k_cache.dtype, v_cache.dtype} != {torch.int8}:
-        raise ValueError(f"{name}: rows and caches must be int8")
-    if rk.dtype != torch.float32 or rv.dtype != torch.float32:
-        raise ValueError(f"{name}: ratios must be f32")
-    if Dk % 4 or Dv % 4:
-        raise ValueError(f"{name}: head dims {Dk}/{Dv} must be multiples of 4")
+        raise ValueError(f"{name}: shapes do not fit: rows {tuple(k_new.shape)}"
+                         f" / {tuple(v_new.shape)}, caches "
+                         f"{tuple(k_cache.shape)} / {tuple(v_cache.shape)}, "
+                         f"planes {tuple(k_scales.shape)} / "
+                         f"{tuple(v_scales.shape)}")
+    if k_new.dtype != v_new.dtype or k_new.dtype not in _cuda.DTYPE_CODES:
+        raise ValueError(f"{name}: new rows must share one of "
+                         f"{list(_cuda.DTYPE_CODES)}, got {k_new.dtype} / "
+                         f"{v_new.dtype}")
+    if k_cache.dtype != torch.int8 or v_cache.dtype != torch.int8:
+        raise ValueError(f"{name}: caches must be int8")
+    if k_scales.dtype != torch.float32 or v_scales.dtype != torch.float32:
+        raise ValueError(f"{name}: scale planes must be f32")
+    flags = _cuda.device_buffer("append_flags", dev, 2 * L * B, torch.int32)
+    ticket = _cuda.device_buffer("tickets", dev, 1, torch.int32)
+    n = torch.empty((), dtype=torch.int32, device=dev)
     err = _cuda.lib(_SRC).kv_cache_append_quantized_launch(
-        ctypes.c_void_p(kq.data_ptr()), ctypes.c_void_p(vq.data_ptr()),
-        ctypes.c_void_p(k_cache.data_ptr()),
-        ctypes.c_void_p(v_cache.data_ptr()),
-        ctypes.c_void_p(rk.data_ptr()), ctypes.c_void_p(rv.data_ptr()),
-        ctypes.c_void_p(blk.data_ptr()), ctypes.c_void_p(off.data_ptr()),
-        L, B, Hkv, N, bs, Dk, Dv, ctypes.c_void_p(_cuda.stream_ptr(k_cache)),
+        *(ctypes.c_void_p(t.data_ptr()) for t in (
+            k_new, v_new, k_cache, v_cache, k_scales, v_scales, blk, off,
+            flags, ticket, n)),
+        L, B, Hkv, N, bs, Dk, Dv, _cuda.DTYPE_CODES[k_new.dtype],
+        ctypes.c_void_p(_cuda.stream_ptr(k_cache)),
     )
     _cuda.check(err, name)
     kv_cache_append_quantized.launches += 1
-    return k_cache, v_cache
+    return n
+
+
+def _check_planes(k_cache, k_scales, v_scales) -> None:
+    if k_scales.shape != (k_cache.shape[0], k_cache.shape[2]) or \
+            v_scales.shape != k_scales.shape:
+        raise ValueError(f"kv_cache_append_quantized: planes "
+                         f"{tuple(k_scales.shape)} do not fit the caches "
+                         f"{tuple(k_cache.shape)}")
 
 
 def kv_cache_append_quantized_plain(k_new, v_new, k_cache, v_cache, k_scales,
                                     v_scales, blk, off):
-    """:func:`kv_cache_append_quantized` with the plain read-modify-write."""
-    new_ks, rk, kq = quant_scale_update(k_new, k_scales, blk)
-    new_vs, rv, vq = quant_scale_update(v_new, v_scales, blk)
-    append_quantized_rows_plain(kq, vq, k_cache, v_cache, rk, rv, blk, off)
-    return (k_cache, v_cache, new_ks, new_vs,
-            _requants(new_ks, k_scales, new_vs, v_scales))
+    """:func:`kv_cache_append_quantized` through the plain twin."""
+    _check_planes(k_cache, k_scales, v_scales)
+    ks, vs = k_scales.clone(), v_scales.clone()
+    n = append_quantized_rows_plain(k_new, v_new, k_cache, v_cache, ks, vs,
+                                    blk, off)
+    return k_cache, v_cache, ks, vs, n
 
 
 def kv_cache_append_quantized(
@@ -252,22 +288,18 @@ def kv_cache_append_quantized(
     blk: torch.Tensor,  # [B] int32
     off: torch.Tensor,  # [B] int32
 ):
-    """The append of the int8-with-scales cache: grow each written page's
-    running absmax scale, requantize the page when its scale grew, land
-    the new row quantized against the new scale. Returns ``(k_cache,
-    v_cache, k_scales, v_scales, n_requants)``: the caches updated in
-    place, the grown planes as new tensors, and the number of (layer,
-    page) scale entries that grew, an int32 scalar ON THE DEVICE."""
-    if k_scales.shape != (k_cache.shape[0], k_cache.shape[2]) or \
-            v_scales.shape != k_scales.shape:
-        raise ValueError(f"kv_cache_append_quantized: planes "
-                         f"{tuple(k_scales.shape)} do not fit the caches "
-                         f"{tuple(k_cache.shape)}")
-    new_ks, rk, kq = quant_scale_update(k_new, k_scales, blk)
-    new_vs, rv, vq = quant_scale_update(v_new, v_scales, blk)
-    append_quantized_rows(kq, vq, k_cache, v_cache, rk, rv, blk, off)
-    return (k_cache, v_cache, new_ks, new_vs,
-            _requants(new_ks, k_scales, new_vs, v_scales))
+    """The append of the int8-with-scales cache with the reference's
+    contract: grow each written page's running absmax scale, requantize
+    the page when its scale grew, land the new row quantized against the
+    new scale. Returns ``(k_cache, v_cache, k_scales, v_scales,
+    n_requants)``: the caches updated in place, the grown planes as new
+    tensors (copies of the inputs grown by :func:`append_quantized_rows`),
+    and the number of (layer, page) scale entries that grew, an int32
+    scalar ON THE DEVICE."""
+    _check_planes(k_cache, k_scales, v_scales)
+    ks, vs = k_scales.clone(), v_scales.clone()
+    n = append_quantized_rows(k_new, v_new, k_cache, v_cache, ks, vs, blk, off)
+    return k_cache, v_cache, ks, vs, n
 
 
 kv_cache_append_quantized.launches = 0

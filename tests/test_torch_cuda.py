@@ -483,6 +483,107 @@ def test_cuda_append_tokens_and_verify_rows_match_plain():
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("T", [1, 4, 16])
+@pytest.mark.parametrize("widths", [(8, 128, 128), (1, 512, 64)], ids=["gqa", "mla"])
+def test_cuda_row_store_matches_index_put(widths, T):
+    """On the card: the row store (``kv_rows_kernel``, one launch) bit-exact
+    with ``index_put_`` at Llama-3-8B's GQA widths and DeepSeek-V2-Lite's
+    latent widths (Dk != Dv), bf16, T = 1 (``kv_cache_append``), 4 and bs
+    rows per sequence, windows crossing a page, a padded slot on page 0
+    (excluded: its rows race there)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the chip)")
+    from dynamo_tpu_torch.ops import kv_cache_update as kvu
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(T)
+    Hkv, Dk, Dv = widths
+    L, B, N, bs = 4, 5, 40, 16
+    k_new = torch.randn(L, B, T, Hkv, Dk, generator=g, device=dev).bfloat16()
+    v_new = torch.randn(L, B, T, Hkv, Dv, generator=g, device=dev).bfloat16()
+    kc = torch.randn(L, Hkv, N, bs, Dk, generator=g, device=dev).bfloat16()
+    vc = torch.randn(L, Hkv, N, bs, Dv, generator=g, device=dev).bfloat16()
+    start = torch.tensor([bs - 2, bs - 1, 5, 0, bs], device=dev)[:, None]
+    pos = start + torch.arange(T, device=dev)[None, :]
+    tables = torch.tensor([[3, 7, 9], [5, 2, 11], [20, 21, 22], [0, 0, 0],
+                           [30, 31, 32]], dtype=torch.int32, device=dev)
+    blk = torch.gather(tables, 1, pos // bs).to(torch.int32)
+    off = (pos % bs).to(torch.int32)
+    kp, vp = kc.clone(), vc.clone()
+    if T == 1:
+        def call():
+            kvu.kv_cache_append(k_new[:, :, 0], v_new[:, :, 0], kc, vc,
+                                blk[:, 0].contiguous(), off[:, 0].contiguous())
+    else:
+        def call():
+            kvu.kv_cache_append_tokens(k_new, v_new, kc, vc, blk, off)
+    names = _cuda_kernels(call)
+    kvu.kv_cache_append_tokens_plain(k_new, v_new, kp, vp, blk, off)
+    torch.cuda.synchronize()
+    assert len(names) == 1 and "kv_rows_kernel" in names[0], names
+    assert torch.equal(kc[:, :, 1:], kp[:, :, 1:])
+    assert torch.equal(vc[:, :, 1:], vp[:, :, 1:])
+
+
+# (B, padded rows) of the fused quantized append on the card
+_QUANT_BATCHES = [(1, 0), (8, 0), (8, 2), (8, 7), (64, 0), (64, 2), (64, 63)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("B,padded", _QUANT_BATCHES)
+def test_cuda_fused_quantized_append_matches_plain(B, padded, dtype):
+    """On the card, at Llama-3-8B's widths (L=32, Hkv=8, D=128, bs=16): the
+    in-place quantized append is ONE kernel launch, bit-exact with its
+    plain twin (codes off page 0, both planes grown in place, n_requants),
+    with pages whose scale grows and pages whose scale holds; two launches
+    bit-equal, page 0 included."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the chip)")
+    from dynamo_tpu_torch.ops import kv_cache_update as kvu
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(100 * B + padded)
+    L, Hkv, D, N, bs = 32, 8, 128, 160, 16
+    k_new = torch.randn(L, B, Hkv, D, generator=g, device=dev).to(dtype)
+    v_new = (torch.randn(L, B, Hkv, D, generator=g, device=dev) * 0.3).to(dtype)
+    caches = torch.randint(-127, 128, (2, L, Hkv, N, bs, D), generator=g,
+                           device=dev, dtype=torch.int8)
+    planes = torch.rand(2, L, N, generator=g, device=dev) * 0.03 + 0.001
+    blk = torch.randperm(N - 1, generator=g, device=dev)[:B] + 1
+    planes[:, :, blk[::2]] = 1.0  # these pages keep their scale
+    blk[torch.randperm(B, generator=g, device=dev)[:padded]] = 0
+    blk = blk.to(torch.int32)
+    off = torch.randint(0, bs, (B,), generator=g, device=dev, dtype=torch.int32)
+    pc, pp = caches.clone(), planes.clone()
+    n_ref = kvu.append_quantized_rows_plain(k_new, v_new, pc[0], pc[1], pp[0],
+                                            pp[1], blk, off)
+    runs = []
+    for _ in range(2):
+        c, pl = caches.clone(), planes.clone()
+        before = kvu.kv_cache_append_quantized.launches
+        n = kvu.append_quantized_rows(k_new, v_new, c[0], c[1], pl[0], pl[1],
+                                      blk, off)
+        assert kvu.kv_cache_append_quantized.launches == before + 1
+        runs.append((c, pl, n))
+    torch.cuda.synchronize()
+    c, pl, n = runs[0]
+    assert torch.equal(c[:, :, :, 1:], pc[:, :, :, 1:])
+    assert torch.equal(pl, pp)
+    assert n.dtype == torch.int32 and n.device.type == "cuda"
+    assert int(n) == int(n_ref) == int((pl > planes).sum())
+    live = blk[blk != 0].long()
+    if live.numel() > 1:
+        held = pl[:, :, live] == planes[:, :, live]
+        assert held.any() and not held.all()
+    assert torch.equal(runs[1][0], c) and torch.equal(runs[1][1], pl)
+    assert int(runs[1][2]) == int(n)
+    names = _cuda_kernels(lambda: kvu.append_quantized_rows(
+        k_new, v_new, c[0], c[1], pl[0], pl[1], blk, off))
+    assert len(names) == 1 and "kv_append_quant_kernel" in names[0], names
+
+
+@pytest.mark.cuda
 def test_cuda_ragged_int8_gmm_tiles_and_wide_k():
     """On the card: the tiled blocks' shapes beside the few-rows mode in one
     launch (experts of 5-16 rows, of more than 128 rows: two row tiles, an

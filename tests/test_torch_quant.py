@@ -446,6 +446,131 @@ def test_append_quantized_twin_matches_pallas_interpret():
     assert kept and grown
 
 
+# the batches of the in-place append: the twin test's rows (live pages that
+# grow and pages that keep their scale, two padded rows on page 0), one row,
+# and a batch that is all padding
+_QBATCHES = {
+    "mixed": ([3, 5, 0, 8, 0, 1], [0, 7, 2, 4, 5, 1]),
+    "B1": ([6], [3]),
+    "all_padding": ([0, 0, 0, 0], [1, 1, 6, 0]),
+}
+
+
+def _quant_append_inputs(batch, rows_dt, seed=4):
+    """Numpy inputs at the twin test's shapes (L=3, Hkv=2, D=16, N=10,
+    bs=8); rows rounded to bf16 first when ``rows_dt`` is bf16."""
+    rng = np.random.default_rng(seed)
+    blk, off = (np.asarray(a, np.int32) for a in _QBATCHES[batch])
+    L, B, Hkv, D, N, bs = 3, len(blk), 2, 16, 10, 8
+    k_new = rng.standard_normal((L, B, Hkv, D)).astype(np.float32)
+    v_new = rng.standard_normal((L, B, Hkv, D)).astype(np.float32) * 0.3
+    if rows_dt == "bfloat16":
+        k_new, v_new = (torch.from_numpy(x).bfloat16().float().numpy()
+                        for x in (k_new, v_new))
+    kc, vc = _int8_cache(rng, (L, Hkv, N, bs, D)), _int8_cache(rng, (L, Hkv, N, bs, D))
+    ks = (rng.uniform(0.005, 0.03, (L, N))).astype(np.float32)
+    vs = (rng.uniform(0.001, 0.01, (L, N))).astype(np.float32)
+    return k_new, v_new, kc, vc, ks, vs, blk, off
+
+
+def _quant_append_reference(k_new, v_new, kc, vc, ks, vs, blk, off, rows_dt):
+    dt = jnp.bfloat16 if rows_dt == "bfloat16" else jnp.float32
+    kn, vn = (jnp.asarray(x).astype(dt) for x in (k_new, v_new))
+    return j_append_q(kn, vn, *_j(kc, vc, ks, vs, blk, off), interpret=True)
+
+
+def _assert_quant_append_equal(caches, planes, n, ref):
+    """Codes bit-equal off page 0, planes and n_requants equal."""
+    for got, want in zip(caches, ref[:2]):
+        np.testing.assert_array_equal(got.numpy()[:, :, 1:], np.asarray(want)[:, :, 1:])
+    for got, want in zip(planes, ref[2:4]):
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    assert n.dtype == torch.int32 and int(n) == int(ref[4])
+
+
+@pytest.mark.parametrize("rows_dt", ["float32", "bfloat16"])
+@pytest.mark.parametrize("batch", list(_QBATCHES))
+def test_append_quantized_rows_in_place_matches_pallas_interpret(batch, rows_dt):
+    """The in-place fused append's plain twin (what merged decode calls)
+    against the reference in interpret mode: the caches and both planes
+    updated in place, codes bit-equal (page 0 excluded), planes bit-equal,
+    n_requants equal; bf16 and f32 rows, one row, all padding."""
+    k_new, v_new, kc, vc, ks, vs, blk, off = _quant_append_inputs(batch, rows_dt)
+    dt = getattr(torch, rows_dt)
+    tk, tv, tks, tvs = _t(kc, vc, ks, vs)
+    n = kvu.append_quantized_rows(*(x.to(dt) for x in _t(k_new, v_new)), tk, tv,
+                                  tks, tvs, *_t(blk, off))
+    ref = _quant_append_reference(k_new, v_new, kc, vc, ks, vs, blk, off, rows_dt)
+    _assert_quant_append_equal((tk, tv), (tks, tvs), n, ref)
+    assert not np.array_equal(tks.numpy(), ks) or batch == "all_padding"
+
+
+def _kernel_blocks(k_new, v_new, caches, planes, blk, off):
+    """The quantized append as ``kv_append_quant_kernel`` cuts it, block by
+    block in PyTorch: block (b, l, c) owns page blk[b] of layer l in cache c
+    when no earlier row of the batch is on it; the owner reduces the amax
+    over every row on its page (batch order), grows the scale, requantizes
+    the page by r when r != 1 and the page is not page 0 (skipping the row
+    that its row replaces), stores its rows; every block writes a 0/1 flag
+    and the last one sums them. Returns (n_requants, owners, flags)."""
+    L, B = k_new.shape[:2]
+    inv = torch.tensor(1.0 / 127.0, dtype=torch.float32)
+    owners, flags = {}, {}
+    for c, (x, cache, scale) in enumerate(zip((k_new, v_new), caches, planes)):
+        for l in range(L):
+            for b in range(B):
+                p = int(blk[b])
+                old = scale[l, p].clone()
+                if any(int(blk[j]) == p for j in range(b)):
+                    flags[c, l, b] = 0
+                    continue
+                assert (c, l, p) not in owners
+                owners[c, l, p] = b
+                rows = [j for j in range(b, B) if int(blk[j]) == p]
+                m = torch.stack([x[l, j].float().abs().amax() for j in rows]).amax()
+                s = torch.maximum(old, torch.clamp_min(m * inv, 1e-12))
+                r = old / s
+                if s > old:
+                    scale[l, p] = s
+                if p != 0 and r != 1:
+                    keep = torch.arange(cache.shape[3]) != int(off[b])
+                    page = cache[l, :, p]
+                    page[:, keep] = torch.clamp(torch.round(
+                        page[:, keep].float() * r), -127, 127).to(torch.int8)
+                for j in rows:
+                    cache[l, :, p, int(off[j])] = torch.clamp(torch.round(
+                        x[l, j].float() / s), -127, 127).to(torch.int8)
+                flags[c, l, b] = int(s > old)
+    return sum(flags[k] for k in sorted(flags)), owners, flags
+
+
+@pytest.mark.parametrize("batch", list(_QBATCHES))
+def test_quant_append_block_plan_matches_reference(batch):
+    """The kernel's block plan: exactly one owner of page 0 per (cache,
+    layer) when rows are padded, every live page owned once by its row,
+    one flag per block, each grown (cache, layer, page) entry counted once;
+    the result equal to the reference's (codes off page 0, planes,
+    n_requants)."""
+    k_new, v_new, kc, vc, ks, vs, blk, off = _quant_append_inputs(batch, "float32")
+    caches, planes = _t(kc, vc), _t(ks, vs)
+    n, owners, flags = _kernel_blocks(*_t(k_new, v_new), caches, planes, blk, off)
+    L, B = k_new.shape[:2]
+    assert len(flags) == 2 * L * B
+    live = {int(p) for p in blk if p != 0}
+    for c in range(2):
+        for l in range(L):
+            assert sum(1 for (cc, ll, p) in owners if (cc, ll, p) == (c, l, 0)) \
+                == int((blk == 0).any())
+            assert {p for (cc, ll, p) in owners if (cc, ll) == (c, l) and p} == live
+            for b, p in enumerate(blk):
+                if p != 0:
+                    assert owners[c, l, int(p)] == b
+    grown = int((planes[0].numpy() > ks).sum() + (planes[1].numpy() > vs).sum())
+    assert n == grown == sum(flags.values())
+    ref = _quant_append_reference(k_new, v_new, kc, vc, ks, vs, blk, off, "float32")
+    _assert_quant_append_equal(caches, planes, torch.tensor(n, dtype=torch.int32), ref)
+
+
 @pytest.mark.parametrize("valid", [11, 16])
 def test_write_chunk_to_cache_quantized_bit_equal(valid):
     rng = np.random.default_rng(5)
