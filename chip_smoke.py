@@ -33,6 +33,8 @@ Phases, in order; any failure raises and the script exits non-zero:
      decode window on the card against the same functions on the CPU
      (f32, TF32 off), the dense and MLA ones through the speculative
      verify_window too (tokens and accepted counts exact, logits 1e-3),
+     the same for a tiny Qwen2 (random q/k/v biases, G=7: 14 query heads
+     over 2) and a tiny Qwen3 (random per-head q/k norm weights),
      and a tiny TorchEngine with spec_gamma=3, and with spec_gamma=16 (68
      verify rows per kv head), against spec_gamma=0 (the same greedy
      stream, proposals accepted); a head layout the Llama shapes miss (G=7,
@@ -51,7 +53,7 @@ Phases, in order; any failure raises and the script exits non-zero:
      launches bit-equal); the bf16
      MoE FFN at DeepSeek-V2-Lite's widths run twice, bit-equal, each stage
      compared;
-  3. serving: the port's OpenAI HTTP service in-process, eight drives one
+  3. serving: the port's OpenAI HTTP service in-process, eleven drives one
      after the other (each model's memory freed before the next):
      llama3-8b-sim and deepseek-v2-lite-sim, each twice on fresh engines
      (how many greedy answers the two drives share), deepseek-v2-lite-sim
@@ -59,8 +61,20 @@ Phases, in order; any failure raises and the script exits non-zero:
      with fp8 weights and the int8 KV cache, then llama3-8b-sim and
      deepseek-v2-lite-sim with speculative decoding (spec_gamma=3; their
      acceptance, and the share of answers equal to the plain drive's)
-     (random weights from a seed, byte tokenizer, full width and depth)
-     at the reference defaults otherwise — one
+     (random weights from a seed, byte tokenizer, full width and depth),
+     then qwen2.5-7b-sim and qwen3-8b-sim (Qwen2.5-7B-Instruct's and
+     Qwen3-8B's published configs, full width and depth, random biases
+     and q/k norm weights; Qwen2.5's 131072-token window masks nothing at
+     max_context 8192, C.9), and a Mistral-7B-Instruct-v0.2 checkpoint
+     (published config, depth cut to 4 of 32 layers) written by the
+     port's saver beside the repo's 32,000-piece SentencePiece vocab and
+     served through dynamo_run's parse_args / build_engine from
+     ``--model-path <dir>`` (leaves and a prefill's logits bit-equal to
+     the saved weights'; SentencePiece encode ms per request), each of
+     these three held to dense_forward at full width (the served bf16
+     prefill's logits no further from the f32 forward's than
+     ORACLE_FACTOR times the plain bf16 forward's) —
+     at the reference defaults otherwise; one
      request alone (the dedicated prefill), then several more of 64-1500
      bytes while it decodes (fused mixed steps), one of them a streaming
      chat; every response must be 200 and non-empty, and every kernel of
@@ -71,7 +85,8 @@ Phases, in order; any failure raises and the script exits non-zero:
      prefill and decode step twice: bit-equal logits?) and what a
      prefix-cache hit changes, and the dense projections' cost per decode
      step in each weight form (bf16 drive) or the plain dequantize's
-     (quantized drives);
+     (quantized drives); the last three drives profile a decode window
+     only;
   4. timing: the time of an empty launch (the floor of every row), then
      the median time per launch of each kernel with L2 flushed between
      launches (the quantized append: the whole function, one launch, its
@@ -181,6 +196,19 @@ INT8_KV = " (int8 KV)"
 #: multi-token append of each spec drive lands under its width's row
 VERIFY = " (verify rows)"
 SPEC_GAMMA = 3
+#: the drives run twice, the second time on a fresh engine (C.4)
+REPEATED = ("llama3-8b-sim", "deepseek-v2-lite-sim")
+#: the checkpoint drive: Mistral-7B-Instruct-v0.2's config.json at this
+#: depth (of 32), written by the port's saver and served from its directory
+CHECKPOINT_DRIVE = "mistral-7b-v0.2 checkpoint"
+CHECKPOINT_LAYERS = 4
+#: the full-width oracle: the served path's bf16 prefill logits (two
+#: chunks, the second over the first's cached pages) may lie at most this
+#: many times as far from dense_forward's f32 logits (the same weights
+#: widened) as dense_forward's own bf16 logits do: the served path rounds
+#: no worse than the plain forward, whose 8-bit mantissas through 28-36
+#: random layers move the logits by a few percent of their range
+ORACLE_FACTOR = 2.0
 
 
 def log(*a):
@@ -1154,11 +1182,19 @@ def tiny_models():
     """(label, config, weight quantization, int8 KV cache) of the tiny
     models held on the card to the CPU: dense GQA, and MLA (q-lora, the
     kernel's R=64 and smallest C=128) with one dense layer then MoE (8
-    experts top-2, one shared); then each again on the quantized path."""
+    experts top-2, one shared); then each again on the quantized path;
+    then Qwen2's q/k/v biases at G = 7 (14 query heads over 2 KV heads:
+    a decode block's 7 live rows of 16, the ragged tiles' 9 tokens per
+    64-row tile, a gamma=3 verify's 28 rows per KV head in two row
+    groups) and Qwen3's per-head q/k norms."""
     from dynamo_tpu_torch.models.config import ModelConfig
 
     gqa = ModelConfig.tiny(dtype="float32", head_dim=64, num_heads=8,
                            num_kv_heads=2, hidden_size=128)
+    qwen2 = ModelConfig.tiny(dtype="float32", head_dim=64, num_heads=14,
+                             num_kv_heads=2, hidden_size=128, attention_bias=True)
+    qwen3 = ModelConfig.tiny(dtype="float32", head_dim=64, num_heads=8,
+                             num_kv_heads=2, hidden_size=128, qk_norm=True)
     mla = ModelConfig.tiny_mla(
         dtype="float32", kv_lora_rank=128, qk_rope_head_dim=64,
         num_layers=3, first_dense_layers=1, num_experts=8,
@@ -1169,6 +1205,8 @@ def tiny_models():
         ("tiny MLA+MoE", mla, "none", False),
         ("tiny GQA, fp8 weights + int8 KV", gqa, "fp8_e4m3", True),
         ("tiny MLA+MoE, int8 weights", mla, "int8", False),
+        ("tiny Qwen2 (q/k/v biases, G=7)", qwen2, "none", False),
+        ("tiny Qwen3 (per-head q/k norms)", qwen3, "none", False),
     ]
 
 
@@ -1249,7 +1287,23 @@ def tiny_params(torch, cfg, quantization="none"):
     params = {k: ({kk: vv * (5.0 if vv.dim() > 1 else 1.0) for kk, vv in v.items()}
                   if isinstance(v, dict) else v * (5.0 if v.dim() > 1 else 1.0))
               for k, v in params.items()}
+    draw_attention_extras(torch, params, cfg, torch.Generator().manual_seed(5))
     return quantize_params(params, cfg, quantization)
+
+
+def draw_attention_extras(torch, params, cfg, gen) -> None:
+    """In place: Qwen2's q/k/v biases drawn N(0, 0.1) and Qwen3's per-head
+    q/k norm weights N(1, 0.3), where the model has them (the random init
+    leaves them at 0 and 1, which would check nothing)."""
+    keys = []
+    if cfg.attention_bias:
+        keys += [("bq", 0.0, 0.1), ("bk", 0.0, 0.1), ("bv", 0.0, 0.1)]
+    if cfg.qk_norm and not cfg.is_mla:
+        keys += [("q_norm", 1.0, 0.3), ("k_norm", 1.0, 0.3)]
+    for key, mean, std in keys:
+        leaf = params["layers"][key]
+        leaf.copy_(torch.randn(leaf.shape, generator=gen, device=gen.device)
+                   * std + mean)
 
 
 def check_verify_on_card(torch, dev, label, cfg) -> None:
@@ -1426,7 +1480,13 @@ def drives():
     the kernel wrappers the model's path must launch; a wrapper, or a
     (wrapper, counter attribute) pair for a counter other than
     ``launches``)."""
-    from dynamo_tpu_torch.models.config import ModelConfig, deepseek_v2_lite
+    from dynamo_tpu_torch.models.config import (
+        MISTRAL_7B_V02_HF,
+        QWEN3_8B_HF,
+        QWEN25_7B_HF,
+        ModelConfig,
+        deepseek_v2_lite,
+    )
     from dynamo_tpu_torch.ops.kv_cache_update import (
         kv_cache_append,
         kv_cache_append_quantized,
@@ -1448,6 +1508,12 @@ def drives():
     mla_path = {"mla_paged_decode_attention": mla_paged_decode_attention,
                 "mla_paged_prefill_attention": mla_paged_prefill_attention,
                 "kv_cache_append": kv_cache_append}
+    gqa_path = {"paged_decode_attention": paged_decode_attention,
+                "paged_prefill_attention": paged_prefill_attention,
+                "ragged_mixed_attention": ragged_mixed_attention,
+                "kv_cache_append": kv_cache_append}
+    mistral = ModelConfig.from_hf_config(
+        {**MISTRAL_7B_V02_HF, "num_hidden_layers": CHECKPOINT_LAYERS})
     return [
         # reference defaults (block 16, batch 8, window 4, chunk 2048, 4
         # prompts per fused step); a 4096-page pool = 8 GiB of GQA KV, or
@@ -1492,11 +1558,22 @@ def drives():
           "kv_cache_append_tokens (MLA widths)": kv_cache_append_tokens,
           "mla_paged_decode_attention" + VERIFY: (mla_paged_decode_attention,
                                                   "verify_launches")}),
+        # the other families of the main path, at their published widths
+        # and depths (random weights, q/k/v biases and q/k norm weights
+        # drawn): Qwen2.5-7B's G = 7 and its 131072-token window that masks
+        # nothing at max_context 8192 (C.9), Qwen3-8B's per-head q/k norms
+        ("qwen2.5-7b-sim", ModelConfig.from_hf_config(QWEN25_7B_HF), v2, gqa_path),
+        ("qwen3-8b-sim", ModelConfig.from_hf_config(QWEN3_8B_HF), v2, gqa_path),
+        # a Mistral-7B-Instruct-v0.2 checkpoint written by the port's saver
+        # (depth cut), served through dynamo_run --model-path with its
+        # SentencePiece tokenizer
+        (CHECKPOINT_DRIVE, mistral, v2, gqa_path),
     ]
 
 
 async def serve(torch, dev, card: str, name: str, cfg, geometry: dict,
-                counted: dict, plain=None, repeat: bool = False):
+                counted: dict, plain=None, repeat: bool = False, build=None,
+                oracle: bool = False, encode_ms=None):
     """One serving drive of ``name`` over HTTP; returns the launch count of
     each kernel of its path during the drive (counters zeroed just before
     it) and its answers: (texts, {prompt ids: generated ids}). A spec drive
@@ -1506,7 +1583,12 @@ async def serve(torch, dev, card: str, name: str, cfg, geometry: dict,
     plain drive again on a fresh engine (nothing cached, no prefix shared
     with the first): it reports how many of its greedy answers equal the
     first drive's, and where the first different token of each other
-    answer lies (C.4), and skips the anatomy."""
+    answer lies (C.4), and skips the anatomy. ``build`` returns (engine,
+    OpenAI worker) for a drive that is not random weights behind the byte
+    tokenizer (the checkpoint drive; ``encode_ms``, its tokenizer's encode
+    time per request, is set beside the TTFT). An ``oracle`` drive holds
+    its prefill logits to ``dense_forward`` and profiles one decode window
+    only."""
     from dynamo_tpu_torch.engine import EngineConfig, TorchEngine
     from dynamo_tpu_torch.http import HttpService, ModelManager
     from dynamo_tpu_torch.llm import ByteTokenizer
@@ -1515,11 +1597,18 @@ async def serve(torch, dev, card: str, name: str, cfg, geometry: dict,
     from dynamo_tpu_torch.models.weights import init_random_params
 
     t0 = time.perf_counter()
-    params = init_random_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    if build is None:
+        params = init_random_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+        draw_attention_extras(torch, params, cfg,
+                              torch.Generator(device=dev).manual_seed(5))
+        engine = TorchEngine(EngineConfig(model=cfg, **geometry), params=params,
+                             device=dev)
+        worker = OpenAIWorkerEngine(ByteTokenizer(), engine)
+    else:
+        engine, worker = build()
+        params = engine.params
     n_params = sum(t.numel() for v in params.values()
                    for t in (v.values() if isinstance(v, dict) else [v]))
-    engine = TorchEngine(EngineConfig(model=cfg, **geometry), params=params,
-                         device=dev)
     # the engine serves its own (possibly quantized) weights: drop the
     # full-width ones it replaced
     params = engine.params
@@ -1535,7 +1624,6 @@ async def serve(torch, dev, card: str, name: str, cfg, geometry: dict,
         f"{engine._hbm_stats()['kv_pool'] / 2**30:.2f} GiB, ready in "
         f"{time.perf_counter() - t0:.3f} s")
     manager = ModelManager()
-    worker = OpenAIWorkerEngine(ByteTokenizer(), engine)
     manager.add_chat_model(name, worker)
     manager.add_completion_model(name, worker)
     svc = HttpService(manager, host="127.0.0.1", port=0)
@@ -1611,6 +1699,10 @@ async def serve(torch, dev, card: str, name: str, cfg, geometry: dict,
             f"ITL (per request, mean) median {statistics.median(itl):.2f} ms; "
             f"{st['tokens_generated']} tokens in {wall:.2f} s = "
             f"{st['tokens_generated'] / wall:.1f} tok/s  [{name}, {card}]")
+        if encode_ms is not None:
+            log(f"  tokenizer encode {encode_ms:.2f} ms per request (host, "
+                f"measured apart) = {encode_ms / statistics.median(ttft):.1%} "
+                f"of the median TTFT  [{name}, {card}]")
         texts = [text for _s, text, _t in results]
         if spec:
             n_ver, rows = len(verifies), sum(n for n, _ in verifies)
@@ -1690,6 +1782,11 @@ async def serve(torch, dev, card: str, name: str, cfg, geometry: dict,
         return launches, (texts, answers)
     if spec:
         verify_anatomy(torch, dev, params, cfg, engine.k_cache, engine.v_cache)
+        return launches, (texts, answers)
+    if oracle:
+        dense_oracle(torch, dev, card, name, params, cfg)
+        step_anatomy(torch, dev, params, cfg, engine.k_cache, engine.v_cache,
+                     decode_only=True)
         return launches, (texts, answers)
     step_anatomy(torch, dev, params, cfg, engine.k_cache, engine.v_cache, planes)
     if quant != "none":
@@ -1846,12 +1943,13 @@ def dense_mm_cost(torch, dev, params, cfg) -> None:
         f"{cfg.num_layers}): " + ", ".join(f"{m} {ms:.3f} ms" for m, ms in costs.items()))
 
 
-def step_anatomy(torch, dev, params, cfg, k_cache, v_cache, planes=None) -> None:
-    """A 4-step decode window (B=8 at ~1k context), a lone prompt's
-    dedicated prefill (1201 tokens in the 2048 bucket) and, for GQA, a
-    fused mixed step (the same decode rows and a 512-token segment) of the
-    served model on its serving cache (and scale planes, with the int8
-    cache)."""
+def step_anatomy(torch, dev, params, cfg, k_cache, v_cache, planes=None,
+                 decode_only: bool = False) -> None:
+    """A 4-step decode window (B=8 at ~1k context), then (unless
+    ``decode_only``) a lone prompt's dedicated prefill (1201 tokens in the
+    2048 bucket) and, for GQA, a fused mixed step (the same decode rows and
+    a 512-token segment) of the served model on its serving cache (and
+    scale planes, with the int8 cache)."""
     planes = planes or {}
     from dynamo_tpu_torch.models import llama
 
@@ -1864,6 +1962,8 @@ def step_anatomy(torch, dev, params, cfg, k_cache, v_cache, planes=None) -> None
     anatomy(torch, "decode step (B=8, ~1k context)", lambda: llama.decode_window(
         params, cfg, toks, lens - 1, tables, lens, [0] * B, [0] * B, *samp,
         k_cache, v_cache, n_steps=4, **planes), 4)
+    if decode_only:
+        return
     prompt = torch.zeros(2048, dtype=torch.int32, device=dev)
     prompt[:1201] = torch.arange(1201, device=dev) % 250 + 3
     table = torch.arange(700, 828, dtype=torch.int32, device=dev)
@@ -1882,6 +1982,145 @@ def step_anatomy(torch, dev, params, cfg, k_cache, v_cache, planes=None) -> None
                 params, cfg, toks, lens - 1, tables, lens, [0] * B, [0] * B,
                 *samp, seg, seg_table, zero, zero + 400, k_cache, v_cache,
                 **planes), 1)
+
+
+def dense_oracle(torch, dev, card: str, name: str, params, cfg) -> None:
+    """The full-width check of the served model's forward: a 256-token
+    prompt prefilled in two chunks (192, then 64 over the first's cached
+    pages: paged_prefill_attention both times), its last logits against
+    ``dense_forward``'s (plain full attention, no cache, no kernel of the
+    port) on the same bf16 weights, and both against ``dense_forward`` in
+    f32 on the same weights widened: the served path's distance to the
+    f32 logits at most ORACLE_FACTOR times the plain bf16 forward's."""
+    import dataclasses
+
+    from dynamo_tpu_torch.models import llama
+
+    T, cut = 256, 192
+    toks = ((torch.arange(T, device=dev) * 7919) % (cfg.vocab_size - 3) + 3).to(torch.int32)
+    kc, vc = llama.init_kv_cache(cfg, 24, 16, device=dev)
+    table = torch.arange(1, 17, dtype=torch.int32, device=dev)
+    llama.prefill(params, cfg, toks[:cut].contiguous(), table, 0, cut, kc, vc)
+    paged = llama.prefill(params, cfg, toks[cut:].contiguous(), table, cut,
+                          T - cut, kc, vc)[0]
+    dense = llama.dense_forward(params, cfg, toks)[-1]
+    wide = {k: ({kk: vv.float() for kk, vv in v.items()} if isinstance(v, dict)
+                else v.float()) for k, v in params.items()}
+    exact = llama.dense_forward(wide, dataclasses.replace(cfg, dtype="float32"),
+                                toks)[-1]
+    del wide
+    err = float((paged - exact).abs().max())
+    base = float((dense - exact).abs().max())
+    scale = float(exact.abs().max())
+    top2 = exact.topk(2).values
+    log(f"  full-width oracle, last logits of a 192 + 64-token prefill: served "
+        f"bf16 vs dense_forward f32 max |dlogit| {err:.4f}, dense_forward bf16 "
+        f"vs f32 {base:.4f} ({err / base:.2f}x; tolerance {ORACLE_FACTOR}x), "
+        f"served vs dense_forward bf16 "
+        f"{float((paged - dense).abs().max()):.4f}; max |logit| {scale:.3f}; "
+        f"argmax equal to f32: served {int(paged.argmax()) == int(exact.argmax())}"
+        f", dense bf16 {int(dense.argmax()) == int(exact.argmax())} (top-1 - "
+        f"top-2 gap {float(top2[0] - top2[1]):.4f})  [{name}, {card}]")
+    if not (bool(torch.isfinite(paged).all()) and err <= ORACLE_FACTOR * base):
+        raise AssertionError(f"{name}: the served prefill's logits are {err:.4f} "
+                             f"from the f32 forward's, the bf16 dense forward's "
+                             f"{base:.4f} (tolerance {ORACLE_FACTOR}x)")
+
+
+#: a Mistral-style [INST] chat template for the checkpoint's tokenizer
+MISTRAL_TEMPLATE = (
+    "{{ bos_token }}{% for message in messages %}"
+    "{% if message['role'] == 'user' %}[INST] {{ message['content'] }} [/INST]"
+    "{% else %}{{ message['content'] }}{{ eos_token }}{% endif %}{% endfor %}")
+
+
+async def serve_checkpoint(torch, dev, card: str, cfg, counted: dict) -> dict:
+    """The checkpoint drive: Mistral-7B-Instruct-v0.2's config.json (depth
+    cut to CHECKPOINT_LAYERS), bf16 random weights written by the port's
+    ``save_llama_params`` into a directory beside this script with the
+    repo's 32,000-piece SentencePiece vocab as ``tokenizer.model`` and a
+    ``tokenizer_config.json`` naming <s> / </s>; then ``dynamo_run``'s own
+    ``parse_args`` and ``build_engine`` from ``--model-path <dir>``. Every
+    loaded leaf must equal the saved one and a prefill's logits from the
+    loaded weights those from the saved ones, bit for bit; then the drive
+    serves over HTTP with SentencePiece tokenization and streamed
+    detokenization. Returns its launch counts; the directory is removed."""
+    import os
+    import shutil
+    import tempfile
+
+    from dynamo_tpu_torch.launch import dynamo_run
+    from dynamo_tpu_torch.llm.tokenizer import SPTokenizer
+    from dynamo_tpu_torch.models import llama
+    from dynamo_tpu_torch.models.config import MISTRAL_7B_V02_HF
+    from dynamo_tpu_torch.models.weights import init_random_params, save_llama_params
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    tmp = tempfile.mkdtemp(prefix=".chip_smoke_ckpt_", dir=root)
+    try:
+        ckpt = os.path.join(tmp, "mistral-7b-instruct-v0.2")
+        os.mkdir(ckpt)
+        log(f"  {CHECKPOINT_DRIVE}: num_hidden_layers cut from "
+            f"{MISTRAL_7B_V02_HF['num_hidden_layers']} to {CHECKPOINT_LAYERS} "
+            f"(disk and write time); every width as published")
+        t0 = time.perf_counter()
+        saved = init_random_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+        save_llama_params(ckpt, saved, cfg)
+        with open(os.path.join(ckpt, "config.json"), "w") as f:
+            json.dump({**MISTRAL_7B_V02_HF, "num_hidden_layers": CHECKPOINT_LAYERS}, f)
+        shutil.copy(os.path.join(root, "tests", "data", "real_sp", "tinyllama.model"),
+                    os.path.join(ckpt, "tokenizer.model"))
+        with open(os.path.join(ckpt, "tokenizer_config.json"), "w") as f:
+            json.dump({"bos_token": "<s>", "eos_token": "</s>",
+                       "chat_template": MISTRAL_TEMPLATE}, f)
+        size = sum(os.path.getsize(os.path.join(ckpt, f)) for f in os.listdir(ckpt))
+        t_write = time.perf_counter() - t0
+        args = dynamo_run.parse_args(
+            ["in=http", "out=torch", "--model-path", ckpt, "--num-blocks", "4096",
+             "--block-size", "16", "--max-batch", "8", "--decode-window", "4",
+             "--max-context", "8192"])
+        _cfg, tok, _name, weights = dynamo_run.build_model(args)
+        if not (isinstance(tok, SPTokenizer) and weights == ckpt
+                and tok.vocab_size == cfg.vocab_size):
+            raise AssertionError(f"{CHECKPOINT_DRIVE}: build_model gave {tok!r}, "
+                                 f"weights {weights!r}")
+        t0 = time.perf_counter()
+        worker, engine, served = dynamo_run.build_engine(args)
+        torch.cuda.synchronize()
+        t_load = time.perf_counter() - t0
+        bad = [f"{g}.{k}" for g, leaves in saved.items()
+               for k, t in (leaves.items() if isinstance(leaves, dict) else [("", leaves)])
+               if not torch.equal(
+                   (engine.params[g][k] if k else engine.params[g]), t)]
+        toks = torch.arange(100, 164, dtype=torch.int32, device=dev)
+        table = torch.arange(1, 5, dtype=torch.int32, device=dev)
+        logits = [llama.prefill(p, cfg, toks, table, 0, 64,
+                                *llama.init_kv_cache(cfg, 8, 16, device=dev))[0]
+                  for p in (saved, engine.params)]
+        same = torch.equal(logits[0], logits[1])
+        log(f"  checkpoint: {size / 1e9:.2f} GB in {os.listdir(ckpt)} written in "
+            f"{t_write:.1f} s; dynamo_run --model-path built the engine in "
+            f"{t_load:.1f} s; leaves bit-equal to the saved ones: "
+            f"{not bad}; prefill logits from the loaded weights bit-equal: {same}")
+        if bad or not same:
+            raise AssertionError(f"{CHECKPOINT_DRIVE}: loaded weights differ from "
+                                 f"the saved ones: {bad[:5]}, logits equal {same}")
+        del saved, logits
+        # the SentencePiece encode of the drive's prompts, apart from serving
+        prompts = [("The paged cache holds every token. " * 64)[:n]
+                   for n in (1200, 64, 333, 700, 1100, 1500)]
+        t0 = time.perf_counter()
+        n_ids = sum(len(tok.encode(p, add_special_tokens=True)) for p in prompts)
+        encode_ms = (time.perf_counter() - t0) * 1e3 / len(prompts)
+        log(f"  SentencePiece encode (pure Python, {tok.vocab_size} pieces): "
+            f"{encode_ms:.2f} ms per request over {len(prompts)} prompts of "
+            f"64-1500 bytes ({n_ids} ids)")
+        launches, _ = await serve(
+            torch, dev, card, served, cfg, {}, counted,
+            build=lambda: (engine, worker), oracle=True, encode_ms=encode_ms)
+        return launches
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
 
 
 def determinism_probe(torch, dev, params, cfg, k_cache, v_cache) -> None:
@@ -2478,7 +2717,8 @@ def main() -> int:
         for line in text.splitlines():
             if "Used" in line or "spill" in line:
                 log(f"  {src}: {line.strip()}")
-    log("[2/4] kernels against their plain versions (Llama-3-8B and "
+    log(f"[2/4] at {time.perf_counter() - t_all:.1f} s: kernels against their "
+        "plain versions (Llama-3-8B and "
         "DeepSeek-V2-Lite shapes, bf16)")
     inp = KernelInputs(torch, dev)
     errs = check_kernels(torch, dev, inp)
@@ -2499,25 +2739,39 @@ def main() -> int:
     errs.update(check_quant_kernels(torch, qi))
     check_gmm_tiles(torch, dev)
     check_int8_native_mm(torch, dev)
-    log("[3/4] serving over HTTP: llama3-8b-sim and deepseek-v2-lite-sim, each "
+    log(f"[3/4] at {time.perf_counter() - t_all:.1f} s: serving over HTTP: "
+        "llama3-8b-sim and deepseek-v2-lite-sim, each "
         "twice on fresh engines, deepseek-v2-lite-sim (int8 weights), "
         "llama3-8b-sim (fp8 weights, int8 KV), llama3-8b-sim and "
-        f"deepseek-v2-lite-sim (spec_gamma={SPEC_GAMMA})")
+        f"deepseek-v2-lite-sim (spec_gamma={SPEC_GAMMA}), qwen2.5-7b-sim, "
+        f"qwen3-8b-sim, and a {CHECKPOINT_LAYERS}-layer Mistral-7B-v0.2 "
+        "checkpoint through dynamo_run --model-path")
     launches, plain = {}, {}
     for name, cfg, geometry, counted in drives():
-        # the first (bf16) drive of each model runs twice, the second time
-        # on a fresh engine (C.4)
-        for repeat in (False, True) if name not in plain else (False,):
+        log(f"  drive {name} from {time.perf_counter() - t_all:.1f} s")
+        if name == CHECKPOINT_DRIVE:
+            got = asyncio.run(serve_checkpoint(torch, dev, card, cfg, counted))
+            for k, n in got.items():
+                launches[k] = launches.get(k, 0) + n
+            gc.collect()
+            torch.cuda.empty_cache()
+            continue
+        # the first (bf16) drive of the Llama and V2-Lite models runs
+        # twice, the second time on a fresh engine (C.4)
+        for repeat in ((False, True) if name in REPEATED and name not in plain
+                       else (False,)):
             got, answers = asyncio.run(serve(
                 torch, dev, card, name, cfg, geometry, counted,
-                plain.get(name), repeat=repeat))
+                plain.get(name), repeat=repeat,
+                oracle=name in ("qwen2.5-7b-sim", "qwen3-8b-sim")))
             plain.setdefault(name, answers)
             # a kernel shared by several drives (the append) counts them all
             for k, n in got.items():
                 launches[k] = launches.get(k, 0) + n
             gc.collect()
             torch.cuda.empty_cache()
-    log("[4/4] timing (median per launch, L2 flushed)  [" + card + "]")
+    log(f"[4/4] at {time.perf_counter() - t_all:.1f} s: timing (median per "
+        "launch, L2 flushed)  [" + card + "]")
     rows = timing(torch, dev, inp, mi, qi, ta, errs, launches)
     torch.cuda.synchronize()
     log(f"all phases passed in {time.perf_counter() - t_all:.1f} s")

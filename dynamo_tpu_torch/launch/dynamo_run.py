@@ -19,6 +19,20 @@ Examples::
       --model-path llama3-8b-sim --quantization fp8_e4m3 --kv-cache-dtype int8
   python -m dynamo_tpu_torch.launch.dynamo_run in=http out=torch \
       --model-path llama3-8b-sim --spec-gamma 3
+  python -m dynamo_tpu_torch.launch.dynamo_run in=http out=torch \
+      --model-path /path/to/checkpoint-dir
+  python -m dynamo_tpu_torch.launch.dynamo_run in=http out=torch \
+      --model-path llama3-8b-sim --tokenizer /path/to/tokenizer-dir
+
+``--model-path`` is a preset or a checkpoint: a local directory or an
+``org/name`` already in the local HF cache (``llm/hub.py``) holding
+``config.json`` (Llama, Mistral, Qwen2, Qwen3, Mixtral, Qwen2-MoE,
+Qwen3-MoE, DeepSeek-V2/V3), ``*.safetensors`` weights (loaded onto the
+engine's device; without them the weights are drawn at random, as the
+reference serves a config-only directory) and its tokenizer
+(``tokenizer.json`` through ``transformers``, else ``tokenizer.model``
+through the port's own SentencePiece reader). ``--tokenizer <dir>``
+overrides the tokenizer, of a checkpoint or of a preset.
 
 Model presets (random weights from seed 0, byte tokenizer): ``tiny``,
 ``llama3-8b-sim`` (the full Llama-3-8B architecture) and
@@ -32,7 +46,9 @@ from __future__ import annotations
 import argparse
 import asyncio
 import logging
+import os
 import sys
+from typing import Optional
 
 import torch
 
@@ -40,10 +56,11 @@ from ..device import resolve_device
 from ..engine.engine import EngineConfig, TorchEngine
 from ..http.service import HttpService, ModelManager
 from ..llm.openai_engine import OpenAIWorkerEngine
-from ..llm.tokenizer import ByteTokenizer
+from ..llm.hub import resolve_model_path
+from ..llm.tokenizer import ByteTokenizer, Tokenizer, load_tokenizer
 from ..models.config import ModelConfig, deepseek_v2_lite
 from ..models.quant import KV_CACHE_DTYPES, WEIGHT_MODES, kv_cache_dtype
-from ..models.weights import init_random_params
+from ..models.weights import init_random_params, load_llama_params
 from ..runtime.engine import Context
 
 PRESETS = {
@@ -53,15 +70,29 @@ PRESETS = {
 }
 
 
-def build_model(args) -> tuple[ModelConfig, ByteTokenizer, str]:
-    """(model config, tokenizer, served name) of a preset."""
-    name = args.model_path or "tiny"
-    if name not in PRESETS:
-        raise SystemExit(
-            f"--model-path {name!r}: the port serves the presets "
-            f"{sorted(PRESETS)} (checkpoint loading is not ported yet)"
-        )
-    return PRESETS[name](), ByteTokenizer(), args.model_name or name
+def build_model(args) -> tuple[ModelConfig, Tokenizer, str, Optional[str]]:
+    """(model config, tokenizer, served name, checkpoint directory holding
+    ``*.safetensors`` or None for random weights). A preset serves random
+    weights through the byte tokenizer; anything else is a checkpoint
+    (``resolve_model_path``: a local directory or a cached HF snapshot)
+    with its own config and tokenizer. ``--tokenizer`` overrides the
+    tokenizer."""
+    path = args.model_path or "tiny"
+    weights = None
+    if path in PRESETS:
+        cfg, tokenizer, name = PRESETS[path](), ByteTokenizer(), path
+    else:
+        # the served name is the user's id (org/name or dir), not the
+        # snapshot path a cache hit resolves to
+        name = os.path.basename(os.path.normpath(path))
+        path = resolve_model_path(path)
+        cfg = ModelConfig.from_local_path(path)
+        tokenizer = load_tokenizer(path)
+        if any(f.endswith(".safetensors") for f in os.listdir(path)):
+            weights = path
+    if args.tokenizer:
+        tokenizer = load_tokenizer(args.tokenizer)
+    return cfg, tokenizer, args.model_name or name, weights
 
 
 def engine_config(args, cfg: ModelConfig) -> EngineConfig:
@@ -84,11 +115,18 @@ def engine_config(args, cfg: ModelConfig) -> EngineConfig:
 
 
 def build_engine(args) -> tuple[OpenAIWorkerEngine, TorchEngine, str]:
-    cfg, tokenizer, name = build_model(args)
+    """The engine behind the OpenAI surface: the checkpoint's weights
+    loaded onto the device (quantized there by ``--quantization``), or
+    random ones drawn on it."""
+    cfg, tokenizer, name, weights = build_model(args)
     device = resolve_device(args.device)
-    gen = torch.Generator(device=device).manual_seed(0)
-    params = init_random_params(cfg, gen, device)
-    core = TorchEngine(engine_config(args, cfg), params=params, device=device)
+    ecfg = engine_config(args, cfg)
+    if weights is not None:
+        params = load_llama_params(weights, cfg, device=device)
+    else:
+        gen = torch.Generator(device=device).manual_seed(0)
+        params = init_random_params(cfg, gen, device)
+    core = TorchEngine(ecfg, params=params, device=device)
     return OpenAIWorkerEngine(tokenizer, core), core, name
 
 
@@ -126,7 +164,12 @@ def parse_args(argv=None):
         "dynamo_run", description="dynamo run on PyTorch: in=<source> out=torch"
     )
     p.add_argument("in_out", nargs="*", help="in=http|text out=torch")
-    p.add_argument("--model-path", default=None, help="tiny | llama3-8b-sim | deepseek-v2-lite-sim")
+    p.add_argument("--model-path", default=None,
+                   help=f"a preset ({' | '.join(PRESETS)}) or a checkpoint "
+                        "directory / cached HF repo id")
+    p.add_argument("--tokenizer", default=None,
+                   help="tokenizer directory overriding the model's "
+                        "(tokenizer.json or tokenizer.model)")
     p.add_argument("--model-name", default=None)
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     p.add_argument("--host", default="0.0.0.0")

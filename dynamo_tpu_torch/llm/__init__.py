@@ -1,5 +1,13 @@
 """LLM library layer: tokenization, preprocessing, detokenization."""
 
-from .tokenizer import ByteTokenizer, DecodeStream, Tokenizer
+from .tokenizer import (
+    ByteTokenizer,
+    DecodeStream,
+    HFTokenizer,
+    SPTokenizer,
+    Tokenizer,
+    load_tokenizer,
+)
 
-__all__ = ["ByteTokenizer", "DecodeStream", "Tokenizer"]
+__all__ = ["ByteTokenizer", "DecodeStream", "HFTokenizer", "SPTokenizer",
+           "Tokenizer", "load_tokenizer"]

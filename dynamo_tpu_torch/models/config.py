@@ -3,7 +3,11 @@
 A copy of ``dynamo_tpu/models/config.py`` (the port imports nothing of the
 JAX package), with the presets the port serves: ``tiny``, ``tiny_mla``,
 ``llama3_8b`` and DeepSeek-V2-Lite (:data:`DEEPSEEK_V2_LITE_HF`, the
-published ``config.json``, parsed by :meth:`ModelConfig.from_hf_config`).
+published ``config.json``, parsed by :meth:`ModelConfig.from_hf_config`);
+and the published ``config.json`` values of Qwen2.5-7B-Instruct
+(:data:`QWEN25_7B_HF`), Qwen3-8B (:data:`QWEN3_8B_HF`) and
+Mistral-7B-Instruct-v0.2 (:data:`MISTRAL_7B_V02_HF`), which chip_smoke.py
+serves at full width.
 The port's forward covers dense GQA decoders and the DeepSeek MLA + MoE
 family; models/llama.py ``check_supported`` raises on the rest.
 """
@@ -464,3 +468,94 @@ def deepseek_v2_lite() -> ModelConfig:
     """The ``deepseek-v2-lite-sim`` preset: DeepSeek-V2-Lite's published
     shapes through :meth:`ModelConfig.from_hf_config`."""
     return ModelConfig.from_hf_config(DEEPSEEK_V2_LITE_HF)
+
+
+#: Qwen2.5-7B-Instruct's published config.json
+#: (huggingface.co/Qwen/Qwen2.5-7B-Instruct, main/config.json): 28 layers,
+#: hidden 3584, 28 query heads over 4 KV heads (G = 7), q/k/v biases (the
+#: Qwen2 architecture), vocab 152064, a 131072-token sliding window that
+#: ``use_sliding_window: false`` turns off (read as the JAX package reads
+#: it: a window that masks nothing at any context up to 131072).
+QWEN25_7B_HF = {
+    "architectures": ["Qwen2ForCausalLM"],
+    "attention_dropout": 0.0,
+    "bos_token_id": 151643,
+    "eos_token_id": 151645,
+    "hidden_act": "silu",
+    "hidden_size": 3584,
+    "initializer_range": 0.02,
+    "intermediate_size": 18944,
+    "max_position_embeddings": 32768,
+    "max_window_layers": 28,
+    "model_type": "qwen2",
+    "num_attention_heads": 28,
+    "num_hidden_layers": 28,
+    "num_key_value_heads": 4,
+    "rms_norm_eps": 1e-06,
+    "rope_theta": 1000000.0,
+    "sliding_window": 131072,
+    "tie_word_embeddings": False,
+    "torch_dtype": "bfloat16",
+    "use_cache": True,
+    "use_sliding_window": False,
+    "vocab_size": 152064,
+}
+
+#: Qwen3-8B's published config.json (huggingface.co/Qwen/Qwen3-8B,
+#: main/config.json): 36 layers, hidden 4096, 32 query heads over 8 KV
+#: heads of 128, per-head q/k RMS norms, no biases, vocab 151936.
+QWEN3_8B_HF = {
+    "architectures": ["Qwen3ForCausalLM"],
+    "attention_bias": False,
+    "attention_dropout": 0.0,
+    "bos_token_id": 151643,
+    "eos_token_id": 151645,
+    "head_dim": 128,
+    "hidden_act": "silu",
+    "hidden_size": 4096,
+    "initializer_range": 0.02,
+    "intermediate_size": 12288,
+    "max_position_embeddings": 40960,
+    "max_window_layers": 36,
+    "model_type": "qwen3",
+    "num_attention_heads": 32,
+    "num_hidden_layers": 36,
+    "num_key_value_heads": 8,
+    "rms_norm_eps": 1e-06,
+    "rope_scaling": None,
+    "rope_theta": 1000000,
+    "sliding_window": None,
+    "tie_word_embeddings": False,
+    "torch_dtype": "bfloat16",
+    "use_cache": True,
+    "use_sliding_window": False,
+    "vocab_size": 151936,
+}
+
+#: Mistral-7B-Instruct-v0.2's published config.json
+#: (huggingface.co/mistralai/Mistral-7B-Instruct-v0.2, main/config.json):
+#: 32 layers, hidden 4096, 32 query heads over 8 KV heads, no sliding
+#: window, rope theta 1e6, the 32000-piece SentencePiece vocab.
+MISTRAL_7B_V02_HF = {
+    "architectures": ["MistralForCausalLM"],
+    "attention_dropout": 0.0,
+    "bos_token_id": 1,
+    "eos_token_id": 2,
+    "hidden_act": "silu",
+    "hidden_size": 4096,
+    "initializer_range": 0.02,
+    "intermediate_size": 14336,
+    "max_position_embeddings": 32768,
+    "model_type": "mistral",
+    "num_attention_heads": 32,
+    "num_hidden_layers": 32,
+    "num_key_value_heads": 8,
+    "rms_norm_eps": 1e-05,
+    "rope_theta": 1000000.0,
+    "sliding_window": None,
+    "tie_word_embeddings": False,
+    "torch_dtype": "bfloat16",
+    "use_cache": True,
+    "vocab_size": 32000,
+}
+

@@ -20,12 +20,16 @@ arrays; these functions return the same tensors so call sites read alike):
 in the v slot (models/mla.py). PyTorch runs eagerly, so the layer loops
 are plain Python loops.
 
-Covered: the Llama / Llama-3 / Mistral-without-window shape (RMS norms,
-half-split rope with default or ``llama3`` scaling, SwiGLU, optional tied
-embeddings), DeepSeek-V2/V3 Multi-Latent Attention (absorbed, with or
-without q-lora, YaRN rope) and Mixtral/DeepSeek MoE FFNs (softmax or
-sigmoid scoring, gate bias, group-limited routing, shared experts).
-Everything else raises in :func:`check_supported`.
+Covered: the Llama / Llama-3 / Mistral shape (RMS norms, half-split rope
+with default or ``llama3`` scaling, SwiGLU, optional tied embeddings),
+Qwen2's q/k/v biases and Qwen3's per-head q/k RMS norms, DeepSeek-V2/V3
+Multi-Latent Attention (absorbed, with or without q-lora, YaRN rope) and
+Mixtral/Qwen-MoE/DeepSeek MoE FFNs (softmax or sigmoid scoring, gate bias,
+group-limited routing, shared experts, Qwen2-MoE's gated shared expert).
+A sliding window serves only where it masks nothing: at least as long as
+the served context. Everything else raises in :func:`check_supported`.
+:func:`dense_forward` is the cache-free full-attention forward, the
+checkpoint tests' and the card's oracle.
 
 Quantized serving (models/quant.py): projection weights may be ``{"q",
 "s"}`` / ``{"qn", "s"}`` nodes (:func:`_mm`) and expert stacks ``{"q",
@@ -77,12 +81,18 @@ def _dtype(cfg: ModelConfig) -> torch.dtype:
     return _DTYPES[str(cfg.dtype)]
 
 
-def check_supported(cfg: ModelConfig) -> None:
-    """The port serves dense GQA decoders and the DeepSeek MLA + MoE family;
-    other families raise."""
+def check_supported(cfg: ModelConfig, max_context: int = 0) -> None:
+    """The port serves dense GQA decoders (q/k/v biases and per-head q/k
+    norms included) and the DeepSeek MLA + MoE family; other families raise.
+    A global sliding window at least as long as the served context
+    (``max_context``, by default the model's ``max_position_embeddings``)
+    masks nothing (``q_pos - kv_pos < window`` always holds), so it serves
+    as full attention; a shorter one, or per-layer windows, raise."""
+    context = max_context or cfg.max_position_embeddings
     unsupported = {
-        "attention bias": cfg.attention_bias, "qk norm": cfg.qk_norm,
-        "sliding window": cfg.sliding_window or cfg.layer_windows,
+        "full-width qk norm": cfg.qk_norm_full,
+        "sliding window": (bool(cfg.layer_windows) or
+                           0 < cfg.sliding_window < context),
         "attention sinks": cfg.attn_sinks, "o_proj bias": cfg.o_bias,
         "softcap": cfg.attn_softcap or cfg.final_softcap,
         "post norms": cfg.post_norms or cfg.norm_after,
@@ -128,6 +138,11 @@ def _init_layer_group(cfg: ModelConfig, L: int, moe: bool, normal, ones) -> dict
     else:
         layers.update(wq=normal(L, E, H * D), wk=normal(L, E, Hkv * D),
                       wv=normal(L, E, Hkv * D), wo=normal(L, H * D, E))
+        if cfg.attention_bias:  # qwen2: zeros, as in JAX
+            layers.update(bq=ones(L, H * D).zero_(), bk=ones(L, Hkv * D).zero_(),
+                          bv=ones(L, Hkv * D).zero_())
+        if cfg.qk_norm:  # qwen3: per-head weight [D]
+            layers.update(q_norm=ones(L, D), k_norm=ones(L, D))
     if moe:
         X = cfg.num_experts
         Fm = cfg.moe_intermediate_size or F_
@@ -353,13 +368,22 @@ def _mm(x: torch.Tensor, w) -> torch.Tensor:
 
 
 def _qkv(lp: dict, cfg: ModelConfig, x: torch.Tensor):
+    """q ``[..., H, D]``, k and v ``[..., Hkv, D]``: the three products,
+    Qwen2's biases on the flat projections, then Qwen3's per-head RMS norm
+    (before rope), in the JAX package's order and casts."""
     D = cfg.head_dim
     q = _mm(x, lp["wq"])
     k = _mm(x, lp["wk"])
     v = _mm(x, lp["wv"])
+    if "bq" in lp:
+        q, k, v = q + lp["bq"], k + lp["bk"], v + lp["bv"]
     lead = x.shape[:-1]
-    return (q.reshape(*lead, -1, D), k.reshape(*lead, -1, D),
-            v.reshape(*lead, -1, D))
+    q, k, v = (q.reshape(*lead, -1, D), k.reshape(*lead, -1, D),
+               v.reshape(*lead, -1, D))
+    if cfg.qk_norm and not cfg.qk_norm_full:
+        q = rms_norm(q, lp["q_norm"], cfg.rms_norm_eps)
+        k = rms_norm(k, lp["k_norm"], cfg.rms_norm_eps)
+    return q, k, v
 
 
 def swiglu(x, w_gate, w_up, w_down):
@@ -1111,3 +1135,86 @@ def verify_window(
         result += ((chosen.reshape(B, T), top_ids.reshape(B, T, -1),
                     top_lps.reshape(B, T, -1)),)
     return result
+
+
+# ---------------- the cache-free oracle ----------------
+
+
+def _causal_attention(q, k, v, mask, scale: float) -> torch.Tensor:
+    """Full attention of ``q [T, H, D]`` over ``k, v [T, Hkv, D]`` under
+    ``mask [T, T]``: scores in the input dtype read as f32, softmax in f32,
+    probabilities cast back to v's dtype (the JAX package's
+    ``prefill_attention_xla``)."""
+    G = q.shape[1] // k.shape[1]
+    k, v = k.repeat_interleave(G, dim=1), v.repeat_interleave(G, dim=1)
+    s = torch.einsum("thd,shd->hts", q * scale, k).float()
+    p = torch.softmax(s.masked_fill(~mask, -1e30), dim=-1).to(v.dtype)
+    return torch.einsum("hts,shd->thd", p, v)
+
+
+def _mla_naive_attention(lp: dict, cfg: ModelConfig, h, positions, inv_freq,
+                         msc: float, scale: float, mask) -> torch.Tensor:
+    """MLA without absorption: per-head K/V rebuilt from the latent in f32
+    (the JAX package's ``dense_forward`` MLA branch, deliberately apart
+    from ``mla.mla_q_and_latent`` so the absorbed path is checked against
+    an independent formulation). Returns ``[T, H * v_head_dim]`` in h's
+    dtype."""
+    T = h.shape[0]
+    H, dn, dr = cfg.num_heads, cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
+    C = cfg.kv_lora_rank
+    if cfg.q_lora_rank:
+        q = _mm(rms_norm(_mm(h, lp["wq_a"]), lp["q_norm"], cfg.rms_norm_eps),
+                lp["wq_b"])
+    else:
+        q = _mm(h, lp["wq"])
+    q = q.reshape(T, H, dn + dr)
+    q_nope = q[..., :dn]
+    q_pe = mla.rope_rotate(q[..., dn:], positions, inv_freq, msc)
+    kv = _mm(h, lp["wkv_a"])
+    c_kv = rms_norm(kv[..., :C], lp["kv_norm"], cfg.rms_norm_eps)
+    k_pe = mla.rope_rotate(kv[..., C:][:, None, :], positions, inv_freq,
+                           msc)[:, 0, :]
+    w_kc, w_vc = mla._wkv_b_parts(lp, cfg)
+    k_nope = torch.einsum("tc,chd->thd", c_kv.float(), w_kc.float())
+    v = torch.einsum("tc,chd->thd", c_kv.float(), w_vc.float())
+    qf = torch.cat([q_nope.float(), q_pe.float()], dim=-1)
+    kf = torch.cat([k_nope, k_pe[:, None, :].float().expand(T, H, dr)], dim=-1)
+    s = torch.einsum("thd,shd->hts", qf * scale, kf)
+    p = torch.softmax(s.masked_fill(~mask, -1e30), dim=-1)
+    return torch.einsum("hts,shd->thd", p, v).reshape(T, -1).to(h.dtype)
+
+
+@torch.no_grad()
+def dense_forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor) -> torch.Tensor:
+    """The straight full-attention forward ``[T] -> logits [T, V]`` f32,
+    with no cache: the ground truth the paged paths and checkpoint loads
+    are held to (the JAX package's ``dense_forward``). GQA through
+    :func:`_qkv` (biases, per-head q/k norms) and plain causal attention;
+    MLA through its naive, non-absorbed formulation. Plain PyTorch on any
+    device: it launches none of the port's kernels."""
+    check_supported(cfg)
+    T = tokens.shape[0]
+    dev = tokens.device
+    x = _embed(params, cfg, tokens)
+    positions = torch.arange(T, device=dev)
+    # causal; a window check_supported admits masks nothing at T <= context
+    mask = positions[:, None] >= positions[None, :]
+    if cfg.is_mla:
+        inv_freq, msc = mla.mla_rope_freqs(cfg, dev)
+        scale = cfg.mla_softmax_scale()
+    else:
+        inv_freq, msc = _rope_freqs(cfg, dev), 1.0
+        scale = attn_query_scale(cfg)
+    for _l, lp in _layers(params, cfg):
+        h = rms_norm(x, lp["attn_norm"], cfg.rms_norm_eps)
+        if cfg.is_mla:
+            o = _mla_naive_attention(lp, cfg, h, positions, inv_freq, msc,
+                                     scale, mask)
+        else:
+            q, k, v = _qkv(lp, cfg, h)
+            q = apply_rope(q, positions, inv_freq)
+            k = apply_rope(k, positions, inv_freq)
+            o = _causal_attention(q, k, v, mask, scale).reshape(T, -1)
+        x = _layer_tail(x, lp, o, cfg)
+    x = rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
+    return _logits(params, cfg, x)

@@ -1,34 +1,441 @@
-"""Weights for the port's model: carried over from a JAX parameter tree, or
-drawn at random on the device.
+"""Weights for the port's model: a safetensors checkpoint, a JAX parameter
+tree carried over, or random draws on the device.
 
 The JAX package's tree (``dynamo_tpu/models/llama.py`` init_params) is
 ``embed [V, E]``, ``final_norm [E]``, optional ``lm_head [E, V]`` and one
 or two stacked layer groups, ``layers`` and (DeepSeek's
 first_k_dense_replace) ``dense_layers``, with projections ``[in, out]``:
-the attention leaves (``wq``/``wk``/``wv``/``wo``, or MLA's ``wq`` or
-``wq_a``/``q_norm``/``wq_b``, ``wkv_a``, ``kv_norm``, ``wkv_b``, ``wo``),
-the norms, and the FFN (dense ``w_gate``/``w_up``/``w_down``, or MoE
-``moe_gate``, ``we_*`` expert stacks and ``shared_*``). The port keeps that
-exact tree (models/llama.py), so carrying weights over is a dtype and
-device move per leaf. Quantized nodes (``{"q" | "qn": codes, "s": f32}``,
-models/quant.py) carry over code for code: int8 as ``torch.int8``, fp8 as
-``torch.float8_e4m3fn`` (numpy holds JAX's fp8 as an ``ml_dtypes`` type
-that ``torch.from_numpy`` refuses, so its bytes pass as uint8;
-``int8_native`` codes land column-major, ``quant.native_layout``). A
-safetensors checkpoint loader is not ported yet.
+the attention leaves (``wq``/``wk``/``wv``/``wo`` with Qwen2's
+``bq``/``bk``/``bv`` and Qwen3's per-head ``q_norm``/``k_norm``, or MLA's
+``wq`` or ``wq_a``/``q_norm``/``wq_b``, ``wkv_a``, ``kv_norm``, ``wkv_b``,
+``wo``), the norms, and the FFN (dense ``w_gate``/``w_up``/``w_down``, or
+MoE ``moe_gate``, ``we_*`` expert stacks and ``shared_*``). The port keeps
+that exact tree (models/llama.py).
+
+* :func:`load_llama_params` reads a HuggingFace checkpoint directory (the
+  JAX package's ``models/weights.py`` loader, same families and name
+  table) with the port's own safetensors reader (:class:`SafetensorsFile`:
+  the header, then ``torch.frombuffer`` over a memory map; no
+  ``safetensors`` import, and bf16 never passes through numpy). Each
+  stacked leaf is allocated on the device in the model dtype and filled
+  one layer's slice at a time, so the host never holds more than one
+  checkpoint tensor.
+* :func:`save_llama_params` writes the tree back under the HF names, each
+  tensor in its own dtype (:func:`write_safetensors`).
+* :func:`from_jax_params` carries a JAX tree over leaf for leaf: quantized
+  nodes (``{"q" | "qn": codes, "s": f32}``, models/quant.py) code for code,
+  int8 as ``torch.int8``, fp8 as ``torch.float8_e4m3fn`` (numpy holds
+  JAX's fp8 as an ``ml_dtypes`` type that ``torch.from_numpy`` refuses, so
+  its bytes pass as uint8; ``int8_native`` codes land column-major,
+  ``quant.native_layout``).
+* :func:`init_random_params` draws the presets' weights on the device.
 """
 
 from __future__ import annotations
 
+import json
+import mmap
+import os
+import struct
+from typing import Optional
+
 import numpy as np
 import torch
 
+from ..device import resolve_device
 from .config import ModelConfig
-from .llama import _dtype, check_supported, init_params
+from .llama import _DTYPES, _dtype, check_supported, init_params
 from .quant import native_layout
 
 #: leaves kept in float32 whatever the model dtype (as in the JAX tree)
 _F32_LEAVES = ("moe_gate_bias",)
+
+# ---------------- the safetensors format ----------------
+
+#: safetensors dtype names <-> torch dtypes (little-endian, as written)
+ST_DTYPES = {
+    "F32": torch.float32, "BF16": torch.bfloat16, "F16": torch.float16,
+    "I8": torch.int8, "U8": torch.uint8, "F8_E4M3": torch.float8_e4m3fn,
+}
+_ST_NAMES = {v: k for k, v in ST_DTYPES.items()}
+
+
+class SafetensorsFile:
+    """One ``.safetensors`` file: an 8-byte little-endian header length,
+    the JSON header (name -> dtype, shape, [begin, end) byte offsets past
+    the header), then the raw tensors. :meth:`get` is a view of the
+    memory-mapped bytes (copy-on-write, so the tensor is writable and the
+    file is never changed); the map closes when the file object and its
+    last view are dropped."""
+
+    def __init__(self, path: str):
+        self.path = path
+        with open(path, "rb") as f:
+            (n,) = struct.unpack("<Q", f.read(8))
+            header = json.loads(f.read(n))
+            self._map = mmap.mmap(f.fileno(), 0, access=mmap.ACCESS_COPY)
+        header.pop("__metadata__", None)
+        self.entries = header
+        self._base = 8 + n
+
+    def keys(self) -> list[str]:
+        return list(self.entries)
+
+    def get(self, name: str) -> torch.Tensor:
+        e = self.entries[name]
+        if e["dtype"] not in ST_DTYPES:
+            raise ValueError(f"{self.path}: {name} has dtype {e['dtype']}; the "
+                             f"port reads {sorted(ST_DTYPES)}")
+        dt = ST_DTYPES[e["dtype"]]
+        begin, end = e["data_offsets"]
+        count = (end - begin) // dt.itemsize
+        if count == 0:
+            return torch.empty(e["shape"], dtype=dt)
+        return torch.frombuffer(self._map, dtype=dt, count=count,
+                                offset=self._base + begin).reshape(e["shape"])
+
+
+def write_safetensors(path: str, tensors: dict) -> None:
+    """Write ``{name: tensor}`` (any device; each in its own dtype) as one
+    safetensors file, streaming one tensor at a time through the host. The
+    header is padded with spaces to 8 bytes, as the reference writer
+    does."""
+    header, offset = {}, 0
+    for name, t in tensors.items():
+        if t.dtype not in _ST_NAMES:
+            raise ValueError(f"{name}: dtype {t.dtype} has no safetensors name "
+                             f"the port writes")
+        n = t.numel() * t.element_size()
+        header[name] = {"dtype": _ST_NAMES[t.dtype], "shape": list(t.shape),
+                        "data_offsets": [offset, offset + n]}
+        offset += n
+    header["__metadata__"] = {"format": "pt"}
+    blob = json.dumps(header, separators=(",", ":")).encode()
+    blob += b" " * (-len(blob) % 8)
+    with open(path, "wb") as f:
+        f.write(struct.pack("<Q", len(blob)))
+        f.write(blob)
+        for t in tensors.values():
+            host = t.detach().to("cpu").contiguous().reshape(-1)
+            f.write(host.view(torch.uint8).numpy().data)
+
+
+def _checkpoint_index(path: str) -> dict[str, str]:
+    """Tensor name -> file, from ``model.safetensors.index.json`` where the
+    checkpoint is sharded with one, else from every file's header."""
+    files = sorted(f for f in os.listdir(path) if f.endswith(".safetensors"))
+    if not files:
+        raise FileNotFoundError(f"no .safetensors files in {path}")
+    index_file = os.path.join(path, "model.safetensors.index.json")
+    if os.path.exists(index_file):
+        with open(index_file) as f:
+            return json.load(f)["weight_map"]
+    out = {}
+    for fname in files:
+        out.update(dict.fromkeys(SafetensorsFile(os.path.join(path, fname)).keys(),
+                                 fname))
+    return out
+
+
+# ---------------- the checkpoint loader ----------------
+
+
+def load_llama_params(path: str, cfg: ModelConfig, device=None,
+                      dtype: Optional[str] = None) -> dict:
+    """A HF Llama-family (Llama, Mistral, Qwen2, Qwen3, Phi-3 with full
+    rotary, Mixtral, Qwen2-MoE, Qwen3-MoE) or DeepSeek-V2/V3 MLA checkpoint
+    directory as the port's
+    parameter dictionary on ``device`` (default: the card), in ``dtype``
+    (default: the model's), ``_F32_LEAVES`` in f32. The JAX package's name
+    table, transposes, multimodal prefix resolution and MLA rope
+    de-interleave; DeepSeek's first_k_dense_replace layers land in
+    ``dense_layers``. Refuses what :func:`llama.check_supported` refuses
+    before reading any tensor."""
+    check_supported(cfg)
+    device = resolve_device(device)
+    dt = _DTYPES[dtype or str(cfg.dtype)]
+    name_to_file = _checkpoint_index(path)
+    handles: dict[str, SafetensorsFile] = {}
+
+    # multimodal checkpoints nest the language model under
+    # language_model.model.* (or model.language_model.*): resolve the
+    # prefix once from wherever the embedding lives
+    prefix = ""
+    if "model.embed_tokens.weight" not in name_to_file:
+        for cand in ("language_model.", "model.language_model."):
+            if (cand + "model.embed_tokens.weight" in name_to_file
+                    or cand + "embed_tokens.weight" in name_to_file):
+                prefix = cand
+                break
+
+    def resolve(name: str) -> str:
+        """Bare name -> this checkpoint's key: the bare name (lm_head stays
+        top-level), prefix + name, or prefix replacing ``model.``."""
+        if not prefix or name in name_to_file:
+            return name
+        if prefix + name in name_to_file:
+            return prefix + name
+        if name.startswith("model.") and prefix + name[6:] in name_to_file:
+            return prefix + name[6:]
+        return name
+
+    def has(name: str) -> bool:
+        return resolve(name) in name_to_file
+
+    def get(name: str) -> torch.Tensor:
+        name = resolve(name)
+        fname = name_to_file[name]
+        if fname not in handles:
+            handles[fname] = SafetensorsFile(os.path.join(path, fname))
+        return handles[fname].get(name)
+
+    def deinterleave_rope(w: torch.Tensor, n_head: int, d_head: int,
+                          d_rope: int) -> torch.Tensor:
+        """GPT-J-pair rope columns -> the half-split layout the runtime
+        rotation uses, for a ``[..., n_head * d_head]`` projection: MLA
+        interleaves the TRAILING d_rope dims of each head."""
+        if not cfg.rope_interleave:
+            return w
+        v = w.reshape(*w.shape[:-1], n_head, d_head)
+        perm = torch.cat([torch.arange(0, d_rope, 2), torch.arange(1, d_rope, 2)])
+        v = torch.cat([v[..., : d_head - d_rope], v[..., d_head - d_rope:][..., perm]],
+                      dim=-1)
+        return v.reshape(w.shape)
+
+    def fresh(t: torch.Tensor, leaf_dtype=dt) -> torch.Tensor:
+        """A device copy in ``leaf_dtype``, never a view of the map."""
+        return torch.empty(t.shape, dtype=leaf_dtype, device=device).copy_(t)
+
+    def stack(fmt: str, rng, transpose: bool = True, fix=None,
+              leaf_dtype=dt) -> torch.Tensor:
+        """``[L, ...]`` of one leaf, allocated on the device and filled one
+        layer at a time: each layer's tensor read, transposed to ``[in,
+        out]``, fixed (the rope de-interleave) and copied into its slice."""
+        out = None
+        for li, i in enumerate(rng):
+            t = get(fmt.format(i=i))
+            t = t.T if transpose else t
+            t = fix(t) if fix else t
+            if out is None:
+                out = torch.empty((len(rng),) + tuple(t.shape), dtype=leaf_dtype,
+                                  device=device)
+            out[li].copy_(t)
+        return out
+
+    def attn_leaves(rng) -> dict:
+        out = {
+            "attn_norm": stack("model.layers.{i}.input_layernorm.weight", rng,
+                               transpose=False),
+            "mlp_norm": stack("model.layers.{i}.post_attention_layernorm.weight",
+                              rng, transpose=False),
+        }
+        a = "model.layers.{i}.self_attn."
+        if cfg.is_mla:
+            dqk, dr, H = cfg.qk_head_dim, cfg.qk_rope_head_dim, cfg.num_heads
+            q_fix = lambda w: deinterleave_rope(w, H, dqk, dr)  # noqa: E731
+            if cfg.q_lora_rank:
+                out["wq_a"] = stack(a + "q_a_proj.weight", rng)
+                out["q_norm"] = stack(a + "q_a_layernorm.weight", rng,
+                                      transpose=False)
+                out["wq_b"] = stack(a + "q_b_proj.weight", rng, fix=q_fix)
+            else:
+                out["wq"] = stack(a + "q_proj.weight", rng, fix=q_fix)
+            # the rope dims are the trailing d_rope columns (one "head")
+            out["wkv_a"] = stack(
+                a + "kv_a_proj_with_mqa.weight", rng,
+                fix=lambda w: deinterleave_rope(w, 1, cfg.kv_lora_rank + dr, dr))
+            out["kv_norm"] = stack(a + "kv_a_layernorm.weight", rng,
+                                   transpose=False)
+            out["wkv_b"] = stack(a + "kv_b_proj.weight", rng)
+            out["wo"] = stack(a + "o_proj.weight", rng)
+            return out
+        if has(a.format(i=rng[0]) + "qkv_proj.weight"):
+            # Phi-3 fuses q/k/v ([H + 2 Hkv] * D rows, q first): each leaf
+            # takes its columns
+            dq, dkv = cfg.num_heads * cfg.head_dim, cfg.num_kv_heads * cfg.head_dim
+            for key, cols in (("wq", slice(0, dq)), ("wk", slice(dq, dq + dkv)),
+                              ("wv", slice(dq + dkv, None))):
+                out[key] = stack(a + "qkv_proj.weight", rng,
+                                 fix=lambda w, c=cols: w[..., c])
+            out["wo"] = stack(a + "o_proj.weight", rng)
+        else:
+            for key, proj in (("wq", "q"), ("wk", "k"), ("wv", "v"), ("wo", "o")):
+                out[key] = stack(a + proj + "_proj.weight", rng)
+        if cfg.attention_bias:  # qwen2
+            for key, proj in (("bq", "q"), ("bk", "k"), ("bv", "v")):
+                out[key] = stack(a + proj + "_proj.bias", rng, transpose=False)
+        if cfg.qk_norm:  # qwen3: per-head weight [head_dim]
+            out["q_norm"] = stack(a + "q_norm.weight", rng, transpose=False)
+            out["k_norm"] = stack(a + "k_norm.weight", rng, transpose=False)
+        return out
+
+    def dense_ffn_leaves(rng) -> dict:
+        m = "model.layers.{i}.mlp."
+        if has(m.format(i=rng[0]) + "gate_up_proj.weight"):
+            # Phi-3's fused gate_up ([2F, E] rows: gate, then up)
+            F = cfg.intermediate_size
+            return {"w_gate": stack(m + "gate_up_proj.weight", rng,
+                                    fix=lambda w: w[..., :F]),
+                    "w_up": stack(m + "gate_up_proj.weight", rng,
+                                  fix=lambda w: w[..., F:]),
+                    "w_down": stack(m + "down_proj.weight", rng)}
+        return {"w_gate": stack(m + "gate_proj.weight", rng),
+                "w_up": stack(m + "up_proj.weight", rng),
+                "w_down": stack(m + "down_proj.weight", rng)}
+
+    def moe_ffn_leaves(rng) -> dict:
+        X = cfg.num_experts
+
+        def experts(mix: str, ds: str) -> torch.Tensor:
+            """``[L, X, in, out]`` from per-expert tensors: Mixtral
+            (block_sparse_moe.experts.N.w1/w3/w2) or DeepSeek/Qwen-MoE
+            (mlp.experts.N.gate/up/down_proj) naming."""
+            out = None
+            for li, i in enumerate(rng):
+                fmt = mix if has(mix.format(i=i, x=0)) else ds
+                for x in range(X):
+                    t = get(fmt.format(i=i, x=x)).T
+                    if out is None:
+                        out = torch.empty((len(rng), X) + tuple(t.shape),
+                                          dtype=dt, device=device)
+                    out[li, x].copy_(t)
+            return out
+
+        gate_mix = "model.layers.{i}.block_sparse_moe.gate.weight"
+        gate_ds = "model.layers.{i}.mlp.gate.weight"
+        out = {
+            "moe_gate": stack(gate_mix if has(gate_mix.format(i=rng[0]))
+                              else gate_ds, rng),
+            "we_gate": experts(
+                "model.layers.{i}.block_sparse_moe.experts.{x}.w1.weight",
+                "model.layers.{i}.mlp.experts.{x}.gate_proj.weight"),
+            "we_up": experts(
+                "model.layers.{i}.block_sparse_moe.experts.{x}.w3.weight",
+                "model.layers.{i}.mlp.experts.{x}.up_proj.weight"),
+            "we_down": experts(
+                "model.layers.{i}.block_sparse_moe.experts.{x}.w2.weight",
+                "model.layers.{i}.mlp.experts.{x}.down_proj.weight"),
+        }
+        if cfg.moe_gate_bias:
+            out["moe_gate_bias"] = stack(
+                "model.layers.{i}.mlp.gate.e_score_correction_bias", rng,
+                transpose=False, leaf_dtype=torch.float32)
+        if cfg.num_shared_experts:
+            # DeepSeek writes plural "shared_experts", Qwen2-MoE singular
+            plural = "model.layers.{i}.mlp.shared_experts"
+            base = (plural if has(plural.format(i=rng[0]) + ".gate_proj.weight")
+                    else "model.layers.{i}.mlp.shared_expert")
+            for key, proj in (("shared_gate", "gate"), ("shared_up", "up"),
+                              ("shared_down", "down")):
+                out[key] = stack(base + f".{proj}_proj.weight", rng)
+            if cfg.shared_expert_gate:  # qwen2moe: [1, E] -> [E, 1]
+                out["shared_egate"] = stack(
+                    "model.layers.{i}.mlp.shared_expert_gate.weight", rng)
+        return out
+
+    kd = cfg.first_dense_layers if cfg.is_moe else 0
+    rng = range(kd, cfg.num_layers)
+    layers = attn_leaves(rng)
+    layers.update(moe_ffn_leaves(rng) if cfg.is_moe else dense_ffn_leaves(rng))
+    params = {
+        "embed": fresh(get("model.embed_tokens.weight")),
+        "final_norm": fresh(get("model.norm.weight")),
+        "layers": layers,
+    }
+    if kd:
+        dense = attn_leaves(range(kd))
+        dense.update(dense_ffn_leaves(range(kd)))
+        params["dense_layers"] = dense
+    if not cfg.tie_word_embeddings:
+        params["lm_head"] = fresh(get("lm_head.weight").T)
+    # every leaf is a copy: the maps close once their last view is dropped
+    handles.clear()
+    return params
+
+
+# ---------------- the checkpoint saver ----------------
+
+#: leaf -> (HF name, stored transposed): the JAX package's save table, plus
+#: Qwen2's q/k/v biases
+_HF_NAMES = {
+    "attn_norm": ("model.layers.{i}.input_layernorm.weight", False),
+    "wq": ("model.layers.{i}.self_attn.q_proj.weight", True),
+    "wk": ("model.layers.{i}.self_attn.k_proj.weight", True),
+    "wv": ("model.layers.{i}.self_attn.v_proj.weight", True),
+    "wo": ("model.layers.{i}.self_attn.o_proj.weight", True),
+    "bq": ("model.layers.{i}.self_attn.q_proj.bias", False),
+    "bk": ("model.layers.{i}.self_attn.k_proj.bias", False),
+    "bv": ("model.layers.{i}.self_attn.v_proj.bias", False),
+    "mlp_norm": ("model.layers.{i}.post_attention_layernorm.weight", False),
+    "w_gate": ("model.layers.{i}.mlp.gate_proj.weight", True),
+    "w_up": ("model.layers.{i}.mlp.up_proj.weight", True),
+    "w_down": ("model.layers.{i}.mlp.down_proj.weight", True),
+    # MLA (models/mla.py)
+    "wq_a": ("model.layers.{i}.self_attn.q_a_proj.weight", True),
+    "q_norm": ("model.layers.{i}.self_attn.q_a_layernorm.weight", False),
+    "wq_b": ("model.layers.{i}.self_attn.q_b_proj.weight", True),
+    "wkv_a": ("model.layers.{i}.self_attn.kv_a_proj_with_mqa.weight", True),
+    "kv_norm": ("model.layers.{i}.self_attn.kv_a_layernorm.weight", False),
+    "wkv_b": ("model.layers.{i}.self_attn.kv_b_proj.weight", True),
+    "moe_gate_bias": ("model.layers.{i}.mlp.gate.e_score_correction_bias", False),
+    "k_norm": ("model.layers.{i}.self_attn.k_norm.weight", False),
+}
+
+
+def save_llama_params(path: str, params: dict, cfg: Optional[ModelConfig] = None) -> None:
+    """Write a parameter dictionary (any device) to ``path/model.safetensors``
+    under the HF names the loader reads, each tensor in its own dtype (the
+    JAX package's ``save_llama_params`` writes f32): dense layers, Mixtral
+    expert naming, DeepSeek's plural shared experts or Qwen2-MoE's gated
+    singular one, and Qwen3's per-head norms where ``cfg.qk_norm``."""
+    if cfg is not None and cfg.rope_interleave:
+        raise NotImplementedError(
+            "saving back to the interleaved-rope checkpoint convention is not "
+            "supported (the loader de-interleaved at load)")
+    names = dict(_HF_NAMES)
+    if cfg is not None and cfg.qk_norm:
+        # "q_norm" is MLA's q_a_layernorm or Qwen3's per-head q norm
+        names["q_norm"] = ("model.layers.{i}.self_attn.q_norm.weight", False)
+    flat = {"model.embed_tokens.weight": params["embed"],
+            "model.norm.weight": params["final_norm"]}
+
+    def save_group(lay: dict, off: int) -> None:
+        n = next(iter(lay.values())).shape[0]
+        for key, (fmt, transpose) in names.items():
+            for li in range(n) if key in lay else ():
+                t = lay[key][li]
+                flat[fmt.format(i=off + li)] = t.T if transpose else t
+        if "we_gate" not in lay:
+            return
+        experts = {"we_gate": "w1", "we_up": "w3", "we_down": "w2"}
+        sbase = ("model.layers.{i}.mlp.shared_expert" if "shared_egate" in lay
+                 else "model.layers.{i}.mlp.shared_experts")
+        shared = {"shared_gate": sbase + ".gate_proj.weight",
+                  "shared_up": sbase + ".up_proj.weight",
+                  "shared_down": sbase + ".down_proj.weight",
+                  "shared_egate": "model.layers.{i}.mlp.shared_expert_gate.weight"}
+        for li in range(n):
+            i = off + li
+            flat[f"model.layers.{i}.block_sparse_moe.gate.weight"] = lay["moe_gate"][li].T
+            for key, w in experts.items():
+                for x in range(lay[key].shape[1]):
+                    flat[f"model.layers.{i}.block_sparse_moe.experts.{x}.{w}.weight"] = (
+                        lay[key][li, x].T)
+            for key, fmt in shared.items():
+                if key in lay:
+                    flat[fmt.format(i=i)] = lay[key][li].T
+
+    kd = 0
+    if "dense_layers" in params:
+        kd = next(iter(params["dense_layers"].values())).shape[0]
+        save_group(params["dense_layers"], 0)
+    save_group(params["layers"], kd)
+    if "lm_head" in params:
+        flat["lm_head.weight"] = params["lm_head"].T
+    write_safetensors(os.path.join(path, "model.safetensors"), flat)
+
+
+# ---------------- a JAX tree, or random draws ----------------
 
 
 def _codes(x, device) -> torch.Tensor:

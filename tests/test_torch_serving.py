@@ -1,5 +1,8 @@
 """The port's OpenAI HTTP surface on the tiny model (CPU), and the import
-rule: no port module loads jax or anything of dynamo_tpu."""
+rule: no port module loads jax or anything of dynamo_tpu, and none loads
+safetensors, sentencepiece, tokenizers, transformers, jinja2 or
+huggingface_hub at import (the functions that need the last three import
+them)."""
 
 import asyncio
 import json
@@ -103,8 +106,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "import importlib, sys\n"
         f"for m in {modules!r}:\n"
         "    importlib.import_module(m.removesuffix('.__init__'))\n"
-        "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
-        " or m == 'dynamo_tpu' or m.startswith('dynamo_tpu.')]\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', "
+        "'dynamo_tpu', 'safetensors', 'sentencepiece', 'tokenizers', "
+        "'transformers', 'jinja2', 'huggingface_hub')]\n"
         "assert not bad, bad\n"
         "print(len(sys.modules))\n"
     )
@@ -122,4 +126,10 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             "dynamo_tpu_torch.ops.kv_cache_update",
             "dynamo_tpu_torch.ops.sampling",
             "dynamo_tpu_torch.models.llama",
-            "dynamo_tpu_torch.engine.engine"} <= set(modules)
+            "dynamo_tpu_torch.engine.engine",
+            # the checkpoint path: loader, tokenizers, model resolution
+            "dynamo_tpu_torch.models.weights",
+            "dynamo_tpu_torch.llm.sp_model",
+            "dynamo_tpu_torch.llm.tokenizer",
+            "dynamo_tpu_torch.llm.hub",
+            "dynamo_tpu_torch.launch.dynamo_run"} <= set(modules)
