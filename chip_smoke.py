@@ -77,11 +77,23 @@ Phases, in order; any failure raises and the script exits non-zero:
      at the reference defaults otherwise; one
      request alone (the dedicated prefill), then several more of 64-1500
      bytes while it decodes (fused mixed steps), one of them a streaming
-     chat; every response must be 200 and non-empty, and every kernel of
-     the drive's path, its launch counter zeroed just before the drive,
-     must have launched; then each drive's step anatomy (decode window,
-     dedicated prefill and, for GQA, a fused mixed step; the spec drives:
-     one verify forward), on the bf16 drives a run-to-run probe (the same
+     chat; each engine first runs ``warmup()`` (every prefill bucket and
+     the decode-window ladder, whose CUDA graphs it captures: buckets,
+     ledger and graph pool bytes printed), as ``dynamo_run --warmup``
+     does before its port opens; every response must be 200 and
+     non-empty, and every kernel of the drive's path, its launch counter
+     zeroed just before the drive (a graph's replay counts the launches
+     it captured), must have launched; on the first Llama and V2-Lite
+     drives, the int8 V2-Lite and the fp8 + int8 KV Llama, every decode
+     window of the ladder (n = 4, 2, 1) and the gamma-3 verify (not over
+     int8 pages) replayed from its CUDA graph must equal the eager step
+     bit for bit, outputs and state (greedy; seeded sampled rows with
+     top-k / top-p, penalties and logprobs; then after a slot is freed
+     and another refilled on moved tables); then each drive's step
+     anatomy (the decode window and, on the spec drives, the verify, each
+     eager and replayed from its graph in one run; the dedicated prefill
+     and, for GQA, a fused mixed step, eager as they serve), on the bf16
+     drives a run-to-run probe (the same
      prefill and decode step twice: bit-equal logits?) and what a
      prefix-cache hit changes, and the dense projections' cost per decode
      step in each weight form (bf16 drive) or the plain dequantize's
@@ -1623,6 +1635,18 @@ async def serve(torch, dev, card: str, name: str, cfg, geometry: dict,
         f"{engine._hbm_stats()['weights'] / 2**30:.2f} GiB, KV pool "
         f"{engine._hbm_stats()['kv_pool'] / 2**30:.2f} GiB, ready in "
         f"{time.perf_counter() - t0:.3f} s")
+    # dynamo_run --warmup's order: every reachable program key dispatched
+    # (the decode windows captured) before the port opens
+    t0 = time.perf_counter()
+    sizes = await engine.warmup()
+    log(f"  warmup: prefill buckets {sizes} + decode window ladder in "
+        f"{time.perf_counter() - t0:.2f} s; ledger {len(engine.compile_ledger)} "
+        f"entries, {engine.stats['xla_compile_ms_total']:.1f} ms of first "
+        f"dispatches (" + ", ".join(
+            f"{e['kind']} {e['key']}{' graph ' + str(e['graph']) if 'graph' in e else ''}"
+            f" {e['ms']:.1f}" for e in engine.compile_ledger)
+        + f"); {len(engine._graphs.graphs)} CUDA graphs, pool "
+        f"{engine._graphs.pool_bytes()} bytes")
     manager = ModelManager()
     manager.add_chat_model(name, worker)
     manager.add_completion_model(name, worker)
@@ -1759,7 +1783,10 @@ async def serve(torch, dev, card: str, name: str, cfg, geometry: dict,
         await svc.close()
         await engine.close()
     launches = {k: getattr(f, attr) for k, (f, attr) in counters.items()}
-    log(f"  launches during serving: {launches}")
+    log(f"  launches during serving: {launches}; CUDA graphs "
+        f"{len(engine._graphs.graphs)} ({engine._graphs.replays} replays), "
+        f"pool {engine._graphs.pool_bytes()} bytes, ledger "
+        f"{engine.load_metrics()['xla_compiles_total']} first dispatches")
     if planes:
         lm = engine.load_metrics()
         log("  int8 KV lane: " + ", ".join(
@@ -1781,14 +1808,14 @@ async def serve(torch, dev, card: str, name: str, cfg, geometry: dict,
     if repeat:
         return launches, (texts, answers)
     if spec:
-        verify_anatomy(torch, dev, params, cfg, engine.k_cache, engine.v_cache)
+        verify_anatomy(torch, dev, engine)
         return launches, (texts, answers)
     if oracle:
         dense_oracle(torch, dev, card, name, params, cfg)
-        step_anatomy(torch, dev, params, cfg, engine.k_cache, engine.v_cache,
-                     decode_only=True)
+        step_anatomy(torch, dev, engine, decode_only=True)
         return launches, (texts, answers)
-    step_anatomy(torch, dev, params, cfg, engine.k_cache, engine.v_cache, planes)
+    check_graphs(torch, engine, name, card)
+    step_anatomy(torch, dev, engine, planes)
     if quant != "none":
         dequant_cost(torch, params)
     else:
@@ -1802,9 +1829,11 @@ def anatomy(torch, label: str, fn, n: int) -> None:
     """Wall time of ``fn`` per step (``n`` steps per call, profiler off),
     the host syncs it makes (CUDA sync debug mode: each call that waits
     for the card, such as ``.tolist()`` of a device tensor), then under
-    torch.profiler the card's kernel time, launch count, the three kernels
-    that take most of it and the time of each of the port's own kernels:
-    how much of a step the card is busy, and with what."""
+    torch.profiler the card's kernel time, kernel count, the host's launch
+    calls (the runtime's kernel and graph launches: one per kernel when
+    eager, one per replay for a CUDA graph), the three kernels that take
+    most of it and the time of each of the port's own kernels: how much of
+    a step the card is busy, and with what."""
     import warnings
     from collections import defaultdict
 
@@ -1830,6 +1859,9 @@ def anatomy(torch, label: str, fn, n: int) -> None:
     by_name, count = defaultdict(float), defaultdict(int)
     kernels = [e for e in prof.events()
                if e.device_type == torch.autograd.DeviceType.CUDA]
+    host_launches = sum(1 for e in prof.events()
+                        if e.device_type == torch.autograd.DeviceType.CPU
+                        and re.match(r"cu\w*Launch", e.name))
     for e in kernels:
         by_name[e.name] += e.device_time_total / 1e3 / n
         count[e.name] += 1
@@ -1850,6 +1882,7 @@ def anatomy(torch, label: str, fn, n: int) -> None:
                   key=lambda kv: -kv[1])
     log(f"  {label}: {wall:.2f} ms wall per step, {busy:.2f} ms of kernels "
         f"({busy / wall:.0%} busy), {len(kernels) / n:.0f} kernel launches "
+        f"({host_launches / n:.1f} launch calls on the host) "
         f"and {syncs / n:.2f} host syncs per step; top: "
         + "; ".join(f"{k[:48]} {v:.2f} ms" for k, v in top)
         + "; the port's kernels: "
@@ -1943,27 +1976,27 @@ def dense_mm_cost(torch, dev, params, cfg) -> None:
         f"{cfg.num_layers}): " + ", ".join(f"{m} {ms:.3f} ms" for m, ms in costs.items()))
 
 
-def step_anatomy(torch, dev, params, cfg, k_cache, v_cache, planes=None,
-                 decode_only: bool = False) -> None:
-    """A 4-step decode window (B=8 at ~1k context), then (unless
-    ``decode_only``) a lone prompt's dedicated prefill (1201 tokens in the
-    2048 bucket) and, for GQA, a fused mixed step (the same decode rows and
-    a 512-token segment) of the served model on its serving cache (and
-    scale planes, with the int8 cache)."""
+def step_anatomy(torch, dev, engine, planes=None, decode_only: bool = False) -> None:
+    """The served engine's 4-step decode window (B=8 at ~1k context),
+    eager and replayed (graph_anatomy), then (unless ``decode_only``) a
+    lone prompt's dedicated prefill (1201 tokens in the 2048 bucket) and,
+    for GQA, a fused mixed step (B=8 decode rows at ~1k and a 512-token
+    segment) of the served model on its serving cache (and scale planes,
+    with the int8 cache), both eager as they serve."""
     planes = planes or {}
     from dynamo_tpu_torch.models import llama
 
+    params, cfg = engine.params, engine.cfg.model
+    k_cache, v_cache = engine.k_cache, engine.v_cache
+    graph_anatomy(torch, engine, "decode step (B=8, ~1k context)", "decode")
+    if decode_only:
+        return
     B = 8
     tables = torch.arange(1, 1 + B * 80, dtype=torch.int32, device=dev).reshape(B, 80)
     lens = torch.arange(1000, 1000 + B, dtype=torch.int32, device=dev)
     toks = torch.arange(300, 300 + B, dtype=torch.int32, device=dev)
     samp = (torch.zeros(B, device=dev), torch.zeros(B, dtype=torch.int32, device=dev),
             torch.ones(B, device=dev))
-    anatomy(torch, "decode step (B=8, ~1k context)", lambda: llama.decode_window(
-        params, cfg, toks, lens - 1, tables, lens, [0] * B, [0] * B, *samp,
-        k_cache, v_cache, n_steps=4, **planes), 4)
-    if decode_only:
-        return
     prompt = torch.zeros(2048, dtype=torch.int32, device=dev)
     prompt[:1201] = torch.arange(1201, device=dev) % 250 + 3
     table = torch.arange(700, 828, dtype=torch.int32, device=dev)
@@ -2173,21 +2206,21 @@ def oracle_drafts(engine, answers: dict):
     return prop if (prop >= 0).any() else None
 
 
-def verify_anatomy(torch, dev, params, cfg, k_cache, v_cache) -> None:
-    """One speculative verify forward (B=8 at ~1k context, T=4: the last
-    token and three proposals each, greedy) of the served model on its
-    serving cache; first, how far its t=0 rows (the same function as a
-    decode step's) lie from the merged decode step's logits on the same
-    cache: the bf16 sums differ in order and shape, and a random model's
-    top-2 logits lie close."""
+def verify_anatomy(torch, dev, engine) -> None:
+    """The served engine's speculative verify (B=8 at ~1k context, T=4:
+    the last token and three proposals each, greedy) on its serving cache,
+    eager and replayed (graph_anatomy); first, how far its forward's t=0
+    rows (the same function as a decode step's) lie from the merged
+    decode step's logits on the same cache: the bf16 sums differ in order
+    and shape, and a random model's top-2 logits lie close."""
     from dynamo_tpu_torch.models import llama
 
+    params, cfg = engine.params, engine.cfg.model
+    k_cache, v_cache = engine.k_cache, engine.v_cache
     B, T = 8, SPEC_GAMMA + 1
     tables = torch.arange(1, 1 + B * 80, dtype=torch.int32, device=dev).reshape(B, 80)
     lens = torch.arange(1000, 1000 + B, dtype=torch.int32, device=dev)
     window = (torch.arange(B * T, dtype=torch.int32, device=dev) % 250 + 3).reshape(B, T)
-    samp = (torch.zeros(B, device=dev), torch.zeros(B, dtype=torch.int32, device=dev),
-            torch.ones(B, device=dev))
     with torch.no_grad():
         dec = llama._decode_body(params, cfg, window[:, 0], lens - 1, tables, lens,
                                  k_cache, v_cache)[0]
@@ -2199,12 +2232,168 @@ def verify_anatomy(torch, dev, params, cfg, k_cache, v_cache) -> None:
         f"{float(dec.std()):.3f}, median top-1 - top-2 gap "
         f"{float((top2[:, 0] - top2[:, 1]).median()):.4f}, argmax equal in "
         f"{int((ver.argmax(-1) == dec.argmax(-1)).sum())} of {B} rows")
-    props = window[:, 1:].contiguous()
-    anatomy(torch, f"verify forward (B=8, T={T}, ~1k context; 4 in a row)",
-            lambda: [llama.verify_window(
-                params, cfg, window, props, lens - 1, tables, lens, [0] * B,
-                [0] * B, *samp, k_cache, v_cache, n_spec=SPEC_GAMMA)
-                for _ in range(4)], 4)
+    graph_anatomy(torch, engine, f"verify (B=8, T={T}, ~1k context; 4 in a row)",
+                  "verify")
+
+
+def graph_batch(engine, rng, lens, *, sampled: bool = False,
+                penalties: bool = False, first_page: int = 1):
+    """A probe batch in the served engine's host state (no request behind
+    it): slot b holds ``lens[b]`` tokens (0: a free slot, its table zero)
+    on consecutive pages from ``first_page``, with room for a window;
+    ``sampled``: seeded rows at temperatures 0.6-1.3 (slot 0 stays greedy),
+    every other one with top-k 40, every third with top-p 0.9;
+    ``penalties``: frequency, presence and repetition penalties on every
+    other row over drawn output counts and prompt masks. Returns the
+    steps (per-row generation counters) of the dispatch."""
+    import numpy as np
+
+    B, bs = engine.cfg.max_batch_size, engine.cfg.block_size
+    V = engine.cfg.model.vocab_size
+    engine._block_tables[:] = 0
+    page = first_page
+    for b, n in enumerate(lens):
+        if n:
+            need = -(-(n + 8) // bs)
+            engine._block_tables[b, :need] = np.arange(page, page + need)
+            page += need
+    engine._seq_lens[:] = lens
+    engine._last_tokens[:] = rng.randint(3, V, B)
+    engine._seeds[:] = rng.randint(0, 2**31 - 1, B)
+    engine._temps[:] = rng.uniform(0.6, 1.3, B) if sampled else 0.0
+    engine._temps[0] = 0.0
+    engine._top_ks[:] = [40 if sampled and b % 2 else 0 for b in range(B)]
+    engine._top_ps[:] = [0.9 if sampled and b % 3 == 0 else 1.0 for b in range(B)]
+    on = np.arange(B) % 2 == 0 if penalties else np.zeros(B, bool)
+    engine._freq_pens[:] = np.where(on, 0.4, 0.0)
+    engine._pres_pens[:] = np.where(on, 0.3, 0.0)
+    engine._rep_pens[:] = np.where(on, 1.15, 1.0)
+    if penalties:
+        import torch
+
+        engine._ensure_penalty_buffers()
+        g = torch.Generator(device=engine.device).manual_seed(int(rng.randint(1 << 30)))
+        hot = torch.rand(engine._pen_counts.shape, generator=g,
+                         device=engine.device) < 0.002
+        engine._pen_counts.copy_(hot * torch.randint(
+            1, 4, hot.shape, generator=g, device=engine.device, dtype=torch.int32))
+        engine._pen_mask.copy_(torch.rand(hot.shape, generator=g,
+                                          device=engine.device) < 0.002)
+    return rng.randint(0, 64, B).astype(np.int64)
+
+
+def graph_anatomy(torch, engine, label: str, kind: str) -> None:
+    """The served engine's 4-step decode window or 4 verifies (gamma 3)
+    in a row, B=8 at ~1k context, greedy, each dispatch loading its static
+    inputs (one copy) first: eager, then replayed from its CUDA graph
+    (captured on the first call), in one run."""
+    import numpy as np
+
+    B = engine.cfg.max_batch_size
+    rng = np.random.RandomState(9)
+    steps = graph_batch(engine, rng, [1000 + b for b in range(B)])
+    if kind == "decode":
+        def programs():
+            return [engine._decode_program(steps, 4, False, False)]
+    else:
+        props = rng.randint(3, 253, (B, SPEC_GAMMA)).astype(np.int32)
+        window = np.concatenate([engine._last_tokens[:, None], props], 1)
+
+        def programs():
+            return [engine._verify_program(window, props, steps, False, False)
+                    for _ in range(4)]
+    anatomy(torch, f"{label}, eager", lambda: [p[2]() for p in programs()], 4)
+    anatomy(torch, f"{label}, CUDA graph",
+            lambda: [engine._run_program(*p) for p in programs()], 4)
+
+
+def _tensors(out) -> list:
+    """The tensors of a program's (nested) output tuple, in order."""
+    if not isinstance(out, (tuple, list)):
+        return [out]
+    return [t for x in out for t in _tensors(x)]
+
+
+def check_replay(torch, runner, key: tuple, program, holds: tuple) -> None:
+    """Hold the replayed graph of ``key`` (``runner``: the engine's
+    ``engine/graphs.py GraphRunner``) against the eager ``program`` on the
+    same static inputs and the same state, bit for bit: every output, and
+    every tensor of ``holds`` after the step. Raises AssertionError naming
+    what differs, or when the dispatch did not replay. A key not yet
+    captured is captured first, and that first dispatch's writes are
+    undone; the state is left as the replay wrote it."""
+    before = [t.clone() for t in holds]
+
+    def restore():
+        for t, b in zip(holds, before):
+            t.copy_(b)
+
+    if key not in runner.graphs:
+        runner.run(key, program, holds)
+        restore()
+    held = {t.data_ptr() for t in holds}
+    eager = [t.clone() for t in _tensors(program()) if t.data_ptr() not in held]
+    eager_state = [t.clone() for t in holds]
+    restore()
+    replays = runner.replays
+    replay = [t for t in _tensors(runner.run(key, program, holds))
+              if t.data_ptr() not in held]
+    if runner.replays != replays + 1:
+        raise AssertionError(f"graph {key}: the dispatch did not replay")
+    bad = [f"output {i}" for i, (a, b) in enumerate(zip(eager, replay))
+           if not torch.equal(a, b)]
+    bad += [f"state {i}" for i, (a, b) in enumerate(zip(eager_state, holds))
+            if not torch.equal(a, b)]
+    if bad or len(eager) != len(replay):
+        raise AssertionError(f"graph {key}: the replay differs from the eager "
+                             f"step in {bad or 'its output count'}")
+
+
+def check_graphs(torch, engine, name: str, card: str) -> None:
+    """Phase 3, on the served engine at full width: every key of the
+    decode-window ladder (n = 4, 2, 1) and the gamma-3 verify (not over
+    int8 pages, which the verify does not take), replayed from its CUDA
+    graph, against the eager step on the same static inputs and state, bit
+    for bit (``check_replay``: every output and the
+    caches, scale planes and penalty counts after it). Three batches of 8
+    slots at ~1-1.3k context with one free slot: greedy; seeded sampled
+    rows with top-k / top-p, penalties and logprobs; then one slot freed
+    and the free one refilled, every table moved to other pages, replayed
+    by the graphs the second batch captured. A mismatch raises."""
+    import numpy as np
+
+    B = engine.cfg.max_batch_size
+    rng = np.random.RandomState(11)
+    lens = [1000 + 37 * b for b in range(B)]
+    lens[B - 2] = 0
+    refilled = list(lens)
+    refilled[2], refilled[B - 2] = 0, 1290
+    cases = (("greedy", lens, False, 1),
+             ("seeded sampled, top-k / top-p, penalties, logprobs", lens, True, 1),
+             ("a slot freed, another refilled, tables moved", refilled, True, 700))
+    t0, checked, replays = time.perf_counter(), 0, engine._graphs.replays
+    for label, case_lens, rich, first in cases:
+        steps = graph_batch(engine, rng, case_lens, sampled=rich, penalties=rich,
+                            first_page=first)
+        makers = [lambda n=n: engine._decode_program(steps, n, rich, rich)
+                  for n in (4, 2, 1)]
+        if engine.k_scales is None:
+            props = rng.randint(3, 253, (B, SPEC_GAMMA)).astype(np.int32)
+            props[1, 2] = -1
+            window = np.concatenate([engine._last_tokens[:, None],
+                                     np.maximum(props, 0)], 1).astype(np.int32)
+            makers.append(lambda: engine._verify_program(window, props, steps,
+                                                         rich, rich))
+        for make in makers:
+            _key, gkey, program, holds = make()
+            check_replay(torch, engine._graphs, gkey, program, holds)
+            checked += 1
+    torch.cuda.synchronize()
+    log(f"  CUDA graphs vs the eager step, bit for bit: {checked} replays "
+        f"({engine._graphs.replays - replays} counted) over "
+        f"{len(cases)} batches ({'; '.join(c[0] for c in cases)}), decode n = 4, "
+        f"2, 1" + (" and the verify" if engine.k_scales is None else "")
+        + f", in {time.perf_counter() - t0:.1f} s: equal  [{name}, {card}]")
 
 
 # ---------------- phase 4: timing ----------------

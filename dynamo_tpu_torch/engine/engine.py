@@ -33,13 +33,21 @@ scale planes beside the caches — recycled pages get their scales reset by
 one scatter on the next dispatch, prefix-cache claims keep theirs, and the
 device count of requantized pages folds into the stats only when
 ``load_metrics`` is scraped. Device work runs in the loop's executor under
-one lock, so the event loop stays live while the card computes. Left out of
-this slice (ROADMAP queue A): offload tiers, disaggregation, adapters,
+one lock, so the event loop stays live while the card computes.
+
+Programs (the reference's XLA program buckets): prompt chunks pad to the
+reference's buckets, so both engines run the same shapes. On the card the
+decode window and the verify replay one CUDA graph per key
+(``engine/graphs.py``); prefill and the fused mixed step run eagerly. The
+first dispatch of every program key (``(kind, *bucket shape)``, the
+reference's tuples) lands in ``compile_ledger`` with its wall time (for a
+graph: the eager run plus the capture; a key's graphs differ by two host
+flags, and each one's first dispatch is ledgered under the key), and
+``warmup`` dispatches every reachable key before traffic, as the
+reference's does, with every graph of the decode-window ladder. Left out
+of this slice (ROADMAP queue A): offload tiers, disaggregation, adapters,
 live reshard, the pipelined decode, multi-host mirrors, tracing / flight
-recorder and the compile ledger. PyTorch runs
-eagerly, so there are no
-compiled program buckets; prompt chunks are still padded to the
-reference's buckets so both engines run the same shapes.
+recorder, and the capture of prefill and of the mixed step.
 """
 
 from __future__ import annotations
@@ -65,9 +73,16 @@ from ..models.mla import MLA_INT8_NATIVE
 from ..models.quant import KV_SCALE_EPS, kv_cache_dtype, quantize_params
 from ..ops import mla_attention
 from ..ops.sampling import make_keys, sample_first_token, token_logprobs
-from ..protocols.common import FinishReason, LLMEngineOutput, PreprocessedRequest
+from ..protocols.common import (
+    FinishReason,
+    LLMEngineOutput,
+    PreprocessedRequest,
+    SamplingOptions,
+    StopConditions,
+)
 from ..runtime.engine import AsyncEngine, Context
 from .allocator import Block, BlockAllocator, sequence_block_hashes
+from .graphs import GraphRunner, StaticInputs
 from .hist import MS_BUCKETS, Histogram
 
 logger = logging.getLogger(__name__)
@@ -257,6 +272,8 @@ class TorchEngine(AsyncEngine):
         # fresh allocation queues a reset, flushed as ONE scatter on the
         # next dispatch (_flush_scale_resets); prefix claims keep theirs
         self._pending_scale_resets: list[int] = []
+        # the device requant count, summed over dispatches (never a graph's
+        # own output tensor: the next replay overwrites that)
         self._requants_dev: Optional[torch.Tensor] = None
         # the executor adds to the counter while a scrape folds it
         self._requants_lock = threading.Lock()
@@ -306,6 +323,23 @@ class TorchEngine(AsyncEngine):
         self._pen_mask: Optional[torch.Tensor] = None
         # requested top-logprob count per slot (-1 = off)
         self._logprob_ks = np.full(B, -1, np.int32)
+        # the decode window's and the verify's device inputs: static, so a
+        # captured graph reads each dispatch's state (engine/graphs.py)
+        self._graphs = GraphRunner(self.device, capture=True)
+        self._static = StaticInputs(self.device, {
+            "last_tokens": ((B,), np.int32), "positions": ((B,), np.int32),
+            "block_tables": ((B, M), np.int32), "seq_lens": ((B,), np.int32),
+            "seeds": ((B,), np.int64), "steps": ((B,), np.int64),
+            "temps": ((B,), np.float32), "top_ks": ((B,), np.int32),
+            "top_ps": ((B,), np.float32), "freq_pens": ((B,), np.float32),
+            "pres_pens": ((B,), np.float32), "rep_pens": ((B,), np.float32),
+        })
+        self._verify_static: Optional[StaticInputs] = None  # first verify's
+        # (kind, *bucket shape) keys whose program has dispatched at least
+        # once, and newest-last {kind, key, ms} entries of those first
+        # dispatches (bounded), as the reference keeps them
+        self._compiled_keys: set[tuple] = set()
+        self.compile_ledger: list[dict] = []
         self.stats = {
             "requests_total": 0,
             "requests_active": 0,
@@ -325,6 +359,12 @@ class TorchEngine(AsyncEngine):
             "kv_device_requants_total": 0,
             "kv_device_bytes_saved_total": 0,
             "lowprec_tok_s": 0.0,
+            # first dispatches of program keys (the reference's XLA
+            # compile ledger counters) and warmup's coverage
+            "xla_compiles_total": 0,
+            "xla_compile_ms_total": 0.0,
+            "xla_warm_buckets": 0,
+            "xla_reachable_buckets": 0,
         }
         # the worker's latency distributions in the reference's wire form
         # (load_metrics' hist_* keys): admission wait and prefill wall per
@@ -352,6 +392,91 @@ class TorchEngine(AsyncEngine):
         if self._loop_task:
             self._loop_task.cancel()
             self._loop_task = None
+
+    async def warmup(self, decode: bool = True) -> list[int]:
+        """Dispatch the serving programs BEFORE real traffic, as the
+        reference's ``JaxEngine.warmup`` does: one request per reachable
+        prefill bucket plus the whole decode-window ladder. On the card the
+        first dispatch of a window size builds the kernels it has not run
+        yet and captures its CUDA graph; without warmup the first real
+        request at that shape pays it inside its stream.
+
+        The reference's details, kept:
+          * each bucket gets its own pseudo-random prompt
+            (``RandomState(1000 + i)``): a repeated prompt would hit the
+            prefix cache and prefill only a smaller tail bucket;
+          * a prompt of ``min(prefill_chunk, max_context - 1)`` tokens
+            warms the top bucket real chunks round up to, where that limit
+            is not a bucket boundary;
+          * the first request's ``max_tokens`` is ``2 * decode_window``:
+            one token comes from the prefill, so decode has ``2W - 1`` and
+            ``_pick_window`` walks the ladder W, W/2, ..., 1;
+          * speculation is held off while warmup runs and restored after
+            (repeated-token prompts would bait prompt lookup, and a verify
+            would swallow the windows being warmed).
+
+        Beyond the reference: a window size has up to three graphs (greedy,
+        sampled, sampled with top-k / top-p; ``_host_flags``), so two more
+        requests of the smallest bucket, one seeded sampled and one also
+        filtered, walk the ladder again and capture the others. They open
+        no new program key; their captures add ledger entries.
+
+        ``decode=False`` dispatches no decode window (every request stops
+        at its prefill-sampled token). Warmup blocks enter the prefix cache
+        and age out like any other. Returns the warmed bucket sizes."""
+        lim = min(self.cfg.prefill_chunk, self.cfg.max_context - 1)
+        lengths = [b for b in PREFILL_BUCKETS if b <= lim]
+        sizes = list(lengths)
+        top = _bucket(lim)
+        if top not in sizes:
+            lengths.append(lim)
+            sizes.append(top)
+        W = self.cfg.decode_window
+        V = self.cfg.model.vocab_size
+        # (prompt length, max_tokens, sampling) per warmup request
+        greedy = SamplingOptions(temperature=0.0)
+        plan = [(n, 2 * W if (i == 0 and decode) else 1, greedy)
+                for i, n in enumerate(lengths)]
+        if decode:
+            plan += [(lengths[0], 2 * W, SamplingOptions(temperature=1.0, seed=0)),
+                     (lengths[0], 2 * W, SamplingOptions(
+                         temperature=1.0, seed=0, top_k=8, top_p=0.9))]
+        gamma, self.cfg.spec_gamma = self.cfg.spec_gamma, 0
+        try:
+            for i, (n_toks, max_tokens, so) in enumerate(plan):
+                toks = np.random.RandomState(1000 + i).randint(
+                    0, V, n_toks).tolist()
+                req = PreprocessedRequest(
+                    token_ids=toks,
+                    stop_conditions=StopConditions(
+                        max_tokens=max_tokens, ignore_eos=True,
+                    ),
+                    sampling_options=so,
+                    eos_token_ids=[],
+                )
+                async for _ in self.generate(Context(req)):
+                    pass
+        finally:
+            self.cfg.spec_gamma = gamma
+        # coverage: program keys this warmup dispatched against what
+        # traffic can reach through it (the reference's formula)
+        warm = sum(1 for k in self._compiled_keys
+                   if k[0] in ("prefill", "decode", "mixed"))
+        reachable = len(sizes)
+        if decode:
+            w = W
+            while w >= 1:  # the _pick_window power-of-two ladder
+                reachable += 1
+                w //= 2
+        self.stats["xla_warm_buckets"] = warm
+        self.stats["xla_reachable_buckets"] = reachable
+        logger.info(
+            "warmup coverage: %d/%d reachable program buckets dispatched "
+            "(%d first dispatches, %.0f ms, %d CUDA graphs)", warm, reachable,
+            self.stats["xla_compiles_total"], self.stats["xla_compile_ms_total"],
+            len(self._graphs.graphs),
+        )
+        return sizes
 
     async def generate(self, request: Context) -> AsyncIterator[LLMEngineOutput]:
         if self._dead is not None:
@@ -396,11 +521,13 @@ class TorchEngine(AsyncEngine):
     def load_metrics(self) -> dict:
         """Worker stats under exactly the JAX engine's keys (the ones
         ``WorkerLoad.from_stats`` scrapes, and the rest of the reference's
-        scrape schema). Features this worker does not have report their
-        idle values: no XLA compile ledger, autopilot, drain, reshard, host
-        tiers, tier codec, weight prestaging or adapters; one device, one
-        served name. The int8 cache's device requant counter converts to a
-        host number here, and only here."""
+        scrape schema). The ``xla_*`` keys count the first dispatches of
+        program keys (on the card: kernel builds and CUDA graph captures)
+        and warmup's coverage. Features this worker does not have report
+        their idle values: no autopilot, drain, reshard, host tiers, tier
+        codec, weight prestaging or adapters; one device, one served name.
+        The int8 cache's device requant counter converts to a host number
+        here, and only here."""
         self._fold_quant_counters()
         hbm = self._hbm_stats()
         return {
@@ -409,10 +536,10 @@ class TorchEngine(AsyncEngine):
             "hist_restore_ms": self.hist["restore_ms"].to_vec(),
             "hist_handoff_ms": self.hist["handoff_ms"].to_vec(),
             "hist_ttft_ms": {m: h.to_vec() for m, h in self.hist_ttft.items()},
-            "xla_compiles_total": 0,
-            "xla_compile_ms_total": 0.0,
-            "xla_warm_buckets": 0,
-            "xla_reachable_buckets": 0,
+            "xla_compiles_total": self.stats["xla_compiles_total"],
+            "xla_compile_ms_total": round(self.stats["xla_compile_ms_total"], 3),
+            "xla_warm_buckets": self.stats["xla_warm_buckets"],
+            "xla_reachable_buckets": self.stats["xla_reachable_buckets"],
             "autopilot_warmups_applied": 0,
             "autopilot_warmup_ms_total": 0.0,
             "autopilot_quarantined": 0,
@@ -529,10 +656,12 @@ class TorchEngine(AsyncEngine):
         """Fold one quantized dispatch into the lane's stats. ``n_requants``
         stays a DEVICE scalar (summed on the card; converted only by
         _fold_quant_counters at scrape time); ``gen_tokens`` > 0 (decode
-        dispatches) feeds the lane's decode-throughput EMA."""
+        dispatches) feeds the lane's decode-throughput EMA. A decode
+        window's ``n_requants`` is its graph's output, which the next
+        replay overwrites: the sum starts from a copy."""
         if n_requants is not None:
             with self._requants_lock:
-                self._requants_dev = (n_requants if self._requants_dev is None
+                self._requants_dev = (n_requants.clone() if self._requants_dev is None
                                       else self._requants_dev + n_requants)
         self.stats["kv_device_bytes_saved_total"] += (
             tokens_written * self._kv_saved_per_token)
@@ -766,11 +895,11 @@ class TorchEngine(AsyncEngine):
         chunk = seq.tokens[st.pos : st.pos + cfg.prefill_chunk]
         toks = np.zeros(_bucket(len(chunk)), np.int32)
         toks[: len(chunk)] = chunk
-        out = llama.prefill(
+        out = self._timed(("prefill", len(toks), False), lambda: llama.prefill(
             self.params, cfg.model, self._dev(toks), self._dev(self._table_for(seq)),
             st.pos, len(chunk), self.k_cache, self.v_cache,
             **self._scale_kwargs(),
-        )
+        ))
         logits = out[0]
         if self.k_scales is not None:
             self._note_quant_step(None, len(chunk))
@@ -782,6 +911,133 @@ class TorchEngine(AsyncEngine):
 
     def _dev(self, a: np.ndarray) -> torch.Tensor:
         return torch.as_tensor(a, device=self.device)
+
+    # ---- programs: the ledger and the graphs ----
+
+    def _timed(self, key: tuple, dispatch, cold: Optional[bool] = None,
+               graph: tuple = ()):
+        """Run a device dispatch; the first of its program ``key`` (the
+        reference's ``(kind, *bucket shape)`` tuple), or the dispatch the
+        caller calls ``cold`` (the first of a graph), is timed to the end
+        of its device work into the ledger."""
+        if cold is None:
+            cold = key not in self._compiled_keys
+        t0 = time.perf_counter()
+        out = dispatch()
+        if cold:
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            self._note_compile(key, (time.perf_counter() - t0) * 1e3, graph)
+        return out
+
+    def _note_compile(self, key: tuple, wall_ms: float, graph: tuple = ()) -> None:
+        """First dispatch of a program key, or of one of its graphs
+        (``graph``: the host flags that tell them apart): ledger it (the
+        reference's ``_note_compile``). ``ms`` is what that dispatch cost:
+        kernel builds, the eager run and, for a decode window or a verify,
+        its CUDA graph's capture."""
+        self._compiled_keys.add(key)
+        entry = {"kind": key[0], "key": list(key[1:]), "ms": round(wall_ms, 3)}
+        if graph:
+            entry["graph"] = list(graph)
+        self.compile_ledger.append(entry)
+        if len(self.compile_ledger) > 512:
+            del self.compile_ledger[:-256]
+        self.stats["xla_compiles_total"] += 1
+        self.stats["xla_compile_ms_total"] += wall_ms
+        if wall_ms > 1000.0:
+            logger.info("first dispatch: %s %s took %.0f ms",
+                        key[0], key[1:], wall_ms)
+
+    def _run_program(self, key: tuple, graph_key: tuple, program, holds):
+        """A decode window or a verify: its graph replayed, or run and
+        captured on the graph key's first dispatch, which is ledgered
+        under ``key`` with the graph's host flags."""
+        return self._timed(key, lambda: self._graphs.run(graph_key, program, holds),
+                           cold=graph_key not in self._graphs.dispatched,
+                           graph=graph_key[len(key):])
+
+    def _host_flags(self) -> tuple[bool, bool]:
+        """(any row sampled, any row filtered by top-k / top-p; the filter
+        matters only where a row samples), from the host arrays of every
+        slot: what a graph's capture must decide."""
+        sampled = bool((self._temps > 0.0).any())
+        return sampled, sampled and bool(
+            ((self._top_ks > 0) | (self._top_ps < 1.0)).any())
+
+    def _load_static(self, steps: np.ndarray, penalized: bool) -> dict:
+        """The batch's host state into the static device inputs."""
+        arrays = dict(
+            last_tokens=self._last_tokens,
+            positions=np.maximum(self._seq_lens - 1, 0),
+            block_tables=self._block_tables, seq_lens=self._seq_lens,
+            seeds=self._seeds, steps=steps, temps=self._temps,
+            top_ks=self._top_ks, top_ps=self._top_ps,
+        )
+        if penalized:
+            arrays.update(freq_pens=self._freq_pens, pres_pens=self._pres_pens,
+                          rep_pens=self._rep_pens)
+        return self._static.load(**arrays)
+
+    def _state(self, s: dict, penalized: bool) -> tuple[dict, tuple]:
+        """(keyword arguments, state tensors) a program reads besides the
+        static inputs: penalty vectors and buffers, scale planes (recycled
+        pages reset first)."""
+        kw = {}
+        if penalized:
+            kw.update(freq_pens=s["freq_pens"], pres_pens=s["pres_pens"],
+                      rep_pens=s["rep_pens"], counts=self._pen_counts,
+                      prompt_mask=self._pen_mask)
+        kw.update(self._scale_kwargs())
+        holds = (self.k_cache, self.v_cache) + tuple(
+            kw[k] for k in ("counts", "prompt_mask", "k_scales", "v_scales")
+            if k in kw)
+        return kw, holds
+
+    def _decode_program(self, steps: np.ndarray, n: int, penalized: bool,
+                        want_lp: bool):
+        """(ledger key, graph key, program, state it holds) of an n-step
+        decode window over the engine's host state, loaded into the static
+        inputs."""
+        s = self._load_static(steps, penalized)
+        sampled, filtered = self._host_flags()
+        kw, holds = self._state(s, penalized)
+        key = ("decode", n, penalized, want_lp)
+
+        def program():
+            return llama.decode_window(
+                self.params, self.cfg.model, s["last_tokens"], s["positions"],
+                s["block_tables"], s["seq_lens"], s["seeds"], s["steps"],
+                s["temps"], s["top_ks"], s["top_ps"], self.k_cache,
+                self.v_cache, n_steps=n, with_logprobs=want_lp,
+                sampled=sampled, filtered=filtered, **kw)
+
+        return key, key + (sampled, filtered), program, holds
+
+    def _verify_program(self, window: np.ndarray, proposals: np.ndarray,
+                        steps: np.ndarray, penalized: bool, want_lp: bool):
+        """As :meth:`_decode_program`, for a verify of ``proposals.shape[1]``
+        proposals per row (acceptance always filters: no ``filtered``)."""
+        B, g = proposals.shape
+        if self._verify_static is None:  # an engine verifies one gamma
+            self._verify_static = StaticInputs(self.device, {
+                "window": ((B, g + 1), np.int32),
+                "proposals": ((B, g), np.int32)})
+        s = self._load_static(steps, penalized)
+        v = self._verify_static.load(window=window, proposals=proposals)
+        sampled, _ = self._host_flags()
+        kw, holds = self._state(s, penalized)
+        key = ("verify", g, penalized, want_lp)
+
+        def program():
+            return llama.verify_window(
+                self.params, self.cfg.model, v["window"], v["proposals"],
+                s["positions"], s["block_tables"], s["seq_lens"], s["seeds"],
+                s["steps"], s["temps"], s["top_ks"], s["top_ps"],
+                self.k_cache, self.v_cache, n_spec=g, with_logprobs=want_lp,
+                sampled=sampled, **kw)
+
+        return key, key + (sampled,), program, holds
 
     def _table_for(self, seq: _Sequence) -> np.ndarray:
         t = np.zeros(self.cfg.max_blocks_per_seq, np.int32)
@@ -865,13 +1121,19 @@ class TorchEngine(AsyncEngine):
             for i, s in enumerate(self._active) if s is not None
         )
 
-    def _reset_penalty_slot(self, slot: int, seq: _Sequence) -> None:
-        """Rebuild one slot's output counts and prompt mask (repetition
-        penalty covers prompt + output tokens)."""
+    def _ensure_penalty_buffers(self) -> None:
+        """The [B, V] output counts and prompt mask, made on first use and
+        then only updated in place (a penalized graph holds them)."""
         B, V = self.cfg.max_batch_size, self.cfg.model.vocab_size
         if self._pen_counts is None:
             self._pen_counts = torch.zeros((B, V), dtype=torch.int32, device=self.device)
             self._pen_mask = torch.zeros((B, V), dtype=torch.bool, device=self.device)
+
+    def _reset_penalty_slot(self, slot: int, seq: _Sequence) -> None:
+        """Rebuild one slot's output counts and prompt mask (repetition
+        penalty covers prompt + output tokens)."""
+        V = self.cfg.model.vocab_size
+        self._ensure_penalty_buffers()
         gen = self._dev(np.asarray(seq.tokens[seq.prompt_len :], np.int64))
         self._pen_counts[slot] = torch.bincount(gen, minlength=V).to(torch.int32)
         self._pen_mask[slot] = False
@@ -1101,20 +1363,12 @@ class TorchEngine(AsyncEngine):
 
     def _dispatch_verify(self, window: np.ndarray, proposals: np.ndarray,
                          steps: np.ndarray):
-        """Executor thread: fused verify forward + on-device acceptance.
-        Returns (out_tokens [B, T], n_acc [B], logprob arrays [T, B, ...] or
-        None) as host arrays."""
-        cfg = self.cfg
-        positions = np.maximum(self._seq_lens - 1, 0).astype(np.int32)
+        """Executor thread: fused verify forward + on-device acceptance (a
+        replayed CUDA graph on the card). Returns (out_tokens [B, T], n_acc
+        [B], logprob arrays [T, B, ...] or None) as host arrays."""
         want_lp = self._logprobs_active()
-        out = llama.verify_window(
-            self.params, cfg.model, self._dev(window), self._dev(proposals),
-            self._dev(positions), self._dev(self._block_tables),
-            self._dev(self._seq_lens), self._seeds.tolist(), steps.tolist(),
-            *self._sampling_tensors(), self.k_cache, self.v_cache,
-            n_spec=cfg.spec_gamma, with_logprobs=want_lp,
-            **self._penalty_kwargs(),
-        )
+        out = self._run_program(*self._verify_program(
+            window, proposals, steps, self._penalties_active(), want_lp))
         lps = None
         if want_lp:  # step-major, as _lp_entry reads a window's arrays
             lps = tuple(a.transpose(0, 1).cpu().numpy() for a in out[-1])
@@ -1137,8 +1391,9 @@ class TorchEngine(AsyncEngine):
         )
 
     def _dispatch_window(self, steps: np.ndarray, n: int):
-        """Executor thread: one n-step decode window. Returns (tokens
-        [n, B] host array, logprob host arrays or None)."""
+        """Executor thread: one n-step decode window (a replayed CUDA graph
+        on the card). Returns (tokens [n, B] host array, logprob host
+        arrays or None)."""
         cfg = self.cfg
         for seq in self._active:
             if seq is None or seq.finished or seq.slot < 0:
@@ -1148,16 +1403,9 @@ class TorchEngine(AsyncEngine):
                     f"window n={n} exceeds provisioned blocks for request "
                     f"{getattr(seq.context, 'id', '?')}"
                 )
-        positions = np.maximum(self._seq_lens - 1, 0).astype(np.int32)
         want_lp = self._logprobs_active()
-        out = llama.decode_window(
-            self.params, cfg.model, self._dev(self._last_tokens),
-            self._dev(positions), self._dev(self._block_tables),
-            self._dev(self._seq_lens), self._seeds.tolist(), steps.tolist(),
-            *self._sampling_tensors(), self.k_cache, self.v_cache,
-            n_steps=n, with_logprobs=want_lp, **self._penalty_kwargs(),
-            **self._scale_kwargs(),
-        )
+        out = self._run_program(*self._decode_program(
+            steps, n, self._penalties_active(), want_lp))
         if self.k_scales is not None:
             self._note_quant_step(out[5], self._n_active * n,
                                   gen_tokens=self._n_active * n)
@@ -1295,16 +1543,17 @@ class TorchEngine(AsyncEngine):
             hists_p[i] = st.pos
             valids_p[i] = len(chunk)
         positions = np.maximum(self._seq_lens - 1, 0).astype(np.int32)
-        want_lp = self._logprobs_active()
-        out = llama.mixed_step(
+        penalized, want_lp = self._penalties_active(), self._logprobs_active()
+        sampled, filtered = self._host_flags()
+        out = self._timed(("mixed", MP, T, penalized, want_lp), lambda: llama.mixed_step(
             self.params, cfg.model, self._dev(self._last_tokens),
             self._dev(positions), self._dev(self._block_tables),
-            self._dev(self._seq_lens), self._seeds.tolist(), steps.tolist(),
+            self._dev(self._seq_lens), self._seeds, steps,
             *self._sampling_tensors(), self._dev(toks_p), self._dev(tables_p),
             self._dev(hists_p), self._dev(valids_p), self.k_cache, self.v_cache,
-            with_logprobs=want_lp, **self._penalty_kwargs(),
-            **self._scale_kwargs(),
-        )
+            with_logprobs=want_lp, sampled=sampled, filtered=filtered,
+            **self._penalty_kwargs(), **self._scale_kwargs(),
+        ))
         toks, p_logits = out[0], out[1]
         if self.k_scales is not None:
             self._note_quant_step(
@@ -1374,6 +1623,10 @@ class TorchEngine(AsyncEngine):
             self._active[seq.slot] = None
             self._seq_lens[seq.slot] = 0
             self._block_tables[seq.slot] = 0
+            # a free slot is greedy: it leaves the graph's flags to the rest
+            self._temps[seq.slot] = 0.0
+            self._top_ks[seq.slot] = 0
+            self._top_ps[seq.slot] = 1.0
             self._n_active -= 1
             seq.slot = -1
 

@@ -23,6 +23,8 @@ Examples::
       --model-path /path/to/checkpoint-dir
   python -m dynamo_tpu_torch.launch.dynamo_run in=http out=torch \
       --model-path llama3-8b-sim --tokenizer /path/to/tokenizer-dir
+  python -m dynamo_tpu_torch.launch.dynamo_run in=http out=torch \
+      --model-path llama3-8b-sim --warmup
 
 ``--model-path`` is a preset or a checkpoint: a local directory or an
 ``org/name`` already in the local HF cache (``llm/hub.py``) holding
@@ -48,6 +50,7 @@ import asyncio
 import logging
 import os
 import sys
+import time
 from typing import Optional
 
 import torch
@@ -130,8 +133,21 @@ def build_engine(args) -> tuple[OpenAIWorkerEngine, TorchEngine, str]:
     return OpenAIWorkerEngine(tokenizer, core), core, name
 
 
+async def maybe_warmup(args, core: TorchEngine) -> None:
+    """--warmup: dispatch the serving programs (kernel builds, the CUDA
+    graph captures of the decode windows) before the HTTP port opens, so
+    no request pays the first dispatch of a prefill bucket or of a decode
+    window."""
+    if args.warmup:
+        t0 = time.monotonic()
+        sizes = await core.warmup()
+        print(f"warmup: compiled prefill buckets {sizes} + decode window "
+              f"ladder in {time.monotonic() - t0:.1f}s", flush=True)
+
+
 async def run_http(args) -> None:
-    engine, _core, name = build_engine(args)
+    engine, core, name = build_engine(args)
+    await maybe_warmup(args, core)
     manager = ModelManager()
     manager.add_chat_model(name, engine)
     manager.add_completion_model(name, engine)
@@ -143,7 +159,8 @@ async def run_http(args) -> None:
 
 
 async def run_text(args) -> None:
-    engine, _core, name = build_engine(args)
+    engine, core, name = build_engine(args)
+    await maybe_warmup(args, core)
     print(f"interactive mode — model {name!r}; ctrl-d to exit", flush=True)
     loop = asyncio.get_running_loop()
     while True:
@@ -192,6 +209,11 @@ def parse_args(argv=None):
     p.add_argument("--quantization", default="none", choices=list(WEIGHT_MODES),
                    help="weight quantization (per-channel; models/quant.py; "
                         "expert stacks through the ragged_int8_gmm kernel)")
+    p.add_argument("--warmup", action="store_true",
+                   help="compile every prefill bucket + the decode window "
+                        "before serving (first-request TTFT skips the "
+                        "per-bucket first dispatch: kernel builds and the "
+                        "decode windows' CUDA graph captures)")
     p.add_argument("--kv-cache-dtype", default="model",
                    choices=list(KV_CACHE_DTYPES),
                    help="KV cache storage dtype (int8 = int8-with-scales "

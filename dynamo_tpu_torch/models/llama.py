@@ -454,18 +454,40 @@ def _expert_act(cfg: ModelConfig, g: torch.Tensor, u: torch.Tensor):
     return F.silu(g) * u
 
 
+#: the most bytes of expert matrices one batched product of
+#: :func:`_ragged_mm`'s f32 path gathers
+_F32_GATHER_BYTES = 1 << 28
+
+
 def _ragged_mm(xs: torch.Tensor, w, group_sizes: torch.Tensor) -> torch.Tensor:
     """Grouped matmul over expert-sorted rows: rows of group e (``group_sizes
     [X]`` consecutive) times ``w[e]`` (``[X, in, out]``), the twin of
-    ``lax.ragged_dot``. On the card one ``torch._grouped_mm`` call (offsets
-    from a device cumsum, no host sync); on the CPU a loop over the groups.
-    A quantized stack (``{"q", "s"}``) goes through ``ragged_int8_gmm``
-    (the CUDA kernel on the card, its plain twin on the CPU)."""
+    ``lax.ragged_dot``; rows past the groups come out zero. On the card
+    one ``torch._grouped_mm`` call for bf16 rows (offsets from a device
+    cumsum, no host sync); f32 rows take each row's expert matrix in
+    batched products, since ``_grouped_mm``'s f32 path reads the offsets
+    on the host, which a captured decode step cannot: the rows go in
+    chunks whose gathered matrices stay within ``_F32_GATHER_BYTES``, so
+    the memory does not grow with the rows. On the CPU a loop over the
+    groups. A quantized stack (``{"q", "s"}``) goes through
+    ``ragged_int8_gmm`` (the CUDA kernel on the card, its plain twin on
+    the CPU)."""
     if isinstance(w, dict):
         return ragged_int8_gmm(xs, w["q"], w["s"], group_sizes).to(xs.dtype)
     if xs.device.type == "cuda":
-        offs = torch.cumsum(group_sizes, 0).to(torch.int32)
-        return torch._grouped_mm(xs, w, offs=offs)
+        offs = torch.cumsum(group_sizes, 0)
+        if xs.dtype == torch.bfloat16:
+            return torch._grouped_mm(xs, w, offs=offs.to(torch.int32))
+        X, E = xs.shape[0], w.shape[0]
+        e = torch.searchsorted(offs, torch.arange(X, device=xs.device),
+                               right=True)  # E past the groups
+        live = (e < E)[:, None]
+        e = e.clamp(max=E - 1)
+        step = max(1, _F32_GATHER_BYTES // (w[0].numel() * w.element_size()))
+        out = xs.new_empty(X, w.shape[-1])
+        for r in range(0, X, step):
+            out[r:r + step] = torch.bmm(xs[r:r + step, None], w[e[r:r + step]])[:, 0]
+        return out * live
     out = xs.new_zeros(xs.shape[0], w.shape[-1])
     start = 0
     for e, n in enumerate(group_sizes.tolist()):
@@ -716,20 +738,38 @@ def _decode_body(params, cfg, tokens, positions, block_tables, seq_lens,
     return logits, k_cache, v_cache, k_scales, v_scales, n_req
 
 
-def _sample_step(logits, seeds, steps, temps, temps_host, top_ks, top_ps,
-                 penalties, with_logprobs):
+def _i64(x, device) -> torch.Tensor:
+    """Seeds or steps as an int64 tensor on ``device`` (a host sequence is
+    uploaded; a tensor is used where it lies)."""
+    if torch.is_tensor(x):
+        return x.to(device=device, dtype=torch.int64)
+    return torch.as_tensor([int(v) for v in x], dtype=torch.int64, device=device)
+
+
+def _host_flags(temps, top_ks, top_ps, sampled, filtered):
+    """The two host decisions of a sampling step: any row sampled (a
+    temperature above 0: keys are drawn) and any row filtered (top-k or
+    top-p: the sort runs). Callers that know them (the engine, from its
+    host arrays) pass them; otherwise they are read from the card here,
+    once per dispatch (the filter only for a batch that samples)."""
+    if sampled is None:
+        sampled = bool((temps > 0.0).any())
+    if filtered is None:
+        filtered = sampled and bool(((top_ks > 0) | (top_ps < 1.0)).any())
+    return sampled, filtered
+
+
+def _sample_step(logits, keys, temps, top_ks, top_ps, filtered, penalties,
+                 with_logprobs):
     """Penalties on the sampled distribution, raw logits for logprobs (the
-    JAX decode_window body). ``penalties`` = (freq, pres, rep, counts,
-    prompt_mask) or None; counts are bumped in place. ``temps_host`` is
-    ``temps`` read once per dispatch, so an all-greedy step never waits
-    for the card."""
+    JAX decode_window body). ``keys`` ``[B, 2]`` (None: an all-greedy
+    batch); ``penalties`` = (freq, pres, rep, counts, prompt_mask) or None;
+    counts are bumped in place."""
     raw = logits
     if penalties is not None:
         freq, pres, rep, counts, mask = penalties
         logits = apply_penalties(logits, counts, mask, freq, pres, rep)
-    keys = (make_keys(seeds, steps, logits.device)
-            if any(t > 0.0 for t in temps_host) else None)
-    nxt = sample_tokens(logits, keys, temps, top_ks, top_ps)
+    nxt = sample_tokens(logits, keys, temps, top_ks, top_ps, filtered)
     if penalties is not None:
         bump_counts(penalties[3], nxt)
     lps = token_logprobs(raw, nxt) if with_logprobs else None
@@ -744,8 +784,8 @@ def decode_window(
     positions: torch.Tensor,  # [B]
     block_tables: torch.Tensor,  # [B, M] int32
     seq_lens: torch.Tensor,  # [B] int32
-    seeds,  # [B] int sampling seeds (host sequence or tensor)
-    steps,  # [B] int per-request generation counters
+    seeds,  # [B] int sampling seeds (host sequence or int64 tensor)
+    steps,  # [B] int per-request generation counters (likewise)
     temps: torch.Tensor,  # [B] float32
     top_ks: torch.Tensor,  # [B] int32
     top_ps: torch.Tensor,  # [B] float32
@@ -760,6 +800,8 @@ def decode_window(
     with_logprobs: bool = False,
     k_scales: Optional[torch.Tensor] = None,  # [L, N] f32 (int8 cache), IN PLACE
     v_scales: Optional[torch.Tensor] = None,
+    sampled: Optional[bool] = None,  # any temperature > 0; None = read it
+    filtered: Optional[bool] = None,  # any top-k / top-p row; None = read it
 ):
     """``n_steps`` decode+sample steps; the sampled token of step i feeds
     step i+1 on the device. Returns (tokens [n_steps, B] int32, k_cache,
@@ -767,17 +809,23 @@ def decode_window(
     top_ids, top_lps) each [n_steps, ...]]) — the planes and the device
     int32 count of scale entries that grew in the window with the int8
     cache, counts only with penalties. Callers pre-allocate KV blocks for
-    ``n_steps`` new tokens per sequence."""
+    ``n_steps`` new tokens per sequence. With device ``seeds`` / ``steps``
+    and both host flags given, the window reads nothing back from the card
+    (the engine captures it in a CUDA graph); step i's keys are
+    ``(seed, step + i)``, hashed on the device."""
     quantized = _check_planes(cfg, k_scales, v_scales)
-    n_req = (torch.zeros((), dtype=torch.int32, device=tokens.device)
+    dev = tokens.device
+    n_req = (torch.zeros((), dtype=torch.int32, device=dev)
              if quantized else None)
     penalties = (
         None if counts is None
         else (freq_pens, pres_pens, rep_pens, counts, prompt_mask)
     )
-    seeds = [int(s) for s in seeds]
-    steps = [int(s) for s in steps]
-    temps_host = temps.tolist()
+    sampled, filtered = _host_flags(temps, top_ks, top_ps, sampled, filtered)
+    keys = None
+    if sampled:  # [B, n_steps, 2]: every step's keys in one hash
+        keys = make_keys(_i64(seeds, dev)[:, None], _i64(steps, dev)[:, None]
+                         + torch.arange(n_steps, device=dev))
     toks, lps = [], []
     for i in range(n_steps):
         out = _decode_body(
@@ -788,8 +836,8 @@ def decode_window(
         if quantized:
             n_req = n_req + out[5]
         nxt, lp = _sample_step(
-            logits, seeds, [s + i for s in steps], temps, temps_host, top_ks,
-            top_ps, penalties, with_logprobs,
+            logits, None if keys is None else keys[:, i], temps, top_ks,
+            top_ps, filtered, penalties, with_logprobs,
         )
         toks.append(nxt)
         lps.append(lp)
@@ -941,6 +989,8 @@ def mixed_step(
     with_logprobs: bool = False,
     k_scales: Optional[torch.Tensor] = None,  # [L, N] f32 (int8 cache), IN PLACE
     v_scales: Optional[torch.Tensor] = None,
+    sampled: Optional[bool] = None,  # as in decode_window
+    filtered: Optional[bool] = None,
 ):
     """ONE fused step: MP prefill chunks plus a decode token for every
     active sequence (GQA: combined-row GEMMs and one ragged attention call
@@ -967,10 +1017,11 @@ def mixed_step(
         None if counts is None
         else (freq_pens, pres_pens, rep_pens, counts, prompt_mask)
     )
-    nxt, lps = _sample_step(
-        logits_d, [int(s) for s in seeds], [int(s) for s in steps], temps,
-        temps.tolist(), top_ks, top_ps, penalties, with_logprobs,
-    )
+    sampled, filtered = _host_flags(temps, top_ks, top_ps, sampled, filtered)
+    dev = d_tokens.device
+    keys = make_keys(_i64(seeds, dev), _i64(steps, dev)) if sampled else None
+    nxt, lps = _sample_step(logits_d, keys, temps, top_ks, top_ps, filtered,
+                            penalties, with_logprobs)
     out = (nxt, p_logits, k_cache, v_cache)
     if quantized:
         n_req = ((k_scales > k_scales0).sum()
@@ -1051,8 +1102,8 @@ def verify_window(
     positions: torch.Tensor,  # [B] absolute position of tokens[:, 0]
     block_tables: torch.Tensor,  # [B, M] int32
     seq_lens: torch.Tensor,  # [B] int32, length INCLUDING tokens[:, 0]
-    seeds,  # [B] int sampling seeds (host sequence or tensor)
-    steps,  # [B] int per-request generation counters
+    seeds,  # [B] int sampling seeds (host sequence or int64 tensor)
+    steps,  # [B] int per-request generation counters (likewise)
     temps: torch.Tensor,  # [B] float32; 0 = greedy row
     top_ks: torch.Tensor,  # [B] int32
     top_ps: torch.Tensor,  # [B] float32
@@ -1065,6 +1116,7 @@ def verify_window(
     counts: Optional[torch.Tensor] = None,  # [B, V] int32, bumped IN PLACE
     prompt_mask: Optional[torch.Tensor] = None,  # [B, V] bool
     with_logprobs: bool = False,
+    sampled: Optional[bool] = None,  # any temperature > 0; None = read it
 ):
     """Speculative verify + acceptance, greedy and sampled rows:
 
@@ -1083,13 +1135,17 @@ def verify_window(
 
     Returns (out_tokens [B, T] int32, n_acc [B] int32, k_cache, v_cache[,
     counts][, (chosen_lp [B, T], top_ids [B, T, K], top_lps [B, T, K])]):
-    the caller emits ``out_tokens[:, :n_acc + 1]``."""
+    the caller emits ``out_tokens[:, :n_acc + 1]``. ``sampled`` as in
+    :func:`decode_window` (acceptance always applies the top-k / top-p
+    filter, so there is no ``filtered``): with device seeds and steps and
+    the flag given, the verify reads nothing back from the card."""
     T = n_spec + 1
     B = tokens.shape[0]
     dev = tokens.device
-    # read once before the forward is queued (as decode_window does), so
-    # an all-greedy verify never waits for the card mid-stream
-    sampled = any(t > 0.0 for t in temps.tolist())
+    # read before the forward is queued (as decode_window does), so an
+    # all-greedy verify never waits for the card mid-stream
+    if sampled is None:
+        sampled = bool((temps > 0.0).any())
     logits, k_cache, v_cache = _verify_forward(
         params, cfg, tokens, positions, block_tables, seq_lens, k_cache,
         v_cache, n_spec,
@@ -1110,17 +1166,12 @@ def verify_window(
             freq_pens.repeat_interleave(T), pres_pens.repeat_interleave(T),
             rep_pens.repeat_interleave(T),
         ).reshape(B, T, V)
-    seeds = [int(s) for s in seeds]
-    steps = [int(s) for s in steps]
     keys_accept = keys_sample = None
-    if sampled:
-        keys_accept = torch.stack(
-            [make_keys([s ^ 0x5EC for s in seeds], [s + t for s in steps], dev)
-             for t in range(n_spec)], dim=1) if n_spec else torch.zeros(
-                 B, 0, 2, dtype=torch.int64, device=dev)
-        keys_sample = torch.stack(
-            [make_keys(seeds, [s + t for s in steps], dev) for t in range(T)],
-            dim=1)
+    if sampled:  # [B, n_spec, 2] and [B, T, 2], hashed on the device
+        seed = _i64(seeds, dev)[:, None]
+        at = _i64(steps, dev)[:, None] + torch.arange(T, device=dev)
+        keys_accept = make_keys(seed ^ 0x5EC, at[:, :n_spec])
+        keys_sample = make_keys(seed, at)
     out, n_acc = speculative_accept(sample_logits, proposals, keys_accept,
                                     keys_sample, temps, top_ks, top_ps)
     result = (out, n_acc, k_cache, v_cache)

@@ -167,13 +167,43 @@ def device_buffer(kind: str, device: torch.device, n: int,
     split counters of the decode bodies, int32, zero when made and zero
     between launches (the block that merges a unit's splits zeroes its
     counter), shared by every kernel on the stream; any other kind is
-    scratch that each launch writes before it reads."""
+    scratch that each launch writes before it reads.
+
+    A CUDA graph holds the buffer's address, so it is never made or grown
+    while the stream captures: the eager run of the same shapes before a
+    capture sizes it, and a request to grow during one raises (a tickets
+    buffer made inside a graph's pool would not stay zero between
+    launches)."""
     buf = _buffers.get((kind, device))
     if buf is None or buf.numel() < n:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(
+                f"device_buffer {kind!r}: asked for {n} elements "
+                f"(holding {0 if buf is None else buf.numel()}) while the "
+                "stream captures a CUDA graph; an eager run of the same "
+                "shapes must come first"
+            )
         make = torch.zeros if kind == "tickets" else torch.empty
         buf = make(max(n, 1024), dtype=dtype, device=device)
         _buffers[kind, device] = buf
     return buf
+
+
+#: (wrapper, its counters' names) of every kernel wrapper that counts its
+#: launches, registered by :func:`counted` where the wrapper is defined
+#: (``engine/graphs.py`` reads these counters around a graph's capture)
+COUNTED: list = []
+
+
+def counted(fn, *subsets: str):
+    """Register the kernel wrapper ``fn``: its ``launches`` counter, and
+    ``subsets``, counters of the launches it also counts apart, start at
+    0. The wrapper adds to them where it launches its kernel."""
+    names = ("launches",) + subsets
+    for name in names:
+        setattr(fn, name, 0)
+    COUNTED.append((fn, names))
+    return fn
 
 
 def require_cuda(name: str, *tensors: torch.Tensor) -> torch.device:

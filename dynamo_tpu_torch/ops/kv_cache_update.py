@@ -115,7 +115,7 @@ def kv_cache_append(
     return k_cache, v_cache
 
 
-kv_cache_append.launches = 0
+_cuda.counted(kv_cache_append)
 
 
 def kv_cache_append_tokens(
@@ -143,7 +143,7 @@ def kv_cache_append_tokens(
     return k_cache, v_cache
 
 
-kv_cache_append_tokens.launches = 0
+_cuda.counted(kv_cache_append_tokens)
 
 
 def quant_scale_update(x_new, scales, blk, qmax: float = KV_INT8_QMAX,
@@ -302,4 +302,4 @@ def kv_cache_append_quantized(
     return k_cache, v_cache, ks, vs, n
 
 
-kv_cache_append_quantized.launches = 0
+_cuda.counted(kv_cache_append_quantized)

@@ -316,8 +316,7 @@ def mla_paged_decode_attention(
     return (o, m, l) if return_stats else o
 
 
-mla_paged_decode_attention.launches = 0
-mla_paged_decode_attention.verify_launches = 0
+_cuda.counted(mla_paged_decode_attention, "verify_launches")
 
 
 def mla_decode_attention_merged(
@@ -453,4 +452,4 @@ def mla_paged_prefill_attention(
     return o
 
 
-mla_paged_prefill_attention.launches = 0
+_cuda.counted(mla_paged_prefill_attention)

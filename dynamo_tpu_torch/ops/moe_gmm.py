@@ -180,6 +180,6 @@ def _ptr(t: Optional[torch.Tensor]):
     return None if t is None else ctypes.c_void_p(t.data_ptr())
 
 
-ragged_int8_gmm.launches = 0
-#: the subset of ``launches`` with bf16 rows, more than FEW_ROWS per expert
-ragged_int8_gmm.prefill_launches = 0
+#: ``prefill_launches``: the subset of ``launches`` with bf16 rows, more
+#: than FEW_ROWS per expert
+_cuda.counted(ragged_int8_gmm, "prefill_launches")

@@ -298,8 +298,7 @@ def paged_decode_attention(
     return (o, m, l) if return_stats else o
 
 
-paged_decode_attention.launches = 0
-paged_decode_attention.verify_launches = 0
+_cuda.counted(paged_decode_attention, "verify_launches")
 
 
 def paged_prefill_attention(
@@ -353,4 +352,4 @@ def paged_prefill_attention(
     return o.reshape(T, H, D)
 
 
-paged_prefill_attention.launches = 0
+_cuda.counted(paged_prefill_attention)

@@ -25,6 +25,7 @@ from typing import Optional
 
 import torch
 
+from . import _cuda
 from .paged_attention import (
     gather_pages,
     launch_paged_attention,
@@ -152,4 +153,4 @@ def ragged_mixed_attention_rows(
     return o.reshape(Ntok, H, D)
 
 
-ragged_mixed_attention.launches = 0
+_cuda.counted(ragged_mixed_attention)

@@ -16,7 +16,7 @@ maximum.
 
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import Optional
 
 import torch
 
@@ -48,18 +48,26 @@ def threefry2x32(k1, k2, x1, x2):
     return x1, x2
 
 
-def make_keys(seeds: Sequence[int], steps: Sequence[int],
-              device="cpu") -> torch.Tensor:
-    """``[B, 2]`` key data, uint32 values in int64:
-    ``key_data(fold_in(key(seed), step))`` per row. ``key(seed)`` of an
-    int32 seed is ``[0, seed]``; folding in ``step`` hashes the counter
-    pair ``(0, step)`` under that key. Computed on the host (B rows) and
-    moved to ``device``."""
-    seed = torch.as_tensor([int(s) & _M32 for s in seeds], dtype=torch.int64)
-    step = torch.as_tensor([int(s) & _M32 for s in steps], dtype=torch.int64)
+def make_keys(seeds, steps, device="cpu") -> torch.Tensor:
+    """``[..., 2]`` key data, uint32 values in int64:
+    ``key_data(fold_in(key(seed), step))`` per (seed, step) pair, the two
+    broadcast together. ``key(seed)`` of an int32 seed is ``[0, seed]``;
+    folding in ``step`` hashes the counter pair ``(0, step)`` under that
+    key. Host sequences hash on the host and move to ``device``; tensors
+    hash on their own device (``device`` unused), so a captured CUDA graph
+    computes each replay's keys from the values then in ``seeds`` and
+    ``steps``."""
+    if torch.is_tensor(seeds):
+        seed = seeds.to(torch.int64) & _M32
+        step = torch.as_tensor(steps, device=seeds.device).to(torch.int64) & _M32
+    else:
+        seed = torch.as_tensor([int(s) & _M32 for s in seeds], dtype=torch.int64)
+        step = torch.as_tensor([int(s) & _M32 for s in steps], dtype=torch.int64)
+    seed, step = torch.broadcast_tensors(seed, step)
     k1, k2 = threefry2x32(torch.zeros_like(seed), seed,
                           torch.zeros_like(step), step)
-    return torch.stack([k1, k2], dim=-1).to(device)
+    keys = torch.stack([k1, k2], dim=-1)
+    return keys if torch.is_tensor(seeds) else keys.to(device)
 
 
 def _uniform(keys: torch.Tensor, V: int, device) -> torch.Tensor:
@@ -80,17 +88,23 @@ def sample_tokens(
     temperature: torch.Tensor,  # [B] 0 => greedy
     top_k: torch.Tensor,  # [B] 0 => disabled
     top_p: torch.Tensor,  # [B] 1.0 => disabled
+    filtered: Optional[bool] = None,  # any top-k / top-p row; None = read it
 ) -> torch.Tensor:  # [B] int32
     """An all-greedy batch (``keys`` None: callers that know every
     temperature is 0 make no keys) is one argmax and never waits for the
     card; a filter-free sampled batch skips the full-vocab sort; sampled
     rows draw ``jax.random.categorical``: the argmax of Gumbel noise plus
-    the temperature-scaled logits."""
+    the temperature-scaled logits. ``filtered`` says whether any row of
+    ``top_k`` / ``top_p`` filters; callers that know it (the engine, from
+    its host arrays) spare the read of the card, which a captured step
+    cannot make."""
     greedy = torch.argmax(logits, dim=-1).to(torch.int32)
     if keys is None:
         return greedy
     scaled = logits / temperature.clamp_min(1e-6)[:, None]
-    if bool(((top_k > 0) | (top_p < 1.0)).any()):
+    if filtered is None:
+        filtered = bool(((top_k > 0) | (top_p < 1.0)).any())
+    if filtered:
         scaled = _apply_topk_topp(scaled, top_k, top_p)
     sampled = _categorical(keys, scaled)
     return torch.where(temperature <= 0.0, greedy, sampled)
@@ -222,11 +236,10 @@ def apply_penalties(
 
 
 def bump_counts(counts: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
-    """counts[b, tokens[b]] += 1 for every row, in place."""
-    rows = torch.arange(tokens.shape[0], device=counts.device)
-    counts.index_put_((rows, tokens.long()), torch.ones_like(rows, dtype=counts.dtype),
-                      accumulate=True)
-    return counts
+    """counts[b, tokens[b]] += 1 for every row, in place (a scatter-add:
+    integer sums, the same counts in any order)."""
+    idx = tokens.long()[:, None]
+    return counts.scatter_add_(1, idx, torch.ones_like(idx, dtype=counts.dtype))
 
 
 def sample_first_token(

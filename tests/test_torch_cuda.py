@@ -9,6 +9,7 @@ the port only (no JAX), so it runs on a GPU machine as it stands:
 machine need not have.)
 """
 
+import numpy as np
 import pytest
 import torch
 
@@ -815,3 +816,216 @@ def test_cuda_engine_serves_spec_gamma_16_at_four_heads_per_kv_head():
     assert streams[16] == streams[0] and len(streams[0]) == 40
     assert steps[16]["spec_accepted"] > 0
     assert steps[16]["decode_steps"] < steps[0]["decode_steps"]
+
+
+# ---------------- CUDA graphs of the decode window and the verify ----------------
+
+
+def fill_caches(eng, g):
+    """Random history in every page (int8 codes with scales for the int8
+    cache), so attention reads something other than zeros."""
+    if eng.k_cache.dtype == torch.int8:
+        for c in (eng.k_cache, eng.v_cache):
+            c.copy_(torch.randint(-127, 128, c.shape, generator=g, dtype=torch.int8))
+        for s in (eng.k_scales, eng.v_scales):
+            s.copy_(torch.rand(s.shape, generator=g) * 0.02 + 1e-3)
+    else:
+        for c in (eng.k_cache, eng.v_cache):
+            c.copy_(torch.randn(c.shape, generator=g))
+
+
+def set_batch(eng, rng, lens, *, temps=0.0, seeds=0, top_ks=0, top_ps=1.0,
+              penalties=False, first_page=1):
+    """The engine's host state for one dispatch: slot b holds lens[b]
+    tokens (0: a free or preempted slot, its table zero) on consecutive
+    pages from ``first_page``, with room for a window; penalties on rows
+    0, 2 and 3 of a 4-slot engine. Returns the steps (per-row generation
+    counters) the dispatch takes."""
+    bs, M = eng.cfg.block_size, eng.cfg.max_blocks_per_seq
+    V = eng.cfg.model.vocab_size
+    eng._block_tables[:] = 0
+    page = first_page
+    for b, n in enumerate(lens):
+        if n:
+            need = min(-(-(n + 4) // bs), M)
+            eng._block_tables[b, :need] = np.arange(page, page + need)
+            page += need
+    eng._seq_lens[:] = lens
+    eng._last_tokens[:] = rng.randint(0, V, len(lens))
+    eng._temps[:], eng._seeds[:] = temps, seeds
+    eng._top_ks[:], eng._top_ps[:] = top_ks, top_ps
+    if penalties:
+        eng._ensure_penalty_buffers()
+        eng._pen_counts.copy_(torch.as_tensor(rng.randint(0, 3, eng._pen_counts.shape)))
+        eng._pen_mask.copy_(torch.as_tensor(rng.rand(*eng._pen_mask.shape) < 0.1))
+        eng._freq_pens[:] = [0.5, 0.0, 0.2, 0.0]
+        eng._pres_pens[:] = [0.3, 0.0, 0.0, 0.1]
+        eng._rep_pens[:] = [1.2, 1.0, 0.9, 1.0]
+    else:
+        eng._freq_pens[:], eng._pres_pens[:], eng._rep_pens[:] = 0.0, 0.0, 1.0
+    return rng.randint(0, 50, len(lens)).astype(np.int64)  # steps
+
+
+def _graph_model(family, dtype):
+    from dynamo_tpu_torch.models.config import ModelConfig
+
+    if family == "gqa":
+        return ModelConfig.tiny(dtype=dtype, head_dim=64, num_heads=8,
+                                num_kv_heads=2, hidden_size=128)
+    return ModelConfig.tiny_mla(
+        dtype=dtype, kv_lora_rank=128, qk_rope_head_dim=64, num_layers=3,
+        first_dense_layers=1, num_experts=8, num_experts_per_tok=2,
+        num_shared_experts=1, moe_intermediate_size=32)
+
+
+def _graph_engine(family, dtype="float32", quantization="none", kv="model",
+                  params=None):
+    from dynamo_tpu_torch.engine import EngineConfig, TorchEngine
+
+    cfg = _graph_model(family, dtype)
+    return TorchEngine(EngineConfig(
+        model=cfg, num_blocks=64, block_size=16, max_batch_size=4,
+        max_context=256, decode_window=4, quantization=quantization,
+        kv_cache_dtype=kv), params=params, seed=1, device="cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family,dtype,quantization,kv", [
+    ("gqa", "float32", "none", "model"), ("gqa", "bfloat16", "none", "model"),
+    ("mla", "float32", "none", "model"), ("mla", "bfloat16", "none", "model"),
+    ("mla", "float32", "int8", "model"), ("mla", "bfloat16", "int8", "model"),
+    ("gqa", "float32", "fp8_e4m3", "int8")],
+    ids=["GQA f32", "GQA bf16", "MLA+MoE f32", "MLA+MoE bf16",
+         "MLA+MoE int8 weights", "MLA+MoE bf16, int8 weights",
+         "GQA fp8 weights + int8 KV"])
+def test_cuda_graph_replays_equal_the_eager_step(family, dtype, quantization, kv):
+    """On the card, at tiny widths: every key of the window ladder (n = 4,
+    2, 1) and the gamma-3 verify (not over int8 pages, which the verify
+    does not take), replayed from its CUDA graph, gives bit for bit what
+    the eager step gives on the same inputs and state (chip_smoke.py
+    check_replay): greedy rows; seeded sampled rows with top-k / top-p,
+    penalties and logprobs; then the tables changed, a slot freed and
+    another refilled on other pages, replayed by the graphs captured
+    before. The replays count their kernels' launches."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the chip)")
+    from chip_smoke import check_replay
+    from dynamo_tpu_torch.ops import mla_attention
+
+    eng = _graph_engine(family, dtype, quantization, kv)
+    fill_caches(eng, torch.Generator().manual_seed(0))
+    rng = np.random.RandomState(0)
+    V = eng.cfg.model.vocab_size
+    cases = [
+        ([40, 17, 0, 66], {}, False, False, 1),
+        ([41, 18, 0, 67], dict(temps=[0.8, 0.0, 0.0, 1.1], seeds=[5, 0, 9, 77],
+                               top_ks=[0, 0, 0, 3], top_ps=[1.0, 1.0, 1.0, 0.9]),
+         True, True, 1),
+        ([42, 0, 23, 68], dict(temps=[0.9, 0.0, 0.6, 0.0], seeds=[5, 0, 31, 0]),
+         False, True, 30),
+    ]
+    decode = (paged_decode_attention if family == "gqa"
+              else mla_attention.mla_paged_decode_attention)
+    for lens, samp, pen, lp, first in cases:
+        steps = set_batch(eng, rng, lens, penalties=pen, first_page=first, **samp)
+        programs = [eng._decode_program(steps, n, pen, lp) for n in (4, 2, 1)]
+        if kv != "int8":
+            proposals = rng.randint(0, V, (4, 3)).astype(np.int32)
+            proposals[0, 2] = -1
+            window = np.concatenate([eng._last_tokens[:, None],
+                                     np.maximum(proposals, 0)], 1).astype(np.int32)
+            programs.append(eng._verify_program(window, proposals, steps, pen, lp))
+        for _key, gkey, program, holds in programs:
+            before = decode.launches
+            check_replay(torch, eng._graphs, gkey, program, holds)
+            assert decode.launches > before  # the eager step's and the replay's
+    assert eng._graphs.replays == 3 * len(programs)
+    assert len(eng._graphs.graphs) >= len(programs)
+    assert eng._graphs.pool_bytes() > 0
+
+
+@pytest.mark.cuda
+def test_cuda_int8_kv_requant_count_survives_replays():
+    """The int8 cache's requant count sums a window's graph output, which
+    the next replay overwrites: windows dispatched through the graphs
+    (capture, then replays with a scrape between them) and through the
+    eager step on a twin engine (same weights, same state) give the same
+    tokens and the same ``kv_device_requants_total``."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the chip)")
+    from dynamo_tpu_torch.engine.graphs import GraphRunner
+
+    graphs = _graph_engine("gqa", kv="int8")
+    eager = _graph_engine("gqa", kv="int8", params=graphs.params)
+    eager._graphs = GraphRunner(eager.device, capture=False)
+    results = []
+    for eng in (graphs, eager):
+        fill_caches(eng, torch.Generator().manual_seed(4))
+        steps = set_batch(eng, np.random.RandomState(4), [30, 9, 0, 50])
+        toks, totals = [], []
+        for _ in range(2):
+            for _ in range(2):
+                toks.append(eng._dispatch_window(steps, 4)[0])
+            totals.append(eng.load_metrics()["kv_device_requants_total"])
+        results.append((np.stack(toks), totals))
+    assert graphs._graphs.replays == 3 and eager._graphs.replays == 0
+    np.testing.assert_array_equal(results[0][0], results[1][0])
+    assert results[0][1] == results[1][1] and results[0][1][0] > 0
+
+
+@pytest.mark.cuda
+def test_cuda_device_buffer_refuses_to_grow_while_capturing():
+    """A shared device buffer is sized by the eager run before a capture;
+    asked to grow while the stream captures, it raises (a graph would
+    otherwise hold a buffer made inside its own pool)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the chip)")
+    from dynamo_tpu_torch.ops import _cuda
+
+    dev = torch.device("cuda")
+    held = _cuda.device_buffer("capture probe", dev, 16, torch.float32)
+    graph, stream = torch.cuda.CUDAGraph(), torch.cuda.Stream()
+    with torch.cuda.stream(stream):
+        graph.capture_begin()
+        try:
+            assert _cuda.device_buffer("capture probe", dev, 16, torch.float32) is held
+            with pytest.raises(RuntimeError, match="captures a CUDA graph"):
+                _cuda.device_buffer("capture probe", dev, held.numel() + 1,
+                                    torch.float32)
+            with pytest.raises(RuntimeError, match="captures a CUDA graph"):
+                _cuda.device_buffer("never made", dev, 1, torch.float32)
+        finally:
+            graph.capture_end()
+
+
+@pytest.mark.cuda
+def test_cuda_f32_ragged_mm_memory_stays_bounded_at_prefill_rows():
+    """The f32 expert matmul on the card (a batched product of each row's
+    gathered expert matrix, capture-safe) at a prefill's row count where
+    gathering every row's ``[in, out]`` matrix at once would take 96 GiB:
+    it gathers in bounded chunks, matches a per-expert product, and leaves
+    rows past the groups zero."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the chip)")
+    from dynamo_tpu_torch.models import llama
+
+    dev = torch.device("cuda")
+    E, D, X = 8, 2048, 6144  # X rows x a 16 MiB matrix each: 96 GiB
+    g = torch.Generator(device=dev).manual_seed(0)
+    xs = torch.randn(X, D, generator=g, device=dev)
+    w = torch.randn(E, D, D, generator=g, device=dev) * D ** -0.5
+    sizes = [1500, 0, 900, 1200, 17, 800, 1000, 600]  # 127 rows past the groups
+    group_sizes = torch.tensor(sizes, dtype=torch.int64, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    out = llama._ragged_mm(xs, w, group_sizes)
+    torch.cuda.synchronize()
+    assert torch.cuda.max_memory_allocated(dev) - base < 2 * llama._F32_GATHER_BYTES
+    want = torch.zeros_like(out)
+    start = 0
+    for e, n in enumerate(sizes):
+        want[start:start + n] = xs[start:start + n] @ w[e]
+        start += n
+    torch.testing.assert_close(out, want, rtol=1e-4, atol=1e-4)
+    assert not out[sum(sizes):].any()
