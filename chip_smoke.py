@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port (dynamo_tpu_torch) once on one NVIDIA GPU.
 
-    python3 chip_smoke.py            # every phase, the way to check the port
+    python3 chip_smoke.py
 
 Phases, in order; any failure raises and the script exits non-zero:
 
@@ -27,11 +27,20 @@ Phases, in order; any failure raises and the script exits non-zero:
      GEMM at DeepSeek-V2-Lite's expert shapes (64 experts, 2048 x 1408 and
      1408 x 2048; 48 decode rows and 7206 prefill rows) within 2e-2 of its
      plain twin, unowned rows exactly 0; the int8_native ``_mm``
-     (torch._int_mm) on the card against the CPU's int32 product; plus
+     (torch._int_mm) on the card against the CPU's int32 product; the
+     three GQA kernels at gpt-oss-20b's shapes (H=64, Hkv=8, D=64) with a
+     128-token window and sinks drawn N(ln 128, 1), bf16 and int8 pages
+     (the merged decode's call and the verify's rows with (m, l), decode
+     rows with the sink folded, prefill and ragged; the scale each sink
+     puts on its row's o within 1e-2 of the plain version's), then the
+     pages below every walk's first step filled with NaN: outputs
+     bit-equal and finite (the walks skip those pages); plus
+     a tiny gpt-oss (windows of 16, sinks, biased clamped MoE whose clamp
+     cuts elements on both devices, no routing tie) and
      four tiny models (dense GQA, MLA + MoE, and each again quantized:
      int8 KV + fp8 weights, int8 experts) through prefill / mixed step /
      decode window on the card against the same functions on the CPU
-     (f32, TF32 off), the dense and MLA ones through the speculative
+     (f32, TF32 off), the gpt-oss, dense and MLA ones through the speculative
      verify_window too (tokens and accepted counts exact, logits 1e-3),
      the same for a tiny Qwen2 (random q/k/v biases, G=7: 14 query heads
      over 2) and a tiny Qwen3 (random per-head q/k norm weights),
@@ -53,7 +62,7 @@ Phases, in order; any failure raises and the script exits non-zero:
      launches bit-equal); the bf16
      MoE FFN at DeepSeek-V2-Lite's widths run twice, bit-equal, each stage
      compared;
-  3. serving: the port's OpenAI HTTP service in-process, eleven drives one
+  3. serving: the port's OpenAI HTTP service in-process, twelve drives one
      after the other (each model's memory freed before the next):
      llama3-8b-sim and deepseek-v2-lite-sim, each twice on fresh engines
      (how many greedy answers the two drives share), deepseek-v2-lite-sim
@@ -73,7 +82,13 @@ Phases, in order; any failure raises and the script exits non-zero:
      the saved weights'; SentencePiece encode ms per request), each of
      these three held to dense_forward at full width (the served bf16
      prefill's logits no further from the f32 forward's than
-     ORACLE_FACTOR times the plain bf16 forward's) —
+     ORACLE_FACTOR times the plain bf16 forward's), and gptoss-20b-sim
+     (gpt-oss-20b's published shapes and depth, 41.8 GB of bf16 weights;
+     every prompt longer than its 128-token window; its windowed
+     launches counted apart, the replays checked as the first drives';
+     its first 4 layers held to dense_forward as the three above, with
+     every token routed to the same experts, and a witness that the
+     check sees the sinks knocked out) —
      at the reference defaults otherwise; one
      request alone (the dedicated prefill), then several more of 64-1500
      bytes while it decodes (fused mixed steps), one of them a streaming
@@ -110,7 +125,10 @@ Phases, in order; any failure raises and the script exits non-zero:
      operations over 989 TFLOP/s, from this run's inputs); the grouped
      GEMM's decode rows at the gate shape and, on their own line, at the
      down projection's shape, and the latent kernels' CUDA-core body (bf16
-     at C=1024, R=64, C.8's widths; f32 at C=512, R=64).
+     at C=1024, R=64, C.8's widths; f32 at C=512, R=64); and the three
+     GQA kernels with gpt-oss's window 128 and sinks at gpt-oss-20b's
+     shapes, their bound counted from the positions the window keeps and
+     their yardstick SDPA over the same windows (banded mask, no sink).
 
 The second-to-last lines are the ``{"kernels": [...]}`` JSON and the
 card's ``nvidia-smi`` name and power limit; the last line is
@@ -121,8 +139,10 @@ repository beside this file, it prints no result and exits non-zero.
 from __future__ import annotations
 
 import asyncio
+import contextlib
 import gc
 import json
+import math
 import re
 import statistics
 import subprocess
@@ -199,6 +219,18 @@ KERNELS = {
         "dynamo_tpu_torch/csrc/mla_attention.cu",
         "dynamo_tpu/ops/mla_attention_pallas.py:132",
     ),
+    "paged_decode_attention (window 128)": (
+        "dynamo_tpu_torch/csrc/paged_attention.cu",
+        "dynamo_tpu/ops/paged_attention_pallas.py:184",
+    ),
+    "paged_prefill_attention (window 128, sinks)": (
+        "dynamo_tpu_torch/csrc/paged_attention.cu",
+        "dynamo_tpu/ops/paged_attention_pallas.py:440",
+    ),
+    "ragged_mixed_attention (window 128, sinks)": (
+        "dynamo_tpu_torch/csrc/paged_attention.cu",
+        "dynamo_tpu/ops/ragged_paged_attention_pallas.py:225",
+    ),
 }
 #: the int8-KV variant of each GQA kernel shares the kernel's counter; the
 #: int8-KV drive's launches land under the variant's name
@@ -208,6 +240,17 @@ INT8_KV = " (int8 KV)"
 #: multi-token append of each spec drive lands under its width's row
 VERIFY = " (verify rows)"
 SPEC_GAMMA = 3
+#: gpt-oss's sliding layers: the windowed variants of the GQA kernels at
+#: gpt-oss-20b's widths (H=64, Hkv=8, D=64), timed in phase 4; their
+#: launches are the gpt-oss drive's windowed ones (the wrappers'
+#: ``window_launches``). The decode row is the merged decode's call, whose
+#: (m, l) come without the sink (the merge folds it)
+GPTOSS_WINDOW = 128
+WINDOW = f" (window {GPTOSS_WINDOW})"
+WINDOW_SINKS = f" (window {GPTOSS_WINDOW}, sinks)"
+GPTOSS_DRIVE = "gptoss-20b-sim"
+#: the depth of the gpt-oss model held to dense_forward at full width
+GPTOSS_ORACLE_LAYERS = 4
 #: the drives run twice, the second time on a fresh engine (C.4)
 REPEATED = ("llama3-8b-sim", "deepseek-v2-lite-sim")
 #: the checkpoint drive: Mistral-7B-Instruct-v0.2's config.json at this
@@ -239,12 +282,17 @@ def nvidia_smi_line() -> str:
 
 
 class KernelInputs:
-    """Synthetic paged caches and queries at the Llama-3-8B shapes."""
+    """Synthetic paged caches and queries at the Llama-3-8B shapes, or at
+    the head shapes given; with a ``window`` (and ``sinks``) every entry
+    point takes the gpt-oss options: the decode and verify rows as the
+    merged decode and the verify call the kernel (one past the cache,
+    floors per row, (m, l) without the sink), prefill and ragged with the
+    window and per-head sink logits drawn N(ln window, 1)."""
 
-    def __init__(self, torch, dev):
+    def __init__(self, torch, dev, H=32, Hkv=8, D=128, window=0, sinks=False):
         self.torch = torch
         g = torch.Generator(device=dev).manual_seed(0)
-        self.H, self.Hkv, self.D, self.bs = 32, 8, 128, 16
+        self.H, self.Hkv, self.D, self.bs = H, Hkv, D, 16
         self.M, self.N = 128, 2048  # table width (2048 tokens), pool pages
         self.scale = self.D ** -0.5
         H, Hkv, D, bs, M, N = self.H, self.Hkv, self.D, self.bs, self.M, self.N
@@ -284,6 +332,16 @@ class KernelInputs:
         self.k_win, self.v_win = randn(8, T, Hkv, D), randn(8, T, Hkv, D)
         self.q_rows = self.q_ver.reshape(8, T, Hkv, G, D).permute(
             0, 2, 1, 3, 4).reshape(8, Hkv * T * G, D).contiguous()
+        self.window = window
+        # the sinks near the log of the window: each holds a real share of
+        # its row's mass (N(0, 1) would hold a few percent over 128 scores)
+        self.sinks = (torch.randn(H, generator=g, device=dev)
+                      + math.log(window or 128) if sinks else None)
+        # the decode / verify rows' options, and prefill's and ragged's
+        self.dkw = (dict(window=window, q_pos_offset=1, group=G)
+                    if window else {})
+        self.skw = ({"window": window, "sinks": self.sinks}
+                    if window or sinks else {})
 
     def scaled(self):
         """The same queries and tables over an int8 copy of the caches with
@@ -309,16 +367,32 @@ class KernelInputs:
     # one call of each entry point, kernel or plain
     def decode(self, fn):
         return fn(self.q_dec, self.kc, self.vc, self.d_tables, self.d_lens,
-                  self.scale, return_stats=True, **self.sc)
+                  self.scale, return_stats=True, **self.sc, **self.dkw)
+
+    def decode_sinks(self, fn):
+        """Decode rows at seq_len - 1 with the sink folded into o (no
+        (m, l)): the decode tiles' fold, as a ragged launch's decode rows
+        take it."""
+        return fn(self.q_dec, self.kc, self.vc, self.d_tables, self.d_lens,
+                  self.scale, window=self.window, sinks=self.sinks, **self.sc)
+
+    def without_sinks(self):
+        """The same calls with the window alone."""
+        import copy
+
+        other = copy.copy(self)
+        other.sinks = None
+        other.skw = {"window": self.window} if self.window else {}
+        return other
 
     def prefill(self, fn):
         return fn(self.q_pre, self.kc, self.vc, self.p_table, self.hist, self.scale,
-                  **self.sc)
+                  **self.sc, **self.skw)
 
     def ragged(self, fn):
         return fn(self.q_dec, self.q_chunks, self.kc, self.vc, self.d_tables,
                   self.d_lens, self.r_tables, self.r_hists, self.r_valids,
-                  self.scale, **self.sc)
+                  self.scale, **self.sc, **self.skw)
 
     # (m, l) of a prefill / ragged launch against the plain softmax
     # statistics: o within 2e-2 cannot tell a dropped page or a causal edge
@@ -373,18 +447,19 @@ class KernelInputs:
     def verify_rows(self, fn):
         """The verify's history pass: the decode kernel (``group`` = G
         marks the packed rows) or its plain twin, with (m, l)."""
-        from dynamo_tpu_torch.ops import paged_attention as pa
-
-        kw = {"group": self.H // self.Hkv} if fn is pa.paged_decode_attention else {}
+        kw = {**self.dkw, "group": self.H // self.Hkv}
         return fn(self.q_rows, self.kc, self.vc, self.d_tables, self.d_lens,
-                  self.scale, return_stats=True, **kw)
+                  self.scale, return_stats=True, **self.sc, **kw)
 
     def verify(self, fn, dev=None):
         """``verify_attention`` (history pass + the dense causal window) on
         ``dev`` (the CPU takes the plain twin)."""
         args = (self.q_ver, self.k_win, self.v_win, self.kc, self.vc,
                 self.d_tables, self.d_lens)
-        return fn(*(a if dev is None else a.to(dev) for a in args), self.scale)
+        kw = {k: v.to(dev) if dev is not None and hasattr(v, "to") else v
+              for k, v in self.skw.items()}
+        return fn(*(a if dev is None else a.to(dev) for a in args), self.scale,
+                  **kw)
 
 
 class MlaInputs:
@@ -996,6 +1071,157 @@ def check_decode_rows(torch, inp: KernelInputs) -> None:
                 "1e-3, empty slot zero  OK")
 
 
+def nan_below(torch, x: KernelInputs, cuts: dict):
+    """A copy of ``x`` whose pages wholly below each table's cut (``{table
+    row tensor: first position kept}``) are NaN: the bf16 pages
+    themselves, or for int8 pages their scales. Pages the kernel skips
+    are never read; a page it reads and masks would turn its output NaN
+    (0 x NaN in the value product)."""
+    import copy
+
+    other = copy.copy(x)
+    scaled = bool(x.sc)
+    kc, vc = x.kc.clone(), x.vc.clone()
+    ks = x.sc.get("k_scales")
+    vs = x.sc.get("v_scales")
+    ks, vs = (ks.clone(), vs.clone()) if scaled else (None, None)
+    for table, cut in cuts:
+        pages = table[: max(cut, 0) // x.bs].long()
+        if scaled:
+            ks[pages] = float("nan")
+            vs[pages] = float("nan")
+        else:
+            kc[:, pages] = float("nan")
+            vc[:, pages] = float("nan")
+    other.kc, other.vc = kc, vc
+    if scaled:
+        other.sc = {"k_scales": ks, "v_scales": vs}
+    return other
+
+
+def sink_scale(torch, with_sinks, without):
+    """Per row and head (the last dimension D reduced): the factor that
+    takes the sinkless o to the o with the sink folded, as the projection
+    <a, b> / <b, b>; NaN where the row attended nothing."""
+    a, b = with_sinks.float(), without.float()
+    den = (b * b).sum(-1)
+    return torch.where(den > 1e-12, (a * b).sum(-1) / den.clamp_min(1e-12),
+                       float("nan"))
+
+
+def check_windowed(torch, inp: KernelInputs, where: str) -> dict:
+    """The gpt-oss options of the three GQA kernels against their plain
+    versions, bf16 and int8 pages: the merged decode's call (window floors
+    one past the cache, (m, l)), the verify's T*G rows (a floor per
+    token), decode rows with the sink folded, prefill and the ragged call
+    with the window and the sinks. Outputs within 2e-2, (m, l) within
+    rtol 1e-3, the empty slot o = 0, m = -1e30, l = 0. The sink launches
+    against the same launches without sinks: the scale the sink puts on
+    each row's o within 1e-2 of the plain versions', the sinks holding at
+    least 10% of the mass on average. Then the pages
+    wholly below each tile's first step (the decode bodies step 16
+    positions, the segment tiles 64 from the tile's first token's floor)
+    are made NaN: every output stays finite and bit-equal, so the walks
+    skip those pages and do not mask them."""
+    from dynamo_tpu_torch.ops import paged_attention as pa
+    from dynamo_tpu_torch.ops import ragged_paged_attention as rpa
+
+    W, bs = inp.window, inp.bs
+    errs = {}
+    for label, x in (("bf16", inp), ("int8 pages", inp.scaled())):
+        tag = "" if label == "bf16" else INT8_KV
+        calls = {
+            "decode (merged decode's call)": (x.decode, pa.paged_decode_attention,
+                                              pa.paged_decode_attention_plain),
+            "verify rows": (x.verify_rows, pa.paged_decode_attention,
+                            pa.paged_decode_attention_plain),
+            "decode, sink folded": (x.decode_sinks, pa.paged_decode_attention,
+                                    pa.paged_decode_attention_plain),
+            "prefill": (x.prefill, pa.paged_prefill_attention,
+                        pa.paged_prefill_attention_plain),
+            "ragged": (x.ragged, rpa.ragged_mixed_attention,
+                       rpa.ragged_mixed_attention_plain),
+        }
+        outs, worst = {}, {}
+        for what, (call, kernel, plain) in calls.items():
+            got, ref = call(kernel), call(plain)
+            torch.cuda.synchronize()
+            got = got if isinstance(got, tuple) else (got,)
+            ref = ref if isinstance(ref, tuple) else (ref,)
+            outs[what] = got
+            if what in ("decode (merged decode's call)", "verify rows"):
+                worst[what] = close(f"{what}, {label}", got[0], ref[0], 2e-2, 2e-2)
+                close_stats(f"{what}, {label}", got[1:], ref[1:])
+                o, m, l = got
+                if not (bool((o[7] == 0).all()) and bool((m[7] == -1e30).all())
+                        and bool((l[7] == 0).all())):
+                    raise AssertionError(f"{what}, {label}: the empty slot must "
+                                         "give o=0, m=-1e30, l=0")
+            else:
+                worst[what] = max(close(f"{what}, {label}", a, b, 2e-2, 2e-2)
+                                  for a, b in zip(got, ref))
+        # each sink launch against the same launch without sinks: the
+        # sink only rescales a row's o, by l / (l + e^(s - m)); that scale
+        # (o projected on the sinkless o over D, per row and head) held to
+        # the plain versions' at 1e-2, where a dropped sink or another
+        # head's sink moves it by tenths
+        bare, scaled = x.without_sinks(), {}
+        for what in ("decode, sink folded", "prefill", "ragged"):
+            call, kernel, plain = calls[what]
+            scales = []
+            for fn in (kernel, plain):
+                with_s = call.__func__(x, fn)
+                without = call.__func__(bare, fn)
+                with_s = with_s if isinstance(with_s, tuple) else (with_s,)
+                without = without if isinstance(without, tuple) else (without,)
+                scales.append(torch.cat([sink_scale(torch, a, b).flatten()
+                                         for a, b in zip(with_s, without)]))
+            torch.cuda.synchronize()
+            live = ~torch.isnan(scales[1])
+            off = float((scales[0] - scales[1])[live].abs().max())
+            share = float(1 - scales[1][live].mean())
+            if not (bool(torch.isfinite(scales[0][live]).all()) and off <= 1e-2
+                    and share >= 0.1):
+                raise AssertionError(
+                    f"{what}, {label}: the sink's scale of o is {off:.3e} from "
+                    f"the plain version's (tolerance 1e-2); the sinks hold "
+                    f"{share:.1%} of the mass (at least 10% expected)")
+            scaled[what] = (off, share)
+        # the pages below every tile's first step made NaN: each decode
+        # row's (its lowest floor: len - W, the sink decode's), the prefill
+        # chunk's first tile's, the ragged live segment's first tile's
+        lens = x.d_lens.tolist()
+        cuts = [(x.d_tables[b], (n - W) // 16 * 16) for b, n in enumerate(lens) if n]
+        cuts.append((x.p_table, (int(x.hist) - W + 1) // 64 * 64))
+        cuts.append((x.r_tables[0], (int(x.r_hists[0]) - W + 1) // 64 * 64))
+        poisoned = nan_below(torch, x, cuts)
+        skipped = sum(max(c, 0) // bs for _t, c in cuts)
+        bad = []
+        for what, (call, kernel, _plain) in calls.items():
+            again = call.__func__(poisoned, kernel)
+            again = again if isinstance(again, tuple) else (again,)
+            torch.cuda.synchronize()
+            for a, b in zip(outs[what], again):
+                if not (torch.equal(a, b) and bool(torch.isfinite(b).all())):
+                    bad.append(what)
+        if bad:
+            raise AssertionError(f"window {W}, {label}: pages below the walks' "
+                                 f"first steps were read by {bad}")
+        errs["paged_decode_attention" + WINDOW + tag] = worst[
+            "decode (merged decode's call)"]
+        errs["paged_prefill_attention" + WINDOW_SINKS + tag] = worst["prefill"]
+        errs["ragged_mixed_attention" + WINDOW_SINKS + tag] = worst["ragged"]
+        log(f"  window {W} + sinks at H={inp.H}, Hkv={inp.Hkv}, D={inp.D}, "
+            f"{label}: " + ", ".join(f"{k} {v:.3e}" for k, v in worst.items())
+            + " max |err| vs plain, (m, l) within 1e-3; the sink's scale of o "
+            "vs plain: " + ", ".join(f"{k} {v:.2e} (sinks {sh:.0%} of the mass)"
+                                      for k, (v, sh) in scaled.items())
+            + f"; {skipped} pages below "
+            f"the first steps made NaN: outputs bit-equal and finite  OK"
+            f"  [{where}]")
+    return errs
+
+
 def check_gmm_tiles(torch, dev) -> None:
     """The grouped GEMM's tiled blocks beside the few-rows mode in one
     launch, at DeepSeek-V2-Lite's gate shape (K = 2048, N = 1408): experts
@@ -1167,7 +1393,7 @@ def check_moe_deterministic(torch, dev) -> None:
     x = torch.randn(512, E, generator=g, device=dev).bfloat16()
     runs = []
     for _ in range(2):
-        t_sorted, w_sorted, sizes = llama._moe_route(lp, cfg, x)
+        t_sorted, w_sorted, _e, sizes = llama._moe_route(lp, cfg, x)
         xs = x[t_sorted]
         gate = llama._ragged_mm(xs, lp["we_gate"], sizes)
         up = llama._ragged_mm(xs, lp["we_up"], sizes)
@@ -1213,6 +1439,8 @@ def tiny_models():
         num_experts_per_tok=2, num_shared_experts=1,
         moe_intermediate_size=32)
     return [
+        ("tiny gpt-oss (windows of 16, sinks, biased clamped MoE)",
+         tiny_gptoss("float32"), "none", False),
         ("tiny GQA", gqa, "none", False),
         ("tiny MLA+MoE", mla, "none", False),
         ("tiny GQA, fp8 weights + int8 KV", gqa, "fp8_e4m3", True),
@@ -1222,16 +1450,84 @@ def tiny_models():
     ]
 
 
+def tiny_gptoss(dtype):
+    """The ``tiny-gptoss`` preset at the kernels' head width (D = 64; the
+    preset's 16 is a CPU size): 16-token windows on alternate layers,
+    sinks, q/k/v/o biases, 4 experts top-2 with biased clamped SwiGLU."""
+    from dynamo_tpu_torch.models.config import ModelConfig
+
+    return ModelConfig.tiny(
+        dtype=dtype, head_dim=64, num_heads=8, num_kv_heads=2, hidden_size=128,
+        num_layers=4, layer_windows=(16, 0, 16, 0), attn_sinks=True,
+        o_bias=True, attention_bias=True, num_experts=4, num_experts_per_tok=2,
+        moe_intermediate_size=32, moe_act="gptoss_clamp")
+
+
 def to_device(tree, dev):
     if isinstance(tree, dict):
         return {k: to_device(v, dev) for k, v in tree.items()}
     return tree.to(dev)
 
 
+@contextlib.contextmanager
+def moe_probe(torch, llama):
+    """While open, per device type: the expert elements that gpt-oss's
+    clamp cuts (gate above 7, up outside [-7, 7]) and the smallest gap
+    between any token's k-th and (k+1)-th routing scores, as llama's
+    ``_expert_act`` and ``_route_topk`` see them."""
+    act, route = llama._expert_act, llama._route_topk
+    seen = {}
+
+    def stats(x):
+        return seen.setdefault(x.device.type, {"gate": 0, "up": 0,
+                                               "margin": math.inf})
+
+    def counted_act(cfg, g, u):
+        st = stats(g)
+        st["gate"] += int((g > 7.0).sum())
+        st["up"] += int((u.abs() > 7.0).sum())
+        return act(cfg, g, u)
+
+    def measured_route(lp, cfg, x):
+        logits = x.float() @ lp["moe_gate"].float() + lp["moe_router_bias"].float()
+        top = torch.softmax(logits, -1).topk(cfg.num_experts_per_tok + 1).values
+        st = stats(x)
+        st["margin"] = min(st["margin"], float((top[:, -2] - top[:, -1]).min()))
+        return route(lp, cfg, x)
+
+    llama._expert_act, llama._route_topk = counted_act, measured_route
+    try:
+        yield seen
+    finally:
+        llama._expert_act, llama._route_topk = act, route
+
+
 def check_model_on_card(torch, dev, label, cfg, quantization="none",
                         kv_int8=False):
     """A tiny model's three main-path functions on the card (kernels)
-    against the same functions on the CPU (plain versions), f32."""
+    against the same functions on the CPU (plain versions), f32. For
+    gpt-oss, the clamp must cut expert elements and no token's routing be
+    a tie, on both devices."""
+    from dynamo_tpu_torch.models import llama
+
+    if cfg.moe_act != "gptoss_clamp":
+        model_on_card(torch, dev, label, cfg, quantization, kv_int8)
+        return
+    with moe_probe(torch, llama) as seen:
+        model_on_card(torch, dev, label, cfg, quantization, kv_int8)
+    log(f"  {label}: clamped gate / up elements and the smallest top-k "
+        "routing margin: " + ", ".join(
+            f"{d} {st['gate']} / {st['up']}, {st['margin']:.2e}"
+            for d, st in seen.items()))
+    if not (set(seen) == {"cpu", "cuda"} and all(
+            st["gate"] > 0 and st["up"] > 0 and st["margin"] > 0
+            for st in seen.values())):
+        raise AssertionError(f"{label}: the clamp cut nothing or a routing "
+                             f"choice was a tie: {seen}")
+
+
+def model_on_card(torch, dev, label, cfg, quantization, kv_int8) -> None:
+    """check_model_on_card's comparison."""
     from dynamo_tpu_torch.models import llama
     from dynamo_tpu_torch.models.quant import KV_SCALE_EPS
 
@@ -1291,27 +1587,44 @@ def check_model_on_card(torch, dev, label, cfg, quantization="none",
 def tiny_params(torch, cfg, quantization="none"):
     """Seeded tiny-model weights on the CPU, matrices x5 (std 0.1):
     decisive logits and expert routing, so a token or an expert choice is
-    never a near-tie that the sum order can flip."""
+    never a near-tie that the sum order can flip. The tiny gpt-oss takes
+    x2: at x5 its clamped-SwiGLU experts and biases grow the hidden state
+    to ~120 and its logits move by ~4e-3 when the weights move by 1e-7 of
+    themselves (f32 rounding), at x2 (with the wide expert biases of
+    draw_attention_extras) by ~1e-6 (measured on the CPU); its wide gate
+    and up biases are what make the clamp cut (check_model_on_card counts
+    the cut elements)."""
     from dynamo_tpu_torch.models import llama
     from dynamo_tpu_torch.models.quant import quantize_params
 
     params = llama.init_params(cfg, torch.Generator().manual_seed(1), "cpu")
-    params = {k: ({kk: vv * (5.0 if vv.dim() > 1 else 1.0) for kk, vv in v.items()}
-                  if isinstance(v, dict) else v * (5.0 if v.dim() > 1 else 1.0))
+    x = 2.0 if cfg.moe_act == "gptoss_clamp" else 5.0
+    params = {k: ({kk: vv * (x if vv.dim() > 1 else 1.0) for kk, vv in v.items()}
+                  if isinstance(v, dict) else v * (x if v.dim() > 1 else 1.0))
               for k, v in params.items()}
     draw_attention_extras(torch, params, cfg, torch.Generator().manual_seed(5))
     return quantize_params(params, cfg, quantization)
 
 
 def draw_attention_extras(torch, params, cfg, gen) -> None:
-    """In place: Qwen2's q/k/v biases drawn N(0, 0.1) and Qwen3's per-head
-    q/k norm weights N(1, 0.3), where the model has them (the random init
-    leaves them at 0 and 1, which would check nothing)."""
+    """In place: Qwen2's (and gpt-oss's) q/k/v biases drawn N(0, 0.1),
+    Qwen3's per-head q/k norm weights N(1, 0.3), gpt-oss's o_proj bias
+    N(0, 0.1), router logit bias N(0, 0.5), sinks N(ln window, 1) (a real
+    share of each row's mass) and expert gate and up biases N(0, 4) (past
+    the clamp's 7 for some elements), where the model has them (the random
+    init leaves them at values that would check little)."""
     keys = []
     if cfg.attention_bias:
         keys += [("bq", 0.0, 0.1), ("bk", 0.0, 0.1), ("bv", 0.0, 0.1)]
     if cfg.qk_norm and not cfg.is_mla:
         keys += [("q_norm", 1.0, 0.3), ("k_norm", 1.0, 0.3)]
+    if cfg.o_bias:
+        keys += [("bo", 0.0, 0.1)]
+    if cfg.attn_sinks:
+        keys += [("sinks", math.log(min(w for w in cfg.layer_windows if w)), 1.0)]
+    if cfg.moe_act == "gptoss_clamp":
+        keys += [("moe_router_bias", 0.0, 0.5), ("be_gate", 0.0, 4.0),
+                 ("be_up", 0.0, 4.0)]
     for key, mean, std in keys:
         leaf = params["layers"][key]
         leaf.copy_(torch.randn(leaf.shape, generator=gen, device=gen.device)
@@ -1492,6 +1805,7 @@ def drives():
     the kernel wrappers the model's path must launch; a wrapper, or a
     (wrapper, counter attribute) pair for a counter other than
     ``launches``)."""
+    from dynamo_tpu_torch.launch.dynamo_run import PRESETS
     from dynamo_tpu_torch.models.config import (
         MISTRAL_7B_V02_HF,
         QWEN3_8B_HF,
@@ -1580,6 +1894,17 @@ def drives():
         # (depth cut), served through dynamo_run --model-path with its
         # SentencePiece tokenizer
         (CHECKPOINT_DRIVE, mistral, v2, gqa_path),
+        # gpt-oss-20b at its published widths and depth (dynamo_run's
+        # preset: context cut to 8192), bf16: the windowed launches of the
+        # sliding layers (the full layers run the same kernels unwindowed)
+        (GPTOSS_DRIVE, PRESETS[GPTOSS_DRIVE](), v2,
+         {"paged_decode_attention" + WINDOW: (paged_decode_attention,
+                                              "window_launches"),
+          "paged_prefill_attention" + WINDOW_SINKS: (paged_prefill_attention,
+                                                     "window_launches"),
+          "ragged_mixed_attention" + WINDOW_SINKS: (ragged_mixed_attention,
+                                                    "window_launches"),
+          "kv_cache_append": kv_cache_append}),
     ]
 
 
@@ -1689,8 +2014,11 @@ async def serve(torch, dev, card: str, name: str, cfg, geometry: dict,
         first = asyncio.create_task(http_request(svc.port, *completion(1200, True)))
         while engine.stats["tokens_generated"] < n0 + 2 and not first.done():
             await asyncio.sleep(0.01)
-        # more while it decodes: fused mixed steps
-        more = [completion(n, n % 2 == 0) for n in (64, 333, 700, 1100, 1500)]
+        # more while it decodes: fused mixed steps (on gpt-oss every prompt
+        # longer than its window, so every sliding layer windows)
+        shortest = 64 if not cfg.layer_windows else 2 * max(cfg.layer_windows)
+        more = [completion(n, n % 2 == 0)
+                for n in (shortest, 333, 700, 1100, 1500)]
         more.append(("/v1/chat/completions", {
             "model": name, "max_tokens": 32, "temperature": 0.0,
             "stream": True, "nvext": {"ignore_eos": True},
@@ -1816,11 +2144,13 @@ async def serve(torch, dev, card: str, name: str, cfg, geometry: dict,
         return launches, (texts, answers)
     check_graphs(torch, engine, name, card)
     step_anatomy(torch, dev, engine, planes)
+    if cfg.attn_sinks:
+        gptoss_oracle(torch, dev, card, name, params, cfg)
     if quant != "none":
         dequant_cost(torch, params)
     else:
         determinism_probe(torch, dev, params, cfg, engine.k_cache, engine.v_cache)
-        if not cfg.is_mla:
+        if not (cfg.is_mla or cfg.is_moe):
             dense_mm_cost(torch, dev, params, cfg)
     return launches, (texts, answers)
 
@@ -2017,14 +2347,18 @@ def step_anatomy(torch, dev, engine, planes=None, decode_only: bool = False) -> 
                 **planes), 1)
 
 
-def dense_oracle(torch, dev, card: str, name: str, params, cfg) -> None:
+def dense_oracle(torch, dev, card: str, name: str, params, cfg,
+                 knockout=None) -> None:
     """The full-width check of the served model's forward: a 256-token
     prompt prefilled in two chunks (192, then 64 over the first's cached
     pages: paged_prefill_attention both times), its last logits against
     ``dense_forward``'s (plain full attention, no cache, no kernel of the
     port) on the same bf16 weights, and both against ``dense_forward`` in
     f32 on the same weights widened: the served path's distance to the
-    f32 logits at most ORACLE_FACTOR times the plain bf16 forward's."""
+    f32 logits at most ORACLE_FACTOR times the plain bf16 forward's. A
+    ``knockout`` (what, f32 params -> f32 params without it) is the
+    witness that the check can see a part of the model: the f32 forward
+    without it must lie further than the tolerance from the f32 forward."""
     import dataclasses
 
     from dynamo_tpu_torch.models import llama
@@ -2039,8 +2373,12 @@ def dense_oracle(torch, dev, card: str, name: str, params, cfg) -> None:
     dense = llama.dense_forward(params, cfg, toks)[-1]
     wide = {k: ({kk: vv.float() for kk, vv in v.items()} if isinstance(v, dict)
                 else v.float()) for k, v in params.items()}
-    exact = llama.dense_forward(wide, dataclasses.replace(cfg, dtype="float32"),
-                                toks)[-1]
+    f32 = dataclasses.replace(cfg, dtype="float32")
+    exact = llama.dense_forward(wide, f32, toks)[-1]
+    seen = None
+    if knockout is not None:
+        seen = float((llama.dense_forward(knockout[1](wide), f32, toks)[-1]
+                      - exact).abs().max())
     del wide
     err = float((paged - exact).abs().max())
     base = float((dense - exact).abs().max())
@@ -2058,6 +2396,50 @@ def dense_oracle(torch, dev, card: str, name: str, params, cfg) -> None:
         raise AssertionError(f"{name}: the served prefill's logits are {err:.4f} "
                              f"from the f32 forward's, the bf16 dense forward's "
                              f"{base:.4f} (tolerance {ORACLE_FACTOR}x)")
+    if knockout is not None:
+        log(f"  witness: the f32 forward with {knockout[0]} is {seen:.4f} from "
+            f"the f32 forward's logits ({seen / base:.1f}x the bf16 forward's "
+            f"distance; the check fails above {ORACLE_FACTOR}x)  [{name}]")
+        if not seen > ORACLE_FACTOR * base:
+            raise AssertionError(f"{name}: the oracle cannot tell "
+                                 f"{knockout[0]} ({seen:.4f})")
+
+
+def gptoss_oracle(torch, dev, card: str, name: str, params, cfg) -> None:
+    """dense_oracle on the served gpt-oss weights' first GPTOSS_ORACLE_LAYERS
+    layers (full width; their f32 copy fits beside the served model), two
+    windowed and two full, whose sinks draw_attention_extras drew near
+    ln(window) (a real share of each row's mass, where the init's N(0, 0.5)
+    holds under 1% over 128 scores and a dropped sink would hide in the
+    bf16 noise). The 192 + 64-token prefill windows on the sliding layers
+    and folds the sinks in the bf16 tensor-core tiles; the witness knocks
+    the sinks out (-1e4). The router's logit bias is set to route every
+    token to the same k experts of a layer (+50 on them, 0 elsewhere;
+    the combine weights still follow the tokens): with random weights a
+    top-k choice is often within bf16 noise of a tie, and one choice
+    flipped by the sums' order moves the last logits by ~1 (as much as
+    the whole check's tolerance) in either bf16 forward (the served path
+    or the dense one), which no kernel fault would need to explain."""
+    import dataclasses
+
+    L = GPTOSS_ORACLE_LAYERS
+    cut = dataclasses.replace(cfg, num_layers=L,
+                              layer_windows=cfg.layer_windows[:L])
+    layers = {k: v[:L] for k, v in params["layers"].items()}
+    g = torch.Generator(device=dev).manual_seed(13)
+    bias = torch.zeros_like(layers["moe_router_bias"])
+    for l in range(L):
+        chosen = torch.randperm(cfg.num_experts, generator=g, device=dev)
+        bias[l, chosen[:cfg.num_experts_per_tok]] = 50.0
+    layers["moe_router_bias"] = bias
+
+    def sinkless(wide):
+        return {**wide, "layers": {**wide["layers"], "sinks": torch.full_like(
+            wide["layers"]["sinks"], -1e4)}}
+
+    dense_oracle(torch, dev, card, f"{name}, first {L} layers",
+                 {**params, "layers": layers}, cut,
+                 knockout=("the sinks knocked out", sinkless))
 
 
 #: a Mistral-style [INST] chat template for the checkpoint's tokenizer
@@ -2540,6 +2922,139 @@ def work(inp: KernelInputs) -> dict:
     }
 
 
+def window_spans(inp: KernelInputs) -> dict:
+    """Each windowed call's rows as (first, last) attended positions, from
+    this run's data: the merged decode's rows one past the cache (the
+    in-flight token merges outside the kernel), the ragged call's decode
+    rows at seq_len - 1, every real prefill / segment row at its own
+    position; empty rows left out."""
+    W = inp.window
+    dec = [(max(0, n + 1 - W), n - 1) for n in inp.d_lens.tolist() if n]
+    rag_dec = [(max(0, n - W), n - 1) for n in inp.d_lens.tolist() if n]
+    hist, T = int(inp.hist), inp.q_pre.shape[0]
+    pre = [(max(0, q - W + 1), q) for q in range(hist, hist + T)]
+    segs = [[(max(0, q - W + 1), q) for q in range(h, h + n)]
+            for h, n in zip(inp.r_hists.tolist(), inp.r_valids.tolist())]
+    return {"decode": dec, "ragged decode": rag_dec, "prefill": pre,
+            "segments": segs}
+
+
+def window_work(inp: KernelInputs) -> dict:
+    """(bytes, flops) of the windowed calls on these inputs, counting only
+    what the window needs: the K/V rows of the positions some row of a
+    sequence attends (each read once), the table entries (and page scales)
+    that reach them, the queries of real rows read, every output row
+    written, the sink logits; 4 * D flops per head per attended
+    position."""
+    H, Hkv, D, bs = inp.H, inp.Hkv, inp.D, inp.bs
+    kv_row = Hkv * D * inp.kc.element_size() * 2
+    q_row = H * D * 2
+    entry = 4 + (8 if inp.sc else 0)
+    sp = window_spans(inp)
+
+    def seq(spans):  # one sequence's K/V bytes + table entries
+        lo, hi = min(a for a, _ in spans), max(b for _, b in spans)
+        return (hi - lo + 1) * kv_row + (hi // bs - lo // bs + 1) * entry
+
+    def flops(spans):
+        return 4 * H * D * sum(b - a + 1 for a, b in spans)
+
+    B = inp.d_lens.numel()
+    dec_bytes = (len(sp["decode"]) * q_row + B * q_row + B * 4
+                 + sum(seq([r]) for r in sp["decode"]) + B * H * 4 * 2)
+    T = inp.q_pre.shape[0]
+    pre_bytes = 2 * T * q_row + seq(sp["prefill"]) + H * 4
+    MP, seg_T = inp.q_chunks.shape[:2]
+    rag_bytes = (len(sp["ragged decode"]) * q_row + B * q_row + B * 4
+                 + sum(seq([r]) for r in sp["ragged decode"])
+                 + sum(len(s) * q_row + seq(s) for s in sp["segments"] if s)
+                 + MP * seg_T * q_row + MP * 2 * 4 + H * 4)
+    return {
+        "paged_decode_attention" + WINDOW: (dec_bytes, flops(sp["decode"])),
+        "paged_prefill_attention" + WINDOW_SINKS: (pre_bytes, flops(sp["prefill"])),
+        "ragged_mixed_attention" + WINDOW_SINKS: (
+            rag_bytes, flops(sp["ragged decode"])
+            + sum(flops(s) for s in sp["segments"])),
+    }
+
+
+def window_library_calls(torch, inp: KernelInputs) -> dict:
+    """SDPA over each windowed call's window only (no sink: SDPA has
+    none), K/V laid out contiguously outside the timed span: the decode
+    rows over their W - 1 cached positions, prefill and each live segment
+    over their band of positions with a banded causal mask. Timed only."""
+    import torch.nn.functional as F
+
+    from dynamo_tpu_torch.ops.paged_attention import gather_pages
+
+    dev = inp.kc.device
+    kw = ({"enable_gqa": True}
+          if tuple(int(x) for x in torch.__version__.split(".")[:2]) >= (2, 5)
+          else None)
+    G = inp.H // inp.Hkv
+    sp = window_spans(inp)
+
+    def kv(table, first, S):
+        """K/V of positions first .. first + S - 1 of each row's table:
+        [R, Hkv(, x G), S, D]."""
+        idx = (first[:, None] + torch.arange(S, device=dev)).clamp(
+            max=table.shape[-1] * inp.bs - 1)
+        out = []
+        for c in (inp.kc, inp.vc):
+            full = gather_pages(c, table)  # [Hkv, R, M*bs, D]
+            g = torch.gather(full, 2, idx[None, :, :, None].expand(
+                inp.Hkv, -1, -1, inp.D)).transpose(0, 1)
+            out.append((g if kw else g.repeat_interleave(G, 1)).contiguous())
+        return out
+
+    def sdpa(q, k, v, mask):
+        return F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
+                                              scale=inp.scale, **(kw or {}))
+
+    def rows(spans, table, q):
+        """Decode rows: q [B, H, D], one span per live row (the empty one
+        masked off)."""
+        S = max(b - a + 1 for a, b in spans)
+        lens = inp.d_lens.tolist()
+        first, n = [], []
+        it = iter(spans)
+        for L in lens:
+            a, b = next(it) if L else (0, -1)
+            first.append(a)
+            n.append(b - a + 1)
+        first = torch.tensor(first, device=dev)
+        k, v = kv(table, first, S)
+        mask = (torch.arange(S, device=dev)[None]
+                < torch.tensor(n, device=dev)[:, None])[:, None, None]
+        return q[:, :, None], k, v, mask
+
+    def band(q, table, spans):
+        lo = spans[0][0]
+        hi = spans[-1][1]
+        S = hi - lo + 1
+        k, v = kv(table[None], torch.tensor([lo], device=dev), S)
+        pos = lo + torch.arange(S, device=dev)
+        qpos = torch.tensor([b for _a, b in spans], device=dev)
+        mask = (pos[None] <= qpos[:, None]) & (qpos[:, None] - pos[None]
+                                               < inp.window)
+        return q[: len(spans)].transpose(0, 1)[None], k, v, mask
+
+    dec = rows(sp["decode"], inp.d_tables, inp.q_dec)
+    rdec = rows(sp["ragged decode"], inp.d_tables, inp.q_dec)
+    pre = band(inp.q_pre, inp.p_table, sp["prefill"])
+    segs = [band(inp.q_chunks[m], inp.r_tables[m], s)
+            for m, s in enumerate(sp["segments"]) if s]
+
+    def ragged():
+        sdpa(*rdec)
+        for seg in segs:
+            sdpa(*seg)
+
+    return {"paged_decode_attention" + WINDOW: lambda: sdpa(*dec),
+            "paged_prefill_attention" + WINDOW_SINKS: lambda: sdpa(*pre),
+            "ragged_mixed_attention" + WINDOW_SINKS: ragged}
+
+
 def quant_work(torch, qi: QuantInputs) -> dict:
     """(bytes, flops) of the two quantized-path kernels on these inputs.
     ragged_int8_gmm (int8 codes, gate/up shape): the rows read (bf16) and
@@ -2726,7 +3241,8 @@ def sdpa_backend(torch, fn) -> str:
 
 
 def timing(torch, dev, inp: KernelInputs, mi: MlaInputs, qi: QuantInputs,
-           ta: TokenAppendInputs, errs: dict, launches: dict) -> list:
+           ta: TokenAppendInputs, winp: KernelInputs, errs: dict,
+           launches: dict) -> list:
     from dynamo_tpu_torch.ops import kv_cache_update as kvu
     from dynamo_tpu_torch.ops import mla_attention as mla
     from dynamo_tpu_torch.ops import moe_gmm
@@ -2765,6 +3281,12 @@ def timing(torch, dev, inp: KernelInputs, mi: MlaInputs, qi: QuantInputs,
             lambda: inp.verify_rows(pa.paged_decode_attention),
         "mla_paged_decode_attention" + VERIFY:
             lambda: mi.verify_rows(mla.mla_paged_decode_attention),
+        "paged_decode_attention" + WINDOW:
+            lambda: winp.decode(pa.paged_decode_attention),
+        "paged_prefill_attention" + WINDOW_SINKS:
+            lambda: winp.prefill(pa.paged_prefill_attention),
+        "ragged_mixed_attention" + WINDOW_SINKS:
+            lambda: winp.ragged(rpa.ragged_mixed_attention),
     }
     plain = {
         "paged_decode_attention": lambda: inp.decode(pa.paged_decode_attention_plain),
@@ -2795,6 +3317,12 @@ def timing(torch, dev, inp: KernelInputs, mi: MlaInputs, qi: QuantInputs,
             lambda: inp.verify_rows(pa.paged_decode_attention_plain),
         "mla_paged_decode_attention" + VERIFY:
             lambda: mi.verify_rows(mla.mla_paged_decode_attention_plain),
+        "paged_decode_attention" + WINDOW:
+            lambda: winp.decode(pa.paged_decode_attention_plain),
+        "paged_prefill_attention" + WINDOW_SINKS:
+            lambda: winp.prefill(pa.paged_prefill_attention_plain),
+        "ragged_mixed_attention" + WINDOW_SINKS:
+            lambda: winp.ragged(rpa.ragged_mixed_attention_plain),
     }
     scaled_library = {k + INT8_KV: f for k, f in
                       library_calls(torch, sinp.dequantized()).items()
@@ -2802,9 +3330,10 @@ def timing(torch, dev, inp: KernelInputs, mi: MlaInputs, qi: QuantInputs,
     library = {**library_calls(torch, inp), **mla_library_calls(torch, mi),
                **scaled_library, **quant_library_calls(torch, qi),
                "kv_cache_append_tokens": ta.index_put("gqa"),
-               "kv_cache_append_tokens (MLA widths)": ta.index_put("mla")}
+               "kv_cache_append_tokens (MLA widths)": ta.index_put("mla"),
+               **window_library_calls(torch, winp)}
     bounds = {**work(inp), **mla_work(mi), **work(sinp), **quant_work(torch, qi),
-              **spec_work(inp, mi, ta)}
+              **spec_work(inp, mi, ta), **window_work(winp)}
     setups = {"kv_cache_append_quantized": reset_planes}
     # the floor of every row: an empty kernel (a spin of 0 cycles) under
     # the same flush and spin
@@ -2919,6 +3448,10 @@ def main() -> int:
     check_mla_widths(torch, dev)
     ta = TokenAppendInputs(torch, dev, inp, mi)
     errs.update(check_spec_kernels(torch, inp, mi, ta))
+    # gpt-oss-20b's attention shapes with its sliding window and sinks
+    winp = KernelInputs(torch, dev, H=64, Hkv=8, D=64, window=GPTOSS_WINDOW,
+                        sinks=True)
+    errs.update(check_windowed(torch, winp, card))
     for label, cfg, quantization, kv_int8 in tiny_models():
         check_model_on_card(torch, dev, label, cfg, quantization, kv_int8)
         if quantization == "none" and not kv_int8:
@@ -2933,8 +3466,8 @@ def main() -> int:
         "twice on fresh engines, deepseek-v2-lite-sim (int8 weights), "
         "llama3-8b-sim (fp8 weights, int8 KV), llama3-8b-sim and "
         f"deepseek-v2-lite-sim (spec_gamma={SPEC_GAMMA}), qwen2.5-7b-sim, "
-        f"qwen3-8b-sim, and a {CHECKPOINT_LAYERS}-layer Mistral-7B-v0.2 "
-        "checkpoint through dynamo_run --model-path")
+        f"qwen3-8b-sim, a {CHECKPOINT_LAYERS}-layer Mistral-7B-v0.2 "
+        f"checkpoint through dynamo_run --model-path, and {GPTOSS_DRIVE}")
     launches, plain = {}, {}
     for name, cfg, geometry, counted in drives():
         log(f"  drive {name} from {time.perf_counter() - t_all:.1f} s")
@@ -2961,7 +3494,7 @@ def main() -> int:
             torch.cuda.empty_cache()
     log(f"[4/4] at {time.perf_counter() - t_all:.1f} s: timing (median per "
         "launch, L2 flushed)  [" + card + "]")
-    rows = timing(torch, dev, inp, mi, qi, ta, errs, launches)
+    rows = timing(torch, dev, inp, mi, qi, ta, winp, errs, launches)
     torch.cuda.synchronize()
     log(f"all phases passed in {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": rows}))

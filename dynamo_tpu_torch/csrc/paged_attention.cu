@@ -103,6 +103,33 @@
 //    second launch. With int8 pages each row is widened and multiplied by
 //    its page's scale as it lands.
 //
+// Two options of the TPU kernels hold for all three bodies:
+//
+// * A sliding window (Params::window > 0): row r keeps q_pos - kv_pos <
+//   window (paged_attention_pallas.py:391, ragged_paged_attention_pallas.py
+//   :176). A tile's walk STARTS at its lowest row's floor, aligned down to
+//   the body's step, so pages wholly below it are never read (a decode at
+//   2048 cached tokens with window 128 reads ~9 pages, not 128); the score
+//   mask fires on the steps that hold a row's floor as on those that cross
+//   its causal limit. A segment tile's floor is its first token's
+//   (q0 - window + 1); a decode row's is seq_len + q_off - window, plus
+//   r / group for the verify's packed rows (row r of a kv head is in-flight
+//   token r / group), so a row group's first row has the lowest floor. The
+//   decode body cuts [floor, seq_len) into its splits and warp runs, not
+//   [0, seq_len). Rows the window leaves empty write o = 0, m = -1e30,
+//   l = 0. With a window every segment tile's horizon is at most
+//   window + Tq - 1, so the longest-horizon-first order stays a
+//   non-increasing one. A bf16 launch with a window runs its own
+//   instantiation of the tensor-core kernel (kWin), so an unwindowed
+//   launch keeps the registers and instruction schedule it had: the
+//   floors checked at run time slowed the unwindowed segment tiles.
+// * Attention sinks (Params::sinks, [Hkv * Gq] f32, gpt-oss): each head's
+//   sink logit s joins the normalizer at the emit, with no value row:
+//   m_f = max(m, s), l' = l e^(m - m_f) + e^(s - m_f), o' = o l e^(m - m_f)
+//   / l' (paged_attention_pallas.py:408-424). The row's head is its index
+//   modulo Hkv * Gq. A launch that emits (m, l) takes no sinks: the decode
+//   merge folds them beside the in-flight tokens (ops/attention.py).
+//
 // Later work: wgmma with TMA page loads and warp specialisation for the
 // segment tiles; TMA bulk page copies for the decode body, which stays well
 // above its bytes bound (PERF.md).
@@ -156,7 +183,30 @@ struct Params {
   float* part_m;   // [n_split, R_part]
   float* part_l;   // [n_split, R_part]
   int* tickets;    // decode body: [B, Hkv, row groups] split counters, zero
+  int window;      // sliding window (0 = full): keep q_pos - kv_pos < window
+  int q_off;       // decode rows: query position seq_len - 1 + q_off ...
+  int group;       // ... + r / group when group > 0 (the verify's rows)
+  const float* sinks;  // [Hkv * Gq] per-head sink logits, or null
 };
+
+// the lowest position decode row r (of its kv head's Gq rows) keeps under a
+// window: the query sits at seq_len - 1 + q_off (+ r / group)
+__device__ __forceinline__ int decode_floor(const Params& p, int seq_len,
+                                            int r) {
+  return seq_len + p.q_off - p.window + (p.group > 0 ? r / p.group : 0);
+}
+
+// the factor that turns a row's unnormalized sum into its output: 1 / l,
+// or with a sink logit s (natural units) e^(m - m_f) / (l e^(m - m_f) +
+// e^(s - m_f)), m_f = max(m, s); 0 for a row that attends nothing
+__device__ __forceinline__ float emit_scale(const Params& p, size_t row,
+                                            float m, float l) {
+  if (p.sinks == nullptr) return l > 0.f ? 1.f / l : 0.f;
+  const float s = p.sinks[row % ((size_t)p.Hkv * p.Gq)];
+  const float mf = fmaxf(m, s);
+  const float a = __expf(m - mf);
+  return a / (l * a + __expf(s - mf));
+}
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(int8_t x) { return (float)x; }
@@ -231,19 +281,21 @@ __device__ __forceinline__ void core_tile(const Params& p, const int s,
   const int last = real > 0 ? q0 + real - 1 : -1;  // causal horizon
   const int rows = ntok * p.Gq;
   const int real_rows = real * p.Gq;
+  const bool dec = s < p.B;
 
   const T* q = static_cast<const T*>(p.q);
   const TC* kc = static_cast<const TC*>(p.kc);
   const TC* vc = static_cast<const TC*>(p.vc);
 
   float qr[RPW][DPL], acc[RPW][DPL], mr[RPW], lr[RPW];
-  int qpos[RPW];
+  int qpos[RPW], qlo[RPW];  // each row's causal limit and window floor
 #pragma unroll
   for (int i = 0; i < RPW; ++i) {
     const int r = rbase + warp + i * NW;
     mr[i] = kNegInf;
     lr[i] = 0.f;
     qpos[i] = -1;  // never attends: padded / unreal rows
+    qlo[i] = 0;
 #pragma unroll
     for (int d = 0; d < DPL; ++d) {
       acc[i][d] = 0.f;
@@ -252,6 +304,8 @@ __device__ __forceinline__ void core_tile(const Params& p, const int s,
     if (r < real_rows) {
       const int t = r / p.Gq, g = r % p.Gq;
       qpos[i] = q0 + t;
+      if (p.window > 0)
+        qlo[i] = dec ? decode_floor(p, q0 + 1, r) : qpos[i] - p.window + 1;
       const T* qp =
           q + (((size_t)(tok0 + t) * p.Hkv + h) * p.Gq + g) * D + lane * DPL;
 #pragma unroll
@@ -259,11 +313,17 @@ __device__ __forceinline__ void core_tile(const Params& p, const int s,
     }
   }
 
-  // this split's share of the horizon [0, last], in whole KT steps
-  const int steps = (last + KT) / KT;
+  // this split's share of the horizon [lo, last] in whole KT steps, lo the
+  // block's lowest row's window floor (its first row's)
+  const int lo =
+      p.window > 0
+          ? max(0, dec ? decode_floor(p, q0 + 1, rbase) : q0 - p.window + 1)
+          : 0;
+  const int s0 = lo / KT;
+  const int steps = last >= lo ? last / KT + 1 - s0 : 0;
   const int per = (steps + p.n_split - 1) / p.n_split;
-  const int c_begin = z * per * KT;
-  const int c_end = min(last + 1, (z + 1) * per * KT);
+  const int c_begin = (s0 + z * per) * KT;
+  const int c_end = min(last + 1, (s0 + (z + 1) * per) * KT);
   // clamp each row's causal limit to the end of this split
 #pragma unroll
   for (int i = 0; i < RPW; ++i) qpos[i] = min(qpos[i], c_end - 1);
@@ -320,7 +380,8 @@ __device__ __forceinline__ void core_tile(const Params& p, const int s,
 
 #pragma unroll
     for (int i = 0; i < RPW; ++i) {
-      if (qpos[i] < c) continue;  // uniform across the warp
+      // uniform across the warp: does the row keep a position of this step?
+      if (max(c, qlo[i]) > min(c + KT - 1, qpos[i])) continue;
       float sc[KT];
       float mx = mr[i];
 #pragma unroll
@@ -331,10 +392,10 @@ __device__ __forceinline__ void core_tile(const Params& p, const int s,
 #pragma unroll
         for (int d = 0; d < DPL; ++d) part = fmaf(qr[i][d], kv[d], part);
         part = warp_sum(part);
-        sc[j] = (c + j <= qpos[i]) ? part : kNegInf;
+        sc[j] = (c + j <= qpos[i] && c + j >= qlo[i]) ? part : kNegInf;
         mx = fmaxf(mx, sc[j]);
       }
-      // position c <= qpos is in this step, so mx is a real score
+      // the row keeps a position of this step, so mx is a real score
       const float alpha = __expf(mr[i] - mx);
       float lsum = 0.f;
 #pragma unroll
@@ -361,9 +422,9 @@ __device__ __forceinline__ void core_tile(const Params& p, const int s,
     if (r >= rows) continue;
     const int t = r / p.Gq, g = r % p.Gq;
     const size_t row = ((size_t)(tok0 + t) * p.Hkv + h) * p.Gq + g;
-    const float inv = 1.f / fmaxf(lr[i], 1e-20f);
     if (p.n_split > 1) {  // normalized partial for the combine kernel
       const size_t prow = (size_t)z * p.R_part + row;
+      const float inv = 1.f / fmaxf(lr[i], 1e-20f);
       float* op = p.part_o + prow * D + lane * DPL;
 #pragma unroll
       for (int d = 0; d < DPL; ++d) op[d] = acc[i][d] * inv;
@@ -373,6 +434,7 @@ __device__ __forceinline__ void core_tile(const Params& p, const int s,
       }
       continue;
     }
+    const float inv = emit_scale(p, row, mr[i], lr[i]);
     T* op = o + row * D + lane * DPL;
 #pragma unroll
     for (int d = 0; d < DPL; ++d) op[d] = from_f<T>(acc[i][d] * inv);
@@ -483,8 +545,10 @@ constexpr int tc_smem_bytes() {
 }
 
 // One segment tile (TC_ROWS query rows of one kv head) on the tensor cores.
-// blk: this block's index among the segment blocks.
-template <typename TC, int D>
+// blk: this block's index among the segment blocks. kWin: the launch has a
+// window (its own instantiation: the floors' masks and skips cost the
+// unwindowed tiles nothing)
+template <typename TC, int D, bool kWin>
 __device__ __forceinline__ void tc_segment_tile(const Params& p, const int blk,
                                                 unsigned char* smem) {
   constexpr bool kScaled = std::is_same<TC, int8_t>::value;
@@ -532,7 +596,9 @@ __device__ __forceinline__ void tc_segment_tile(const Params& p, const int blk,
     return;
   }
   const int last = q0 + real - 1;  // the tile's causal horizon
-  const int nsteps = last / TC_KV + 1;
+  // the walk starts at the step that holds the first token's window floor
+  const int sf = kWin ? max(0, q0 - p.window + 1) / TC_KV : 0;
+  const int nsteps = last / TC_KV + 1 - sf;
   const int lim = min(last + 1, p.M * p.bs);  // positions loaded
   const int* table = p.p_tables + (size_t)m * p.M;
   const TC* kc = static_cast<const TC*>(p.kc);
@@ -540,15 +606,19 @@ __device__ __forceinline__ void tc_segment_tile(const Params& p, const int blk,
 
   // this thread's two rows (lane / 4 and lane / 4 + 8 of its warp's 16)
   const int live_rows = real * G;
-  int qpos[2];
+  int qpos[2], qlo[2];  // causal limits and window floors
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int r = warp * 16 + (lane >> 2) + i * 8;
     qpos[i] = r < live_rows ? q0 + r / G : -1;
+    qlo[i] = kWin ? qpos[i] - p.window + 1 : 0;
   }
   const int w0 = warp * 16;
   const int qmin = q0 + w0 / G;  // the warp's first row's limit
   const int qmax = w0 < live_rows ? q0 + min(w0 + 15, live_rows - 1) / G : -1;
+  // the warp's lowest and highest window floors (its first and last rows')
+  const int flo = kWin ? qmin - p.window + 1 : 0;
+  const int fhi = kWin ? qmax - p.window + 1 : 0;
 
   // ---- Q: staged through the ring's last stage, then held in registers ----
   bf16* qs = ring + (S - 1) * 2 * TILE;
@@ -580,7 +650,9 @@ __device__ __forceinline__ void tc_segment_tile(const Params& p, const int blk,
   const TC* vch = vc + (size_t)h * p.N * p.bs * D + cc * (16 / EB);
   int pg[U];
   float psk[U], psv[U];
-  auto fetch = [&](int step) {
+  // step i of the walk is the horizon's step sf + i; stage i % S
+  auto fetch = [&](int i) {
+    const int step = sf + i;
 #pragma unroll
     for (int u = 0; u < U; ++u) {
       const int pos = step * TC_KV + row0 + u * RSTEP;
@@ -594,18 +666,18 @@ __device__ __forceinline__ void tc_segment_tile(const Params& p, const int blk,
       }
     }
   };
-  auto copy_step = [&](int step) {
-    const int st = step % S;
+  auto copy_step = [&](int i) {
+    const int st = i % S;
 #pragma unroll
     for (int u = 0; u < U; ++u) {
       const int row = row0 + u * RSTEP;
       const int off_in_page =
-          aligned ? roff[u] : (step * TC_KV + row) % p.bs;
+          aligned ? roff[u] : ((sf + i) * TC_KV + row) % p.bs;
       const bool ok = pg[u] >= 0;
       const size_t off =
           ok ? ((size_t)pg[u] * p.bs + off_in_page) * D : 0;
       if constexpr (kScaled) {
-        int8_t* ct = codes + (step % (S - 1)) * 2 * TILE + row * D + cc * 16;
+        int8_t* ct = codes + (i % (S - 1)) * 2 * TILE + row * D + cc * 16;
         cp_async16(smem_u32(ct), kch + off, ok ? 16 : 0);
         cp_async16(smem_u32(ct + TILE), vch + off, ok ? 16 : 0);
         if (cc == 0) {
@@ -621,8 +693,8 @@ __device__ __forceinline__ void tc_segment_tile(const Params& p, const int blk,
     }
   };
   // int8: the copying thread widens its own chunks into the ring (exact)
-  auto widen = [&](int step) {
-    const int st = step % S;
+  auto widen = [&](int i) {
+    const int st = i % S;
     bf16* kt = ring + st * 2 * TILE;
 #pragma unroll
     for (int u = 0; u < U; ++u) {
@@ -630,7 +702,7 @@ __device__ __forceinline__ void tc_segment_tile(const Params& p, const int blk,
 #pragma unroll
       for (int kv = 0; kv < 2; ++kv) {
         const uint4 raw = *reinterpret_cast<const uint4*>(
-            codes + ((step % (S - 1)) * 2 + kv) * TILE + row * D + cc * 16);
+            codes + ((i % (S - 1)) * 2 + kv) * TILE + row * D + cc * 16);
         const uint2 w0 = widen4(raw.x), w1 = widen4(raw.y);
         const uint2 w2 = widen4(raw.z), w3 = widen4(raw.w);
         bf16* dst = kt + kv * TILE;
@@ -679,8 +751,9 @@ __device__ __forceinline__ void tc_segment_tile(const Params& p, const int blk,
     cp_async_commit();
     if (s + S < nsteps) fetch(s + S);
 
-    const int c = s * TC_KV;
-    if (c > qmax) continue;  // no row of this warp reaches this step
+    const int c = (sf + s) * TC_KV;
+    // no row of this warp keeps a position of this step
+    if (c > qmax || (kWin && c + TC_KV - 1 < flo)) continue;
     const bf16* kt = ring + (s % S) * 2 * TILE;
     const bf16* vt = kt + TILE;
     const float* ksc = pscl + (s % S) * 2 * TC_KV;
@@ -703,8 +776,9 @@ __device__ __forceinline__ void tc_segment_tile(const Params& p, const int blk,
       }
     }
 
-    // ---- scale (log2 domain), mask where the step crosses a limit ----
-    const bool masked = c + TC_KV - 1 > qmin;
+    // ---- scale (log2 domain), mask where the step crosses a limit or
+    // holds a window floor ----
+    const bool masked = c + TC_KV - 1 > qmin || (kWin && c < fhi);
     float mx[2] = {mrow[0], mrow[1]};
 #pragma unroll
     for (int n = 0; n < TC_KV / 8; ++n) {
@@ -716,7 +790,8 @@ __device__ __forceinline__ void tc_segment_tile(const Params& p, const int blk,
 #pragma unroll
         for (int i = 0; i < 2; ++i) {
           float v = sacc[n][2 * i + e] * f;
-          if (masked && c + col > qpos[i]) v = masked_out;
+          if (masked && (c + col > qpos[i] || (kWin && c + col < qlo[i])))
+            v = masked_out;
           sacc[n][2 * i + e] = v;
           mx[i] = fmaxf(mx[i], v);
         }
@@ -786,7 +861,7 @@ __device__ __forceinline__ void tc_segment_tile(const Params& p, const int blk,
     const int t = r / G, g = r % G;
     const size_t row = ((size_t)(tok0 + t) * p.Hkv + h) * G + g;
     const bool live = qpos[i] >= 0;
-    const float inv = live ? 1.f / lrow[i] : 0.f;
+    const float inv = live ? emit_scale(p, row, mrow[i] * kLn2, lrow[i]) : 0.f;
     uint32_t* op = reinterpret_cast<uint32_t*>(o + row * D) + (lane & 3);
 #pragma unroll
     for (int d = 0; d < D / 8; ++d)
@@ -819,7 +894,8 @@ __host__ __device__ constexpr int dec_smem_bytes() {
 
 // One decode block: row group rg (16 query rows) of decode tile s, kv head
 // h, horizon split z. blk: this block's index among the decode blocks.
-template <typename TC, int D>
+// kWin: as for tc_segment_tile
+template <typename TC, int D, bool kWin>
 __device__ __forceinline__ void tc_decode_tile(const Params& p, const int blk,
                                                unsigned char* smem) {
   constexpr bool kScaled = std::is_same<TC, int8_t>::value;
@@ -845,18 +921,24 @@ __device__ __forceinline__ void tc_decode_tile(const Params& p, const int blk,
   const int s = rest / rgs;
   const int r0 = rg * DROWS;
   const int nrows = min(DROWS, G - r0);
-  const int last = min(p.d_seq_lens[s], p.M * p.bs) - 1;  // -1: inactive
+  const int seq_len = p.d_seq_lens[s];
+  const int last = min(seq_len, p.M * p.bs) - 1;  // -1: inactive
   const int* table = p.d_tables + (size_t)s * p.M;
   const TC* kc = static_cast<const TC*>(p.kc);
   const TC* vc = static_cast<const TC*>(p.vc);
+  // window floors: the row group's first row's (the lowest) starts the
+  // walk; its last real row's is the highest
+  const int sf = kWin ? max(0, decode_floor(p, seq_len, r0)) / DKT : 0;
+  const int fhi = kWin ? decode_floor(p, seq_len, r0 + nrows - 1) : 0;
 
-  // ---- this block's split of the horizon, then this warp's run ----
-  const int steps = (last + DKT) / DKT;
+  // ---- this block's split of [floor, last], then this warp's run ----
+  const int steps = last >= sf * DKT ? last / DKT + 1 - sf : 0;
   const int per = max((steps + p.n_split - 1) / p.n_split, DMIN_STEPS);
   const int b0 = min(steps, z * per), b1 = min(steps, b0 + per);
   const int wper = (b1 - b0 + NW - 1) / NW;
   const int w0s = min(b1, b0 + warp * wper);
   const int n = min(b1, w0s + wper) - w0s;  // this warp's steps
+  const int first = sf + w0s;  // the horizon's step of this warp's first
 
   // ---- Q: the 16 rows (zeros past the tile's rows), copies in flight ----
   bf16* qs = reinterpret_cast<bf16*>(smem);
@@ -963,16 +1045,20 @@ __device__ __forceinline__ void tc_decode_tile(const Params& p, const int blk,
   float mrow[2] = {kNegInf, kNegInf}, lrow[2] = {0.f, 0.f};
   const float qk_scale = p.scale * kLog2e;
   const float masked_out = __int_as_float(0xff800000);  // -inf
+  int rfl[2];  // this thread's two rows' window floors
+#pragma unroll
+  for (int r = 0; r < 2; ++r)
+    rfl[r] = kWin ? decode_floor(p, seq_len, r0 + (lane >> 2) + 8 * r) : 0;
 
   // the warp's first DST - 1 steps in flight (one commit group each, after
   // Q's), then Q into registers while they land
   if (n > 0) {
-    fetch(w0s);
+    fetch(first);
 #pragma unroll
     for (int i = 0; i < DST - 1; ++i) {
       if (i < n) copy_step(i);
       cp_async_commit();
-      if (i + 1 < n) fetch(w0s + i + 1);
+      if (i + 1 < n) fetch(first + i + 1);
     }
     cp_async_wait<DST - 1>();
   } else {
@@ -997,9 +1083,9 @@ __device__ __forceinline__ void tc_decode_tile(const Params& p, const int blk,
     }
     if (i + DST - 1 < n) copy_step(i + DST - 1);
     cp_async_commit();
-    if (i + DST < n) fetch(w0s + i + DST);
+    if (i + DST < n) fetch(first + i + DST);
 
-    const int c = (w0s + i) * DKT;
+    const int c = (first + i) * DKT;
     const bf16* kt = kScaled ? wide : ring + (i % DST) * 2 * TILE;
     const bf16* vt = kt + TILE;
     const float* ksc = pscl + (i % DST) * 2 * DKT;
@@ -1019,8 +1105,9 @@ __device__ __forceinline__ void tc_decode_tile(const Params& p, const int blk,
       mma_bf16(sacc[1], qf[kk], b[2], b[3]);
     }
 
-    // ---- scale (log2 domain), mask the positions past the horizon ----
-    const bool masked = c + DKT - 1 > last;
+    // ---- scale (log2 domain), mask the positions past the horizon and
+    // below a row's window floor ----
+    const bool masked = c + DKT - 1 > last || (kWin && c < fhi);
     float mx[2] = {mrow[0], mrow[1]};
 #pragma unroll
     for (int nn = 0; nn < 2; ++nn) {
@@ -1032,7 +1119,9 @@ __device__ __forceinline__ void tc_decode_tile(const Params& p, const int blk,
         const bool cut = masked && c + col > last;
 #pragma unroll
         for (int r = 0; r < 2; ++r) {
-          const float v = cut ? masked_out : sacc[nn][2 * r + e] * f;
+          const float v = cut || (kWin && masked && c + col < rfl[r])
+                              ? masked_out
+                              : sacc[nn][2 * r + e] * f;
           sacc[nn][2 * r + e] = v;
           mx[r] = fmaxf(mx[r], v);
         }
@@ -1129,7 +1218,6 @@ __device__ __forceinline__ void tc_decode_tile(const Params& p, const int blk,
     for (int j = 0; j < CPT; ++j) o[j] = fmaf(wt, src[j], o[j]);
   }
   const bool live = L > 0.f;  // something of this split is attended
-  const float inv = live ? 1.f / L : 0.f;
   const float m_nat = live ? M * kLn2 : kNegInf;
   const size_t grow = ((size_t)s * p.Hkv + h) * G + r0 + row;
   const bool mine = row < nrows;
@@ -1137,6 +1225,7 @@ __device__ __forceinline__ void tc_decode_tile(const Params& p, const int blk,
 
   if (p.n_split == 1) {
     if (mine) {
+      const float inv = emit_scale(p, grow, m_nat, L);
 #pragma unroll
       for (int j = 0; j < CPT; ++j)
         out[grow * D + col0 + j] = __float2bfloat16(o[j] * inv);
@@ -1149,6 +1238,7 @@ __device__ __forceinline__ void tc_decode_tile(const Params& p, const int blk,
   }
   // ---- a split's partial, then the last split of the row group combines
   if (mine) {
+    const float inv = live ? 1.f / L : 0.f;
     const size_t prow = (size_t)z * p.R_part + grow;
 #pragma unroll
     for (int j = 0; j < CPT; ++j) p.part_o[prow * D + col0 + j] = o[j] * inv;
@@ -1181,7 +1271,7 @@ __device__ __forceinline__ void tc_decode_tile(const Params& p, const int blk,
       for (int j = 0; j < CPT; ++j)
         o[j] = fmaf(wt, __ldcg(p.part_o + prow * D + col0 + j), o[j]);
     }
-    const float iz = 1.f / fmaxf(Lz, 1e-20f);
+    const float iz = emit_scale(p, grow, Mz, Lz);
 #pragma unroll
     for (int j = 0; j < CPT; ++j)
       out[grow * D + col0 + j] = __float2bfloat16(o[j] * iz);
@@ -1197,16 +1287,16 @@ __device__ __forceinline__ void tc_decode_tile(const Params& p, const int blk,
 // n_seg_blocks-1, longest horizon first), then the decode tiles on the
 // tensor-core decode body (B x row groups x Hkv x n_split blocks, the
 // splits of one row group adjacent, merged in the launch).
-template <typename TC, int D>
+template <typename TC, int D, bool kWin>
 __global__ void __launch_bounds__(NW * 32, 1)
 tc_attention_kernel(const Params p) {
   extern __shared__ __align__(128) unsigned char smem[];
   const int blk = blockIdx.x;
   if (blk < p.n_seg_blocks) {
-    tc_segment_tile<TC, D>(p, blk, smem);
+    tc_segment_tile<TC, D, kWin>(p, blk, smem);
     return;
   }
-  tc_decode_tile<TC, D>(p, blk - p.n_seg_blocks, smem);
+  tc_decode_tile<TC, D, kWin>(p, blk - p.n_seg_blocks, smem);
 }
 
 // Merge the n_split partials of every row (one warp per row):
@@ -1232,7 +1322,7 @@ combine_splits_kernel(const Params p) {
 #pragma unroll
     for (int d = 0; d < DPL; ++d) acc[d] = fmaf(w, op[d], acc[d]);
   }
-  const float inv = 1.f / fmaxf(l, 1e-20f);
+  const float inv = emit_scale(p, row, m, l);
   T* o = static_cast<T*>(p.o) + row * D + lane * DPL;
 #pragma unroll
   for (int d = 0; d < DPL; ++d) o[d] = from_f<T>(acc[d] * inv);
@@ -1258,24 +1348,30 @@ cudaError_t launch_core(const Params& p, int n_tiles, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-template <typename TC, int D>
-cudaError_t launch_tc(const Params& p, cudaStream_t stream) {
+template <typename TC, int D, bool kWin>
+cudaError_t launch_tc_as(const Params& p, cudaStream_t stream) {
   constexpr int seg = tc_smem_bytes<TC, D>();
   constexpr int dec = dec_smem_bytes<TC, D>();
   static bool attr_set = false;  // above 48 KB needs the opt-in, once
   if (!attr_set) {
     const cudaError_t err = cudaFuncSetAttribute(
-        tc_attention_kernel<TC, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        seg > dec ? seg : dec);
+        tc_attention_kernel<TC, D, kWin>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, seg > dec ? seg : dec);
     if (err != cudaSuccess) return err;
     attr_set = true;
   }
   const int rgs = (p.Gq + DROWS - 1) / DROWS;
   const int dec_blocks = p.B * rgs * p.Hkv * p.n_split;
   const int smem = p.B == 0 ? seg : (p.n_seg_blocks == 0 ? dec : (seg > dec ? seg : dec));
-  tc_attention_kernel<TC, D><<<p.n_seg_blocks + dec_blocks, NW * 32, smem,
-                               stream>>>(p);
+  tc_attention_kernel<TC, D, kWin><<<p.n_seg_blocks + dec_blocks, NW * 32,
+                                     smem, stream>>>(p);
   return cudaGetLastError();
+}
+
+template <typename TC, int D>
+cudaError_t launch_tc(const Params& p, cudaStream_t stream) {
+  return p.window > 0 ? launch_tc_as<TC, D, true>(p, stream)
+                      : launch_tc_as<TC, D, false>(p, stream);
 }
 
 // bf16 launches on the tensor-core bodies, f32 launches on the CUDA-core one
@@ -1309,14 +1405,17 @@ cudaError_t launch_typed(const Params& p, int D, int n_tiles,
 // n_split splitting every tile, merged by a second kernel. The Python
 // wrapper checks both. With n_split > 1, ``scratch`` holds
 // n_split * R * (D + 2) floats, R = the split tiles' query rows
-// (tokens * Hkv * Gq) for the partials.
+// (tokens * Hkv * Gq) for the partials. window (0 = full), q_off and group
+// place the decode rows' window floors (Params); sinks ([Hkv * Gq] f32, or
+// null) fold into every row's normalizer and come without m_out / l_out.
 extern "C" int paged_attention_launch(
     const void* q, void* o, float* m_out, float* l_out, const void* kc,
     const void* vc, const int* d_tables, const int* d_seq_lens, int B,
     const int* p_tables, const int* p_hists, const int* p_valids, int MP,
     int T, int Tq, int Hkv, int Gq, int N, int bs, int M, int D, float scale,
     int n_split, float* scratch, int dtype, const float* k_scales,
-    const float* v_scales, int kv_dtype, int* tickets, void* stream) {
+    const float* v_scales, int kv_dtype, int* tickets, int window, int q_off,
+    int group, const float* sinks, void* stream) {
   if (Tq < 1) Tq = 1;
   Params p;
   p.q = q;
@@ -1344,6 +1443,11 @@ extern "C" int paged_attention_launch(
   p.M = M;
   p.scale = scale;
   p.tickets = tickets;
+  p.window = window > 0 ? window : 0;
+  p.q_off = q_off;
+  p.group = group;
+  p.sinks = sinks;
+  if (sinks != nullptr && m_out != nullptr) return (int)cudaErrorInvalidValue;
   const bool tc = dtype == 1;
   const int rchunks = (Gq + NW * RPW - 1) / (NW * RPW);
   const int n_tiles = B * rchunks + MP * p.nT;  // the CUDA-core grid's x

@@ -216,10 +216,7 @@ class TorchEngine(AsyncEngine):
         self.cfg = cfg
         mcfg = cfg.model
         self.device = resolve_device(device)
-        # a global sliding window at least max_context long masks nothing
-        # (Qwen2/2.5 configs carry sliding_window 131072 with
-        # use_sliding_window false): full attention, the unwindowed kernels
-        llama.check_supported(mcfg, cfg.max_context)
+        llama.check_supported(mcfg)
         if self.device.type == "cuda" and mcfg.is_mla and not (
             mla_attention.takes_widths(mcfg.kv_lora_rank, mcfg.qk_rope_head_dim)
         ):

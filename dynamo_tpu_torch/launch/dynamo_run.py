@@ -13,6 +13,8 @@ Examples::
       --model-path llama3-8b-sim
   python -m dynamo_tpu_torch.launch.dynamo_run in=http out=torch \\
       --model-path deepseek-v2-lite-sim
+  python -m dynamo_tpu_torch.launch.dynamo_run in=http out=torch \\
+      --model-path gptoss-20b-sim --warmup
   python -m dynamo_tpu_torch.launch.dynamo_run in=text out=torch \\
       --model-path tiny --device cpu
   python -m dynamo_tpu_torch.launch.dynamo_run in=http out=torch \\
@@ -29,7 +31,7 @@ Examples::
 ``--model-path`` is a preset or a checkpoint: a local directory or an
 ``org/name`` already in the local HF cache (``llm/hub.py``) holding
 ``config.json`` (Llama, Mistral, Qwen2, Qwen3, Mixtral, Qwen2-MoE,
-Qwen3-MoE, DeepSeek-V2/V3), ``*.safetensors`` weights (loaded onto the
+Qwen3-MoE, gpt-oss, DeepSeek-V2/V3), ``*.safetensors`` weights (loaded onto the
 engine's device; without them the weights are drawn at random, as the
 reference serves a config-only directory) and its tokenizer
 (``tokenizer.json`` through ``transformers``, else ``tokenizer.model``
@@ -37,10 +39,13 @@ through the port's own SentencePiece reader). ``--tokenizer <dir>``
 overrides the tokenizer, of a checkpoint or of a preset.
 
 Model presets (random weights from seed 0, byte tokenizer): ``tiny``,
-``llama3-8b-sim`` (the full Llama-3-8B architecture) and
+``llama3-8b-sim`` (the full Llama-3-8B architecture),
 ``deepseek-v2-lite-sim`` (DeepSeek-V2-Lite's published config: 27 layers,
-MLA latent cache, 64 routed experts top-6 + 2 shared). Engine flags and
-defaults match the reference's.
+MLA latent cache, 64 routed experts top-6 + 2 shared), ``gptoss-20b-sim``
+(gpt-oss-20b's published shapes: 24 layers alternating a 128-token window
+and full attention, sinks, 32 experts top-4 with biased clamped SwiGLU,
+YaRN rope; context cut to 8192) and ``tiny-gptoss`` (its CPU-sized kin).
+Engine flags and defaults match the reference's.
 """
 
 from __future__ import annotations
@@ -70,6 +75,18 @@ PRESETS = {
     "tiny": ModelConfig.tiny,
     "llama3-8b-sim": ModelConfig.llama3_8b,
     "deepseek-v2-lite-sim": deepseek_v2_lite,
+    # gpt-oss-20b's published shapes (20.9B params, 41.8 GB in bf16), the
+    # context cut from 131072 to 8192 positions (the YaRN rope keeps its
+    # published original 4096 and factor 32)
+    "gptoss-20b-sim": lambda: ModelConfig.gptoss_20b(
+        max_position_embeddings=8192),
+    # gpt-oss-shaped smoke model: alternating sliding/full layers,
+    # attention sinks, biased clamped-SwiGLU MoE (the JAX package's)
+    "tiny-gptoss": lambda: ModelConfig.tiny(
+        num_layers=4, layer_windows=(16, 0, 16, 0), attn_sinks=True,
+        o_bias=True, attention_bias=True, num_experts=4,
+        num_experts_per_tok=2, moe_intermediate_size=32,
+        moe_act="gptoss_clamp"),
 }
 
 

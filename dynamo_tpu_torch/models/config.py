@@ -2,14 +2,15 @@
 
 A copy of ``dynamo_tpu/models/config.py`` (the port imports nothing of the
 JAX package), with the presets the port serves: ``tiny``, ``tiny_mla``,
-``llama3_8b`` and DeepSeek-V2-Lite (:data:`DEEPSEEK_V2_LITE_HF`, the
+``llama3_8b``, ``gptoss_120b`` / ``gptoss_20b`` and DeepSeek-V2-Lite (:data:`DEEPSEEK_V2_LITE_HF`, the
 published ``config.json``, parsed by :meth:`ModelConfig.from_hf_config`);
 and the published ``config.json`` values of Qwen2.5-7B-Instruct
 (:data:`QWEN25_7B_HF`), Qwen3-8B (:data:`QWEN3_8B_HF`) and
 Mistral-7B-Instruct-v0.2 (:data:`MISTRAL_7B_V02_HF`), which chip_smoke.py
 serves at full width.
-The port's forward covers dense GQA decoders and the DeepSeek MLA + MoE
-family; models/llama.py ``check_supported`` raises on the rest.
+The port's forward covers dense GQA decoders (gpt-oss included) and the
+DeepSeek MLA + MoE family; models/llama.py ``check_supported`` raises on
+the rest.
 """
 
 from __future__ import annotations
@@ -412,6 +413,39 @@ class ModelConfig:
         )
         base.update(overrides)
         return ModelConfig(**base)
+
+    # gpt-oss (published shapes): alternating sliding/full attention,
+    # sinks, biased clamped-SwiGLU MoE, head_dim 64. 120b: 36 layers /
+    # 128 experts; 20b: 24 layers / 32 experts — both top-4.
+    @staticmethod
+    def gptoss_120b(**overrides) -> "ModelConfig":
+        base = dict(
+            vocab_size=201088, hidden_size=2880, intermediate_size=2880,
+            num_layers=36, num_heads=64, num_kv_heads=8, head_dim=64,
+            rope_theta=150000.0, max_position_embeddings=131072,
+            num_experts=128, num_experts_per_tok=4,
+            moe_intermediate_size=2880, moe_act="gptoss_clamp",
+            attn_sinks=True, o_bias=True, attention_bias=True,
+            layer_windows=tuple(128 if i % 2 == 0 else 0
+                                for i in range(36)),
+            # the published YaRN extension (4k -> 128k), with the
+            # fractional correction range of truncate=False
+            rope_scaling=dict(
+                rope_type="yarn", factor=32.0, beta_fast=32.0,
+                beta_slow=1.0, original_max_position_embeddings=4096,
+                truncate=False,
+            ),
+        )
+        base.update(overrides)
+        return ModelConfig(**base)
+
+    @staticmethod
+    def gptoss_20b(**overrides) -> "ModelConfig":
+        base = dict(num_layers=24, num_experts=32,
+                    layer_windows=tuple(128 if i % 2 == 0 else 0
+                                        for i in range(24)))
+        base.update(overrides)
+        return ModelConfig.gptoss_120b(**base)
 
 
 #: DeepSeek-V2-Lite's published config.json

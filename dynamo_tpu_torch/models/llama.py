@@ -21,13 +21,15 @@ in the v slot (models/mla.py). PyTorch runs eagerly, so the layer loops
 are plain Python loops.
 
 Covered: the Llama / Llama-3 / Mistral shape (RMS norms, half-split rope
-with default or ``llama3`` scaling, SwiGLU, optional tied embeddings),
-Qwen2's q/k/v biases and Qwen3's per-head q/k RMS norms, DeepSeek-V2/V3
-Multi-Latent Attention (absorbed, with or without q-lora, YaRN rope) and
-Mixtral/Qwen-MoE/DeepSeek MoE FFNs (softmax or sigmoid scoring, gate bias,
-group-limited routing, shared experts, Qwen2-MoE's gated shared expert).
-A sliding window serves only where it masks nothing: at least as long as
-the served context. Everything else raises in :func:`check_supported`.
+with default, ``llama3`` or ``yarn`` scaling, SwiGLU, optional tied
+embeddings), Qwen2's q/k/v biases and Qwen3's per-head q/k RMS norms,
+sliding windows (global, or per layer as gpt-oss alternates them), gpt-oss
+(attention sinks, the o_proj bias, the router's logit bias and the biased
+clamped-SwiGLU experts), DeepSeek-V2/V3 Multi-Latent Attention (absorbed,
+with or without q-lora, YaRN rope) and Mixtral/Qwen-MoE/DeepSeek MoE FFNs
+(softmax or sigmoid scoring, gate bias, group-limited routing, shared
+experts, Qwen2-MoE's gated shared expert). Everything else raises in
+:func:`check_supported`.
 :func:`dense_forward` is the cache-free full-attention forward, the
 checkpoint tests' and the card's oracle.
 
@@ -71,7 +73,7 @@ from ..ops.sampling import (
     token_logprobs,
 )
 from . import mla
-from .config import ModelConfig
+from .config import ModelConfig, yarn_mscale
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
            "float16": torch.bfloat16}
@@ -81,19 +83,15 @@ def _dtype(cfg: ModelConfig) -> torch.dtype:
     return _DTYPES[str(cfg.dtype)]
 
 
-def check_supported(cfg: ModelConfig, max_context: int = 0) -> None:
-    """The port serves dense GQA decoders (q/k/v biases and per-head q/k
-    norms included) and the DeepSeek MLA + MoE family; other families raise.
-    A global sliding window at least as long as the served context
-    (``max_context``, by default the model's ``max_position_embeddings``)
-    masks nothing (``q_pos - kv_pos < window`` always holds), so it serves
-    as full attention; a shorter one, or per-layer windows, raise."""
-    context = max_context or cfg.max_position_embeddings
+def check_supported(cfg: ModelConfig) -> None:
+    """The port serves dense GQA decoders (q/k/v biases, per-head q/k
+    norms, sliding windows global or per layer, gpt-oss's sinks, o_proj
+    bias and biased clamped-SwiGLU experts) and the DeepSeek MLA + MoE
+    family; other families raise."""
     unsupported = {
         "full-width qk norm": cfg.qk_norm_full,
-        "sliding window": (bool(cfg.layer_windows) or
-                           0 < cfg.sliding_window < context),
-        "attention sinks": cfg.attn_sinks, "o_proj bias": cfg.o_bias,
+        "sliding window or sinks on MLA": cfg.is_mla and bool(
+            cfg.layer_windows or cfg.sliding_window or cfg.attn_sinks),
         "softcap": cfg.attn_softcap or cfg.final_softcap,
         "post norms": cfg.post_norms or cfg.norm_after,
         "gemma norms/embeddings": cfg.rms_add_unit or cfg.scale_embed,
@@ -101,7 +99,8 @@ def check_supported(cfg: ModelConfig, max_context: int = 0) -> None:
         "partial rotary": bool(cfg.rope_partial_dim),
         "local rope": bool(cfg.rope_local_theta),
         "query scale base": bool(cfg.attn_scale_base),
-        "gpt-oss expert clamp and biases": cfg.is_moe and cfg.moe_act != "swiglu",
+        "expert activation " + cfg.moe_act: (
+            cfg.moe_act not in ("swiglu", "gptoss_clamp")),
     }
     bad = [k for k, v in unsupported.items() if v]
     if bad:
@@ -143,6 +142,10 @@ def _init_layer_group(cfg: ModelConfig, L: int, moe: bool, normal, ones) -> dict
                           bv=ones(L, Hkv * D).zero_())
         if cfg.qk_norm:  # qwen3: per-head weight [D]
             layers.update(q_norm=ones(L, D), k_norm=ones(L, D))
+        if cfg.attn_sinks:  # gpt-oss: per-head sink logits, f32
+            layers["sinks"] = normal(L, H, std=0.5).float()
+        if cfg.o_bias:
+            layers["bo"] = ones(L, E).zero_()
     if moe:
         X = cfg.num_experts
         Fm = cfg.moe_intermediate_size or F_
@@ -151,6 +154,12 @@ def _init_layer_group(cfg: ModelConfig, L: int, moe: bool, normal, ones) -> dict
             layers["moe_gate_bias"] = ones(L, X).float().zero_()  # f32, as in JAX
         layers.update(we_gate=normal(L, X, E, Fm), we_up=normal(L, X, E, Fm),
                       we_down=normal(L, X, Fm, E))
+        if cfg.moe_act == "gptoss_clamp":  # the router's logit bias (f32)
+            # and per-expert projection biases, as in JAX
+            layers["moe_router_bias"] = ones(L, X).float().zero_()
+            layers.update(be_gate=normal(L, X, Fm, std=0.05),
+                          be_up=normal(L, X, Fm, std=0.05),
+                          be_down=normal(L, X, E, std=0.05))
         if cfg.num_shared_experts:
             Fs = cfg.shared_expert_size or Fm * cfg.num_shared_experts
             layers.update(shared_gate=normal(L, E, Fs),
@@ -173,9 +182,9 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     dt = _dtype(cfg)
     E, V, L = cfg.hidden_size, cfg.vocab_size, cfg.num_layers
 
-    def normal(*shape):
+    def normal(*shape, std=0.02):
         return torch.empty(shape, dtype=dt, device=device).normal_(
-            0.0, 0.02, generator=generator
+            0.0, std, generator=generator
         )
 
     def ones(*shape):
@@ -257,26 +266,78 @@ def attn_query_scale(cfg: ModelConfig) -> float:
     return (cfg.attn_scale_base or cfg.head_dim) ** -0.5
 
 
+def window_for_layer(cfg: ModelConfig, l: int) -> int:
+    """Layer l's sliding-window width (0 = full): gpt-oss alternates
+    sliding and full layers (``cfg.layer_windows``); every other family is
+    homogeneous (``cfg.sliding_window``)."""
+    return cfg.layer_windows[l] if cfg.layer_windows else cfg.sliding_window
+
+
 def _rope_kind(cfg: ModelConfig) -> Optional[str]:
     scaling = cfg.rope_scaling or {}
     kind = scaling.get("rope_type") or scaling.get("type")
-    if kind not in (None, "default", "llama3"):
+    if kind not in (None, "default", "llama3", "yarn"):
         raise NotImplementedError(
-            f"rope scaling {kind!r} is not ported yet (default and llama3 are)"
+            f"rope scaling {kind!r} is not ported yet (default, llama3 and "
+            "yarn are)"
         )
     return kind
 
 
+def rope_attention_scaling(cfg: ModelConfig) -> float:
+    """YaRN's cos/sin attention factor (transformers'
+    ``_compute_yarn_parameters``): ``attention_factor`` where given, the
+    ratio of DeepSeek's mscales where both are, else 0.1 ln(factor) + 1;
+    1.0 for every other rope."""
+    scaling = cfg.rope_scaling or {}
+    if _rope_kind(cfg) != "yarn":
+        return 1.0
+    factor = scaling.get("factor", 1.0)
+    af = scaling.get("attention_factor")
+    if af is not None:
+        return float(af)
+    msc, mad = scaling.get("mscale"), scaling.get("mscale_all_dim")
+    if msc and mad:
+        return float(yarn_mscale(factor, msc) / yarn_mscale(factor, mad))
+    if factor <= 1.0:
+        return 1.0
+    return 0.1 * math.log(factor) + 1.0
+
+
 def _rope_freqs(cfg: ModelConfig, device="cpu") -> torch.Tensor:
-    """[D/2] f32 inverse frequencies: the default set, or Llama-3.1's
-    NTK-by-parts remap. Computed on ``device`` (an upload from the host
+    """[D/2] f32 inverse frequencies: the default set, Llama-3.1's
+    NTK-by-parts remap, or YaRN's (the low-frequency dims interpolated by
+    ``factor``, the high ones extrapolated, a linear ramp across the
+    correction range, kept fractional where ``truncate`` is False, as
+    gpt-oss ships it). Computed on ``device`` (an upload from the host
     would wait for the card's queue)."""
     D = cfg.head_dim
     inv = 1.0 / (
         cfg.rope_theta
         ** (torch.arange(0, D, 2, dtype=torch.float32, device=device) / D)
     )
-    if _rope_kind(cfg) == "llama3":
+    kind = _rope_kind(cfg)
+    if kind == "yarn":
+        scaling = cfg.rope_scaling
+        factor = scaling.get("factor", 1.0)
+        beta_fast = scaling.get("beta_fast") or 32
+        beta_slow = scaling.get("beta_slow") or 1
+        orig = (scaling.get("original_max_position_embeddings")
+                or cfg.max_position_embeddings)
+
+        def corr_dim(n_rot):
+            return (D * math.log(orig / (n_rot * 2 * math.pi))) / (
+                2 * math.log(cfg.rope_theta))
+
+        low, high = corr_dim(beta_fast), corr_dim(beta_slow)
+        if scaling.get("truncate", True):
+            low, high = math.floor(low), math.ceil(high)
+        low, high = max(low, 0), min(high, D - 1)
+        ramp = ((torch.arange(D // 2, dtype=torch.float32, device=device) - low)
+                / max(high - low, 0.001)).clamp(0.0, 1.0)
+        extrap = 1.0 - ramp
+        return (inv / factor) * (1 - extrap) + inv * extrap
+    if kind == "llama3":
         scaling = cfg.rope_scaling
         factor = scaling.get("factor", 8.0)
         lo = scaling.get("low_freq_factor", 1.0)
@@ -319,6 +380,16 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     """x: [..., T, Hx, D] rotated (half-split form) at absolute positions
     [..., T]."""
     return rotate(x, rope_tables(positions, inv_freq, mscale))
+
+
+def _rope_and_scale(cfg: ModelConfig, device):
+    """(inverse frequencies, cos/sin attention factor, softmax scale) of a
+    forward: MLA's own YaRN, or the GQA rope."""
+    if cfg.is_mla:
+        inv_freq, msc = mla.mla_rope_freqs(cfg, device)
+        return inv_freq, msc, cfg.mla_softmax_scale()
+    return (_rope_freqs(cfg, device), rope_attention_scaling(cfg),
+            attn_query_scale(cfg))
 
 
 def _embed(params: dict, cfg: ModelConfig, tokens: torch.Tensor) -> torch.Tensor:
@@ -402,6 +473,10 @@ def _route_topk(lp: dict, cfg: ModelConfig, x: torch.Tensor):
     the best topk_group blocks) — with routed_scaling_factor applied."""
     k, X = cfg.num_experts_per_tok, cfg.num_experts
     gate_logits = x.float() @ lp["moe_gate"].float()
+    if lp.get("moe_router_bias") is not None:
+        # gpt-oss: a LOGIT bias (before scoring: it moves the selection AND
+        # the combine weights), unlike V3's moe_gate_bias below
+        gate_logits = gate_logits + lp["moe_router_bias"].float()
     if cfg.moe_scoring == "sigmoid":
         scores = torch.sigmoid(gate_logits)
     else:
@@ -432,9 +507,9 @@ def _route_topk(lp: dict, cfg: ModelConfig, x: torch.Tensor):
 
 def _moe_route(lp: dict, cfg: ModelConfig, x: torch.Tensor):
     """Top-k routing + expert-sorted dispatch order. Returns (t_sorted,
-    w_sorted, group_sizes): token row per assignment in expert order
-    (stable within an expert), its combine weight, and per-expert
-    assignment counts."""
+    w_sorted, e_sorted, group_sizes): token row per assignment in expert
+    order (stable within an expert), its combine weight, its expert (for
+    gpt-oss's expert biases), and per-expert assignment counts."""
     k = cfg.num_experts_per_tok
     vals, idx = _route_topk(lp, cfg, x)
     e_flat = idx.reshape(-1)  # assignment r -> token r // k
@@ -443,14 +518,17 @@ def _moe_route(lp: dict, cfg: ModelConfig, x: torch.Tensor):
     group_sizes = torch.zeros(cfg.num_experts, dtype=torch.int64,
                               device=x.device).scatter_add_(
         0, e_flat, torch.ones_like(e_flat))
-    return order // k, vals.reshape(-1)[order], group_sizes
+    return order // k, vals.reshape(-1)[order], e_flat[order], group_sizes
 
 
 def _expert_act(cfg: ModelConfig, g: torch.Tensor, u: torch.Tensor):
-    """Expert gating nonlinearity: SwiGLU (gpt-oss's clamped GLU is not
-    ported; check_supported refuses it)."""
-    if cfg.moe_act != "swiglu":
-        raise NotImplementedError(f"expert activation {cfg.moe_act!r}")
+    """Expert gating nonlinearity: SwiGLU, or gpt-oss's clamped GLU (the
+    gate clamped at 7, the linear stream to [-7, 7], ``(u + 1) g
+    sigmoid(1.702 g)``)."""
+    if cfg.moe_act == "gptoss_clamp":
+        g = g.clamp(max=7.0)
+        u = u.clamp(-7.0, 7.0)
+        return (u + 1.0) * (g * torch.sigmoid(1.702 * g))
     return F.silu(g) * u
 
 
@@ -522,11 +600,16 @@ def moe_ffn(lp: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     scale with top-k, not the expert count). Exact: no capacity factor, no
     token dropping. Shared experts add on top."""
     T = x.shape[0]
-    t_sorted, w_sorted, group_sizes = _moe_route(lp, cfg, x)
+    t_sorted, w_sorted, e_sorted, group_sizes = _moe_route(lp, cfg, x)
     xs = x[t_sorted]
     g = _ragged_mm(xs, lp["we_gate"], group_sizes)
     u = _ragged_mm(xs, lp["we_up"], group_sizes)
+    if "be_gate" in lp:  # gpt-oss per-expert projection biases
+        g = g + lp["be_gate"][e_sorted]
+        u = u + lp["be_up"][e_sorted]
     o = _ragged_mm(_expert_act(cfg, g, u), lp["we_down"], group_sizes)
+    if "be_down" in lp:
+        o = o + lp["be_down"][e_sorted]
     out = _moe_combine(o, t_sorted, w_sorted, T, x.dtype)
     if "shared_gate" in lp:
         out = out + _shared_expert(lp, x)
@@ -561,7 +644,12 @@ def moe_ffn_dense(lp: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     )  # [T, X] routing weights
     g = _dense_expert_mm(x, lp["we_gate"], "te,xef->txf")
     u = _dense_expert_mm(x, lp["we_up"], "te,xef->txf")
+    if "be_gate" in lp:  # gpt-oss per-expert projection biases
+        g = g + lp["be_gate"][None]
+        u = u + lp["be_up"][None]
     y = _dense_expert_mm(_expert_act(cfg, g, u), lp["we_down"], "txf,xfe->txe")
+    if "be_down" in lp:
+        y = y + lp["be_down"][None]
     out = torch.einsum("txe,tx->te", y, w.to(x.dtype))
     if "shared_gate" in lp:
         out = out + _shared_expert(lp, x)
@@ -577,7 +665,10 @@ def _ffn(lp: dict, cfg: ModelConfig, h: torch.Tensor) -> torch.Tensor:
 
 
 def _layer_tail(x, lp, o_flat, cfg: ModelConfig):
-    x = x + _mm(o_flat, lp["wo"])
+    o = _mm(o_flat, lp["wo"])
+    if "bo" in lp:  # gpt-oss: o_proj carries a bias
+        o = o + lp["bo"]
+    x = x + o
     h = rms_norm(x, lp["mlp_norm"], cfg.rms_norm_eps)
     return x + _ffn(lp, cfg, h)
 
@@ -632,12 +723,7 @@ def prefill(
     history_len, valid_len = int(history_len), int(valid_len)
     x = _embed(params, cfg, tokens)  # [T, E]
     positions = torch.arange(T, device=dev) + history_len
-    if cfg.is_mla:
-        inv_freq, msc = mla.mla_rope_freqs(cfg, dev)
-        scale = cfg.mla_softmax_scale()
-    else:
-        inv_freq, msc = _rope_freqs(cfg, dev), 1.0
-        scale = attn_query_scale(cfg)
+    inv_freq, msc, scale = _rope_and_scale(cfg, dev)
     rope = rope_tables(positions, inv_freq, msc)
     blk, off = att.chunk_slot_indices(block_table, history_len, T,
                                       k_cache.shape[3])
@@ -668,6 +754,7 @@ def prefill(
                 att.write_slots(v_cache[l], v, blk, off)
             o = att.chunk_attention_with_cache(
                 q, k, v, k_cache[l], v_cache[l], block_table, hist, valid, scale,
+                window=window_for_layer(cfg, l), sinks=lp.get("sinks"),
                 k_scales=ks_l, v_scales=vs_l,
             ).reshape(T, -1)
         x = _layer_tail(x, lp, o, cfg)
@@ -694,12 +781,7 @@ def _decode_body(params, cfg, tokens, positions, block_tables, seq_lens,
     quantized = _check_planes(cfg, k_scales, v_scales)
     x = _embed(params, cfg, tokens)  # [B, E]
     B = x.shape[0]
-    if cfg.is_mla:
-        inv_freq, msc = mla.mla_rope_freqs(cfg, x.device)
-        scale = cfg.mla_softmax_scale()
-    else:
-        inv_freq, msc = _rope_freqs(cfg, x.device), 1.0
-        scale = attn_query_scale(cfg)
+    inv_freq, msc, scale = _rope_and_scale(cfg, x.device)
     blk, off = att.decode_slot_indices(block_tables, positions, k_cache.shape[3])
     hist_lens = seq_lens - 1  # cache contents EXCLUDE the new token
     rope = rope_tables(positions, inv_freq, msc)
@@ -722,6 +804,7 @@ def _decode_body(params, cfg, tokens, positions, block_tables, seq_lens,
             v_news.append(v)
             o = att.decode_attention_merged(
                 q, k, v, k_cache[l], v_cache[l], block_tables, hist_lens, scale,
+                window=window_for_layer(cfg, l), sinks=lp.get("sinks"),
                 k_scales=k_scales[l] if quantized else None,
                 v_scales=v_scales[l] if quantized else None,
             ).reshape(B, -1)
@@ -878,13 +961,12 @@ def _mixed_fused_forward(
     x = _embed(params, cfg, torch.cat([d_tokens, p_tokens.reshape(-1)]))
     p_positions = (p_hists.long()[:, None] + torch.arange(T, device=dev)).reshape(-1)
     positions_all = torch.cat([d_positions.long(), p_positions])
-    inv_freq = _rope_freqs(cfg, dev)
-    scale = attn_query_scale(cfg)
+    inv_freq, msc, scale = _rope_and_scale(cfg, dev)
     d_blk, d_off = att.decode_slot_indices(d_tables, d_positions, bs)
     p_blk, p_off = att.chunk_slot_indices(p_tables, p_hists, T, bs)
     blk = torch.cat([d_blk.long(), p_blk.reshape(-1)])
     off = torch.cat([d_off.long(), p_off.reshape(-1)])
-    rope = rope_tables(positions_all, inv_freq)
+    rope = rope_tables(positions_all, inv_freq, msc)
     for l, lp in _layers(params, cfg):
         h = rms_norm(x, lp["attn_norm"], cfg.rms_norm_eps)
         q, k, v = _qkv(lp, cfg, h)  # [B+MP*T, H/Hkv, D]
@@ -901,6 +983,7 @@ def _mixed_fused_forward(
         o = ragged_mixed_attention_rows(
             q, k_cache[l], v_cache[l], d_tables, d_seq_lens, p_tables,
             p_hists, p_valids, scale, T, k_scales=ks_l, v_scales=vs_l,
+            window=window_for_layer(cfg, l), sinks=lp.get("sinks"),
         )
         x = _layer_tail(x, lp, o.reshape(o.shape[0], -1), cfg)
     x = rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
@@ -1054,12 +1137,7 @@ def _verify_forward(params, cfg, tokens, positions, block_tables, seq_lens,
     x = _embed(params, cfg, tokens.reshape(-1))  # [B*T, E]
     blk, off = att.chunk_slot_indices(block_tables, positions, T,
                                       k_cache.shape[3])  # [B, T]
-    if cfg.is_mla:
-        inv_freq, msc = mla.mla_rope_freqs(cfg, dev)
-        scale = cfg.mla_softmax_scale()
-    else:
-        inv_freq, msc = _rope_freqs(cfg, dev), 1.0
-        scale = attn_query_scale(cfg)
+    inv_freq, msc, scale = _rope_and_scale(cfg, dev)
     rope = rope_tables(pos_bt.reshape(-1), inv_freq, msc)
     k_news, v_news = [], []
     for l, lp in _layers(params, cfg):
@@ -1084,6 +1162,7 @@ def _verify_forward(params, cfg, tokens, positions, block_tables, seq_lens,
             o = att.verify_attention(
                 q.reshape(B, T, *q.shape[1:]), k, v, k_cache[l], v_cache[l],
                 block_tables, hist_lens, scale,
+                window=window_for_layer(cfg, l), sinks=lp.get("sinks"),
             ).reshape(B * T, -1)
         x = _layer_tail(x, lp, o, cfg)
     x = rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
@@ -1191,16 +1270,24 @@ def verify_window(
 # ---------------- the cache-free oracle ----------------
 
 
-def _causal_attention(q, k, v, mask, scale: float) -> torch.Tensor:
+def _causal_attention(q, k, v, mask, scale: float, sinks=None) -> torch.Tensor:
     """Full attention of ``q [T, H, D]`` over ``k, v [T, Hkv, D]`` under
-    ``mask [T, T]``: scores in the input dtype read as f32, softmax in f32,
+    ``mask [T, T]``: scores in the input dtype read as f32, softmax in f32
+    (with each head's sink logit in the normalizer, no value row),
     probabilities cast back to v's dtype (the JAX package's
     ``prefill_attention_xla``)."""
     G = q.shape[1] // k.shape[1]
     k, v = k.repeat_interleave(G, dim=1), v.repeat_interleave(G, dim=1)
-    s = torch.einsum("thd,shd->hts", q * scale, k).float()
-    p = torch.softmax(s.masked_fill(~mask, -1e30), dim=-1).to(v.dtype)
-    return torch.einsum("hts,shd->thd", p, v)
+    s = torch.einsum("thd,shd->hts", q * scale, k).float().masked_fill(
+        ~mask, -1e30)
+    if sinks is None:
+        p = torch.softmax(s, dim=-1)
+    else:
+        sk = sinks.float()[:, None, None]  # [H, 1, 1]
+        m = torch.maximum(s.amax(-1, keepdim=True), sk)
+        e = torch.exp(s - m) * mask
+        p = e / (e.sum(-1, keepdim=True) + torch.exp(sk - m)).clamp_min(1e-30)
+    return torch.einsum("hts,shd->thd", p.to(v.dtype), v)
 
 
 def _mla_naive_attention(lp: dict, cfg: ModelConfig, h, positions, inv_freq,
@@ -1248,24 +1335,22 @@ def dense_forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor) -> torch
     dev = tokens.device
     x = _embed(params, cfg, tokens)
     positions = torch.arange(T, device=dev)
-    # causal; a window check_supported admits masks nothing at T <= context
-    mask = positions[:, None] >= positions[None, :]
-    if cfg.is_mla:
-        inv_freq, msc = mla.mla_rope_freqs(cfg, dev)
-        scale = cfg.mla_softmax_scale()
-    else:
-        inv_freq, msc = _rope_freqs(cfg, dev), 1.0
-        scale = attn_query_scale(cfg)
-    for _l, lp in _layers(params, cfg):
+    causal = positions[:, None] >= positions[None, :]
+    inv_freq, msc, scale = _rope_and_scale(cfg, dev)
+    for l, lp in _layers(params, cfg):
         h = rms_norm(x, lp["attn_norm"], cfg.rms_norm_eps)
         if cfg.is_mla:
             o = _mla_naive_attention(lp, cfg, h, positions, inv_freq, msc,
-                                     scale, mask)
+                                     scale, causal)
         else:
             q, k, v = _qkv(lp, cfg, h)
-            q = apply_rope(q, positions, inv_freq)
-            k = apply_rope(k, positions, inv_freq)
-            o = _causal_attention(q, k, v, mask, scale).reshape(T, -1)
+            q = apply_rope(q, positions, inv_freq, msc)
+            k = apply_rope(k, positions, inv_freq, msc)
+            mask, w = causal, window_for_layer(cfg, l)
+            if w > 0:
+                mask = causal & (positions[:, None] - positions[None, :] < w)
+            o = _causal_attention(q, k, v, mask, scale,
+                                  lp.get("sinks")).reshape(T, -1)
         x = _layer_tail(x, lp, o, cfg)
     x = rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
     return _logits(params, cfg, x)

@@ -47,8 +47,9 @@ from .config import ModelConfig
 from .llama import _DTYPES, _dtype, check_supported, init_params
 from .quant import native_layout
 
-#: leaves kept in float32 whatever the model dtype (as in the JAX tree)
-_F32_LEAVES = ("moe_gate_bias",)
+#: leaves kept in float32 whatever the model dtype (as in the JAX tree and
+#: its loader: the gate and router biases, gpt-oss's sink logits)
+_F32_LEAVES = ("moe_gate_bias", "moe_router_bias", "sinks")
 
 # ---------------- the safetensors format ----------------
 
@@ -143,7 +144,8 @@ def _checkpoint_index(path: str) -> dict[str, str]:
 def load_llama_params(path: str, cfg: ModelConfig, device=None,
                       dtype: Optional[str] = None) -> dict:
     """A HF Llama-family (Llama, Mistral, Qwen2, Qwen3, Phi-3 with full
-    rotary, Mixtral, Qwen2-MoE, Qwen3-MoE) or DeepSeek-V2/V3 MLA checkpoint
+    rotary, Mixtral, Qwen2-MoE, Qwen3-MoE, gpt-oss in bf16 / f32, not its
+    MXFP4 release) or DeepSeek-V2/V3 MLA checkpoint
     directory as the port's
     parameter dictionary on ``device`` (default: the card), in ``dtype``
     (default: the model's), ``_F32_LEAVES`` in f32. The JAX package's name
@@ -267,6 +269,11 @@ def load_llama_params(path: str, cfg: ModelConfig, device=None,
         if cfg.qk_norm:  # qwen3: per-head weight [head_dim]
             out["q_norm"] = stack(a + "q_norm.weight", rng, transpose=False)
             out["k_norm"] = stack(a + "k_norm.weight", rng, transpose=False)
+        if cfg.o_bias:  # gpt-oss
+            out["bo"] = stack(a + "o_proj.bias", rng, transpose=False)
+        if cfg.attn_sinks:  # gpt-oss: per-head sink logits, f32
+            out["sinks"] = stack(a + "sinks", rng, transpose=False,
+                                 leaf_dtype=torch.float32)
         return out
 
     def dense_ffn_leaves(rng) -> dict:
@@ -283,7 +290,31 @@ def load_llama_params(path: str, cfg: ModelConfig, device=None,
                 "w_up": stack(m + "up_proj.weight", rng),
                 "w_down": stack(m + "down_proj.weight", rng)}
 
+    def gptoss_moe_leaves(rng) -> dict:
+        """gpt-oss stores each layer's experts FUSED: ``gate_up_proj [X, E,
+        2F]`` with gate and up INTERLEAVED on the last axis (gate ``[...,
+        ::2]``, up ``[..., 1::2]``) and its bias ``[X, 2F]``, ``down_proj
+        [X, F, E]`` (already ``[in, out]``) and its bias ``[X, E]``; the
+        router is ``mlp.router`` with a logit bias."""
+        m = "model.layers.{i}.mlp."
+        e = m + "experts."
+        out = {"moe_gate": stack(m + "router.weight", rng),
+               "moe_router_bias": stack(m + "router.bias", rng, transpose=False,
+                                        leaf_dtype=torch.float32)}
+        for key, name, cols in (
+                ("we_gate", "gate_up_proj", slice(0, None, 2)),
+                ("we_up", "gate_up_proj", slice(1, None, 2)),
+                ("be_gate", "gate_up_proj_bias", slice(0, None, 2)),
+                ("be_up", "gate_up_proj_bias", slice(1, None, 2)),
+                ("we_down", "down_proj", slice(None)),
+                ("be_down", "down_proj_bias", slice(None))):
+            out[key] = stack(e + name, rng, transpose=False,
+                             fix=lambda w, c=cols: w[..., c])
+        return out
+
     def moe_ffn_leaves(rng) -> dict:
+        if cfg.moe_act == "gptoss_clamp":
+            return gptoss_moe_leaves(rng)
         X = cfg.num_experts
 
         def experts(mix: str, ds: str) -> torch.Tensor:

@@ -49,7 +49,7 @@ SOURCES = {
     "paged_attention.cu": {
         "paged_attention_launch": (
             [_P] * 8 + [_I] + [_P] * 3 + [_I] * 9
-            + [_F, _I, _P, _I, _P, _P, _I, _P, _P]
+            + [_F, _I, _P, _I, _P, _P, _I, _P] + [_I] * 3 + [_P, _P]
         ),
     },
 }

@@ -46,11 +46,11 @@ from .paged_attention import (
 )
 
 
-def _no_extras(fn: str, window=0, sinks=None, cap=0.0):
-    if window or sinks is not None or cap:
-        raise NotImplementedError(
-            f"{fn}: sliding windows, sinks and softcap are not ported yet"
-        )
+def _no_softcap(fn: str, cap=0.0):
+    """Softcap has no kernel in the JAX package either (its Gemma-2 path
+    is XLA only): the port serves it nowhere yet."""
+    if cap:
+        raise NotImplementedError(f"{fn}: softcap is not ported yet")
 
 
 def decode_attention_merged(
@@ -72,12 +72,13 @@ def decode_attention_merged(
     in with the flash merge. It removes the write-before-attend dependency,
     so all layers' cache writes batch into one in-place
     :func:`~dynamo_tpu_torch.ops.kv_cache_update.kv_cache_append` (or its
-    quantized twin; the current token merges in at full precision)."""
-    _no_extras("decode_attention_merged", window, sinks)
+    quantized twin; the current token merges in at full precision). The
+    window floor and the sink's place in the merge are verify_attention's
+    at T = 1."""
     return verify_attention(
         q[:, None], k_new[:, None], v_new[:, None], k_cache_layer,
-        v_cache_layer, block_tables, hist_lens, scale,
-        k_scales=k_scales, v_scales=v_scales,
+        v_cache_layer, block_tables, hist_lens, scale, window=window,
+        sinks=sinks, k_scales=k_scales, v_scales=v_scales,
     )[:, 0]
 
 
@@ -98,9 +99,12 @@ def verify_attention(
 ) -> torch.Tensor:  # [B, T, H, D]
     """T in-flight tokens per sequence attend the cached history (through
     the stats-emitting decode kernel: the T*G rows of a kv head pack into
-    its query-row dimension) plus the causal prefix of the window (dense,
-    tiny), merged with the flash-decoding rule."""
-    _no_extras("verify_attention", window, sinks, cap)
+    its query-row dimension, each with its exact window floor ``hist + 1 +
+    t - window``) plus the causal prefix of the window (dense, tiny),
+    merged with the flash-decoding rule. A head's sink logit joins the
+    merge denominator with no value row (the JAX package's
+    ``ops/attention.py`` verify_attention)."""
+    _no_softcap("verify_attention", cap)
     B, T, H, D = q.shape
     Hkv = k_cache_layer.shape[0]
     G = H // Hkv
@@ -109,7 +113,8 @@ def verify_attention(
     o_h, m_h, l_h = paged_decode_attention(
         qp.reshape(B, Hkv * T * G, D).contiguous(), k_cache_layer,
         v_cache_layer, block_tables, hist_lens, scale, return_stats=True,
-        q_pos_offset=1, group=G, k_scales=k_scales, v_scales=v_scales,
+        window=window, q_pos_offset=1, group=G, k_scales=k_scales,
+        v_scales=v_scales,
     )
     o_h = o_h.reshape(B, Hkv, T, G, D).float()
     m_h = m_h.reshape(B, Hkv, T, G)
@@ -117,14 +122,22 @@ def verify_attention(
     qg = q.reshape(B, T, Hkv, G, D).float() * scale
     s_w = torch.einsum("btkgd,bukd->bktgu", qg, k_win.float())
     if T > 1:  # the window's causal part (nothing to mask at T = 1)
-        future = torch.ones(T, T, dtype=torch.bool, device=q.device).triu(1)
-        s_w = s_w.masked_fill(future[None, None, :, None, :], NEG_INF)
+        t = torch.arange(T, device=q.device)
+        drop = t[None, :] > t[:, None]  # [T, T'] the future
+        if window > 0:  # binds only when T > window
+            drop |= (t[:, None] - t[None, :]) >= window
+        s_w = s_w.masked_fill(drop[None, None, :, None, :], NEG_INF)
     m_f = torch.maximum(m_h, s_w.amax(-1))
+    if sinks is not None:
+        s_k = sinks.float().reshape(1, Hkv, 1, G)
+        m_f = torch.maximum(m_f, s_k)
     kept = l_h * torch.exp(m_h - m_f)  # history's share of the normalizer
     p_w = torch.exp(s_w - m_f[..., None])  # [B, Hkv, T, G, T']
     o_w = torch.einsum("bktgu,bukd->bktgd", p_w, v_win.float())
     num = kept[..., None] * o_h + o_w
     den = kept + p_w.sum(-1)  # >= the diagonal's own term
+    if sinks is not None:
+        den = den + torch.exp(s_k - m_f)
     out = num / den[..., None]
     return out.permute(0, 2, 1, 3, 4).reshape(B, T, H, D).to(q.dtype)
 
@@ -207,11 +220,12 @@ def chunk_attention_with_cache(
     ``k_chunk``/``v_chunk`` are unused (they feed the dense twin
     :func:`chunk_attention_with_cache_xla`). Real rows (t < valid_len)
     agree between the two; padded rows come out zero (discarded by every
-    caller)."""
-    _no_extras("chunk_attention_with_cache", window, sinks, cap)
+    caller). ``window`` and ``sinks`` go to the kernel."""
+    _no_softcap("chunk_attention_with_cache", cap)
     return paged_prefill_attention(
         q, k_cache_layer, v_cache_layer, block_table, history_len, scale,
-        valid_len=valid_len, k_scales=k_scales, v_scales=v_scales,
+        window=window, sinks=sinks, valid_len=valid_len, k_scales=k_scales,
+        v_scales=v_scales,
     )
 
 

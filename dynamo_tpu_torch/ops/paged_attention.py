@@ -25,6 +25,11 @@ tables of physical page ids, page 0 reserved as trash. The pages are of the
 query dtype, or int8 with one f32 scale per physical page for K and for V
 (``k_scales`` / ``v_scales``, this layer's ``[N]`` slice of the engine's
 planes), dequantized as each page is read.
+
+Both take the TPU kernels' two gpt-oss options: a sliding ``window`` (a row
+keeps ``q_pos - kv_pos < window``; the kernel's walk starts at the tile's
+window floor, so pages below it are never read) and per-head ``sinks``
+(a logit that joins each row's softmax normalizer with no value row).
 """
 
 from __future__ import annotations
@@ -48,6 +53,10 @@ TC_TILE_ROWS = 128
 DECODE_ROWS = 16
 #: most horizon splits per tile (flash-decoding partials)
 MAX_SPLITS = 16
+#: kv positions per step of the decode bodies (csrc DKT, KT), and the least
+#: steps a tensor-core decode split takes (csrc DMIN_STEPS)
+DECODE_STEP = 16
+DECODE_MIN_STEPS = 8
 _SRC = "paged_attention.cu"
 
 
@@ -71,12 +80,17 @@ def launch_paged_attention(
     stats: bool = False,
     k_scales: Optional[torch.Tensor] = None,  # [N] f32 with an int8 cache
     v_scales: Optional[torch.Tensor] = None,
+    window: int = 0,  # sliding window; 0 = full
+    q_off: int = 0,  # decode rows sit at seq_len - 1 + q_off ...
+    group: int = 0,  # ... + r // group (the verify's packed rows)
+    sinks: Optional[torch.Tensor] = None,  # [Hkv * Gq] f32 sink logits
     name: str = "paged_attention",
 ):
     """Launch ``csrc/paged_attention.cu`` on its tile list: B one-token
     decode tiles, then MP segments of T tokens in Tq-token tiles (on the
     tensor cores when ``q`` is bf16). Returns ``o`` (like ``q``) and, with
-    ``stats``, ``m``/``l`` f32 ``[Ntok, Hkv, Gq]``. Validates every input
+    ``stats``, ``m``/``l`` f32 ``[Ntok, Hkv, Gq]`` (never with ``sinks``:
+    the merge that reads the statistics folds them). Validates every input
     and raises on what the kernel does not take."""
     Ntok, Hkv, Gq, D = q.shape
     Hc, N, bs, Dc = k_cache_layer.shape
@@ -100,6 +114,13 @@ def launch_paged_attention(
     if Ntok != B + MP * T:
         raise ValueError(f"{name}: {Ntok} query tokens for B={B} + "
                          f"MP={MP} x T={T}")
+    if sinks is not None:
+        if stats:
+            raise ValueError(f"{name}: sinks fold into the caller's merge "
+                             "when it asks for (m, l)")
+        if sinks.dtype != torch.float32 or sinks.shape != (Hkv * Gq,):
+            raise ValueError(f"{name}: sinks must be f32 [{Hkv * Gq}]")
+        _cuda.require_cuda(name, q, sinks)
     # a bf16 query (over bf16 or int8 pages) runs on the tensor-core bodies;
     # f32 launches (the tiny f32 models) keep the CUDA-core body
     tc = q.dtype == torch.bfloat16
@@ -131,6 +152,12 @@ def launch_paged_attention(
     n_split = 1
     if split_units:
         n_split = min(MAX_SPLITS, max(1, -(-want // split_units)))
+    if window > 0:
+        # a windowed horizon spans at most window + the tile's rows'
+        # spread: no more splits than its steps (tensor-core decode: than
+        # its DECODE_MIN_STEPS runs) can fill
+        steps = -(-(window + max(Gq, T)) // DECODE_STEP) + 1
+        n_split = min(n_split, -(-steps // DECODE_MIN_STEPS) if tc else steps)
     scratch = tickets = None
     if n_split > 1:
         split_rows = (B if tc else Ntok) * Hkv * Gq
@@ -145,7 +172,8 @@ def launch_paged_attention(
         _ptr(p_tables), _ptr(p_hists), _ptr(p_valids), MP, T, Tq, Hkv, Gq,
         N, bs, M, D, float(scale), n_split, _ptr(scratch),
         _cuda.DTYPE_CODES[q.dtype], _ptr(k_scales), _ptr(v_scales), kv_dtype,
-        _ptr(tickets), ctypes.c_void_p(_cuda.stream_ptr(q)),
+        _ptr(tickets), max(int(window), 0), int(q_off), int(group),
+        _ptr(sinks), ctypes.c_void_p(_cuda.stream_ptr(q)),
     )
     _cuda.check(err, name)
     return o, m, l
@@ -192,36 +220,64 @@ def masked_attention(
     k: torch.Tensor,  # [Hkv, R or 1, S, D]
     v: torch.Tensor,
     limit: torch.Tensor,  # [R] last attended position per row (-1 = none)
+    lo: Optional[torch.Tensor] = None,  # [R] or [R, Gq] window floors
+    sinks: Optional[torch.Tensor] = None,  # [Hkv, Gq] f32 sink logits
 ):
-    """Row r attends positions ``0..limit[r]``; fp32 softmax with the TPU
+    """Row r attends positions ``lo[r]..limit[r]`` (``lo`` per token, or
+    per query row of a kv head; None = from 0); fp32 softmax with the TPU
     kernels' statistics: ``m`` the row max (``NEG_INF`` when nothing is
     attended), ``l`` the normalizer (0 then), ``o`` normalized (0 then).
-    Returns ``o [R, Hkv, Gq, D]`` f32, ``m``/``l`` ``[R, Hkv, Gq]``."""
+    A head's sink logit s joins the normalizer of ``o`` (``m``/``l`` stay
+    without it): ``o = (p @ v) e^(m - m_f) / (l e^(m - m_f) + e^(s - m_f))``,
+    ``m_f = max(m, s)``. Returns ``o [R, Hkv, Gq, D]`` f32, ``m``/``l``
+    ``[R, Hkv, Gq]``."""
     S = k.shape[-2]
     s = qg.permute(1, 0, 2, 3) @ k.float().transpose(-1, -2)  # [Hkv,R,Gq,S]
     pos = torch.arange(S, device=qg.device)
-    valid = (pos[None, :] <= limit[:, None].long())[None, :, None, :]
+    valid = pos <= limit.long()[:, None, None]  # [R, 1, S]
+    if lo is not None:
+        valid = valid & (pos >= lo.long().reshape(lo.shape[0], -1, 1))
+    valid = valid[None]  # [1, R, Gq or 1, S]
     s = s.masked_fill(~valid, NEG_INF)
     m = s.amax(-1)
     p = torch.exp(s - m[..., None]) * valid
     l = p.sum(-1)
-    o = (p @ v.float()) / l.clamp_min(1e-20)[..., None]
+    if sinks is None:
+        o = (p @ v.float()) / l.clamp_min(1e-20)[..., None]
+    else:
+        sk = sinks.float()[:, None, :]  # [Hkv, 1, Gq]
+        m_f = torch.maximum(m, sk)
+        a = torch.exp(m - m_f)
+        o = (p @ v.float()) * (a / (l * a + torch.exp(sk - m_f)))[..., None]
     return o.permute(1, 0, 2, 3), m.permute(1, 0, 2), l.permute(1, 0, 2)
+
+
+def _sinks_hg(sinks: Optional[torch.Tensor], Hkv: int):
+    """``[H]`` sink logits as ``[Hkv, G]`` f32 (None stays None)."""
+    return None if sinks is None else sinks.float().reshape(Hkv, -1)
 
 
 def paged_decode_attention_plain(
     q, k_cache_layer, v_cache_layer, block_tables, seq_lens, scale,
     return_stats: bool = False, k_scales=None, v_scales=None,
+    window: int = 0, q_pos_offset: int = 0, group: int = 0, sinks=None,
 ):
     """Gather the pages through the tables (dequantized with per-page
-    scales), masked softmax in f32."""
+    scales), masked softmax in f32; with a window, row r of a kv head keeps
+    positions from ``seq_len + q_pos_offset - window (+ r // group)``."""
     B, H, D = q.shape
     Hkv = k_cache_layer.shape[0]
-    qg = q.reshape(B, Hkv, H // Hkv, D).float() * scale
+    Gq = H // Hkv
+    qg = q.reshape(B, Hkv, Gq, D).float() * scale
+    lo = None
+    if window > 0:
+        r = torch.arange(Gq, device=q.device)
+        lo = (seq_lens.long()[:, None] + q_pos_offset - window
+              + (r // group if group else 0))
     o, m, l = masked_attention(
         qg, gather_pages(k_cache_layer, block_tables, k_scales),
         gather_pages(v_cache_layer, block_tables, v_scales),
-        seq_lens.long() - 1,
+        seq_lens.long() - 1, lo, _sinks_hg(sinks, Hkv),
     )
     o = o.reshape(B, H, D).to(q.dtype)
     return (o, m, l) if return_stats else o
@@ -229,13 +285,15 @@ def paged_decode_attention_plain(
 
 def paged_prefill_attention_plain(
     q, k_cache_layer, v_cache_layer, block_table, history_len, scale,
-    valid_len=None, k_scales=None, v_scales=None,
+    valid_len=None, k_scales=None, v_scales=None, window: int = 0,
+    sinks=None,
 ):
     T, H, D = q.shape
     Hkv = k_cache_layer.shape[0]
     hist = torch.as_tensor(history_len, device=q.device).reshape(())
     t = torch.arange(T, device=q.device)
     limit = hist + t
+    lo = limit - window + 1 if window > 0 else None
     if valid_len is not None:
         valid = torch.as_tensor(valid_len, device=q.device).reshape(())
         limit = torch.where(t < valid, limit, -1)
@@ -243,6 +301,7 @@ def paged_prefill_attention_plain(
     o, _, _ = masked_attention(
         qg, gather_pages(k_cache_layer, block_table, k_scales)[:, None],
         gather_pages(v_cache_layer, block_table, v_scales)[:, None], limit,
+        lo, _sinks_hg(sinks, Hkv),
     )
     return o.reshape(T, H, D).to(q.dtype)
 
@@ -264,41 +323,52 @@ def paged_decode_attention(
     group: int = 0,
     k_scales: Optional[torch.Tensor] = None,
     v_scales: Optional[torch.Tensor] = None,
+    sinks: Optional[torch.Tensor] = None,
 ):  # [B, H, D] or (out, m [B, Hkv, G], l [B, Hkv, G]) with return_stats
     """GQA paged decode attention over ``seq_lens[b]`` cached positions.
 
     ``pages_per_step`` is the TPU kernel's DMA grouping and is ignored.
     ``group`` is the query heads per kv head of ONE token where the rows
     pack several (the verify's T*G rows per kv head): a launch with more
-    rows than that also counts in ``verify_launches``. ``q_pos_offset``
-    only matters for a sliding window, which is not ported yet and raises.
-    ``k_scales``/``v_scales`` ([N] f32) come with int8 pages. Rows with
+    rows than that also counts in ``verify_launches``, one with a window in
+    ``window_launches``. A ``window`` keeps
+    row r of a kv head to positions from ``seq_len + q_pos_offset - window
+    (+ r // group)`` (the query sits at ``seq_len - 1 + q_pos_offset``,
+    one past the cache for the merged decode and the verify).
+    ``k_scales``/``v_scales`` ([N] f32) come with int8 pages. ``sinks``
+    ([H] f32) fold into the output (the JAX package's
+    ``_decode_kernel_with_sinks``); with ``return_stats`` the caller's
+    merge folds them instead, so the two exclude each other. Rows with
     ``seq_len == 0`` return o = 0, m = -1e30, l = 0."""
-    if window:
-        raise NotImplementedError(
-            "paged_decode_attention: sliding windows are not ported yet"
-        )
+    if sinks is not None and return_stats:
+        raise ValueError("paged_decode_attention: with return_stats the "
+                         "merge folds the sinks (m, l come without them)")
     B, H, D = q.shape
     Hkv = k_cache_layer.shape[0]
     G = H // Hkv
     if q.device.type == "cpu":
         return paged_decode_attention_plain(
             q, k_cache_layer, v_cache_layer, block_tables, seq_lens, scale,
-            return_stats, k_scales, v_scales,
+            return_stats, k_scales, v_scales, window, q_pos_offset, group,
+            sinks,
         )
     o, m, l = launch_paged_attention(
         q.reshape(B, Hkv, G, D), k_cache_layer, v_cache_layer, scale,
         d_tables=block_tables, d_seq_lens=seq_lens, stats=return_stats,
-        k_scales=k_scales, v_scales=v_scales, name="paged_decode_attention",
+        k_scales=k_scales, v_scales=v_scales, window=window,
+        q_off=q_pos_offset, group=group, sinks=sinks,
+        name="paged_decode_attention",
     )
     paged_decode_attention.launches += 1
     if group and G > group:
         paged_decode_attention.verify_launches += 1
+    if window > 0:
+        paged_decode_attention.window_launches += 1
     o = o.reshape(B, H, D)
     return (o, m, l) if return_stats else o
 
 
-_cuda.counted(paged_decode_attention, "verify_launches")
+_cuda.counted(paged_decode_attention, "verify_launches", "window_launches")
 
 
 def paged_prefill_attention(
@@ -321,19 +391,16 @@ def paged_prefill_attention(
     discarded by every caller: as in the JAX kernel they compute values
     anyway, unless ``valid_len`` (the port's addition) says where the
     padding starts — then they come out zero and cost nothing.
-    ``k_scales``/``v_scales`` ([N] f32) come with int8 pages."""
-    if window or sinks is not None:
-        raise NotImplementedError(
-            "paged_prefill_attention: sliding windows and sinks are not "
-            "ported yet"
-        )
+    ``k_scales``/``v_scales`` ([N] f32) come with int8 pages; ``window``
+    keeps ``q_pos - kv_pos < window``; ``sinks`` ([H] f32) join each row's
+    normalizer."""
     T, H, D = q.shape
     Hkv = k_cache_layer.shape[0]
     G = H // Hkv
     if q.device.type == "cpu":
         return paged_prefill_attention_plain(
             q, k_cache_layer, v_cache_layer, block_table, history_len, scale,
-            valid_len, k_scales, v_scales,
+            valid_len, k_scales, v_scales, window, sinks,
         )
 
     def dev_i32(x):
@@ -345,11 +412,13 @@ def paged_prefill_attention(
         q.reshape(T, Hkv, G, D), k_cache_layer, v_cache_layer, scale,
         p_tables=block_table.reshape(1, -1), p_hists=dev_i32(history_len),
         p_valids=None if valid_len is None else dev_i32(valid_len),
-        T=T, k_scales=k_scales, v_scales=v_scales,
-        name="paged_prefill_attention",
+        T=T, k_scales=k_scales, v_scales=v_scales, window=window,
+        sinks=sinks, name="paged_prefill_attention",
     )
     paged_prefill_attention.launches += 1
+    if window > 0:
+        paged_prefill_attention.window_launches += 1
     return o.reshape(T, H, D)
 
 
-_cuda.counted(paged_prefill_attention)
+_cuda.counted(paged_prefill_attention, "window_launches")

@@ -17,6 +17,12 @@ from ``d_seq_lens``/``p_hists``/``p_valids``: tiles 0..B-1 are the decode
 rows (q0 = seq_len - 1), then segment-major Tq-token slices of every
 segment (q0 = hist + j*Tq, last = q0 + real - 1, or -1 for a tile with no
 real row, which attends nothing and writes zeros).
+
+A sliding ``window`` holds for the decode rows and the segment rows alike
+(``q_pos - kv_pos < window``, the kernel's walk starting at each tile's
+floor), and per-head ``sinks`` fold into every row's normalizer in the
+kernel, as the TPU kernel's emit does (ragged_paged_attention_pallas.py
+:193-206).
 """
 
 from __future__ import annotations
@@ -27,6 +33,7 @@ import torch
 
 from . import _cuda
 from .paged_attention import (
+    _sinks_hg,
     gather_pages,
     launch_paged_attention,
     masked_attention,
@@ -36,28 +43,38 @@ from .paged_attention import (
 def ragged_mixed_attention_plain(
     q_dec, q_chunks, k_cache_layer, v_cache_layer, d_tables, d_seq_lens,
     p_tables, p_hists, p_valids, scale, k_scales=None, v_scales=None,
+    window: int = 0, sinks=None,
 ):
     """Gather pages per table (dequantized with per-page scales), masked
-    softmax in f32. Rows of a segment past its ``p_valids`` (padding, dead
-    segments) are zero, as in the kernel."""
+    softmax in f32, each row from its window floor ``q_pos - window + 1``.
+    Rows of a segment past its ``p_valids`` (padding, dead segments) are
+    zero, as in the kernel."""
     B, H, D = q_dec.shape
     MP, T = q_chunks.shape[:2]
     Hkv = k_cache_layer.shape[0]
     G = H // Hkv
+    sk = _sinks_hg(sinks, Hkv)
+
+    def floor(q_pos):
+        return q_pos - window + 1 if window > 0 else None
+
+    d_pos = d_seq_lens.long() - 1
     o_dec, _, _ = masked_attention(
         q_dec.reshape(B, Hkv, G, D).float() * scale,
         gather_pages(k_cache_layer, d_tables, k_scales),
-        gather_pages(v_cache_layer, d_tables, v_scales), d_seq_lens.long() - 1,
+        gather_pages(v_cache_layer, d_tables, v_scales), d_pos, floor(d_pos),
+        sk,
     )
     t = torch.arange(T, device=q_dec.device)
     outs = []
     for m in range(MP):
         real = t < p_valids[m]
+        q_pos = p_hists[m].long() + t
         o, _, _ = masked_attention(
             q_chunks[m].reshape(T, Hkv, G, D).float() * scale,
             gather_pages(k_cache_layer, p_tables[m], k_scales)[:, None],
             gather_pages(v_cache_layer, p_tables[m], v_scales)[:, None],
-            torch.where(real, p_hists[m].long() + t, -1),
+            torch.where(real, q_pos, -1), floor(q_pos), sk,
         )
         outs.append(o)
     o_chunks = (
@@ -91,23 +108,22 @@ def ragged_mixed_attention(
     """Decode row b sits at q_pos = d_seq_lens[b]-1; segment m's row t at
     p_hists[m] + t. Inactive decode slots (seq_len 0), dead segments
     (p_valids[m] == 0) and padded segment rows emit zeros. ``k_scales`` /
-    ``v_scales`` ([N] f32) come with int8 pages."""
-    if window or sinks is not None:
-        raise NotImplementedError(
-            "ragged_mixed_attention: sliding windows and sinks are not "
-            "ported yet"
-        )
+    ``v_scales`` ([N] f32) come with int8 pages; ``window`` keeps every
+    row to ``q_pos - kv_pos < window``; ``sinks`` ([H] f32) join every
+    row's normalizer."""
     B, H, D = q_dec.shape
     MP, T = q_chunks.shape[0], q_chunks.shape[1]
     if q_dec.device.type == "cpu":
         return ragged_mixed_attention_plain(
             q_dec, q_chunks, k_cache_layer, v_cache_layer, d_tables,
             d_seq_lens, p_tables, p_hists, p_valids, scale, k_scales, v_scales,
+            window, sinks,
         )
     o = ragged_mixed_attention_rows(
         torch.cat([q_dec.reshape(B, H, D), q_chunks.reshape(MP * T, H, D)]),
         k_cache_layer, v_cache_layer, d_tables, d_seq_lens, p_tables,
-        p_hists, p_valids, scale, T, q_tile, k_scales, v_scales,
+        p_hists, p_valids, scale, T, q_tile, k_scales, v_scales, window,
+        sinks,
     )
     return o[:B], o[B:].reshape(MP, T, H, D)
 
@@ -126,18 +142,21 @@ def ragged_mixed_attention_rows(
     q_tile: int = 0,
     k_scales: Optional[torch.Tensor] = None,  # [N] f32 with int8 pages
     v_scales: Optional[torch.Tensor] = None,
+    window: int = 0,
+    sinks: Optional[torch.Tensor] = None,  # [H] f32
 ) -> torch.Tensor:  # [B + MP*T, H, D]
     """:func:`ragged_mixed_attention` on the flat row axis the mixed step
     already holds, so the kernel reads ``q`` and writes ``o`` with no
     split or concatenation. Its launches count in
-    ``ragged_mixed_attention.launches``."""
+    ``ragged_mixed_attention.launches`` (and, with a window, in its
+    ``window_launches``)."""
     B, MP = d_tables.shape[0], p_tables.shape[0]
     Ntok, H, D = q.shape
     if q.device.type == "cpu":
         o_dec, o_chunks = ragged_mixed_attention_plain(
             q[:B], q[B:].reshape(MP, T, H, D), k_cache_layer, v_cache_layer,
             d_tables, d_seq_lens, p_tables, p_hists, p_valids, scale,
-            k_scales, v_scales,
+            k_scales, v_scales, window, sinks,
         )
         return torch.cat([o_dec, o_chunks.reshape(MP * T, H, D)])
     Hkv = k_cache_layer.shape[0]
@@ -146,11 +165,13 @@ def ragged_mixed_attention_rows(
         q.reshape(Ntok, Hkv, G, D), k_cache_layer, v_cache_layer, scale,
         d_tables=d_tables, d_seq_lens=d_seq_lens, p_tables=p_tables,
         p_hists=p_hists, p_valids=p_valids, T=T,
-        Tq=q_tile, k_scales=k_scales, v_scales=v_scales,
-        name="ragged_mixed_attention",
+        Tq=q_tile, k_scales=k_scales, v_scales=v_scales, window=window,
+        sinks=sinks, name="ragged_mixed_attention",
     )
     ragged_mixed_attention.launches += 1
+    if window > 0:
+        ragged_mixed_attention.window_launches += 1
     return o.reshape(Ntok, H, D)
 
 
-_cuda.counted(ragged_mixed_attention)
+_cuda.counted(ragged_mixed_attention, "window_launches")

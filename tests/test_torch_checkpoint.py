@@ -8,9 +8,12 @@ tests/test_hf_parity.py), saves it in ``tmp_path`` and holds the port to it:
     bit-equal (f32) to the JAX package's ``load_llama_params``;
 (c) format round trips: a sharded checkpoint with its index, the port's
     saver read back by ``safetensors`` and by the JAX package's loader, the
-    JAX package's saver read by the port;
+    JAX package's saver read by the port; a gpt-oss checkpoint (fused
+    interleaved experts, sinks, biases) served through ``dynamo_run``
+    against HF's logits;
 (d) C.9: a window at least ``max_context`` long serves as full attention
-    (Qwen2.5's published ``sliding_window: 131072``), a shorter one raises.
+    (Qwen2.5's published ``sliding_window: 131072``); shorter and per-layer
+    windows serve too, since the attention kernels take window floors.
 
 (b), the paged paths and the engines on loaded Qwen checkpoints, is
 tests/test_torch_checkpoint_engine.py (no ``transformers`` import there:
@@ -248,14 +251,84 @@ def test_safetensors_reader_dtypes(tmp_path):
                                if t.numel() else t), k
 
 
+# ---------------- gpt-oss checkpoints through dynamo_run ----------------
+
+
+def test_gptoss_checkpoint_through_dynamo_run_matches_hf(tmp_path):
+    """A tiny random transformers GptOss model (alternating sliding/full
+    layers, sinks, biased router, fused interleaved clamped-SwiGLU experts
+    with biases, biased attention projections, YaRN with truncate=False;
+    tests/test_hf_parity.py's case), saved locally and served through
+    dynamo_run's checkpoint path: the loaded engine's dense forward and its
+    paged prefill give HF's logits (atol 5e-4, rtol 2e-3: the JAX
+    package's tolerance for this family)."""
+    from pathlib import Path
+
+    if not hasattr(transformers, "GptOssConfig"):
+        pytest.skip("transformers has no GptOssConfig")
+    from dynamo_tpu_torch.launch import dynamo_run
+
+    hf_cfg = transformers.GptOssConfig(
+        vocab_size=305, hidden_size=64, intermediate_size=48,
+        num_hidden_layers=4, num_attention_heads=4, num_key_value_heads=2,
+        head_dim=16, num_local_experts=4, num_experts_per_tok=2,
+        sliding_window=8, max_position_embeddings=128,
+        layer_types=["sliding_attention", "full_attention"] * 2,
+        rope_scaling={"rope_type": "yarn", "factor": 4.0, "beta_fast": 32.0,
+                      "beta_slow": 1.0, "truncate": False,
+                      "original_max_position_embeddings": 32},
+        torch_dtype="float32")
+    torch.manual_seed(0)
+    model = transformers.GptOssForCausalLM(hf_cfg).eval()
+    with torch.no_grad():  # empty-initialised sinks and biases, drawn
+        for name, p in model.named_parameters():
+            if "sinks" in name or "bias" in name:
+                p.normal_(0.0, 0.5)
+    ckpt = tmp_path / "tiny-gptoss-ckpt"
+    model.save_pretrained(ckpt, safe_serialization=True)
+    # the declared dtype, as the loader reads it (newer transformers write
+    # "dtype", older ones may omit it)
+    meta = json.loads((ckpt / "config.json").read_text())
+    (ckpt / "config.json").write_text(json.dumps({**meta,
+                                                  "torch_dtype": "float32"}))
+    data = Path(__file__).parent / "data" / "tiny_sp"
+    for f in ("tokenizer.model", "tokenizer_config.json"):
+        shutil.copy(data / f, ckpt / f)
+    args = dynamo_run.parse_args(
+        ["in=http", "out=torch", "--model-path", str(ckpt), "--device", "cpu",
+         "--num-blocks", "32", "--max-context", "64"])
+    _worker, core, name = dynamo_run.build_engine(args)
+    cfg = core.cfg.model
+    assert name == "tiny-gptoss-ckpt" and cfg.dtype == "float32"
+    assert cfg.layer_windows == (8, 0, 8, 0) and cfg.attn_sinks and cfg.o_bias
+    # every leaf as the JAX package's loader reads it
+    jtree = jax_load(str(ckpt), JaxModelConfig.from_local_path(str(ckpt)))
+    assert set(jtree["layers"]) == set(core.params["layers"])
+    for k, v in jtree["layers"].items():
+        np.testing.assert_array_equal(core.params["layers"][k].numpy(),
+                                      np.asarray(v, np.float32), err_msg=k)
+    toks = [(7 * i + 3) % 305 for i in range(24)]  # past the window
+    with torch.no_grad():
+        want = model(torch.tensor(toks)[None]).logits[0].numpy()
+    tol = dict(atol=5e-4, rtol=2e-3)
+    np.testing.assert_allclose(
+        llama.dense_forward(core.params, cfg, torch.tensor(toks)).numpy(), want,
+        **tol)
+    kc, vc = llama.init_kv_cache(cfg, 16, 4)
+    logits = llama.prefill(core.params, cfg, torch.tensor(toks),
+                           torch.arange(1, 7, dtype=torch.int32), 0, 24,
+                           kc, vc)[0]
+    np.testing.assert_allclose(logits.numpy(), want[-1], **tol)
+
+
 # ---------------- (d) C.9: a window that masks nothing ----------------
 
 def test_c9_window_as_long_as_the_context_serves_as_full_attention():
     """Qwen2.5-7B-Instruct's published config.json (``sliding_window:
     131072, use_sliding_window: false``) passes the engine's gate at its
-    default max_context (its 32768 positions) and at the card drive's 8192;
-    a window shorter than max_context, per-layer windows and OLMo-2's
-    full-width q/k norm still raise."""
+    default max_context (its 32768 positions); a window shorter than
+    max_context and per-layer windows pass it too (the kernels take window
+    floors); OLMo-2's full-width q/k norm still raises."""
     cfg = ModelConfig.from_hf_config(QWEN25_7B_HF)
     jcfg = JaxModelConfig.from_hf_config(QWEN25_7B_HF)
     # the port parses as the reference does, field for field
@@ -263,21 +336,14 @@ def test_c9_window_as_long_as_the_context_serves_as_full_attention():
     assert cfg.sliding_window == 131072 and cfg.attention_bias
     assert cfg.num_heads // cfg.num_kv_heads == 7
     assert EngineConfig(model=cfg).max_context == 32768
-    llama.check_supported(cfg)  # at its own 32768 positions
-    for ctx in (8192, 131072):
-        llama.check_supported(cfg, max_context=ctx)
-    with pytest.raises(NotImplementedError, match="sliding window"):
-        llama.check_supported(cfg, max_context=131073)
-    # the engine's gate: a window below max_context still raises
+    llama.check_supported(cfg)
+    # the engine's gate: a window at, and now also below, max_context
     small = ModelConfig.tiny(dtype="float32", sliding_window=64,
                              max_position_embeddings=64)
-    TorchEngine(EngineConfig(model=small, num_blocks=16, block_size=4,
-                             max_context=64), device="cpu")
-    with pytest.raises(NotImplementedError, match="sliding window"):
+    for ctx in (64, 65):
         TorchEngine(EngineConfig(model=small, num_blocks=16, block_size=4,
-                                 max_context=65), device="cpu")
-    with pytest.raises(NotImplementedError, match="sliding window"):
-        llama.check_supported(ModelConfig.tiny(layer_windows=(64, 0)))
+                                 max_context=ctx), device="cpu")
+    llama.check_supported(ModelConfig.tiny(layer_windows=(64, 0)))
     with pytest.raises(NotImplementedError, match="full-width qk norm"):
         llama.check_supported(ModelConfig.tiny(qk_norm=True, qk_norm_full=True))
 

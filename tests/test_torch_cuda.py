@@ -707,6 +707,31 @@ def test_cuda_decode_attention_takes_any_rows_per_kv_head(G, T, int8_pages):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("H,Hkv,D,window", [(16, 4, 64, 32), (64, 8, 64, 128),
+                                            (28, 4, 128, 100)],
+                         ids=["G=4 D=64 W=32", "gpt-oss widths W=128",
+                              "G=7 D=128 W=100"])
+def test_cuda_windowed_sink_kernels_match_plain(H, Hkv, D, window):
+    """On the card: the three GQA kernels with a sliding window and sinks
+    against their plain versions, bf16 and int8 pages (chip_smoke.py
+    check_windowed: the merged decode's call and the verify's rows with
+    (m, l), decode rows with the sink folded, prefill and the ragged call
+    over histories longer than the window; sinks drawn N(ln window, 1), and
+    the scale each sink puts on its row's o held to the plain versions'),
+    then the pages below every
+    walk's first step made NaN: the outputs stay finite and bit-equal (the
+    walks start at the floor; they do not read and mask)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the chip)")
+    from chip_smoke import KernelInputs, check_windowed
+
+    inp = KernelInputs(torch, torch.device("cuda"), H=H, Hkv=Hkv, D=D,
+                       window=window, sinks=True)
+    errs = check_windowed(torch, inp, "test")
+    assert len(errs) == 6
+
+
+@pytest.mark.cuda
 @MLA_WIDTHS
 @MLA_DTYPES
 @pytest.mark.parametrize("rows", [8, 16, 64, 272])
@@ -867,8 +892,11 @@ def set_batch(eng, rng, lens, *, temps=0.0, seeds=0, top_ks=0, top_ps=1.0,
 
 
 def _graph_model(family, dtype):
+    from chip_smoke import tiny_gptoss
     from dynamo_tpu_torch.models.config import ModelConfig
 
+    if family == "gptoss":
+        return tiny_gptoss(dtype)
     if family == "gqa":
         return ModelConfig.tiny(dtype=dtype, head_dim=64, num_heads=8,
                                 num_kv_heads=2, hidden_size=128)
@@ -894,10 +922,12 @@ def _graph_engine(family, dtype="float32", quantization="none", kv="model",
     ("gqa", "float32", "none", "model"), ("gqa", "bfloat16", "none", "model"),
     ("mla", "float32", "none", "model"), ("mla", "bfloat16", "none", "model"),
     ("mla", "float32", "int8", "model"), ("mla", "bfloat16", "int8", "model"),
-    ("gqa", "float32", "fp8_e4m3", "int8")],
+    ("gqa", "float32", "fp8_e4m3", "int8"),
+    ("gptoss", "float32", "none", "model"),
+    ("gptoss", "bfloat16", "none", "model")],
     ids=["GQA f32", "GQA bf16", "MLA+MoE f32", "MLA+MoE bf16",
          "MLA+MoE int8 weights", "MLA+MoE bf16, int8 weights",
-         "GQA fp8 weights + int8 KV"])
+         "GQA fp8 weights + int8 KV", "gpt-oss f32", "gpt-oss bf16"])
 def test_cuda_graph_replays_equal_the_eager_step(family, dtype, quantization, kv):
     """On the card, at tiny widths: every key of the window ladder (n = 4,
     2, 1) and the gamma-3 verify (not over int8 pages, which the verify
@@ -906,7 +936,9 @@ def test_cuda_graph_replays_equal_the_eager_step(family, dtype, quantization, kv
     check_replay): greedy rows; seeded sampled rows with top-k / top-p,
     penalties and logprobs; then the tables changed, a slot freed and
     another refilled on other pages, replayed by the graphs captured
-    before. The replays count their kernels' launches."""
+    before. The replays count their kernels' launches. The tiny gpt-oss
+    (16-token windows on alternate layers, sinks, biased clamped MoE;
+    histories past the window) replays its windowed launches too."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (run on the chip)")
     from chip_smoke import check_replay
@@ -924,8 +956,9 @@ def test_cuda_graph_replays_equal_the_eager_step(family, dtype, quantization, kv
         ([42, 0, 23, 68], dict(temps=[0.9, 0.0, 0.6, 0.0], seeds=[5, 0, 31, 0]),
          False, True, 30),
     ]
-    decode = (paged_decode_attention if family == "gqa"
-              else mla_attention.mla_paged_decode_attention)
+    decode = (mla_attention.mla_paged_decode_attention if family == "mla"
+              else paged_decode_attention)
+    windowed = paged_decode_attention.window_launches
     for lens, samp, pen, lp, first in cases:
         steps = set_batch(eng, rng, lens, penalties=pen, first_page=first, **samp)
         programs = [eng._decode_program(steps, n, pen, lp) for n in (4, 2, 1)]
@@ -940,6 +973,8 @@ def test_cuda_graph_replays_equal_the_eager_step(family, dtype, quantization, kv
             check_replay(torch, eng._graphs, gkey, program, holds)
             assert decode.launches > before  # the eager step's and the replay's
     assert eng._graphs.replays == 3 * len(programs)
+    if family == "gptoss":
+        assert paged_decode_attention.window_launches > windowed
     assert len(eng._graphs.graphs) >= len(programs)
     assert eng._graphs.pool_bytes() > 0
 

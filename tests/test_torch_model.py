@@ -88,8 +88,8 @@ def test_rope_matches_jax_default_and_llama3_scaling():
             llama.apply_rope(torch.from_numpy(x), torch.from_numpy(pos), inv),
             jllama.apply_rope(jnp.asarray(x), jnp.asarray(pos), jinv),
             rtol=1e-4, atol=1e-4)
-    with pytest.raises(NotImplementedError, match="yarn"):
-        llama._rope_freqs(ModelConfig.tiny(rope_scaling={"rope_type": "yarn"}))
+    with pytest.raises(NotImplementedError, match="longrope"):
+        llama._rope_freqs(ModelConfig.tiny(rope_scaling={"rope_type": "longrope"}))
 
 
 def test_merged_decode_window_matches_jax():
