@@ -11,7 +11,8 @@ Phases, in order; any failure raises and the script exits non-zero:
   2. kernel vs plain: each kernel entry point against its plain PyTorch
      version on the same inputs, the GQA kernels at the Llama-3-8B shapes
      (H=32, Hkv=8, D=128, bs=16, bf16; also over int8 pages with per-page
-     scales) and the MLA latent kernels at the DeepSeek-V2-Lite shapes
+     scales, and over scale-free float8_e4m3fn pages) and the MLA latent
+     kernels at the DeepSeek-V2-Lite shapes
      (H=16, C=512, R=64, bs=16, bf16); attention outputs within
      atol=rtol=2e-2 (bf16 output, sums in another order), (m, l) within
      rtol=1e-3 (f32, the order of the sums only), the KV append bit-exact
@@ -19,7 +20,11 @@ Phases, in order; any failure raises and the script exits non-zero:
      at the Llama widths (the trash page 0 excluded), its in-place form
      (one launch) at B = 1, 8 and 64 with 0, 2 and B - 1 padded rows, bf16
      and f32 rows, pages that grow and pages that hold, planes and
-     n_requants equal, two launches bit-equal; the multi-token
+     n_requants equal, two launches bit-equal; the row store's cast on
+     store into fp8 caches byte-equal to models/quant.to_e4m3 (the
+     reference's cast, NaN above 464) over all 65 536 bf16 bit patterns
+     and seeded f32 rows (16-byte and element stores), and both appends
+     into fp8 caches byte-equal to their plain twins; the multi-token
      append of the speculative verify bit-exact at both widths (B=8, T=4
      and T=16 windows crossing pages, padded slots on page 0 excluded), the
      verify's attention (T*G=16 rows per kv head, T*H=64 latent rows per
@@ -29,7 +34,7 @@ Phases, in order; any failure raises and the script exits non-zero:
      plain twin, unowned rows exactly 0; the int8_native ``_mm``
      (torch._int_mm) on the card against the CPU's int32 product; the
      three GQA kernels at gpt-oss-20b's shapes (H=64, Hkv=8, D=64) with a
-     128-token window and sinks drawn N(ln 128, 1), bf16 and int8 pages
+     128-token window and sinks drawn N(ln 128, 1), bf16, int8 and fp8 pages
      (the merged decode's call and the verify's rows with (m, l), decode
      rows with the sink folded, prefill and ragged; the scale each sink
      puts on its row's o within 1e-2 of the plain version's), then the
@@ -37,19 +42,21 @@ Phases, in order; any failure raises and the script exits non-zero:
      bit-equal and finite (the walks skip those pages); plus
      a tiny gpt-oss (windows of 16, sinks, biased clamped MoE whose clamp
      cuts elements on both devices, no routing tie) and
-     four tiny models (dense GQA, MLA + MoE, and each again quantized:
-     int8 KV + fp8 weights, int8 experts) through prefill / mixed step /
+     five tiny models (dense GQA, MLA + MoE, and each again quantized:
+     int8 KV + fp8 weights, int8 experts; dense GQA over an fp8 KV cache,
+     logits within 2e-2) through prefill / mixed step /
      decode window on the card against the same functions on the CPU
      (f32, TF32 off), the gpt-oss, dense and MLA ones through the speculative
      verify_window too (tokens and accepted counts exact, logits 1e-3),
      the same for a tiny Qwen2 (random q/k/v biases, G=7: 14 query heads
      over 2) and a tiny Qwen3 (random per-head q/k norm weights),
-     and a tiny TorchEngine with spec_gamma=3, and with spec_gamma=16 (68
-     verify rows per kv head), against spec_gamma=0 (the same greedy
+     and a tiny TorchEngine with spec_gamma=3, with spec_gamma=16 (68
+     verify rows per kv head) and with spec_gamma=3 over an fp8 KV cache,
+     against spec_gamma=0 (the same greedy
      stream, proposals accepted); a head layout the Llama shapes miss (G=7,
      an unaligned history, padded rows, a dead segment, an inactive decode
-     slot) through the tensor-core prefill, ragged and decode tiles, bf16
-     and int8 pages, with (m, l); the decode kernel at 68 and 70 verify
+     slot) through the tensor-core prefill, ragged and decode tiles, bf16,
+     int8 and fp8 pages, with (m, l); the decode kernel at 68 and 70 verify
      rows per kv head (G=4, gamma=16; G=7, gamma=9); the latent kernels
      across the reference's widths (C=256/R=32 MiniCPM3-4B's, C=384/R=16,
      C=640/R=64, C=128/R=8; 16, 64 and 272 rows per sequence; bf16, and
@@ -62,12 +69,17 @@ Phases, in order; any failure raises and the script exits non-zero:
      launches bit-equal); the bf16
      MoE FFN at DeepSeek-V2-Lite's widths run twice, bit-equal, each stage
      compared;
-  3. serving: the port's OpenAI HTTP service in-process, twelve drives one
-     after the other (each model's memory freed before the next):
+  3. serving: the port's OpenAI HTTP service in-process, thirteen drives
+     one after the other (each model's memory freed before the next):
      llama3-8b-sim and deepseek-v2-lite-sim, each twice on fresh engines
      (how many greedy answers the two drives share), deepseek-v2-lite-sim
      with int8 weights (experts through ragged_int8_gmm), llama3-8b-sim
-     with fp8 weights and the int8 KV cache, then llama3-8b-sim and
+     with fp8 weights and the int8 KV cache, llama3-8b-sim with bf16
+     weights over the fp8 KV cache (a 4 GiB pool) and spec_gamma=3 (a
+     prompt-lookup pass, whose greedy answers are held against the bf16
+     drive's as a quality reading, then a pass with those answers as
+     drafts; its replays checked as the first drives', its step anatomy,
+     and one prefill's fp8-vs-bf16 logit gap), then llama3-8b-sim and
      deepseek-v2-lite-sim with speculative decoding (spec_gamma=3; their
      acceptance, and the share of answers equal to the plain drive's)
      (random weights from a seed, byte tokenizer, full width and depth),
@@ -124,8 +136,12 @@ Phases, in order; any failure raises and the script exits non-zero:
      and the least time the card could take (bytes over 3.35 TB/s or
      operations over 989 TFLOP/s, from this run's inputs); the grouped
      GEMM's decode rows at the gate shape and, on their own line, at the
-     down projection's shape, and the latent kernels' CUDA-core body (bf16
-     at C=1024, R=64, C.8's widths; f32 at C=512, R=64); and the three
+     down projection's shape; the fp8-KV rows of the three GQA kernels
+     (their yardstick SDPA over the pages widened to bf16) and of both row
+     appends (no one PyTorch call casts and scatters: no yardstick); the
+     latent kernels' CUDA-core body (bf16
+     at C=1024, R=64, C.8's widths; f32 at C=512, R=64; their yardstick
+     SDPA over the same latents gathered contiguous); and the three
      GQA kernels with gpt-oss's window 128 and sinks at gpt-oss-20b's
      shapes, their bound counted from the positions the window keeps and
      their yardstick SDPA over the same windows (banded mask, no sink).
@@ -231,10 +247,34 @@ KERNELS = {
         "dynamo_tpu_torch/csrc/paged_attention.cu",
         "dynamo_tpu/ops/ragged_paged_attention_pallas.py:225",
     ),
+    "paged_decode_attention (fp8 KV)": (
+        "dynamo_tpu_torch/csrc/paged_attention.cu",
+        "dynamo_tpu/ops/paged_attention_pallas.py:184",
+    ),
+    "paged_prefill_attention (fp8 KV)": (
+        "dynamo_tpu_torch/csrc/paged_attention.cu",
+        "dynamo_tpu/ops/paged_attention_pallas.py:440",
+    ),
+    "ragged_mixed_attention (fp8 KV)": (
+        "dynamo_tpu_torch/csrc/paged_attention.cu",
+        "dynamo_tpu/ops/ragged_paged_attention_pallas.py:225",
+    ),
+    "kv_cache_append (fp8 KV)": (
+        "dynamo_tpu_torch/csrc/kv_cache_append.cu",
+        "dynamo_tpu/ops/kv_cache_update_pallas.py:63",
+    ),
+    "kv_cache_append_tokens (fp8 KV)": (
+        "dynamo_tpu_torch/csrc/kv_cache_append.cu",
+        "dynamo_tpu/ops/kv_cache_update_pallas.py:383",
+    ),
 }
 #: the int8-KV variant of each GQA kernel shares the kernel's counter; the
 #: int8-KV drive's launches land under the variant's name
 INT8_KV = " (int8 KV)"
+#: the same for the scale-free fp8 cache (float8_e4m3fn pages): the fp8
+#: drive's launches of the three GQA kernels and the two appends (the row
+#: store's cast on store) land under these names
+FP8_KV = " (fp8 KV)"
 #: the spec drives' verify forwards: a decode attention launch whose rows
 #: pack T tokens counts in the wrapper's ``verify_launches`` too, and the
 #: multi-token append of each spec drive lands under its width's row
@@ -351,6 +391,28 @@ class KernelInputs:
         other = copy.copy(self)
         other.kc, other.vc, ks, vs = quantized_pages(self.torch, self.kc, self.vc)
         other.sc = {**other.sc, "k_scales": ks, "v_scales": vs}
+        return other
+
+    def fp8(self):
+        """The same queries and tables over float8_e4m3fn copies of the
+        caches (models/quant.to_e4m3, the reference's cast of the bf16
+        pages; no scales): the fp8-KV variants."""
+        import copy
+
+        from dynamo_tpu_torch.models.quant import to_e4m3
+
+        other = copy.copy(self)
+        other.kc, other.vc = to_e4m3(self.kc), to_e4m3(self.vc)
+        other.sc = {}
+        return other
+
+    def widened(self):
+        """fp8 caches widened to bf16, exactly (the library yardstick's
+        inputs; built outside any timed span)."""
+        import copy
+
+        other = copy.copy(self)
+        other.kc, other.vc = self.kc.bfloat16(), self.vc.bfloat16()
         return other
 
     def dequantized(self):
@@ -607,7 +669,9 @@ def check_spec_kernels(torch, inp: KernelInputs, mi: MlaInputs,
     bit-exact with its plain twin at both widths and both window lengths
     (page 0 excluded: the padded slots race there); the verify attention
     (GQA, MLA) against the plain twins, outputs 2e-2, the history pass's
-    (m, l) rtol 1e-3."""
+    (m, l) rtol 1e-3; the GQA append and verify again into and over fp8
+    caches (bf16 rows cast on store: bytes equal)."""
+    from dynamo_tpu_torch.models.quant import to_e4m3
     from dynamo_tpu_torch.ops import attention as att
     from dynamo_tpu_torch.ops import kv_cache_update as kvu
     from dynamo_tpu_torch.ops import mla_attention as mla
@@ -630,11 +694,39 @@ def check_spec_kernels(torch, inp: KernelInputs, mi: MlaInputs,
         errs[label] = 0.0
         log(f"  {label} (B=8, T=4 and T=16, windows crossing pages, padded "
             "slots on page 0): bit-exact except the trash page  OK")
+    # the verify's append into fp8 caches (bf16 rows, cast on store)
+    fkc, fvc = (to_e4m3(c) for c in ta.caches["gqa"])
+    for T in sorted({t for _w, t in ta.new}):
+        kc, vc, pk, pv = fkc.clone(), fvc.clone(), fkc.clone(), fvc.clone()
+        ta.append(kvu.kv_cache_append_tokens, "gqa", T, (kc, vc))
+        ta.append(kvu.kv_cache_append_tokens_plain, "gqa", T, (pk, pv))
+        torch.cuda.synchronize()
+        if not (same_bytes(torch, kc[:, :, 1:], pk[:, :, 1:])
+                and same_bytes(torch, vc[:, :, 1:], pv[:, :, 1:])):
+            raise AssertionError(f"kv_cache_append_tokens into fp8 caches, "
+                                 f"T={T}: not byte-equal to the plain cast")
+        del kc, vc, pk, pv
+    del fkc, fvc
+    errs["kv_cache_append_tokens" + FP8_KV] = 0.0
+    log("  kv_cache_append_tokens into fp8 caches (bf16 rows, T=4 and T=16): "
+        "byte-equal to the plain cast except the trash page  OK")
     o, m, l = inp.verify_rows(pa.paged_decode_attention)
     ro, rm, rl = inp.verify_rows(pa.paged_decode_attention_plain)
     torch.cuda.synchronize()
     err = close("verify rows o", o, ro, 2e-2, 2e-2)
     close_stats("verify rows", (m, l), (rm, rl))
+    f8 = inp.fp8()
+    fo, fm, fl = f8.verify_rows(pa.paged_decode_attention)
+    ro, rm, rl = f8.verify_rows(pa.paged_decode_attention_plain)
+    got = f8.verify(att.verify_attention)
+    ref = f8.verify(att.verify_attention, "cpu")
+    torch.cuda.synchronize()
+    ferr = max(close("verify rows o, fp8 pages", fo, ro, 2e-2, 2e-2),
+               close("verify_attention, fp8 pages", got.cpu(), ref, 2e-2, 2e-2))
+    close_stats("verify rows, fp8 pages", (fm, fl), (rm, rl))
+    del f8
+    log(f"  verify rows (16 per kv head) and verify_attention over fp8 pages: "
+        f"max |err| {ferr:.3e}, (m, l) within 1e-3  OK")
     got = inp.verify(att.verify_attention)
     ref = inp.verify(att.verify_attention, "cpu")
     errs["paged_decode_attention" + VERIFY] = max(
@@ -939,11 +1031,22 @@ def check_attention(torch, inp: KernelInputs, tag: str = "") -> dict:
     return errs
 
 
+def same_bytes(torch, a, b) -> bool:
+    """Bit for bit: fp8 tensors through their bytes (NaN bytes included,
+    which a value comparison calls unequal), others by torch.equal."""
+    if a.dtype == torch.float8_e4m3fn or b.dtype == torch.float8_e4m3fn:
+        return a.dtype == b.dtype and torch.equal(a.view(torch.uint8),
+                                                  b.view(torch.uint8))
+    return torch.equal(a, b)
+
+
 def check_kernels(torch, dev, inp: KernelInputs) -> dict:
+    from dynamo_tpu_torch.models.quant import to_e4m3
     from dynamo_tpu_torch.ops import kv_cache_update as kvu
 
     errs = {**check_attention(torch, inp),
-            **check_attention(torch, inp.scaled(), INT8_KV)}
+            **check_attention(torch, inp.scaled(), INT8_KV),
+            **check_attention(torch, inp.fp8(), FP8_KV)}
     kc, vc = inp.a_kc.clone(), inp.a_vc.clone()
     inp.append(kvu.kv_cache_append, kc, vc)
     inp.append(kvu.kv_cache_append_plain)
@@ -951,9 +1054,85 @@ def check_kernels(torch, dev, inp: KernelInputs) -> dict:
     if not (torch.equal(kc, inp.a_kc) and torch.equal(vc, inp.a_vc)):
         raise AssertionError("kv_cache_append: not bit-exact with index_put_")
     errs["kv_cache_append"] = 0.0
+    # bf16 rows into fp8 caches: the cast on store against to_e4m3
+    kc, vc = to_e4m3(inp.a_kc), to_e4m3(inp.a_vc)
+    pk, pv = kc.clone(), vc.clone()
+    inp.append(kvu.kv_cache_append, kc, vc)
+    inp.append(kvu.kv_cache_append_plain, pk, pv)
+    torch.cuda.synchronize()
+    if not (same_bytes(torch, kc, pk) and same_bytes(torch, vc, pv)):
+        raise AssertionError("kv_cache_append into fp8 caches: not byte-equal "
+                             "to the plain cast")
+    errs["kv_cache_append" + FP8_KV] = 0.0
     for name, e in errs.items():
         log(f"  {name}: kernel vs plain max |err| {e:.3e}  OK")
     return errs
+
+
+def check_e4m3_store(torch, dev) -> None:
+    """The row store's cast into an fp8 cache, and models/quant.to_e4m3 run
+    on the card, byte for byte against to_e4m3 on the CPU (the reference's
+    cast: the CPU tests hold it to jnp's astype): all 65 536 bf16 bit
+    patterns as the rows of
+    one kv_cache_append launch (L=8, B=8, Hkv=8, D=128; the 16-byte path;
+    NaN bytes for |x| > 464 and +-inf, where the card's satfinite cvt
+    saturates), then seeded f32 rows (N(0, 200) with the edges 464 / 465 /
+    466, +-inf, NaN and subnormal-sized values) through
+    kv_cache_append_tokens at D = 128 (16-byte path) and at D = 6 (element
+    stores)."""
+    from dynamo_tpu_torch.models.quant import to_e4m3
+    from dynamo_tpu_torch.ops import kv_cache_update as kvu
+
+    fp8 = torch.float8_e4m3fn
+    bits = (torch.arange(1 << 16, dtype=torch.int32) - (1 << 15)).to(torch.int16)
+    rows = bits.view(torch.bfloat16).reshape(8, 8, 8, 128)
+    L, B, Hkv, D = rows.shape
+    kc = torch.zeros(L, Hkv, 12, 16, D, dtype=fp8, device=dev)
+    vc = torch.zeros_like(kc)
+    blk = torch.arange(1, B + 1, dtype=torch.int32, device=dev)
+    off = torch.arange(B, dtype=torch.int32, device=dev) * 2
+    kvu.kv_cache_append(rows.to(dev), rows.flip(0).to(dev), kc, vc, blk, off)
+    torch.cuda.synchronize()
+    b, o = blk.long(), off.long()
+    got_k = kc.view(torch.uint8)[:, :, b, o].permute(0, 2, 1, 3).cpu()
+    got_v = vc.view(torch.uint8)[:, :, b, o].permute(0, 2, 1, 3).cpu()
+    want = to_e4m3(rows).view(torch.uint8)
+    if not (torch.equal(got_k, want) and torch.equal(got_v, want.flip(0))):
+        bad = int((got_k != want).sum())
+        raise AssertionError(f"fp8 cast on store, bf16 grid: {bad} of 65536 "
+                             "bytes differ from the reference's cast")
+    nan = int(((want & 0x7F) == 0x7F).sum())
+    # the plain cast itself on the card (write_slots lands prefill chunks
+    # and fused-step rows through it there)
+    if not torch.equal(to_e4m3(rows.to(dev)).view(torch.uint8).cpu(), want):
+        raise AssertionError("models/quant.to_e4m3 on the card: bytes differ "
+                             "from the CPU's over the bf16 grid")
+    g = torch.Generator().manual_seed(13)
+    for D in (128, 6):
+        T, L, B, Hkv = 4, 2, 8, 2
+        x = torch.randn(2, L, B, T, Hkv, D, generator=g) * 200
+        flat = x.view(-1)
+        special = torch.tensor([464.0, -464.0, 465.0, -466.0, 1e6, float("inf"),
+                                -float("inf"), float("nan"), 2.0 ** -10, -2.0 ** -9,
+                                1e-30, -0.0, 448.0, 456.0, 3e-3, -7.5])
+        flat[torch.randperm(flat.numel(), generator=g)[: special.numel()]] = special
+        kc = torch.zeros(L, Hkv, B * T + 1, 16, D, dtype=fp8, device=dev)
+        vc = torch.zeros_like(kc)
+        blk = torch.arange(1, B * T + 1, dtype=torch.int32, device=dev).reshape(B, T)
+        off = torch.full((B, T), 5, dtype=torch.int32, device=dev)
+        kvu.kv_cache_append_tokens(x[0].to(dev), x[1].to(dev), kc, vc, blk, off)
+        torch.cuda.synchronize()
+        for cache, rows_f in ((kc, x[0]), (vc, x[1])):
+            got = cache.view(torch.uint8)[:, :, blk.long(), 5].permute(
+                0, 2, 3, 1, 4).cpu()
+            ref = to_e4m3(rows_f).view(torch.uint8)
+            if not (torch.equal(got, ref) and torch.equal(
+                    to_e4m3(rows_f.to(dev)).view(torch.uint8).cpu(), ref)):
+                raise AssertionError(f"fp8 cast on store, f32 rows at D={D}: "
+                                     "bytes differ from the reference's cast")
+    log(f"  kv_rows_kernel's fp8 cast on store and to_e4m3 on the card: all "
+        f"65536 bf16 patterns ({nan} NaN bytes) and f32 rows at D=128 (16-byte "
+        "path) and D=6 (element stores) byte-equal to the reference's cast  OK")
 
 
 def check_odd_group(torch, dev) -> dict:
@@ -962,7 +1141,7 @@ def check_odd_group(torch, dev) -> dict:
     do not fill its last 16-row group, nor do a decode block's 7 rows; a
     ragged launch of 3 decode rows (one inactive) and 2 segments of T=160:
     history 333 (no multiple of 16 or 64) with 117 real rows, and a dead
-    one; bf16 and int8 pages. o within 2e-2 of the plain versions, (m, l)
+    one; bf16, int8 and fp8 pages. o within 2e-2 of the plain versions, (m, l)
     within rtol 1e-3 of the plain softmax, dead rows o = 0, m = -1e30,
     l = 0. Also the prefill entry point with valid_len over the same rows,
     and the decode entry point over the same decode rows."""
@@ -982,9 +1161,12 @@ def check_odd_group(torch, dev) -> dict:
     p_v = torch.tensor([valid, 0], dtype=torch.int32, device=dev)
     kc = torch.randn(Hkv, N, bs, D, generator=g, device=dev).bfloat16()
     vc = torch.randn(Hkv, N, bs, D, generator=g, device=dev).bfloat16()
+    from dynamo_tpu_torch.models.quant import to_e4m3
+
     errs = {}
     for label, caches in (("bf16", (kc, vc, None, None)),
-                          ("int8 pages", quantized_pages(torch, kc, vc))):
+                          ("int8 pages", quantized_pages(torch, kc, vc)),
+                          ("fp8 pages", (to_e4m3(kc), to_e4m3(vc), None, None))):
         k, v, ks, vs = caches
         sc = {} if ks is None else {"k_scales": ks, "v_scales": vs}
         args = (qd, qc, k, v, tables[:3], lens, p_tab, p_h, p_v, scale)
@@ -1043,8 +1225,8 @@ def check_decode_rows(torch, inp: KernelInputs) -> None:
     """C.6: the decode body at (gamma + 1) * G verify rows per kv head,
     more than one 16-row block each: G = 4, gamma = 16 (68 rows) and G = 7,
     gamma = 9 (70 rows), over the Llama-3-8B caches and tables of phase 2
-    (Hkv = 8, D = 128, B = 8 up to 2048 with an inactive slot), bf16 and
-    int8 pages, with (m, l): o within 2e-2 of the plain version, (m, l)
+    (Hkv = 8, D = 128, B = 8 up to 2048 with an inactive slot), bf16, int8
+    and fp8 pages, with (m, l): o within 2e-2 of the plain version, (m, l)
     within rtol 1e-3, the inactive slot o = 0, m = -1e30, l = 0."""
     from dynamo_tpu_torch.ops import paged_attention as pa
 
@@ -1053,7 +1235,8 @@ def check_decode_rows(torch, inp: KernelInputs) -> None:
         rows = (gamma + 1) * G
         q = torch.randn(8, inp.Hkv * rows, inp.D, generator=g,
                         device=inp.kc.device).bfloat16()
-        for label, x in (("bf16", inp), ("int8 pages", inp.scaled())):
+        for label, x in (("bf16", inp), ("int8 pages", inp.scaled()),
+                         ("fp8 pages", inp.fp8())):
             args = (q, x.kc, x.vc, x.d_tables, x.d_lens, inp.scale)
             o, m, l = pa.paged_decode_attention(*args, return_stats=True,
                                                 group=G, **x.sc)
@@ -1073,7 +1256,7 @@ def check_decode_rows(torch, inp: KernelInputs) -> None:
 
 def nan_below(torch, x: KernelInputs, cuts: dict):
     """A copy of ``x`` whose pages wholly below each table's cut (``{table
-    row tensor: first position kept}``) are NaN: the bf16 pages
+    row tensor: first position kept}``) are NaN: the bf16 or fp8 pages
     themselves, or for int8 pages their scales. Pages the kernel skips
     are never read; a page it reads and masks would turn its output NaN
     (0 x NaN in the value product)."""
@@ -1090,6 +1273,9 @@ def nan_below(torch, x: KernelInputs, cuts: dict):
         if scaled:
             ks[pages] = float("nan")
             vs[pages] = float("nan")
+        elif kc.dtype == torch.float8_e4m3fn:  # 0x7F: e4m3fn's NaN
+            kc.view(torch.uint8)[:, pages] = 0x7F
+            vc.view(torch.uint8)[:, pages] = 0x7F
         else:
             kc[:, pages] = float("nan")
             vc[:, pages] = float("nan")
@@ -1111,7 +1297,7 @@ def sink_scale(torch, with_sinks, without):
 
 def check_windowed(torch, inp: KernelInputs, where: str) -> dict:
     """The gpt-oss options of the three GQA kernels against their plain
-    versions, bf16 and int8 pages: the merged decode's call (window floors
+    versions, bf16, int8 and fp8 pages: the merged decode's call (window floors
     one past the cache, (m, l)), the verify's T*G rows (a floor per
     token), decode rows with the sink folded, prefill and the ragged call
     with the window and the sinks. Outputs within 2e-2, (m, l) within
@@ -1128,8 +1314,8 @@ def check_windowed(torch, inp: KernelInputs, where: str) -> dict:
 
     W, bs = inp.window, inp.bs
     errs = {}
-    for label, x in (("bf16", inp), ("int8 pages", inp.scaled())):
-        tag = "" if label == "bf16" else INT8_KV
+    for label, x, tag in (("bf16", inp, ""), ("int8 pages", inp.scaled(), INT8_KV),
+                          ("fp8 pages", inp.fp8(), FP8_KV)):
         calls = {
             "decode (merged decode's call)": (x.decode, pa.paged_decode_attention,
                                               pa.paged_decode_attention_plain),
@@ -1417,10 +1603,11 @@ def check_moe_deterministic(torch, dev) -> None:
 
 
 def tiny_models():
-    """(label, config, weight quantization, int8 KV cache) of the tiny
-    models held on the card to the CPU: dense GQA, and MLA (q-lora, the
-    kernel's R=64 and smallest C=128) with one dense layer then MoE (8
-    experts top-2, one shared); then each again on the quantized path;
+    """(label, config, weight quantization, KV cache: None, "int8" or
+    "float8_e4m3") of the tiny models held on the card to the CPU: dense
+    GQA, and MLA (q-lora, the kernel's R=64 and smallest C=128) with one
+    dense layer then MoE (8 experts top-2, one shared); then each again on
+    the quantized path, and the dense one over an fp8 cache;
     then Qwen2's q/k/v biases at G = 7 (14 query heads over 2 KV heads:
     a decode block's 7 live rows of 16, the ragged tiles' 9 tokens per
     64-row tile, a gamma=3 verify's 28 rows per KV head in two row
@@ -1440,13 +1627,14 @@ def tiny_models():
         moe_intermediate_size=32)
     return [
         ("tiny gpt-oss (windows of 16, sinks, biased clamped MoE)",
-         tiny_gptoss("float32"), "none", False),
-        ("tiny GQA", gqa, "none", False),
-        ("tiny MLA+MoE", mla, "none", False),
-        ("tiny GQA, fp8 weights + int8 KV", gqa, "fp8_e4m3", True),
-        ("tiny MLA+MoE, int8 weights", mla, "int8", False),
-        ("tiny Qwen2 (q/k/v biases, G=7)", qwen2, "none", False),
-        ("tiny Qwen3 (per-head q/k norms)", qwen3, "none", False),
+         tiny_gptoss("float32"), "none", None),
+        ("tiny GQA", gqa, "none", None),
+        ("tiny MLA+MoE", mla, "none", None),
+        ("tiny GQA, fp8 weights + int8 KV", gqa, "fp8_e4m3", "int8"),
+        ("tiny GQA, fp8 KV", gqa, "none", "float8_e4m3"),
+        ("tiny MLA+MoE, int8 weights", mla, "int8", None),
+        ("tiny Qwen2 (q/k/v biases, G=7)", qwen2, "none", None),
+        ("tiny Qwen3 (per-head q/k norms)", qwen3, "none", None),
     ]
 
 
@@ -1502,8 +1690,7 @@ def moe_probe(torch, llama):
         llama._expert_act, llama._route_topk = act, route
 
 
-def check_model_on_card(torch, dev, label, cfg, quantization="none",
-                        kv_int8=False):
+def check_model_on_card(torch, dev, label, cfg, quantization="none", kv=None):
     """A tiny model's three main-path functions on the card (kernels)
     against the same functions on the CPU (plain versions), f32. For
     gpt-oss, the clamp must cut expert elements and no token's routing be
@@ -1511,10 +1698,10 @@ def check_model_on_card(torch, dev, label, cfg, quantization="none",
     from dynamo_tpu_torch.models import llama
 
     if cfg.moe_act != "gptoss_clamp":
-        model_on_card(torch, dev, label, cfg, quantization, kv_int8)
+        model_on_card(torch, dev, label, cfg, quantization, kv)
         return
     with moe_probe(torch, llama) as seen:
-        model_on_card(torch, dev, label, cfg, quantization, kv_int8)
+        model_on_card(torch, dev, label, cfg, quantization, kv)
     log(f"  {label}: clamped gate / up elements and the smallest top-k "
         "routing margin: " + ", ".join(
             f"{d} {st['gate']} / {st['up']}, {st['margin']:.2e}"
@@ -1526,17 +1713,20 @@ def check_model_on_card(torch, dev, label, cfg, quantization="none",
                              f"choice was a tie: {seen}")
 
 
-def model_on_card(torch, dev, label, cfg, quantization, kv_int8) -> None:
-    """check_model_on_card's comparison."""
+def model_on_card(torch, dev, label, cfg, quantization, kv) -> None:
+    """check_model_on_card's comparison: logits within 1e-3, or 2e-2 over
+    fp8 pages (a K/V value that the card's f32 sums put on the other side
+    of an e4m3 rounding edge moves by 1/16 of itself), tokens exact."""
     from dynamo_tpu_torch.models import llama
-    from dynamo_tpu_torch.models.quant import KV_SCALE_EPS
+    from dynamo_tpu_torch.models.quant import KV_SCALE_EPS, kv_cache_dtype
 
     params = tiny_params(torch, cfg, quantization)
     gparams = to_device(params, dev)
-    kc, vc = llama.init_kv_cache(cfg, 64, 16, dtype=torch.int8 if kv_int8 else None)
+    kc, vc = llama.init_kv_cache(cfg, 64, 16, dtype=kv_cache_dtype(cfg, kv))
     gkc, gvc = kc.to(dev), vc.to(dev)
+    tol = 2e-2 if kv == "float8_e4m3" else 1e-3
     planes = {}
-    if kv_int8:
+    if kv == "int8":
         planes = {k: torch.full((cfg.num_layers, 64), KV_SCALE_EPS)
                   for k in ("k_scales", "v_scales")}
     gplanes = {k: v.to(dev) for k, v in planes.items()}
@@ -1547,7 +1737,7 @@ def model_on_card(torch, dev, label, cfg, quantization, kv_int8) -> None:
     lg = llama.prefill(gparams, cfg, toks.to(dev), table.to(dev), 0, 50,
                        gkc, gvc, **gplanes)[0]
     err = float((lg.cpu() - lc).abs().max())
-    if not (bool(torch.isfinite(lg).all()) and err < 1e-3):
+    if not (bool(torch.isfinite(lg).all()) and err < tol):
         raise AssertionError(f"{label} prefill on the card: max |dlogit| {err}")
     # decode rows 0-1 continue the prompt; a second prompt prefills as a
     # fused segment beside them
@@ -1574,14 +1764,15 @@ def model_on_card(torch, dev, label, cfg, quantization, kv_int8) -> None:
         outs.append((nxt.cpu(), pl.cpu(), toks_w.cpu()))
     (n0, p0, w0), (n1, p1, w1) = outs
     perr = float((p1 - p0).abs().max())
-    if not (torch.equal(n0, n1) and torch.equal(w0[:, 0], w1[:, 0]) and perr < 1e-3):
+    if not (torch.equal(n0, n1) and torch.equal(w0[:, 0], w1[:, 0]) and perr < tol):
         raise AssertionError(
             f"{label} mixed step / decode window on the card disagree with the "
             f"CPU: tokens {n1.tolist()} vs {n0.tolist()}, windows "
             f"{w1[:, 0].tolist()} vs {w0[:, 0].tolist()}, max |dlogit| {perr}"
         )
     log(f"  {label} on the card vs CPU: prefill max |dlogit| {err:.2e}, "
-        f"mixed-step max |dlogit| {perr:.2e}, tokens equal  OK")
+        f"mixed-step max |dlogit| {perr:.2e} (tolerance {tol:g}), tokens "
+        "equal  OK")
 
 
 def tiny_params(torch, cfg, quantization="none"):
@@ -1699,7 +1890,8 @@ def check_engine_spec_on_card(torch, dev) -> None:
     depend on the random model), so every proposal is accepted. Twice:
     spec_gamma=3 on 16-token pages, and spec_gamma=16 on 32-token pages (a
     verify's 17 in-flight rows fit one page, as the reference requires):
-    17 x G = 68 verify rows per kv head (C.6)."""
+    17 x G = 68 verify rows per kv head (C.6); then spec_gamma=3 again
+    with both engines over an fp8 KV cache."""
     from dynamo_tpu_torch.engine import EngineConfig, TorchEngine
     from dynamo_tpu_torch.protocols.common import (
         PreprocessedRequest,
@@ -1711,7 +1903,9 @@ def check_engine_spec_on_card(torch, dev) -> None:
     cfg = tiny_models()[0][1]
     G = cfg.num_heads // cfg.num_kv_heads
     params = to_device(tiny_params(torch, cfg), dev)
-    for spec_gamma, bs, n_tokens in ((SPEC_GAMMA, 16, 20), (16, 32, 40)):
+    for spec_gamma, bs, n_tokens, kv in ((SPEC_GAMMA, 16, 20, "model"),
+                                         (16, 32, 40, "model"),
+                                         (SPEC_GAMMA, 16, 20, "float8_e4m3")):
         req = PreprocessedRequest(
             token_ids=[7, 8, 9, 10] * 6,
             stop_conditions=StopConditions(max_tokens=n_tokens),
@@ -1720,7 +1914,8 @@ def check_engine_spec_on_card(torch, dev) -> None:
         for gamma in (0, spec_gamma):
             eng = TorchEngine(EngineConfig(model=cfg, num_blocks=2048 // bs,
                                            block_size=bs, max_batch_size=2,
-                                           decode_window=4, spec_gamma=gamma),
+                                           decode_window=4, spec_gamma=gamma,
+                                           kv_cache_dtype=kv),
                               params=params, device=dev)
             if gamma:
                 drafts = {tuple(req.token_ids): streams[0]}
@@ -1740,8 +1935,9 @@ def check_engine_spec_on_card(torch, dev) -> None:
                 and st["decode_steps"] < stats[0]["decode_steps"]):
             raise AssertionError(f"tiny engine with spec_gamma={spec_gamma} on the "
                                  f"card: streams {streams}, stats {st}")
-        log(f"  tiny TorchEngine, spec_gamma={spec_gamma} ({(spec_gamma + 1) * G} "
-            f"verify rows per kv head, {bs}-token pages) vs 0 on the card: the "
+        log(f"  tiny TorchEngine, KV {kv}, spec_gamma={spec_gamma} "
+            f"({(spec_gamma + 1) * G} verify rows per kv head, {bs}-token "
+            "pages) vs 0 on the card: the "
             f"same greedy stream, {st['spec_accepted']}/{st['spec_proposed']} "
             f"proposals accepted, {st['decode_steps']} decode steps vs "
             f"{stats[0]['decode_steps']}  OK")
@@ -1866,6 +2062,18 @@ def drives():
           "paged_prefill_attention" + INT8_KV: paged_prefill_attention,
           "ragged_mixed_attention" + INT8_KV: ragged_mixed_attention,
           "kv_cache_append_quantized": kv_cache_append_quantized}),
+        # bf16 weights over the scale-free fp8 KV cache, a 4096-page pool (4
+        # GiB, half the bf16 pool's bytes), with speculation (gamma 3) so
+        # the verify's append lands in the fp8 pages too: the three GQA
+        # kernels over fp8 pages and the row store's cast on store
+        ("llama3-8b-sim", ModelConfig.llama3_8b(),
+         dict(num_blocks=4096, block_size=16, max_batch_size=8, decode_window=4,
+              kv_cache_dtype="float8_e4m3", spec_gamma=SPEC_GAMMA),
+         {"paged_decode_attention" + FP8_KV: paged_decode_attention,
+          "paged_prefill_attention" + FP8_KV: paged_prefill_attention,
+          "ragged_mixed_attention" + FP8_KV: ragged_mixed_attention,
+          "kv_cache_append" + FP8_KV: kv_cache_append,
+          "kv_cache_append_tokens" + FP8_KV: kv_cache_append_tokens}),
         # speculative decoding (prompt lookup, gamma=3), reference defaults
         # otherwise: the verify forward's multi-token append and its decode
         # attention at verify rows, beside the path's prefill kernels
@@ -2088,6 +2296,22 @@ async def serve(torch, dev, card: str, name: str, cfg, geometry: dict,
                 f"of the others at {sorted(first_diff)}  [{name}, {card}]")
         elif not spec:
             texts, _ = report("", *await requests(), {})
+        elif engine.k_cache.dtype == torch.float8_e4m3fn:
+            # the fp8 drive: prompt lookup first (nothing to find on random
+            # weights, so plain decode windows: its answers against the
+            # bf16 drive's are the fp8 pages' quality reading), then drafts
+            # from those answers (verifies over fp8 pages, their appends
+            # cast on store; acceptance as the bf16 spec drive's)
+            texts, _ = report("prompt lookup (answers vs the bf16 drive's): ",
+                              *await requests(), {})
+            own = dict(answers)
+            engine._propose_ngram = lambda: oracle_drafts(engine, own)
+            before = dict(engine.stats)
+            _, st = report("drafts from the first pass's answers (prefixes "
+                           "cached): ", *await requests(), before)
+            del engine._propose_ngram
+            if st["spec_accepted"] <= 0:
+                raise AssertionError(f"{name}: no proposal accepted while serving")
         else:
             # a random model's answers never repeat an n-gram of their
             # context, so prompt lookup finds nothing to propose (the
@@ -2136,6 +2360,12 @@ async def serve(torch, dev, card: str, name: str, cfg, geometry: dict,
     if repeat:
         return launches, (texts, answers)
     if spec:
+        if engine.k_cache.dtype == torch.float8_e4m3fn:
+            # the fp8 drive: its replays and its step anatomy as the plain
+            # drives', and how far fp8 pages move a prefill's logits
+            check_graphs(torch, engine, name, card)
+            step_anatomy(torch, dev, engine)
+            fp8_logit_gap(torch, dev, card, name, params, cfg)
         verify_anatomy(torch, dev, engine)
         return launches, (texts, answers)
     if oracle:
@@ -2570,6 +2800,30 @@ def determinism_probe(torch, dev, params, cfg, k_cache, v_cache) -> None:
         f"{int(hit.argmax()) == int(pre[0].argmax())}")
 
 
+def fp8_logit_gap(torch, dev, card: str, name: str, params, cfg) -> None:
+    """A quality reading, not a gate: the served weights' prefill of one
+    1201-token prompt over fp8 pages against the same prefill over bf16
+    pages (fresh caches, the same chunk): the largest logit gap, whether
+    the argmax agrees, and the bf16 prefill's own top-1 - top-2 gap."""
+    from dynamo_tpu_torch.models import llama
+
+    prompt = torch.zeros(2048, dtype=torch.int32, device=dev)
+    prompt[:1201] = torch.arange(1201, device=dev) % 250 + 3
+    table = torch.arange(1, 129, dtype=torch.int32, device=dev)
+    logits = {}
+    for dt in (torch.bfloat16, torch.float8_e4m3fn):
+        kc, vc = llama.init_kv_cache(cfg, 130, 16, device=dev, dtype=dt)
+        logits[dt] = llama.prefill(params, cfg, prompt, table, 0, 1201, kc, vc)[0]
+        del kc, vc
+    ref, got = logits[torch.bfloat16], logits[torch.float8_e4m3fn]
+    top2 = ref.topk(2).values
+    log(f"  fp8 vs bf16 pages, one 1201-token prefill: max |dlogit| "
+        f"{float((got - ref).abs().max()):.4f} (max |logit| "
+        f"{float(ref.abs().max()):.3f}), argmax equal "
+        f"{int(got.argmax()) == int(ref.argmax())} (bf16 top-1 - top-2 gap "
+        f"{float(top2[0] - top2[1]):.4f})  [{name}, {card}]")
+
+
 def oracle_drafts(engine, answers: dict):
     """Proposals for a spec drive's second pass: each active request's next
     ``spec_gamma`` tokens of its answer in the first pass (``answers``:
@@ -2723,9 +2977,9 @@ def check_replay(torch, runner, key: tuple, program, holds: tuple) -> None:
     if runner.replays != replays + 1:
         raise AssertionError(f"graph {key}: the dispatch did not replay")
     bad = [f"output {i}" for i, (a, b) in enumerate(zip(eager, replay))
-           if not torch.equal(a, b)]
+           if not same_bytes(torch, a, b)]
     bad += [f"state {i}" for i, (a, b) in enumerate(zip(eager_state, holds))
-            if not torch.equal(a, b)]
+            if not same_bytes(torch, a, b)]
     if bad or len(eager) != len(replay):
         raise AssertionError(f"graph {key}: the replay differs from the eager "
                              f"step in {bad or 'its output count'}")
@@ -2887,7 +3141,7 @@ def work(inp: KernelInputs) -> dict:
     run's data: only the queries of rows that attend something, the cached
     positions they attend and the table entries that reach them."""
     H, Hkv, D, bs = inp.H, inp.Hkv, inp.D, inp.bs
-    elem = inp.kc.element_size()  # 2 (bf16), or 1 (int8 pages)
+    elem = inp.kc.element_size()  # 2 (bf16), or 1 (int8 or fp8 pages)
     kv_row = Hkv * D * elem * 2  # K and V bytes of one position
     q_row = H * D * 2  # one token's queries (read) or output (written)
     entry = 4 + (8 if inp.sc else 0)  # a table entry, plus the page's scales
@@ -2912,14 +3166,19 @@ def work(inp: KernelInputs) -> dict:
                  + MP * 2 * 4)
     rag_flops = dec_flops + sum(4 * H * D * sum(h + t + 1 for t in range(n))
                                 for h, n in segs)
-    app_bytes = 2 * (inp.k_new.numel() * 2) * 2 + 8 * 4 * 2
-    tag = INT8_KV if inp.sc else ""
-    return {
+    # the append: bf16 rows read, the cache's type written, K and V, and
+    # the B page and row indices
+    app_bytes = 2 * inp.k_new.numel() * (2 + elem) + 8 * 4 * 2
+    fp8 = inp.kc.dtype == inp.torch.float8_e4m3fn
+    tag = INT8_KV if inp.sc else (FP8_KV if fp8 else "")
+    out = {
         "paged_decode_attention" + tag: (dec_bytes + dec_stats, dec_flops),
         "paged_prefill_attention" + tag: (pre_bytes, pre_flops),
         "ragged_mixed_attention" + tag: (rag_bytes, rag_flops),
-        "kv_cache_append": (app_bytes, 0),
     }
+    if not inp.sc:  # the int8 append is the quantized one (quant_work)
+        out["kv_cache_append" + tag] = (app_bytes, 0)
+    return out
 
 
 def window_spans(inp: KernelInputs) -> dict:
@@ -3197,10 +3456,13 @@ def spec_work(inp: KernelInputs, mi: MlaInputs, ta: TokenAppendInputs) -> dict:
     and its (m, l), the cached rows attended and the table entries that
     reach them, 2 flops per multiply-add."""
     out = {}
-    for width, name in (("gqa", "kv_cache_append_tokens"),
-                        ("mla", "kv_cache_append_tokens (MLA widths)")):
+    for width, name, cache_elem in (
+            ("gqa", "kv_cache_append_tokens", 2),
+            ("mla", "kv_cache_append_tokens (MLA widths)", 2),
+            ("gqa", "kv_cache_append_tokens" + FP8_KV, 1)):
         k_new, v_new = ta.new[width, SPEC_GAMMA + 1]
-        nbytes = 2 * (k_new.numel() + v_new.numel()) * k_new.element_size()
+        nbytes = (k_new.numel() + v_new.numel()) * (k_new.element_size()
+                                                     + cache_elem)
         out[name] = (nbytes + 2 * ta.idx[SPEC_GAMMA + 1][0].numel() * 4, 0)
     B, T, H, D = inp.q_ver.shape
     bs = inp.bs
@@ -3249,8 +3511,13 @@ def timing(torch, dev, inp: KernelInputs, mi: MlaInputs, qi: QuantInputs,
     from dynamo_tpu_torch.ops import paged_attention as pa
     from dynamo_tpu_torch.ops import ragged_paged_attention as rpa
 
+    from dynamo_tpu_torch.models.quant import to_e4m3
+
     flush = torch.empty(64 * 2**20, dtype=torch.uint8, device=dev)  # > 50 MB L2
     sinp = inp.scaled()
+    finp = inp.fp8()
+    # fp8 copies of the append caches (ta's GQA caches are inp's)
+    f_caches = (to_e4m3(inp.a_kc), to_e4m3(inp.a_vc))
     app_caches, app_planes = qi.caches.clone(), qi.scales.clone()
 
     def reset_planes():  # every timed call grows the same pages
@@ -3287,6 +3554,14 @@ def timing(torch, dev, inp: KernelInputs, mi: MlaInputs, qi: QuantInputs,
             lambda: winp.prefill(pa.paged_prefill_attention),
         "ragged_mixed_attention" + WINDOW_SINKS:
             lambda: winp.ragged(rpa.ragged_mixed_attention),
+        "paged_decode_attention" + FP8_KV: lambda: finp.decode(pa.paged_decode_attention),
+        "paged_prefill_attention" + FP8_KV:
+            lambda: finp.prefill(pa.paged_prefill_attention),
+        "ragged_mixed_attention" + FP8_KV:
+            lambda: finp.ragged(rpa.ragged_mixed_attention),
+        "kv_cache_append" + FP8_KV: lambda: inp.append(kvu.kv_cache_append, *f_caches),
+        "kv_cache_append_tokens" + FP8_KV:
+            lambda: ta.append(kvu.kv_cache_append_tokens, caches=f_caches),
     }
     plain = {
         "paged_decode_attention": lambda: inp.decode(pa.paged_decode_attention_plain),
@@ -3323,17 +3598,33 @@ def timing(torch, dev, inp: KernelInputs, mi: MlaInputs, qi: QuantInputs,
             lambda: winp.prefill(pa.paged_prefill_attention_plain),
         "ragged_mixed_attention" + WINDOW_SINKS:
             lambda: winp.ragged(rpa.ragged_mixed_attention_plain),
+        "paged_decode_attention" + FP8_KV:
+            lambda: finp.decode(pa.paged_decode_attention_plain),
+        "paged_prefill_attention" + FP8_KV:
+            lambda: finp.prefill(pa.paged_prefill_attention_plain),
+        "ragged_mixed_attention" + FP8_KV:
+            lambda: finp.ragged(rpa.ragged_mixed_attention_plain),
+        "kv_cache_append" + FP8_KV:
+            lambda: inp.append(kvu.kv_cache_append_plain, *f_caches),
+        "kv_cache_append_tokens" + FP8_KV:
+            lambda: ta.append(kvu.kv_cache_append_tokens_plain, caches=f_caches),
     }
     scaled_library = {k + INT8_KV: f for k, f in
                       library_calls(torch, sinp.dequantized()).items()
                       if k + INT8_KV in KERNELS}
+    # SDPA over the fp8 pages widened to bf16 (outside the span); the fp8
+    # appends have none (no one PyTorch call casts with the reference's
+    # overflow and scatters)
+    fp8_library = {k + FP8_KV: f for k, f in
+                   library_calls(torch, finp.widened()).items()
+                   if k + FP8_KV in KERNELS and not k.startswith("kv_cache")}
     library = {**library_calls(torch, inp), **mla_library_calls(torch, mi),
                **scaled_library, **quant_library_calls(torch, qi),
                "kv_cache_append_tokens": ta.index_put("gqa"),
                "kv_cache_append_tokens (MLA widths)": ta.index_put("mla"),
-               **window_library_calls(torch, winp)}
+               **window_library_calls(torch, winp), **fp8_library}
     bounds = {**work(inp), **mla_work(mi), **work(sinp), **quant_work(torch, qi),
-              **spec_work(inp, mi, ta), **window_work(winp)}
+              **spec_work(inp, mi, ta), **window_work(winp), **work(finp)}
     setups = {"kv_cache_append_quantized": reset_planes}
     # the floor of every row: an empty kernel (a spin of 0 cycles) under
     # the same flush and spin
@@ -3394,6 +3685,9 @@ def timing(torch, dev, inp: KernelInputs, mi: MlaInputs, qi: QuantInputs,
     for label, inputs in (("C=1024, R=64, bf16", MlaInputs(torch, dev, C=1024, R=64)),
                           ("C=512, R=64, f32",
                            MlaInputs(torch, dev, dtype=torch.float32))):
+        # the yardstick: SDPA over the same latents gathered and widened
+        # contiguous, as at the tensor-core widths (timed only)
+        lib = mla_library_calls(torch, inputs)
         for name, fn, plain_fn in (
                 ("mla_paged_decode_attention", mla.mla_paged_decode_attention,
                  mla.mla_paged_decode_attention_plain),
@@ -3405,7 +3699,10 @@ def timing(torch, dev, inp: KernelInputs, mi: MlaInputs, qi: QuantInputs,
             log(f"  {name} at {label} (CUDA-core body): "
                 f"{time_ms(torch, lambda: call(fn), 10, flush):.4f} ms (bound "
                 f"{w_ms:.4f} ms by {w_by}, plain "
-                f"{time_ms(torch, lambda: call(plain_fn), 3, flush):.3f} ms)")
+                f"{time_ms(torch, lambda: call(plain_fn), 3, flush):.3f} ms, "
+                f"library {time_ms(torch, lib[name], 5, flush):.4f} ms, SDPA "
+                f"backend {sdpa_backend(torch, lib[name])})")
+        del lib
         del inputs
     return rows
 
@@ -3440,6 +3737,7 @@ def main() -> int:
         "DeepSeek-V2-Lite shapes, bf16)")
     inp = KernelInputs(torch, dev)
     errs = check_kernels(torch, dev, inp)
+    check_e4m3_store(torch, dev)
     check_odd_group(torch, dev)
     check_decode_rows(torch, inp)
     check_moe_deterministic(torch, dev)
@@ -3452,9 +3750,9 @@ def main() -> int:
     winp = KernelInputs(torch, dev, H=64, Hkv=8, D=64, window=GPTOSS_WINDOW,
                         sinks=True)
     errs.update(check_windowed(torch, winp, card))
-    for label, cfg, quantization, kv_int8 in tiny_models():
-        check_model_on_card(torch, dev, label, cfg, quantization, kv_int8)
-        if quantization == "none" and not kv_int8:
+    for label, cfg, quantization, kv in tiny_models():
+        check_model_on_card(torch, dev, label, cfg, quantization, kv)
+        if quantization == "none" and kv is None:
             check_verify_on_card(torch, dev, label, cfg)
     check_engine_spec_on_card(torch, dev)
     qi = QuantInputs(torch, dev)
@@ -3464,7 +3762,8 @@ def main() -> int:
     log(f"[3/4] at {time.perf_counter() - t_all:.1f} s: serving over HTTP: "
         "llama3-8b-sim and deepseek-v2-lite-sim, each "
         "twice on fresh engines, deepseek-v2-lite-sim (int8 weights), "
-        "llama3-8b-sim (fp8 weights, int8 KV), llama3-8b-sim and "
+        "llama3-8b-sim (fp8 weights, int8 KV), llama3-8b-sim (fp8 KV, "
+        f"spec_gamma={SPEC_GAMMA}), llama3-8b-sim and "
         f"deepseek-v2-lite-sim (spec_gamma={SPEC_GAMMA}), qwen2.5-7b-sim, "
         f"qwen3-8b-sim, a {CHECKPOINT_LAYERS}-layer Mistral-7B-v0.2 "
         f"checkpoint through dynamo_run --model-path, and {GPTOSS_DRIVE}")

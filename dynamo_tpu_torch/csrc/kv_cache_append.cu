@@ -38,6 +38,16 @@
 // sequence its own pages, and a sequence's T rows sit at T distinct
 // consecutive positions.
 //
+// Into a float8_e4m3fn cache (the scale-free fp8 cache) the row store
+// casts on store, kv_rows_e4m3_kernel: f32 or bf16 rows, one byte per value
+// written, the same grid and thread layout over units of 16 input bytes (8
+// bf16 or 4 f32 values, written as 8 or 4 bytes) or single values. The
+// cast is the reference's (_append_kernel's .astype(k_out_ref.dtype), XLA's
+// convert): round to nearest even, and NaN (0x7F, 0xFF with the sign) for
+// |x| > 464, +-inf and NaN. The card's cvt.rn.satfinite.e4m3x2.f32 gives
+// the same bytes below that and saturates above it (to +-448), so the
+// kernel writes the NaN bytes itself there (e4m3_byte).
+//
 // 2. The quantized append, kv_cache_append_quantized_launch: the whole
 // function in one launch.
 //
@@ -83,6 +93,7 @@
 // at a time).
 
 #include <cuda_bf16.h>
+#include <cuda_fp8.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -390,19 +401,105 @@ cudaError_t launch_quant(bool vec, const void* k_new, const void* v_new,
   return cudaGetLastError();
 }
 
+// ---------------- 3. the row store into an fp8 cache ----------------
+
+// float -> the float8_e4m3fn byte the reference stores
+__device__ __forceinline__ uint32_t e4m3_byte(float x) {
+  const uint32_t code = __nv_cvt_float_to_fp8(x, __NV_SATFINITE, __NV_E4M3);
+  return fabsf(x) <= 464.f ? code : 0x7Fu | (__float_as_uint(x) >> 24 & 0x80u);
+}
+
+// k_new [L, B * T, Hkv, Dk] rows of T, v_new [..., Dv]; the caches [L,
+// Hkv, N, bs, Dk | Dv] of bytes; kw / vw: units of U values per head row
+template <typename T, int U>
+__global__ void kv_rows_e4m3_kernel(const T* __restrict__ k_new,
+                                    const T* __restrict__ v_new,
+                                    uint8_t* __restrict__ k_cache,
+                                    uint8_t* __restrict__ v_cache,
+                                    const int* __restrict__ blk,
+                                    const int* __restrict__ off, int BT,
+                                    int Hkv, int N, int bs, int kw, int vw) {
+  const int bt = blockIdx.x;
+  const size_t l = blockIdx.y;
+  const size_t slot = (size_t)blk[bt] * bs + off[bt];
+  const size_t src = (l * BT + bt) * Hkv;
+  const int w = kw + vw;
+  for (int h = threadIdx.y; h < Hkv; h += blockDim.y) {
+    const size_t dst = (l * Hkv + h) * N * bs + slot;
+    for (int x = threadIdx.x; x < w; x += blockDim.x) {
+      const bool k = x < kw;
+      const int u = k ? x : x - kw, uw = k ? kw : vw;
+      float f[U];
+      load_unit<T, U>((k ? k_new : v_new) + ((src + h) * uw + u) * U, f);
+      uint8_t* out = (k ? k_cache : v_cache) + (dst * uw + u) * U;
+      uint32_t b[U];
+#pragma unroll
+      for (int i = 0; i < U; ++i) b[i] = e4m3_byte(f[i]);
+      if constexpr (U == 8)
+        *reinterpret_cast<uint2*>(out) =
+            make_uint2(b[0] | b[1] << 8 | b[2] << 16 | b[3] << 24,
+                       b[4] | b[5] << 8 | b[6] << 16 | b[7] << 24);
+      else if constexpr (U == 4)
+        *reinterpret_cast<uint32_t*>(out) =
+            b[0] | b[1] << 8 | b[2] << 16 | b[3] << 24;
+      else
+        *out = (uint8_t)b[0];
+    }
+  }
+}
+
+template <typename T, int U>
+cudaError_t launch_rows_e4m3(const void* k_new, const void* v_new,
+                             void* k_cache, void* v_cache, const int* blk,
+                             const int* off, int L, int BT, int Hkv, int N,
+                             int bs, int Dk, int Dv, cudaStream_t stream) {
+  const int kw = Dk / U, vw = Dv / U;
+  const int bx = kw + vw < 1024 ? kw + vw : 1024;
+  const int by = 1024 / bx < Hkv ? 1024 / bx : Hkv;
+  kv_rows_e4m3_kernel<T, U><<<dim3(BT, L), dim3(bx, by), 0, stream>>>(
+      static_cast<const T*>(k_new), static_cast<const T*>(v_new),
+      static_cast<uint8_t*>(k_cache), static_cast<uint8_t*>(v_cache), blk,
+      off, BT, Hkv, N, bs, kw, vw);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_e4m3(const void* k_new, const void* v_new, void* k_cache,
+                        void* v_cache, const int* blk, const int* off, int L,
+                        int BT, int Hkv, int N, int bs, int Dk, int Dv,
+                        cudaStream_t st) {
+  constexpr int U = 16 / sizeof(T);  // values per 16 input bytes
+  const uintptr_t in = (uintptr_t)k_new | (uintptr_t)v_new;
+  const uintptr_t out = (uintptr_t)k_cache | (uintptr_t)v_cache;
+  if (Dk % U == 0 && Dv % U == 0 && in % 16 == 0 && out % U == 0)
+    return launch_rows_e4m3<T, U>(k_new, v_new, k_cache, v_cache, blk, off,
+                                  L, BT, Hkv, N, bs, Dk, Dv, st);
+  return launch_rows_e4m3<T, 1>(k_new, v_new, k_cache, v_cache, blk, off, L,
+                                BT, Hkv, N, bs, Dk, Dv, st);
+}
+
 }  // namespace
 
-// Plain C interface, loaded with ctypes. dtype: 0 = float32, 1 = bfloat16
-// (k_new/v_new and the caches share it). k_new [L, B, T, Hkv, Dk], v_new
-// [L, B, T, Hkv, Dv], blk/off [B, T]; the wrapper checks T <= bs. Returns
-// the launch's cudaError_t.
+// Plain C interface, loaded with ctypes. dtype: 0 = float32, 1 = bfloat16,
+// the rows' type; the caches share it, or with cache_fp8 = 1 they are
+// float8_e4m3fn (cast on store). k_new [L, B, T, Hkv, Dk], v_new [L, B, T,
+// Hkv, Dv], blk/off [B, T]; the wrapper checks T <= bs. Returns the
+// launch's cudaError_t.
 extern "C" int kv_cache_append_tokens_launch(
     const void* k_new, const void* v_new, void* k_cache, void* v_cache,
     const int* blk, const int* off, int L, int B, int T, int Hkv, int N,
-    int bs, int Dk, int Dv, int dtype, void* stream) {
+    int bs, int Dk, int Dv, int dtype, int cache_fp8, void* stream) {
   if (L == 0 || B == 0 || T == 0) return 0;
   if (dtype != 0 && dtype != 1) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (cache_fp8) {
+    if (dtype == 0)
+      return (int)launch_e4m3<float>(k_new, v_new, k_cache, v_cache, blk, off,
+                                     L, B * T, Hkv, N, bs, Dk, Dv, st);
+    return (int)launch_e4m3<__nv_bfloat16>(k_new, v_new, k_cache, v_cache,
+                                           blk, off, L, B * T, Hkv, N, bs,
+                                           Dk, Dv, st);
+  }
   const int elem = dtype == 0 ? 4 : 2;
   const size_t kb = (size_t)Dk * elem, vb = (size_t)Dv * elem;
   const uintptr_t ptrs = (uintptr_t)k_new | (uintptr_t)v_new |

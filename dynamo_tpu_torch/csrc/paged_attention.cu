@@ -18,8 +18,9 @@
 // Three tile bodies, chosen by tile type and dtype (an explicit dispatch,
 // not a fallback):
 //
-// 1. Segment tiles of a bf16 launch (the query bf16, the cache bf16 or int8
-//    with per-page scales): the tensor-core body, tc_segment_tile. What
+// 1. Segment tiles of a bf16 launch (the query bf16, the cache bf16, int8
+//    with per-page scales or float8_e4m3fn): the tensor-core body,
+//    tc_segment_tile. What
 //    bounds it on an H100: operations. Every query row of a chunk's T x G
 //    rows per kv head reads the same K/V rows, 4*D flops per position
 //    against 4*D bytes of K and V, so the chunk does about T*G/2 flops per
@@ -39,10 +40,13 @@
 //    * page rows land with 16-byte cp.async.cg (zero-filled past the
 //      horizon) in a 2-stage ring of XOR-swizzled bf16 tiles (dynamic
 //      shared memory, 64 KB at D = 128): one barrier per step, the next
-//      step's copy in flight during this step's products. int8 codes land
-//      in a staging area and the copying thread widens its own chunks to
-//      bf16 (exact: |code| <= 127; byte permutes and adds, no int-to-float
-//      conversion) in the ring before the step's barrier;
+//      step's copy in flight during this step's products. int8 and fp8
+//      codes land in a staging area and the copying thread widens its own
+//      chunks to bf16 in the ring before the step's barrier, both exactly
+//      (int8: |code| <= 127, byte permutes and adds, no int-to-float
+//      conversion; fp8: e4m3 -> f16 on the card's cvt, then bf16: 4
+//      significant bits and an exponent range inside both), so the
+//      products see the reference's f32 page values (no scale for fp8);
 //    * Q is loaded once per tile into registers (ldmatrix); S = Q K^T with
 //      mma.m16n8k16 bf16 -> f32; the softmax scale and log2(e) multiply the
 //      f32 accumulator (with int8 pages also the K page scale: each S column
@@ -77,10 +81,12 @@
 //      one per warp. Each warp walks its run alone with its own (m, l, O)
 //      and its own 3-stage ring of K/V rows in shared memory (16-byte
 //      cp.async.cg, zero-filled past the horizon; page ids, and with int8
-//      the page scales, fetched a step ahead; int8 codes widened by the
-//      copying lane into one bf16 tile per warp): no block barrier per
-//      step, and 2 steps (16 KB at D = 128) in flight per warp, ~128 KB
-//      per SM. The warps merge through shared memory with the flash rule;
+//      the page scales, fetched a step ahead; int8 and fp8 codes widened,
+//      exactly, by the copying lane into one bf16 tile per warp, as in the
+//      segment tiles; an fp8 step moves half a bf16 step's bytes, 8 KB at
+//      D = 128): no block barrier per step, and 2 steps (16 KB of bf16 at
+//      D = 128) in flight per warp, ~128 KB per SM. The warps merge
+//      through shared memory with the flash rule;
 //    * the 16 query rows land with cp.async while each warp's first page
 //      loads are in flight, and are held in registers (ldmatrix);
 //    * across blocks the horizon splits only as far as fills the card (the
@@ -101,7 +107,7 @@
 //    dot product. Every tile's horizon is split into n_split parts
 //    (flash-decoding) and combine_splits_kernel merges the partials in a
 //    second launch. With int8 pages each row is widened and multiplied by
-//    its page's scale as it lands.
+//    its page's scale as it lands; fp8 pages are widened (exact) alone.
 //
 // Two options of the TPU kernels hold for all three bodies:
 //
@@ -135,6 +141,7 @@
 // above its bytes bound (PERF.md).
 
 #include <cuda_bf16.h>
+#include <cuda_fp8.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -210,6 +217,9 @@ __device__ __forceinline__ float emit_scale(const Params& p, size_t row,
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(int8_t x) { return (float)x; }
+__device__ __forceinline__ float to_f(__nv_fp8_e4m3 x) {
+  return static_cast<float>(x);  // exact
+}
 template <typename T>
 __device__ __forceinline__ T from_f(float x);
 template <>
@@ -245,9 +255,10 @@ __device__ __forceinline__ void core_tile(const Params& p, const int s,
                                           const int rbase) {
   constexpr int DPL = D / 32;
   constexpr bool kScaled = std::is_same<TC, int8_t>::value;
-  // elements per load: 16 bytes of bf16/f32, 8 bytes of int8
-  constexpr int VEC = kScaled ? 8 : 16 / sizeof(TC);
-  using Load = typename std::conditional<kScaled, uint2, uint4>::type;
+  constexpr bool kByte = sizeof(TC) == 1;  // int8 or fp8 codes
+  // elements per load: 16 bytes of bf16/f32, 8 bytes of int8 / fp8
+  constexpr int VEC = kByte ? 8 : 16 / sizeof(TC);
+  using Load = typename std::conditional<kByte, uint2, uint4>::type;
   __shared__ __align__(16) float ks[KT][D];
   __shared__ __align__(16) float vs[KT][D];
   __shared__ long long row_base[KT];  // element offset of a position's row
@@ -525,6 +536,26 @@ __device__ __forceinline__ uint2 widen4(uint32_t codes) {
                     __byte_perm(f[2], f[3], 0x7632));
 }
 
+// four float8_e4m3fn codes (one word) -> four bf16, exact: e4m3 holds 4
+// significant bits and exponents inside f16's, so the card's e4m3x2 -> f16x2
+// conversion (cvt.rn.f16x2.e4m3x2) and f16 -> f32 -> bf16 lose nothing
+__device__ __forceinline__ uint2 widen4_e4m3(uint32_t codes) {
+  const float2 lo = __half22float2(__half2(__nv_cvt_fp8x2_to_halfraw2(
+      (__nv_fp8x2_storage_t)(codes & 0xffffu), __NV_E4M3)));
+  const float2 hi = __half22float2(__half2(__nv_cvt_fp8x2_to_halfraw2(
+      (__nv_fp8x2_storage_t)(codes >> 16), __NV_E4M3)));
+  return make_uint2(pack_bf16(lo.x, lo.y), pack_bf16(hi.x, hi.y));
+}
+
+// four 1-byte page codes -> four bf16 (int8 codes without their scale)
+template <typename TC>
+__device__ __forceinline__ uint2 widen_codes(uint32_t codes) {
+  if constexpr (std::is_same<TC, int8_t>::value)
+    return widen4(codes);
+  else
+    return widen4_e4m3(codes);
+}
+
 // element offset of 16-byte chunk `chunk` of row `row` in a swizzled tile
 // with D / 8 chunks per row: the chunk index XOR (row % 8), so the 8 rows
 // an ldmatrix reads at one logical chunk hit 8 different bank groups
@@ -534,12 +565,12 @@ __device__ __forceinline__ int swz(int row, int chunk) {
 }
 
 // dynamic shared memory of a tensor-core block: the K/V ring (bf16), then
-// with int8 pages the code staging of the steps in flight and the ring's
-// page scales
+// with 1-byte pages (int8, fp8) the code staging of the steps in flight and
+// the ring's page scales (read with int8 pages only)
 template <typename TC, int D>
 constexpr int tc_smem_bytes() {
   return TC_STAGES * 2 * TC_KV * D * 2 +
-         (std::is_same<TC, int8_t>::value
+         (sizeof(TC) == 1
               ? (TC_STAGES - 1) * 2 * TC_KV * D + TC_STAGES * 2 * TC_KV * 4
               : 0);
 }
@@ -552,9 +583,10 @@ template <typename TC, int D, bool kWin>
 __device__ __forceinline__ void tc_segment_tile(const Params& p, const int blk,
                                                 unsigned char* smem) {
   constexpr bool kScaled = std::is_same<TC, int8_t>::value;
+  constexpr bool kByte = sizeof(TC) == 1;   // int8 or fp8 codes, staged
   constexpr int NT = NW * 32;
   constexpr int CPR = D / 8;                // bf16 chunks per tile row
-  constexpr int EB = kScaled ? 1 : 2;       // cache bytes per element
+  constexpr int EB = (int)sizeof(TC);       // cache bytes per element
   constexpr int LCPR = D * EB / 16;         // 16-byte copies per cache row
   constexpr int RSTEP = NT / LCPR;          // rows between a thread's copies
   constexpr int U = TC_KV / RSTEP;          // copies per thread per K tile
@@ -676,11 +708,11 @@ __device__ __forceinline__ void tc_segment_tile(const Params& p, const int blk,
       const bool ok = pg[u] >= 0;
       const size_t off =
           ok ? ((size_t)pg[u] * p.bs + off_in_page) * D : 0;
-      if constexpr (kScaled) {
+      if constexpr (kByte) {
         int8_t* ct = codes + (i % (S - 1)) * 2 * TILE + row * D + cc * 16;
         cp_async16(smem_u32(ct), kch + off, ok ? 16 : 0);
         cp_async16(smem_u32(ct + TILE), vch + off, ok ? 16 : 0);
-        if (cc == 0) {
+        if (kScaled && cc == 0) {
           pscl[(st * 2) * TC_KV + row] = psk[u];
           pscl[(st * 2 + 1) * TC_KV + row] = psv[u];
         }
@@ -692,7 +724,8 @@ __device__ __forceinline__ void tc_segment_tile(const Params& p, const int blk,
       }
     }
   };
-  // int8: the copying thread widens its own chunks into the ring (exact)
+  // 1-byte codes: the copying thread widens its own chunks into the ring
+  // (exact; int8 codes without their scale)
   auto widen = [&](int i) {
     const int st = i % S;
     bf16* kt = ring + st * 2 * TILE;
@@ -703,8 +736,8 @@ __device__ __forceinline__ void tc_segment_tile(const Params& p, const int blk,
       for (int kv = 0; kv < 2; ++kv) {
         const uint4 raw = *reinterpret_cast<const uint4*>(
             codes + ((i % (S - 1)) * 2 + kv) * TILE + row * D + cc * 16);
-        const uint2 w0 = widen4(raw.x), w1 = widen4(raw.y);
-        const uint2 w2 = widen4(raw.z), w3 = widen4(raw.w);
+        const uint2 w0 = widen_codes<TC>(raw.x), w1 = widen_codes<TC>(raw.y);
+        const uint2 w2 = widen_codes<TC>(raw.z), w3 = widen_codes<TC>(raw.w);
         bf16* dst = kt + kv * TILE;
         *reinterpret_cast<uint4*>(dst + swz<D>(row, 2 * cc)) =
             make_uint4(w0.x, w0.y, w1.x, w1.y);
@@ -743,7 +776,7 @@ __device__ __forceinline__ void tc_segment_tile(const Params& p, const int blk,
 
   for (int s = 0; s < nsteps; ++s) {
     cp_async_wait<S - 2>();  // this thread's copies of step s landed
-    if constexpr (kScaled) widen(s);
+    if constexpr (kByte) widen(s);
     // the step's tiles are complete, and every warp is done with step s-1
     // (whose stage the next copy overwrites; the first time, Q's)
     __syncthreads();
@@ -876,11 +909,11 @@ __device__ __forceinline__ void tc_segment_tile(const Params& p, const int blk,
 // ---------------- the tensor-core decode body ----------------
 
 // one warp's shared memory in the decode body: its K/V ring (bf16), or with
-// int8 pages its ring of codes, one widened bf16 K|V tile and the ring's
-// page scales
+// 1-byte pages (int8, fp8) its ring of codes, one widened bf16 K|V tile and
+// the ring's page scales (read with int8 pages only)
 template <typename TC, int D>
 __host__ __device__ constexpr int dec_warp_bytes() {
-  return std::is_same<TC, int8_t>::value
+  return sizeof(TC) == 1
              ? DST * 2 * DKT * D + 2 * DKT * D * 2 + DST * 2 * DKT * 4
              : DST * 2 * DKT * D * 2;
 }
@@ -899,9 +932,10 @@ template <typename TC, int D, bool kWin>
 __device__ __forceinline__ void tc_decode_tile(const Params& p, const int blk,
                                                unsigned char* smem) {
   constexpr bool kScaled = std::is_same<TC, int8_t>::value;
+  constexpr bool kByte = sizeof(TC) == 1;  // int8 or fp8 codes, staged
   constexpr int NT = NW * 32;
   constexpr int CPR = D / 8;            // bf16 chunks per tile row
-  constexpr int EB = kScaled ? 1 : 2;   // cache bytes per element
+  constexpr int EB = (int)sizeof(TC);   // cache bytes per element
   constexpr int LCPR = D * EB / 16;     // 16-byte copies per cache row
   constexpr int RSTEP = 32 / LCPR;      // rows between a lane's copies
   constexpr int U = DKT / RSTEP;        // copies per lane per K (or V) tile
@@ -1001,11 +1035,11 @@ __device__ __forceinline__ void tc_decode_tile(const Params& p, const int blk,
       const int row = row0 + u * RSTEP;
       const bool ok = pg[u] >= 0;
       const size_t off = ok ? ((size_t)pg[u] * p.bs + poff[u]) * D : 0;
-      if constexpr (kScaled) {
+      if constexpr (kByte) {
         int8_t* ct = codes + st * 2 * TILE + row * D + cc * 16;
         cp_async16(smem_u32(ct), kch + off, ok ? 16 : 0);
         cp_async16(smem_u32(ct + TILE), vch + off, ok ? 16 : 0);
-        if (cc == 0) {
+        if (kScaled && cc == 0) {
           pscl[(st * 2) * DKT + row] = psk[u];
           pscl[(st * 2 + 1) * DKT + row] = psv[u];
         }
@@ -1017,7 +1051,8 @@ __device__ __forceinline__ void tc_decode_tile(const Params& p, const int blk,
       }
     }
   };
-  // int8: the copying lane widens its own chunks into the warp's bf16 tile
+  // 1-byte codes: the copying lane widens its own chunks into the warp's
+  // bf16 tile (exact; int8 codes without their scale)
   auto widen = [&](int i) {
     const int st = i % DST;
 #pragma unroll
@@ -1027,8 +1062,8 @@ __device__ __forceinline__ void tc_decode_tile(const Params& p, const int blk,
       for (int kv = 0; kv < 2; ++kv) {
         const uint4 raw = *reinterpret_cast<const uint4*>(
             codes + (st * 2 + kv) * TILE + row * D + cc * 16);
-        const uint2 w0 = widen4(raw.x), w1 = widen4(raw.y);
-        const uint2 w2 = widen4(raw.z), w3 = widen4(raw.w);
+        const uint2 w0 = widen_codes<TC>(raw.x), w1 = widen_codes<TC>(raw.y);
+        const uint2 w2 = widen_codes<TC>(raw.z), w3 = widen_codes<TC>(raw.w);
         bf16* dst = wide + kv * TILE;
         *reinterpret_cast<uint4*>(dst + swz<D>(row, 2 * cc)) =
             make_uint4(w0.x, w0.y, w1.x, w1.y);
@@ -1077,7 +1112,7 @@ __device__ __forceinline__ void tc_decode_tile(const Params& p, const int blk,
     // every lane's copies of step i are visible, and every lane is done
     // with step i - 1 (whose stage, or bf16 tile, is overwritten next)
     __syncwarp();
-    if constexpr (kScaled) {
+    if constexpr (kByte) {
       widen(i);
       __syncwarp();
     }
@@ -1086,7 +1121,7 @@ __device__ __forceinline__ void tc_decode_tile(const Params& p, const int blk,
     if (i + DST < n) fetch(first + i + DST);
 
     const int c = (first + i) * DKT;
-    const bf16* kt = kScaled ? wide : ring + (i % DST) * 2 * TILE;
+    const bf16* kt = kByte ? wide : ring + (i % DST) * 2 * TILE;
     const bf16* vt = kt + TILE;
     const float* ksc = pscl + (i % DST) * 2 * DKT;
     const float* vsc = ksc + DKT;
@@ -1392,17 +1427,19 @@ cudaError_t launch_typed(const Params& p, int D, int n_tiles,
 
 // Plain C interface, loaded with ctypes. dtype (q and o): 0 = float32,
 // 1 = bfloat16. kv_dtype: the same code as dtype for a cache of the q type,
-// 2 = int8 with per-page f32 scales k_scales / v_scales ([N] each).
+// 2 = int8 with per-page f32 scales k_scales / v_scales ([N] each), 3 =
+// float8_e4m3fn with no scales (both null).
 // Returns the cudaError_t of the launch (0 = success).
 //
-// A bf16 launch (q bf16 over bf16 or int8 pages) runs its segment tiles on
-// the tensor-core segment body, Tq * Gq <= TC_ROWS (128) rows per tile, and
-// its decode tiles on the tensor-core decode body, any Gq (16 rows per
-// block), n_split splitting only the decode tiles and merged in the launch
-// through ``tickets`` (B * Hkv * ceil(Gq / 16) ints, zero before the launch
-// and zero after it). An f32 launch runs every tile on the CUDA-core body,
-// Tq * Gq <= 64 rows per segment tile and decode tiles in chunks of 64 rows,
-// n_split splitting every tile, merged by a second kernel. The Python
+// A bf16 launch (q bf16 over bf16, int8 or fp8 pages) runs its segment
+// tiles on the tensor-core segment body, Tq * Gq <= TC_ROWS (128) rows per
+// tile, and its decode tiles on the tensor-core decode body, any Gq (16
+// rows per block), n_split splitting only the decode tiles and merged in
+// the launch through ``tickets`` (B * Hkv * ceil(Gq / 16) ints, zero
+// before the launch and zero after it). An f32 launch runs every tile on
+// the CUDA-core body, Tq * Gq <= 64 rows per segment tile and decode tiles
+// in chunks of 64 rows, n_split splitting every tile, merged by a second
+// kernel. The Python
 // wrapper checks both. With n_split > 1, ``scratch`` holds
 // n_split * R * (D + 2) floats, R = the split tiles' query rows
 // (tokens * Hkv * Gq) for the partials. window (0 = full), q_off and group
@@ -1471,6 +1508,15 @@ extern "C" int paged_attention_launch(
       return (int)launch_typed<float, int8_t>(p, D, n_tiles, st);
     if (dtype == 1)
       return (int)launch_typed<bf16, int8_t>(p, D, n_tiles, st);
+    return (int)cudaErrorInvalidValue;
+  }
+  if (kv_dtype == 3) {
+    if (k_scales != nullptr || v_scales != nullptr)
+      return (int)cudaErrorInvalidValue;
+    if (dtype == 0)
+      return (int)launch_typed<float, __nv_fp8_e4m3>(p, D, n_tiles, st);
+    if (dtype == 1)
+      return (int)launch_typed<bf16, __nv_fp8_e4m3>(p, D, n_tiles, st);
     return (int)cudaErrorInvalidValue;
   }
   if (kv_dtype != dtype) return (int)cudaErrorInvalidValue;

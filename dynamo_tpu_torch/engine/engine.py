@@ -32,8 +32,11 @@ serve, and the int8-with-scales KV cache keeps ``[L, N]`` f32
 scale planes beside the caches — recycled pages get their scales reset by
 one scatter on the next dispatch, prefix-cache claims keep theirs, and the
 device count of requantized pages folds into the stats only when
-``load_metrics`` is scraped. Device work runs in the loop's executor under
-one lock, so the event loop stays live while the card computes.
+``load_metrics`` is scraped. The scale-free ``float8_e4m3`` cache (GQA
+only, as the reference's kernels serve it) holds half the bytes of bf16
+pages and no planes; speculation runs over it as over bf16. Device work
+runs in the loop's executor under one lock, so the event loop stays live
+while the card computes.
 
 Programs (the reference's XLA program buckets): prompt chunks pad to the
 reference's buckets, so both engines run the same shapes. On the card the
@@ -136,7 +139,8 @@ class EngineConfig:
     # quantize too and run the ragged_int8_gmm kernel)
     quantization: str = "none"
     # KV cache storage: "model" | "bfloat16" | "int8" (int8 with per-page
-    # f32 scale planes); "float8_e4m3" is not ported yet and raises
+    # f32 scale planes) | "float8_e4m3" (scale-free float8_e4m3fn pages,
+    # the reference's cast; GQA only: MLA raises NotImplementedError)
     kv_cache_dtype: str = "model"
     # speculative decoding via prompt-lookup (n-gram) drafts: propose up to
     # spec_gamma continuation tokens from the sequence's own history (its
@@ -230,6 +234,8 @@ class TorchEngine(AsyncEngine):
             )
         if mcfg.is_mla and cfg.quantization == "int8_native":
             raise ValueError(MLA_INT8_NATIVE)
+        # None, bf16, int8 or float8_e4m3fn (MLA + fp8 raises here: the
+        # latent kernels take no fp8 pages)
         cache_dt = kv_cache_dtype(mcfg, cfg.kv_cache_dtype)
         if cache_dt == torch.int8 and mcfg.is_mla:
             # refused, not a silent fallback: the absorbed latent path dots

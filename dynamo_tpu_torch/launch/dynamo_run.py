@@ -235,7 +235,7 @@ def parse_args(argv=None):
                    choices=list(KV_CACHE_DTYPES),
                    help="KV cache storage dtype (int8 = int8-with-scales "
                         "device cache, per-(layer, page) f32 scale planes; "
-                        "float8_e4m3 is not ported yet)")
+                        "float8_e4m3 = scale-free fp8 pages, GQA only)")
     args = p.parse_args(argv)
     kv = dict(a.split("=", 1) for a in args.in_out if "=" in a)
     args.in_ = kv.get("in", "http")

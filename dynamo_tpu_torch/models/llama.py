@@ -40,7 +40,12 @@ int8-with-scales KV cache (GQA only), :func:`prefill`,
 :func:`decode_window` and :func:`mixed_step` take the ``[L, N]`` f32 scale
 planes ``k_scales`` / ``v_scales``, update them IN PLACE like the caches,
 and return them (and the device int32 count of scale entries that grew,
-``n_requants``) right after the caches, as the JAX functions do.
+``n_requants``) right after the caches, as the JAX functions do. Over the
+scale-free fp8 cache (``float8_e4m3fn`` caches, GQA only) every function
+takes no planes: the writes cast with ``models/quant.to_e4m3`` (plain
+PyTorch for a prefill chunk or a fused step's rows, the row-store kernel for
+the merged decode's and the verify's appends) and the kernels widen the
+pages as they read them; nothing else widens them.
 """
 
 from __future__ import annotations
@@ -682,15 +687,24 @@ def _i32(x, device) -> torch.Tensor:
     return torch.as_tensor(x, dtype=torch.int32, device=device)
 
 
-def _check_planes(cfg: ModelConfig, k_scales, v_scales) -> bool:
+def _check_planes(cfg: ModelConfig, k_cache, k_scales, v_scales) -> bool:
     """Whether the int8-with-scales cache is on: both planes or neither,
-    and never for MLA (its latent path has no per-page scale stream)."""
+    and never for MLA (its latent path has no per-page scale stream). A
+    scale-free fp8 cache (``float8_e4m3fn``) takes no planes and serves
+    GQA only: the latent kernels take no fp8 pages (ROADMAP A.3)."""
     if (k_scales is None) != (v_scales is None):
         raise ValueError("k_scales and v_scales come together")
     if k_scales is not None and cfg.is_mla:
         raise ValueError("the int8-with-scales KV cache is not supported for "
                          "MLA models (the absorbed latent path has no "
                          "per-page scale stream)")
+    if k_cache.dtype == torch.float8_e4m3fn:
+        if k_scales is not None:
+            raise ValueError("an fp8 KV cache takes no scale planes")
+        if cfg.is_mla:
+            raise NotImplementedError(
+                "an fp8 KV cache on an MLA model is not ported yet: the "
+                "latent kernels take no fp8 pages (ROADMAP A.3)")
     return k_scales is not None
 
 
@@ -717,7 +731,7 @@ def prefill(
     run the latent prefill kernel. With the scale planes (int8 cache, GQA)
     the chunk lands quantized, growing its pages' scales, and attention
     reads every page through the updated planes."""
-    quantized = _check_planes(cfg, k_scales, v_scales)
+    quantized = _check_planes(cfg, k_cache, k_scales, v_scales)
     dev = tokens.device
     T = tokens.shape[0]
     history_len, valid_len = int(history_len), int(valid_len)
@@ -778,7 +792,7 @@ def _decode_body(params, cfg, tokens, positions, block_tables, seq_lens,
     ``append_quantized_rows`` (the quantized append, one launch) writes
     all layers and grows the planes in place. Returns (logits [B, V] f32,
     k_cache, v_cache[, k_scales, v_scales, n_requants])."""
-    quantized = _check_planes(cfg, k_scales, v_scales)
+    quantized = _check_planes(cfg, k_cache, k_scales, v_scales)
     x = _embed(params, cfg, tokens)  # [B, E]
     B = x.shape[0]
     inv_freq, msc, scale = _rope_and_scale(cfg, x.device)
@@ -896,7 +910,7 @@ def decode_window(
     and both host flags given, the window reads nothing back from the card
     (the engine captures it in a CUDA graph); step i's keys are
     ``(seed, step + i)``, hashed on the device."""
-    quantized = _check_planes(cfg, k_scales, v_scales)
+    quantized = _check_planes(cfg, k_cache, k_scales, v_scales)
     dev = tokens.device
     n_req = (torch.zeros((), dtype=torch.int32, device=dev)
              if quantized else None)
@@ -953,7 +967,7 @@ def _mixed_fused_forward(
     quantized ones (the decode rows, then each segment), and the ragged
     kernel reads every page through the updated planes. Returns
     (decode_logits [B, V] f32, p_logits [MP, V] f32, k_cache, v_cache)."""
-    quantized = _check_planes(cfg, k_scales, v_scales)
+    quantized = _check_planes(cfg, k_cache, k_scales, v_scales)
     B = d_tokens.shape[0]
     MP, T = p_tokens.shape
     bs = k_cache.shape[3]
@@ -1080,7 +1094,7 @@ def mixed_step(
     per layer; MLA: the per-part flavor). Returns (next_tokens [B],
     p_logits [MP, V] f32, k_cache, v_cache[, k_scales, v_scales,
     n_requants][, counts][, (chosen_lp, top_ids, top_lps)])."""
-    quantized = _check_planes(cfg, k_scales, v_scales)
+    quantized = _check_planes(cfg, k_cache, k_scales, v_scales)
     if quantized:
         # scales only grow within a step: entries above their step-entry
         # value count the pages requantized by this dispatch
@@ -1129,6 +1143,7 @@ def _verify_forward(params, cfg, tokens, positions, block_tables, seq_lens,
     then ONE ``kv_cache_append_tokens`` of every layer's T rows. Rows past
     the accepted run hold rejected proposals' K/V above the commit horizon,
     overwritten before any read (as a discarded decode-window tail)."""
+    _check_planes(cfg, k_cache, None, None)
     T = n_spec + 1
     B = tokens.shape[0]
     dev = tokens.device

@@ -19,7 +19,9 @@ so the codes and scales come out bit-identical to the JAX package's.
 The KV cache dtypes: ``model`` and ``bfloat16`` store K/V at that width;
 ``int8`` is the int8-with-scales device cache (one f32 absmax scale per
 (layer, physical page) for K and for V, kept in ``[L, N]`` planes beside
-the caches; ``ops/kv_cache_update.kv_cache_append_quantized``).
+the caches; ``ops/kv_cache_update.kv_cache_append_quantized``);
+``float8_e4m3`` is the scale-free ``float8_e4m3fn`` cache (GQA only): every
+write casts with :func:`to_e4m3`, every read widens the codes exactly.
 """
 
 from __future__ import annotations
@@ -137,8 +139,44 @@ def kv_cache_dtype(cfg: ModelConfig, name: Optional[str]) -> Optional[torch.dtyp
     if name == "int8":
         return torch.int8
     if name == "float8_e4m3":
-        raise NotImplementedError(
-            "kv_cache_dtype='float8_e4m3' (the scale-free fp8 cast) is not "
-            "ported yet: see ROADMAP.md 'Next', the float8_e4m3 KV cache"
-        )
+        if cfg.is_mla:
+            # the reference serves MLA + fp8 on its XLA fallback; the card
+            # runs the latent kernels or nothing, and they take no fp8 pages
+            raise NotImplementedError(
+                "kv_cache_dtype='float8_e4m3' on an MLA model is not ported "
+                "yet: the latent kernels (csrc/mla_attention.cu) take no fp8 "
+                "pages; see ROADMAP.md A.3, the MLA fp8 latent page type"
+            )
+        return torch.float8_e4m3fn
     raise ValueError(f"kv_cache_dtype must be one of {KV_CACHE_DTYPES}")
+
+
+#: the largest |x| that the reference's cast keeps finite: above it
+#: ``astype(float8_e4m3fn)`` rounds to 480, which e4m3fn spells NaN
+E4M3_FINITE_MAX = 464.0
+_E4M3_NAN = 0x7F  # with the sign bit: 0xFF
+
+
+def to_e4m3(x: torch.Tensor) -> torch.Tensor:
+    """``x`` (f32 or bf16) as ``float8_e4m3fn``, byte for byte what the JAX
+    package's ``x.astype(jnp.float8_e4m3fn)`` stores: round to nearest
+    even, subnormals and signed zeros kept, and NaN (0x7F, 0xFF with the
+    sign) for every ``|x| > 464``, for +-inf and for NaN. PyTorch's own
+    cast agrees except there: it saturates those to +-448 (0x7E / 0xFE),
+    and so does the card's ``cvt.rn.satfinite``; either way its byte keeps
+    x's sign, so setting the low seven bits gives the reference's NaN. No
+    host sync."""
+    xf = x.float()
+    codes = xf.to(torch.float8_e4m3fn).view(torch.uint8)
+    return torch.where(xf.abs() <= E4M3_FINITE_MAX, codes,
+                       codes | _E4M3_NAN).view(torch.float8_e4m3fn)
+
+
+def store_codes(cache: torch.Tensor, rows: torch.Tensor):
+    """``(target, values)`` for an ``index_put_`` of ``rows`` into
+    ``cache``: an fp8 cache through its bytes with the rows cast by
+    :func:`to_e4m3`, any other cache as it is with the rows cast to its
+    dtype."""
+    if cache.dtype == torch.float8_e4m3fn:
+        return cache.view(torch.uint8), to_e4m3(rows).view(torch.uint8)
+    return cache, rows.to(cache.dtype)

@@ -35,7 +35,7 @@ BUILD_DIR = _PKG / "_build"
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SOURCES = {
     "kv_cache_append.cu": {
-        "kv_cache_append_tokens_launch": [_P] * 6 + [_I] * 9 + [_P],
+        "kv_cache_append_tokens_launch": [_P] * 6 + [_I] * 10 + [_P],
         "kv_cache_append_quantized_launch": [_P] * 11 + [_I] * 8 + [_P],
     },
     "mla_attention.cu": {

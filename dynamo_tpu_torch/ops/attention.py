@@ -21,6 +21,9 @@ reserved as trash; sequence lengths mask the unused tail.
     ``write_decode_token_to_cache`` are the slot-mapping writers. Unlike
     the JAX functions (which return an updated copy), the writers update
     the cache layer IN PLACE and return it.
+  * The scale-free fp8 cache (``float8_e4m3fn`` pages): the writers cast
+    with ``models/quant.to_e4m3`` (the reference's bytes), and every read
+    widens the codes exactly to the query's type.
   * The int8-with-scales cache: every attention path takes ``k_scales`` /
     ``v_scales`` (this layer's ``[N]`` f32 slice of the scale planes; the
     pages dequantize as they are read), and
@@ -37,7 +40,7 @@ from typing import Optional
 
 import torch
 
-from ..models.quant import KV_INT8_QMAX, KV_SCALE_EPS
+from ..models.quant import KV_INT8_QMAX, KV_SCALE_EPS, store_codes
 from .paged_attention import (
     NEG_INF,
     gather_pages,
@@ -300,9 +303,10 @@ def write_slots(
     blk: torch.Tensor,  # [R] physical page per row
     off: torch.Tensor,  # [R] row within the page
 ) -> torch.Tensor:
-    cache_layer[:, blk.long(), off.long()] = (
-        rows.transpose(0, 1).to(cache_layer.dtype)
-    )
+    """Store ``rows`` at their slots, cast to the cache's type (an fp8
+    cache with the reference's cast, ``models/quant.to_e4m3``)."""
+    target, values = store_codes(cache_layer, rows.transpose(0, 1))
+    target[:, blk.long(), off.long()] = values
     return cache_layer
 
 

@@ -9,7 +9,9 @@ place (and returns them, so call sites read like the reference). On CUDA
 tensors both launch the one row-store kernel of ``csrc/kv_cache_append.cu``
 (``kv_rows_kernel``, a block per (layer, sequence, token) row group; the
 one-token append is its T = 1 case); on CPU tensors they take the plain
-version (``index_put_``).
+version (``index_put_``). Into a ``float8_e4m3fn`` cache the kernel casts
+f32 / bf16 rows on store with the reference's overflow (NaN above 464),
+as ``models/quant.to_e4m3`` does for the plain version.
 
 Merged decode and the verify use them: the layer loop stacks each layer's
 new K/V ([L, B, (T,) Hkv, D], tiny) and writes them with ONE call after
@@ -32,7 +34,7 @@ import ctypes
 
 import torch
 
-from ..models.quant import KV_INT8_QMAX, KV_SCALE_EPS
+from ..models.quant import KV_INT8_QMAX, KV_SCALE_EPS, store_codes
 from . import _cuda
 
 _SRC = "kv_cache_append.cu"
@@ -40,11 +42,13 @@ _SRC = "kv_cache_append.cu"
 
 def kv_cache_append_tokens_plain(k_new, v_new, k_cache, v_cache, blk, off):
     """``cache[l, :, blk[b, t], off[b, t]] = new[l, b, t]`` through
-    ``index_put_``."""
+    ``index_put_``, cast to the cache's type (an fp8 cache with the
+    reference's cast, ``models/quant.to_e4m3``)."""
     lidx = torch.arange(k_new.shape[0], device=k_new.device)[:, None, None]
     b, o = blk.long()[None], off.long()[None]
-    k_cache[lidx, :, b, o] = k_new.to(k_cache.dtype)
-    v_cache[lidx, :, b, o] = v_new.to(v_cache.dtype)
+    for cache, new in ((k_cache, k_new), (v_cache, v_new)):
+        target, values = store_codes(cache, new)
+        target[lidx, :, b, o] = values
     return k_cache, v_cache
 
 
@@ -58,8 +62,10 @@ def kv_cache_append_plain(k_new, v_new, k_cache, v_cache, blk, off):
 def _launch_rows(name, k_new, v_new, k_cache, v_cache, blk, off) -> None:
     """Validate and launch ``kv_cache_append_tokens_launch``: ``k_new [L,
     B, T, Hkv, Dk]``, ``v_new [L, B, T, Hkv, Dv]``, ``blk``/``off [B, T]``
-    int32, every tensor contiguous on one card, one dtype. Raises on what
-    the kernel does not take."""
+    int32, every tensor contiguous on one card; the rows and the caches of
+    one dtype, or f32 / bf16 rows into ``float8_e4m3fn`` caches (cast on
+    store, the reference's bytes). Raises on what the kernel does not
+    take."""
     _cuda.require_cuda(name, k_new, v_new, k_cache, v_cache, blk, off)
     _cuda.require_int32(name, blk, off)
     L, B, T, Hkv, Dk = k_new.shape
@@ -75,16 +81,22 @@ def _launch_rows(name, k_new, v_new, k_cache, v_cache, blk, off) -> None:
                          f" / {tuple(v_new.shape)}, caches "
                          f"{tuple(k_cache.shape)} / {tuple(v_cache.shape)}, "
                          f"blk {tuple(blk.shape)}")
-    dtypes = {k_new.dtype, v_new.dtype, k_cache.dtype, v_cache.dtype}
-    if len(dtypes) != 1 or k_cache.dtype not in _cuda.DTYPE_CODES:
-        raise ValueError(f"{name}: new rows and caches must share one of "
-                         f"{list(_cuda.DTYPE_CODES)}, got {dtypes}")
+    rows = {k_new.dtype, v_new.dtype}
+    caches = {k_cache.dtype, v_cache.dtype}
+    if (len(rows) != 1 or len(caches) != 1
+            or k_new.dtype not in _cuda.DTYPE_CODES
+            or k_cache.dtype not in (k_new.dtype, torch.float8_e4m3fn)):
+        raise ValueError(f"{name}: new rows of one of "
+                         f"{list(_cuda.DTYPE_CODES)} into caches of their "
+                         f"dtype or float8_e4m3fn, got rows {rows}, caches "
+                         f"{caches}")
     err = _cuda.lib(_SRC).kv_cache_append_tokens_launch(
         ctypes.c_void_p(k_new.data_ptr()), ctypes.c_void_p(v_new.data_ptr()),
         ctypes.c_void_p(k_cache.data_ptr()),
         ctypes.c_void_p(v_cache.data_ptr()),
         ctypes.c_void_p(blk.data_ptr()), ctypes.c_void_p(off.data_ptr()),
-        L, B, T, Hkv, N, bs, Dk, Dv, _cuda.DTYPE_CODES[k_cache.dtype],
+        L, B, T, Hkv, N, bs, Dk, Dv, _cuda.DTYPE_CODES[k_new.dtype],
+        int(k_cache.dtype == torch.float8_e4m3fn),
         ctypes.c_void_p(_cuda.stream_ptr(k_cache)),
     )
     _cuda.check(err, name)

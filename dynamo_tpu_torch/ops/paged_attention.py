@@ -22,9 +22,10 @@ source note; no launch falls back to another body.
 
 Cache layout (as in the JAX package): ``[Hkv, N, bs, D]`` per layer, block
 tables of physical page ids, page 0 reserved as trash. The pages are of the
-query dtype, or int8 with one f32 scale per physical page for K and for V
+query dtype, int8 with one f32 scale per physical page for K and for V
 (``k_scales`` / ``v_scales``, this layer's ``[N]`` slice of the engine's
-planes), dequantized as each page is read.
+planes), dequantized as each page is read, or ``float8_e4m3fn`` with no
+scale (the scale-free fp8 cache), widened exactly as each page is read.
 
 Both take the TPU kernels' two gpt-oss options: a sliding ``window`` (a row
 keeps ``q_pos - kv_pos < window``; the kernel's walk starts at the tile's
@@ -121,8 +122,8 @@ def launch_paged_attention(
         if sinks.dtype != torch.float32 or sinks.shape != (Hkv * Gq,):
             raise ValueError(f"{name}: sinks must be f32 [{Hkv * Gq}]")
         _cuda.require_cuda(name, q, sinks)
-    # a bf16 query (over bf16 or int8 pages) runs on the tensor-core bodies;
-    # f32 launches (the tiny f32 models) keep the CUDA-core body
+    # a bf16 query (over bf16, int8 or fp8 pages) runs on the tensor-core
+    # bodies; f32 launches (the tiny f32 models) keep the CUDA-core body
     tc = q.dtype == torch.bfloat16
     seg_rows = TC_TILE_ROWS if tc else MAX_TILE_ROWS
     Tq = Tq or max(1, seg_rows // Gq)
@@ -180,10 +181,15 @@ def launch_paged_attention(
 
 
 def _kv_dtype_code(name, q, k_cache_layer, v_cache_layer, k_scales, v_scales):
-    """The kernel's cache-type code: the query's own, or 2 for int8 pages
-    with their per-page f32 scales (both required, ``[N]`` each)."""
+    """The kernel's cache-type code: the query's own, 2 for int8 pages with
+    their per-page f32 scales (both required, ``[N]`` each), or 3 for
+    ``float8_e4m3fn`` pages, which take no scales."""
     if k_cache_layer.dtype != v_cache_layer.dtype:
         raise ValueError(f"{name}: k and v caches differ in dtype")
+    if k_cache_layer.dtype == torch.float8_e4m3fn:
+        if k_scales is not None or v_scales is not None:
+            raise ValueError(f"{name}: fp8 pages take no per-page scales")
+        return 3
     if k_cache_layer.dtype == torch.int8:
         N = k_cache_layer.shape[1]
         for s in (k_scales, v_scales):
@@ -207,9 +213,14 @@ def gather_pages(cache_layer: torch.Tensor, table: torch.Tensor,
                  scales: Optional[torch.Tensor] = None) -> torch.Tensor:
     """``[Hkv, N, bs, D]`` pages of ``table [..., M]`` -> ``[Hkv, ...,
     M*bs, D]`` (logical positions in order). With ``scales`` ([N] f32 per
-    page, an int8 cache) the pages come out dequantized, f32."""
+    page, an int8 cache) the pages come out dequantized, f32; fp8 pages
+    come out as they are (the caller widens them)."""
     Hkv, _, bs, D = cache_layer.shape
-    g = cache_layer[:, table.long()]
+    if cache_layer.dtype == torch.float8_e4m3fn:  # gathered as its bytes
+        g = cache_layer.view(torch.uint8)[:, table.long()].view(
+            cache_layer.dtype)
+    else:
+        g = cache_layer[:, table.long()]
     if scales is not None:  # [Hkv, ..., M, bs, D] * its page's scale
         g = g.float() * scales[table.long()][..., None, None]
     return g.reshape(Hkv, *table.shape[:-1], table.shape[-1] * bs, D)

@@ -85,10 +85,10 @@ def test_cuda_kernels_match_plain_versions():
 @pytest.mark.parametrize("bs", [16, 24, 32])
 @pytest.mark.parametrize("G", [1, 4, 7])
 @pytest.mark.parametrize("D", [64, 128])
-@pytest.mark.parametrize("int8_pages", [False, True], ids=["bf16", "int8"])
-def test_cuda_tensor_core_tiles_match_plain(int8_pages, D, G, bs):
-    """On the card: the tensor-core segment tiles of a bf16 launch (bf16 or
-    int8 pages) against the plain versions, prefill and ragged: a history
+@pytest.mark.parametrize("pages", ["bf16", "int8", "fp8"])
+def test_cuda_tensor_core_tiles_match_plain(pages, D, G, bs):
+    """On the card: the tensor-core segment tiles of a bf16 launch (bf16,
+    int8 or fp8 pages) against the plain versions, prefill and ragged: a history
     of 333 (no multiple of 16 or 64), valid 77 of T = 100 (padded rows
     zero), a dead segment, decode rows beside them (CUDA-core body, split);
     block sizes that divide a 64-position step (16, 32) and one that does
@@ -106,12 +106,19 @@ def test_cuda_tensor_core_tiles_match_plain(int8_pages, D, G, bs):
     g = torch.Generator(device=dev).manual_seed(4)
     Hkv, M, N = 4, 32, 200
     H, T, valid, hist = Hkv * G, 100, 77, 333
-    if int8_pages:
+    if pages == "int8":
         kc, vc = (torch.randint(-127, 128, (Hkv, N, bs, D), generator=g,
                                 device=dev, dtype=torch.int8) for _ in range(2))
         ks, vs = (torch.rand(N, generator=g, device=dev) * 0.02 + 0.002
                   for _ in range(2))
         sc = dict(k_scales=ks, v_scales=vs)
+    elif pages == "fp8":
+        from dynamo_tpu_torch.models.quant import to_e4m3
+
+        kc, vc = (to_e4m3(torch.randn(Hkv, N, bs, D, generator=g, device=dev) * 2)
+                  for _ in range(2))
+        ks = vs = None
+        sc = {}
     else:
         kc, vc = (torch.randn(Hkv, N, bs, D, generator=g, device=dev).bfloat16()
                   for _ in range(2))
@@ -663,13 +670,13 @@ def _decode_case(dev, g, B, Hkv, rows, D, bs, M, N, lens):
 @pytest.mark.cuda
 @pytest.mark.parametrize("G,T", [(4, 17), (7, 10), (7, 1)],
                          ids=["68 rows", "70 rows", "G=7 decode"])
-@pytest.mark.parametrize("int8_pages", [False, True], ids=["bf16", "int8"])
-def test_cuda_decode_attention_takes_any_rows_per_kv_head(G, T, int8_pages):
+@pytest.mark.parametrize("pages", ["bf16", "int8", "fp8"])
+def test_cuda_decode_attention_takes_any_rows_per_kv_head(G, T, pages):
     """On the card: the tensor-core decode body at (gamma + 1) * G verify
     rows per kv head (G = 4, gamma = 16: 68 rows; G = 7, gamma = 9: 70),
     more than one 16-row block each, and a G = 7 decode; horizons of no
     multiple of 16 (split across blocks, merged in the launch), an inactive
-    slot; bf16 and int8 pages, stats on and off. o within 2e-2 of the plain
+    slot; bf16, int8 and fp8 pages, stats on and off. o within 2e-2 of the plain
     version, (m, l) within rtol 1e-3, the inactive slot o = 0, m = -1e30,
     l = 0."""
     if not torch.cuda.is_available():
@@ -685,7 +692,11 @@ def test_cuda_decode_attention_takes_any_rows_per_kv_head(G, T, int8_pages):
     q, kc, vc, tables, lens = _decode_case(dev, g, 4, Hkv, T * G, D, bs, M, 400,
                                            [1000, 0, 333, 17])
     sc = {}
-    if int8_pages:
+    if pages == "fp8":
+        from dynamo_tpu_torch.models.quant import to_e4m3
+
+        kc, vc = to_e4m3(kc), to_e4m3(vc)
+    if pages == "int8":
         ks = (kc.float().abs().amax(dim=(0, 2, 3)) / 127).clamp_min(1e-12)
         vs = (vc.float().abs().amax(dim=(0, 2, 3)) / 127).clamp_min(1e-12)
         kc = (kc.float() / ks[None, :, None, None]).round().to(torch.int8)
@@ -718,7 +729,7 @@ def test_cuda_windowed_sink_kernels_match_plain(H, Hkv, D, window):
     (m, l), decode rows with the sink folded, prefill and the ragged call
     over histories longer than the window; sinks drawn N(ln window, 1), and
     the scale each sink puts on its row's o held to the plain versions'),
-    then the pages below every
+    bf16, int8 and fp8 pages, then the pages below every
     walk's first step made NaN: the outputs stay finite and bit-equal (the
     walks start at the floor; they do not read and mask)."""
     if not torch.cuda.is_available():
@@ -728,7 +739,7 @@ def test_cuda_windowed_sink_kernels_match_plain(H, Hkv, D, window):
     inp = KernelInputs(torch, torch.device("cuda"), H=H, Hkv=Hkv, D=D,
                        window=window, sinks=True)
     errs = check_windowed(torch, inp, "test")
-    assert len(errs) == 6
+    assert len(errs) == 9
 
 
 @pytest.mark.cuda
@@ -924,10 +935,13 @@ def _graph_engine(family, dtype="float32", quantization="none", kv="model",
     ("mla", "float32", "int8", "model"), ("mla", "bfloat16", "int8", "model"),
     ("gqa", "float32", "fp8_e4m3", "int8"),
     ("gptoss", "float32", "none", "model"),
-    ("gptoss", "bfloat16", "none", "model")],
+    ("gptoss", "bfloat16", "none", "model"),
+    ("gqa", "bfloat16", "none", "float8_e4m3"),
+    ("gptoss", "bfloat16", "none", "float8_e4m3")],
     ids=["GQA f32", "GQA bf16", "MLA+MoE f32", "MLA+MoE bf16",
          "MLA+MoE int8 weights", "MLA+MoE bf16, int8 weights",
-         "GQA fp8 weights + int8 KV", "gpt-oss f32", "gpt-oss bf16"])
+         "GQA fp8 weights + int8 KV", "gpt-oss f32", "gpt-oss bf16",
+         "GQA bf16, fp8 KV", "gpt-oss bf16, fp8 KV"])
 def test_cuda_graph_replays_equal_the_eager_step(family, dtype, quantization, kv):
     """On the card, at tiny widths: every key of the window ladder (n = 4,
     2, 1) and the gamma-3 verify (not over int8 pages, which the verify
@@ -1064,3 +1078,54 @@ def test_cuda_f32_ragged_mm_memory_stays_bounded_at_prefill_rows():
         start += n
     torch.testing.assert_close(out, want, rtol=1e-4, atol=1e-4)
     assert not out[sum(sizes):].any()
+
+
+@pytest.mark.cuda
+def test_cuda_fp8_cast_on_store_is_the_reference_cast():
+    """On the card: the row store into fp8 caches, byte for byte against
+    models/quant.to_e4m3 (the reference's cast, NaN above 464 where the
+    card's satfinite cvt saturates): every bf16 bit pattern and f32 rows at
+    D = 128 and D = 6 (chip_smoke.py check_e4m3_store), then bf16 rows at
+    DeepSeek-V2-Lite's latent widths (Dk = 512, Dv = 64) through
+    kv_cache_append_tokens against its plain twin (page 0 excluded)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the chip)")
+    from chip_smoke import check_e4m3_store, same_bytes
+    from dynamo_tpu_torch.models.quant import to_e4m3
+    from dynamo_tpu_torch.ops import kv_cache_update as kvu
+
+    dev = torch.device("cuda")
+    check_e4m3_store(torch, dev)
+    g = torch.Generator(device=dev).manual_seed(9)
+    L, B, T, N, bs = 3, 4, 4, 40, 16
+    k_new = torch.randn(L, B, T, 1, 512, generator=g, device=dev).bfloat16() * 300
+    v_new = torch.randn(L, B, T, 1, 64, generator=g, device=dev).bfloat16() * 300
+    kc = to_e4m3(torch.randn(L, 1, N, bs, 512, generator=g, device=dev))
+    vc = to_e4m3(torch.randn(L, 1, N, bs, 64, generator=g, device=dev))
+    pos = torch.tensor([bs - 2, 3, 0, bs], device=dev)[:, None] + torch.arange(
+        T, device=dev)[None]
+    tables = torch.tensor([[3, 7, 9], [5, 2, 11], [0, 0, 0], [20, 21, 22]],
+                          dtype=torch.int32, device=dev)
+    blk = torch.gather(tables, 1, pos // bs).to(torch.int32)
+    off = (pos % bs).to(torch.int32)
+    kp, vp = kc.clone(), vc.clone()
+    kvu.kv_cache_append_tokens(k_new, v_new, kc, vc, blk, off)
+    kvu.kv_cache_append_tokens_plain(k_new, v_new, kp, vp, blk, off)
+    torch.cuda.synchronize()
+    assert same_bytes(torch, kc[:, :, 1:], kp[:, :, 1:])
+    assert same_bytes(torch, vc[:, :, 1:], vp[:, :, 1:])
+
+
+@pytest.mark.cuda
+def test_cuda_fp8_tiny_model_matches_the_cpu():
+    """On the card: the tiny GQA model over an fp8 cache through prefill,
+    the fused mixed step and a decode window against the CPU's plain
+    versions (chip_smoke.py check_model_on_card: tokens exact, logits
+    within 2e-2)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the chip)")
+    from chip_smoke import check_model_on_card, tiny_models
+
+    label, cfg, quantization, kv = next(
+        m for m in tiny_models() if m[3] == "float8_e4m3")
+    check_model_on_card(torch, torch.device("cuda"), label, cfg, quantization, kv)
