@@ -169,6 +169,11 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core peak
 F32_FLOPS = 67e12  # H100 SXM float32 peak outside the tensor cores
 
+#: the row-name suffixes of the D = 256 rows (see GEMMA_DRIVE below)
+GEMMA_WINDOW = 1024
+WIDE = " (D=256)"
+WIDE_WINDOW = f" (D=256, window {GEMMA_WINDOW})"
+
 KERNELS = {
     # name -> (source, replaced TPU kernel)
     "paged_decode_attention": (
@@ -267,6 +272,34 @@ KERNELS = {
         "dynamo_tpu_torch/csrc/kv_cache_append.cu",
         "dynamo_tpu/ops/kv_cache_update_pallas.py:383",
     ),
+    "paged_decode_attention" + WIDE: (
+        "dynamo_tpu_torch/csrc/paged_attention_wide.cu",
+        "dynamo_tpu/ops/paged_attention_pallas.py:184",
+    ),
+    "paged_prefill_attention" + WIDE: (
+        "dynamo_tpu_torch/csrc/paged_attention_wide.cu",
+        "dynamo_tpu/ops/paged_attention_pallas.py:440",
+    ),
+    "ragged_mixed_attention" + WIDE: (
+        "dynamo_tpu_torch/csrc/paged_attention_wide.cu",
+        "dynamo_tpu/ops/ragged_paged_attention_pallas.py:225",
+    ),
+    "kv_cache_append" + WIDE: (
+        "dynamo_tpu_torch/csrc/kv_cache_append.cu",
+        "dynamo_tpu/ops/kv_cache_update_pallas.py:63",
+    ),
+    "paged_decode_attention" + WIDE_WINDOW: (
+        "dynamo_tpu_torch/csrc/paged_attention_wide.cu",
+        "dynamo_tpu/ops/paged_attention_pallas.py:184",
+    ),
+    "paged_prefill_attention" + WIDE_WINDOW: (
+        "dynamo_tpu_torch/csrc/paged_attention_wide.cu",
+        "dynamo_tpu/ops/paged_attention_pallas.py:440",
+    ),
+    "ragged_mixed_attention" + WIDE_WINDOW: (
+        "dynamo_tpu_torch/csrc/paged_attention_wide.cu",
+        "dynamo_tpu/ops/ragged_paged_attention_pallas.py:225",
+    ),
 }
 #: the int8-KV variant of each GQA kernel shares the kernel's counter; the
 #: int8-KV drive's launches land under the variant's name
@@ -291,6 +324,17 @@ WINDOW_SINKS = f" (window {GPTOSS_WINDOW}, sinks)"
 GPTOSS_DRIVE = "gptoss-20b-sim"
 #: the depth of the gpt-oss model held to dense_forward at full width
 GPTOSS_ORACLE_LAYERS = 4
+#: Gemma-3-12B's attention (16 query heads over 8 kv heads of 256, G = 2;
+#: a 1024-token window on 40 of its 48 layers): the D = 256 rows of the
+#: three GQA kernels (and of the row store), checked over bf16, int8 and
+#: fp8 pages in phase 2 and timed over bf16 pages in phase 4. Their
+#: launches are the Gemma drive's: the D = 256 rows count all of them, the
+#: window rows the windowed ones among them (``window_launches``)
+GEMMA_DRIVE = "gemma3-12b-sim"
+GEMMA_HEADS = dict(H=16, Hkv=8, D=256)
+#: the depth of the Gemma-3 model held to dense_forward at full width: five
+#: windowed layers and the first full one
+GEMMA_ORACLE_LAYERS = 6
 #: the drives run twice, the second time on a fresh engine (C.4)
 REPEATED = ("llama3-8b-sim", "deepseek-v2-lite-sim")
 #: the checkpoint drive: Mistral-7B-Instruct-v0.2's config.json at this
@@ -308,6 +352,33 @@ ORACLE_FACTOR = 2.0
 
 def log(*a):
     print(*a, flush=True)
+
+
+def ptxas_entries(log_text: str) -> list:
+    """(kernel, registers, "stores / loads" spill bytes) of every entry
+    function in an ``nvcc -Xptxas -v`` log, the names demangled by
+    ``cu++filt`` or ``c++filt`` where the machine has one."""
+    import shutil
+
+    out, name, spills = [], None, "?"
+    for line in log_text.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name, spills = m.group(1), "?"
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and name:
+            spills = f"{m.group(1)} / {m.group(2)}"
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            out.append([name, int(m.group(1)), spills])
+            name = None
+    filt = shutil.which("cu++filt") or shutil.which("c++filt")
+    if filt and out:
+        names = subprocess.run([filt], input="\n".join(e[0] for e in out),
+                               capture_output=True, text=True).stdout.split("\n")
+        for e, n in zip(out, names):
+            e[0] = n.replace("(anonymous namespace)::", "") or e[0]
+    return [tuple(e) for e in out]
 
 
 def nvidia_smi_line() -> str:
@@ -1295,16 +1366,20 @@ def sink_scale(torch, with_sinks, without):
                        float("nan"))
 
 
-def check_windowed(torch, inp: KernelInputs, where: str) -> dict:
+def check_windowed(torch, inp: KernelInputs, where: str,
+                   names=(WINDOW, WINDOW_SINKS)) -> dict:
     """The gpt-oss options of the three GQA kernels against their plain
     versions, bf16, int8 and fp8 pages: the merged decode's call (window floors
     one past the cache, (m, l)), the verify's T*G rows (a floor per
     token), decode rows with the sink folded, prefill and the ragged call
-    with the window and the sinks. Outputs within 2e-2, (m, l) within
+    with the window and the sinks (``inp`` without sinks: Gemma-3's
+    windows alone, decode rows at seq_len - 1 without (m, l)). Outputs
+    within 2e-2, (m, l) within
     rtol 1e-3, the empty slot o = 0, m = -1e30, l = 0. The sink launches
     against the same launches without sinks: the scale the sink puts on
     each row's o within 1e-2 of the plain versions', the sinks holding at
-    least 10% of the mass on average. Then the pages
+    least 10% of the mass on average. ``names``: the row-name suffixes of
+    the decode row and of the prefill and ragged rows. Then the pages
     wholly below each tile's first step (the decode bodies step 16
     positions, the segment tiles 64 from the tile's first token's floor)
     are made NaN: every output stays finite and bit-equal, so the walks
@@ -1316,13 +1391,15 @@ def check_windowed(torch, inp: KernelInputs, where: str) -> dict:
     errs = {}
     for label, x, tag in (("bf16", inp, ""), ("int8 pages", inp.scaled(), INT8_KV),
                           ("fp8 pages", inp.fp8(), FP8_KV)):
+        folded = ("decode, sink folded" if x.sinks is not None
+                  else "decode rows, no (m, l)")
         calls = {
             "decode (merged decode's call)": (x.decode, pa.paged_decode_attention,
                                               pa.paged_decode_attention_plain),
             "verify rows": (x.verify_rows, pa.paged_decode_attention,
                             pa.paged_decode_attention_plain),
-            "decode, sink folded": (x.decode_sinks, pa.paged_decode_attention,
-                                    pa.paged_decode_attention_plain),
+            folded: (x.decode_sinks, pa.paged_decode_attention,
+                     pa.paged_decode_attention_plain),
             "prefill": (x.prefill, pa.paged_prefill_attention,
                         pa.paged_prefill_attention_plain),
             "ragged": (x.ragged, rpa.ragged_mixed_attention,
@@ -1352,7 +1429,8 @@ def check_windowed(torch, inp: KernelInputs, where: str) -> dict:
         # the plain versions' at 1e-2, where a dropped sink or another
         # head's sink moves it by tenths
         bare, scaled = x.without_sinks(), {}
-        for what in ("decode, sink folded", "prefill", "ragged"):
+        for what in ((folded, "prefill", "ragged")
+                     if x.sinks is not None else ()):
             call, kernel, plain = calls[what]
             scales = []
             for fn in (kernel, plain):
@@ -1393,19 +1471,133 @@ def check_windowed(torch, inp: KernelInputs, where: str) -> dict:
         if bad:
             raise AssertionError(f"window {W}, {label}: pages below the walks' "
                                  f"first steps were read by {bad}")
-        errs["paged_decode_attention" + WINDOW + tag] = worst[
+        errs["paged_decode_attention" + names[0] + tag] = worst[
             "decode (merged decode's call)"]
-        errs["paged_prefill_attention" + WINDOW_SINKS + tag] = worst["prefill"]
-        errs["ragged_mixed_attention" + WINDOW_SINKS + tag] = worst["ragged"]
-        log(f"  window {W} + sinks at H={inp.H}, Hkv={inp.Hkv}, D={inp.D}, "
+        errs["paged_prefill_attention" + names[1] + tag] = worst["prefill"]
+        errs["ragged_mixed_attention" + names[1] + tag] = worst["ragged"]
+        sink_note = ("; the sink's scale of o vs plain: " + ", ".join(
+            f"{k} {v:.2e} (sinks {sh:.0%} of the mass)"
+            for k, (v, sh) in scaled.items()) if scaled else "")
+        log(f"  window {W}{' + sinks' if x.sinks is not None else ''} at "
+            f"H={inp.H}, Hkv={inp.Hkv}, D={inp.D}, "
             f"{label}: " + ", ".join(f"{k} {v:.3e}" for k, v in worst.items())
-            + " max |err| vs plain, (m, l) within 1e-3; the sink's scale of o "
-            "vs plain: " + ", ".join(f"{k} {v:.2e} (sinks {sh:.0%} of the mass)"
-                                      for k, (v, sh) in scaled.items())
+            + " max |err| vs plain, (m, l) within 1e-3" + sink_note
             + f"; {skipped} pages below "
             f"the first steps made NaN: outputs bit-equal and finite  OK"
             f"  [{where}]")
     return errs
+
+
+def check_wide_appends(torch, dev, inp: KernelInputs) -> None:
+    """The three appends at a wide head (``inp``'s D, Gemma-3's 256), each
+    against its plain twin: ``kv_cache_append`` into bf16 caches bit for
+    bit and into fp8 caches byte for byte (L=32, B=8 over ``inp``'s append
+    caches); ``kv_cache_append_tokens`` (L=4, B=8, T=4 windows crossing
+    pages, two padded slots on the trash page 0) into bf16 and fp8 caches;
+    ``kv_cache_append_quantized`` (L=4, B=8, two padded rows) into int8
+    pages with per-page scales: codes, planes and n_requants equal (page 0
+    excluded: padded rows race there)."""
+    from dynamo_tpu_torch.models.quant import to_e4m3
+    from dynamo_tpu_torch.ops import kv_cache_update as kvu
+
+    for label, (kc, vc) in (("bf16", (inp.a_kc, inp.a_vc)),
+                            ("fp8", (to_e4m3(inp.a_kc), to_e4m3(inp.a_vc)))):
+        got = (kc.clone(), vc.clone())
+        ref = (kc.clone(), vc.clone())
+        inp.append(kvu.kv_cache_append, *got)
+        inp.append(kvu.kv_cache_append_plain, *ref)
+        torch.cuda.synchronize()
+        if not all(same_bytes(torch, a, b) for a, b in zip(got, ref)):
+            raise AssertionError(f"kv_cache_append at D={inp.D} into {label} "
+                                 "caches: not byte-equal to the plain version")
+        del got, ref
+    g = torch.Generator(device=dev).manual_seed(21)
+    L, B, T, Hkv, D, N, bs = 4, 8, SPEC_GAMMA + 1, inp.Hkv, inp.D, 64, inp.bs
+    pages = (torch.randperm(N - 1, generator=g, device=dev)[: 2 * B] + 1).reshape(B, 2)
+    start = torch.randint(0, bs, (B,), generator=g, device=dev)
+    pos = start[:, None] + torch.arange(T, device=dev)[None]
+    blk = torch.gather(pages, 1, pos // bs)
+    blk[[3, 6]] = 0  # padded slots: every row on the trash page
+    blk, off = blk.to(torch.int32), (pos % bs).to(torch.int32)
+    new = [torch.randn(L, B, T, Hkv, D, generator=g, device=dev).bfloat16()
+           for _ in range(2)]
+    base = [torch.randn(L, Hkv, N, bs, D, generator=g, device=dev).bfloat16()
+            for _ in range(2)]
+    for label, caches in (("bf16", base), ("fp8", [to_e4m3(c) for c in base])):
+        got = [c.clone() for c in caches]
+        ref = [c.clone() for c in caches]
+        kvu.kv_cache_append_tokens(*new, *got, blk, off)
+        kvu.kv_cache_append_tokens_plain(*new, *ref, blk, off)
+        torch.cuda.synchronize()
+        if not all(same_bytes(torch, a[:, :, 1:], b[:, :, 1:])
+                   for a, b in zip(got, ref)):
+            raise AssertionError(f"kv_cache_append_tokens at D={D} into {label} "
+                                 "caches: not byte-equal to the plain version")
+    scales = [(c.float().abs().amax(dim=(1, 3, 4)) / 127.0).contiguous()
+              for c in base]  # [L, N] absmax / 127 of bf16 pages
+    codes = [torch.clamp(torch.round(c.float() / s[:, None, :, None, None]),
+                         -127, 127).to(torch.int8) for c, s in zip(base, scales)]
+    # the new rows at twice the pages' spread: some scales grow
+    qnew = [2 * x[:, :, 0].contiguous() for x in new]
+    qblk = blk[:, 0].contiguous()
+    qoff = off[:, 0].contiguous()
+    outs = []
+    for fn in (kvu.kv_cache_append_quantized, kvu.kv_cache_append_quantized_plain):
+        cc = [c.clone() for c in codes]
+        outs.append(fn(*qnew, *cc, *scales, qblk, qoff))
+    torch.cuda.synchronize()
+    got, ref = outs
+    if not (all(torch.equal(a[:, :, 1:], b[:, :, 1:]) for a, b in zip(got[:2], ref[:2]))
+            and torch.equal(got[2], ref[2]) and torch.equal(got[3], ref[3])
+            and int(got[4]) == int(ref[4])):
+        raise AssertionError(f"kv_cache_append_quantized at D={D}: not bit-exact "
+                             "with its plain twin")
+    log(f"  the appends at D={D}: kv_cache_append (L=32, B=8) and "
+        f"kv_cache_append_tokens (L=4, B=8, T={T}) into bf16 and fp8 caches "
+        f"byte-equal to their plain twins, kv_cache_append_quantized (L=4, "
+        f"B=8, {int(got[4])} scale entries grew) bit-exact (page 0 excluded)  OK")
+
+
+def check_wide_heads(torch, dev, card: str):
+    """The head widths above 128 (csrc/paged_attention_wide.cu) against
+    the plain versions: Gemma-3-12B's attention (H=16, Hkv=8, D=256, G=2)
+    at phase 2's lengths through the three GQA kernels over bf16, int8 and
+    fp8 pages (decode with (m, l), prefill, ragged, and the verify's T*G
+    rows), then with its 1024-token window (check_windowed without sinks:
+    the merged decode's call, the verify rows, prefill and ragged crossing
+    the floors, the pages below every walk's first step made NaN); the
+    appends at D=256 (check_wide_appends); and D=192 (H=16, Hkv=8) through
+    the three kernels over the three page types. Outputs within 2e-2, (m,
+    l) within rtol 1e-3. Returns (errors by row, the D=256 inputs, the
+    windowed D=256 inputs)."""
+    from dynamo_tpu_torch.ops import paged_attention as pa
+
+    inp = KernelInputs(torch, dev, **GEMMA_HEADS)
+    errs = {}
+    for tag, x in (("", inp), (INT8_KV, inp.scaled()), (FP8_KV, inp.fp8())):
+        errs.update(check_attention(torch, x, WIDE + tag))
+        o, m, l = x.verify_rows(pa.paged_decode_attention)
+        ro, rm, rl = x.verify_rows(pa.paged_decode_attention_plain)
+        torch.cuda.synchronize()
+        err = close(f"verify rows{WIDE}{tag}", o, ro, 2e-2, 2e-2)
+        close_stats(f"verify rows{WIDE}{tag}", (m, l), (rm, rl))
+        log(f"  D=256 (H=16, Hkv=8){tag or ' bf16'}: decode "
+            f"{errs['paged_decode_attention' + WIDE + tag]:.3e}, prefill "
+            f"{errs['paged_prefill_attention' + WIDE + tag]:.3e}, ragged "
+            f"{errs['ragged_mixed_attention' + WIDE + tag]:.3e}, verify rows "
+            f"{err:.3e} max |err| vs plain, (m, l) within 1e-3  OK")
+    check_wide_appends(torch, dev, inp)
+    errs["kv_cache_append" + WIDE] = 0.0
+    winp = KernelInputs(torch, dev, **GEMMA_HEADS, window=GEMMA_WINDOW)
+    errs.update(check_windowed(torch, winp, card, names=(WIDE_WINDOW, WIDE_WINDOW)))
+    narrow = KernelInputs(torch, dev, H=16, Hkv=8, D=192)
+    for tag, x in (("", narrow), (INT8_KV, narrow.scaled()), (FP8_KV, narrow.fp8())):
+        e = check_attention(torch, x, " (D=192)" + tag)
+        log(f"  D=192 (H=16, Hkv=8){tag or ' bf16'}: " + ", ".join(
+            f"{k.split(' ')[0]} {v:.3e}" for k, v in e.items())
+            + " max |err| vs plain, (m, l) within 1e-3  OK")
+    del narrow
+    return errs, inp, winp
 
 
 def check_gmm_tiles(torch, dev) -> None:
@@ -1628,6 +1820,8 @@ def tiny_models():
     return [
         ("tiny gpt-oss (windows of 16, sinks, biased clamped MoE)",
          tiny_gptoss("float32"), "none", None),
+        ("tiny Gemma-3 (D=256, windows of 16, two ropes, sandwich norms)",
+         tiny_gemma3("float32"), "none", None),
         ("tiny GQA", gqa, "none", None),
         ("tiny MLA+MoE", mla, "none", None),
         ("tiny GQA, fp8 weights + int8 KV", gqa, "fp8_e4m3", "int8"),
@@ -1636,6 +1830,24 @@ def tiny_models():
         ("tiny Qwen2 (q/k/v biases, G=7)", qwen2, "none", None),
         ("tiny Qwen3 (per-head q/k norms)", qwen3, "none", None),
     ]
+
+
+def tiny_gemma3(dtype):
+    """A tiny Gemma-3 at the wide head (D=256, the card's f32 launches on
+    the CUDA-core body): 6 layers, windows of 16 on the first five (every
+    prefill of phase 2's checks crosses them), a query scale base of 32,
+    the full layer's rope at theta 1e6 scaled linearly by 8 and the
+    windowed layers' local rope at 1e4, sandwich norms, GeGLU, scaled and
+    tied embeddings."""
+    from dynamo_tpu_torch.models.config import ModelConfig
+
+    return ModelConfig.tiny(
+        dtype=dtype, head_dim=256, num_heads=4, num_kv_heads=2,
+        hidden_size=128, num_layers=6, layer_windows=(16,) * 5 + (0,),
+        post_norms=True, qk_norm=True, attn_scale_base=32, rms_add_unit=True,
+        scale_embed=True, tie_word_embeddings=True, hidden_act="gelu_tanh",
+        rope_theta=1000000.0, rope_local_theta=10000.0,
+        rope_scaling={"rope_type": "linear", "factor": 8.0})
 
 
 def tiny_gptoss(dtype):
@@ -1799,7 +2011,8 @@ def tiny_params(torch, cfg, quantization="none"):
 
 def draw_attention_extras(torch, params, cfg, gen) -> None:
     """In place: Qwen2's (and gpt-oss's) q/k/v biases drawn N(0, 0.1),
-    Qwen3's per-head q/k norm weights N(1, 0.3), gpt-oss's o_proj bias
+    Qwen3's and Gemma-3's per-head q/k norm weights N(1, 0.3), Gemma-3's
+    sandwich norm weights N(1, 0.3), gpt-oss's o_proj bias
     N(0, 0.1), router logit bias N(0, 0.5), sinks N(ln window, 1) (a real
     share of each row's mass) and expert gate and up biases N(0, 4) (past
     the clamp's 7 for some elements), where the model has them (the random
@@ -1809,6 +2022,8 @@ def draw_attention_extras(torch, params, cfg, gen) -> None:
         keys += [("bq", 0.0, 0.1), ("bk", 0.0, 0.1), ("bv", 0.0, 0.1)]
     if cfg.qk_norm and not cfg.is_mla:
         keys += [("q_norm", 1.0, 0.3), ("k_norm", 1.0, 0.3)]
+    if cfg.post_norms:  # gemma's sandwich norms
+        keys += [("attn_post_norm", 1.0, 0.3), ("mlp_post_norm", 1.0, 0.3)]
     if cfg.o_bias:
         keys += [("bo", 0.0, 0.1)]
     if cfg.attn_sinks:
@@ -2113,6 +2328,22 @@ def drives():
           "ragged_mixed_attention" + WINDOW_SINKS: (ragged_mixed_attention,
                                                     "window_launches"),
           "kv_cache_append": kv_cache_append}),
+        # Gemma-3-12B at its published widths and depth (dynamo_run's
+        # preset: context cut to 8192), bf16, a 1024-page pool (6 GiB of
+        # 384 KiB tokens): every launch of the three GQA kernels and the
+        # row store at D = 256 (paged_attention_wide.cu), the windowed ones
+        # of its 40 sliding layers counted apart
+        (GEMMA_DRIVE, PRESETS[GEMMA_DRIVE](), {**v2, "num_blocks": 1024},
+         {"paged_decode_attention" + WIDE: paged_decode_attention,
+          "paged_prefill_attention" + WIDE: paged_prefill_attention,
+          "ragged_mixed_attention" + WIDE: ragged_mixed_attention,
+          "kv_cache_append" + WIDE: kv_cache_append,
+          "paged_decode_attention" + WIDE_WINDOW: (paged_decode_attention,
+                                                   "window_launches"),
+          "paged_prefill_attention" + WIDE_WINDOW: (paged_prefill_attention,
+                                                    "window_launches"),
+          "ragged_mixed_attention" + WIDE_WINDOW: (ragged_mixed_attention,
+                                                   "window_launches")}),
     ]
 
 
@@ -2376,6 +2607,8 @@ async def serve(torch, dev, card: str, name: str, cfg, geometry: dict,
     step_anatomy(torch, dev, engine, planes)
     if cfg.attn_sinks:
         gptoss_oracle(torch, dev, card, name, params, cfg)
+    if cfg.rope_local_theta:
+        gemma_oracle(torch, dev, card, name, params, cfg)
     if quant != "none":
         dequant_cost(torch, params)
     else:
@@ -2453,14 +2686,15 @@ def anatomy(torch, label: str, fn, n: int) -> None:
 
 
 def port_kernel_names() -> set:
-    """The names of the __global__ functions in the port's CUDA sources."""
+    """The names of the __global__ functions in the port's CUDA sources and
+    the headers they include."""
     from dynamo_tpu_torch.ops import _cuda
 
     names = set()
-    for src in _cuda.SOURCES:
+    for path in sorted(_cuda.SRC_DIR.glob("*.cu*")):
         names |= set(re.findall(
             r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s*)?(\w+)\s*\(",
-            (_cuda.SRC_DIR / src).read_text()))
+            path.read_text()))
     return names
 
 
@@ -2578,10 +2812,11 @@ def step_anatomy(torch, dev, engine, planes=None, decode_only: bool = False) -> 
 
 
 def dense_oracle(torch, dev, card: str, name: str, params, cfg,
-                 knockout=None) -> None:
-    """The full-width check of the served model's forward: a 256-token
-    prompt prefilled in two chunks (192, then 64 over the first's cached
-    pages: paged_prefill_attention both times), its last logits against
+                 knockout=None, T: int = 256, cut: int = 192) -> None:
+    """The full-width check of the served model's forward: a ``T``-token
+    prompt (256) prefilled in two chunks (``cut`` = 192, then the rest
+    over the first's cached pages: paged_prefill_attention both times),
+    its last logits against
     ``dense_forward``'s (plain full attention, no cache, no kernel of the
     port) on the same bf16 weights, and both against ``dense_forward`` in
     f32 on the same weights widened: the served path's distance to the
@@ -2593,10 +2828,10 @@ def dense_oracle(torch, dev, card: str, name: str, params, cfg,
 
     from dynamo_tpu_torch.models import llama
 
-    T, cut = 256, 192
     toks = ((torch.arange(T, device=dev) * 7919) % (cfg.vocab_size - 3) + 3).to(torch.int32)
-    kc, vc = llama.init_kv_cache(cfg, 24, 16, device=dev)
-    table = torch.arange(1, 17, dtype=torch.int32, device=dev)
+    pages = -(-T // 16)
+    kc, vc = llama.init_kv_cache(cfg, pages + 8, 16, device=dev)
+    table = torch.arange(1, pages + 1, dtype=torch.int32, device=dev)
     llama.prefill(params, cfg, toks[:cut].contiguous(), table, 0, cut, kc, vc)
     paged = llama.prefill(params, cfg, toks[cut:].contiguous(), table, cut,
                           T - cut, kc, vc)[0]
@@ -2614,7 +2849,7 @@ def dense_oracle(torch, dev, card: str, name: str, params, cfg,
     base = float((dense - exact).abs().max())
     scale = float(exact.abs().max())
     top2 = exact.topk(2).values
-    log(f"  full-width oracle, last logits of a 192 + 64-token prefill: served "
+    log(f"  full-width oracle, last logits of a {cut} + {T - cut}-token prefill: served "
         f"bf16 vs dense_forward f32 max |dlogit| {err:.4f}, dense_forward bf16 "
         f"vs f32 {base:.4f} ({err / base:.2f}x; tolerance {ORACLE_FACTOR}x), "
         f"served vs dense_forward bf16 "
@@ -2670,6 +2905,31 @@ def gptoss_oracle(torch, dev, card: str, name: str, params, cfg) -> None:
     dense_oracle(torch, dev, card, f"{name}, first {L} layers",
                  {**params, "layers": layers}, cut,
                  knockout=("the sinks knocked out", sinkless))
+
+
+def gemma_oracle(torch, dev, card: str, name: str, params, cfg) -> None:
+    """dense_oracle on the served Gemma-3 weights' first GEMMA_ORACLE_LAYERS
+    layers (full width: five windowed, the first full one), over a
+    1280-token prompt prefilled as 1152 + 128 tokens, so the second chunk's
+    rows keep 1024 of the 1151-1279 positions before them on the windowed
+    layers (window floors and the local rope) and all of them on the full
+    layer (the linear rope). The witness knocks out the sandwich norms
+    (their leaves dropped: each sublayer's output added unnormed)."""
+    import dataclasses
+
+    L = GEMMA_ORACLE_LAYERS
+    cut = dataclasses.replace(cfg, num_layers=L,
+                              layer_windows=cfg.layer_windows[:L])
+    layers = {k: v[:L] for k, v in params["layers"].items()}
+
+    def unnormed(wide):
+        return {**wide, "layers": {k: v for k, v in wide["layers"].items()
+                                   if "post_norm" not in k}}
+
+    dense_oracle(torch, dev, card, f"{name}, first {L} layers",
+                 {**params, "layers": layers}, cut,
+                 knockout=("the sandwich norms knocked out", unnormed),
+                 T=1280, cut=1152)
 
 
 #: a Mistral-style [INST] chat template for the checkpoint's tokenizer
@@ -3004,9 +3264,18 @@ def check_graphs(torch, engine, name: str, card: str) -> None:
     lens[B - 2] = 0
     refilled = list(lens)
     refilled[2], refilled[B - 2] = 0, 1290
+    # the moved tables start at page 700, or lower where the pool ends
+    # sooner (Gemma-3's 1024 pages), still past the first batches' pages
+    bs = engine.cfg.block_size
+    moved = min(700, engine.cfg.num_blocks
+                - sum(-(-(n + 8) // bs) for n in refilled if n))
+    if moved <= sum(-(-(n + 8) // bs) for n in lens if n):
+        raise AssertionError(f"{name}: a pool of {engine.cfg.num_blocks} pages "
+                             "is too small for the replay probes")
     cases = (("greedy", lens, False, 1),
              ("seeded sampled, top-k / top-p, penalties, logprobs", lens, True, 1),
-             ("a slot freed, another refilled, tables moved", refilled, True, 700))
+             ("a slot freed, another refilled, tables moved", refilled, True,
+              moved))
     t0, checked, replays = time.perf_counter(), 0, engine._graphs.replays
     for label, case_lens, rich, first in cases:
         steps = graph_batch(engine, rng, case_lens, sampled=rich, penalties=rich,
@@ -3135,11 +3404,12 @@ def library_calls(torch, inp: KernelInputs):
     }
 
 
-def work(inp: KernelInputs) -> dict:
+def work(inp: KernelInputs, tag=None) -> dict:
     """(bytes, flops) each kernel must move/compute on these inputs: each
     input it needs read once, each output written once. Counted from this
     run's data: only the queries of rows that attend something, the cached
-    positions they attend and the table entries that reach them."""
+    positions they attend and the table entries that reach them. ``tag``:
+    the rows' name suffix (default: by the pages' type)."""
     H, Hkv, D, bs = inp.H, inp.Hkv, inp.D, inp.bs
     elem = inp.kc.element_size()  # 2 (bf16), or 1 (int8 or fp8 pages)
     kv_row = Hkv * D * elem * 2  # K and V bytes of one position
@@ -3170,7 +3440,8 @@ def work(inp: KernelInputs) -> dict:
     # the B page and row indices
     app_bytes = 2 * inp.k_new.numel() * (2 + elem) + 8 * 4 * 2
     fp8 = inp.kc.dtype == inp.torch.float8_e4m3fn
-    tag = INT8_KV if inp.sc else (FP8_KV if fp8 else "")
+    if tag is None:
+        tag = INT8_KV if inp.sc else (FP8_KV if fp8 else "")
     out = {
         "paged_decode_attention" + tag: (dec_bytes + dec_stats, dec_flops),
         "paged_prefill_attention" + tag: (pre_bytes, pre_flops),
@@ -3198,7 +3469,7 @@ def window_spans(inp: KernelInputs) -> dict:
             "segments": segs}
 
 
-def window_work(inp: KernelInputs) -> dict:
+def window_work(inp: KernelInputs, names=(WINDOW, WINDOW_SINKS)) -> dict:
     """(bytes, flops) of the windowed calls on these inputs, counting only
     what the window needs: the K/V rows of the positions some row of a
     sequence attends (each read once), the table entries (and page scales)
@@ -3209,6 +3480,7 @@ def window_work(inp: KernelInputs) -> dict:
     kv_row = Hkv * D * inp.kc.element_size() * 2
     q_row = H * D * 2
     entry = 4 + (8 if inp.sc else 0)
+    sink_bytes = 0 if inp.sinks is None else H * 4
     sp = window_spans(inp)
 
     def seq(spans):  # one sequence's K/V bytes + table entries
@@ -3222,22 +3494,23 @@ def window_work(inp: KernelInputs) -> dict:
     dec_bytes = (len(sp["decode"]) * q_row + B * q_row + B * 4
                  + sum(seq([r]) for r in sp["decode"]) + B * H * 4 * 2)
     T = inp.q_pre.shape[0]
-    pre_bytes = 2 * T * q_row + seq(sp["prefill"]) + H * 4
+    pre_bytes = 2 * T * q_row + seq(sp["prefill"]) + sink_bytes
     MP, seg_T = inp.q_chunks.shape[:2]
     rag_bytes = (len(sp["ragged decode"]) * q_row + B * q_row + B * 4
                  + sum(seq([r]) for r in sp["ragged decode"])
                  + sum(len(s) * q_row + seq(s) for s in sp["segments"] if s)
-                 + MP * seg_T * q_row + MP * 2 * 4 + H * 4)
+                 + MP * seg_T * q_row + MP * 2 * 4 + sink_bytes)
     return {
-        "paged_decode_attention" + WINDOW: (dec_bytes, flops(sp["decode"])),
-        "paged_prefill_attention" + WINDOW_SINKS: (pre_bytes, flops(sp["prefill"])),
-        "ragged_mixed_attention" + WINDOW_SINKS: (
+        "paged_decode_attention" + names[0]: (dec_bytes, flops(sp["decode"])),
+        "paged_prefill_attention" + names[1]: (pre_bytes, flops(sp["prefill"])),
+        "ragged_mixed_attention" + names[1]: (
             rag_bytes, flops(sp["ragged decode"])
             + sum(flops(s) for s in sp["segments"])),
     }
 
 
-def window_library_calls(torch, inp: KernelInputs) -> dict:
+def window_library_calls(torch, inp: KernelInputs,
+                         names=(WINDOW, WINDOW_SINKS)) -> dict:
     """SDPA over each windowed call's window only (no sink: SDPA has
     none), K/V laid out contiguously outside the timed span: the decode
     rows over their W - 1 cached positions, prefill and each live segment
@@ -3309,9 +3582,9 @@ def window_library_calls(torch, inp: KernelInputs) -> dict:
         for seg in segs:
             sdpa(*seg)
 
-    return {"paged_decode_attention" + WINDOW: lambda: sdpa(*dec),
-            "paged_prefill_attention" + WINDOW_SINKS: lambda: sdpa(*pre),
-            "ragged_mixed_attention" + WINDOW_SINKS: ragged}
+    return {"paged_decode_attention" + names[0]: lambda: sdpa(*dec),
+            "paged_prefill_attention" + names[1]: lambda: sdpa(*pre),
+            "ragged_mixed_attention" + names[1]: ragged}
 
 
 def quant_work(torch, qi: QuantInputs) -> dict:
@@ -3503,8 +3776,8 @@ def sdpa_backend(torch, fn) -> str:
 
 
 def timing(torch, dev, inp: KernelInputs, mi: MlaInputs, qi: QuantInputs,
-           ta: TokenAppendInputs, winp: KernelInputs, errs: dict,
-           launches: dict) -> list:
+           ta: TokenAppendInputs, winp: KernelInputs, gin: KernelInputs,
+           gwinp: KernelInputs, errs: dict, launches: dict) -> list:
     from dynamo_tpu_torch.ops import kv_cache_update as kvu
     from dynamo_tpu_torch.ops import mla_attention as mla
     from dynamo_tpu_torch.ops import moe_gmm
@@ -3562,6 +3835,20 @@ def timing(torch, dev, inp: KernelInputs, mi: MlaInputs, qi: QuantInputs,
         "kv_cache_append" + FP8_KV: lambda: inp.append(kvu.kv_cache_append, *f_caches),
         "kv_cache_append_tokens" + FP8_KV:
             lambda: ta.append(kvu.kv_cache_append_tokens, caches=f_caches),
+        # Gemma-3-12B's heads (D = 256), bf16 pages, unwindowed and with its
+        # 1024-token window
+        "paged_decode_attention" + WIDE: lambda: gin.decode(pa.paged_decode_attention),
+        "paged_prefill_attention" + WIDE:
+            lambda: gin.prefill(pa.paged_prefill_attention),
+        "ragged_mixed_attention" + WIDE:
+            lambda: gin.ragged(rpa.ragged_mixed_attention),
+        "kv_cache_append" + WIDE: lambda: gin.append(kvu.kv_cache_append),
+        "paged_decode_attention" + WIDE_WINDOW:
+            lambda: gwinp.decode(pa.paged_decode_attention),
+        "paged_prefill_attention" + WIDE_WINDOW:
+            lambda: gwinp.prefill(pa.paged_prefill_attention),
+        "ragged_mixed_attention" + WIDE_WINDOW:
+            lambda: gwinp.ragged(rpa.ragged_mixed_attention),
     }
     plain = {
         "paged_decode_attention": lambda: inp.decode(pa.paged_decode_attention_plain),
@@ -3608,6 +3895,19 @@ def timing(torch, dev, inp: KernelInputs, mi: MlaInputs, qi: QuantInputs,
             lambda: inp.append(kvu.kv_cache_append_plain, *f_caches),
         "kv_cache_append_tokens" + FP8_KV:
             lambda: ta.append(kvu.kv_cache_append_tokens_plain, caches=f_caches),
+        "paged_decode_attention" + WIDE:
+            lambda: gin.decode(pa.paged_decode_attention_plain),
+        "paged_prefill_attention" + WIDE:
+            lambda: gin.prefill(pa.paged_prefill_attention_plain),
+        "ragged_mixed_attention" + WIDE:
+            lambda: gin.ragged(rpa.ragged_mixed_attention_plain),
+        "kv_cache_append" + WIDE: lambda: gin.append(kvu.kv_cache_append_plain),
+        "paged_decode_attention" + WIDE_WINDOW:
+            lambda: gwinp.decode(pa.paged_decode_attention_plain),
+        "paged_prefill_attention" + WIDE_WINDOW:
+            lambda: gwinp.prefill(pa.paged_prefill_attention_plain),
+        "ragged_mixed_attention" + WIDE_WINDOW:
+            lambda: gwinp.ragged(rpa.ragged_mixed_attention_plain),
     }
     scaled_library = {k + INT8_KV: f for k, f in
                       library_calls(torch, sinp.dequantized()).items()
@@ -3618,13 +3918,18 @@ def timing(torch, dev, inp: KernelInputs, mi: MlaInputs, qi: QuantInputs,
     fp8_library = {k + FP8_KV: f for k, f in
                    library_calls(torch, finp.widened()).items()
                    if k + FP8_KV in KERNELS and not k.startswith("kv_cache")}
+    wide_library = {k + WIDE: f for k, f in library_calls(torch, gin).items()
+                    if k + WIDE in KERNELS}
     library = {**library_calls(torch, inp), **mla_library_calls(torch, mi),
                **scaled_library, **quant_library_calls(torch, qi),
                "kv_cache_append_tokens": ta.index_put("gqa"),
                "kv_cache_append_tokens (MLA widths)": ta.index_put("mla"),
-               **window_library_calls(torch, winp), **fp8_library}
+               **window_library_calls(torch, winp), **fp8_library,
+               **wide_library,
+               **window_library_calls(torch, gwinp, (WIDE_WINDOW, WIDE_WINDOW))}
     bounds = {**work(inp), **mla_work(mi), **work(sinp), **quant_work(torch, qi),
-              **spec_work(inp, mi, ta), **window_work(winp), **work(finp)}
+              **spec_work(inp, mi, ta), **window_work(winp), **work(finp),
+              **work(gin, WIDE), **window_work(gwinp, (WIDE_WINDOW, WIDE_WINDOW))}
     setups = {"kv_cache_append_quantized": reset_planes}
     # the floor of every row: an empty kernel (a spin of 0 cycles) under
     # the same flush and spin
@@ -3729,9 +4034,9 @@ def main() -> int:
     build_s = _cuda.build_all()
     log(f"  kernel build: {build_s:.1f} s ({len(_cuda.SOURCES)} sources in parallel)")
     for src, text in _cuda.build_logs().items():
-        for line in text.splitlines():
-            if "Used" in line or "spill" in line:
-                log(f"  {src}: {line.strip()}")
+        for entry, regs, spills in ptxas_entries(text):
+            log(f"  {src}: {entry}: {regs} registers, spill stores / loads "
+                f"{spills} bytes")
     log(f"[2/4] at {time.perf_counter() - t_all:.1f} s: kernels against their "
         "plain versions (Llama-3-8B and "
         "DeepSeek-V2-Lite shapes, bf16)")
@@ -3750,6 +4055,9 @@ def main() -> int:
     winp = KernelInputs(torch, dev, H=64, Hkv=8, D=64, window=GPTOSS_WINDOW,
                         sinks=True)
     errs.update(check_windowed(torch, winp, card))
+    # Gemma-3-12B's head width (and D=192): the wide kernels' library
+    wide_errs, gin, gwinp = check_wide_heads(torch, dev, card)
+    errs.update(wide_errs)
     for label, cfg, quantization, kv in tiny_models():
         check_model_on_card(torch, dev, label, cfg, quantization, kv)
         if quantization == "none" and kv is None:
@@ -3766,7 +4074,8 @@ def main() -> int:
         f"spec_gamma={SPEC_GAMMA}), llama3-8b-sim and "
         f"deepseek-v2-lite-sim (spec_gamma={SPEC_GAMMA}), qwen2.5-7b-sim, "
         f"qwen3-8b-sim, a {CHECKPOINT_LAYERS}-layer Mistral-7B-v0.2 "
-        f"checkpoint through dynamo_run --model-path, and {GPTOSS_DRIVE}")
+        f"checkpoint through dynamo_run --model-path, {GPTOSS_DRIVE} and "
+        f"{GEMMA_DRIVE}")
     launches, plain = {}, {}
     for name, cfg, geometry, counted in drives():
         log(f"  drive {name} from {time.perf_counter() - t_all:.1f} s")
@@ -3793,7 +4102,7 @@ def main() -> int:
             torch.cuda.empty_cache()
     log(f"[4/4] at {time.perf_counter() - t_all:.1f} s: timing (median per "
         "launch, L2 flushed)  [" + card + "]")
-    rows = timing(torch, dev, inp, mi, qi, ta, winp, errs, launches)
+    rows = timing(torch, dev, inp, mi, qi, ta, winp, gin, gwinp, errs, launches)
     torch.cuda.synchronize()
     log(f"all phases passed in {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": rows}))

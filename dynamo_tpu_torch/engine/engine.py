@@ -75,6 +75,7 @@ from ..models.config import ModelConfig
 from ..models.mla import MLA_INT8_NATIVE
 from ..models.quant import KV_SCALE_EPS, kv_cache_dtype, quantize_params
 from ..ops import mla_attention
+from ..ops.paged_attention import check_head_dim
 from ..ops.sampling import make_keys, sample_first_token, token_logprobs
 from ..protocols.common import (
     FinishReason,
@@ -232,6 +233,11 @@ class TorchEngine(AsyncEngine):
                 f"R={mcfg.qk_rope_head_dim}: the CUDA latent kernels take "
                 f"kv_lora_rank % 128 == 0 and rope widths >= 1"
             )
+        if self.device.type == "cuda" and not mcfg.is_mla:
+            # the GQA kernels' widths (64, 128, 192, 256); the JAX engine
+            # falls back to XLA for the others, the card runs the kernels
+            # or nothing
+            check_head_dim("TorchEngine", mcfg.head_dim)
         if mcfg.is_mla and cfg.quantization == "int8_native":
             raise ValueError(MLA_INT8_NATIVE)
         # None, bf16, int8 or float8_e4m3fn (MLA + fp8 raises here: the

@@ -66,7 +66,7 @@ from ..http.service import HttpService, ModelManager
 from ..llm.openai_engine import OpenAIWorkerEngine
 from ..llm.hub import resolve_model_path
 from ..llm.tokenizer import ByteTokenizer, Tokenizer, load_tokenizer
-from ..models.config import ModelConfig, deepseek_v2_lite
+from ..models.config import ModelConfig, deepseek_v2_lite, gemma3_12b
 from ..models.quant import KV_CACHE_DTYPES, WEIGHT_MODES, kv_cache_dtype
 from ..models.weights import init_random_params, load_llama_params
 from ..runtime.engine import Context
@@ -80,6 +80,10 @@ PRESETS = {
     # published original 4096 and factor 32)
     "gptoss-20b-sim": lambda: ModelConfig.gptoss_20b(
         max_position_embeddings=8192),
+    # Gemma-3-12B's published shapes (11.77B params, 23.5 GB in bf16; head
+    # width 256, 1024-token windows on 40 of 48 layers, two ropes), the
+    # context cut from 131072 to 8192 positions
+    "gemma3-12b-sim": gemma3_12b,
     # gpt-oss-shaped smoke model: alternating sliding/full layers,
     # attention sinks, biased clamped-SwiGLU MoE (the JAX package's)
     "tiny-gptoss": lambda: ModelConfig.tiny(

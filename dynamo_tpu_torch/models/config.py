@@ -593,3 +593,53 @@ MISTRAL_7B_V02_HF = {
     "vocab_size": 32000,
 }
 
+
+#: Gemma-3-12B's published config.json (huggingface.co/google/gemma-3-12b-it,
+#: main/config.json): a multimodal checkpoint whose language model sits
+#: under ``text_config`` (its vision tower is not served). The file names
+#: the widths that differ from ``transformers.Gemma3TextConfig``; every
+#: default it leaves implicit is spelled out below them (the CPU tests hold
+#: each to ``Gemma3TextConfig()``). 48 layers, hidden 3840, 16 query heads
+#: over 8 KV heads of 256 (G = 2), GeGLU width 15360, vocab 262208, tied
+#: embeddings; a 1024-token window on 5 of every 6 layers (40 windowed, 8
+#: full), the full layers' rope at theta 1e6 with linear scaling by 8, the
+#: windowed layers' at 1e4 unscaled; queries scaled by 256 ** -0.5.
+GEMMA3_12B_HF = {
+    "architectures": ["Gemma3ForConditionalGeneration"],
+    "model_type": "gemma3",
+    "torch_dtype": "bfloat16",
+    "text_config": {
+        "hidden_size": 3840,
+        "intermediate_size": 15360,
+        "model_type": "gemma3_text",
+        "num_attention_heads": 16,
+        "num_hidden_layers": 48,
+        "num_key_value_heads": 8,
+        "rope_scaling": {"factor": 8.0, "rope_type": "linear"},
+        "sliding_window": 1024,
+        # Gemma3TextConfig's defaults, which the published file leaves out
+        "attention_bias": False,
+        "attn_logit_softcapping": None,
+        "final_logit_softcapping": None,
+        "head_dim": 256,
+        "hidden_activation": "gelu_pytorch_tanh",
+        "max_position_embeddings": 131072,
+        "query_pre_attn_scalar": 256,
+        "rms_norm_eps": 1e-06,
+        "rope_local_base_freq": 10000.0,
+        "rope_theta": 1000000.0,
+        "sliding_window_pattern": 6,
+        "tie_word_embeddings": True,
+        "vocab_size": 262208,
+    },
+}
+
+
+def gemma3_12b(max_position_embeddings: int = 8192) -> ModelConfig:
+    """The ``gemma3-12b-sim`` preset: Gemma-3-12B's published shapes
+    through :meth:`ModelConfig.from_hf_config`, the context cut from
+    131072 to ``max_position_embeddings`` positions (as the other ``*-sim``
+    presets; the rope keeps its published theta and linear factor)."""
+    text = {**GEMMA3_12B_HF["text_config"],
+            "max_position_embeddings": max_position_embeddings}
+    return ModelConfig.from_hf_config({**GEMMA3_12B_HF, "text_config": text})

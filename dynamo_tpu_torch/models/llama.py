@@ -21,9 +21,13 @@ in the v slot (models/mla.py). PyTorch runs eagerly, so the layer loops
 are plain Python loops.
 
 Covered: the Llama / Llama-3 / Mistral shape (RMS norms, half-split rope
-with default, ``llama3`` or ``yarn`` scaling, SwiGLU, optional tied
-embeddings), Qwen2's q/k/v biases and Qwen3's per-head q/k RMS norms,
-sliding windows (global, or per layer as gpt-oss alternates them), gpt-oss
+with default, ``linear``, ``llama3`` or ``yarn`` scaling, SwiGLU, optional
+tied embeddings), Qwen2's q/k/v biases and Qwen3's per-head q/k RMS norms,
+sliding windows (global, or per layer as gpt-oss and Gemma-3 alternate
+them), Gemma-3 (sandwich norms around both sublayers, GeGLU, embeddings
+scaled by sqrt(E), a query scale from ``query_pre_attn_scalar``, and a
+second, local rope on the windowed layers; its ``(1 + w)`` norms are
+folded into the weights at load, models/weights.py), gpt-oss
 (attention sinks, the o_proj bias, the router's logit bias and the biased
 clamped-SwiGLU experts), DeepSeek-V2/V3 Multi-Latent Attention (absorbed,
 with or without q-lora, YaRN rope) and Mixtral/Qwen-MoE/DeepSeek MoE FFNs
@@ -91,19 +95,21 @@ def _dtype(cfg: ModelConfig) -> torch.dtype:
 def check_supported(cfg: ModelConfig) -> None:
     """The port serves dense GQA decoders (q/k/v biases, per-head q/k
     norms, sliding windows global or per layer, gpt-oss's sinks, o_proj
-    bias and biased clamped-SwiGLU experts) and the DeepSeek MLA + MoE
-    family; other families raise."""
+    bias and biased clamped-SwiGLU experts, Gemma-3's sandwich norms,
+    GeGLU, scaled embeddings, query scale and local rope) and the DeepSeek
+    MLA + MoE family; other families raise (Gemma-2's softcap, OLMo-2's
+    full-width q/k norm and norms after the sublayers only, partial
+    rotary, ``longrope``)."""
     unsupported = {
         "full-width qk norm": cfg.qk_norm_full,
         "sliding window or sinks on MLA": cfg.is_mla and bool(
             cfg.layer_windows or cfg.sliding_window or cfg.attn_sinks),
         "softcap": cfg.attn_softcap or cfg.final_softcap,
-        "post norms": cfg.post_norms or cfg.norm_after,
-        "gemma norms/embeddings": cfg.rms_add_unit or cfg.scale_embed,
-        "activation " + cfg.hidden_act: cfg.hidden_act != "silu",
+        "norms after the sublayers only": cfg.norm_after,
+        "local rope on MLA": cfg.is_mla and bool(cfg.rope_local_theta),
+        "activation " + cfg.hidden_act: (
+            cfg.hidden_act not in ("silu", "gelu_tanh")),
         "partial rotary": bool(cfg.rope_partial_dim),
-        "local rope": bool(cfg.rope_local_theta),
-        "query scale base": bool(cfg.attn_scale_base),
         "expert activation " + cfg.moe_act: (
             cfg.moe_act not in ("swiglu", "gptoss_clamp")),
     }
@@ -126,6 +132,8 @@ def _init_layer_group(cfg: ModelConfig, L: int, moe: bool, normal, ones) -> dict
     E, H, Hkv, D, F_ = (cfg.hidden_size, cfg.num_heads, cfg.num_kv_heads,
                         cfg.head_dim, cfg.intermediate_size)
     layers = {"attn_norm": ones(L, E), "mlp_norm": ones(L, E)}
+    if cfg.post_norms:  # gemma: the sublayers' outputs normed too
+        layers.update(attn_post_norm=ones(L, E), mlp_post_norm=ones(L, E))
     if cfg.is_mla:
         Cq, C = cfg.q_lora_rank, cfg.kv_lora_rank
         dqk, dr, dv = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
@@ -281,10 +289,10 @@ def window_for_layer(cfg: ModelConfig, l: int) -> int:
 def _rope_kind(cfg: ModelConfig) -> Optional[str]:
     scaling = cfg.rope_scaling or {}
     kind = scaling.get("rope_type") or scaling.get("type")
-    if kind not in (None, "default", "llama3", "yarn"):
+    if kind not in (None, "default", "linear", "llama3", "yarn"):
         raise NotImplementedError(
-            f"rope scaling {kind!r} is not ported yet (default, llama3 and "
-            "yarn are)"
+            f"rope scaling {kind!r} is not ported yet (default, linear, "
+            "llama3 and yarn are)"
         )
     return kind
 
@@ -310,11 +318,12 @@ def rope_attention_scaling(cfg: ModelConfig) -> float:
 
 
 def _rope_freqs(cfg: ModelConfig, device="cpu") -> torch.Tensor:
-    """[D/2] f32 inverse frequencies: the default set, Llama-3.1's
-    NTK-by-parts remap, or YaRN's (the low-frequency dims interpolated by
-    ``factor``, the high ones extrapolated, a linear ramp across the
-    correction range, kept fractional where ``truncate`` is False, as
-    gpt-oss ships it). Computed on ``device`` (an upload from the host
+    """[D/2] f32 inverse frequencies: the default set, divided by
+    ``factor`` (``linear``: position interpolation, Gemma-3's full layers),
+    Llama-3.1's NTK-by-parts remap, or YaRN's (the low-frequency dims
+    interpolated by ``factor``, the high ones extrapolated, a linear ramp
+    across the correction range, kept fractional where ``truncate`` is
+    False, as gpt-oss ships it). Computed on ``device`` (an upload from the host
     would wait for the card's queue)."""
     D = cfg.head_dim
     inv = 1.0 / (
@@ -342,6 +351,8 @@ def _rope_freqs(cfg: ModelConfig, device="cpu") -> torch.Tensor:
                 / max(high - low, 0.001)).clamp(0.0, 1.0)
         extrap = 1.0 - ramp
         return (inv / factor) * (1 - extrap) + inv * extrap
+    if kind == "linear":
+        return inv / cfg.rope_scaling.get("factor", 1.0)
     if kind == "llama3":
         scaling = cfg.rope_scaling
         factor = scaling.get("factor", 8.0)
@@ -357,6 +368,35 @@ def _rope_freqs(cfg: ModelConfig, device="cpu") -> torch.Tensor:
                         (1 - smooth) * inv / factor + smooth * inv),
         )
     return inv
+
+
+def _rope_freqs_local(cfg: ModelConfig, device="cpu") -> Optional[torch.Tensor]:
+    """Gemma-3's local rope: the windowed layers rotate at
+    ``rope_local_base_freq`` with no scaling; None for a model with one
+    rope."""
+    if not cfg.rope_local_theta:
+        return None
+    D = cfg.head_dim
+    return 1.0 / (cfg.rope_local_theta ** (
+        torch.arange(0, D, 2, dtype=torch.float32, device=device) / D))
+
+
+def rope_freqs_for_layer(cfg: ModelConfig, l: int, inv_global, inv_local):
+    """Layer l's rope (frequencies, or their tables): the local one on a
+    windowed layer of a model that has one (Gemma-3), the global one
+    elsewhere."""
+    if inv_local is None:
+        return inv_global
+    return inv_local if window_for_layer(cfg, l) > 0 else inv_global
+
+
+def _rope_pair(cfg: ModelConfig, positions: torch.Tensor, inv_freq,
+               msc: float):
+    """(global, local or None) rope tables of a forward's positions, each
+    computed once and shared by the layers that use it."""
+    inv_local = _rope_freqs_local(cfg, positions.device)
+    return (rope_tables(positions, inv_freq, msc),
+            None if inv_local is None else rope_tables(positions, inv_local, msc))
 
 
 def rope_tables(positions: torch.Tensor, inv_freq: torch.Tensor,
@@ -398,7 +438,12 @@ def _rope_and_scale(cfg: ModelConfig, device):
 
 
 def _embed(params: dict, cfg: ModelConfig, tokens: torch.Tensor) -> torch.Tensor:
-    return params["embed"][tokens.long()]
+    """The embedding rows; gemma scales them by sqrt(E) in f32, then casts
+    (the table stays unscaled: it is tied to the head)."""
+    x = params["embed"][tokens.long()]
+    if cfg.scale_embed:
+        x = (x.float() * (cfg.hidden_size ** 0.5)).to(x.dtype)
+    return x
 
 
 def _int_mm(xq: torch.Tensor, wq: torch.Tensor) -> torch.Tensor:
@@ -462,8 +507,12 @@ def _qkv(lp: dict, cfg: ModelConfig, x: torch.Tensor):
     return q, k, v
 
 
-def swiglu(x, w_gate, w_up, w_down):
-    return _mm(F.silu(_mm(x, w_gate)) * _mm(x, w_up), w_down)
+def swiglu(x, w_gate, w_up, w_down, act: str = "silu"):
+    """The gated FFN: SwiGLU, or gemma's GeGLU (``gelu_tanh``: the tanh
+    approximation of GELU on the gate)."""
+    gate = _mm(x, w_gate)
+    gate = F.gelu(gate, approximate="tanh") if act == "gelu_tanh" else F.silu(gate)
+    return _mm(gate * _mm(x, w_up), w_down)
 
 
 # ---------------- mixture of experts ----------------
@@ -666,16 +715,24 @@ def _ffn(lp: dict, cfg: ModelConfig, h: torch.Tensor) -> torch.Tensor:
     # layers are dense inside an MoE model
     if "moe_gate" in lp:
         return moe_ffn(lp, cfg, h)
-    return swiglu(h, lp["w_gate"], lp["w_up"], lp["w_down"])
+    return swiglu(h, lp["w_gate"], lp["w_up"], lp["w_down"], cfg.hidden_act)
+
+
+def _post_norm(lp: dict, key: str, v: torch.Tensor, cfg: ModelConfig):
+    """Gemma's sandwich norm of a sublayer's output before the residual add
+    (``attn_post_norm`` / ``mlp_post_norm``); the identity for a model
+    without those leaves."""
+    w = lp.get(key)
+    return v if w is None else rms_norm(v, w, cfg.rms_norm_eps)
 
 
 def _layer_tail(x, lp, o_flat, cfg: ModelConfig):
     o = _mm(o_flat, lp["wo"])
     if "bo" in lp:  # gpt-oss: o_proj carries a bias
         o = o + lp["bo"]
-    x = x + o
+    x = x + _post_norm(lp, "attn_post_norm", o, cfg)
     h = rms_norm(x, lp["mlp_norm"], cfg.rms_norm_eps)
-    return x + _ffn(lp, cfg, h)
+    return x + _post_norm(lp, "mlp_post_norm", _ffn(lp, cfg, h), cfg)
 
 
 def _logits(params: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
@@ -738,7 +795,7 @@ def prefill(
     x = _embed(params, cfg, tokens)  # [T, E]
     positions = torch.arange(T, device=dev) + history_len
     inv_freq, msc, scale = _rope_and_scale(cfg, dev)
-    rope = rope_tables(positions, inv_freq, msc)
+    rope, rope_local = _rope_pair(cfg, positions, inv_freq, msc)
     blk, off = att.chunk_slot_indices(block_table, history_len, T,
                                       k_cache.shape[3])
     hist, valid = _i32([history_len], dev), _i32([valid_len], dev)
@@ -755,7 +812,8 @@ def prefill(
             o = mla._o_proj(lp, cfg, o_lat).to(x.dtype)
         else:
             q, k, v = _qkv(lp, cfg, h)
-            q, k = rotate(q, rope), rotate(k, rope)
+            rl = rope_freqs_for_layer(cfg, l, rope, rope_local)
+            q, k = rotate(q, rl), rotate(k, rl)
             ks_l = vs_l = None
             if quantized:
                 _, ks_l = att.write_chunk_to_cache_quantized(
@@ -798,7 +856,7 @@ def _decode_body(params, cfg, tokens, positions, block_tables, seq_lens,
     inv_freq, msc, scale = _rope_and_scale(cfg, x.device)
     blk, off = att.decode_slot_indices(block_tables, positions, k_cache.shape[3])
     hist_lens = seq_lens - 1  # cache contents EXCLUDE the new token
-    rope = rope_tables(positions, inv_freq, msc)
+    rope, rope_local = _rope_pair(cfg, positions, inv_freq, msc)
     k_news, v_news = [], []
     for l, lp in _layers(params, cfg):
         h = rms_norm(x, lp["attn_norm"], cfg.rms_norm_eps)
@@ -813,7 +871,8 @@ def _decode_body(params, cfg, tokens, positions, block_tables, seq_lens,
             o = mla._o_proj(lp, cfg, o_lat).to(x.dtype)
         else:
             q, k, v = _qkv(lp, cfg, h)  # [B, H, D], [B, Hkv, D]
-            q, k = rotate(q, rope), rotate(k, rope)
+            rl = rope_freqs_for_layer(cfg, l, rope, rope_local)
+            q, k = rotate(q, rl), rotate(k, rl)
             k_news.append(k)
             v_news.append(v)
             o = att.decode_attention_merged(
@@ -980,11 +1039,12 @@ def _mixed_fused_forward(
     p_blk, p_off = att.chunk_slot_indices(p_tables, p_hists, T, bs)
     blk = torch.cat([d_blk.long(), p_blk.reshape(-1)])
     off = torch.cat([d_off.long(), p_off.reshape(-1)])
-    rope = rope_tables(positions_all, inv_freq, msc)
+    rope, rope_local = _rope_pair(cfg, positions_all, inv_freq, msc)
     for l, lp in _layers(params, cfg):
         h = rms_norm(x, lp["attn_norm"], cfg.rms_norm_eps)
         q, k, v = _qkv(lp, cfg, h)  # [B+MP*T, H/Hkv, D]
-        q, k = rotate(q, rope), rotate(k, rope)
+        rl = rope_freqs_for_layer(cfg, l, rope, rope_local)
+        q, k = rotate(q, rl), rotate(k, rl)
         ks_l = vs_l = None
         if quantized:
             ks_l, vs_l = _write_mixed_quantized(
@@ -1153,7 +1213,7 @@ def _verify_forward(params, cfg, tokens, positions, block_tables, seq_lens,
     blk, off = att.chunk_slot_indices(block_tables, positions, T,
                                       k_cache.shape[3])  # [B, T]
     inv_freq, msc, scale = _rope_and_scale(cfg, dev)
-    rope = rope_tables(pos_bt.reshape(-1), inv_freq, msc)
+    rope, rope_local = _rope_pair(cfg, pos_bt.reshape(-1), inv_freq, msc)
     k_news, v_news = [], []
     for l, lp in _layers(params, cfg):
         h = rms_norm(x, lp["attn_norm"], cfg.rms_norm_eps)
@@ -1170,7 +1230,8 @@ def _verify_forward(params, cfg, tokens, positions, block_tables, seq_lens,
             o = mla._o_proj(lp, cfg, o_lat).to(x.dtype).reshape(B * T, -1)
         else:
             q, k, v = _qkv(lp, cfg, h)  # [B*T, H/Hkv, D]
-            q, k = rotate(q, rope), rotate(k, rope)
+            rl = rope_freqs_for_layer(cfg, l, rope, rope_local)
+            q, k = rotate(q, rl), rotate(k, rl)
             k, v = k.reshape(B, T, *k.shape[1:]), v.reshape(B, T, *v.shape[1:])
             k_news.append(k)
             v_news.append(v)
@@ -1343,7 +1404,8 @@ def dense_forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor) -> torch
     with no cache: the ground truth the paged paths and checkpoint loads
     are held to (the JAX package's ``dense_forward``). GQA through
     :func:`_qkv` (biases, per-head q/k norms) and plain causal attention;
-    MLA through its naive, non-absorbed formulation. Plain PyTorch on any
+    MLA through its naive, non-absorbed formulation; Gemma-3's two ropes
+    and sandwich norms as the paged paths take them. Plain PyTorch on any
     device: it launches none of the port's kernels."""
     check_supported(cfg)
     T = tokens.shape[0]
@@ -1352,6 +1414,7 @@ def dense_forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor) -> torch
     positions = torch.arange(T, device=dev)
     causal = positions[:, None] >= positions[None, :]
     inv_freq, msc, scale = _rope_and_scale(cfg, dev)
+    inv_local = _rope_freqs_local(cfg, dev)
     for l, lp in _layers(params, cfg):
         h = rms_norm(x, lp["attn_norm"], cfg.rms_norm_eps)
         if cfg.is_mla:
@@ -1359,8 +1422,9 @@ def dense_forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor) -> torch
                                      scale, causal)
         else:
             q, k, v = _qkv(lp, cfg, h)
-            q = apply_rope(q, positions, inv_freq, msc)
-            k = apply_rope(k, positions, inv_freq, msc)
+            fr = rope_freqs_for_layer(cfg, l, inv_freq, inv_local)
+            q = apply_rope(q, positions, fr, msc)
+            k = apply_rope(k, positions, fr, msc)
             mask, w = causal, window_for_layer(cfg, l)
             if w > 0:
                 mask = causal & (positions[:, None] - positions[None, :] < w)

@@ -145,7 +145,8 @@ def load_llama_params(path: str, cfg: ModelConfig, device=None,
                       dtype: Optional[str] = None) -> dict:
     """A HF Llama-family (Llama, Mistral, Qwen2, Qwen3, Phi-3 with full
     rotary, Mixtral, Qwen2-MoE, Qwen3-MoE, gpt-oss in bf16 / f32, not its
-    MXFP4 release) or DeepSeek-V2/V3 MLA checkpoint
+    MXFP4 release, Gemma-3 text or multimodal with its ``(1 + w)`` norms
+    folded) or DeepSeek-V2/V3 MLA checkpoint
     directory as the port's
     parameter dictionary on ``device`` (default: the card), in ``dtype``
     (default: the model's), ``_F32_LEAVES`` in f32. The JAX package's name
@@ -224,13 +225,29 @@ def load_llama_params(path: str, cfg: ModelConfig, device=None,
             out[li].copy_(t)
         return out
 
+    # gemma checkpoints store their norm weights as offsets (the model
+    # scales by 1 + w): the +1 is folded in at load, in f32, so every
+    # rms_norm of the forward is the family-agnostic one
+    norm_fix = (lambda w: w.float() + 1.0) if cfg.rms_add_unit else None
+
+    def norm(fmt: str, rng) -> torch.Tensor:
+        return stack(fmt, rng, transpose=False, fix=norm_fix)
+
     def attn_leaves(rng) -> dict:
-        out = {
-            "attn_norm": stack("model.layers.{i}.input_layernorm.weight", rng,
-                               transpose=False),
-            "mlp_norm": stack("model.layers.{i}.post_attention_layernorm.weight",
-                              rng, transpose=False),
-        }
+        out = {"attn_norm": norm("model.layers.{i}.input_layernorm.weight", rng)}
+        if cfg.post_norms:
+            # gemma's sandwich norms: post_attention_layernorm is the
+            # attention OUTPUT's norm here (the pre-FFN norm it names in
+            # the Llama families is pre_feedforward_layernorm)
+            out["attn_post_norm"] = norm(
+                "model.layers.{i}.post_attention_layernorm.weight", rng)
+            out["mlp_norm"] = norm(
+                "model.layers.{i}.pre_feedforward_layernorm.weight", rng)
+            out["mlp_post_norm"] = norm(
+                "model.layers.{i}.post_feedforward_layernorm.weight", rng)
+        else:
+            out["mlp_norm"] = norm(
+                "model.layers.{i}.post_attention_layernorm.weight", rng)
         a = "model.layers.{i}.self_attn."
         if cfg.is_mla:
             dqk, dr, H = cfg.qk_head_dim, cfg.qk_rope_head_dim, cfg.num_heads
@@ -266,9 +283,9 @@ def load_llama_params(path: str, cfg: ModelConfig, device=None,
         if cfg.attention_bias:  # qwen2
             for key, proj in (("bq", "q"), ("bk", "k"), ("bv", "v")):
                 out[key] = stack(a + proj + "_proj.bias", rng, transpose=False)
-        if cfg.qk_norm:  # qwen3: per-head weight [head_dim]
-            out["q_norm"] = stack(a + "q_norm.weight", rng, transpose=False)
-            out["k_norm"] = stack(a + "k_norm.weight", rng, transpose=False)
+        if cfg.qk_norm:  # qwen3, gemma-3: per-head weight [head_dim]
+            out["q_norm"] = norm(a + "q_norm.weight", rng)
+            out["k_norm"] = norm(a + "k_norm.weight", rng)
         if cfg.o_bias:  # gpt-oss
             out["bo"] = stack(a + "o_proj.bias", rng, transpose=False)
         if cfg.attn_sinks:  # gpt-oss: per-head sink logits, f32
@@ -368,9 +385,10 @@ def load_llama_params(path: str, cfg: ModelConfig, device=None,
     rng = range(kd, cfg.num_layers)
     layers = attn_leaves(rng)
     layers.update(moe_ffn_leaves(rng) if cfg.is_moe else dense_ffn_leaves(rng))
+    final_norm = get("model.norm.weight")
     params = {
         "embed": fresh(get("model.embed_tokens.weight")),
-        "final_norm": fresh(get("model.norm.weight")),
+        "final_norm": fresh(norm_fix(final_norm) if norm_fix else final_norm),
         "layers": layers,
     }
     if kd:
@@ -411,6 +429,9 @@ _HF_NAMES = {
     "moe_gate_bias": ("model.layers.{i}.mlp.gate.e_score_correction_bias", False),
     "k_norm": ("model.layers.{i}.self_attn.k_norm.weight", False),
 }
+#: the norm leaves a gemma checkpoint stores as offsets from 1
+_NORM_LEAVES = ("final_norm", "attn_norm", "mlp_norm", "attn_post_norm",
+                "mlp_post_norm", "q_norm", "k_norm")
 
 
 def save_llama_params(path: str, params: dict, cfg: Optional[ModelConfig] = None) -> None:
@@ -418,7 +439,10 @@ def save_llama_params(path: str, params: dict, cfg: Optional[ModelConfig] = None
     under the HF names the loader reads, each tensor in its own dtype (the
     JAX package's ``save_llama_params`` writes f32): dense layers, Mixtral
     expert naming, DeepSeek's plural shared experts or Qwen2-MoE's gated
-    singular one, and Qwen3's per-head norms where ``cfg.qk_norm``."""
+    singular one, Qwen3's per-head norms where ``cfg.qk_norm``, and
+    gemma's sandwich norm names with every norm stored as its offset ``w -
+    1`` (the JAX package's saver leaves the per-head q/k norms folded,
+    ROADMAP C.12)."""
     if cfg is not None and cfg.rope_interleave:
         raise NotImplementedError(
             "saving back to the interleaved-rope checkpoint convention is not "
@@ -427,14 +451,31 @@ def save_llama_params(path: str, params: dict, cfg: Optional[ModelConfig] = None
     if cfg is not None and cfg.qk_norm:
         # "q_norm" is MLA's q_a_layernorm or Qwen3's per-head q norm
         names["q_norm"] = ("model.layers.{i}.self_attn.q_norm.weight", False)
+    if cfg is not None and cfg.post_norms:  # gemma's sandwich norm names
+        names["mlp_norm"] = ("model.layers.{i}.pre_feedforward_layernorm.weight",
+                             False)
+        names["attn_post_norm"] = (
+            "model.layers.{i}.post_attention_layernorm.weight", False)
+        names["mlp_post_norm"] = (
+            "model.layers.{i}.post_feedforward_layernorm.weight", False)
+    offsets = cfg is not None and cfg.rms_add_unit
+
+    def unfold(key: str, t: torch.Tensor) -> torch.Tensor:
+        """The inverse of the loader's (1 + w) fold for a gemma norm
+        (every one of them, the per-head q/k norms too), in f32 and back
+        to the leaf's dtype."""
+        if offsets and key in _NORM_LEAVES:
+            return (t.float() - 1.0).to(t.dtype)
+        return t
+
     flat = {"model.embed_tokens.weight": params["embed"],
-            "model.norm.weight": params["final_norm"]}
+            "model.norm.weight": unfold("final_norm", params["final_norm"])}
 
     def save_group(lay: dict, off: int) -> None:
         n = next(iter(lay.values())).shape[0]
         for key, (fmt, transpose) in names.items():
             for li in range(n) if key in lay else ():
-                t = lay[key][li]
+                t = unfold(key, lay[key][li])
                 flat[fmt.format(i=off + li)] = t.T if transpose else t
         if "we_gate" not in lay:
             return

@@ -5,8 +5,9 @@ library with a plain C interface, loaded with :mod:`ctypes`. Nothing here
 runs at import time: the first kernel launch (or an explicit
 :func:`build_all`) compiles every source in parallel, one ``nvcc`` process
 per file, into ``dynamo_tpu_torch/_build/`` (listed in ``.gitignore``).
-Libraries are keyed by a hash of their source, so an edited kernel is
-rebuilt and a stale one is never loaded.
+Libraries are keyed by a hash of their source and the headers beside it
+(``*.cuh``), so an edited kernel is rebuilt and a stale one is never
+loaded.
 
 Wrappers pass tensor pointers from ``data_ptr()`` and the current stream
 from ``torch.cuda.current_stream().cuda_stream`` as ``c_void_p``; every C
@@ -33,6 +34,10 @@ BUILD_DIR = _PKG / "_build"
 
 #: source file -> [(C function, argtypes)]; restype is c_int for all
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_PAGED_ATTENTION = (
+    [_P] * 8 + [_I] + [_P] * 3 + [_I] * 9
+    + [_F, _I, _P, _I, _P, _P, _I, _P] + [_I] * 3 + [_P, _P]
+)
 SOURCES = {
     "kv_cache_append.cu": {
         "kv_cache_append_tokens_launch": [_P] * 6 + [_I] * 10 + [_P],
@@ -46,12 +51,9 @@ SOURCES = {
     "moe_gmm.cu": {
         "ragged_int8_gmm_launch": [_P] * 5 + [_I] * 5 + [_P] * 2 + [_I] * 2 + [_P],
     },
-    "paged_attention.cu": {
-        "paged_attention_launch": (
-            [_P] * 8 + [_I] + [_P] * 3 + [_I] * 9
-            + [_F, _I, _P, _I, _P, _P, _I, _P] + [_I] * 3 + [_P, _P]
-        ),
-    },
+    "paged_attention.cu": {"paged_attention_launch": _PAGED_ATTENTION},
+    # the same kernels at head widths 192 and 256, built in parallel
+    "paged_attention_wide.cu": {"paged_attention_wide_launch": _PAGED_ATTENTION},
 }
 
 NVCC_FLAGS = [
@@ -75,8 +77,12 @@ def _nvcc() -> str:
 
 
 def _lib_path(src: str) -> Path:
-    digest = hashlib.sha256((SRC_DIR / src).read_bytes()).hexdigest()[:12]
-    return BUILD_DIR / f"{Path(src).stem}-{digest}.so"
+    """The library of ``src``, named by a hash of the source and of every
+    header of ``csrc/`` (a source may include any of them)."""
+    h = hashlib.sha256((SRC_DIR / src).read_bytes())
+    for header in sorted(SRC_DIR.glob("*.cuh")):
+        h.update(header.read_bytes())
+    return BUILD_DIR / f"{Path(src).stem}-{h.hexdigest()[:12]}.so"
 
 
 def build_all() -> float:

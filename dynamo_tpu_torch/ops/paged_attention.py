@@ -27,6 +27,8 @@ query dtype, int8 with one f32 scale per physical page for K and for V
 planes), dequantized as each page is read, or ``float8_e4m3fn`` with no
 scale (the scale-free fp8 cache), widened exactly as each page is read.
 
+The kernels take head widths 64, 128, 192 and 256 (:data:`HEAD_DIMS`;
+the two wider ones from their own source, ``csrc/paged_attention_wide.cu``).
 Both take the TPU kernels' two gpt-oss options: a sliding ``window`` (a row
 keeps ``q_pos - kv_pos < window``; the kernel's walk starts at the tile's
 window floor, so pages below it are never read) and per-head ``sinks``
@@ -58,7 +60,20 @@ MAX_SPLITS = 16
 #: steps a tensor-core decode split takes (csrc DMIN_STEPS)
 DECODE_STEP = 16
 DECODE_MIN_STEPS = 8
-_SRC = "paged_attention.cu"
+#: the head widths the kernels take: 64 and 128 from ``csrc/paged_attention.cu``,
+#: 192 and 256 (Gemma-3) from ``csrc/paged_attention_wide.cu`` (the TPU
+#: kernels take any multiple of 64: ROADMAP B.7 holds the rest)
+HEAD_DIMS = (64, 128, 192, 256)
+_SRC = {64: "paged_attention.cu", 128: "paged_attention.cu",
+        192: "paged_attention_wide.cu", 256: "paged_attention_wide.cu"}
+
+
+def check_head_dim(name: str, D: int) -> None:
+    """Raise ``ValueError`` for a head width the kernels do not take."""
+    if D not in HEAD_DIMS:
+        raise ValueError(
+            f"{name}: head_dim {D} is not ported: the CUDA kernels take "
+            f"{', '.join(map(str, HEAD_DIMS))} (ROADMAP B.7)")
 
 
 def _ptr(t: Optional[torch.Tensor]):
@@ -87,13 +102,15 @@ def launch_paged_attention(
     sinks: Optional[torch.Tensor] = None,  # [Hkv * Gq] f32 sink logits
     name: str = "paged_attention",
 ):
-    """Launch ``csrc/paged_attention.cu`` on its tile list: B one-token
-    decode tiles, then MP segments of T tokens in Tq-token tiles (on the
-    tensor cores when ``q`` is bf16). Returns ``o`` (like ``q``) and, with
+    """Launch ``csrc/paged_attention.cu`` (``paged_attention_wide.cu``
+    above D = 128) on its tile list: B one-token decode tiles, then MP
+    segments of T tokens in Tq-token tiles (on the tensor cores when ``q``
+    is bf16). Returns ``o`` (like ``q``) and, with
     ``stats``, ``m``/``l`` f32 ``[Ntok, Hkv, Gq]`` (never with ``sinks``:
     the merge that reads the statistics folds them). Validates every input
     and raises on what the kernel does not take."""
     Ntok, Hkv, Gq, D = q.shape
+    check_head_dim(name, D)
     Hc, N, bs, Dc = k_cache_layer.shape
     B = 0 if d_tables is None else d_tables.shape[0]
     MP = 0 if p_tables is None else p_tables.shape[0]
@@ -110,8 +127,6 @@ def launch_paged_attention(
     if (Hc, Dc) != (Hkv, D) or v_cache_layer.shape != k_cache_layer.shape:
         raise ValueError(f"{name}: cache shape {tuple(k_cache_layer.shape)} "
                          f"does not fit q {tuple(q.shape)}")
-    if D not in (64, 128):
-        raise ValueError(f"{name}: head_dim {D} not supported (64, 128)")
     if Ntok != B + MP * T:
         raise ValueError(f"{name}: {Ntok} query tokens for B={B} + "
                          f"MP={MP} x T={T}")
@@ -167,7 +182,10 @@ def launch_paged_attention(
         if tc and B:
             tickets = _cuda.device_buffer("tickets", q.device, split_units,
                                           torch.int32)
-    err = _cuda.lib(_SRC).paged_attention_launch(
+    lib = _cuda.lib(_SRC[D])
+    launch = (lib.paged_attention_wide_launch if D > 128
+              else lib.paged_attention_launch)
+    err = launch(
         _ptr(q), _ptr(o), _ptr(m), _ptr(l), _ptr(k_cache_layer),
         _ptr(v_cache_layer), _ptr(d_tables), _ptr(d_seq_lens), B,
         _ptr(p_tables), _ptr(p_hists), _ptr(p_valids), MP, T, Tq, Hkv, Gq,

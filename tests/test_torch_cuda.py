@@ -84,7 +84,7 @@ def test_cuda_kernels_match_plain_versions():
 @pytest.mark.cuda
 @pytest.mark.parametrize("bs", [16, 24, 32])
 @pytest.mark.parametrize("G", [1, 4, 7])
-@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("D", [64, 128, 192, 256])
 @pytest.mark.parametrize("pages", ["bf16", "int8", "fp8"])
 def test_cuda_tensor_core_tiles_match_plain(pages, D, G, bs):
     """On the card: the tensor-core segment tiles of a bf16 launch (bf16,
@@ -171,6 +171,64 @@ def test_cuda_tensor_core_tiles_match_plain(pages, D, G, bs):
     torch.testing.assert_close(l, rl, rtol=1e-3, atol=1e-3)
     dead = [0] + list(range(3 + valid, 3 + 2 * T))
     assert (o[dead] == 0).all() and (m[dead] == -1e30).all() and (l[dead] == 0).all()
+
+
+@pytest.mark.cuda
+def test_cuda_wide_head_dims_match_plain():
+    """On the card: the head widths above 128 (csrc/paged_attention_wide.cu)
+    against the plain versions, as chip_smoke.py phase 2 holds them
+    (check_wide_heads): Gemma-3-12B's attention (H=16, Hkv=8, D=256) over
+    bf16, int8 and fp8 pages (decode with (m, l), prefill, ragged, verify
+    rows), with its 1024-token window (the pages below every walk's first
+    step made NaN), the three appends at D=256, and D=192 over the three
+    page types; o within 2e-2, (m, l) within rtol 1e-3."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the chip)")
+    from chip_smoke import WIDE, WIDE_WINDOW, check_wide_heads
+
+    errs, _inp, _winp = check_wide_heads(torch, torch.device("cuda"), "test")
+    for name in ("paged_decode_attention", "paged_prefill_attention",
+                 "ragged_mixed_attention"):
+        assert errs[name + WIDE] <= 2e-2 and errs[name + WIDE_WINDOW] <= 2e-2
+
+
+@pytest.mark.cuda
+def test_cuda_head_dim_gate():
+    """On the card: the three GQA entry points launch their kernels at
+    head_dim 256 (counted), and refuse a width the kernels do not take
+    (D = 96, no multiple of 64, and 320, a multiple the TPU kernels take)
+    with a ValueError naming ROADMAP B.7, before any launch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the chip)")
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(9)
+    for D in (256, 96, 320):
+        kc, vc = (torch.randn(2, 12, 16, D, generator=g, device=dev).bfloat16()
+                  for _ in range(2))
+        table = torch.arange(1, 5, dtype=torch.int32, device=dev)
+        lens = torch.tensor([40], dtype=torch.int32, device=dev)
+        q = torch.randn(1, 4, D, generator=g, device=dev).bfloat16()
+        qp = torch.randn(8, 4, D, generator=g, device=dev).bfloat16()
+        calls = (
+            lambda: paged_decode_attention(q, kc, vc, table[None], lens, 0.1),
+            lambda: paged_prefill_attention(qp, kc, vc, table, lens, 0.1),
+            lambda: ragged_mixed_attention(
+                q, qp[None], kc, vc, table[None], lens, table[None], lens,
+                torch.tensor([8], dtype=torch.int32, device=dev), 0.1),
+        )
+        for fn, call in zip((paged_decode_attention, paged_prefill_attention,
+                             ragged_mixed_attention), calls):
+            before = fn.launches
+            if D == 256:
+                out = call()
+                torch.cuda.synchronize()
+                assert fn.launches == before + 1
+                assert all(bool(torch.isfinite(o.float()).all())
+                           for o in (out if isinstance(out, tuple) else (out,)))
+            else:
+                with pytest.raises(ValueError, match="B.7"):
+                    call()
+                assert fn.launches == before
 
 
 @pytest.mark.cuda
