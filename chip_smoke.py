@@ -125,7 +125,19 @@ Phases, in order; any failure raises and the script exits non-zero:
      prefix-cache hit changes, and the dense projections' cost per decode
      step in each weight form (bf16 drive) or the plain dequantize's
      (quantized drives); the last three drives profile a decode window
-     only;
+     only; then the distributed role (``fleet_drive``): ``dynamo_run
+     hub``, two full Llama-3-8B ``in=dyn://… out=torch --warmup`` workers
+     (started after phase 1 built the kernels) and an ``in=http
+     out=dyn://… --router kv`` frontend with no card visible, each its own
+     process; seven prompts over four long prefixes one at a time (two
+     cold ones pinned to the second worker, so that both hold prefixes;
+     each of the three that share a prefix back on its holder), then all
+     seven at once (every request back on the worker that served it, its
+     whole cached prompt hit), the card's CUDA-context count unchanged by
+     the frontend, the four kernels' launches read from the
+     workers' stats just before and after, a SIGKILL healed within the
+     lease TTL + 5 s, a SIGTERM that revokes the lease, and the round-1
+     answers equal to one engine's in this process;
   4. timing: the time of an empty launch (the floor of every row), then
      the median time per launch of each kernel with L2 flushed between
      launches (the quantized append: the whole function, one launch, its
@@ -159,11 +171,16 @@ import contextlib
 import gc
 import json
 import math
+import os
 import re
+import signal
+import socket
 import statistics
 import subprocess
 import sys
+import threading
 import time
+from pathlib import Path
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core peak
@@ -3301,6 +3318,410 @@ def check_graphs(torch, engine, name: str, card: str) -> None:
         + f", in {time.perf_counter() - t0:.1f} s: equal  [{name}, {card}]")
 
 
+# ---------------- phase 3, last drive: the distributed fleet ----------------
+
+#: the fleet: ``dynamo_run hub``, two ``in=dyn://… out=torch`` workers of
+#: Llama-3-8B (full width and depth, random weights from seed 0, each with
+#: a 2048-page pool: 4 GiB of KV at 2 MiB a 16-token page) and a
+#: ``--router kv`` frontend that sees no card
+FLEET_MODEL = "llama3-8b-sim"
+FLEET_DEVICE = "cuda"
+FLEET_TARGET = "dyn://dynamo.backend.generate"
+FLEET_BLOCKS = 2048
+FLEET_TOKENS = 32
+#: the bytes (byte-tokenizer tokens) of each of the four shared prefixes
+FLEET_PREFIX = 1024
+#: the primary lease's TTL (``DistributedRuntime.PRIMARY_LEASE_TTL``): a
+#: killed worker leaves discovery within it; the heal has 5 s more
+LEASE_TTL_S = 10.0
+
+
+def fleet_prompts() -> list:
+    """Seven prompts over four long prefixes (``FLEET_PREFIX`` bytes each,
+    64 pages of the byte tokenizer's tokens), each with its own suffix of
+    several pages: prompts 4-6 share the prefixes of prompts 0-2."""
+    topics = ("the paged cache", "the radix index", "the lease keeper",
+              "the response plane")
+    prefixes = [(f"Prefix {i} on {t}. " + f"Every worker of the fleet reads "
+                 f"{t} the same way, block by block. " * 40)[:FLEET_PREFIX]
+                for i, t in enumerate(topics)]
+    return [prefixes[i] + f" Question {j}: " + f"what does request {j} ask? " * 4
+            for j, i in enumerate((0, 1, 2, 3, 0, 1, 2))]
+
+
+class FleetProc:
+    """One ``dynamo_run`` role as a child process; a thread keeps its
+    merged output."""
+
+    def __init__(self, label: str, args: list, env=None):
+        self.label = label
+        self.lines: list = []
+        self.p = subprocess.Popen(
+            [sys.executable, "-m", "dynamo_tpu_torch.launch.dynamo_run", *args],
+            cwd=Path(__file__).resolve().parent, env=env or dict(os.environ),
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        threading.Thread(target=self._read, daemon=True).start()
+
+    def _read(self) -> None:
+        for line in self.p.stdout:
+            self.lines.append(line.rstrip())
+
+    def tail(self, n: int = 15) -> str:
+        return "\n".join(f"    [{self.label}] {x}" for x in self.lines[-n:])
+
+    async def wait_for(self, needle: str, timeout: float) -> str:
+        t_end = time.perf_counter() + timeout
+        while time.perf_counter() < t_end:
+            for line in self.lines:
+                if needle in line:
+                    return line
+            if self.p.poll() is not None:
+                break
+            await asyncio.sleep(0.1)
+        raise AssertionError(f"{self.label}: no {needle!r} (exit "
+                             f"{self.p.poll()}):\n{self.tail()}")
+
+    def stop(self) -> None:
+        if self.p.poll() is None:
+            self.p.kill()
+        self.p.wait(timeout=30)
+
+
+def compute_apps() -> list:
+    """The pids nvidia-smi lists with a CUDA context on the card."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-compute-apps=pid", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60).stdout.split()
+
+
+def free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+async def fleet_drive(torch, dev, card: str) -> dict:
+    """The distributed role on the card: the hub, two Llama-3-8B workers
+    (each built and warmed before it takes its lease) and a card-less
+    KV-routed frontend, all ``dynamo_run`` processes; this process watches
+    through the port's own runtime (a client, a ``KvRouter`` fed by the
+    same events) and reads each worker's stats endpoint. Round 1 sends the
+    seven prompts one at a time (each request's worker, prompt tokens and
+    prefix hits from the scrapes around it): the router places a lone cold
+    prompt by its cost model, which may pick one worker for all, so
+    prompts 1 and 3 go through this process's own pipeline pinned to the
+    worker that did not take prompt 0 (``Client.direct``, as the router
+    sends); prompts 4-6, through the frontend, must each go to the worker
+    holding its prefix and hit it there. Round 2 sends all seven at once:
+    every request must go back to the worker that served it (each worker's
+    requests and prefix hits exactly those of its round-1 prompts' whole
+    cached prompts). The frontend must add no CUDA context to the card
+    (nvidia-smi's count before it starts and after both rounds). Then
+    SIGKILL on the worker that holds
+    the most: within the lease TTL + 5 s the frontend serves again, the
+    dead worker is out of discovery and the router's index, and seven
+    more requests all land on the survivor, which then takes SIGTERM (its
+    lease revoked, exit 0). Last, a single-process engine built as the
+    workers are serves round 1's prompts one at a time: its greedy
+    answers must equal the fleet's. Returns the four kernels' launches in
+    the workers during the drive (their counters read just before round 1
+    and after each worker's last request)."""
+    from dynamo_tpu_torch.engine.allocator import sequence_block_hashes
+    from dynamo_tpu_torch.http import HttpService, ModelManager
+    from dynamo_tpu_torch.kv_router import KvRouter
+    from dynamo_tpu_torch.launch.dynamo_run import build_engine, parse_args
+    from dynamo_tpu_torch.llm import ByteTokenizer
+    from dynamo_tpu_torch.llm.backend import Backend
+    from dynamo_tpu_torch.llm.preprocessor import OpenAIPreprocessor
+    from dynamo_tpu_torch.protocols.openai import CompletionRequest
+    from dynamo_tpu_torch.runtime import AsyncEngine, DistributedRuntime, link
+    from dynamo_tpu_torch.runtime.hub import connect_hub
+
+    prompts = fleet_prompts()
+
+    def body(prompt: str, n: int = FLEET_TOKENS) -> dict:
+        return {"model": FLEET_MODEL, "prompt": prompt, "max_tokens": n,
+                "temperature": 0.0, "stream": True, "nvext": {"ignore_eos": True}}
+
+    pre = OpenAIPreprocessor(ByteTokenizer())
+    token_ids = [pre.preprocess_completion(CompletionRequest.from_dict(body(p)))[0]
+                 .token_ids for p in prompts]
+    hub_port, http_port = free_port(), free_port()
+    hub_addr = f"127.0.0.1:{hub_port}"
+    procs: list = []
+    drt = conn = None
+    t0 = time.perf_counter()
+    try:
+        hub = FleetProc("hub", ["hub", "--host", "127.0.0.1", "--hub-port",
+                                str(hub_port)])
+        procs.append(hub)
+        await hub.wait_for("hub listening", 60)
+        common = ["--hub", hub_addr, "--model-path", FLEET_MODEL, "--host", "127.0.0.1"]
+        workers = [FleetProc(f"worker {i}", [f"in={FLEET_TARGET}", "out=torch",
+                                             "--num-blocks", str(FLEET_BLOCKS),
+                                             "--device", FLEET_DEVICE,
+                                             "--warmup"] + common)
+                   for i in range(2)]
+        procs += workers
+        pid_of = {}
+        for w in workers:
+            line = await w.wait_for("at dyn://", 600)
+            pid_of[int(re.search(r"worker ([0-9a-f]+) serving", line)[1], 16)] = w
+            warm = next((x for x in w.lines if x.startswith("warmup:")), "")
+            log(f"  {w.label} (pid {w.p.pid}): {line.strip()}; {warm}")
+        log(f"  two workers built, warmed and serving {time.perf_counter() - t0:.1f} s "
+            "after the hub started")
+        apps_before = compute_apps()
+        front = FleetProc("frontend", ["in=http", f"out={FLEET_TARGET}", "--router",
+                                       "kv", "--http-port", str(http_port)] + common,
+                          env=dict(os.environ, CUDA_VISIBLE_DEVICES=""))
+        procs.append(front)
+        await front.wait_for("OpenAI server", 120)
+
+        store, bus, conn = await asyncio.wait_for(connect_hub(hub_addr), 30)
+        drt = await DistributedRuntime.from_settings(store=store, bus=bus)
+        ns, comp_name, ep = FLEET_TARGET.removeprefix("dyn://").split(".")
+        comp = drt.namespace(ns).component(comp_name)
+        client = await comp.endpoint(ep).client().start()
+        router = await KvRouter(drt, comp, block_size=16).start()
+        if sorted(await client.wait_for_instances(30)) != sorted(pid_of):
+            raise AssertionError(f"fleet: discovery {client.instance_ids()} "
+                                 f"against workers {sorted(pid_of)}")
+
+        async def scrape() -> dict:
+            got = {s["instance_id"]: s["data"]
+                   for s in await comp.scrape_stats(timeout=10)}
+            if any(not d for d in got.values()):
+                raise AssertionError(f"fleet: an empty scrape: {got}")
+            return got
+
+        def stream_stats(results, label):
+            for i, (status, text, _t) in enumerate(results):
+                if status != 200 or not text:
+                    raise AssertionError(f"fleet {label} request {i}: status "
+                                         f"{status}, text {text!r}")
+            ttft = [t[0] * 1e3 for _s, _x, t in results]
+            itl = [(t[-1] - t[0]) * 1e3 / (len(t) - 1) for _s, _x, t in results
+                   if len(t) > 1]
+            return ttft, itl
+
+        def delta(a: dict, b: dict, key: str) -> int:
+            return b[key] - a[key]
+
+        # this process's own frontend pipeline with the choice taken away:
+        # each request goes to one worker, sent as KvRoutedEngine sends it
+        class Pinned(AsyncEngine):
+            def __init__(self, worker_id: int):
+                self.worker_id = worker_id
+
+            async def generate(self, request):
+                stream = await client.direct(
+                    request.transfer(request.data.to_dict()), self.worker_id)
+                async for item in stream:
+                    yield item
+
+        async def alone(port: int, j: int) -> tuple:
+            """Prompt j by itself through the HTTP service at ``port``: its
+            worker, prompt tokens and prefix hits from the scrapes around it."""
+            nonlocal prev
+            r1[j] = await http_request(port, "/v1/completions", body(prompts[j]))
+            cur = await scrape()
+            moved = [w for w in cur if delta(prev[w], cur[w], "requests_total")]
+            if len(moved) != 1 or delta(prev[moved[0]], cur[moved[0]],
+                                        "requests_total") != 1:
+                raise AssertionError(f"fleet round 1: requests moved on {moved}")
+            w = moved[0]
+            got = (w, delta(prev[w], cur[w], "prompt_tokens_total"),
+                   delta(prev[w], cur[w], "prefix_cache_hits_tokens"))
+            prev = cur
+            return got
+
+        base = prev = await scrape()
+        served, r1 = [None] * len(prompts), [None] * len(prompts)
+        t1 = time.perf_counter()
+        # round 1, one request at a time: prompt 0 through the frontend,
+        # prompts 1 and 3 pinned to the other worker so that both hold
+        # prefixes, prompt 2 through the frontend; then prompts 4-6, which
+        # share 0-2's prefixes, through the frontend: each must go to its
+        # prefix's holder and hit the prefix there
+        served[0] = await alone(http_port, 0)
+        other = next(w for w in pid_of if w != served[0][0])
+        pinned_models = ModelManager()
+        pinned_models.add_completion_model(FLEET_MODEL, link(
+            OpenAIPreprocessor(ByteTokenizer()), Backend(ByteTokenizer()),
+            Pinned(other)))
+        pinned = HttpService(pinned_models, host="127.0.0.1", port=0)
+        await pinned.start()
+        try:
+            for j in (1, 2, 3):
+                served[j] = await alone(pinned.port if j != 2 else http_port, j)
+        finally:
+            await pinned.close()
+        if served[1][0] != other or served[3][0] != other:
+            raise AssertionError(f"fleet round 1: pinned prompts on "
+                                 f"{served[1][0]:x}, {served[3][0]:x}, not {other:x}")
+        for j in range(4, len(prompts)):
+            served[j] = await alone(http_port, j)
+            w, n, hits = served[j]
+            log(f"  prompt {j} (prefix of prompt {j - 4}): worker {w:x}, {hits} of "
+                f"{n} prompt tokens from its prefix cache")
+            if w != served[j - 4][0] or hits < FLEET_PREFIX // 16 * 16:
+                raise AssertionError(
+                    f"fleet round 1: prompt {j} went to worker {w:x} hitting {hits} "
+                    f"tokens; its prefix is on worker {served[j - 4][0]:x}")
+        wall1 = time.perf_counter() - t1
+        after1 = prev
+        # round 2: the same seven at once
+        t2 = time.perf_counter()
+        r2 = list(await asyncio.gather(*[
+            http_request(http_port, "/v1/completions", body(p)) for p in prompts]))
+        wall2 = time.perf_counter() - t2
+        after2 = await scrape()
+        ttft1, itl1 = stream_stats(r1, "round 1")
+        ttft2, itl2 = stream_stats(r2, "round 2")
+        for w in after2:
+            mine = [n for sw, n, _h in served if sw == w]
+            want_hits = sum((n - 1) // 16 * 16 for n in mine)
+            got_req = delta(after1[w], after2[w], "requests_total")
+            got_hits = delta(after1[w], after2[w], "prefix_cache_hits_tokens")
+            log(f"  worker {w:x}: round 1 served prompts "
+                f"{[j for j, (sw, _n, _h) in enumerate(served) if sw == w]}, "
+                f"round 2 {got_req} requests hitting {got_hits} cached tokens "
+                f"(whole cached prompts: {want_hits})")
+            if got_req != len(mine) or got_hits != want_hits:
+                raise AssertionError(
+                    f"fleet round 2: worker {w:x} took {got_req} requests and "
+                    f"hit {got_hits} tokens; its round-1 prompts are {len(mine)} "
+                    f"holding {want_hits}")
+        # the router fed by the same events places each prompt where it went
+        for (w, n, _h), ids in zip(served, token_ids):
+            scores = router.indexer.find_matches(
+                [s for _l, s in sequence_block_hashes(ids, 16)]).scores
+            if max(scores, key=scores.get) != w or scores[w] < (n - 1) // 16:
+                raise AssertionError(f"fleet index: {scores} for a prompt of "
+                                     f"worker {w:x}")
+        toks1 = sum(delta(base[w], after1[w], "tokens_generated") for w in base)
+        toks2 = sum(delta(after1[w], after2[w], "tokens_generated") for w in base)
+        stall = max(d["san_loop_stall_max_ms"] for d in after2.values())
+        stalls = sum(d["san_loop_stalls"] for d in after2.values())
+        log(f"  round 1 (one at a time; 1 and 3 pinned to worker {other:x}): TTFT ms "
+            f"{[round(x, 1) for x in ttft1]}, "
+            f"ITL median {statistics.median(itl1):.2f} ms, {toks1} tokens in "
+            f"{wall1:.2f} s = {toks1 / wall1:.1f} tok/s  [{FLEET_MODEL}, {card}]")
+        log(f"  round 2 (all at once, prefixes cached): TTFT ms "
+            f"{[round(x, 1) for x in ttft2]}, ITL median "
+            f"{statistics.median(itl2):.2f} ms, {toks2} tokens in {wall2:.2f} s "
+            f"= {toks2 / wall2:.1f} tok/s  [{FLEET_MODEL}, {card}]")
+        log(f"  the workers' event loops: longest stall {stall:.1f} ms, "
+            f"{stalls} stalls of 1 s or more (lease TTL {LEASE_TTL_S:.0f} s)")
+        # the frontend, having served both rounds, added no context to the
+        # card (nvidia-smi may list pids of another namespace: count them)
+        apps = compute_apps()
+        if len(apps) != len(apps_before) or str(front.p.pid) in apps:
+            raise AssertionError(f"fleet: CUDA contexts {apps_before} before the "
+                                 f"frontend started, {apps} after it served")
+        log(f"  CUDA contexts on the card (nvidia-smi): {len(apps_before)} before "
+            f"the frontend started, {len(apps)} after it served both rounds")
+
+        # heal: SIGKILL the worker holding the most prompts
+        victim = max(after2, key=lambda w: sum(sw == w for sw, _n, _h in served))
+        survivor = next(w for w in after2 if w != victim)
+        t_kill = time.perf_counter()
+        pid_of[victim].p.send_signal(signal.SIGKILL)
+        pid_of[victim].p.wait(timeout=30)
+        first_ok = dropped = None
+        while time.perf_counter() - t_kill < LEASE_TTL_S + 5 and (
+                first_ok is None or dropped is None):
+            if first_ok is None:
+                # a request the dead worker takes fails: only success counts
+                with contextlib.suppress(Exception):
+                    status, text, _t = await asyncio.wait_for(http_request(
+                        http_port, "/v1/completions", body(prompts[0], 4)), 5)
+                    if status == 200 and text:
+                        first_ok = time.perf_counter() - t_kill
+            if dropped is None and victim not in client.instance_ids() and (
+                    victim not in router.indexer.index.workers()):
+                dropped = time.perf_counter() - t_kill
+            await asyncio.sleep(0.2)
+        if first_ok is None or dropped is None:
+            raise AssertionError(f"fleet heal: served again at {first_ok} s, "
+                                 f"worker dropped at {dropped} s after SIGKILL")
+        before = await scrape()
+        r3 = list(await asyncio.gather(*[
+            http_request(http_port, "/v1/completions", body(p, 8)) for p in prompts]))
+        after3 = await scrape()
+        stream_stats(r3, "after the kill")
+        if set(after3) != {survivor} or delta(
+                before[survivor], after3[survivor], "requests_total") != len(prompts):
+            raise AssertionError(f"fleet heal: requests went to {sorted(after3)}")
+        log(f"  SIGKILL on worker {victim:x}: served again {first_ok:.2f} s later, "
+            f"out of discovery and the router's index {dropped:.2f} s later; heal "
+            f"{max(first_ok, dropped):.2f} s (limit {LEASE_TTL_S + 5:.0f}); "
+            f"{len(prompts)} more requests all on worker {survivor:x}  [{card}]")
+        # the drive's launches: each worker's counters from just before
+        # round 1 to its last scrape (the victim's before its kill)
+        last = {victim: after2[victim], survivor: after3[survivor]}
+        launches = {}
+        for kernel in ("paged_decode_attention", "paged_prefill_attention",
+                       "ragged_mixed_attention", "kv_cache_append"):
+            per = {w: last[w]["kernel_launches"][kernel]["launches"]
+                   - base[w]["kernel_launches"][kernel]["launches"] for w in last}
+            launches[kernel] = sum(per.values())
+            log(f"  {kernel}: {launches[kernel]} launches in the workers ("
+                + ", ".join(f"{w:x}: {n}" for w, n in per.items()) + ")")
+        missing = [k for k, n in launches.items() if n <= 0]
+        if missing:
+            raise AssertionError(f"fleet: kernels never launched: {missing}")
+        # SIGTERM on the survivor: the lease revoked at once, exit 0
+        pid_of[survivor].p.send_signal(signal.SIGTERM)
+        code = pid_of[survivor].p.wait(timeout=60)
+        for _ in range(50):
+            if not client.instance_ids():
+                break
+            await asyncio.sleep(0.1)
+        if code != 0 or client.instance_ids():
+            raise AssertionError(f"fleet: SIGTERM left exit {code}, discovery "
+                                 f"{client.instance_ids()}")
+        log(f"  SIGTERM on worker {survivor:x}: exit 0, out of discovery at once")
+    except BaseException:
+        for p in procs:
+            log(p.tail())
+        raise
+    finally:
+        if drt is not None:
+            await drt.shutdown()
+        if conn is not None:
+            await conn.close()
+        for p in reversed(procs):
+            p.stop()
+    # the single-process engine, built as the workers are, one at a time
+    args = parse_args(["in=http", "out=torch", "--model-path", FLEET_MODEL,
+                       "--num-blocks", str(FLEET_BLOCKS), "--device", FLEET_DEVICE])
+    worker, engine, name = build_engine(args)
+    await engine.warmup()
+    manager = ModelManager()
+    manager.add_completion_model(name, worker)
+    svc = HttpService(manager, host="127.0.0.1", port=0)
+    await svc.start()
+    try:
+        alone = [await http_request(svc.port, "/v1/completions", body(p))
+                 for p in prompts]
+    finally:
+        await svc.close()
+        await engine.close()
+    same = sum(a[1] == b[1] for a, b in zip(alone, r1))
+    log(f"  one engine in this process, the same prompts one at a time: "
+        f"{same} of {len(prompts)} greedy answers equal to the fleet's round 1; "
+        f"TTFT ms {[round(t[0] * 1e3, 1) for _s, _x, t in alone]}  [{card}]")
+    if same != len(prompts):
+        raise AssertionError("fleet: answers differ from the single-process engine's")
+    del worker, engine
+    gc.collect()
+    if FLEET_DEVICE == "cuda":
+        torch.cuda.empty_cache()
+    return launches
+
+
 # ---------------- phase 4: timing ----------------
 
 
@@ -4074,8 +4495,8 @@ def main() -> int:
         f"spec_gamma={SPEC_GAMMA}), llama3-8b-sim and "
         f"deepseek-v2-lite-sim (spec_gamma={SPEC_GAMMA}), qwen2.5-7b-sim, "
         f"qwen3-8b-sim, a {CHECKPOINT_LAYERS}-layer Mistral-7B-v0.2 "
-        f"checkpoint through dynamo_run --model-path, {GPTOSS_DRIVE} and "
-        f"{GEMMA_DRIVE}")
+        f"checkpoint through dynamo_run --model-path, {GPTOSS_DRIVE}, "
+        f"{GEMMA_DRIVE} and a distributed {FLEET_MODEL} fleet")
     launches, plain = {}, {}
     for name, cfg, geometry, counted in drives():
         log(f"  drive {name} from {time.perf_counter() - t_all:.1f} s")
@@ -4100,6 +4521,10 @@ def main() -> int:
                 launches[k] = launches.get(k, 0) + n
             gc.collect()
             torch.cuda.empty_cache()
+    log(f"  drive: the distributed fleet ({FLEET_MODEL}: hub, two workers, a "
+        f"KV-routed frontend) from {time.perf_counter() - t_all:.1f} s")
+    for k, n in asyncio.run(fleet_drive(torch, dev, card)).items():
+        launches[k] = launches.get(k, 0) + n
     log(f"[4/4] at {time.perf_counter() - t_all:.1f} s: timing (median per "
         "launch, L2 flushed)  [" + card + "]")
     rows = timing(torch, dev, inp, mi, qi, ta, winp, gin, gwinp, errs, launches)

@@ -54,6 +54,12 @@ class ModelManager:
     def add_completion_model(self, name: str, engine: AsyncEngine) -> None:
         self._completion[name] = engine
 
+    def remove_chat_model(self, name: str) -> None:
+        self._chat.pop(name, None)
+
+    def remove_completion_model(self, name: str) -> None:
+        self._completion.pop(name, None)
+
     def chat_engine(self, name: str) -> Optional[AsyncEngine]:
         return self._chat.get(name)
 

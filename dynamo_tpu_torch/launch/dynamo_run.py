@@ -1,13 +1,29 @@
-"""``dynamo_run`` for the PyTorch port: ``in=http|text out=torch``.
+"""``dynamo_run`` for the PyTorch port: ``in=<source> out=<engine>``.
 
-The single-process subset of ``dynamo_tpu/launch/dynamo_run.py``:
+The subset of ``dynamo_tpu/launch/dynamo_run.py`` the port serves:
 
+  hub       the control plane (store + bus over TCP, ``--hub-port``)
   in=http   OpenAI frontend in this process (/v1/models, /v1/completions,
             /v1/chat/completions, /metrics)
   in=text   interactive prompt loop on stdin
+  in=dyn://ns.comp.ep   serve the engine as a distributed endpoint
+            (worker), registered with the hub at ``--hub``
   out=torch the PyTorch engine (TorchEngine), on ``--device`` (cuda)
+  out=dyn://ns.comp.ep  route to the workers discovered at ``--hub``
+            (frontend): ``--router kv`` tokenizes here and sends each
+            request to the worker holding most of its prefix; otherwise
+            the workers' registered models are served round robin or at
+            random (``--router round_robin|random``). The frontend holds
+            no model and touches no device.
 
 Examples::
+
+  python -m dynamo_tpu_torch.launch.dynamo_run hub --hub-port 18500
+  python -m dynamo_tpu_torch.launch.dynamo_run in=dyn://dynamo.backend.generate \
+      out=torch --hub 127.0.0.1:18500 --model-path llama3-8b-sim --warmup
+  CUDA_VISIBLE_DEVICES= python -m dynamo_tpu_torch.launch.dynamo_run in=http \
+      out=dyn://dynamo.backend.generate --hub 127.0.0.1:18500 --router kv \
+      --model-path llama3-8b-sim
 
   python -m dynamo_tpu_torch.launch.dynamo_run in=http out=torch \\
       --model-path llama3-8b-sim
@@ -62,14 +78,23 @@ import torch
 
 from ..device import resolve_device
 from ..engine.engine import EngineConfig, TorchEngine
+from ..http.discovery import ModelEntry, ModelWatcher, register_model
 from ..http.service import HttpService, ModelManager
-from ..llm.openai_engine import OpenAIWorkerEngine
+from ..kv_router import KvEventPublisher, KvRoutedEngine, KvRouter
+from ..llm.backend import Backend
 from ..llm.hub import resolve_model_path
+from ..llm.model_card import MdcRefresher, ModelDeploymentCard
+from ..llm.openai_engine import OpenAIWorkerEngine
+from ..llm.preprocessor import OpenAIPreprocessor
 from ..llm.tokenizer import ByteTokenizer, Tokenizer, load_tokenizer
 from ..models.config import ModelConfig, deepseek_v2_lite, gemma3_12b
 from ..models.quant import KV_CACHE_DTYPES, WEIGHT_MODES, kv_cache_dtype
 from ..models.weights import init_random_params, load_llama_params
+from ..ops._cuda import launch_counts
+from ..runtime import DistributedRuntime, Worker, link
 from ..runtime.engine import Context
+from ..runtime.hub import HubServer
+from ..runtime.loopwatch import LoopStallMonitor
 
 PRESETS = {
     "tiny": ModelConfig.tiny,
@@ -166,17 +191,119 @@ async def maybe_warmup(args, core: TorchEngine) -> None:
               f"ladder in {time.monotonic() - t0:.1f}s", flush=True)
 
 
+async def connect_runtime(args) -> DistributedRuntime:
+    """The process's runtime: over the TCP hub at ``--hub``, else the
+    layered config's (``DYN_RUNTIME_HUB_URL``, or an in-process store and
+    bus). The runtime owns its hub connection and closes it on shutdown."""
+    return await DistributedRuntime.from_settings(hub_url=args.hub)
+
+
+def dyn_target(address: str) -> tuple[str, str, str]:
+    """``dyn://ns.comp.ep`` -> (namespace, component, endpoint)."""
+    ns, comp, ep = address.removeprefix("dyn://").split(".")
+    return ns, comp, ep
+
+
 async def run_http(args) -> None:
-    engine, core, name = build_engine(args)
-    await maybe_warmup(args, core)
     manager = ModelManager()
-    manager.add_chat_model(name, engine)
-    manager.add_completion_model(name, engine)
+    if args.out.startswith("dyn://"):
+        ns, comp_name, ep = dyn_target(args.out)
+        drt = await connect_runtime(args)
+        if args.router == "kv":
+            # KV-aware frontend: tokenize here (for prefix hashing) and
+            # route each request to the worker with the best cache overlap;
+            # the model's config and tokenizer only, no weights, no device
+            _cfg, tokenizer, name, _weights = build_model(args)
+            comp = drt.namespace(ns).component(comp_name)
+            client = await comp.endpoint(ep).client().start()
+            # the reference's scheduler defaults: cost-aware routing with
+            # the overlap score as its cold-start fallback, tail-aware on
+            router = await KvRouter(
+                drt, comp, block_size=args.block_size, model_name=name,
+            ).start()
+            engine = link(OpenAIPreprocessor(tokenizer), Backend(tokenizer),
+                          KvRoutedEngine(router, client))
+            manager.add_chat_model(name, engine)
+            manager.add_completion_model(name, engine)
+        else:
+            await ModelWatcher(drt, manager, policy=args.router).start()
+    else:
+        engine, core, name = build_engine(args)
+        await maybe_warmup(args, core)
+        manager.add_chat_model(name, engine)
+        manager.add_completion_model(name, engine)
     svc = HttpService(manager, host=args.host, port=args.http_port)
     await svc.start()
-    print(f"OpenAI server on http://{args.host}:{svc.port} (models: {[name]})",
+    print(f"OpenAI server on http://{args.host}:{svc.port} "
+          f"(models: {manager.model_names() or 'discovered dynamically'})",
           flush=True)
     await svc.run()
+
+
+def run_endpoint(args) -> None:
+    """Worker: serve the engine at ``in=dyn://ns.comp.ep``, under
+    ``runtime.Worker``. The engine is built and warmed BEFORE the runtime
+    takes its lease, so keepalives are never starved by weight loading or
+    kernel builds. SIGTERM, SIGINT or a lost lease cancel serving, which
+    then has ``WorkerConfig.graceful_shutdown_timeout`` (30 s;
+    ``DYN_WORKER_GRACEFUL_SHUTDOWN_TIMEOUT``) to unregister and close the
+    engine before the lease is revoked (discovery drops the worker at once)
+    and the process exits 0; an overrun exits 911."""
+    built = []
+
+    async def runtime() -> DistributedRuntime:
+        built.extend(build_engine(args))
+        await maybe_warmup(args, built[1])
+        return await connect_runtime(args)
+
+    Worker(runtime).execute(lambda drt: serve_endpoint(args, drt, *built))
+
+
+async def serve_endpoint(args, drt: DistributedRuntime, engine, core: TorchEngine,
+                         name: str) -> None:
+    """The worker's main: its allocator publishes KV events, its stats
+    endpoint answers with ``load_metrics() | stats``, the loop monitor's
+    counters and the kernel wrappers' launch counts (``kernel_launches``),
+    and its model and card are published; it serves until cancelled."""
+    target = args.in_.removeprefix("dyn://")
+    ns, comp, ep = dyn_target(target)
+    component = drt.namespace(ns).component(comp)
+    KvEventPublisher(drt, component, drt.primary_lease_id).attach(core.allocator)
+    stalls = LoopStallMonitor().start()
+    handle = await component.endpoint(ep).serve(
+        engine,
+        stats_handler=lambda: (core.load_metrics() | core.stats | stalls.counters()
+                               | {"kernel_launches": launch_counts()}),
+    )
+    await register_model(
+        drt, ModelEntry(name=name, namespace=ns, component=comp, endpoint=ep,
+                        model_type="both"),
+    )
+    card = ModelDeploymentCard(
+        display_name=name, service_name=name, model_path=args.model_path or "",
+        context_length=core.cfg.model.max_position_embeddings,
+        kv_block_size=args.block_size,
+    )
+    await card.publish(drt.bus)
+    refresher = MdcRefresher(drt.bus, card)
+    refresher.start()
+    print(f"worker {drt.worker_id:x} serving {name!r} at dyn://{target}",
+          flush=True)
+    try:
+        await asyncio.Event().wait()
+    finally:
+        refresher.stop()
+        stalls.stop()
+        await handle.stop()
+        await core.close()
+        print(f"worker {drt.worker_id:x} stopped", flush=True)
+
+
+async def run_hub(args) -> None:
+    hub = HubServer(host=args.host, port=args.hub_port, data_dir=args.data_dir)
+    await hub.start()
+    print(f"hub listening on {hub.address}", flush=True)
+    await asyncio.Event().wait()
 
 
 async def run_text(args) -> None:
@@ -199,9 +326,11 @@ async def run_text(args) -> None:
 
 def parse_args(argv=None):
     p = argparse.ArgumentParser(
-        "dynamo_run", description="dynamo run on PyTorch: in=<source> out=torch"
+        "dynamo_run", description="dynamo run on PyTorch: in=<source> out=<engine>"
     )
-    p.add_argument("in_out", nargs="*", help="in=http|text out=torch")
+    p.add_argument("in_out", nargs="*",
+                   help="hub | in=http|text|dyn://ns.comp.ep "
+                        "out=torch|dyn://ns.comp.ep")
     p.add_argument("--model-path", default=None,
                    help=f"a preset ({' | '.join(PRESETS)}) or a checkpoint "
                         "directory / cached HF repo id")
@@ -212,6 +341,15 @@ def parse_args(argv=None):
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     p.add_argument("--host", default="0.0.0.0")
     p.add_argument("--http-port", type=int, default=8080)
+    p.add_argument("--hub", default=None, help="hub address host:port")
+    p.add_argument("--hub-port", type=int, default=18500)
+    p.add_argument("--data-dir", default=None,
+                   help="hub durability dir (hub role): the store "
+                        "snapshots+WALs its KV/leases and work queues WAL "
+                        "here — a restarted hub keeps discovery state and "
+                        "queued work")
+    p.add_argument("--router", default="round_robin",
+                   choices=["round_robin", "random", "kv"])
     p.add_argument("--max-tokens", type=int, default=128)
     p.add_argument("--num-blocks", type=int, default=512)
     p.add_argument("--block-size", type=int, default=16)
@@ -242,20 +380,39 @@ def parse_args(argv=None):
                         "float8_e4m3 = scale-free fp8 pages, GQA only)")
     args = p.parse_args(argv)
     kv = dict(a.split("=", 1) for a in args.in_out if "=" in a)
-    args.in_ = kv.get("in", "http")
+    args.in_ = "hub" if "hub" in args.in_out else kv.get("in", "http")
     args.out = kv.get("out", "torch")
-    if args.out != "torch":
-        p.error(f"out={args.out}: this launcher serves out=torch")
-    if args.in_ not in ("http", "text"):
-        p.error(f"in={args.in_}: this launcher serves in=http and in=text")
+    if args.in_ == "hub":
+        return args
+    if args.out != "torch" and not args.out.startswith("dyn://"):
+        p.error(f"out={args.out}: this launcher serves out=torch and "
+                "out=dyn://ns.comp.ep")
+    if args.in_ not in ("http", "text") and not args.in_.startswith("dyn://"):
+        p.error(f"in={args.in_}: this launcher serves hub, in=http, in=text "
+                "and in=dyn://ns.comp.ep")
+    if args.out.startswith("dyn://") and args.in_ != "http":
+        p.error("out=dyn://... is the frontend role: it takes in=http")
+    if args.in_.startswith("dyn://") and args.out != "torch":
+        p.error("in=dyn://... is the worker role: it takes out=torch")
+    for addr in (args.in_, args.out):
+        if addr.startswith("dyn://") and addr.count(".") != 2:
+            p.error(f"{addr}: want dyn://namespace.component.endpoint")
     return args
+
+
+ROLES = {"hub": run_hub, "http": run_http, "text": run_text}
 
 
 def main(argv=None) -> None:
     logging.basicConfig(level=logging.INFO,
                         format="%(asctime)s %(levelname)s %(name)s: %(message)s")
     args = parse_args(argv)
-    asyncio.run(run_http(args) if args.in_ == "http" else run_text(args))
+    if args.in_.startswith("dyn://"):
+        return run_endpoint(args)  # its own loop and signal handling
+    try:
+        asyncio.run(ROLES[args.in_](args))
+    except KeyboardInterrupt:
+        pass
 
 
 if __name__ == "__main__":

@@ -212,6 +212,14 @@ def counted(fn, *subsets: str):
     return fn
 
 
+def launch_counts() -> dict:
+    """``{wrapper: {counter: launches}}`` of every registered wrapper, so a
+    process that serves (a worker's stats endpoint) can report which
+    kernels its path ran."""
+    return {fn.__name__: {name: getattr(fn, name) for name in names}
+            for fn, names in COUNTED}
+
+
 def require_cuda(name: str, *tensors: torch.Tensor) -> torch.device:
     """The kernels take CUDA tensors on one device, contiguous. Anything
     else raises — a CUDA-less call is an error, never a silent reroute."""

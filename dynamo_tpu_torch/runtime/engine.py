@@ -1,22 +1,72 @@
 """Async engine abstraction: the universal streaming-inference interface.
 
-A copy of ``AsyncEngine``, ``AsyncEngineContext``, ``Context`` and
-``collect`` from ``dynamo_tpu/runtime/engine.py`` (the reference's
+A copy of ``dynamo_tpu/runtime/engine.py`` (the reference's
 lib/runtime/src/engine.rs:47-168): every stage of the serving stack — HTTP
-frontend, preprocessor, detokenizer, torch worker — implements
+frontend, preprocessor, router, torch worker — implements one interface,
 ``AsyncEngine.generate(request) -> async stream of responses``, and every
-stream carries an ``AsyncEngineContext`` for cooperative stop/kill.
+stream carries an ``AsyncEngineContext`` that supports cooperative stop/kill
+propagation across process and node boundaries. ``CancellationToken`` is
+the runtime's cancellation tree.
 """
 
 from __future__ import annotations
 
 import abc
 import asyncio
+import logging
 import uuid
 from typing import Any, AsyncIterator, Callable, Generic, Optional, TypeVar
 
+logger = logging.getLogger(__name__)
+
 Req = TypeVar("Req")
 Resp = TypeVar("Resp")
+
+
+class CancellationToken:
+    """Hierarchical cancellation (ref: tokio CancellationToken tree used by
+    lib/runtime/src/runtime.rs:38-117).
+
+    Children are cancelled when the parent is; cancelling a child does not
+    affect the parent.
+    """
+
+    def __init__(self, parent: Optional["CancellationToken"] = None):
+        self._event = asyncio.Event()
+        self._children: list["CancellationToken"] = []
+        self._callbacks: list[Callable[[], None]] = []
+        if parent is not None:
+            parent._children.append(self)
+            if parent.is_cancelled():
+                self._event.set()
+
+    def child_token(self) -> "CancellationToken":
+        return CancellationToken(parent=self)
+
+    def cancel(self) -> None:
+        if self._event.is_set():
+            return
+        self._event.set()
+        for cb in self._callbacks:
+            try:
+                cb()
+            except Exception:  # noqa: BLE001 — one bad callback must not
+                # stop cancellation fan-out, but it must leave a trace
+                logger.debug("cancel callback failed", exc_info=True)
+        for child in self._children:
+            child.cancel()
+
+    def is_cancelled(self) -> bool:
+        return self._event.is_set()
+
+    def on_cancel(self, cb: Callable[[], None]) -> None:
+        if self._event.is_set():
+            cb()
+        else:
+            self._callbacks.append(cb)
+
+    async def cancelled(self) -> None:
+        await self._event.wait()
 
 
 class AsyncEngineContext:
@@ -103,6 +153,16 @@ class AsyncEngine(abc.ABC, Generic[Req, Resp]):
 
     async def close(self) -> None:  # pragma: no cover - default no-op
         pass
+
+
+class EngineFn(AsyncEngine[Req, Resp]):
+    """Adapter: wrap an async-generator function as an AsyncEngine."""
+
+    def __init__(self, fn: Callable[[Context[Req]], AsyncIterator[Resp]]):
+        self._fn = fn
+
+    def generate(self, request: Context[Req]) -> AsyncIterator[Resp]:
+        return self._fn(request)
 
 
 async def collect(stream: AsyncIterator[Resp]) -> list[Resp]:

@@ -74,3 +74,16 @@ def link(*stages: Any) -> AsyncEngine:
             raise TypeError(f"intermediate stages must be Operators, got {type(op)}")
         engine = _LinkedEngine(op, engine)
     return engine
+
+
+class MapOperator(Operator[In, Out, RIn, ROut]):
+    """Stateless operator from a request fn and a response fn."""
+
+    def __init__(self, fwd, bwd=None):
+        self._fwd = fwd
+        self._bwd = bwd
+
+    async def generate(self, request: Context[In], next_engine: AsyncEngine) -> AsyncIterator:
+        mapped = request.map(self._fwd)
+        async for resp in next_engine.generate(mapped):
+            yield self._bwd(resp) if self._bwd else resp
