@@ -68,7 +68,11 @@ Phases, in order; any failure raises and the script exits non-zero:
      K=7168, N=256 (64 experts, 8 and 16 tokens routed top-6, two
      launches bit-equal); the bf16
      MoE FFN at DeepSeek-V2-Lite's widths run twice, bit-equal, each stage
-     compared;
+     compared; the KV tiers' block copies (csrc/block_copy.cu: gather,
+     scatter / adopt, dequantize, requantize) byte-equal to their plain
+     twins at Llama-3-8B's widths over bf16, int8 (with its planes) and
+     e4m3 pages and at V2-Lite's latent widths, for 1, 7 and 64 pages out
+     of order with the trash page among them;
   3. serving: the port's OpenAI HTTP service in-process, thirteen drives
      one after the other (each model's memory freed before the next):
      llama3-8b-sim and deepseek-v2-lite-sim, each twice on fresh engines
@@ -137,7 +141,22 @@ Phases, in order; any failure raises and the script exits non-zero:
      the frontend, the four kernels' launches read from the
      workers' stats just before and after, a SIGKILL healed within the
      lease TTL + 5 s, a SIGTERM that revokes the lease, and the round-1
-     answers equal to one engine's in this process;
+     answers equal to one engine's in this process; before it, the KV
+     tiers (``tier_drive``): llama3-8b-sim at full width with a 512-page
+     pool, a 256-block host tier and a 512-block disk tier (a temporary
+     directory, removed), three times on fresh prompts and a fresh
+     engine: four 3072-token prompts, then prompt 0 back from disk and
+     host, prompt 3 from the device and prompt 2 from the host,
+     each answer equal to an engine whose pool kept every prefix on the
+     device and each restored page to its snapshot before eviction; with
+     bf16 pages, with the int8 cache and the int8 tier (the adopting
+     scatter, no bounce: C.15's path), and with the two codec landings
+     (int8 tier under bf16 pages, fp8 tier under the int8 cache: pages
+     held to the codec's arithmetic); TTFT per tier (median and range) beside
+     a plain prefix hit on the engine without tiers, each hit's anatomy
+     (its steps' host and device ms, the tier work overlapping it, a
+     restore's pin / stack / h2d ms), the hidden share of restore latency
+     and the cost model's host and disk link rates;
   4. timing: the time of an empty launch (the floor of every row), then
      the median time per launch of each kernel with L2 flushed between
      launches (the quantized append: the whole function, one launch, its
@@ -156,7 +175,11 @@ Phases, in order; any failure raises and the script exits non-zero:
      SDPA over the same latents gathered contiguous); and the three
      GQA kernels with gpt-oss's window 128 and sinks at gpt-oss-20b's
      shapes, their bound counted from the positions the window keeps and
-     their yardstick SDPA over the same windows (banded mask, no sink).
+     their yardstick SDPA over the same windows (banded mask, no sink);
+     and the tiers' block copies over 64 pages at Llama-3-8B's widths
+     (gather and scatter of bf16 pages, yardstick index_select /
+     index_copy_ on K and V; the dequantizing and requantizing landings,
+     no yardstick), their launches the tier drive's.
 
 The second-to-last lines are the ``{"kernels": [...]}`` JSON and the
 card's ``nvidia-smi`` name and power limit; the last line is
@@ -316,6 +339,24 @@ KERNELS = {
     "ragged_mixed_attention" + WIDE_WINDOW: (
         "dynamo_tpu_torch/csrc/paged_attention_wide.cu",
         "dynamo_tpu/ops/ragged_paged_attention_pallas.py:225",
+    ),
+    # the KV tiers' block copies replace no Pallas kernel: the reference
+    # moves tier blocks with jitted XLA gathers and scatters (these cores)
+    "gather_blocks": (
+        "dynamo_tpu_torch/csrc/block_copy.cu",
+        "dynamo_tpu/engine/offload.py:125",
+    ),
+    "scatter_blocks": (
+        "dynamo_tpu_torch/csrc/block_copy.cu",
+        "dynamo_tpu/engine/offload.py:132",
+    ),
+    "scatter_blocks_dequant": (
+        "dynamo_tpu_torch/csrc/block_copy.cu",
+        "dynamo_tpu/engine/offload.py:163",
+    ),
+    "scatter_blocks_requant": (
+        "dynamo_tpu_torch/csrc/block_copy.cu",
+        "dynamo_tpu/engine/offload.py:231",
     ),
 }
 #: the int8-KV variant of each GQA kernel shares the kernel's counter; the
@@ -1615,6 +1656,167 @@ def check_wide_heads(torch, dev, card: str):
             + " max |err| vs plain, (m, l) within 1e-3  OK")
     del narrow
     return errs, inp, winp
+
+
+#: the tiers' block copies (ops/block_copy.py): phase 2's widths and the
+#: timed page count
+BLOCK_WIDTHS = {"Llama-3-8B": (32, 8, 8, 128, 128),
+                "V2-Lite latents": (27, 1, 1, 512, 64)}
+BLOCK_PAGES = 64
+
+
+def raw_equal(torch, a, b) -> bool:
+    """Byte for byte, whatever the dtype (NaN bytes included)."""
+    return (a.dtype == b.dtype and a.shape == b.shape
+            and torch.equal(a.contiguous().view(torch.uint8),
+                            b.contiguous().view(torch.uint8)))
+
+
+class BlockInputs:
+    """A paged cache pair of ``N`` pages at one model's widths (K and V may
+    differ: MLA's latent rows) in ``dtype`` (int8 with its [L, N] planes),
+    random stacks to land, and out-of-order index vectors of ``n`` entries
+    whose last is the trash page 0 (``m = n - 1`` real rows; ``m = n = 1``
+    for one page; without ``trash``, n real pages and ``m = n``)."""
+
+    def __init__(self, torch, dev, widths, dtype, n, N=80, seed=0, trash=True):
+        from dynamo_tpu_torch.models.quant import to_e4m3
+
+        L, Hk, Hv, Dk, Dv = widths
+        bs = 16
+        g = torch.Generator(device=dev).manual_seed(seed)
+        self.torch, self.dev, self.dtype = torch, dev, dtype
+
+        def draw(shape, scale=1.0):
+            x = torch.randn(shape, generator=g, device=dev) * scale
+            if dtype == torch.int8:
+                return torch.randint(-127, 128, shape, generator=g, device=dev,
+                                     dtype=torch.int8)
+            if dtype == torch.float8_e4m3fn:
+                return to_e4m3(x * 100)
+            return x.to(dtype)
+
+        self.kc = draw((L, Hk, N, bs, Dk))
+        self.vc = draw((L, Hv, N, bs, Dv))
+        self.planes = None
+        if dtype == torch.int8:
+            self.planes = tuple(torch.rand((L, N), generator=g, device=dev) + 0.01
+                                for _ in range(2))
+        perm = torch.randperm(N - 1, generator=g, device=dev)[:n] + 1
+        if n > 1 and trash:
+            perm[-1] = 0
+        self.idxs = perm.to(torch.int32)
+        self.m = n - 1 if n > 1 and trash else n
+        m = self.m
+        self.kd = draw((L, Hk, m, bs, Dk))
+        self.vd = draw((L, Hv, m, bs, Dv))
+        # carried scales: int8 / e4m3 codes scaled into (and for e4m3
+        # landings past) the fp8 range, some 0 (a pad row's)
+        self.ks, self.vs = (torch.rand((L, m), generator=g, device=dev) * 5
+                            for _ in range(2))
+        self.ks[0, 0] = 0.0
+        self.widths = widths
+
+    def caches(self):
+        """Fresh copies of the caches (and planes)."""
+        planes = (tuple(p.clone() for p in self.planes) if self.planes
+                  else ())
+        return self.kc.clone(), self.vc.clone(), planes
+
+    def gather(self, fn):
+        return fn(self.kc, self.vc, self.idxs, *(self.planes or ()))
+
+    def scatter(self, fn, kc, vc, planes):
+        if planes:
+            return fn(kc, vc, self.idxs, self.kd, self.vd, *planes, self.ks,
+                      self.vs)
+        return fn(kc, vc, self.idxs, self.kd, self.vd)
+
+    def dequant(self, fn, kc, vc):
+        return fn(kc, vc, self.idxs, self.kd, self.vd, self.ks, self.vs)
+
+    def requant(self, fn, kc, vc, planes, data=None, scales=None):
+        kd, vd = data or (self.kd, self.vd)
+        ks, vs = scales or (self.ks, self.vs)
+        return fn(kc, vc, *planes, self.idxs, kd, vd, ks, vs)
+
+
+def check_block_copy(torch, dev) -> dict:
+    """Each block-copy entry point against its plain twin, byte-equal: at
+    Llama-3-8B's widths over bf16, int8 (with planes) and e4m3 pages, and
+    at V2-Lite's latent widths (bf16), for 1, 7 and 64 out-of-order pages
+    with the trash page among them; the dequantize into bf16, f32 and e4m3
+    caches (scales that carry e4m3 values past 464: NaN bytes), the
+    requantize from bf16, f32, int8 and e4m3 stacks. Returns each entry
+    point's max abs error (0.0: equal bytes)."""
+    from dynamo_tpu_torch.ops import block_copy as bc
+
+    def caches_equal(what, a, b):
+        for x, y in zip(a, b):
+            if not raw_equal(torch, x, y):
+                raise AssertionError(f"{what}: kernel and plain twin differ")
+
+    bf16, i8, e4m3, f32 = (torch.bfloat16, torch.int8, torch.float8_e4m3fn,
+                           torch.float32)
+    checked = 0
+    for label, widths in BLOCK_WIDTHS.items():
+        dtypes = (bf16, i8, e4m3) if label == "Llama-3-8B" else (bf16,)
+        for dtype in dtypes:
+            for n in (1, 7, BLOCK_PAGES):
+                bi = BlockInputs(torch, dev, widths, dtype, n, seed=n)
+                caches_equal(f"gather_blocks {label} {dtype} n={n}",
+                             bi.gather(bc.gather_blocks),
+                             bi.gather(bc.gather_blocks_plain))
+                a, b = bi.caches(), bi.caches()
+                bi.scatter(bc.scatter_blocks, *a)
+                bi.scatter(bc.scatter_blocks_plain, *b)
+                torch.cuda.synchronize()
+                caches_equal(f"scatter_blocks {label} {dtype} n={n}",
+                             (a[0], a[1], *a[2]), (b[0], b[1], *b[2]))
+                checked += 2
+        # codes times scales into each full-width / fp8 cache
+        for code in ((i8, e4m3) if label == "Llama-3-8B" else (i8,)):
+            for cache in ((bf16, f32, e4m3) if label == "Llama-3-8B" else (bf16,)):
+                for n in (1, 7, BLOCK_PAGES):
+                    bi = BlockInputs(torch, dev, widths, code, n, seed=n + 1)
+                    a = (bi.kc.to(f32).to(cache) if cache != e4m3 else
+                         bi.kc.view(torch.uint8).clone().view(e4m3),
+                         bi.vc.to(f32).to(cache) if cache != e4m3 else
+                         bi.vc.view(torch.uint8).clone().view(e4m3))
+                    b = tuple(x.clone() for x in a)
+                    bi.dequant(bc.scatter_blocks_dequant, *a)
+                    bi.dequant(bc.scatter_blocks_dequant_plain, *b)
+                    torch.cuda.synchronize()
+                    caches_equal(f"scatter_blocks_dequant {label} {code} -> "
+                                 f"{cache} n={n}", a, b)
+                    checked += 1
+    # requantize into the int8 cache (GQA only: MLA takes no int8 cache)
+    widths = BLOCK_WIDTHS["Llama-3-8B"]
+    for data in (bf16, f32, i8, e4m3):
+        for n in (1, 7, BLOCK_PAGES):
+            bi = BlockInputs(torch, dev, widths, i8, n, seed=n + 2)
+            src = BlockInputs(torch, dev, widths, bf16 if data == f32 else data,
+                              n, seed=n + 3)
+            kd, vd = src.kd.to(f32) if data == f32 else src.kd, (
+                src.vd.to(f32) if data == f32 else src.vd)
+            scales = ((torch.ones_like(src.ks), torch.ones_like(src.vs))
+                      if data in (bf16, f32) else (src.ks, src.vs))
+            a, b = bi.caches(), bi.caches()
+            bi.requant(bc.scatter_blocks_requant, a[0], a[1], a[2], (kd, vd), scales)
+            bi.requant(bc.scatter_blocks_requant_plain, b[0], b[1], b[2],
+                       (kd, vd), scales)
+            torch.cuda.synchronize()
+            caches_equal(f"scatter_blocks_requant {data} n={n}",
+                         (a[0], a[1], *a[2]), (b[0], b[1], *b[2]))
+            checked += 1
+    log(f"  block copies: {checked} kernel / plain pairs byte-equal (gather "
+        f"and scatter over bf16, int8 + planes and e4m3 pages at Llama-3-8B's "
+        f"widths and bf16 latents at V2-Lite's, n = 1, 7, {BLOCK_PAGES} with "
+        "the trash page; dequantize int8 / e4m3 codes into bf16, f32 and e4m3 "
+        "caches; requantize bf16, f32, int8 and e4m3 stacks into the int8 "
+        "cache)")
+    return {"gather_blocks": 0.0, "scatter_blocks": 0.0,
+            "scatter_blocks_dequant": 0.0, "scatter_blocks_requant": 0.0}
 
 
 def check_gmm_tiles(torch, dev) -> None:
@@ -3324,6 +3526,486 @@ def check_graphs(torch, engine, name: str, card: str) -> None:
 #: Llama-3-8B (full width and depth, random weights from seed 0, each with
 #: a 2048-page pool: 4 GiB of KV at 2 MiB a 16-token page) and a
 #: ``--router kv`` frontend that sees no card
+#: the tier drive: llama3-8b-sim at full width (a block is 2 MiB of bf16
+#: K + V: 32 layers x 8 heads x 16 rows x 128 x 2 B x 2), a 512-page device
+#: pool (1 GiB), a 256-block host tier (512 MiB) and a 512-block disk tier
+#: (1 GiB) in a temporary directory the drive removes; four prompts of 3072
+#: tokens (192 blocks each) per repetition
+TIER_MODEL = "llama3-8b-sim"
+TIER_PROMPT = 3072
+TIER_POOL = 512
+TIER_HOST = 256
+TIER_DISK = 512
+TIER_TOKENS = 8
+#: each variant runs this many times, each on fresh prompts and a fresh
+#: tiered engine: every TTFT is the median and range of its repetitions
+TIER_REPS = 3
+#: (label, the tiered engine's KV settings, whether its round-2 answers and
+#: restored pages must equal the device-resident engine's bit for bit):
+#: plain bf16 pages (gather + scatter), the int8 cache with the int8 tier
+#: (gather with planes + the adopting scatter: no bounce, C.15's path), and
+#: the two codec landings: an int8 tier under bf16 pages (the dequantizing
+#: scatter) and an fp8 tier under the int8 cache (the requantizing one)
+TIER_VARIANTS = (
+    ("bf16", {}, True),
+    ("int8 KV + int8 tier", {"kv_cache_dtype": "int8", "kv_quant": "int8"}, True),
+    ("bf16 KV + int8 tier", {"kv_quant": "int8"}, False),
+    ("int8 KV + fp8 tier", {"kv_cache_dtype": "int8", "kv_quant": "fp8"}, False),
+)
+
+
+def tier_config():
+    from dynamo_tpu_torch.launch.dynamo_run import PRESETS
+
+    return PRESETS[TIER_MODEL]()
+
+
+def tier_snapshot(torch, engine, tokens) -> list:
+    """A copy of the device pages (and int8 plane scales) of every full
+    block of ``tokens``' chain, found by hash, as raw bytes."""
+    from dynamo_tpu_torch.engine.allocator import sequence_block_hashes
+
+    alloc = engine.allocator
+    out = []
+    for _l, h in sequence_block_hashes(tokens, engine.cfg.block_size):
+        idx = alloc._by_hash.get(h, alloc._reuse.get(h))
+        if idx is None:
+            raise AssertionError("tier drive: a block of the chain is not on "
+                                 "the device")
+        page = [engine.k_cache[:, :, idx], engine.v_cache[:, :, idx]]
+        if engine.k_scales is not None:
+            page += [engine.k_scales[:, idx], engine.v_scales[:, idx]]
+        out.append([t.contiguous().view(torch.uint8).clone() for t in page])
+    return out
+
+
+def tier_expected(torch, variant_kv: dict, snap: list, n: int) -> list:
+    """What a lossy tier codec lands for the first ``n`` blocks of a
+    snapshot, from the reference's arithmetic on the CPU: an int8 tier
+    under bf16 pages lands dequantize(quantize(page)); an fp8 tier under
+    the int8 cache lands the requantize of the fp8 encoding of the
+    dequantized device codes."""
+    from dynamo_tpu_torch.engine import kvquant
+    from dynamo_tpu_torch.ops import block_copy as bc
+
+    out = []
+    for page in snap[:n]:
+        if variant_kv.get("kv_cache_dtype") == "int8":
+            k, v = (t.cpu().view(torch.int8) for t in page[:2])
+            ks, vs = (t.cpu().view(torch.float32) for t in page[2:])
+            fk, fv = kvquant.dequantize_entry(k, v, ks, vs, torch.bfloat16)
+            qk, qv, qks, qvs = kvquant.quantize_entry(fk, fv, "fp8")
+            kc, vc = (torch.zeros_like(x).unsqueeze(2) for x in (k, v))
+            kp, vp = (torch.zeros((x.shape[0], 1)) for x in (k, v))
+            bc.scatter_blocks_requant_plain(
+                kc, vc, kp, vp, torch.zeros(1, dtype=torch.int32),
+                qk.unsqueeze(2), qv.unsqueeze(2), qks[:, None], qvs[:, None])
+            want = [kc[:, :, 0], vc[:, :, 0], kp[:, 0], vp[:, 0]]
+        else:
+            k, v = (t.cpu().view(torch.bfloat16) for t in page[:2])
+            q = kvquant.quantize_entry(k, v, "int8")
+            want = list(kvquant.dequantize_entry(*q, torch.bfloat16))
+        out.append([t.contiguous().view(torch.uint8) for t in want])
+    return out
+
+
+def tier_anatomy(torch, engine) -> dict:
+    """Time ``engine``'s steps between a prompt's arrival and its first
+    token, by wrapping them on the instance (the engine's code is
+    unchanged and no sync is added): the record gets the host ms of each
+    step under ``ms`` (prejoin, admit, preamble, chunk, sample), CUDA
+    event pairs around the two that launch work (preamble, chunk) under
+    ``dev``, and under ``busy`` the (kind, start, end) host-clock
+    intervals of the tier work that runs on other threads: the d2h
+    landings, disk demotions and h2d uploads of the offload executor and
+    the disk promotions of the prejoin."""
+    rec = {"ms": {}, "dev": {}, "busy": []}
+    cuda = engine.device.type == "cuda"
+
+    def add(name, t0):
+        rec["ms"][name] = rec["ms"].get(name, 0.0) + (time.perf_counter() - t0) * 1e3
+
+    def step(name, fn, on_device=False):
+        def run(*a, **kw):
+            ev = None
+            if on_device and cuda:
+                ev = (torch.cuda.Event(enable_timing=True),
+                      torch.cuda.Event(enable_timing=True))
+                ev[0].record()
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                add(name, t0)
+                if ev is not None:
+                    ev[1].record()
+                    rec["dev"].setdefault(name, []).append(ev)
+        return run
+
+    prejoin = engine._offload_prejoin
+
+    async def prejoin_timed(hashes):
+        t0 = time.perf_counter()
+        try:
+            await prejoin(hashes)
+        finally:
+            add("prejoin", t0)
+
+    engine._offload_prejoin = prejoin_timed
+    engine._begin_prefill = step("admit", engine._begin_prefill)
+    engine._offload_preamble = step("preamble", engine._offload_preamble, True)
+    engine._run_one_chunk = step("chunk", engine._run_one_chunk, True)
+    engine._sample_prefill = step("sample", engine._sample_prefill)
+
+    def busy(kind, fn):
+        def run(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                rec["busy"].append((kind, t0, time.perf_counter()))
+        return run
+
+    off = engine.offload
+    if off is not None:
+        off._land_flush = busy("d2h landing", off._land_flush)
+        off._disk_demote_worker = busy("disk demotion", off._disk_demote_worker)
+        off._upload_worker = busy("h2d upload", off._upload_worker)
+        off.promote_chain = busy("disk promotion", off.promote_chain)
+    return rec
+
+
+def tier_reading(torch, rec: dict, t0: float, t1: float) -> dict:
+    """One request's anatomy from ``rec`` (filled since it was cleared,
+    every event completed): host ms per step, ``<step> on device`` ms
+    from the events, and ``<kind> overlap`` ms of the other threads' tier
+    work inside [t0, t1] (arrival to first token, perf_counter)."""
+    out = dict(rec["ms"])
+    for name, evs in rec["dev"].items():
+        out[name + " on device"] = sum(a.elapsed_time(b) for a, b in evs)
+    for kind, a, b in rec["busy"]:
+        key = kind + " overlap"
+        out[key] = out.get(key, 0.0) + max(0.0, min(b, t1) - max(a, t0)) * 1e3
+    return out
+
+
+async def tier_drive(torch, dev, card: str) -> dict:
+    """The host and disk KV tiers through TorchEngine.generate at full
+    width, in each of TIER_VARIANTS, TIER_REPS times on fresh prompts and a
+    fresh engine. Round 1 serves the four prompts one at a time; a filler
+    prompt sized from the allocator's state then takes the device pages no
+    round-2 prompt owns, so each round-2 prompt's chain lies whole in one
+    place: prompt 0 restores from disk (promoted through the host) and
+    host, prompt 3 hits the device, prompt 2 restores from the host. Each
+    round-2 answer is held to an engine on the same weights whose pool
+    kept every prefix on the device (bit for bit where the tier is
+    lossless), restored pages to a snapshot taken before eviction (or to
+    the codec's arithmetic), and the tier counters to the path. Prints the
+    TTFTs (cold, the device-resident engine's plain prefix hit, and the
+    tiered engine's device, host and disk hits) as median and range over
+    the repetitions, each hit's anatomy (tier_anatomy: the steps' host and
+    device ms, the tier work overlapping it, a restore's pin / stack / h2d
+    ms), restore_latency_hidden_frac and the cost model's host and disk
+    link rates; returns the launches of each kernel counted during the
+    tiered runs."""
+    import shutil
+    import tempfile
+
+    from dynamo_tpu_torch.engine import EngineConfig, TorchEngine
+    from dynamo_tpu_torch.engine.allocator import sequence_block_hashes
+    from dynamo_tpu_torch.models.weights import init_random_params
+    from dynamo_tpu_torch.ops import _cuda
+    from dynamo_tpu_torch.ops import block_copy as bc
+    from dynamo_tpu_torch.ops.kv_cache_update import (
+        kv_cache_append,
+        kv_cache_append_quantized,
+    )
+    from dynamo_tpu_torch.ops.paged_attention import (
+        paged_decode_attention,
+        paged_prefill_attention,
+    )
+    from dynamo_tpu_torch.protocols.common import (
+        PreprocessedRequest,
+        SamplingOptions,
+        StopConditions,
+    )
+    from dynamo_tpu_torch.runtime import Context
+
+    cfg = tier_config()
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = init_random_params(cfg, gen, dev)
+    cpu = torch.Generator().manual_seed(100)
+    prompts = [[torch.randint(0, cfg.vocab_size, (TIER_PROMPT,),
+                              generator=cpu).tolist() for _ in range(4)]
+               for _ in range(TIER_REPS)]
+    geometry = dict(block_size=16, max_batch_size=8, max_context=cfg.max_position_embeddings)
+    order = ((0, "disk"), (3, "device"), (2, "host"))
+
+    async def ask(engine, toks):
+        """Greedy answer, TTFT ms (the first token's arrival: the engine
+        read it back from the card), and the arrival and first-token
+        times."""
+        req = PreprocessedRequest(
+            token_ids=list(toks),
+            stop_conditions=StopConditions(max_tokens=TIER_TOKENS, ignore_eos=True),
+            sampling_options=SamplingOptions(temperature=0.0), eos_token_ids=[])
+        t0, t1, out = time.perf_counter(), None, []
+        async for o in engine.generate(Context(req)):
+            if o.token_ids and t1 is None:
+                t1 = time.perf_counter()
+            out.extend(o.token_ids)
+        return out, (t1 - t0) * 1e3, t0, t1
+
+    async def settle(engine):
+        """Every task the offload executor was given has run, and every one
+        those queued in turn (a landing queues the disk demotions of the
+        host pool's overflow): its two workers meet at a barrier only once
+        both are free, again until nothing is queued behind it."""
+        off = engine.offload
+        while off._exec is not None:
+            barrier = threading.Barrier(2)
+            futs = [off._exec.submit(barrier.wait, 120) for _ in range(2)]
+            await asyncio.get_running_loop().run_in_executor(
+                None, lambda: [f.result() for f in futs])
+            if off._exec._work_queue.empty():
+                break
+        off._reap_flushes_locked()
+
+    def read(rec, t0, t1):
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        return tier_reading(torch, rec, t0, t1)
+
+    twins = {}
+
+    async def twin(kv: dict) -> tuple:
+        """Per repetition, the round-2 answers of the device-resident
+        engine (a pool holding every prompt of the repetition), and the
+        TTFTs and anatomies of those plain prefix hits."""
+        key = kv.get("kv_cache_dtype", "model")
+        if key not in twins:
+            eng = TorchEngine(EngineConfig(
+                model=cfg, num_blocks=4 * TIER_POOL, kv_cache_dtype=key,
+                **geometry), params=params, device=dev)
+            rec = tier_anatomy(torch, eng)
+            answers, hits = [], []
+            for rep in prompts:
+                for p in rep:
+                    await ask(eng, p)
+                row = []
+                for i, _name in order:
+                    for v in rec.values():
+                        v.clear()
+                    toks, ms, t0, t1 = await ask(eng, rep[i])
+                    row.append(toks)
+                    hits.append((ms, read(rec, t0, t1)))
+                answers.append(row)
+            twins[key] = (answers, hits)
+            await eng.close()
+            del eng
+            gc.collect()
+            torch.cuda.empty_cache() if dev.type == "cuda" else None
+        return twins[key]
+
+    def span(xs) -> str:
+        return (f"{statistics.median(xs):.1f} [{min(xs):.1f}-{max(xs):.1f}]"
+                if xs else "-")
+
+    def anatomy(readings) -> str:
+        """Median over the repetitions of each part of a hit."""
+        keys = [k for k in ("prejoin", "admit", "preamble", "preamble on device",
+                            "chunk", "chunk on device", "sample",
+                            "d2h landing overlap", "disk demotion overlap",
+                            "disk promotion overlap", "h2d upload overlap",
+                            "pin_ms", "stack_ms", "h2d_ms")
+                if any(k in r for r in readings)]
+        return ", ".join(
+            f"{k} {statistics.median(r.get(k, 0.0) for r in readings):.1f}"
+            for k in keys)
+
+    launches: dict = {}
+    for label, kv, exact in TIER_VARIANTS:
+        want, plain = await twin(kv)
+        for f, names in _cuda.COUNTED:
+            for n in names:
+                setattr(f, n, 0)
+        t_drive = time.perf_counter()
+        ttft = {k: [] for k in ("cold", "device", "host", "disk")}
+        anat = {k: [] for k in ("device", "host", "disk")}
+        agree, links, hidden = 0, [], []
+        adopted = None
+        for r, rep in enumerate(prompts):
+            tmp = tempfile.mkdtemp(prefix="chip_smoke_tiers_")
+            try:
+                eng = TorchEngine(EngineConfig(
+                    model=cfg, num_blocks=TIER_POOL, host_cache_blocks=TIER_HOST,
+                    disk_cache_blocks=TIER_DISK, disk_cache_path=tmp, **geometry,
+                    **kv), params=params, device=dev)
+                rec = tier_anatomy(torch, eng)
+                snaps = {}
+                for i, p in enumerate(rep):
+                    _, ms, _t0, _t1 = await ask(eng, p)
+                    if i == 1:  # prompt 0 of the first repetition paid first launches
+                        ttft["cold"].append(ms)
+                    if i in (0, 2):
+                        snaps[i] = tier_snapshot(torch, eng, p)
+                await settle(eng)
+                alloc = eng.allocator
+                keep = {h for i in (2, 3)
+                        for _l, h in sequence_block_hashes(rep[i], 16)}
+                others = sum(1 for h in alloc._reuse if h not in keep)
+                fill = others + len(alloc._free) - 2
+                if fill > 0:
+                    await ask(eng, torch.randint(0, cfg.vocab_size, (fill * 16,),
+                                                 generator=cpu).tolist())
+                got, where = [], {}
+                for i, name in order:
+                    # the previous request's evictions landed (and demoted):
+                    # no request waits on the last one's executor work
+                    await settle(eng)
+                    m0 = eng.load_metrics()
+                    u0 = dict(eng.offload.upload_times)
+                    for v in rec.values():
+                        v.clear()
+                    toks, ms, t0, t1 = await ask(eng, rep[i])
+                    await settle(eng)
+                    reading = read(rec, t0, t1)
+                    m1 = eng.load_metrics()
+                    u1 = eng.offload.upload_times
+                    if u1["uploads"] > u0["uploads"]:
+                        reading.update({k: u1[k] - u0[k] for k in
+                                        ("pin_ms", "stack_ms", "h2d_ms")})
+                    got.append(toks)
+                    ttft[name].append(ms)
+                    anat[name].append(reading)
+                    where[i] = {k: m1[k] - m0[k] for k in (
+                        "offload_hit_blocks_total", "disk_hit_blocks_total")}
+                    if i in snaps:
+                        page = tier_snapshot(torch, eng, rep[i])[:-1]
+                        ref = snaps[i][:-1]
+                        if exact:
+                            same = all(torch.equal(a, b) for pa, pb in zip(page, ref)
+                                       for a, b in zip(pa, pb))
+                        else:
+                            exp = tier_expected(torch, kv, ref, 8)
+                            same = all(torch.equal(a.cpu(), b) for pa, pb in
+                                       zip(page[:8], exp) for a, b in zip(pa, pb))
+                        if not same:
+                            raise AssertionError(
+                                f"tier drive {label}: prompt {i}'s restored pages "
+                                "differ from " + ("its snapshot before eviction"
+                                                  if exact else "the codec's "
+                                                  "arithmetic"))
+                m = eng.load_metrics()
+                if kv.get("kv_cache_dtype") == "int8" and kv.get("kv_quant") == "int8":
+                    adopted = bc.scatter_blocks.adopt_launches
+                    if m["kv_device_export_requant_total"] != 0:
+                        raise AssertionError("tier drive: the int8 tier bounced "
+                                             "blocks off the device codec")
+                # an int8 tier under bf16 pages holds twice the blocks in the
+                # host's bytes: its prompts need not reach the disk
+                for key in (("disk_hit_blocks_total", "offload_hit_blocks_total",
+                             "disk_demotions_total") if exact
+                            else ("offload_hit_blocks_total",)):
+                    if m[key] <= 0:
+                        raise AssertionError(f"tier drive {label}: {key} = {m[key]}")
+                if where[3]["offload_hit_blocks_total"] != 0:
+                    raise AssertionError(f"tier drive {label}: prompt 3 restored "
+                                         "from a tier instead of the device")
+                full = TIER_PROMPT // 16 - 1
+                if (where[2]["offload_hit_blocks_total"] != full
+                        or where[0]["offload_hit_blocks_total"] != full):
+                    raise AssertionError(f"tier drive {label}: not whole restores "
+                                         f"({where})")
+                same = sum(a == b for a, b in zip(got, want[r]))
+                if exact and same != len(got):
+                    raise AssertionError(
+                        f"tier drive {label}: round-2 answers differ from the "
+                        f"device-resident engine's: {got} vs {want[r]}")
+                if not all(len(a) == TIER_TOKENS for a in got):
+                    raise AssertionError(f"tier drive {label}: short answers {got}")
+                if eng._chunk_events or m["kv_prefill_tok_s"] <= 0:
+                    raise AssertionError(
+                        f"tier drive {label}: the dedicated chunks' timings were "
+                        f"not all folded ({len(eng._chunk_events)} left, "
+                        f"kv_prefill_tok_s {m['kv_prefill_tok_s']})")
+                agree += same
+                links.append(m["kv_link_gbps"])
+                hidden.append(m["restore_latency_hidden_frac"])
+                log(f"  tier drive ({label}), repetition {r}: TTFT cold "
+                    f"{ttft['cold'][-1]:.1f} ms, device {ttft['device'][-1]:.1f}, "
+                    f"host {ttft['host'][-1]:.1f}, disk {ttft['disk'][-1]:.1f} "
+                    f"({where[0]['disk_hit_blocks_total']} of prompt 0's {full} "
+                    f"blocks from disk); restore_latency_hidden_frac "
+                    f"{m['restore_latency_hidden_frac']}, kv_link_gbps "
+                    f"{m['kv_link_gbps']}, d2h flushes {m['d2h_flush_async']}, "
+                    f"h2d uploads {m['h2d_uploads_started']}, disk demotions "
+                    f"{m['disk_demotions_total']}, disk hits "
+                    f"{m['disk_hit_blocks_total']}, host hits "
+                    f"{m['offload_hit_blocks_total']}, export requants "
+                    f"{m['kv_device_export_requant_total']}, kv_prefill_tok_s "
+                    f"{m['kv_prefill_tok_s']}")
+                await eng.close()
+                del eng, rec
+                gc.collect()
+                if dev.type == "cuda":
+                    torch.cuda.empty_cache()
+            finally:
+                shutil.rmtree(tmp, ignore_errors=True)
+        drive_s = time.perf_counter() - t_drive
+        counts = {
+            # the int8 cache gathers with its planes
+            "gather_blocks": (bc.gather_blocks.plane_launches
+                              if kv.get("kv_cache_dtype") == "int8"
+                              else bc.gather_blocks.launches),
+            "scatter_blocks": bc.scatter_blocks.launches,
+            "scatter_blocks_dequant": bc.scatter_blocks_dequant.launches,
+            "scatter_blocks_requant": bc.scatter_blocks_requant.launches,
+        }
+        suffix = INT8_KV if kv.get("kv_cache_dtype") == "int8" else ""
+        counts["paged_prefill_attention" + suffix] = paged_prefill_attention.launches
+        counts["paged_decode_attention" + suffix] = paged_decode_attention.launches
+        append = (kv_cache_append_quantized if suffix else kv_cache_append)
+        counts["kv_cache_append_quantized" if suffix else "kv_cache_append"] = (
+            append.launches)
+        path = {"bf16": ("gather_blocks", "scatter_blocks"),
+                "int8 KV + int8 tier": ("gather_blocks", "scatter_blocks"),
+                "bf16 KV + int8 tier": ("gather_blocks",
+                                        "scatter_blocks_dequant"),
+                "int8 KV + fp8 tier": ("gather_blocks",
+                                       "scatter_blocks_requant")}[label]
+        idle = [k for k, n in counts.items()
+                if n == 0 and (k in path or not k.startswith(("gather", "scatter")))]
+        if dev.type == "cuda":  # the CPU runs the plain twins
+            if idle:
+                raise AssertionError(f"tier drive {label}: no launch of {idle}")
+            if adopted == 0:
+                raise AssertionError("tier drive: the int8 restores did not adopt")
+        for k, n in counts.items():
+            launches[k] = launches.get(k, 0) + n
+        n_ans = TIER_REPS * len(order)
+        log(f"  tier drive ({label}), {TIER_REPS} repetitions, TTFT ms median "
+            f"[range]: cold {span(ttft['cold'])}, plain prefix hit (the "
+            f"device-resident engine, no tiers) {span([ms for ms, _ in plain])}, "
+            f"device {span(ttft['device'])}, host {span(ttft['host'])}, disk "
+            f"{span(ttft['disk'])}; restore_latency_hidden_frac "
+            f"{span(hidden)}; kv_link_gbps host "
+            f"{span([x['host'] for x in links if 'host' in x])}, disk "
+            f"{span([x['disk'] for x in links if 'disk' in x])}; round-2 answers "
+            f"equal to the device-resident engine's: {agree} of {n_ans}"
+            f"{' (required)' if exact else ' (lossy codec)'}; launches "
+            + ", ".join(f"{k} {n}" for k, n in counts.items())
+            + f"; {drive_s:.1f} s")
+        log(f"    anatomy, ms, medians (host ms; 'on device': CUDA events; "
+            f"'overlap': tier work on other threads between arrival and "
+            f"first token): plain prefix hit: {anatomy([a for _, a in plain])}")
+        for name in ("device", "host", "disk"):
+            log(f"    {name} hit: {anatomy(anat[name])}")
+    del params
+    gc.collect()
+    return launches
+
+
 FLEET_MODEL = "llama3-8b-sim"
 FLEET_DEVICE = "cuda"
 FLEET_TARGET = "dyn://dynamo.backend.generate"
@@ -4196,6 +4878,64 @@ def sdpa_backend(torch, fn) -> str:
     return "math"
 
 
+def block_timing(torch, dev) -> dict:
+    """Phase 4's block copies at Llama-3-8B's widths, BLOCK_PAGES real
+    pages out of order: the gather and scatter of bf16 pages, the
+    dequantizing scatter of int8 codes into bf16 pages (an int8 tier under
+    the bf16 cache) and the requantizing scatter of e4m3 codes into the int8
+    cache (an fp8 tier under it); each call's kernel, plain twin, library
+    yardstick (index_select / index_copy_ on K and V, timed only; the codec
+    landings have none) and (bytes, flops) moved."""
+    from dynamo_tpu_torch.ops import block_copy as bc
+
+    w = BLOCK_WIDTHS["Llama-3-8B"]
+    b16 = BlockInputs(torch, dev, w, torch.bfloat16, BLOCK_PAGES, trash=False)
+    i8 = BlockInputs(torch, dev, w, torch.int8, BLOCK_PAGES, trash=False)
+    f8 = BlockInputs(torch, dev, w, torch.float8_e4m3fn, BLOCK_PAGES, trash=False)
+    deq = (b16.kc.clone(), b16.vc.clone())
+    req = i8.caches()
+    idx = b16.idxs.long()
+    L, n = w[0], BLOCK_PAGES
+    pages = n * L * (b16.kc[0, :, 0].numel() + b16.vc[0, :, 0].numel())
+    return {
+        "kernel": {
+            "gather_blocks": lambda: b16.gather(bc.gather_blocks),
+            "scatter_blocks": lambda: b16.scatter(bc.scatter_blocks, b16.kc, b16.vc, ()),
+            "scatter_blocks_dequant": lambda: i8.dequant(bc.scatter_blocks_dequant, *deq),
+            "scatter_blocks_requant":
+                lambda: i8.requant(bc.scatter_blocks_requant, req[0], req[1], req[2],
+                                   (f8.kd, f8.vd), (f8.ks, f8.vs)),
+        },
+        "plain": {
+            "gather_blocks": lambda: b16.gather(bc.gather_blocks_plain),
+            "scatter_blocks":
+                lambda: b16.scatter(bc.scatter_blocks_plain, b16.kc, b16.vc, ()),
+            "scatter_blocks_dequant":
+                lambda: i8.dequant(bc.scatter_blocks_dequant_plain, *deq),
+            "scatter_blocks_requant":
+                lambda: i8.requant(bc.scatter_blocks_requant_plain, req[0], req[1],
+                                   req[2], (f8.kd, f8.vd), (f8.ks, f8.vs)),
+        },
+        "library": {
+            "gather_blocks": lambda: (b16.kc.index_select(2, idx),
+                                      b16.vc.index_select(2, idx)),
+            "scatter_blocks": lambda: (b16.kc.index_copy_(2, idx, b16.kd),
+                                       b16.vc.index_copy_(2, idx, b16.vd)),
+        },
+        # each page read once and written once (2 B a value), the index
+        # vector; the codec landings read 1-byte codes and the [L, n]
+        # scales, and write bf16 pages or int8 pages and plane scales
+        "bounds": {
+            "gather_blocks": (2 * 2 * pages + 4 * n, 0),
+            "scatter_blocks": (2 * 2 * pages + 4 * n, 0),
+            "scatter_blocks_dequant": (pages + 2 * pages + 8 * L * n + 4 * n,
+                                       pages),
+            "scatter_blocks_requant": (pages + pages + 16 * L * n + 4 * n,
+                                       5 * pages),
+        },
+    }
+
+
 def timing(torch, dev, inp: KernelInputs, mi: MlaInputs, qi: QuantInputs,
            ta: TokenAppendInputs, winp: KernelInputs, gin: KernelInputs,
            gwinp: KernelInputs, errs: dict, launches: dict) -> list:
@@ -4351,6 +5091,11 @@ def timing(torch, dev, inp: KernelInputs, mi: MlaInputs, qi: QuantInputs,
     bounds = {**work(inp), **mla_work(mi), **work(sinp), **quant_work(torch, qi),
               **spec_work(inp, mi, ta), **window_work(winp), **work(finp),
               **work(gin, WIDE), **window_work(gwinp, (WIDE_WINDOW, WIDE_WINDOW))}
+    blocks = block_timing(torch, dev)
+    kernel.update(blocks["kernel"])
+    plain.update(blocks["plain"])
+    library.update(blocks["library"])
+    bounds.update(blocks["bounds"])
     setups = {"kv_cache_append_quantized": reset_planes}
     # the floor of every row: an empty kernel (a spin of 0 cycles) under
     # the same flush and spin
@@ -4488,6 +5233,7 @@ def main() -> int:
     errs.update(check_quant_kernels(torch, qi))
     check_gmm_tiles(torch, dev)
     check_int8_native_mm(torch, dev)
+    errs.update(check_block_copy(torch, dev))
     log(f"[3/4] at {time.perf_counter() - t_all:.1f} s: serving over HTTP: "
         "llama3-8b-sim and deepseek-v2-lite-sim, each "
         "twice on fresh engines, deepseek-v2-lite-sim (int8 weights), "
@@ -4521,6 +5267,13 @@ def main() -> int:
                 launches[k] = launches.get(k, 0) + n
             gc.collect()
             torch.cuda.empty_cache()
+    log(f"  drive: the host and disk KV tiers ({TIER_MODEL}: "
+        f"{', '.join(v[0] for v in TIER_VARIANTS)}) from "
+        f"{time.perf_counter() - t_all:.1f} s")
+    for k, n in asyncio.run(tier_drive(torch, dev, card)).items():
+        launches[k] = launches.get(k, 0) + n
+    gc.collect()
+    torch.cuda.empty_cache()
     log(f"  drive: the distributed fleet ({FLEET_MODEL}: hub, two workers, a "
         f"KV-routed frontend) from {time.perf_counter() - t_all:.1f} s")
     for k, n in asyncio.run(fleet_drive(torch, dev, card)).items():

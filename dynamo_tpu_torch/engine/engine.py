@@ -47,10 +47,23 @@ reference's tuples) lands in ``compile_ledger`` with its wall time (for a
 graph: the eager run plus the capture; a key's graphs differ by two host
 flags, and each one's first dispatch is ledgered under the key), and
 ``warmup`` dispatches every reachable key before traffic, as the
-reference's does, with every graph of the decode-window ladder. Left out
-of this slice (ROADMAP queue A): offload tiers, disaggregation, adapters,
-live reshard, the pipelined decode, multi-host mirrors, tracing / flight
-recorder, and the capture of prefill and of the mixed step.
+reference's does, with every graph of the decode-window ladder.
+
+KV tiers (``host_cache_blocks``, ``disk_cache_blocks``; engine/offload.py):
+pages the allocator evicts from its reuse pool are gathered to host DRAM
+(budgeted and double-buffered before decode windows and verifies, all of
+them before a prefill chunk or a mixed step), the host pool's overflow
+demotes to disk, and admission reserves a prompt's continuation past the
+device match from host or disk and starts its h2d copy at once; the chunk
+that needs the pages lands it with one scatter launch. With ``kv_quant``
+the tiers hold int8 / scaled-fp8 blocks (engine/kvquant.py); an int8
+device cache and an int8 tier exchange codes and scales verbatim. The
+transfer-cost model (kv_router/costmodel.py) observes the host and disk
+links and the dedicated prefill chunks, and ``load_metrics`` advertises
+it. Left out of this slice (ROADMAP queue A): the router-hinted prefetch
+and the fleet pull (A.5 item 2), disaggregation, adapters, live reshard,
+the pipelined decode, multi-host mirrors, tracing / flight recorder, and
+the capture of prefill and of the mixed step.
 """
 
 from __future__ import annotations
@@ -88,6 +101,8 @@ from ..runtime.engine import AsyncEngine, Context
 from .allocator import Block, BlockAllocator, sequence_block_hashes
 from .graphs import GraphRunner, StaticInputs
 from .hist import MS_BUCKETS, Histogram
+from .kvquant import KV_QUANT_MODES, wire_block_bytes
+from .offload import OffloadManager, RestoreUpload
 
 logger = logging.getLogger(__name__)
 
@@ -152,6 +167,30 @@ class EngineConfig:
     # except at exact logit ties. 0 = off.
     spec_gamma: int = 0
     spec_ngram: int = 3
+    # host-DRAM KV tier capacity in blocks (0 = off): evicted device pages
+    # park here and restore on prefix hits (engine/offload.py)
+    host_cache_blocks: int = 0
+    # disk KV tier capacity in blocks (0 = off; needs a host tier:
+    # restores promote through host DRAM). Host-pool LRU overflow demotes
+    # here; disk LRU/TTL overflow is the real drop
+    disk_cache_blocks: int = 0
+    # disk-tier directory (None = a fresh tempdir per engine, removed at
+    # close); a restarted worker pointed at the same path keeps its tier
+    disk_cache_path: Optional[str] = None
+    # disk-tier entry TTL in seconds (0 = LRU only)
+    kv_tier_ttl_s: float = 0.0
+    # async tiers: d2h flushes land on background threads (double-buffered,
+    # budgeted) and h2d restores copy from the moment admission reserves
+    # the chain. False = synchronous transfers
+    offload_async: bool = True
+    # max OPTIONAL evicted blocks one decode dispatch gathers d2h;
+    # evictions whose pages the dispatch writes always flush
+    offload_flush_budget: int = 64
+    # the transfer-cost model (kv_router/costmodel.py): observe restore and
+    # dedicated-prefill timings and advertise them in load_metrics
+    kv_cost_model: bool = True
+    # tier codec (engine/kvquant.py): "none" | "int8" | "fp8"
+    kv_quant: str = "none"
 
     def __post_init__(self):
         if self.spec_gamma > 0 and self.decode_window < 2:
@@ -172,6 +211,16 @@ class EngineConfig:
         if self.mixed_max_prefills < 1:
             raise ValueError(
                 f"mixed_max_prefills={self.mixed_max_prefills} must be >= 1"
+            )
+        if self.disk_cache_blocks > 0 and self.host_cache_blocks <= 0:
+            raise ValueError(
+                "disk_cache_blocks > 0 requires host_cache_blocks > 0 "
+                "(disk restores promote through the host tier)"
+            )
+        if self.kv_quant not in KV_QUANT_MODES:
+            raise ValueError(
+                f"kv_quant must be one of {KV_QUANT_MODES}, "
+                f"got {self.kv_quant!r}"
             )
         self.max_blocks_per_seq = (
             self.max_context + self.block_size - 1
@@ -206,6 +255,9 @@ class _PrefillState:
     seq: _Sequence
     pos: int  # next prompt index to prefill
     ms: float = 0.0  # wall time of the dispatches that carried its chunks
+    # the reserved host chain's h2d stage, landed before the first chunk
+    upload: Optional[RestoreUpload] = None
+    restored: bool = False
 
 
 class TorchEngine(AsyncEngine):
@@ -299,6 +351,50 @@ class TorchEngine(AsyncEngine):
         self.kv_block_bytes = int(
             (self.k_cache.nbytes + self.v_cache.nbytes) // max(cfg.num_blocks, 1)
         )
+        # bytes one block costs on the tier planes (the full width, or the
+        # tier codec's payload + per-layer scales)
+        self.kv_wire_block_bytes = wire_block_bytes(
+            self.kv_block_bytes, self.k_cache.element_size(), mcfg.num_layers,
+            cfg.kv_quant)
+        self.offload: Optional[OffloadManager] = None
+        if cfg.host_cache_blocks > 0:
+            self.offload = OffloadManager(
+                cfg.host_cache_blocks,
+                flush_budget=cfg.offload_flush_budget,
+                async_tier=cfg.offload_async,
+                disk_blocks=cfg.disk_cache_blocks,
+                disk_path=cfg.disk_cache_path,
+                tier_ttl_s=cfg.kv_tier_ttl_s,
+                kv_quant=cfg.kv_quant,
+                block_bytes=self.kv_block_bytes,
+                # dequantized entries take the model's width (an int8
+                # cache's own dtype is the code, not the width)
+                full_dtype=(llama._dtype(mcfg) if self.k_scales is not None
+                            else self.k_cache.dtype),
+                device=self.device,
+            )
+            self.allocator.on_evict = lambda h, b: self.offload.on_evict(h, b.idx)
+            # a lower tier's copy aging out must not un-index a block the
+            # device still holds
+            self.offload.device_has = self.allocator.has_hash
+            if self.k_scales is not None:
+                # tier traffic speaks the device codec: flushes gather codes
+                # + scales, restores land them back into the planes in place
+                self.offload.device_planes = lambda: (self.k_scales, self.v_scales)
+        self.cost = None
+        if cfg.kv_cost_model:
+            # imported here: the kv_router package imports the engine's
+            from ..kv_router.costmodel import TransferCostModel
+
+            self.cost = TransferCostModel(block_bytes=self.kv_block_bytes)
+            if self.offload is not None:
+                self.offload.cost_model = self.cost
+        # the card's dedicated chunks not yet folded into the cost model:
+        # (tokens, start event, end event), read once they completed, at a
+        # sync the engine makes anyway (executor thread only)
+        self._chunk_events: deque = deque()
+        # the offload manager's export-bounce count already folded
+        self._offload_requants_seen = 0
         self._waiting: asyncio.Queue[_Sequence] = asyncio.Queue(cfg.max_queue)
         # re-admissions (preemption replay, backpressure put-back) jump the
         # line through this front buffer
@@ -367,7 +463,11 @@ class TorchEngine(AsyncEngine):
             "kv_device_quant_pages": 0,
             "kv_device_requants_total": 0,
             "kv_device_bytes_saved_total": 0,
+            "kv_device_export_requant_total": 0,
             "lowprec_tok_s": 0.0,
+            # the tier codec's worst measured logprob drift
+            # (kvquant.measure_logprob_drift)
+            "kv_quant_logprob_drift_max": 0.0,
             # first dispatches of program keys (the reference's XLA
             # compile ledger counters) and warmup's coverage
             "xla_compiles_total": 0,
@@ -376,18 +476,12 @@ class TorchEngine(AsyncEngine):
             "xla_reachable_buckets": 0,
         }
         # the worker's latency distributions in the reference's wire form
-        # (load_metrics' hist_* keys): admission wait and prefill wall per
-        # prompt, TTFT per served model ("" = the base model); this worker
-        # has no host tiers and no disaggregated handoff, so restore_ms and
-        # handoff_ms stay empty
+        # (load_metrics' hist_* keys): admission wait, prefill wall and
+        # host-chain landing per prompt, TTFT per served model ("" = the
+        # base model); no disaggregated handoff, so handoff_ms stays empty
         self.hist = {k: Histogram(MS_BUCKETS) for k in (
             "queue_wait_ms", "prefill_ms", "restore_ms", "handoff_ms")}
         self.hist_ttft: dict[str, Histogram] = {}
-        # measured prefill throughput (the reference's transfer-cost model
-        # folds the same observations): chunks observed and an EWMA of
-        # their tokens per second
-        self._prefill_obs = 0
-        self._prefill_tok_s = 0.0
 
     # ---------------- public api ----------------
 
@@ -401,6 +495,8 @@ class TorchEngine(AsyncEngine):
         if self._loop_task:
             self._loop_task.cancel()
             self._loop_task = None
+        if self.offload is not None:
+            self.offload.close()
 
     async def warmup(self, decode: bool = True) -> list[int]:
         """Dispatch the serving programs BEFORE real traffic, as the
@@ -532,14 +628,16 @@ class TorchEngine(AsyncEngine):
         ``WorkerLoad.from_stats`` scrapes, and the rest of the reference's
         scrape schema). The ``xla_*`` keys count the first dispatches of
         program keys (on the card: kernel builds and CUDA graph captures)
-        and warmup's coverage. Features this worker does not have report
-        their idle values: no autopilot, drain, reshard, host tiers, tier
-        codec, weight prestaging or adapters; one device, one served name.
-        The int8 cache's device requant counter converts to a host number
-        here, and only here."""
+        and warmup's coverage. With the KV tiers on, their keys join
+        (queued last-tier drops are published first), and the transfer-cost
+        model's counters close the scrape. Features this worker does not
+        have report their idle values: no autopilot, drain, reshard, weight
+        prestaging or adapters; one device, one served name. The int8
+        cache's device requant counter converts to a host number here, and
+        only here."""
         self._fold_quant_counters()
         hbm = self._hbm_stats()
-        return {
+        out = {
             "hist_queue_wait_ms": self.hist["queue_wait_ms"].to_vec(),
             "hist_prefill_ms": self.hist["prefill_ms"].to_vec(),
             "hist_restore_ms": self.hist["restore_ms"].to_vec(),
@@ -580,9 +678,8 @@ class TorchEngine(AsyncEngine):
             "drain_handoffs": 0,
             "migration_resumes": 0,
             "kv_block_bytes": self.kv_block_bytes,
-            # no tier codec: tier and wire blocks move at full width
-            "kv_wire_block_bytes": self.kv_block_bytes,
-            "kv_quant_logprob_drift_max": 0.0,
+            "kv_wire_block_bytes": self.kv_wire_block_bytes,
+            "kv_quant_logprob_drift_max": self.stats["kv_quant_logprob_drift_max"],
             "kv_block_size": self.cfg.block_size,
             "kv_slice_fp": self._slice_fp(),
             "mesh_tp": 1,
@@ -601,15 +698,16 @@ class TorchEngine(AsyncEngine):
             "kv_device_requants_total": self.stats["kv_device_requants_total"],
             "kv_device_bytes_saved_total": self.stats[
                 "kv_device_bytes_saved_total"],
-            "kv_device_export_requant_total": 0,
+            "kv_device_export_requant_total": self.stats[
+                "kv_device_export_requant_total"],
             "lowprec_tok_s": self.stats["lowprec_tok_s"],
-            # the transfer-cost surface: measured prefill throughput; no
-            # host or peer links to calibrate
-            "kv_cost_obs_total": self._prefill_obs,
-            "kv_link_gbps": {},
-            "kv_link_lat_ms": {},
-            "kv_prefill_tok_s": round(self._prefill_tok_s, 3),
         }
+        if self.offload is not None:
+            # blocks that left the LAST local tier stop counting as this
+            # worker's residency before the tier keys are read
+            self.offload.flush_dropped()
+            out.update(self.offload.stats())
+        return out | (self.cost.counters() if self.cost is not None else {})
 
     def _slice_fp(self) -> str:
         """Which device this worker dispatches to, as the reference's
@@ -687,11 +785,17 @@ class TorchEngine(AsyncEngine):
 
     def _fold_quant_counters(self) -> None:
         """The accumulated device requant count as a host number (one
-        scalar read; load_metrics only)."""
+        scalar read; load_metrics only), and the offload manager's count of
+        blocks that left the device codec for a full-width or fp8 tier."""
         with self._requants_lock:
             folded, self._requants_dev = self._requants_dev, None
         if folded is not None:
             self.stats["kv_device_requants_total"] += int(folded)
+        if self.offload is not None and self.k_scales is not None:
+            cur = self.offload.device_requants_total
+            self.stats["kv_device_export_requant_total"] += (
+                cur - self._offload_requants_seen)
+            self._offload_requants_seen = cur
 
     # ---------------- scheduler loop ----------------
 
@@ -777,7 +881,20 @@ class TorchEngine(AsyncEngine):
                     LLMEngineOutput(finish_reason=FinishReason.CANCELLED)
                 )
                 continue
-            ok = self._begin_prefill(seq)
+            prompt_hashes = None
+            off = self.offload
+            if off is not None and off.async_tier and (
+                off.has_pending() or off.has_inflight_flushes()
+                or off.disk is not None
+            ):
+                # land the in-flight d2h and promote the disk continuation
+                # of this prompt's chain OFF the loop, so the host probe in
+                # _begin_prefill neither waits on a copy nor reads a file;
+                # the chain is hashed once and handed down
+                prompt_hashes = sequence_block_hashes(
+                    seq.tokens[: seq.seq_len - 1], self.cfg.block_size)
+                await self._offload_prejoin([s for _l, s in prompt_hashes])
+            ok = self._begin_prefill(seq, hashes=prompt_hashes)
             if ok and seq.generated == 0:
                 # admission wait of a fresh prompt (a preemption replay is
                 # post-first-token work)
@@ -812,28 +929,44 @@ class TorchEngine(AsyncEngine):
         self.stats["requests_waiting"] = self._waiting_size()
         return admitted
 
-    def _begin_prefill(self, seq: _Sequence) -> bool:
-        """Claim the prompt's cached prefix, allocate blocks for prompt +
-        decode headroom, and queue the in-flight prefill. False on pool
-        pressure (every claim rolled back)."""
+    def _begin_prefill(self, seq: _Sequence, hashes=None) -> bool:
+        """Claim the prompt's cached prefix, reserve its continuation from
+        the host / disk tiers (starting that chain's h2d copy here, so it
+        has usually landed by the time the chunk needs the pages), allocate
+        blocks for prompt + decode headroom, and queue the in-flight
+        prefill. False on pool pressure (every claim rolled back)."""
         cfg = self.cfg
         bs = cfg.block_size
         prompt = seq.tokens
         # the final token is always recomputed so prefill yields fresh
         # last-position logits
-        hashes = sequence_block_hashes(prompt[: len(prompt) - 1], bs)
+        if hashes is None:
+            hashes = sequence_block_hashes(prompt[: len(prompt) - 1], bs)
         matched = self.allocator.match_prefix(prompt[: len(prompt) - 1], hashes=hashes)
+        restore_hashes: list[int] = []
+        restore_data: list = []
+        if self.offload is not None:
+            tail = [s for _l, s in hashes[len(matched):]]
+            restore_hashes, restore_data = self.offload.reserve_chain(tail)
         total_needed = min((len(prompt) + bs) // bs + 1, cfg.max_blocks_per_seq)
         fresh = self.allocator.allocate(max(0, total_needed - len(matched)))
         if fresh is None:
             self.allocator.free(matched)
+            if restore_hashes:
+                self.offload.unreserve(restore_hashes, restore_data)
             return False
         seq.blocks = matched + fresh
         seq.committed = len(matched)
         seq.parent_hash = matched[-1].seq_hash if matched else None
-        seq.cached_prefix = len(matched) * bs
+        seq.cached_prefix = (len(matched) + len(restore_hashes)) * bs
+        upload = None
+        if restore_hashes:
+            upload = self.offload.begin_upload(
+                restore_hashes, restore_data,
+                [b.idx for b in fresh[: len(restore_hashes)]])
         self.stats["prefix_cache_hits_tokens"] += seq.cached_prefix
-        self._prefill_states.append(_PrefillState(seq=seq, pos=seq.cached_prefix))
+        self._prefill_states.append(
+            _PrefillState(seq=seq, pos=seq.cached_prefix, upload=upload))
         return True
 
     async def _prefill_step(self) -> bool:
@@ -863,16 +996,11 @@ class TorchEngine(AsyncEngine):
 
     def _note_prefill_time(self, chunks, wall_s: float) -> None:
         """One dispatch that carried prompt chunks [(state, tokens)]: its
-        wall time counts toward each prompt's prefill_ms, and its tokens
-        per second fold into the prefill-throughput EWMA (alpha 0.2)."""
-        tokens = sum(n for _, n in chunks)
+        wall time counts toward each prompt's prefill_ms. (The prefill
+        rate the cost model advertises comes from dedicated chunks alone,
+        timed in _prefill_chunk_device.)"""
         for st, _ in chunks:
             st.ms += wall_s * 1e3
-        if tokens > 0 and wall_s > 0:
-            rate = tokens / wall_s
-            self._prefill_tok_s = (rate if self._prefill_obs == 0 else
-                                   0.8 * self._prefill_tok_s + 0.2 * rate)
-            self._prefill_obs += 1
 
     def _complete_prefill(self, st: _PrefillState, first) -> None:
         seq = st.seq
@@ -890,33 +1018,135 @@ class TorchEngine(AsyncEngine):
             self._prefill_states.remove(st)
 
     def _abort_prefill(self, st: _PrefillState, reason: FinishReason) -> None:
+        """The one teardown of an in-flight prefill (cancellation and device
+        failure, dedicated and mixed paths): drop the state, free the
+        blocks, hand the reserved host chain back, end the stream."""
         seq = st.seq
         self._drop_prefill_state(st)
         self.allocator.free(seq.blocks)
         seq.blocks = []
+        self._rollback_upload(st)
         seq.out_queue.put_nowait(LLMEngineOutput(finish_reason=reason))
 
+    def _rollback_upload(self, st: _PrefillState) -> None:
+        """Record an abandoned upload (if it never landed) and return the
+        reserved chain's entries to the host pool (the upload only reads
+        them, so this is safe mid-flight)."""
+        if self.offload is None or st.upload is None:
+            return
+        if not st.restored:
+            self.offload.cancel_upload(st.upload)
+        self.offload.unreserve(st.upload.hashes, st.upload.data)
+
     def _prefill_chunk_device(self, st: _PrefillState):
-        """Executor thread: one bucketed chunk. Returns (token, lp_entry) on
-        the final chunk, else None."""
+        """Executor thread: land the tiers (the preamble), then one bucketed
+        chunk. The chunk's own time, after the preamble, is the cost model's
+        prefill observation: on the card, CUDA events around the chunk,
+        read when they completed (no sync of their own: the final chunk's
+        sample syncs); on the CPU, the host clock. Returns (token,
+        lp_entry) on the final chunk, else None."""
+        self._offload_preamble(st.upload if not st.restored else None)
+        st.restored = True
+        self._observe_chunk_events()
+        timed = self.cost is not None
+        on_card = timed and self.device.type == "cuda"
+        p0, t_c = st.pos, time.perf_counter()
+        if on_card:
+            ev = (torch.cuda.Event(enable_timing=True),
+                  torch.cuda.Event(enable_timing=True))
+            ev[0].record()
+        logits, st.pos = self._run_one_chunk(st.seq, st.pos)
+        if timed and st.pos > p0:
+            if on_card:
+                ev[1].record()
+                self._chunk_events.append((st.pos - p0, *ev))
+            else:
+                self.cost.observe_prefill(
+                    st.pos - p0, max(time.perf_counter() - t_c, 1e-9))
+        if st.pos < len(st.seq.tokens):
+            return None
+        first = self._sample_prefill(st.seq, logits)
+        self._observe_chunk_events()
+        return first
+
+    def _observe_chunk_events(self) -> None:
+        """Fold every timed chunk whose end event completed into the cost
+        model, oldest first (never waits)."""
+        q = self._chunk_events
+        while q and q[0][2].query():
+            tokens, start, end = q.popleft()
+            self.cost.observe_prefill(
+                tokens, max(start.elapsed_time(end) / 1e3, 1e-9))
+
+    def _run_one_chunk(self, seq: _Sequence, pos: int):
+        """One bucketed prefill chunk of ``seq`` from ``pos``: returns (the
+        last position's logits, the next position)."""
         cfg = self.cfg
-        seq = st.seq
-        chunk = seq.tokens[st.pos : st.pos + cfg.prefill_chunk]
+        chunk = seq.tokens[pos : pos + cfg.prefill_chunk]
         toks = np.zeros(_bucket(len(chunk)), np.int32)
         toks[: len(chunk)] = chunk
         out = self._timed(("prefill", len(toks), False), lambda: llama.prefill(
             self.params, cfg.model, self._dev(toks), self._dev(self._table_for(seq)),
-            st.pos, len(chunk), self.k_cache, self.v_cache,
+            pos, len(chunk), self.k_cache, self.v_cache,
             **self._scale_kwargs(),
         ))
-        logits = out[0]
         if self.k_scales is not None:
             self._note_quant_step(None, len(chunk))
         self.stats["prefill_chunks"] += 1
-        st.pos += len(chunk)
-        if st.pos < len(seq.tokens):
-            return None
-        return self._sample_prefill(seq, logits)
+        return out[0], pos + len(chunk)
+
+    # ---- the KV tiers ----
+
+    def _offload_preamble(self, upload: Optional[RestoreUpload] = None) -> None:
+        """Before a prefill chunk or a mixed step (executor thread): launch
+        the gather of every pending eviction ahead of the compute that may
+        overwrite those pages, then land the reserved chain's upload with
+        one scatter (waiting only if the copy has not arrived). The landed
+        pages were allocated fresh and queued for a scale reset: the resets
+        go first, so the scales the scatter lands stay (an int8 device
+        cache adopting an int8 tier's scales)."""
+        if self.offload is None:
+            return
+        self.offload.flush_evictions_async(self.k_cache, self.v_cache)
+        if upload is not None:
+            self._flush_scale_resets()
+            t0 = time.perf_counter()
+            self.offload.finish_upload(self.k_cache, self.v_cache, upload)
+            self.hist["restore_ms"].observe((time.perf_counter() - t0) * 1e3)
+
+    def _flush_evictions_budgeted(self) -> None:
+        """Before a decode window or a verify (executor thread, before the
+        graph replay launches): at most ``offload_flush_budget`` optional
+        blocks, but every pending eviction whose page is in the live block
+        tables (a page this dispatch may write) flushes now."""
+        if self.offload is None or not self.offload.has_pending():
+            return
+        must = set(np.unique(self._block_tables).tolist())
+        must.discard(0)
+        self.offload.flush_evictions_async(
+            self.k_cache, self.v_cache,
+            budget=self.offload.flush_budget, must_idxs=must,
+        )
+
+    async def _offload_prejoin(self, hashes: list[int]) -> None:
+        """Before the loop's host-tier probe: launch any pending eviction
+        gathers (under the device lock, so they stay stream-ordered before
+        later compute), wait OFF the loop for in-flight flushes holding
+        ``hashes``, and promote the chain's disk continuation to the host
+        staging area off the loop."""
+        off = self.offload
+        if off is None or not off.async_tier or not hashes:
+            return
+        off.flush_dropped()
+        loop = asyncio.get_running_loop()
+        if off.has_pending():
+            async with self._device_lock:
+                await loop.run_in_executor(
+                    None, off.flush_evictions_async, self.k_cache, self.v_cache)
+        if off.has_inflight_flushes():
+            await loop.run_in_executor(None, off._join_flushes_for, hashes)
+        if off.disk is not None:
+            await loop.run_in_executor(None, off.promote_chain, hashes)
 
     def _dev(self, a: np.ndarray) -> torch.Tensor:
         return torch.as_tensor(a, device=self.device)
@@ -1376,6 +1606,7 @@ class TorchEngine(AsyncEngine):
         replayed CUDA graph on the card). Returns (out_tokens [B, T], n_acc
         [B], logprob arrays [T, B, ...] or None) as host arrays."""
         want_lp = self._logprobs_active()
+        self._flush_evictions_budgeted()
         out = self._run_program(*self._verify_program(
             window, proposals, steps, self._penalties_active(), want_lp))
         lps = None
@@ -1413,6 +1644,7 @@ class TorchEngine(AsyncEngine):
                     f"{getattr(seq.context, 'id', '?')}"
                 )
         want_lp = self._logprobs_active()
+        self._flush_evictions_budgeted()
         out = self._run_program(*self._decode_program(
             steps, n, self._penalties_active(), want_lp))
         if self.k_scales is not None:
@@ -1539,6 +1771,11 @@ class TorchEngine(AsyncEngine):
                     f"mixed step exceeds provisioned blocks for request "
                     f"{getattr(seq.context, 'id', '?')}"
                 )
+        # land each prompt's reserved host chain (its first step only);
+        # the eviction flush is shared across the pack
+        for st, _take in packed:
+            self._offload_preamble(st.upload if not st.restored else None)
+            st.restored = True
         MP = _seg_bucket(len(packed))
         T = _bucket(max(take for _st, take in packed))
         toks_p = np.zeros((MP, T), np.int32)

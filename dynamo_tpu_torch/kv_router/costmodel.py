@@ -1,29 +1,220 @@
-"""Transfer-cost-aware scoring: a candidate's predicted TTFT (NetKV,
-PAPERS.md).
+"""Self-calibrating link/tier transfer-cost model (NetKV, PAPERS.md).
 
-The router-side half of ``dynamo_tpu/kv_router/costmodel.py``, copied:
-:func:`predict_worker_ttft_ms` converts one candidate's per-tier overlap
-depths (``OverlapScores.device_scores`` + the tier-inclusive overlay) into
-milliseconds using that candidate's advertised calibration (the
-``kv_cost_obs_total`` / ``kv_link_*`` / ``kv_prefill_tok_s`` keys of its
-``load_metrics``): device blocks cost ~0, host/disk blocks cost restore
-time, peer-held continuations cost pull time over the observed link (ICI
-class when the serving peer shares the candidate's slice), and missing
-blocks cost modeled prefill, so routing minimizes **predicted TTFT =
-queue_wait + transfer + prefill** instead of maximizing raw overlap.
-Returns ``None`` while the candidate is cold (< ``min_obs`` observations,
-or geometry/throughput unadvertised) — the scheduler then falls back to
-the overlap scoring wholesale, so a half-calibrated fleet never mixes
-incomparable score scales.
+A copy of ``dynamo_tpu/kv_router/costmodel.py``, both halves:
 
-The worker-side half (the reference's ``TransferCostModel``) is not here:
-a torch worker advertises its measured prefill throughput from
-``TorchEngine`` itself and has no host, disk or peer links to calibrate.
+* **Worker side**: each worker owns a :class:`TransferCostModel` and folds
+  its own observed timings into per-link-class bandwidth/latency EWMAs
+  (h2d restores "host", disk promotions "disk"; the peer, ICI and DCN
+  classes come with the fleet pull and disaggregation), plus an observed
+  prefill token throughput fed by dedicated prefill chunks only. The
+  estimates ship in ``load_metrics`` (``counters()``), so the router
+  prices every candidate with its own measurements.
+
+* **Router side**: :func:`predict_worker_ttft_ms` converts one candidate's
+  per-tier overlap depths (``OverlapScores.device_scores`` + the
+  tier-inclusive overlay) into milliseconds using that candidate's
+  advertised calibration (the ``kv_cost_obs_total`` / ``kv_link_*`` /
+  ``kv_prefill_tok_s`` keys of its ``load_metrics``): device blocks cost
+  ~0, host/disk blocks cost restore time, peer-held continuations cost
+  pull time over the observed link (ICI class when the serving peer shares
+  the candidate's slice), and missing blocks cost modeled prefill, so
+  routing minimizes **predicted TTFT = queue_wait + transfer + prefill**
+  instead of maximizing raw overlap. Returns ``None`` while the candidate
+  is cold (< ``min_obs`` observations, or geometry/throughput
+  unadvertised); the scheduler then falls back to the overlap scoring
+  wholesale, so a half-calibrated fleet never mixes incomparable score
+  scales.
 """
 
 from __future__ import annotations
 
+import threading
+import time as _time
+from dataclasses import dataclass
 from typing import Optional
+
+#: the link classes a worker can observe, slowest-to-fastest in a
+#: typical deployment: cross-host TCP (dcn), peer prefix pulls (peer —
+#: also TCP today, but measured separately because serve-side export
+#: stacking dominates small pulls), local disk promotion (disk), host
+#: h2d restore (host), same-slice device→device handoff (ici)
+LINK_CLASSES = ("dcn", "peer", "disk", "host", "ici")
+
+
+@dataclass
+class LinkEstimate:
+    """EWMA bandwidth + per-op latency for one link class."""
+
+    gbps: float = 0.0  # gigaBYTES/s (effective, includes per-op setup)
+    lat_ms: float = 0.0  # per-op latency floor (wall minus bytes/bw)
+    n: int = 0
+    last_ts: float = 0.0
+
+
+class TransferCostModel:
+    """One worker's (or one test's) calibration state. Thread-safe: the
+    observation sites span the event loop, the device executor and the
+    offload executor threads."""
+
+    #: one sample can move an EWMA by at most this factor in either
+    #: direction (restart clamp): a worker restarted into a congested
+    #: minute — or one absurd timer reading — must not repoint routing
+    #: by orders of magnitude before the EWMA has evidence
+    SAMPLE_CLAMP = 8.0
+
+    def __init__(
+        self,
+        block_bytes: int = 0,
+        alpha: float = 0.25,
+        min_obs: int = 4,
+        obs_ttl_s: float = 900.0,
+        prefill_seed_tok_s: float = 0.0,
+        corr_bounds: tuple[float, float] = (0.25, 4.0),
+        clock=None,
+    ):
+        self.block_bytes = int(block_bytes)
+        self.alpha = alpha
+        self.min_obs = min_obs
+        self.obs_ttl_s = obs_ttl_s
+        #: roofline-style seed (tokens/s one prefill replica sustains);
+        #: 0 = unseeded, the pure observation EWMA serves instead
+        self.prefill_seed_tok_s = float(prefill_seed_tok_s)
+        self.corr_bounds = corr_bounds
+        self._clock = clock or _time.monotonic
+        self._lock = threading.Lock()
+        self._links: dict[str, LinkEstimate] = {}
+        # observed prefill throughput: EWMA tok/s + a multiplicative
+        # correction on the seed (CapacityModel's observed/modeled fold)
+        self._prefill = LinkEstimate()
+        self._prefill_corr = 1.0
+        self.obs_total = 0
+
+    # ---------------- observation (worker side) ----------------
+
+    def _fold(self, est: LinkEstimate, sample: float, now: float) -> None:
+        if est.n == 0 or now - est.last_ts > self.obs_ttl_s:
+            # first sample, or the estimate went stale (worker idled
+            # through a topology change): restart the EWMA rather than
+            # averaging across two different worlds
+            est.gbps = sample
+            est.n = 1 if est.n == 0 else est.n
+        else:
+            lo = est.gbps / self.SAMPLE_CLAMP
+            hi = est.gbps * self.SAMPLE_CLAMP
+            s = min(max(sample, lo), hi)
+            est.gbps = (1 - self.alpha) * est.gbps + self.alpha * s
+        est.last_ts = now
+
+    def observe(self, link: str, nbytes: int, wall_s: float) -> None:
+        """Fold one measured transfer (``nbytes`` moved in ``wall_s``)
+        into the link class's estimate. Bad samples are dropped, never
+        raised — observation sites sit on serving paths."""
+        if nbytes <= 0 or wall_s <= 0 or link not in LINK_CLASSES:
+            return
+        sample_gbps = nbytes / wall_s / 1e9
+        now = self._clock()
+        with self._lock:
+            est = self._links.setdefault(link, LinkEstimate())
+            had = est.n
+            self._fold(est, sample_gbps, now)
+            if had:
+                est.n = had + 1
+            # latency floor: the part of the wall the bandwidth model
+            # doesn't explain (connection setup, executor hop, ack)
+            modeled_ms = nbytes / (est.gbps * 1e9) * 1e3
+            lat_sample = max(wall_s * 1e3 - modeled_ms, 0.0)
+            est.lat_ms = (
+                lat_sample if had == 0
+                else (1 - self.alpha) * est.lat_ms + self.alpha * lat_sample
+            )
+            self.obs_total += 1
+
+    def observe_prefill(self, tokens: int, wall_s: float) -> None:
+        """Fold one measured prefill chunk (device time) into the
+        throughput model — the correction term on the roofline seed."""
+        if tokens <= 0 or wall_s <= 0:
+            return
+        tok_s = tokens / wall_s
+        now = self._clock()
+        with self._lock:
+            est = self._prefill
+            had = est.n
+            self._fold(est, tok_s, now)
+            if had:
+                est.n = had + 1
+            if self.prefill_seed_tok_s > 0:
+                lo, hi = self.corr_bounds
+                sample = tok_s / self.prefill_seed_tok_s
+                self._prefill_corr = min(
+                    hi,
+                    max(lo, (1 - self.alpha) * self._prefill_corr
+                        + self.alpha * sample),
+                )
+            self.obs_total += 1
+
+    # ---------------- queries ----------------
+
+    def _fresh(self, est: LinkEstimate) -> bool:
+        return (
+            est.n > 0
+            and (self.obs_ttl_s <= 0
+                 or self._clock() - est.last_ts <= self.obs_ttl_s)
+        )
+
+    def link_gbps(self, link: str) -> Optional[float]:
+        """Observed effective bandwidth for one link class, or None when
+        the class was never observed or the last observation aged out
+        (``obs_ttl_s`` — a dead link must stop informing routing)."""
+        with self._lock:
+            est = self._links.get(link)
+            if est is None or not self._fresh(est):
+                return None
+            return est.gbps
+
+    def transfer_ms(self, link: str, nbytes: int) -> Optional[float]:
+        with self._lock:
+            est = self._links.get(link)
+            if est is None or not self._fresh(est) or est.gbps <= 0:
+                return None
+            return est.lat_ms + nbytes / (est.gbps * 1e9) * 1e3
+
+    def prefill_tok_s(self) -> Optional[float]:
+        """Corrected prefill throughput: seed × observed correction when
+        roofline-seeded, else the pure observation EWMA (None until the
+        first chunk lands)."""
+        with self._lock:
+            if self.prefill_seed_tok_s > 0:
+                return self.prefill_seed_tok_s * self._prefill_corr
+            if self._prefill.n == 0 or not self._fresh(self._prefill):
+                return None
+            return self._prefill.gbps  # tok/s rides the same EWMA slot
+
+    # ---------------- export (load_metrics -> WorkerLoad) ----------------
+
+    def counters(self) -> dict:
+        """The worker's advertised calibration: folded into
+        ``engine.load_metrics`` and scraped into ``WorkerLoad`` so the
+        router prices this worker with its own measurements. Latency
+        floors ride alongside the bandwidths — a 1-block restore is
+        dominated by per-op setup, not bytes/bw."""
+        with self._lock:
+            links = {
+                name: round(est.gbps, 6)
+                for name, est in self._links.items()
+                if self._fresh(est)
+            }
+            lats = {
+                name: round(est.lat_ms, 4)
+                for name, est in self._links.items()
+                if self._fresh(est)
+            }
+        tok_s = self.prefill_tok_s()
+        return {
+            "kv_cost_obs_total": self.obs_total,
+            "kv_link_gbps": links,
+            "kv_link_lat_ms": lats,
+            "kv_prefill_tok_s": round(tok_s, 3) if tok_s else 0.0,
+        }
 
 
 # ---------------- router-side scoring ----------------

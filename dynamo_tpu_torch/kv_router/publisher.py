@@ -4,14 +4,16 @@ A copy of two classes of ``dynamo_tpu/kv_router/publisher.py`` (the
 reference's lib/llm/src/kv_router/{publisher,metrics_aggregator}.rs):
 
   * :class:`KvEventPublisher` — hooks the engine's BlockAllocator
-    stored/removed callbacks and publishes RouterEvents on the
+    stored/removed/demoted callbacks (and, with KV tiers, the offload
+    manager's last-tier drops) and publishes RouterEvents on the
     component's ``kv_events`` subject,
   * :class:`KvMetricsAggregator` — periodically scrapes every worker
     instance's stats endpoint (the engine's ``load_metrics``) into
     :class:`ProcessedEndpoints` for the scheduler.
 
-The reference's ``KvPrefetchListener`` and ``KvPeerServer`` serve its host
-and disk KV tiers, which the port does not have yet.
+The reference's ``KvPrefetchListener`` and ``KvPeerServer`` (the
+router-hinted prefetch and the fleet pull from the host and disk tiers)
+come with ROADMAP A.5 item 2.
 """
 
 from __future__ import annotations
@@ -53,11 +55,21 @@ class KvEventPublisher:
     def on_removed(self, block_hashes: list[int]) -> None:
         self.publish(KvCacheEvent.removed(block_hashes))
 
-    def attach(self, allocator) -> None:
-        """Wire the allocator's events (the device cache is a torch
-        worker's only tier: an eviction is a removal)."""
+    def on_demoted(self, block_hashes: list[int]) -> None:
+        self.publish(KvCacheEvent.demoted(block_hashes))
+
+    def attach(self, allocator, offload=None) -> None:
+        """Wire the allocator's events. Without KV tiers a device eviction
+        is a removal. With an ``offload`` manager the residency is tiered:
+        a device eviction publishes ``demoted`` (the worker still holds the
+        KV one tier down, and the router keeps the radix entry), and the
+        real ``removed`` fires from the manager's last-tier drop queue
+        (``OffloadManager.flush_dropped``)."""
         allocator.on_stored = self.on_stored
         allocator.on_removed = self.on_removed
+        if offload is not None:
+            allocator.on_demoted = self.on_demoted
+            offload.on_dropped = self.on_removed
 
 
 class KvMetricsAggregator:

@@ -160,6 +160,12 @@ def engine_config(args, cfg: ModelConfig) -> EngineConfig:
         kv_cache_dtype=args.kv_cache_dtype,
         spec_gamma=args.spec_gamma,
         spec_ngram=args.spec_ngram,
+        host_cache_blocks=args.host_cache_blocks,
+        disk_cache_blocks=args.disk_blocks,
+        disk_cache_path=args.disk_path,
+        kv_tier_ttl_s=args.kv_tier_ttl_s,
+        kv_quant=args.kv_quant,
+        kv_cost_model=args.kv_cost_model,
     )
 
 
@@ -268,7 +274,10 @@ async def serve_endpoint(args, drt: DistributedRuntime, engine, core: TorchEngin
     target = args.in_.removeprefix("dyn://")
     ns, comp, ep = dyn_target(target)
     component = drt.namespace(ns).component(comp)
-    KvEventPublisher(drt, component, drt.primary_lease_id).attach(core.allocator)
+    # with KV tiers, demotions keep their radix residency and last-tier
+    # drops publish the real removals
+    KvEventPublisher(drt, component, drt.primary_lease_id).attach(
+        core.allocator, offload=core.offload)
     stalls = LoopStallMonitor().start()
     handle = await component.endpoint(ep).serve(
         engine,
@@ -373,6 +382,33 @@ def parse_args(argv=None):
                         "before serving (first-request TTFT skips the "
                         "per-bucket first dispatch: kernel builds and the "
                         "decode windows' CUDA graph captures)")
+    p.add_argument("--host-cache-blocks", type=int, default=0,
+                   help="host-DRAM KV tier capacity (blocks; 0 = off)")
+    p.add_argument("--disk-blocks", type=int, default=0,
+                   help="disk KV tier capacity (blocks; 0 = off; requires "
+                        "--host-cache-blocks: host LRU overflow demotes "
+                        "here, restores promote back through host DRAM)")
+    p.add_argument("--disk-path", default=None,
+                   help="disk-tier directory (default: a fresh tempdir, "
+                        "removed at exit; a restarted worker pointed at the "
+                        "same path keeps its disk tier)")
+    p.add_argument("--kv-tier-ttl-s", type=float, default=0.0,
+                   help="disk-tier entry TTL in seconds (0 = LRU only)")
+    p.add_argument("--kv-quant", default="none", choices=["none", "int8", "fp8"],
+                   help="per-block KV codec of the host and disk tiers "
+                        "(engine/kvquant.py): int8 | scaled fp8 payloads + "
+                        "per-layer f32 scales, dequantized by the restore's "
+                        "scatter; an int8 device cache adopts int8 blocks "
+                        "verbatim")
+    p.add_argument("--kv-cost-model", dest="kv_cost_model",
+                   action="store_true", default=True,
+                   help="transfer-cost model (default on): observe restore "
+                        "and prefill timings and advertise them to the KV "
+                        "router")
+    p.add_argument("--no-kv-cost-model", dest="kv_cost_model",
+                   action="store_false",
+                   help="no cost observation or advertisement (the router "
+                        "keeps this worker on overlap scoring)")
     p.add_argument("--kv-cache-dtype", default="model",
                    choices=list(KV_CACHE_DTYPES),
                    help="KV cache storage dtype (int8 = int8-with-scales "

@@ -39,6 +39,13 @@ _PAGED_ATTENTION = (
     + [_F, _I, _P, _I, _P, _P, _I, _P] + [_I] * 3 + [_P, _P]
 )
 SOURCES = {
+    # the tiers' block copies (ops/block_copy.py)
+    "block_copy.cu": {
+        "block_gather_launch": [_P] * 9 + [_I] * 7 + [_P],
+        "block_scatter_launch": [_P] * 9 + [_I] * 8 + [_P],
+        "block_scatter_dequant_launch": [_P] * 7 + [_I] * 10 + [_P],
+        "block_scatter_requant_launch": [_P] * 9 + [_I] * 9 + [_P],
+    },
     "kv_cache_append.cu": {
         "kv_cache_append_tokens_launch": [_P] * 6 + [_I] * 10 + [_P],
         "kv_cache_append_quantized_launch": [_P] * 11 + [_I] * 8 + [_P],

@@ -35,19 +35,22 @@ from dynamo_tpu_torch.runtime import Context, collect
 
 GEOMETRY = dict(num_blocks=64, block_size=4, max_batch_size=4,
                 max_context=128, prefill_chunk=32)
-#: keys ``WorkerLoad.from_stats`` reads that only the host/disk KV tiers
-#: (``engine/offload.py``'s ``stats()``) and the disaggregated worker
-#: (``disagg/worker.py``) add to a scrape: a JaxEngine without them emits
-#: none of these, and the port has neither feature yet (ROADMAP A.5, A.8)
-TIER_AND_DISAGG_KEYS = {
+#: keys ``WorkerLoad.from_stats`` reads that only the disaggregated worker
+#: (``disagg/worker.py``) adds to a scrape: the port does not have it yet
+#: (ROADMAP A.8)
+DISAGG_KEYS = {"streamed_deliveries", "bulk_deliveries", "kv_stream_segments",
+               "ici_handoffs"}
+#: with them, the keys only the host/disk KV tiers (``engine/offload.py``'s
+#: ``stats()``) add: an engine without tiers emits none of these
+TIER_AND_DISAGG_KEYS = DISAGG_KEYS | {
     "offload_blocks_resident", "d2h_flush_async", "h2d_prefetch_hits",
     "restore_latency_hidden_frac", "disk_blocks_resident",
     "disk_hit_blocks_total", "peer_pull_blocks_total", "peer_pull_hidden_frac",
     "disk_corrupt_discards", "disk_demotions_total", "peer_serve_blocks_total",
     "kv_quant_blocks_total", "kv_quant_bytes_saved_total",
-    "streamed_deliveries", "bulk_deliveries", "kv_stream_segments",
-    "ici_handoffs",
 }
+#: the host and disk tiers with the int8 tier codec (tempdirs of their own)
+TIERS = dict(host_cache_blocks=16, disk_cache_blocks=32, kv_quant="int8")
 
 
 def test_block_hashes_match_the_reference(record_property):
@@ -81,17 +84,21 @@ def _from_stats_keys() -> set[str]:
     return keys
 
 
-@pytest.mark.parametrize("kv", ["model", "int8"], ids=["bf16 KV", "int8 KV"])
+@pytest.mark.parametrize("kv", ["model", "int8", "tiers"],
+                         ids=["bf16 KV", "int8 KV", "bf16 KV + host and disk tiers"])
 def test_load_metrics_keys_match_the_reference(run, kv):
     """The same tiny bf16 model in both engines, with the same features
-    (bf16 KV, or the int8-with-scales KV cache), each after serving one
-    request: the keys of ``load_metrics()`` are equal, and every key
+    (bf16 KV, the int8-with-scales KV cache, or bf16 KV with the host and
+    disk tiers and the int8 tier codec), each after serving one request:
+    the keys of ``load_metrics()`` are equal, and every key
     ``WorkerLoad.from_stats`` reads is in the port's, except the keys that
-    only host tiers and the disaggregated worker add (absent from the
-    reference's scrape too, so they cannot also be in an equal key set)."""
-    jeng = JaxEngine(JaxEngineConfig(model=JaxModelConfig.tiny(), kv_cache_dtype=kv,
+    only the disaggregated worker adds and, without tiers, those only the
+    tiers add (absent from the reference's scrape too, so they cannot also
+    be in an equal key set)."""
+    extra = TIERS if kv == "tiers" else {"kv_cache_dtype": kv}
+    jeng = JaxEngine(JaxEngineConfig(model=JaxModelConfig.tiny(), **extra,
                                      **GEOMETRY), seed=0)
-    teng = TorchEngine(EngineConfig(model=ModelConfig.tiny(), kv_cache_dtype=kv,
+    teng = TorchEngine(EngineConfig(model=ModelConfig.tiny(), **extra,
                                     **GEOMETRY), device="cpu")
 
     async def serve(engine, req, ctx, collect_fn):
@@ -111,7 +118,8 @@ def test_load_metrics_keys_match_the_reference(run, kv):
     assert set(got) == set(ref), (sorted(set(ref) - set(got)),
                                   sorted(set(got) - set(ref)))
     read = _from_stats_keys()
-    assert read - set(got) == TIER_AND_DISAGG_KEYS == read - set(ref)
+    missing = DISAGG_KEYS if kv == "tiers" else TIER_AND_DISAGG_KEYS
+    assert read - set(got) == missing == read - set(ref)
     # the histograms speak the reference's wire form and saw the request
     for key in ("hist_queue_wait_ms", "hist_prefill_ms"):
         assert set(got[key]) == set(ref[key]) and got[key]["b"] == ref[key]["b"]

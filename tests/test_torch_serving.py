@@ -1,6 +1,7 @@
 """The port's OpenAI HTTP surface on the tiny model (CPU), and the import
-rule: no port module loads jax or anything of dynamo_tpu, and none loads
-safetensors, sentencepiece, tokenizers, transformers, jinja2 or
+rule: no port module loads jax or anything of dynamo_tpu, none loads
+ml_dtypes (the KV tiers' bf16 and e4m3 entries are torch tensors), and none
+loads safetensors, sentencepiece, tokenizers, transformers, jinja2 or
 huggingface_hub at import (the functions that need the last three import
 them)."""
 
@@ -108,7 +109,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "    importlib.import_module(m.removesuffix('.__init__'))\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', "
         "'dynamo_tpu', 'safetensors', 'sentencepiece', 'tokenizers', "
-        "'transformers', 'jinja2', 'huggingface_hub')]\n"
+        "'transformers', 'jinja2', 'huggingface_hub', 'ml_dtypes')]\n"
         "assert not bad, bad\n"
         "print(len(sys.modules))\n"
     )
@@ -132,4 +133,10 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             "dynamo_tpu_torch.llm.sp_model",
             "dynamo_tpu_torch.llm.tokenizer",
             "dynamo_tpu_torch.llm.hub",
-            "dynamo_tpu_torch.launch.dynamo_run"} <= set(modules)
+            "dynamo_tpu_torch.launch.dynamo_run",
+            # the KV tiers: the codec, the stores, the block copies
+            "dynamo_tpu_torch.utils.dtypes",
+            "dynamo_tpu_torch.engine.kvquant",
+            "dynamo_tpu_torch.engine.offload",
+            "dynamo_tpu_torch.ops.block_copy",
+            "dynamo_tpu_torch.kv_router.costmodel"} <= set(modules)

@@ -332,7 +332,7 @@ def test_every_kernel_wrapper_registers_its_launch_counters():
             if callable(f) and names:
                 found[f] = set(names)
     registered = {f: set(names) for f, names in _cuda.COUNTED}
-    assert len(found) == 9 and found == registered
+    assert len(found) == 13 and found == registered
 
 
 def test_dynamo_run_warmup_flag(run, capsys):
