@@ -72,7 +72,8 @@ Phases, in order; any failure raises and the script exits non-zero:
      scatter / adopt, dequantize, requantize) byte-equal to their plain
      twins at Llama-3-8B's widths over bf16, int8 (with its planes) and
      e4m3 pages and at V2-Lite's latent widths, for 1, 7 and 64 pages out
-     of order with the trash page among them;
+     of order with the trash page among them, and the disaggregated
+     handoff's 192 pages (a 3072-token prompt's extract and landing);
   3. serving: the port's OpenAI HTTP service in-process, thirteen drives
      one after the other (each model's memory freed before the next):
      llama3-8b-sim and deepseek-v2-lite-sim, each twice on fresh engines
@@ -139,9 +140,37 @@ Phases, in order; any failure raises and the script exits non-zero:
      seven at once (every request back on the worker that served it, its
      whole cached prompt hit), the card's CUDA-context count unchanged by
      the frontend, the four kernels' launches read from the
-     workers' stats just before and after, a SIGKILL healed within the
-     lease TTL + 5 s, a SIGTERM that revokes the lease, and the round-1
-     answers equal to one engine's in this process; before it, the KV
+     workers' stats just before and after; both workers hold a host tier,
+     and after round 2 this process's router, told the holder of a
+     prefix is loaded, routes a prompt over that prefix to the other
+     worker and hints it with the holder as peer: the worker pulls the
+     chain from the holder's device pages (its KvPeerServer, one gather
+     there), lands it and serves the prompt from it (the pull's TTFT
+     beside the same worker's cold TTFT on an equal-length prompt nobody
+     holds; ``peer_*`` and ``h2d_prefetch_hits`` counted), and a prompt
+     over a second prefix of the holder's sent at once after the hint, as
+     a frontend sends it (its TTFT and the prefix it hit); then a SIGKILL
+     healed within the lease TTL + 5 s, a SIGTERM that revokes the lease,
+     and the round-1 and pulled answers equal to one engine's in this
+     process; then the disaggregated roles (``disagg_drive``): ``dynamo_run
+     hub``, an ``in=prefill`` and an ``in=dyn://… --disagg decode``
+     llama3-8b-sim worker and a card-less frontend, each its own process;
+     ten prompts of 1500-3072 tokens above ``--max-local-prefill 512`` one
+     at a time and ten more at once, streamed over bf16 pages, over an
+     int8 wire (the prefill worker's ``--kv-quant int8``, landed by the
+     dequantizing scatter) and bulk (``--no-kv-stream`` on both roles),
+     every answer equal to an aggregated engine's in this process (the
+     int8 wire's to one whose KV went through the codec's round trip in
+     plain arithmetic); a short prompt prefilled locally; the prefill
+     worker killed mid-stream (a delay fault holds its second segment) and
+     the queue item redelivered once to a fresh one after the queue's
+     visibility timeout, the answer still
+     equal; TTFT per variant beside the aggregated engine's cold TTFT, the
+     handoff's anatomy from both workers' records (queue wait, prefill,
+     gather, quantize, wire time and bytes, the hidden share, the
+     landing's scatter), and the launches of the prefill kernels on the
+     prefill worker and of the decode kernels and the block copies on the
+     decode worker; before the fleet, the KV
      tiers (``tier_drive``): llama3-8b-sim at full width with a 512-page
      pool, a 256-block host tier and a 512-block disk tier (a temporary
      directory, removed), three times on fresh prompts and a fresh
@@ -1809,12 +1838,37 @@ def check_block_copy(torch, dev) -> dict:
             caches_equal(f"scatter_blocks_requant {data} n={n}",
                          (a[0], a[1], *a[2]), (b[0], b[1], *b[2]))
             checked += 1
+    # the disaggregated handoff's page count: a 3072-token prompt's 192
+    # pages, gathered by the extract and landed by the decode side (full
+    # width, and int8 wire codes into bf16 pages), with the trash page
+    widths = BLOCK_WIDTHS["Llama-3-8B"]
+    for code in (bf16, i8):
+        bi = BlockInputs(torch, dev, widths, code, DISAGG_PAGES + 1, N=256,
+                         seed=5)
+        if code == bf16:
+            caches_equal(f"gather_blocks n={DISAGG_PAGES + 1}",
+                         bi.gather(bc.gather_blocks),
+                         bi.gather(bc.gather_blocks_plain))
+            a, b = bi.caches(), bi.caches()
+            bi.scatter(bc.scatter_blocks, *a)
+            bi.scatter(bc.scatter_blocks_plain, *b)
+        else:
+            a = (torch.zeros_like(bi.kc, dtype=bf16),
+                 torch.zeros_like(bi.vc, dtype=bf16), ())
+            b = tuple(x.clone() for x in a[:2]) + ((),)
+            bi.dequant(bc.scatter_blocks_dequant, a[0], a[1])
+            bi.dequant(bc.scatter_blocks_dequant_plain, b[0], b[1])
+        torch.cuda.synchronize()
+        caches_equal(f"scatter {code} n={DISAGG_PAGES + 1}",
+                     (a[0], a[1], *a[2]), (b[0], b[1], *b[2]))
+        checked += 2 if code == bf16 else 1
     log(f"  block copies: {checked} kernel / plain pairs byte-equal (gather "
         f"and scatter over bf16, int8 + planes and e4m3 pages at Llama-3-8B's "
         f"widths and bf16 latents at V2-Lite's, n = 1, 7, {BLOCK_PAGES} with "
         "the trash page; dequantize int8 / e4m3 codes into bf16, f32 and e4m3 "
         "caches; requantize bf16, f32, int8 and e4m3 stacks into the int8 "
-        "cache)")
+        f"cache; gather, scatter and the int8 dequantize at {DISAGG_PAGES} "
+        "pages, the disaggregated handoff's)")
     return {"gather_blocks": 0.0, "scatter_blocks": 0.0,
             "scatter_blocks_dequant": 0.0, "scatter_blocks_requant": 0.0}
 
@@ -4016,6 +4070,22 @@ FLEET_PREFIX = 1024
 #: the primary lease's TTL (``DistributedRuntime.PRIMARY_LEASE_TTL``): a
 #: killed worker leaves discovery within it; the heal has 5 s more
 LEASE_TTL_S = 10.0
+#: each fleet worker's host tier (blocks): it starts the worker's
+#: prefetch-hint listener and peer server, the fleet pull's two ends
+FLEET_HOST_BLOCKS = 512
+
+
+def pull_prompts(prefix: str) -> tuple:
+    """(cold, pulled, seed, at_once): prompts of equal length with one
+    suffix, the first over a prefix no worker holds, the second over
+    ``prefix``; the last over a second prefix that ``seed`` puts on the
+    holder alone."""
+    suffix = " Pull question: " + "what did the peer hold? " * 4
+    fresh = ("A prefix nobody served, on the transfer plane. " * 40)[:len(prefix)]
+    second = ("A prefix the holder alone served, sent on at once. " * 40)[:len(prefix)]
+    return (fresh + suffix, prefix + suffix,
+            second + " Seed question: " + "what does the holder keep? " * 4,
+            second + suffix)
 
 
 def fleet_prompts() -> list:
@@ -4082,6 +4152,136 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
+async def fleet_pull(torch, card: str, comp, router, scrape, served, prompts,
+                     body, pinned_service, token_ids) -> dict:
+    """The fleet prefix cache's pull between the two workers: A holds
+    prompt 0's prefix, B neither it nor a fresh one. B first serves a
+    prompt over the fresh prefix, pinned (its cold TTFT); then this
+    process's router, told A is loaded, routes a prompt of the same
+    length over A's prefix to B and hints B with A as the deeper peer
+    (``KvRouter.schedule`` -> ``emit_prefetch``). B's listener pulls the
+    chain from A's KvPeerServer (the device pages: one gather launch on
+    A), lands it and prefetches it onto the device; the request, pinned to
+    B, claims it (the pulled TTFT). Last, as a frontend would: A serves a
+    second prefix, and the prompt over it goes to B at once after the
+    router's hint, racing its own pull (the at-once TTFT, with the prefix
+    tokens it hit and whether its pull landed before it). Returns the
+    prompts B served, their answers and the last scrape."""
+    from dynamo_tpu_torch.engine.allocator import sequence_block_hashes
+    from dynamo_tpu_torch.kv_router import ProcessedEndpoints, WorkerLoad
+    from dynamo_tpu_torch.llm import ByteTokenizer
+    from dynamo_tpu_torch.llm.preprocessor import OpenAIPreprocessor
+    from dynamo_tpu_torch.protocols.openai import CompletionRequest
+
+    holder = served[0][0]
+    cold_p, pull_p, seed_p, now_p = pull_prompts(prompts[0][:FLEET_PREFIX])
+    pre = OpenAIPreprocessor(ByteTokenizer())
+
+    def ids(p):
+        return pre.preprocess_completion(
+            CompletionRequest.from_dict(body(p)))[0].token_ids
+
+    pull_ids, now_ids = ids(pull_p), ids(now_p)
+    before = await scrape()
+    other = next(w for w in before if w != holder)
+
+    async def schedule_on_other(prompt_ids):
+        # the router sees A loaded and B idle: B wins; A's chain is deeper
+        router.metrics.endpoints = ProcessedEndpoints([
+            WorkerLoad(worker_id=holder, kv_active_blocks=95, kv_total_blocks=100,
+                       active_requests=7, total_slots=8),
+            WorkerLoad(worker_id=other, kv_active_blocks=5, kv_total_blocks=100,
+                       active_requests=0, total_slots=8)])
+        wid, overlap = await router.schedule(prompt_ids)
+        router.request_finished(wid)
+        if wid != other:
+            raise AssertionError(f"fleet pull: the router chose {wid:x}, not {other:x}")
+        return overlap
+
+    pinned = await pinned_service(other)
+    try:
+        cold = await http_request(pinned.port, "/v1/completions", body(cold_p))
+        t_hint = time.perf_counter()
+        overlap = await schedule_on_other(pull_ids)
+        landed = None
+        while time.perf_counter() - t_hint < 30:
+            cur = await scrape()
+            if cur[other]["h2d_prefetch_blocks_total"] > before[other][
+                    "h2d_prefetch_blocks_total"]:
+                landed = time.perf_counter() - t_hint
+                break
+            await asyncio.sleep(0.05)
+        if landed is None:
+            raise AssertionError(f"fleet pull: nothing landed on {other:x}: "
+                                 f"{ {k: v for k, v in cur[other].items() if 'peer' in k} }")
+        pulled = await http_request(pinned.port, "/v1/completions", body(pull_p))
+        after = await scrape()
+        seeder = await pinned_service(holder)
+        try:
+            seed = await http_request(seeder.port, "/v1/completions", body(seed_p))
+        finally:
+            await seeder.close()
+        b_now = (await scrape())[other]
+        await schedule_on_other(now_ids)
+        now = await http_request(pinned.port, "/v1/completions", body(now_p))
+        b_served = (await scrape())[other]
+        # a pull still in flight lands within the waited pull's time; give
+        # it 5 s before the last scrape (none may come: B holds the prefix)
+        t_sent = time.perf_counter()
+        last = await scrape()
+        while (time.perf_counter() - t_sent < 5 and last[other][
+                "peer_pull_blocks_total"] == b_now["peer_pull_blocks_total"]):
+            await asyncio.sleep(0.05)
+            last = await scrape()
+    finally:
+        await pinned.close()
+    for status, text, _t in (cold, pulled, seed, now):
+        if status != 200 or not text:
+            raise AssertionError(f"fleet pull: status {status}, text {text!r}")
+    a0, a1, b0, b1 = before[holder], after[holder], before[other], after[other]
+
+    def launches(d, name):
+        return d["kernel_launches"][name]["launches"]
+
+    keys = ("peer_pull_blocks_total", "peer_pull_blocks_claimed",
+            "h2d_prefetch_blocks_total", "h2d_prefetch_hits")
+    got = {k: b1[k] - b0[k] for k in keys}
+    served_blocks = a1["peer_serve_d2h_blocks_total"] - a0["peer_serve_d2h_blocks_total"]
+    gathers = launches(a1, "gather_blocks") - launches(a0, "gather_blocks")
+    scatters = launches(b1, "scatter_blocks") - launches(b0, "scatter_blocks")
+    hits = b1["prefix_cache_hits_tokens"] - b0["prefix_cache_hits_tokens"]
+    log(f"  fleet pull: the router chose {other:x} (overlap {overlap}) and hinted "
+        f"peer {holder:x}; {served_blocks} device blocks served by {holder:x} "
+        f"({gathers} gather_blocks launches there), on {other:x}: "
+        + ", ".join(f"{k} +{v}" for k, v in got.items())
+        + f" ({scatters} scatter_blocks launches), the request hit {hits} "
+        f"cached tokens; landed {landed * 1e3:.1f} ms after the hint")
+    log(f"  fleet pull: TTFT {pulled[2][0] * 1e3:.1f} ms with the pulled prefix, "
+        f"{cold[2][0] * 1e3:.1f} ms cold on the same worker (a prompt of the same "
+        f"{len(pull_ids)} tokens over a prefix no worker held)  [{FLEET_MODEL}, {card}]")
+    b_end = last[other]
+
+    def grew(d, key):
+        return d[key] - b_now[key]
+
+    log(f"  fleet pull, the prompt sent at once after the hint (as a frontend "
+        f"sends it): TTFT {now[2][0] * 1e3:.1f} ms, the request hit "
+        f"{grew(b_served, 'prefix_cache_hits_tokens')} cached tokens "
+        f"(h2d_prefetch_hits +{grew(b_served, 'h2d_prefetch_hits')}, "
+        f"peer_pull_blocks_claimed +{grew(b_served, 'peer_pull_blocks_claimed')}); "
+        f"its pull, 5 s on: peer_pull_blocks_total "
+        f"+{grew(b_end, 'peer_pull_blocks_total')}, h2d_prefetch_blocks_total "
+        f"+{grew(b_end, 'h2d_prefetch_blocks_total')}  [{FLEET_MODEL}, {card}]")
+    # the CPU (a rehearsal) runs the plain twins: nothing launches
+    launched = FLEET_DEVICE != "cuda" or min(gathers, scatters) > 0
+    if (min(got.values()) <= 0 or not launched or served_blocks <= 0
+            or hits < FLEET_PREFIX // 16 * 16):
+        raise AssertionError(f"fleet pull: peer keys {got}, served {served_blocks}, "
+                             f"gathers {gathers}, scatters {scatters}, hits {hits}")
+    return {"prompts": (cold_p, pull_p, now_p), "answers": (cold, pulled, now),
+            "scrape": last}
+
+
 async def fleet_drive(torch, dev, card: str) -> dict:
     """The distributed role on the card: the hub, two Llama-3-8B workers
     (each built and warmed before it takes its lease) and a card-less
@@ -4141,6 +4341,8 @@ async def fleet_drive(torch, dev, card: str) -> dict:
         common = ["--hub", hub_addr, "--model-path", FLEET_MODEL, "--host", "127.0.0.1"]
         workers = [FleetProc(f"worker {i}", [f"in={FLEET_TARGET}", "out=torch",
                                              "--num-blocks", str(FLEET_BLOCKS),
+                                             "--host-cache-blocks",
+                                             str(FLEET_HOST_BLOCKS),
                                              "--device", FLEET_DEVICE,
                                              "--warmup"] + common)
                    for i in range(2)]
@@ -4226,14 +4428,18 @@ async def fleet_drive(torch, dev, card: str) -> dict:
         # prefixes, prompt 2 through the frontend; then prompts 4-6, which
         # share 0-2's prefixes, through the frontend: each must go to its
         # prefix's holder and hit the prefix there
+        async def pinned_service(worker_id: int) -> HttpService:
+            models = ModelManager()
+            models.add_completion_model(FLEET_MODEL, link(
+                OpenAIPreprocessor(ByteTokenizer()), Backend(ByteTokenizer()),
+                Pinned(worker_id)))
+            svc = HttpService(models, host="127.0.0.1", port=0)
+            await svc.start()
+            return svc
+
         served[0] = await alone(http_port, 0)
         other = next(w for w in pid_of if w != served[0][0])
-        pinned_models = ModelManager()
-        pinned_models.add_completion_model(FLEET_MODEL, link(
-            OpenAIPreprocessor(ByteTokenizer()), Backend(ByteTokenizer()),
-            Pinned(other)))
-        pinned = HttpService(pinned_models, host="127.0.0.1", port=0)
-        await pinned.start()
+        pinned = await pinned_service(other)
         try:
             for j in (1, 2, 3):
                 served[j] = await alone(pinned.port if j != 2 else http_port, j)
@@ -4304,6 +4510,8 @@ async def fleet_drive(torch, dev, card: str) -> dict:
                                  f"frontend started, {apps} after it served")
         log(f"  CUDA contexts on the card (nvidia-smi): {len(apps_before)} before "
             f"the frontend started, {len(apps)} after it served both rounds")
+        pulled = await fleet_pull(torch, card, comp, router, scrape, served,
+                                  prompts, body, pinned_service, token_ids)
 
         # heal: SIGKILL the worker holding the most prompts
         victim = max(after2, key=lambda w: sum(sw == w for sw, _n, _h in served))
@@ -4343,17 +4551,20 @@ async def fleet_drive(torch, dev, card: str) -> dict:
         # the drive's launches: each worker's counters from just before
         # round 1 to its last scrape (the victim's before its kill)
         last = {victim: after2[victim], survivor: after3[survivor]}
+        last[victim] = pulled["scrape"][victim]
         launches = {}
         for kernel in ("paged_decode_attention", "paged_prefill_attention",
-                       "ragged_mixed_attention", "kv_cache_append"):
+                       "ragged_mixed_attention", "kv_cache_append",
+                       "gather_blocks", "scatter_blocks"):
             per = {w: last[w]["kernel_launches"][kernel]["launches"]
                    - base[w]["kernel_launches"][kernel]["launches"] for w in last}
             launches[kernel] = sum(per.values())
             log(f"  {kernel}: {launches[kernel]} launches in the workers ("
                 + ", ".join(f"{w:x}: {n}" for w, n in per.items()) + ")")
         missing = [k for k, n in launches.items() if n <= 0]
-        if missing:
+        if missing and FLEET_DEVICE == "cuda":  # the CPU launches nothing
             raise AssertionError(f"fleet: kernels never launched: {missing}")
+
         # SIGTERM on the survivor: the lease revoked at once, exit 0
         pid_of[survivor].p.send_signal(signal.SIGTERM)
         code = pid_of[survivor].p.wait(timeout=60)
@@ -4387,21 +4598,419 @@ async def fleet_drive(torch, dev, card: str) -> dict:
     await svc.start()
     try:
         alone = [await http_request(svc.port, "/v1/completions", body(p))
-                 for p in prompts]
+                 for p in prompts + list(pulled["prompts"])]
     finally:
         await svc.close()
         await engine.close()
-    same = sum(a[1] == b[1] for a, b in zip(alone, r1))
+    fleet_answers = r1 + list(pulled["answers"])
+    same = sum(a[1] == b[1] for a, b in zip(alone, fleet_answers))
     log(f"  one engine in this process, the same prompts one at a time: "
-        f"{same} of {len(prompts)} greedy answers equal to the fleet's round 1; "
-        f"TTFT ms {[round(t[0] * 1e3, 1) for _s, _x, t in alone]}  [{card}]")
-    if same != len(prompts):
+        f"{same} of {len(fleet_answers)} greedy answers equal to the fleet's "
+        f"(round 1, the pull's cold, pulled and at-once prompts); TTFT ms "
+        f"{[round(t[0] * 1e3, 1) for _s, _x, t in alone]}  [{card}]")
+    if same != len(fleet_answers):
         raise AssertionError("fleet: answers differ from the single-process engine's")
     del worker, engine
     gc.collect()
     if FLEET_DEVICE == "cuda":
         torch.cuda.empty_cache()
     return launches
+
+
+# ---------------- phase 3: the disaggregated roles ----------------
+
+DISAGG_MODEL = "llama3-8b-sim"
+DISAGG_DEVICE = "cuda"
+DISAGG_TARGET = "dyn://dynamo.backend.generate"
+#: the decode worker's pool (two rounds of ten prompts and their decode);
+#: the prefill worker's and the in-process engines'
+DISAGG_BLOCKS = 4096
+DISAGG_PREFILL_BLOCKS = 1024
+DISAGG_TOKENS = 16
+DISAGG_LOCAL = 512
+DISAGG_PROMPTS = 10
+#: the prompts' byte lengths (BOS makes them 1500-3072 tokens) and the
+#: short local one's
+DISAGG_LENGTHS = (1499, 3071)
+DISAGG_SHORT = 300
+#: the faulted prefill worker's segment cap, so that its stream has three
+#: segments (a 3072-token prompt: 192 pages in chunks of 128 and 64)
+DISAGG_KILL_SEGMENT = 64
+#: a 3072-token prompt's pages (phase 2 checks the block copies there)
+DISAGG_PAGES = 192
+#: (label, decode role flags, prefill role flags, the prompt sets' tag)
+DISAGG_VARIANTS = (
+    ("streamed, bf16 wire", [], [], "S"),
+    ("streamed, int8 wire", [], ["--kv-quant", "int8"], "Q"),
+    ("bulk, bf16 wire", ["--no-kv-stream"], ["--no-kv-stream"], "S"),
+)
+#: the fault that holds a prefill worker's second segment (its third
+#: mid_kv_transfer hit: the stream's open, then one per segment) while the
+#: drive kills it
+DISAGG_KILL_FAULT = "mid_kv_transfer:delay=60@3"
+
+
+def disagg_prompts(tag: str) -> list:
+    """Ten prompts of 1500-3072 byte tokens (BOS included), each distinct
+    from its first block on; ``tag`` names the round."""
+    out = []
+    lo, hi = DISAGG_LENGTHS
+    for i in range(DISAGG_PROMPTS):
+        n = lo + (hi - lo) * i // (DISAGG_PROMPTS - 1)
+        head = f"{tag}{i} handoff {i * 7919 % 1000:03d}: "
+        out.append((head + f"the prefill worker ships request {i}'s pages. "
+                    * 80)[:n])
+    return out
+
+
+def disagg_body(prompt: str) -> dict:
+    return {"model": DISAGG_MODEL, "prompt": prompt, "max_tokens": DISAGG_TOKENS,
+            "temperature": 0.0, "stream": True, "nvext": {"ignore_eos": True}}
+
+
+def median_range(xs: list) -> str:
+    return (f"{statistics.median(xs):.1f} [{min(xs):.1f}-{max(xs):.1f}]"
+            if xs else "—")
+
+
+async def disagg_reference(torch, sets: dict, codec: set) -> dict:
+    """Answers and TTFTs of one aggregated engine in this process, each
+    prompt alone and cold; for the prompt sets in ``codec``, the answers of
+    the int8 wire's arithmetic instead: the prompt prefilled on that engine
+    (``prefill_extract``), its KV through ``kvquant``'s int8 round trip on
+    the host, landed full width on a second engine (``begin_remote`` /
+    ``complete_remote``, one ``scatter_blocks``) that decodes it."""
+    from dynamo_tpu_torch.engine import kvquant
+    from dynamo_tpu_torch.engine.engine import TorchEngine
+    from dynamo_tpu_torch.http import HttpService, ModelManager
+    from dynamo_tpu_torch.launch.dynamo_run import build_engine, parse_args
+    from dynamo_tpu_torch.llm import ByteTokenizer
+    from dynamo_tpu_torch.llm.openai_engine import OpenAIWorkerEngine
+    from dynamo_tpu_torch.protocols.common import PreprocessedRequest
+    from dynamo_tpu_torch.runtime.engine import AsyncEngine, AsyncEngineContext
+
+    args = parse_args(["in=http", "out=torch", "--model-path", DISAGG_MODEL,
+                       "--num-blocks", str(DISAGG_PREFILL_BLOCKS),
+                       "--device", DISAGG_DEVICE])
+    worker, engine, name = build_engine(args)
+    await engine.warmup()
+    landing = TorchEngine(engine.cfg, params=engine.params, device=engine.device)
+
+    class CodecLanding(AsyncEngine):
+        async def generate(self, request):
+            req = request.data
+            if isinstance(req, dict):
+                req = PreprocessedRequest.from_dict(req)
+            first, lp, k, v = await engine.prefill_extract(
+                req, AsyncEngineContext(request.id))
+            k, v = kvquant.dequantize_stack(*kvquant.quantize_stack(k, v, "int8"),
+                                            k.dtype)
+            handle = landing.begin_remote(request.transfer(req))
+            landing.start()
+            q = await landing.complete_remote(handle, first, k, v, first_lp=lp)
+            while (out := await q.get()) is not None:
+                yield out
+                if out.is_final():
+                    return
+
+    models = ModelManager()
+    models.add_completion_model(name, worker)
+    codec_models = ModelManager()
+    codec_models.add_completion_model(name, OpenAIWorkerEngine(ByteTokenizer(),
+                                                               CodecLanding()))
+    svc = HttpService(models, host="127.0.0.1", port=0)
+    codec_svc = HttpService(codec_models, host="127.0.0.1", port=0)
+    await svc.start()
+    await codec_svc.start()
+    out = {}
+    try:
+        for tag, prompts in sets.items():
+            port = codec_svc.port if tag in codec else svc.port
+            for p in prompts:
+                out[p] = await http_request(port, "/v1/completions", disagg_body(p))
+    finally:
+        await svc.close()
+        await codec_svc.close()
+        await landing.close()
+        await engine.close()
+    del worker, engine, landing
+    gc.collect()
+    if DISAGG_DEVICE == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+async def disagg_drive(torch, dev, card: str) -> dict:
+    """The disaggregated roles on the card, each a ``dynamo_run`` process:
+    the hub, a ``--disagg decode`` worker, an ``in=prefill`` worker and a
+    card-less frontend; this process scrapes both workers' stats (the
+    decode worker's at its endpoint, the prefill worker's at
+    ``dynamo.prefill.status``). For each variant, ten prompts one at a
+    time, then ten more at once, every answer equal to the aggregated
+    reference's; the first variant adds a short prompt (local prefill) and
+    the last-but-one a prefill worker killed mid-stream. Returns the
+    drive's launches of the GQA kernels and the block copies, summed over
+    both workers."""
+    from dynamo_tpu_torch.runtime import DistributedRuntime
+    from dynamo_tpu_torch.runtime.hub import connect_hub
+
+    sets = {}
+    for _label, _d, _p, tag in DISAGG_VARIANTS:
+        sets.setdefault(tag + "1", disagg_prompts(tag + "1"))
+        sets.setdefault(tag + "2", disagg_prompts(tag + "2"))
+    kill_prompt = disagg_prompts("K")[-1]
+    short = ("A short question the decode worker prefills itself. " * 9)[:DISAGG_SHORT]
+    sets["K"], sets["short"] = [kill_prompt], [short]
+    t0 = time.perf_counter()
+    ref = await disagg_reference(torch, sets, codec={"Q1", "Q2"})
+    log(f"  disagg: the aggregated reference in this process, {len(ref)} prompts "
+        f"one at a time, {time.perf_counter() - t0:.1f} s")
+    hub_port, http_port = free_port(), free_port()
+    hub_addr = f"127.0.0.1:{hub_port}"
+    common = ["--hub", hub_addr, "--model-path", DISAGG_MODEL, "--host", "127.0.0.1",
+              "--device", DISAGG_DEVICE]
+    procs: list = []
+    drt = conn = None
+    launches: dict = {}
+
+    def start_decode(flags):
+        p = FleetProc("decode", [f"in={DISAGG_TARGET}", "out=torch", "--disagg",
+                                 "decode", "--max-local-prefill", str(DISAGG_LOCAL),
+                                 "--num-blocks", str(DISAGG_BLOCKS), "--warmup"]
+                      + common + flags)
+        procs.append(p)
+        return p
+
+    def start_prefill(flags, label="prefill", env=None, warmup=True):
+        p = FleetProc(label, ["in=prefill", "out=torch", "--num-blocks",
+                              str(DISAGG_PREFILL_BLOCKS)]
+                      + (["--warmup"] if warmup else []) + common + flags,
+                      env=env)
+        procs.append(p)
+        return p
+
+    async def stop(p, sig=signal.SIGTERM) -> int:
+        p.p.send_signal(sig)
+        code = await asyncio.get_running_loop().run_in_executor(
+            None, p.p.wait, 60)
+        procs.remove(p)
+        return code
+
+    try:
+        hub = FleetProc("hub", ["hub", "--host", "127.0.0.1", "--hub-port",
+                                str(hub_port)])
+        procs.append(hub)
+        await hub.wait_for("hub listening", 60)
+        store, bus, conn = await asyncio.wait_for(connect_hub(hub_addr), 30)
+        drt = await DistributedRuntime.from_settings(store=store, bus=bus)
+        ns, comp_name, _ep = DISAGG_TARGET.removeprefix("dyn://").split(".")
+        dcomp = drt.namespace(ns).component(comp_name)
+        pcomp = drt.namespace(ns).component("prefill")
+        front = FleetProc("frontend", ["in=http", f"out={DISAGG_TARGET}",
+                                       "--http-port", str(http_port), "--hub",
+                                       hub_addr, "--host", "127.0.0.1"],
+                          env=dict(os.environ, CUDA_VISIBLE_DEVICES=""))
+        procs.append(front)
+        await front.wait_for("OpenAI server", 120)
+
+        async def one(comp) -> dict:
+            got = [s["data"] for s in await comp.scrape_stats(timeout=10)]
+            if len(got) != 1 or not got[0]:
+                raise AssertionError(f"disagg: want one instance's stats, got {got}")
+            return got[0]
+
+        async def ready(decode, prefill) -> None:
+            t_s = time.perf_counter()
+            await decode.wait_for("at dyn://", 600)
+            await prefill.wait_for("prefill worker", 600)
+            # the frontend serves once it discovered the decode worker
+            while time.perf_counter() - t_s < 600:
+                status, text, _t = await http_request(
+                    http_port, "/v1/completions", dict(disagg_body("hello"),
+                                                      max_tokens=1))
+                if status == 200:
+                    return
+                await asyncio.sleep(0.5)
+            raise AssertionError("disagg: the frontend never served")
+
+        def delta(a, b, key):
+            return b[key] - a[key]
+
+        def kernel_delta(a, b, name):
+            return (b["kernel_launches"][name]["launches"]
+                    - a["kernel_launches"][name]["launches"])
+
+        def check(label, results, prompts):
+            bad = [i for i, (r, p) in enumerate(zip(results, prompts))
+                   if r[0] != 200 or not r[1] or r[1] != ref[p][1]]
+            if bad:
+                raise AssertionError(f"disagg {label}: answers {bad} differ from "
+                                     f"the aggregated reference's")
+            return [r[2][0] * 1e3 for r in results]
+
+        decode = prefill = None
+        for v, (label, dflags, pflags, tag) in enumerate(DISAGG_VARIANTS):
+            t_v = time.perf_counter()
+            if decode is None or dflags:
+                if decode is not None:
+                    await stop(decode)
+                decode = start_decode(dflags)
+            if prefill is not None:
+                await stop(prefill)
+            prefill = start_prefill(pflags)
+            await ready(decode, prefill)
+            d0, p0 = await one(dcomp), await one(pcomp)
+            n_rec_d, n_rec_p = len(d0["handoffs"]), len(p0["handoffs"])
+            ones = [await http_request(http_port, "/v1/completions", disagg_body(p))
+                    for p in sets[tag + "1"]]
+            d1, p1 = await one(dcomp), await one(pcomp)
+            t_all = time.perf_counter()
+            alls = list(await asyncio.gather(*[
+                http_request(http_port, "/v1/completions", disagg_body(p))
+                for p in sets[tag + "2"]]))
+            wall_all = time.perf_counter() - t_all
+            d2, p2 = await one(dcomp), await one(pcomp)
+            ttft1 = check(f"{label}, one at a time", ones, sets[tag + "1"])
+            ttft2 = check(f"{label}, all at once", alls, sets[tag + "2"])
+            # the aggregated engine's cold TTFT: on these prompts, or (the
+            # int8 wire's, whose reference lands through the codec) on the
+            # bf16 set, of the same lengths
+            ref_ttft = [ref[p][2][0] * 1e3 for p in sets[
+                tag + "1" if tag == DISAGG_VARIANTS[0][3] else
+                DISAGG_VARIANTS[0][3] + "1"]]
+            remote = delta(d0, d2, "remote_prefills")
+            flavor = "bulk_deliveries" if dflags else "streamed_deliveries"
+            if remote != 2 * DISAGG_PROMPTS or delta(d0, d2, flavor) != remote:
+                raise AssertionError(f"disagg {label}: {remote} remote prefills, "
+                                     f"{delta(d0, d2, flavor)} {flavor}")
+            # the handoff's anatomy, one-at-a-time requests (both sides'
+            # records of the round, matched by request id)
+            precs = {r["request_id"]: r for r in p1["handoffs"][n_rec_p:]}
+            drecs = [r for r in d1["handoffs"][n_rec_d:] if r["request_id"] in precs]
+            precs = [precs[r["request_id"]] for r in drecs]
+            if len(drecs) != DISAGG_PROMPTS:
+                raise AssertionError(f"disagg {label}: {len(drecs)} matched handoff "
+                                     "records")
+
+            def med(recs, key):
+                return statistics.median(r[key] for r in recs)
+
+            send = sum(r["send_ms"] for r in precs)
+            hidden = sum(r["hidden_ms"] for r in precs)
+            log(f"  disagg {label}: TTFT ms one at a time {median_range(ttft1)} "
+                f"(the aggregated engine's cold TTFT on prompts of these lengths "
+                f"{median_range(ref_ttft)}); {DISAGG_PROMPTS} more at once "
+                f"{median_range(ttft2)}, {wall_all:.2f} s; answers "
+                f"{2 * DISAGG_PROMPTS} of {2 * DISAGG_PROMPTS} equal  "
+                f"[{DISAGG_MODEL}, {card}]")
+            log(f"  disagg {label} anatomy (medians, ms, one at a time): queue "
+                f"wait {med(precs, 'queue_wait_ms'):.1f}, prefill "
+                f"{med(precs, 'compute_ms'):.1f}, gather + d2h {med(precs, 'gather_ms'):.1f}, "
+                f"quantize {med(precs, 'quant_ms'):.1f}, wire {med(precs, 'send_ms'):.1f} "
+                f"for {med(precs, 'nbytes') / 2**20:.1f} MiB "
+                f"({med(precs, 'segments'):.0f} segments), "
+                f"exposed {med(precs, 'exposed_ms'):.1f}; hidden behind prefill "
+                f"{hidden:.1f} of {send:.1f} ms of wire time "
+                f"({hidden / max(send, 1e-9):.1%}); the decode side's handoff "
+                f"(enqueue to delivery) {med(drecs, 'handoff_ms'):.1f}, landing "
+                f"scatter {med(drecs, 'scatter_ms'):.1f}")
+            wants = {"decode": ("paged_decode_attention", "kv_cache_append",
+                                "scatter_blocks_dequant" if "int8" in label
+                                else "scatter_blocks"),
+                     "prefill": ("paged_prefill_attention", "gather_blocks")}
+            got = {}
+            for side, (a, b) in (("decode", (d0, d2)), ("prefill", (p0, p2))):
+                for name in ("paged_decode_attention", "paged_prefill_attention",
+                             "ragged_mixed_attention", "kv_cache_append",
+                             "gather_blocks", "scatter_blocks",
+                             "scatter_blocks_dequant"):
+                    n = kernel_delta(a, b, name)
+                    got[(side, name)] = n
+                    launches[name] = launches.get(name, 0) + n
+            log(f"  disagg {label} launches: " + ", ".join(
+                f"{side} {name} {n}" for (side, name), n in got.items() if n))
+            missing = [(side, k) for side, ks in wants.items() for k in ks
+                       if got[(side, k)] <= 0]
+            # the CPU (a rehearsal) runs the plain twins: nothing launches
+            if missing and DISAGG_DEVICE == "cuda":
+                raise AssertionError(f"disagg {label}: never launched: {missing}")
+            if v == 0:
+                d3 = await one(dcomp)
+                status, text, tt = await http_request(http_port, "/v1/completions",
+                                                      disagg_body(short))
+                d4 = await one(dcomp)
+                if (text != ref[short][1] or delta(d3, d4, "local_prefills") != 1
+                        or delta(d3, d4, "remote_prefills")):
+                    raise AssertionError("disagg: the short prompt did not serve "
+                                         "locally with the reference's answer")
+                log(f"  disagg: a {len(short)}-byte prompt prefilled on the decode "
+                    f"worker (local_prefills +1), TTFT {tt[0] * 1e3:.1f} ms")
+            if v == 1:
+                await disagg_kill(decode, prefill, start_prefill, stop, one, dcomp,
+                                  pcomp, http_port, kill_prompt, ref, card)
+                prefill = None
+            log(f"  disagg {label}: {time.perf_counter() - t_v:.1f} s")
+        await stop(prefill)
+        await stop(decode)
+    except BaseException:
+        for p in procs:
+            log(p.tail())
+        raise
+    finally:
+        if drt is not None:
+            await drt.shutdown()
+        if conn is not None:
+            await conn.close()
+        for p in reversed(procs):
+            p.stop()
+    return launches
+
+
+async def disagg_kill(decode, prefill, start_prefill, stop, one, dcomp, pcomp,
+                      http_port, prompt, ref, card) -> None:
+    """The prefill worker killed mid-stream: a worker whose fault delays its
+    second segment takes the request; once the decode worker landed the
+    first, SIGKILL; a fresh worker then gets the redelivered item once, and
+    the answer equals the reference's."""
+    await stop(prefill)
+    victim = start_prefill(["--kv-segment-blocks", str(DISAGG_KILL_SEGMENT)],
+                           "prefill (faulted)",
+                           env=dict(os.environ, DYN_FAULTPOINTS=DISAGG_KILL_FAULT))
+    await victim.wait_for("prefill worker", 600)
+    d0 = await one(dcomp)
+    t0 = time.perf_counter()
+    req = asyncio.ensure_future(http_request(http_port, "/v1/completions",
+                                             disagg_body(prompt)))
+    while time.perf_counter() - t0 < 60:
+        d = await one(dcomp)
+        if d["kv_stream_segments"] > d0["kv_stream_segments"]:
+            break
+        await asyncio.sleep(0.1)
+    else:
+        raise AssertionError("disagg kill: no segment landed before the kill")
+    landed = d["kv_stream_segments"] - d0["kv_stream_segments"]
+    code = await stop(victim, signal.SIGKILL)
+    t_kill = time.perf_counter()
+    fresh = start_prefill([], "prefill (fresh)", warmup=False)
+    await fresh.wait_for("prefill worker", 600)
+    status, text, _t = await asyncio.wait_for(req, 120)
+    t_done = time.perf_counter()
+    d1, p1 = await one(dcomp), await one(pcomp)
+    if (status != 200 or text != ref[prompt][1]
+            or d1["remote_prefills"] - d0["remote_prefills"] != 1
+            or d1["streamed_deliveries"] - d0["streamed_deliveries"] != 1
+            or p1["prefills_total"] != 1 or p1["kv_stream_sends"] != 1):
+        raise AssertionError(
+            f"disagg kill: status {status}, answer equal {text == ref[prompt][1]}, "
+            f"decode {d1['remote_prefills'] - d0['remote_prefills']} remote / "
+            f"{d1['streamed_deliveries'] - d0['streamed_deliveries']} delivered, "
+            f"fresh worker {p1['prefills_total']} prefills")
+    log(f"  disagg kill: the prefill worker SIGKILLed (exit {code}) after "
+        f"{landed} of its segments landed; a fresh worker took the redelivered "
+        f"item once (the queue's visibility timeout, 60 s): the answer "
+        f"{t_done - t_kill:.1f} s after the kill, equal to the reference's  "
+        f"[{card}]")
+    await stop(fresh)
 
 
 # ---------------- phase 4: timing ----------------
@@ -5242,7 +5851,8 @@ def main() -> int:
         f"deepseek-v2-lite-sim (spec_gamma={SPEC_GAMMA}), qwen2.5-7b-sim, "
         f"qwen3-8b-sim, a {CHECKPOINT_LAYERS}-layer Mistral-7B-v0.2 "
         f"checkpoint through dynamo_run --model-path, {GPTOSS_DRIVE}, "
-        f"{GEMMA_DRIVE} and a distributed {FLEET_MODEL} fleet")
+        f"{GEMMA_DRIVE}, a distributed {FLEET_MODEL} fleet with a peer pull and "
+        f"disaggregated {DISAGG_MODEL} prefill and decode workers")
     launches, plain = {}, {}
     for name, cfg, geometry, counted in drives():
         log(f"  drive {name} from {time.perf_counter() - t_all:.1f} s")
@@ -5277,6 +5887,13 @@ def main() -> int:
     log(f"  drive: the distributed fleet ({FLEET_MODEL}: hub, two workers, a "
         f"KV-routed frontend) from {time.perf_counter() - t_all:.1f} s")
     for k, n in asyncio.run(fleet_drive(torch, dev, card)).items():
+        launches[k] = launches.get(k, 0) + n
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"  drive: the disaggregated roles ({DISAGG_MODEL}: hub, a prefill and a "
+        f"decode worker, a frontend; {', '.join(v[0] for v in DISAGG_VARIANTS)}) "
+        f"from {time.perf_counter() - t_all:.1f} s")
+    for k, n in asyncio.run(disagg_drive(torch, dev, card)).items():
         launches[k] = launches.get(k, 0) + n
     log(f"[4/4] at {time.perf_counter() - t_all:.1f} s: timing (median per "
         "launch, L2 flushed)  [" + card + "]")

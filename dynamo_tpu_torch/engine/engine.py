@@ -60,8 +60,19 @@ the tiers hold int8 / scaled-fp8 blocks (engine/kvquant.py); an int8
 device cache and an int8 tier exchange codes and scales verbatim. The
 transfer-cost model (kv_router/costmodel.py) observes the host and disk
 links and the dedicated prefill chunks, and ``load_metrics`` advertises
-it. Left out of this slice (ROADMAP queue A): the router-hinted prefetch
-and the fleet pull (A.5 item 2), disaggregation, adapters, live reshard,
+it.
+
+Disaggregation (``disagg/``): a prefill worker's engine computes a
+prompt's KV and first token (``prefill_extract`` / the chunk-streamed
+``prefill_extract_stream``) and gathers the pages with the block-copy
+kernel; a decode worker's engine reserves the request's pages up front
+(``begin_remote``), lands the delivered KV into them with the block-copy
+scatters (``scatter_remote_segment`` / ``complete_remote``, in place, the
+int8 cache's scale resets flushed first) and joins the sequence to its
+decode batch. The fleet tier: ``export_device_chain`` serves a peer's pull
+from the device pages, and ``prefetch_hint`` lands a router-hinted chain
+(host, disk or peer-pulled) into the reuse pool before its request
+arrives. Left out of this slice (ROADMAP queue A): adapters, live reshard,
 the pipelined decode, multi-host mirrors, tracing / flight recorder, and
 the capture of prefill and of the mixed step.
 """
@@ -87,7 +98,7 @@ from ..models import llama
 from ..models.config import ModelConfig
 from ..models.mla import MLA_INT8_NATIVE
 from ..models.quant import KV_SCALE_EPS, kv_cache_dtype, quantize_params
-from ..ops import mla_attention
+from ..ops import block_copy, mla_attention
 from ..ops.paged_attention import check_head_dim
 from ..ops.sampling import make_keys, sample_first_token, token_logprobs
 from ..protocols.common import (
@@ -103,6 +114,11 @@ from .graphs import GraphRunner, StaticInputs
 from .hist import MS_BUCKETS, Histogram
 from .kvquant import KV_QUANT_MODES, wire_block_bytes
 from .offload import OffloadManager, RestoreUpload
+
+#: the port's kv-head ordering and tensor-parallel degree, as the transfer
+#: plane declares them (ops/kv_rearrange.py): one device, heads in order
+KV_HEAD_LAYOUT = "blocked"
+MESH_TP = 1
 
 logger = logging.getLogger(__name__)
 
@@ -246,6 +262,22 @@ class _Sequence:
     @property
     def seq_len(self) -> int:
         return len(self.tokens)
+
+
+class OutOfBlocks(RuntimeError):
+    """The pool cannot cover a remote prefill's prompt (the prefill worker
+    nacks the queue item for another worker)."""
+
+
+@dataclass
+class RemoteHandle:
+    """A decode-side reservation for a remotely prefilled sequence: its
+    pages are allocated and stay uncommitted until the KV lands, so a
+    redelivered segment scatters again over the same pages."""
+
+    seq: _Sequence
+    skip_blocks: int
+    n_prompt_blocks: int
 
 
 @dataclass
@@ -401,6 +433,8 @@ class TorchEngine(AsyncEngine):
         self._waiting_front: deque[_Sequence] = deque()
         # in-flight chunked prefills, admission order
         self._prefill_states: list[_PrefillState] = []
+        # remotely prefilled sequences whose KV landed, waiting for a slot
+        self._remote_ready: list[_Sequence] = []
         self._active: list[Optional[_Sequence]] = [None] * cfg.max_batch_size
         self._n_active = 0
         self._loop_task: Optional[asyncio.Task] = None
@@ -464,6 +498,8 @@ class TorchEngine(AsyncEngine):
             "kv_device_requants_total": 0,
             "kv_device_bytes_saved_total": 0,
             "kv_device_export_requant_total": 0,
+            # device-tier blocks a peer's pull gathered d2h
+            "peer_serve_d2h_blocks": 0,
             "lowprec_tok_s": 0.0,
             # the tier codec's worst measured logprob drift
             # (kvquant.measure_logprob_drift)
@@ -477,8 +513,9 @@ class TorchEngine(AsyncEngine):
         }
         # the worker's latency distributions in the reference's wire form
         # (load_metrics' hist_* keys): admission wait, prefill wall and
-        # host-chain landing per prompt, TTFT per served model ("" = the
-        # base model); no disaggregated handoff, so handoff_ms stays empty
+        # host-chain landing per prompt, the disaggregated handoff's whole
+        # remote leg (DisaggEngine), TTFT per served model ("" = the base
+        # model)
         self.hist = {k: Histogram(MS_BUCKETS) for k in (
             "queue_wait_ms", "prefill_ms", "restore_ms", "handoff_ms")}
         self.hist_ttft: dict[str, Histogram] = {}
@@ -687,7 +724,7 @@ class TorchEngine(AsyncEngine):
             "resharded_total": 0,
             "reshard_hold_ms": 0.0,
             "reshard_kv_moved_blocks": 0,
-            "peer_serve_d2h_blocks_total": 0,
+            "peer_serve_d2h_blocks_total": self.stats["peer_serve_d2h_blocks"],
             "weight_prestage_requests": 0,
             "weight_prestage_bytes": 0,
             "weight_prestage_hits": 0,
@@ -834,17 +871,19 @@ class TorchEngine(AsyncEngine):
             or not self._waiting.empty()
             or self._n_active
             or self._prefill_states
+            or self._remote_ready
         )
 
     def _fail_all_owned(self, text: Optional[str] = None) -> None:
         """ERROR-terminate every request this engine owns."""
         in_prefill = [st.seq for st in self._prefill_states]
-        for seq in self._active + in_prefill:
+        for seq in self._active + self._remote_ready + in_prefill:
             if seq is not None:
                 seq.out_queue.put_nowait(
                     LLMEngineOutput(finish_reason=FinishReason.ERROR, text=text)
                 )
         self._prefill_states.clear()
+        self._remote_ready.clear()
         while not self._waiting_is_empty():
             self._pop_waiting().out_queue.put_nowait(
                 LLMEngineOutput(finish_reason=FinishReason.ERROR, text=text)
@@ -866,6 +905,20 @@ class TorchEngine(AsyncEngine):
     async def _admit(self) -> bool:
         admitted = False
         self._backpressured = False
+        # remotely prefilled sequences join the batch first (their prefill
+        # and KV transfer already ran); in-flight prefills keep the slots
+        # they were admitted against
+        while self._remote_ready and (
+            self._n_active + len(self._prefill_states) < self.cfg.max_batch_size
+        ):
+            seq = self._remote_ready.pop(0)
+            if seq.finished:
+                continue
+            if seq.context.is_stopped():
+                self._finish(seq, FinishReason.CANCELLED)
+                continue
+            self._place_in_batch(seq)
+            admitted = True
         # advance an in-flight chunked prefill by one chunk per iteration
         # (dedicated dispatch) unless its chunks fuse into a mixed step
         if self._prefill_states and not self._mixed_fusable():
@@ -929,23 +982,33 @@ class TorchEngine(AsyncEngine):
         self.stats["requests_waiting"] = self._waiting_size()
         return admitted
 
-    def _begin_prefill(self, seq: _Sequence, hashes=None) -> bool:
-        """Claim the prompt's cached prefix, reserve its continuation from
-        the host / disk tiers (starting that chain's h2d copy here, so it
-        has usually landed by the time the chunk needs the pages), allocate
-        blocks for prompt + decode headroom, and queue the in-flight
-        prefill. False on pool pressure (every claim rolled back)."""
+    def _reserve_for_prompt(self, seq: _Sequence, probe_host: bool = False,
+                            hashes=None):
+        """The one allocation protocol of local prefill, remote prefill
+        (prefill worker) and remote decode (decode worker): claim the
+        prompt's cached prefix (the final token is always recomputed so
+        prefill yields fresh last-position logits; claimed blocks a router
+        hint prefetched count as prefetch hits), with ``probe_host``
+        reserve its continuation from the host / disk tiers (starting that
+        chain's h2d copy here, so it has usually landed by the time the
+        chunk needs the pages), and allocate blocks for prompt + decode
+        headroom. Returns (history tokens, upload or None), or None on pool
+        pressure (every claim rolled back)."""
         cfg = self.cfg
         bs = cfg.block_size
         prompt = seq.tokens
-        # the final token is always recomputed so prefill yields fresh
-        # last-position logits
         if hashes is None:
             hashes = sequence_block_hashes(prompt[: len(prompt) - 1], bs)
         matched = self.allocator.match_prefix(prompt[: len(prompt) - 1], hashes=hashes)
+        if self.offload is not None and matched:
+            hinted = [b.seq_hash for b in matched if b.prefetched]
+            for b in matched:
+                b.prefetched = False
+            if hinted:
+                self.offload.note_prefetch_hits(len(hinted), hashes=hinted)
         restore_hashes: list[int] = []
         restore_data: list = []
-        if self.offload is not None:
+        if probe_host and self.offload is not None:
             tail = [s for _l, s in hashes[len(matched):]]
             restore_hashes, restore_data = self.offload.reserve_chain(tail)
         total_needed = min((len(prompt) + bs) // bs + 1, cfg.max_blocks_per_seq)
@@ -954,7 +1017,7 @@ class TorchEngine(AsyncEngine):
             self.allocator.free(matched)
             if restore_hashes:
                 self.offload.unreserve(restore_hashes, restore_data)
-            return False
+            return None
         seq.blocks = matched + fresh
         seq.committed = len(matched)
         seq.parent_hash = matched[-1].seq_hash if matched else None
@@ -964,9 +1027,19 @@ class TorchEngine(AsyncEngine):
             upload = self.offload.begin_upload(
                 restore_hashes, restore_data,
                 [b.idx for b in fresh[: len(restore_hashes)]])
-        self.stats["prefix_cache_hits_tokens"] += seq.cached_prefix
+        return seq.cached_prefix, upload
+
+    def _begin_prefill(self, seq: _Sequence, hashes=None) -> bool:
+        """Reserve the prompt's pages (its host / disk continuation
+        included) and queue the in-flight prefill. False on pool
+        pressure."""
+        reserved = self._reserve_for_prompt(seq, probe_host=True, hashes=hashes)
+        if reserved is None:
+            return False
+        history, upload = reserved
+        self.stats["prefix_cache_hits_tokens"] += history
         self._prefill_states.append(
-            _PrefillState(seq=seq, pos=seq.cached_prefix, upload=upload))
+            _PrefillState(seq=seq, pos=history, upload=upload))
         return True
 
     async def _prefill_step(self) -> bool:
@@ -1399,6 +1472,7 @@ class TorchEngine(AsyncEngine):
             (bool(self._prefill_states) and not self._mixed_fusable())
             or (not self._waiting_is_empty() and not batch_full
                 and not self._backpressured)
+            or (bool(self._remote_ready) and not batch_full)
         )
         if actionable or self.cfg.decode_window <= 1:
             return 1
@@ -1889,3 +1963,406 @@ class TorchEngine(AsyncEngine):
                 seq.blocks[i], seq.tokens[i * bs : (i + 1) * bs], seq.parent_hash
             )
             seq.committed += 1
+
+    # ---------------- the fleet tier: peer serves and hinted prefetch ----------------
+
+    async def export_device_chain(self, seq_hashes: list[int],
+                                  max_blocks: int = 128,
+                                  with_scales: bool = True) -> tuple:
+        """Serve side of the fleet prefix cache, DEVICE tier: the longest
+        consecutive run of ``seq_hashes`` resident in the device prefix
+        cache, gathered d2h by the block-copy kernel (at most
+        ``max_blocks``, under the device lock). Non-destructive: the blocks
+        are ref-claimed for the gather (a concurrent eviction cannot
+        recycle the pages mid-copy) and released untouched. Returns
+        (hashes, k, v, k_scales, v_scales) as CPU tensors. With the int8
+        cache and ``with_scales`` the stacks are the device codec verbatim
+        (codes + [L, n] scales); without it the codes are dequantized on
+        the card before the d2h (counted) and the scales are None, as they
+        are for a full-width cache."""
+        if not seq_hashes or self._closed:
+            return [], None, None, None, None
+        claimed = self.allocator.match_prefix(
+            (), hashes=[(0, h) for h in seq_hashes[:max_blocks]])
+        if not claimed:
+            return [], None, None, None, None
+        ks = vs = None
+        try:
+            idxs = [b.idx for b in claimed]
+            async with self._device_lock:
+                got = await asyncio.get_running_loop().run_in_executor(
+                    None, self._gather_device, idxs, False,
+                    with_scales and self.k_scales is not None)
+        finally:
+            self.allocator.free(claimed)
+        k, v = got[0], got[1]
+        if len(got) > 2:
+            ks, vs = got[2], got[3]
+        served = list(seq_hashes[: len(claimed)])
+        self.stats["peer_serve_d2h_blocks"] += len(served)
+        return served, k, v, ks, vs
+
+    def note_export_requant(self, n: int) -> None:
+        """``n`` device-codec blocks left the card away from int8 (a
+        full-width extract, or a peer serve whose wire codec is not int8)."""
+        self.stats["kv_device_export_requant_total"] += n
+
+    def chain_coverage(self, chain: list[int]) -> int:
+        """Longest prefix of chained hashes resident in ANY local tier
+        (device pool, host pool, staging, disk index): index-only probes.
+        A peer pull fetches only the continuation past it."""
+        n = 0
+        for h in chain:
+            if self.allocator.has_hash(h) or (
+                    self.offload is not None and self.offload.tier_contains(h)):
+                n += 1
+                continue
+            break
+        return n
+
+    async def prefetch_hint(self, blocks: list) -> int:
+        """Router-hinted prefetch: ``blocks`` is the routed prompt's chain as
+        (local_hash, chained_hash) pairs. Probes the device pool for the
+        longest resident prefix, restores the host / disk (or peer-pulled)
+        continuation into fresh pages and commits them to the reuse pool,
+        so the request's admission claims them as ordinary prefix hits and
+        its TTFT never sees the h2d copy. Best-effort: bails without side
+        effects under pool pressure or on a cold tier. The host chain is
+        read NON-destructively (a request racing its own hint still finds
+        it) and dropped only after the device commit. Returns blocks
+        landed."""
+        if (self.offload is None or not self.cfg.offload_async or not blocks
+                or self._closed):
+            return 0
+        chain = [s for _l, s in blocks]
+        await self._offload_prejoin(chain)
+        n_dev = 0
+        for h in chain:
+            if not self.allocator.has_hash(h):
+                break
+            n_dev += 1
+        tail = blocks[n_dev:]
+        if not tail:
+            return 0
+        hashes, data = self.offload.peek_chain([s for _l, s in tail])
+        if not hashes:
+            return 0
+        fresh = self.allocator.allocate(len(hashes))
+        if fresh is None:
+            return 0
+        upload = self.offload.begin_upload(hashes, data, [b.idx for b in fresh])
+        loop = asyncio.get_running_loop()
+        try:
+            # wait out the copy BEFORE taking the device lock (holding it
+            # would stall every decode window for the upload), bounded: a
+            # wedged executor degrades the hint to a cold restore
+            if upload.future is not None:
+                await loop.run_in_executor(None, upload.future.result, 30.0)
+            async with self._device_lock:
+                await loop.run_in_executor(None, self._prefetch_land_device, upload)
+        except Exception:  # noqa: BLE001 — prefetch is advisory
+            logger.exception("hinted prefetch restore failed")
+            self.allocator.free(fresh)
+            self.offload.cancel_upload(upload)
+            return 0
+        # commit the landed pages under their chained hashes and drop the
+        # allocation ref: they become claimable prefix blocks. A hash that
+        # went device-resident meanwhile is not adopted (its block returns
+        # to the free list)
+        parent = chain[n_dev - 1] if n_dev else None
+        adopted = 0
+        for b, (local, seq_hash) in zip(fresh, tail):
+            if self.allocator.adopt_restored(b, seq_hash, local, parent):
+                b.prefetched = True
+                adopted += 1
+            parent = seq_hash
+        self.allocator.free(fresh)
+        self.offload.discard_chain(hashes)
+        self.offload.note_prefetch_landed(upload)
+        return adopted
+
+    def _prefetch_land_device(self, upload: RestoreUpload) -> None:
+        """Executor thread: launch pending evictions that may reference the
+        prefetch's pages, reset the fresh pages' scales (before the landing
+        adopts a chain's scales), then scatter the landed upload."""
+        self.offload.flush_evictions_async(self.k_cache, self.v_cache)
+        self._flush_scale_resets()
+        self.offload.finish_upload(self.k_cache, self.v_cache, upload,
+                                   account=False)
+
+    # ---------------- disaggregation hooks ----------------
+
+    def n_prompt_blocks(self, prompt_len: int) -> int:
+        bs = self.cfg.block_size
+        return (prompt_len + bs - 1) // bs
+
+    def _remote_sequence(self, req: PreprocessedRequest, context) -> _Sequence:
+        prompt = list(req.token_ids)
+        return _Sequence(request=req, context=context, out_queue=asyncio.Queue(),
+                         tokens=prompt, prompt_len=len(prompt))
+
+    def _prefill_device(self, seq: _Sequence, pos: int):
+        """Executor thread: every chunk of ``seq``'s prompt from ``pos``
+        (pending evictions launched first), then the first token. Returns
+        (token, logprob entry or None)."""
+        self._offload_preamble()
+        logits = None
+        while pos < len(seq.tokens):
+            logits, pos = self._run_one_chunk(seq, pos)
+        return self._sample_prefill(seq, logits)
+
+    async def prefill_extract(self, req: PreprocessedRequest, context,
+                              skip_blocks: int = 0, keep_on_device: bool = False,
+                              timings: Optional[dict] = None) -> tuple:
+        """Prefill-worker side: compute the prompt's KV (with this worker's
+        own prefix cache), sample the first token, and return the prompt's
+        KV blocks after ``skip_blocks`` (the decode side's prefix hit),
+        gathered by the block-copy kernel. Blocks are committed to the
+        reuse pool before they are freed, so repeated prefixes stay warm.
+        ``keep_on_device`` returns the gather's CUDA tensors (the local
+        pipe), else CPU tensors for the wire. ``timings["gather_ms"]`` gets
+        the gather + d2h wall. Returns (first_token, first_lp, k, v)."""
+        seq = self._remote_sequence(req, context)
+        reserved = self._reserve_for_prompt(seq)
+        if reserved is None:
+            raise OutOfBlocks(f"cannot cover {len(seq.tokens)}-token prompt")
+        history = reserved[0]
+        self.stats["prefix_cache_hits_tokens"] += history
+        loop = asyncio.get_running_loop()
+        try:
+            async with self._device_lock:
+                first_token, first_lp = await loop.run_in_executor(
+                    None, self._prefill_device, seq, history)
+                n_prompt = self.n_prompt_blocks(len(seq.tokens))
+                idxs = [b.idx for b in seq.blocks[skip_blocks:n_prompt]]
+                k = v = None
+                if idxs:
+                    t_g = time.perf_counter()
+                    k, v = await loop.run_in_executor(
+                        None, self._gather_device, idxs, keep_on_device)
+                    if timings is not None:
+                        timings["gather_ms"] = timings.get("gather_ms", 0.0) + (
+                            time.perf_counter() - t_g) * 1e3
+            self._commit_full_blocks(seq)
+        finally:
+            self.allocator.free(seq.blocks)
+            seq.blocks = []
+        return first_token, first_lp, k, v
+
+    async def prefill_extract_stream(self, req: PreprocessedRequest, context,
+                                     skip_blocks: int = 0,
+                                     keep_on_device: bool = False,
+                                     segment_blocks: int = 0, on_segment=None,
+                                     timings: Optional[dict] = None) -> tuple:
+        """Streamed twin of :meth:`prefill_extract`: the prompt prefills
+        chunk by chunk, and every chunk's freshly completed blocks are
+        gathered and handed to ``on_segment(b0, k_seg, v_seg)`` the moment
+        the chunk's compute finishes, so the caller ships them while the
+        next chunk computes. ``b0`` is relative to ``skip_blocks``;
+        segments arrive in order and cover [skip_blocks, n_prompt_blocks)
+        once. ``segment_blocks`` caps a segment (0 = one per chunk). The
+        final segment (the partial last block included) goes out before
+        first-token sampling. The device lock is taken per chunk and per
+        gather, so concurrent extracts interleave chunk-wise, and the
+        segment's backpressure is paid outside the lock. Returns
+        (first_token, first_lp, blocks emitted)."""
+        seq = self._remote_sequence(req, context)
+        reserved = self._reserve_for_prompt(seq)
+        if reserved is None:
+            raise OutOfBlocks(f"cannot cover {len(seq.tokens)}-token prompt")
+        history = reserved[0]
+        self.stats["prefix_cache_hits_tokens"] += history
+        bs = self.cfg.block_size
+        prompt = seq.tokens
+        n_prompt = self.n_prompt_blocks(len(prompt))
+        sent = skip_blocks
+        loop = asyncio.get_running_loop()
+
+        async def emit_upto(full: int) -> None:
+            nonlocal sent
+            while sent < full:
+                hi = min(full, sent + segment_blocks) if segment_blocks > 0 else full
+                idxs = [b.idx for b in seq.blocks[sent:hi]]
+                t_g = time.perf_counter()
+                async with self._device_lock:
+                    k_seg, v_seg = await loop.run_in_executor(
+                        None, self._gather_device, idxs, keep_on_device)
+                if timings is not None:
+                    timings["gather_ms"] = timings.get("gather_ms", 0.0) + (
+                        time.perf_counter() - t_g) * 1e3
+                await on_segment(sent - skip_blocks, k_seg, v_seg)
+                sent = hi
+
+        try:
+            async with self._device_lock:
+                await loop.run_in_executor(None, self._offload_preamble)
+            pos = history
+            logits = None
+            while pos < len(prompt):
+                async with self._device_lock:
+                    logits, pos = await loop.run_in_executor(
+                        None, self._run_one_chunk, seq, pos)
+                # blocks whose every position is now written; the final
+                # chunk also releases the partial last block
+                full = n_prompt if pos >= len(prompt) else min(pos // bs, n_prompt)
+                if on_segment is not None and full > sent:
+                    await emit_upto(full)
+            async with self._device_lock:
+                first_token, first_lp = await loop.run_in_executor(
+                    None, self._sample_prefill, seq, logits)
+            self._commit_full_blocks(seq)
+        finally:
+            self.allocator.free(seq.blocks)
+            seq.blocks = []
+        return first_token, first_lp, max(n_prompt - skip_blocks, 0)
+
+    def _gather_device(self, idxs: list[int], keep_on_device: bool = False,
+                       with_scales: bool = False):
+        """The pages at ``idxs`` as ``[L, H, n, bs, D]`` stacks: one
+        ``gather_blocks`` launch, then the d2h copy unless
+        ``keep_on_device``. With the int8 cache the gather carries the
+        scale planes: ``with_scales=True`` returns the device codec
+        verbatim (k, v, k_scales, v_scales); otherwise the codes are
+        dequantized to the model's width on the card (one
+        ``scatter_blocks_dequant`` launch into a fresh stack), counted in
+        ``kv_device_export_requant_total``."""
+        idx = self._dev(np.asarray(idxs, np.int32))
+        if self.k_scales is None:
+            out = block_copy.gather_blocks(self.k_cache, self.v_cache, idx)
+        else:
+            out = block_copy.gather_blocks(self.k_cache, self.v_cache, idx,
+                                           self.k_scales, self.v_scales)
+            if not with_scales:
+                self.note_export_requant(len(idxs))
+                out = self._dequant_stack(*out)
+        if keep_on_device:
+            return out
+        return tuple(t.cpu() for t in out)
+
+    def _dequant_stack(self, k, v, ks, vs) -> tuple:
+        """int8 code stacks times their [L, n] scales in the model's width,
+        landed by the dequantizing scatter into fresh stacks."""
+        dt = llama._dtype(self.cfg.model)
+        n = k.shape[2]
+        out_k = torch.empty(k.shape, dtype=dt, device=k.device)
+        out_v = torch.empty(v.shape, dtype=dt, device=v.device)
+        ar = torch.arange(n, dtype=torch.int32, device=k.device)
+        block_copy.scatter_blocks_dequant(out_k, out_v, ar, k, v, ks, vs)
+        return out_k, out_v
+
+    def begin_remote(self, request: Context) -> Optional[RemoteHandle]:
+        """Decode side, before a remote prefill is enqueued: match the local
+        prefix cache and allocate the sequence's pages up front. None when
+        the request should serve locally instead (empty, too long, out of
+        vocab, or the pool cannot cover it)."""
+        req = request.data
+        if isinstance(req, dict):
+            req = PreprocessedRequest.from_dict(req)
+        prompt = list(req.token_ids)
+        V = self.cfg.model.vocab_size
+        if (not prompt or len(prompt) >= self.cfg.max_context
+                or not all(0 <= t < V for t in prompt)):
+            return None
+        seq = self._remote_sequence(req, request.context)
+        if self._reserve_for_prompt(seq) is None:
+            return None
+        self.stats["requests_total"] += 1
+        self.stats["prompt_tokens_total"] += seq.prompt_len
+        return RemoteHandle(seq=seq, skip_blocks=seq.committed,
+                            n_prompt_blocks=self.n_prompt_blocks(len(prompt)))
+
+    def release_remote(self, handle: RemoteHandle) -> None:
+        """Local prefill chosen after begin_remote: return the pages
+        untouched (no output emitted; the caller resubmits locally)."""
+        self.stats["requests_total"] -= 1
+        self.stats["prompt_tokens_total"] -= handle.seq.prompt_len
+        self.allocator.free(handle.seq.blocks)
+        handle.seq.blocks = []
+
+    async def complete_remote(self, handle: RemoteHandle, first_token: int,
+                              k_data, v_data, first_lp: Optional[dict] = None,
+                              k_scales=None, v_scales=None) -> asyncio.Queue:
+        """The prefill worker's KV arrived: land a bulk delivery (a
+        streamed one already landed segment by segment) into the reserved
+        pages, emit the first token it sampled (with its logprob entry)
+        and queue the sequence for the decode batch. ``k_scales`` /
+        ``v_scales`` ([L, n] f32) mark a quantized wire delivery."""
+        seq = handle.seq
+        if k_data is not None and k_data.shape[2]:
+            n = int(k_data.shape[2])
+            idxs = [b.idx for b in seq.blocks[handle.skip_blocks:handle.skip_blocks + n]]
+            async with self._device_lock:
+                await asyncio.get_running_loop().run_in_executor(
+                    None, self._scatter_device, idxs, k_data, v_data,
+                    k_scales, v_scales)
+        self.stats["prefix_cache_hits_tokens"] += seq.cached_prefix
+        self._emit_token(seq, first_token, first_lp)
+        if not seq.finished:
+            self._commit_full_blocks(seq, written_len=seq.seq_len - 1)
+            self._remote_ready.append(seq)
+            self._wake.set()
+        return seq.out_queue
+
+    async def scatter_remote_segment(self, handle: RemoteHandle, b0: int,
+                                     k_data, v_data, k_scales=None,
+                                     v_scales=None) -> None:
+        """Streamed landing: scatter ONE segment's blocks into the
+        reservation the moment it arrives. ``b0`` is relative to the
+        handle's skip_blocks. A redelivered stream scatters again over the
+        same uncommitted pages."""
+        seq = handle.seq
+        n = int(k_data.shape[2])
+        if n == 0:
+            return
+        blocks = seq.blocks[handle.skip_blocks + b0:handle.skip_blocks + b0 + n]
+        if seq.finished or len(blocks) != n:
+            raise RuntimeError(
+                f"remote segment [{b0}, {b0 + n}) outside the live "
+                f"reservation of {getattr(seq.context, 'id', '?')}")
+        async with self._device_lock:
+            await asyncio.get_running_loop().run_in_executor(
+                None, self._scatter_device, [b.idx for b in blocks], k_data,
+                v_data, k_scales, v_scales)
+
+    def abort_remote(self, handle: RemoteHandle, message: str = "") -> None:
+        seq = handle.seq
+        self.allocator.free(seq.blocks)
+        seq.blocks = []
+        seq.finished = True
+        seq.out_queue.put_nowait(
+            LLMEngineOutput(finish_reason=FinishReason.ERROR, text=message or None))
+
+    def _scatter_device(self, idxs: list[int], k_data, v_data,
+                        k_scales=None, v_scales=None) -> None:
+        """Executor thread: land delivered stacks (CPU or CUDA) at ``idxs``
+        in place, one block-copy launch. Pending evictions that may
+        reference these pages are launched first, then the fresh pages'
+        scale resets (so scales a landing adopts stay). The int8 cache
+        adopts a matching int8 wire payload verbatim and requantizes
+        anything else; a full-width or fp8 cache takes full-width stacks as
+        they are (cast to its dtype) and dequantizes quantized ones."""
+        if self.offload is not None:
+            self.offload.flush_evictions_async(self.k_cache, self.v_cache)
+        self._flush_scale_resets()
+        idx = self._dev(np.asarray(idxs, np.int32))
+        k, v = k_data.to(self.device), v_data.to(self.device)
+        ks = vs = None
+        if k_scales is not None:
+            ks = k_scales.to(self.device, torch.float32)
+            vs = v_scales.to(self.device, torch.float32)
+        if self.k_scales is not None:
+            if ks is not None and k.dtype == self.k_cache.dtype:
+                block_copy.scatter_blocks(self.k_cache, self.v_cache, idx, k, v,
+                                          self.k_scales, self.v_scales, ks, vs)
+                return
+            if ks is None:
+                ks = vs = torch.ones((k.shape[0], k.shape[2]),
+                                     dtype=torch.float32, device=self.device)
+            block_copy.scatter_blocks_requant(
+                self.k_cache, self.v_cache, self.k_scales, self.v_scales, idx,
+                k, v, ks, vs)
+        elif ks is not None:
+            block_copy.scatter_blocks_dequant(self.k_cache, self.v_cache, idx,
+                                              k, v, ks, vs)
+        else:
+            block_copy.scatter_blocks(self.k_cache, self.v_cache, idx, k, v)

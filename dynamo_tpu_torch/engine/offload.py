@@ -53,12 +53,16 @@ CUDA graphs hold their addresses. Host entries are CPU ``torch`` tensors
 (bf16 and e4m3 pages have no numpy dtype without ``ml_dtypes``); the disk
 format turns them into exactly the bytes the reference writes.
 
-Left out (ROADMAP A.5 item 2 and A.9): the fleet pull's serve and landing
-sides (``export_chain``, ``export_chain_q``, ``land_peer_chain``), the
-router-hinted prefetch (``peek_chain``, ``discard_chain``, the
-``note_prefetch_*`` accounting) and the multi-host mirror. Their counters
-stay in :meth:`OffloadManager.stats` at 0, so the ``load_metrics`` keys
-equal the reference's.
+**Fleet tier.** A peer's pull is served from the host and disk tiers by
+:meth:`OffloadManager.export_chain_q` (non-destructive: peek and disk read)
+and landed on the puller by :meth:`OffloadManager.land_peer_chain` in the
+host staging area, from where the router-hinted prefetch
+(``TorchEngine.prefetch_hint``: :meth:`peek_chain`, :meth:`discard_chain`,
+the ``note_prefetch_*`` accounting) promotes it to the device before the
+request arrives. The ``peer_*`` and ``h2d_prefetch_*`` keys of
+:meth:`OffloadManager.stats` count that work.
+
+Left out (ROADMAP A.9): the multi-host mirror.
 """
 
 from __future__ import annotations
@@ -526,6 +530,14 @@ class HostKvPool:
             self._used_bytes -= entry_nbytes(got)
         return got
 
+    def peek(self, seq_hash: int) -> Optional[tuple]:
+        """Return WITHOUT removing (the hinted prefetch and a peer serve
+        read non-destructively; entries are immutable)."""
+        got = self._data.get(seq_hash)
+        if got is not None:
+            self._data.move_to_end(seq_hash)
+        return got
+
     def match_chain(self, seq_hashes: list[int]) -> int:
         """Longest consecutive run of hashes resident in the pool."""
         n = 0
@@ -657,6 +669,8 @@ class OffloadManager:
         self._inflight_flushes: list[_FlushTask] = []
         self.d2h_flush_async_total = 0
         self.d2h_flush_failures = 0
+        self.h2d_prefetch_blocks_total = 0
+        self.h2d_prefetch_hits = 0
         self.h2d_uploads_started = 0
         self.h2d_uploads_cancelled = 0
         self.restore_hidden_s = 0.0
@@ -699,11 +713,20 @@ class OffloadManager:
         # on the way out (a full-width or fp8 tier)
         self.device_planes: Optional[Callable[[], Optional[tuple]]] = None
         self.device_requants_total = 0
-        # staging area for chains promoted from disk: exempt from the host
-        # pool's LRU capacity (a chain longer than the host budget would
-        # otherwise demote its own head before it restores); popped by
-        # reserve, LRU-capped at a small multiple of the host budget
+        # staging area for INCOMING chains (disk promotions, peer pulls):
+        # exempt from the host pool's LRU capacity (a chain longer than the
+        # host budget would otherwise demote its own head before it
+        # restores); popped by reserve / discard, LRU-capped at a small
+        # multiple of the host budget
         self._staged: OrderedDict[int, tuple] = OrderedDict()
+        # peer-pulled hashes staged but not yet claimed by a request:
+        # claiming one means its transfer was fully hidden
+        # (peer_pull_hidden_frac); insertion-ordered and capped
+        self._peer_hashes: OrderedDict[int, None] = OrderedDict()
+        self._peer_track_cap = 8192
+        self.peer_pull_blocks_total = 0
+        self.peer_pull_blocks_claimed = 0
+        self.peer_serve_blocks_total = 0
 
     # -- allocator callback (event-loop thread) --
     def on_evict(self, seq_hash: int, block_idx: int) -> None:
@@ -865,7 +888,7 @@ class OffloadManager:
     def _staged_cap(self) -> int:
         return max(4 * self.pool.capacity, 64)
 
-    def _stage_locked(self, seq_hash: int, entry: tuple,
+    def _stage_locked(self, seq_hash: int, entry: tuple, peer: bool = False,
                       fresh: Optional[set] = None) -> None:
         self._staged[seq_hash] = entry
         self._staged.move_to_end(seq_hash)
@@ -878,8 +901,13 @@ class OffloadManager:
                 # is what the consecutive match starts from)
                 break
             self._staged.popitem(last=False)
+            self._peer_hashes.pop(old, None)
             if self.disk is None or not self.disk.contains(old):
                 self._dropped_pending.append(old)
+        if peer:
+            self._peer_hashes[seq_hash] = None
+            while len(self._peer_hashes) > self._peer_track_cap:
+                self._peer_hashes.popitem(last=False)
 
     def _match_chain_locked(self, seq_hashes: list[int]) -> int:
         """Longest consecutive run claimable by a reserve: host pool ∪
@@ -961,6 +989,94 @@ class OffloadManager:
             except Exception:  # noqa: BLE001 — residency events are advisory
                 logger.debug("tier-drop notification failed", exc_info=True)
 
+    # -- fleet tier (peer prefix pulls) --
+
+    def _collect_export(self, seq_hashes: list[int], max_blocks: int):
+        """Longest consecutive resident run of ``seq_hashes`` as entry
+        tuples in this manager's codec mode (disk reads normalized).
+        Non-destructive. Executor thread."""
+        served: list[int] = []
+        entries: list[tuple] = []
+        for h in seq_hashes[:max_blocks]:
+            with self._lock:
+                got = self.pool.peek(h)
+                if got is None:
+                    got = self._staged.get(h)
+            if got is None and self.disk is not None:
+                got = self.disk.get(h)
+                if got is not None:
+                    got = self._normalize_entry(got)
+            if got is None:
+                break
+            served.append(h)
+            entries.append(got)
+        return served, entries
+
+    def export_chain(self, seq_hashes: list[int], max_blocks: int = 512) -> tuple:
+        """Serve side of a peer prefix pull, FULL-WIDTH form: the longest
+        consecutive run of ``seq_hashes`` resident in the host and disk
+        tiers, stacked ``[L, Hkv, n, bs, D]`` (quantized entries
+        dequantized). Returns (hashes, k, v)."""
+        served, k, v, _ks, _vs = self.export_chain_q(
+            seq_hashes, max_blocks=max_blocks, quant_ok=False)
+        return served, k, v
+
+    def export_chain_q(self, seq_hashes: list[int], max_blocks: int = 512,
+                       quant_ok: bool = True) -> tuple:
+        """Quant-aware export: (hashes, k, v, ks, vs). With the codec on
+        and ``quant_ok`` (the puller advertised the capability) the stacks
+        are the stored int8 / fp8 payloads plus [L, n] scales; otherwise
+        the scales are None and the stacks full width. Non-destructive, so
+        a puller dying mid-pull leaves this worker's tiers untouched.
+        Executor thread (disk reads + multi-MB stacking)."""
+        served, entries = self._collect_export(seq_hashes, max_blocks)
+        if not served:
+            return [], None, None, None, None
+        quantized = self.kv_quant != "none"
+        if quantized and not quant_ok:
+            entries = [kvquant.dequantize_entry(e[0], e[1], e[2], e[3],
+                                                self.full_dtype)
+                       for e in entries]
+            quantized = False
+        k = torch.stack([e[0] for e in entries], dim=2)
+        v = torch.stack([e[1] for e in entries], dim=2)
+        ks = vs = None
+        if quantized:
+            ks = torch.stack([e[2] for e in entries], dim=1)  # [L, n]
+            vs = torch.stack([e[3] for e in entries], dim=1)
+        with self._lock:
+            self.peer_serve_blocks_total += len(served)
+        return served, k, v, ks, vs
+
+    def land_peer_chain(self, seq_hashes: list[int], k_data: torch.Tensor,
+                        v_data: torch.Tensor,
+                        k_scales: Optional[torch.Tensor] = None,
+                        v_scales: Optional[torch.Tensor] = None) -> int:
+        """Puller side: park a peer-served chain (CPU stacks) in the host
+        STAGING area, not the LRU pool (whose capacity would thrash a chain
+        longer than the host budget before the restore runs); the hinted
+        prefetch promotes it to the device like a locally offloaded chain.
+        ``k_scales``/``v_scales`` ([L, n] f32) mark a quantized delivery;
+        each block is normalized to THIS manager's codec mode. Executor
+        thread (per-block copies: a view would pin the whole stack)."""
+        landed = 0
+        fresh: set = set()
+        # truncate at the staging cap, keeping the chain's PREFIX
+        for i, h in enumerate(seq_hashes[: self._staged_cap()]):
+            entry = (k_data[:, :, i].clone(), v_data[:, :, i].clone())
+            if k_scales is not None:
+                entry += (k_scales[:, i].float().clone(),
+                          v_scales[:, i].float().clone())
+            entry = self._normalize_entry(entry)
+            with self._lock:
+                if (h in self.pool or h in self._staged
+                        or (self.disk is not None and self.disk.contains(h))):
+                    continue  # raced a local landing; content-identical
+                self._stage_locked(h, entry, peer=True, fresh=fresh)
+                self.peer_pull_blocks_total += 1
+            landed += 1
+        return landed
+
     # -- admission-time reservation (event-loop thread) --
 
     def reserve_chain(self, seq_hashes: list[int]) -> tuple[list[int], list]:
@@ -982,7 +1098,41 @@ class OffloadManager:
                     out.append(self.pool.take(h))
                 else:
                     out.append(self._staged.pop(h))
+                # a request racing its own hint can reserve a peer-pulled
+                # block before the prefetch marks it: reserving IS the claim
+                if h in self._peer_hashes:
+                    self._peer_hashes.pop(h)
+                    self.peer_pull_blocks_claimed += 1
             return hashes, out
+
+    def peek_chain(self, seq_hashes: list[int]) -> tuple[list[int], list]:
+        """Non-destructive :meth:`reserve_chain` for the prefetch path: the
+        entries STAY claimable by a racing admission until
+        :meth:`discard_chain` drops them after the device commit (a hint
+        must never make the hinted request slower)."""
+        if seq_hashes and self._inflight_flushes:
+            self._join_flushes_for(seq_hashes)
+        if self.disk is not None and seq_hashes:
+            self.promote_chain(seq_hashes)
+        with self._lock:
+            n = self._match_chain_locked(seq_hashes)
+            hashes = seq_hashes[:n]
+            out = []
+            for h in hashes:
+                got = self.pool.peek(h)
+                if got is None:
+                    got = self._staged[h]
+                    self._staged.move_to_end(h)
+                out.append(got)
+            return hashes, out
+
+    def discard_chain(self, hashes: list[int]) -> None:
+        """Drop host copies whose content is now device-resident (the
+        prefetch landed and committed)."""
+        with self._lock:
+            for h in hashes:
+                self.pool.take(h)
+                self._staged.pop(h, None)
 
     def unreserve(self, hashes: list[int], data) -> None:
         """Admission failed (or the prefill was cancelled/errored) after
@@ -1182,6 +1332,30 @@ class OffloadManager:
                 self.pool.hit_blocks_total += len(up.data)
         self._scatter(k_cache, v_cache, up.idxs, landed)
 
+    # -- prefetch accounting (router-hinted restores, engine side) --
+
+    def note_prefetch_landed(self, up: RestoreUpload) -> None:
+        """A hinted restore landed off the admission path: its whole
+        transfer latency was hidden from every later request."""
+        with self._lock:
+            self.h2d_prefetch_blocks_total += len(up.hashes)
+            if up.t_landed is not None:
+                self.restore_hidden_s += max(up.t_landed - up.t_start, 0.0)
+        if self.cost_model is not None and up.t_landed is not None and up.data:
+            self.cost_model.observe(
+                "host", sum(entry_nbytes(e) for e in up.data),
+                max(up.t_landed - up.t_start, 1e-9))
+
+    def note_prefetch_hits(self, n: int, hashes: Optional[list] = None) -> None:
+        """``n`` prefetched device blocks claimed by a request; those that
+        arrived through a peer pull count as hidden pull transfers."""
+        with self._lock:
+            self.h2d_prefetch_hits += n
+            for h in hashes or ():
+                if h in self._peer_hashes:
+                    self._peer_hashes.pop(h)
+                    self.peer_pull_blocks_claimed += 1
+
     def _scatter(self, k_cache, v_cache, block_idxs: list[int],
                  parts: list) -> None:
         """Land restored stacks at ``block_idxs`` (in place, one launch on
@@ -1242,13 +1416,13 @@ class OffloadManager:
             shutil.rmtree(self._own_disk_path, ignore_errors=True)
 
     def stats(self) -> dict:
-        """The reference's tier keys. The router-hinted prefetch and the
-        fleet pull (ROADMAP A.5 item 2) feed the ``h2d_prefetch_*`` and
-        ``peer_*`` ones: 0 here."""
+        """The reference's tier keys, the fleet pull's and the hinted
+        prefetch's among them."""
         with self._lock:
             hid, exp = self.restore_hidden_s, self.restore_exposed_s
             denom = hid + exp
             disk = self.disk
+            pulled = self.peer_pull_blocks_total
             return {
                 "offload_blocks_resident": len(self.pool),
                 "offload_blocks_stored_total": self.pool.stored_total,
@@ -1263,17 +1437,19 @@ class OffloadManager:
                 "disk_evictions_total": (
                     disk.evictions_total if disk is not None else 0),
                 "disk_demotions_total": self.disk_demotions_total,
-                "peer_pull_blocks_total": 0,
-                "peer_pull_blocks_claimed": 0,
-                "peer_pull_hidden_frac": 0.0,
-                "peer_serve_blocks_total": 0,
+                "peer_pull_blocks_total": pulled,
+                "peer_pull_blocks_claimed": self.peer_pull_blocks_claimed,
+                "peer_pull_hidden_frac": (
+                    round(self.peer_pull_blocks_claimed / pulled, 6)
+                    if pulled else 0.0),
+                "peer_serve_blocks_total": self.peer_serve_blocks_total,
                 "kv_quant_blocks_total": self.kv_quant_blocks_total,
                 "kv_quant_bytes_saved_total": self.kv_quant_bytes_saved_total,
                 "d2h_flush_async": self.d2h_flush_async_total,
                 "d2h_flush_failures": self.d2h_flush_failures,
                 "d2h_flush_pending": len(self._pending),
-                "h2d_prefetch_blocks_total": 0,
-                "h2d_prefetch_hits": 0,
+                "h2d_prefetch_blocks_total": self.h2d_prefetch_blocks_total,
+                "h2d_prefetch_hits": self.h2d_prefetch_hits,
                 "h2d_uploads_started": self.h2d_uploads_started,
                 "h2d_uploads_cancelled": self.h2d_uploads_cancelled,
                 "restore_latency_hidden_frac": (

@@ -9,8 +9,13 @@ reference's, so torch and JAX workers share one index.
 """
 
 from .indexer import KvIndexer, OverlapScores, PrefixIndex
-from .protocols import KvCacheEvent, KvPrefetchHint, RouterEvent
-from .publisher import KvEventPublisher, KvMetricsAggregator
+from .protocols import KvCacheEvent, KvPeerFetchRequest, KvPrefetchHint, RouterEvent
+from .publisher import (
+    KvEventPublisher,
+    KvMetricsAggregator,
+    KvPeerServer,
+    KvPrefetchListener,
+)
 from .router import KvRoutedEngine, KvRouter
 from .scheduler import KvScheduler, ProcessedEndpoints, SchedulerConfig, WorkerLoad
 
@@ -19,7 +24,10 @@ __all__ = [
     "KvEventPublisher",
     "KvIndexer",
     "KvMetricsAggregator",
+    "KvPeerFetchRequest",
+    "KvPeerServer",
     "KvPrefetchHint",
+    "KvPrefetchListener",
     "KvRoutedEngine",
     "KvRouter",
     "KvScheduler",

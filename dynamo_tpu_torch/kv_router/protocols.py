@@ -18,6 +18,12 @@ from typing import Optional
 KV_EVENT_SUBJECT = "kv_events"
 KV_HIT_RATE_SUBJECT = "kv-hit-rate"
 KV_PREFETCH_SUBJECT = "kv-prefetch"
+#: fleet prefix cache: a routed worker whose local tiers miss asks the
+#: peer named in its kv-prefetch hint for the chain's continuation; the
+#: peer answers by pushing the blocks over the TCP transfer plane
+#: (disagg/transfer.py framing + ack) to the requester's connect-back
+#: address. The bus carries only the negotiation, never the KV bytes
+KV_PEER_FETCH_SUBJECT = "kv-peer-fetch"
 
 #: hard cap on blocks per prefetch hint: bounds message size and the
 #: host->device burst one hint can trigger on the worker
@@ -141,6 +147,45 @@ class KvPrefetchHint:
             peer_worker_id=int(peer) if peer is not None else None,
             peer_blocks=int(d.get("peer_blocks") or 0),
             model=str(model) if model else None,
+        )
+
+
+@dataclass
+class KvPeerFetchRequest:
+    """Worker -> peer negotiation for one fleet-tier prefix pull: the
+    requested chain (hashes PAST the requester's local coverage, prompt
+    order) plus the requester's transfer-plane connect-back address.
+    The peer probes its host/disk tiers and pushes the longest
+    consecutive resident run as one bulk KV transfer keyed by
+    ``request_id`` (or an error delivery on a total miss, so the
+    requester doesn't wait out its timeout). The KV bytes never touch
+    the bus."""
+
+    peer_worker_id: int  # the peer asked to serve
+    src_worker_id: int  # the requester (logging/metrics)
+    request_id: str  # transfer-plane correlation id
+    hashes: list  # chained block hashes, prompt order
+    connection: dict  # requester's KvTransferServer ConnectionInfo
+    #: wire-codec capability (disagg/transfer.KV_QUANT_WIRE_VERSION):
+    #: the requester accepts int8/fp8 payloads + scale frames and
+    #: dequantizes on landing. 0/absent (legacy pullers) makes the
+    #: serving peer dequantize its stored blocks to full width first —
+    #: the quant/no-quant skew matrix degrades to bytes, never errors.
+    accept_quant: int = 0
+
+    def to_bytes(self) -> bytes:
+        return json.dumps(self.__dict__).encode()
+
+    @staticmethod
+    def from_bytes(raw: bytes) -> "KvPeerFetchRequest":
+        d = json.loads(raw)
+        return KvPeerFetchRequest(
+            peer_worker_id=int(d["peer_worker_id"]),
+            src_worker_id=int(d.get("src_worker_id", 0)),
+            request_id=str(d["request_id"]),
+            hashes=[int(h) for h in d.get("hashes", [])],
+            connection=d.get("connection") or {},
+            accept_quant=int(d.get("accept_quant") or 0),
         )
 
 

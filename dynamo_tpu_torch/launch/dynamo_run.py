@@ -7,7 +7,15 @@ The subset of ``dynamo_tpu/launch/dynamo_run.py`` the port serves:
             /v1/chat/completions, /metrics)
   in=text   interactive prompt loop on stdin
   in=dyn://ns.comp.ep   serve the engine as a distributed endpoint
-            (worker), registered with the hub at ``--hub``
+            (worker), registered with the hub at ``--hub``; with
+            ``--disagg decode`` prompts of more than ``--max-local-prefill``
+            uncached tokens prefill on a prefill worker, whose KV lands here
+            over the transfer plane; with a host tier the worker also pulls
+            router-hinted prefixes from peers and serves theirs
+  in=prefill  prefill worker: consumes the namespace's (``--namespace``)
+            prefill queue, computes each prompt's KV and first token and
+            pushes them to the decode worker that asked; its stats answer at
+            ``dyn://<namespace>.prefill.status``
   out=torch the PyTorch engine (TorchEngine), on ``--device`` (cuda)
   out=dyn://ns.comp.ep  route to the workers discovered at ``--hub``
             (frontend): ``--router kv`` tokenizes here and sends each
@@ -24,6 +32,13 @@ Examples::
   CUDA_VISIBLE_DEVICES= python -m dynamo_tpu_torch.launch.dynamo_run in=http \
       out=dyn://dynamo.backend.generate --hub 127.0.0.1:18500 --router kv \
       --model-path llama3-8b-sim
+
+  # disaggregated: a prefill worker and a decode worker behind the frontend
+  python -m dynamo_tpu_torch.launch.dynamo_run in=prefill out=torch \
+      --hub 127.0.0.1:18500 --model-path llama3-8b-sim --warmup
+  python -m dynamo_tpu_torch.launch.dynamo_run in=dyn://dynamo.backend.generate \
+      out=torch --hub 127.0.0.1:18500 --model-path llama3-8b-sim --warmup \
+      --disagg decode --max-local-prefill 512
 
   python -m dynamo_tpu_torch.launch.dynamo_run in=http out=torch \\
       --model-path llama3-8b-sim
@@ -77,10 +92,24 @@ from typing import Optional
 import torch
 
 from ..device import resolve_device
+from ..disagg import (
+    ConditionalDisaggRouter,
+    DisaggConfig,
+    DisaggEngine,
+    KvTransferServer,
+    PrefillQueue,
+    PrefillWorker,
+)
 from ..engine.engine import EngineConfig, TorchEngine
 from ..http.discovery import ModelEntry, ModelWatcher, register_model
 from ..http.service import HttpService, ModelManager
-from ..kv_router import KvEventPublisher, KvRoutedEngine, KvRouter
+from ..kv_router import (
+    KvEventPublisher,
+    KvPeerServer,
+    KvPrefetchListener,
+    KvRoutedEngine,
+    KvRouter,
+)
 from ..llm.backend import Backend
 from ..llm.hub import resolve_model_path
 from ..llm.model_card import MdcRefresher, ModelDeploymentCard
@@ -92,7 +121,7 @@ from ..models.quant import KV_CACHE_DTYPES, WEIGHT_MODES, kv_cache_dtype
 from ..models.weights import init_random_params, load_llama_params
 from ..ops._cuda import launch_counts
 from ..runtime import DistributedRuntime, Worker, link
-from ..runtime.engine import Context
+from ..runtime.engine import AsyncEngine, Context
 from ..runtime.hub import HubServer
 from ..runtime.loopwatch import LoopStallMonitor
 
@@ -185,16 +214,18 @@ def build_engine(args) -> tuple[OpenAIWorkerEngine, TorchEngine, str]:
     return OpenAIWorkerEngine(tokenizer, core), core, name
 
 
-async def maybe_warmup(args, core: TorchEngine) -> None:
+async def maybe_warmup(args, core: TorchEngine, decode: bool = True) -> None:
     """--warmup: dispatch the serving programs (kernel builds, the CUDA
     graph captures of the decode windows) before the HTTP port opens, so
     no request pays the first dispatch of a prefill bucket or of a decode
-    window."""
+    window. A prefill worker (``decode=False``) warms the prefill buckets
+    only."""
     if args.warmup:
         t0 = time.monotonic()
-        sizes = await core.warmup()
-        print(f"warmup: compiled prefill buckets {sizes} + decode window "
-              f"ladder in {time.monotonic() - t0:.1f}s", flush=True)
+        sizes = await core.warmup(decode=decode)
+        ladder = " + decode window ladder" if decode else ""
+        print(f"warmup: compiled prefill buckets {sizes}{ladder} in "
+              f"{time.monotonic() - t0:.1f}s", flush=True)
 
 
 async def connect_runtime(args) -> DistributedRuntime:
@@ -270,7 +301,11 @@ async def serve_endpoint(args, drt: DistributedRuntime, engine, core: TorchEngin
     """The worker's main: its allocator publishes KV events, its stats
     endpoint answers with ``load_metrics() | stats``, the loop monitor's
     counters and the kernel wrappers' launch counts (``kernel_launches``),
-    and its model and card are published; it serves until cancelled."""
+    and its model and card are published; it serves until cancelled.
+    ``--disagg decode`` puts a ``DisaggEngine`` in front of the engine (its
+    counters and ``handoffs`` records join the stats); a host tier starts
+    the prefetch-hint listener (which pulls from peers) and the peer
+    server."""
     target = args.in_.removeprefix("dyn://")
     ns, comp, ep = dyn_target(target)
     component = drt.namespace(ns).component(comp)
@@ -279,11 +314,40 @@ async def serve_endpoint(args, drt: DistributedRuntime, engine, core: TorchEngin
     KvEventPublisher(drt, component, drt.primary_lease_id).attach(
         core.allocator, offload=core.offload)
     stalls = LoopStallMonitor().start()
-    handle = await component.endpoint(ep).serve(
-        engine,
-        stats_handler=lambda: (core.load_metrics() | core.stats | stalls.counters()
-                               | {"kernel_launches": launch_counts()}),
-    )
+    closers = []
+    transfer = disagg = None
+    if args.disagg == "decode":
+        transfer = KvTransferServer(host=args.host, advertise_host=args.advertise_host)
+        await transfer.start()
+        closers.append(transfer.close)
+        router = ConditionalDisaggRouter(
+            drt, ns, name,
+            DisaggConfig(max_local_prefill_length=args.max_local_prefill))
+        await router.start()
+        closers.append(router.stop)
+        # the queue is named by the endpoint's namespace: prefill workers
+        # run with --namespace <the same>
+        queue = PrefillQueue(drt.bus, ns)
+        disagg = DisaggEngine(core, router, queue, transfer,
+                              engine_id=drt.primary_lease_id,
+                              kv_stream=args.kv_stream)
+        engine = OpenAIWorkerEngine(engine.tokenizer, disagg)
+    if core.offload is not None:
+        # the router-hinted prefetch (pulling from the hinted peer first)
+        # and the serve side of peers' pulls; the decode role shares its
+        # transfer server for the connect-back
+        listener = await KvPrefetchListener(
+            drt, component, drt.primary_lease_id, core, transfer=transfer).start()
+        peers = await KvPeerServer(drt, component, drt.primary_lease_id, core).start()
+        closers += [listener.close, peers.close]
+
+    def stats() -> dict:
+        out = core.load_metrics() | core.stats | stalls.counters()
+        if disagg is not None:
+            out |= disagg.stats | {"handoffs": list(disagg.handoffs)}
+        return out | {"kernel_launches": launch_counts()}
+
+    handle = await component.endpoint(ep).serve(engine, stats_handler=stats)
     await register_model(
         drt, ModelEntry(name=name, namespace=ns, component=comp, endpoint=ep,
                         model_type="both"),
@@ -304,8 +368,59 @@ async def serve_endpoint(args, drt: DistributedRuntime, engine, core: TorchEngin
         refresher.stop()
         stalls.stop()
         await handle.stop()
+        for close in closers:
+            await close()
         await core.close()
         print(f"worker {drt.worker_id:x} stopped", flush=True)
+
+
+class _StatusOnly(AsyncEngine):
+    """The prefill role's endpoint: it takes no requests (work arrives on
+    the prefill queue); it exists so the role's stats can be scraped."""
+
+    async def generate(self, request):
+        return
+        yield  # an async generator that yields nothing
+
+
+def run_prefill(args) -> None:
+    """Prefill worker (``in=prefill``), under ``runtime.Worker``: the engine
+    is built and its prefill buckets warmed before the lease is taken; then
+    it consumes the namespace's prefill queue until SIGTERM / SIGINT, which
+    stop consumption (an in-flight item that does not finish redelivers to
+    another prefill worker) and exit 0."""
+    built = []
+
+    async def runtime() -> DistributedRuntime:
+        built.extend(build_engine(args))
+        await maybe_warmup(args, built[1], decode=False)
+        return await connect_runtime(args)
+
+    Worker(runtime).execute(lambda drt: serve_prefill(args, drt, built[1], built[2]))
+
+
+async def serve_prefill(args, drt: DistributedRuntime, core: TorchEngine,
+                        name: str) -> None:
+    ns = args.namespace
+    queue = PrefillQueue(drt.bus, ns)
+    worker = PrefillWorker(core, queue, kv_stream=args.kv_stream,
+                           segment_blocks=args.kv_segment_blocks,
+                           concurrency=args.prefill_concurrency)
+    handle = await drt.namespace(ns).component("prefill").endpoint("status").serve(
+        _StatusOnly(),
+        stats_handler=lambda: (core.load_metrics() | core.stats | worker.stats
+                               | {"handoffs": list(worker.handoffs),
+                                  "kernel_launches": launch_counts()}))
+    worker.start()
+    print(f"prefill worker {drt.worker_id:x} serving {name!r} on queue "
+          f"{queue.name}", flush=True)
+    try:
+        await asyncio.Event().wait()
+    finally:
+        await worker.close()
+        await handle.stop()
+        await core.close()
+        print(f"prefill worker {drt.worker_id:x} stopped", flush=True)
 
 
 async def run_hub(args) -> None:
@@ -409,6 +524,32 @@ def parse_args(argv=None):
                    action="store_false",
                    help="no cost observation or advertisement (the router "
                         "keeps this worker on overlap scoring)")
+    p.add_argument("--namespace", default="dynamo",
+                   help="in=prefill: the prefill queue's namespace (the decode "
+                        "workers' dyn:// namespace)")
+    p.add_argument("--advertise-host", default=None,
+                   help="routable address advertised for the KV transfer "
+                        "plane's connect-back (default: this host's address)")
+    p.add_argument("--disagg", default=None, choices=[None, "decode"],
+                   help="decode: prompts above --max-local-prefill uncached "
+                        "tokens prefill on in=prefill workers")
+    p.add_argument("--max-local-prefill", type=int, default=512,
+                   help="uncached prompt tokens above this go remote")
+    p.add_argument("--kv-stream", dest="kv_stream", action="store_true",
+                   default=True,
+                   help="streamed KV handoff: the transfer opens at prefill "
+                        "start and each chunk's blocks ship as its compute "
+                        "finishes (default)")
+    p.add_argument("--no-kv-stream", dest="kv_stream", action="store_false",
+                   help="the bulk KV handoff after prefill (the decode role "
+                        "stops advertising the stream, the prefill role stops "
+                        "using it)")
+    p.add_argument("--kv-segment-blocks", type=int, default=0,
+                   help="cap a streamed segment's blocks (0 = one segment per "
+                        "prefill chunk)")
+    p.add_argument("--prefill-concurrency", type=int, default=1,
+                   help="in=prefill: prompts advancing chunk-wise together on "
+                        "one engine (1 = whole prompts in turn)")
     p.add_argument("--kv-cache-dtype", default="model",
                    choices=list(KV_CACHE_DTYPES),
                    help="KV cache storage dtype (int8 = int8-with-scales "
@@ -423,13 +564,15 @@ def parse_args(argv=None):
     if args.out != "torch" and not args.out.startswith("dyn://"):
         p.error(f"out={args.out}: this launcher serves out=torch and "
                 "out=dyn://ns.comp.ep")
-    if args.in_ not in ("http", "text") and not args.in_.startswith("dyn://"):
-        p.error(f"in={args.in_}: this launcher serves hub, in=http, in=text "
-                "and in=dyn://ns.comp.ep")
+    if args.in_ not in ("http", "text", "prefill") and not args.in_.startswith("dyn://"):
+        p.error(f"in={args.in_}: this launcher serves hub, in=http, in=text, "
+                "in=prefill and in=dyn://ns.comp.ep")
     if args.out.startswith("dyn://") and args.in_ != "http":
         p.error("out=dyn://... is the frontend role: it takes in=http")
-    if args.in_.startswith("dyn://") and args.out != "torch":
-        p.error("in=dyn://... is the worker role: it takes out=torch")
+    if (args.in_.startswith("dyn://") or args.in_ == "prefill") and args.out != "torch":
+        p.error(f"in={args.in_} is a worker role: it takes out=torch")
+    if args.disagg and not args.in_.startswith("dyn://"):
+        p.error("--disagg decode is the worker role's: it takes in=dyn://...")
     for addr in (args.in_, args.out):
         if addr.startswith("dyn://") and addr.count(".") != 2:
             p.error(f"{addr}: want dyn://namespace.component.endpoint")
@@ -445,6 +588,8 @@ def main(argv=None) -> None:
     args = parse_args(argv)
     if args.in_.startswith("dyn://"):
         return run_endpoint(args)  # its own loop and signal handling
+    if args.in_ == "prefill":
+        return run_prefill(args)
     try:
         asyncio.run(ROLES[args.in_](args))
     except KeyboardInterrupt:

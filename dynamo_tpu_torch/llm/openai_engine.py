@@ -21,6 +21,7 @@ from .tokenizer import Tokenizer
 
 class OpenAIWorkerEngine(AsyncEngine):
     def __init__(self, tokenizer: Tokenizer, core_engine: AsyncEngine):
+        self.tokenizer = tokenizer
         self._core = core_engine
         # text-level engines (pystr) emit text directly — the detokenizer
         # stage would overwrite it from their (empty) token ids, so skip it

@@ -119,3 +119,37 @@ async def write_frame(
     writer.write(encode(msg, flags))
     await writer.drain()
 
+
+
+def _byte_view(p) -> memoryview:
+    """A flat byte view of one data part: a CPU ``torch`` tensor (any
+    dtype, bf16 and e4m3 included), a numpy array, bytes or a memoryview.
+    A contiguous tensor is not copied."""
+    if hasattr(p, "untyped_storage"):  # a torch tensor
+        import torch
+
+        p = p.detach().contiguous().view(-1).view(torch.uint8).numpy()
+    return memoryview(p).cast("B")
+
+
+async def write_frame_parts(
+    writer: asyncio.StreamWriter, header: bytes, parts, flags: int = FLAG_NONE
+) -> None:
+    """One frame whose data section is the concatenation of ``parts``
+    (C-contiguous buffers: CPU tensors, arrays, bytes, memoryviews),
+    written WITHOUT materializing the joined blob: the KV stream's segment
+    frames are tens of MB. Wire-identical to ``write_frame(writer,
+    TwoPartMessage(header, b"".join(...)))``; drains once per frame, so a
+    sender paces itself to the socket."""
+    views = [_byte_view(p) for p in parts]
+    data_len = sum(v.nbytes for v in views)
+    if len(header) > MAX_HEADER_BYTES:
+        raise CodecError(f"header too large: {len(header)}")
+    if data_len > MAX_DATA_BYTES:
+        raise CodecError(f"data too large: {data_len}")
+    writer.write(_PREFIX.pack(MAGIC, flags, len(header), data_len))
+    if header:
+        writer.write(header)
+    for v in views:
+        writer.write(v)
+    await writer.drain()

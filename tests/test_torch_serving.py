@@ -139,4 +139,13 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             "dynamo_tpu_torch.engine.kvquant",
             "dynamo_tpu_torch.engine.offload",
             "dynamo_tpu_torch.ops.block_copy",
-            "dynamo_tpu_torch.kv_router.costmodel"} <= set(modules)
+            "dynamo_tpu_torch.kv_router.costmodel",
+            # the KV transfer plane, disaggregation and the fleet pull
+            "dynamo_tpu_torch.resilience.faultpoints",
+            "dynamo_tpu_torch.ops.kv_rearrange",
+            "dynamo_tpu_torch.disagg.protocols",
+            "dynamo_tpu_torch.disagg.queue",
+            "dynamo_tpu_torch.disagg.router",
+            "dynamo_tpu_torch.disagg.transfer",
+            "dynamo_tpu_torch.disagg.worker",
+            "dynamo_tpu_torch.kv_router.publisher"} <= set(modules)
