@@ -73,12 +73,28 @@ Phases, in order; any failure raises and the script exits non-zero:
      twins at Llama-3-8B's widths over bf16, int8 (with its planes) and
      e4m3 pages and at V2-Lite's latent widths, for 1, 7 and 64 pages out
      of order with the trash page among them, and the disaggregated
-     handoff's 192 pages (a 3072-token prompt's extract and landing);
+     handoff's 192 pages (a 3072-token prompt's extract and landing); and
+     both latent kernels over float8_e4m3fn latent pages (bf16 queries,
+     the pages to_e4m3 of the seeded bf16 draw) against their plain twins
+     on the same bytes: on the tensor-core body at V2-Lite's widths
+     decode with (m, l), the verify's T = 4 rows and the whole verify, and
+     the 512-token prefill chunk; on the CUDA-core body at C = 1024, R =
+     64 and on the tensor-core body's element path (C = 128, R = 8)
+     decode and prefill, at the bf16 checks' tolerances; the row store
+     into fp8 latent pages at V2-Lite's widths (values beyond 464 and
+     +-inf among the rows) and the verify's T = 4 rows byte-equal to the
+     plain twins;
   3. serving: the port's OpenAI HTTP service in-process, thirteen drives
      one after the other (each model's memory freed before the next):
-     llama3-8b-sim and deepseek-v2-lite-sim, each twice on fresh engines
-     (how many greedy answers the two drives share), deepseek-v2-lite-sim
-     with int8 weights (experts through ragged_int8_gmm), llama3-8b-sim
+     llama3-8b-sim twice on fresh engines (how many greedy answers the two
+     drives share), deepseek-v2-lite-sim, deepseek-v2-lite-sim with int8
+     weights (experts through ragged_int8_gmm), deepseek-v2-lite-sim over
+     fp8 latent pages (a 4096-page pool at half the bytes; its replays
+     checked as the first drives', its step anatomy, how many of its
+     answers equal the bf16 drive's, and its first 4 layers' prefill over
+     fp8 pages held to the plain path's: the served kernel's logits no
+     further from the f32 plain path's than ORACLE_FACTOR times the bf16
+     plain path's, every token routed to the same experts), llama3-8b-sim
      with fp8 weights and the int8 KV cache, llama3-8b-sim with bf16
      weights over the fp8 KV cache (a 4 GiB pool) and spec_gamma=3 (a
      prompt-lookup pass, whose greedy answers are held against the bf16
@@ -152,7 +168,16 @@ Phases, in order; any failure raises and the script exits non-zero:
      a frontend sends it (its TTFT and the prefix it hit); then a SIGKILL
      healed within the lease TTL + 5 s, a SIGTERM that revokes the lease,
      and the round-1 and pulled answers equal to one engine's in this
-     process; then the disaggregated roles (``disagg_drive``): ``dynamo_run
+     process; then migration and drain: a 192-token greedy stream's
+     worker SIGKILLed once 32 text events reached the client (the
+     frontend's MigratingEngine finishes it on the survivor: the
+     survivor's migration_resumes and the frontend's /metrics counters
+     up by one), a worker relaunched with --warmup, and a 512-token
+     stream's worker SIGTERMed (``--drain-deadline 2``: out of discovery
+     at once while its stats still answer draining, the stream handed off
+     at the deadline and finished on the other worker, exit 0), both
+     answers equal to one engine's, the seam's gap beside that engine's
+     ITL; then the disaggregated roles (``disagg_drive``): ``dynamo_run
      hub``, an ``in=prefill`` and an ``in=dyn://… --disagg decode``
      llama3-8b-sim worker and a card-less frontend, each its own process;
      ten prompts of 1500-3072 tokens above ``--max-local-prefill 512`` one
@@ -165,7 +190,9 @@ Phases, in order; any failure raises and the script exits non-zero:
      worker killed mid-stream (a delay fault holds its second segment) and
      the queue item redelivered once to a fresh one after the queue's
      visibility timeout, the answer still
-     equal; TTFT per variant beside the aggregated engine's cold TTFT, the
+     equal; after the last answer a SIGTERM on the prefill worker, which
+     must stop consuming and exit 0 within its drain deadline and a
+     margin; TTFT per variant beside the aggregated engine's cold TTFT, the
      handoff's anatomy from both workers' records (queue wait, prefill,
      gather, quantize, wire time and bytes, the hidden share, the
      landing's scatter), and the launches of the prefill kernels on the
@@ -201,7 +228,10 @@ Phases, in order; any failure raises and the script exits non-zero:
      appends (no one PyTorch call casts and scatters: no yardstick); the
      latent kernels' CUDA-core body (bf16
      at C=1024, R=64, C.8's widths; f32 at C=512, R=64; their yardstick
-     SDPA over the same latents gathered contiguous); and the three
+     SDPA over the same latents gathered contiguous); the latent kernels
+     over fp8 latent pages at V2-Lite's widths (their yardstick SDPA over
+     the latents widened to bf16) and the row store into fp8 latent
+     pages; and the three
      GQA kernels with gpt-oss's window 128 and sinks at gpt-oss-20b's
      shapes, their bound counted from the positions the window keeps and
      their yardstick SDPA over the same windows (banded mask, no sink);
@@ -220,6 +250,7 @@ from __future__ import annotations
 
 import asyncio
 import contextlib
+import datetime
 import gc
 import json
 import math
@@ -308,6 +339,20 @@ KERNELS = {
     "mla_paged_decode_attention (verify rows)": (
         "dynamo_tpu_torch/csrc/mla_attention.cu",
         "dynamo_tpu/ops/mla_attention_pallas.py:132",
+    ),
+    # the latent kernels over float8_e4m3fn latent pages and the row
+    # store's cast on store at MLA widths (the fp8 V2-Lite drive's)
+    "mla_paged_decode_attention (fp8 KV)": (
+        "dynamo_tpu_torch/csrc/mla_attention.cu",
+        "dynamo_tpu/ops/mla_attention_pallas.py:132",
+    ),
+    "mla_paged_prefill_attention (fp8 KV)": (
+        "dynamo_tpu_torch/csrc/mla_attention.cu",
+        "dynamo_tpu/ops/mla_attention_pallas.py:375",
+    ),
+    "kv_cache_append (MLA widths, fp8 KV)": (
+        "dynamo_tpu_torch/csrc/kv_cache_append.cu",
+        "dynamo_tpu/ops/kv_cache_update_pallas.py:63",
     ),
     "paged_decode_attention (window 128)": (
         "dynamo_tpu_torch/csrc/paged_attention.cu",
@@ -422,8 +467,13 @@ GEMMA_HEADS = dict(H=16, Hkv=8, D=256)
 #: the depth of the Gemma-3 model held to dense_forward at full width: five
 #: windowed layers and the first full one
 GEMMA_ORACLE_LAYERS = 6
-#: the drives run twice, the second time on a fresh engine (C.4)
-REPEATED = ("llama3-8b-sim", "deepseek-v2-lite-sim")
+#: the drives run twice, the second time on a fresh engine (C.4); the
+#: V2-Lite bf16 drive's second run is cut (the fp8 V2-Lite drive builds
+#: another V2-Lite engine and reads its answers against the bf16 drive's)
+REPEATED = ("llama3-8b-sim",)
+#: the depth of the fp8 V2-Lite drive's oracle: the dense layer and three
+#: MoE layers of the served weights (their f32 copy fits beside the model)
+MLA_ORACLE_LAYERS = 4
 #: the checkpoint drive: Mistral-7B-Instruct-v0.2's config.json at this
 #: depth (of 32), written by the port's saver and served from its directory
 CHECKPOINT_DRIVE = "mistral-7b-v0.2 checkpoint"
@@ -767,6 +817,28 @@ class MlaInputs:
     def append(self, fn, kc=None, vc=None):
         return fn(self.c_new, self.pe_new, self.a_kc if kc is None else kc,
                   self.a_vc if vc is None else vc, self.a_blk, self.a_off)
+
+    def fp8(self):
+        """The same queries and tables over float8_e4m3fn copies of the
+        latent pages and of the append caches (models/quant.to_e4m3, the
+        reference's cast of the bf16 draw): the fp8-KV variants."""
+        import copy
+
+        from dynamo_tpu_torch.models.quant import to_e4m3
+
+        other = copy.copy(self)
+        other.cc, other.pc = to_e4m3(self.cc), to_e4m3(self.pc)
+        other.a_kc, other.a_vc = to_e4m3(self.a_kc), to_e4m3(self.a_vc)
+        return other
+
+    def widened(self):
+        """fp8 latent pages widened to bf16, exactly (the library
+        yardstick's inputs; built outside any timed span)."""
+        import copy
+
+        other = copy.copy(self)
+        other.cc, other.pc = self.cc.bfloat16(), self.pc.bfloat16()
+        return other
 
 
 class TokenAppendInputs:
@@ -1155,6 +1227,101 @@ def check_mla_kernels(torch, mi: MlaInputs) -> dict:
     for name in ("mla_paged_decode_attention", "mla_paged_prefill_attention"):
         log(f"  {name}: kernel vs plain max |err| {errs[name]:.3e}  OK")
     log("  kv_cache_append at MLA widths (C=512 / R=64): bit-exact  OK")
+    return errs
+
+
+def check_mla_fp8(torch, dev, mi: MlaInputs, ta: "TokenAppendInputs") -> dict:
+    """Both latent kernels over float8_e4m3fn latent pages (bf16 queries;
+    the pages to_e4m3 of phase 2's seeded bf16 draw) against their plain
+    twins on the same page bytes, at the bf16 checks' tolerances (outputs
+    2e-2, (m, l) rtol 1e-3: the widen is exact): on the tensor-core body at
+    V2-Lite's widths decode with (m, l), the verify's history rows (T = 4,
+    64 rows per sequence) and the whole verify, and a 512-token prefill
+    chunk on 1000 cached; on the CUDA-core body at C = 1024, R = 64 decode
+    and prefill; on the tensor-core body's element path for rope rows
+    that are not whole 16-byte copies (C = 128, R = 8) decode and prefill.
+    Then the latent row store into fp8 pages at MLA widths (all 27 layers,
+    B = 8; the verify's T = 4 rows too), with values above 464 and +-inf
+    among the rows, byte-equal to its plain twin (models/quant.to_e4m3:
+    the reference's NaN above 464). Returns the errors of the two fp8
+    rows."""
+    from dynamo_tpu_torch.models.quant import to_e4m3
+    from dynamo_tpu_torch.ops import kv_cache_update as kvu
+    from dynamo_tpu_torch.ops import mla_attention as mla
+
+    fp8 = torch.float8_e4m3fn
+    m8 = mi.fp8()
+    errs = {}
+    o, m, l = m8.decode(mla.mla_paged_decode_attention)
+    ro, rm, rl = m8.decode(mla.mla_paged_decode_attention_plain)
+    torch.cuda.synchronize()
+    errs["mla_paged_decode_attention" + FP8_KV] = close(
+        "mla decode over fp8 pages", o, ro, 2e-2, 2e-2)
+    close_stats("mla decode over fp8 pages", (m, l), (rm, rl))
+    if not (bool((o[7] == 0).all()) and bool((l[7] == 0).all())):
+        raise AssertionError("mla decode over fp8 pages: the empty slot")
+    got = m8.verify_rows(mla.mla_paged_decode_attention)
+    ref = m8.verify_rows(mla.mla_paged_decode_attention_plain)
+    torch.cuda.synchronize()
+    err_v = close("mla verify rows over fp8 pages", got[0], ref[0], 2e-2, 2e-2)
+    close_stats("mla verify rows over fp8 pages", got[1:], ref[1:])
+    err_v = max(err_v, close("mla verify over fp8 pages",
+                             m8.verify(mla.mla_verify_attention),
+                             m8.verify(mla.mla_verify_attention_xla), 2e-2, 2e-2))
+    got = m8.prefill(mla.mla_paged_prefill_attention)
+    ref = m8.prefill(mla.mla_paged_prefill_attention_plain)
+    torch.cuda.synchronize()
+    errs["mla_paged_prefill_attention" + FP8_KV] = close(
+        "mla prefill over fp8 pages", got, ref, 2e-2, 2e-2)
+    log(f"  MLA over fp8 latent pages (tensor-core body, C={mi.C}, R={mi.R}): "
+        f"decode {errs['mla_paged_decode_attention' + FP8_KV]:.3e}, verify "
+        f"{err_v:.3e}, prefill {errs['mla_paged_prefill_attention' + FP8_KV]:.3e} "
+        "max |err| vs plain, (m, l) within 1e-3  OK")
+    for C, R, body in ((1024, 64, "CUDA-core"), (128, 8, "tensor-core, element pe")):
+        wi = MlaInputs(torch, dev, C=C, R=R).fp8()
+        if mla.tc_takes(C, R) != (body != "CUDA-core"):
+            raise AssertionError(f"C={C} R={R}: not the {body} body")
+        o, m, l = wi.decode(mla.mla_paged_decode_attention)
+        ro, rm, rl = wi.decode(mla.mla_paged_decode_attention_plain)
+        got = wi.prefill(mla.mla_paged_prefill_attention)
+        ref = wi.prefill(mla.mla_paged_prefill_attention_plain)
+        torch.cuda.synchronize()
+        e_d = close(f"fp8 C={C} R={R} decode", o, ro, 2e-2, 2e-2)
+        close_stats(f"fp8 C={C} R={R} decode", (m, l), (rm, rl))
+        e_p = close(f"fp8 C={C} R={R} prefill", got, ref, 2e-2, 2e-2)
+        log(f"  MLA over fp8 latent pages at C={C}, R={R} ({body} body): decode "
+            f"{e_d:.3e}, prefill {e_p:.3e} max |err| vs plain  OK")
+        del wi
+    # the latent row store's cast on store at MLA widths
+    c_new, pe_new = mi.c_new.clone(), mi.pe_new.clone()
+    flat = c_new.view(-1)
+    special = torch.tensor([464.0, -466.0, 500.0, -1e4, float("inf"),
+                            -float("inf"), 2.0 ** -10, 448.0], device=dev)
+    flat[torch.arange(special.numel(), device=dev) * 997] = special.to(flat.dtype)
+    kc, vc = to_e4m3(mi.a_kc), to_e4m3(mi.a_vc)
+    rk, rv = kc.clone(), vc.clone()
+    kvu.kv_cache_append(c_new, pe_new, kc, vc, mi.a_blk, mi.a_off)
+    kvu.kv_cache_append_plain(c_new, pe_new, rk, rv, mi.a_blk, mi.a_off)
+    tk, tv = to_e4m3(mi.a_kc), to_e4m3(mi.a_vc)
+    rtk, rtv = tk.clone(), tv.clone()
+    ta.append(kvu.kv_cache_append_tokens, "mla", caches=(tk, tv))
+    ta.append(kvu.kv_cache_append_tokens_plain, "mla", caches=(rtk, rtv))
+    torch.cuda.synchronize()
+    # the verify's padded slots race on the trash page 0: excluded
+    if not (kc.dtype == fp8 and same_bytes(torch, kc, rk) and same_bytes(torch, vc, rv)
+            and same_bytes(torch, tk[:, :, 1:], rtk[:, :, 1:])
+            and same_bytes(torch, tv[:, :, 1:], rtv[:, :, 1:])):
+        raise AssertionError("the row stores into fp8 pages at MLA widths: "
+                             "bytes differ from the plain twins'")
+    nan = int(((kc.view(torch.uint8) & 0x7F) == 0x7F).sum())
+    if nan < 5:
+        raise AssertionError(f"fp8 MLA store: {nan} NaN bytes for the 5 values "
+                             "beyond 464")
+    errs["kv_cache_append (MLA widths, fp8 KV)"] = 0.0
+    log(f"  kv_cache_append into fp8 latent pages (L={c_new.shape[0]}, B=8, "
+        f"C={mi.C}, R={mi.R}; {nan} NaN bytes from values beyond 464) and "
+        "kv_cache_append_tokens (T=4; the trash page 0 excluded): byte-equal "
+        "to the plain twins  OK")
     return errs
 
 
@@ -2434,10 +2601,10 @@ def check_engine_spec_on_card(torch, dev) -> None:
 # ---------------- phase 3: serving llama3-8b-sim over HTTP ----------------
 
 
-async def http_request(port: int, path: str, body: dict):
+async def http_request(port: int, path: str, body: dict, progress=None):
     """POST ``body``; returns (status, text, token event times). For a
     streaming request the times are when each SSE event with text
-    arrived."""
+    arrived; ``progress``, a list, receives them as they arrive."""
     t0 = time.perf_counter()
     reader, writer = await asyncio.open_connection("127.0.0.1", port)
     data = json.dumps(body).encode()
@@ -2455,7 +2622,7 @@ async def http_request(port: int, path: str, body: dict):
             break
         k, _, v = line.decode().partition(":")
         headers[k.strip().lower()] = v.strip()
-    times, text = [], ""
+    times, text = ([] if progress is None else progress), ""
     if headers.get("transfer-encoding") == "chunked":
         buf = b""
         while True:
@@ -2482,6 +2649,67 @@ async def http_request(port: int, path: str, body: dict):
     writer.close()
     await writer.wait_closed()
     return status, text, times
+
+
+async def engine_resume(engine, pre, body: dict, migrated, seam: dict) -> tuple:
+    """A migrated stream held to ``engine`` (built as the workers are): its
+    undisturbed token ids for ``body`` (what the dead or drained worker
+    served up to the seam), then its answer to the request the survivor
+    got, the prompt + the first k of those tokens with the ``resume``
+    annotation, k = ``seam['tokens']`` (the frontend's re-dispatch).
+    Returns (k, tokens, the migrated text equal to the detokenized first k
+    + continuation, the first token where the undisturbed answer's text
+    and the migrated one part, the gap between the text events around the
+    seam in ms)."""
+    from dynamo_tpu_torch.llm.tokenizer import DecodeStream
+    from dynamo_tpu_torch.protocols.common import PreprocessedRequest
+    from dynamo_tpu_torch.protocols.openai import CompletionRequest
+    from dynamo_tpu_torch.runtime import Context
+
+    req = pre.preprocess_completion(CompletionRequest.from_dict(body))[0]
+
+    async def ids(r) -> list:
+        return [t async for o in engine.generate(Context(r)) for t in o.token_ids]
+
+    def pieces(toks) -> list:
+        d = DecodeStream(pre._tokenizer)
+        out = [d.step(t) or "" for t in toks]
+        out[-1] += d.flush() or ""
+        return out
+
+    undisturbed = await ids(req)
+    p_u = pieces(undisturbed)
+    k = seam["tokens"]
+    events = sum(bool(x) for x in p_u[:k])  # the client's text events so far
+    times = seam["times"]
+    gap = (times[events] - times[events - 1]) * 1e3
+    resumed = PreprocessedRequest.from_dict(
+        {**req.to_dict(), "token_ids": list(req.token_ids) + undisturbed[:k],
+         "annotations": {"resume": {"prompt_len": len(req.token_ids)}}})
+    # as on the survivor, nothing of it cached: the whole of it prefills
+    engine.allocator.reset()
+    toks = undisturbed[:k] + await ids(resumed)
+    text = "".join(pieces(toks))
+    got = migrated[1]
+    first, acc = len(undisturbed), ""
+    for i, piece in enumerate(p_u):
+        acc += piece
+        if not got.startswith(acc):
+            first = i
+            break
+    return k, len(toks), text == got, first, gap
+
+
+async def http_get(port: int, path: str) -> str:
+    """GET ``path``; returns the body (the service closes the connection)."""
+    reader, writer = await asyncio.open_connection("127.0.0.1", port)
+    writer.write(f"GET {path} HTTP/1.1\r\nHost: smoke\r\nConnection: close\r\n\r\n"
+                 .encode())
+    await writer.drain()
+    raw = await reader.read()
+    writer.close()
+    await writer.wait_closed()
+    return raw.split(b"\r\n\r\n", 1)[1].decode()
 
 
 def drives():
@@ -2541,6 +2769,14 @@ def drives():
         ("deepseek-v2-lite-sim", deepseek_v2_lite(), {**v2, "quantization": "int8"},
          {**mla_path, "ragged_int8_gmm": ragged_int8_gmm,
           "ragged_int8_gmm (prefill rows)": (ragged_int8_gmm, "prefill_launches")}),
+        # bf16 weights over float8_e4m3fn latent pages (half the pool's
+        # bytes): both latent kernels over fp8 pages and the row store's
+        # cast on store at MLA widths
+        ("deepseek-v2-lite-sim", deepseek_v2_lite(),
+         {**v2, "kv_cache_dtype": "float8_e4m3"},
+         {"mla_paged_decode_attention" + FP8_KV: mla_paged_decode_attention,
+          "mla_paged_prefill_attention" + FP8_KV: mla_paged_prefill_attention,
+          "kv_cache_append (MLA widths, fp8 KV)": kv_cache_append}),
         # fp8 weights through _mm and the int8-with-scales KV cache: the
         # scaled GQA kernels and the quantized append
         ("llama3-8b-sim", ModelConfig.llama3_8b(),
@@ -2800,6 +3036,15 @@ async def serve(torch, dev, card: str, name: str, cfg, geometry: dict,
                 f"of the others at {sorted(first_diff)}  [{name}, {card}]")
         elif not spec:
             texts, _ = report("", *await requests(), {})
+            if cfg.is_mla and engine.k_cache.dtype == torch.float8_e4m3fn:
+                # a quality reading, not a gate: random-weight near-ties
+                # may flip under fp8 pages
+                same = sum(a == b for a, b in zip(texts, plain[0]))
+                log(f"  fp8 latent pages: {engine.kv_block_bytes // engine.cfg.block_size}"
+                    f" pool bytes per token (bf16 pages: "
+                    f"{2 * engine.kv_block_bytes // engine.cfg.block_size}); "
+                    f"answers equal to the bf16 drive's: {same} of {len(texts)}"
+                    f"  [{name}, {card}]")
         elif engine.k_cache.dtype == torch.float8_e4m3fn:
             # the fp8 drive: prompt lookup first (nothing to find on random
             # weights, so plain decode windows: its answers against the
@@ -2878,6 +3123,8 @@ async def serve(torch, dev, card: str, name: str, cfg, geometry: dict,
         return launches, (texts, answers)
     check_graphs(torch, engine, name, card)
     step_anatomy(torch, dev, engine, planes)
+    if cfg.is_mla and engine.k_cache.dtype == torch.float8_e4m3fn:
+        mla_fp8_oracle(torch, dev, card, name, params, cfg)
     if cfg.attn_sinks:
         gptoss_oracle(torch, dev, card, name, params, cfg)
     if cfg.rope_local_theta:
@@ -3178,6 +3425,70 @@ def gptoss_oracle(torch, dev, card: str, name: str, params, cfg) -> None:
     dense_oracle(torch, dev, card, f"{name}, first {L} layers",
                  {**params, "layers": layers}, cut,
                  knockout=("the sinks knocked out", sinkless))
+
+
+def mla_fp8_oracle(torch, dev, card: str, name: str, params, cfg,
+                   T: int = 1201) -> None:
+    """The fp8 V2-Lite drive's first prefill held to the port's plain path
+    over fp8 latent pages: the served weights' first MLA_ORACLE_LAYERS
+    layers (the dense one and three MoE layers, every token routed to the
+    same experts of a layer by a +50 router logit, as gptoss_oracle does:
+    a near-tie flipped by the sums' order would move the logits in either
+    bf16 forward), one ``T``-token prompt prefilled in one chunk over fresh
+    fp8 pages three ways: the served path (the latent prefill kernel), the
+    same in bf16 with the kernel's plain twin in its place, and that plain
+    path in f32 on the same weights widened (the pages fp8 all the same).
+    The kernel path's last logits may lie at most ORACLE_FACTOR times as
+    far from the f32 plain path's as the bf16 plain path's do."""
+    import dataclasses
+
+    from dynamo_tpu_torch.models import llama
+    from dynamo_tpu_torch.ops import mla_attention as mla
+
+    L = MLA_ORACLE_LAYERS
+    k = cfg.first_dense_layers
+    cut = dataclasses.replace(cfg, num_layers=L)
+    layers = {key: v[:L - k] for key, v in params["layers"].items()}
+    g = torch.Generator(device=dev).manual_seed(13)
+    bias = torch.zeros(L - k, cfg.num_experts, device=dev)
+    for l in range(L - k):
+        chosen = torch.randperm(cfg.num_experts, generator=g, device=dev)
+        bias[l, chosen[:cfg.num_experts_per_tok]] = 50.0
+    layers["moe_router_bias"] = bias
+    small = {**params, "layers": layers}
+    prompt = torch.zeros(2048, dtype=torch.int32, device=dev)
+    prompt[:T] = torch.arange(T, device=dev) % 250 + 3
+    table = torch.arange(1, 129, dtype=torch.int32, device=dev)
+
+    def prefill(p, c, plain: bool):
+        kc, vc = llama.init_kv_cache(c, 130, 16, device=dev,
+                                     dtype=torch.float8_e4m3fn)
+        kernel = llama.mla_paged_prefill_attention
+        if plain:
+            llama.mla_paged_prefill_attention = mla.mla_paged_prefill_attention_plain
+        try:
+            return llama.prefill(p, c, prompt, table, 0, T, kc, vc)[0]
+        finally:
+            llama.mla_paged_prefill_attention = kernel
+
+    served = prefill(small, cut, plain=False)
+    plain_bf16 = prefill(small, cut, plain=True)
+    wide = {key: ({kk: vv.float() for kk, vv in v.items()} if isinstance(v, dict)
+                  else v.float()) for key, v in small.items()}
+    exact = prefill(wide, dataclasses.replace(cut, dtype="float32"), plain=True)
+    del wide
+    err = float((served - exact).abs().max())
+    base = float((plain_bf16 - exact).abs().max())
+    log(f"  fp8 latent pages, first {L} layers, one {T}-token prefill: served "
+        f"(kernel) vs the plain f32 path max |dlogit| {err:.4f}, the plain bf16 "
+        f"path vs f32 {base:.4f} ({err / base:.2f}x; tolerance {ORACLE_FACTOR}x), "
+        f"served vs plain bf16 {float((served - plain_bf16).abs().max()):.4f}; "
+        f"max |logit| {float(exact.abs().max()):.3f}; argmax equal to f32: "
+        f"served {int(served.argmax()) == int(exact.argmax())}  [{name}, {card}]")
+    if not (bool(torch.isfinite(served).all()) and err <= ORACLE_FACTOR * base):
+        raise AssertionError(f"{name}: the fp8 prefill's logits are {err:.4f} from "
+                             f"the plain f32 path's, the plain bf16 path's {base:.4f}"
+                             f" (tolerance {ORACLE_FACTOR}x)")
 
 
 def gemma_oracle(torch, dev, card: str, name: str, params, cfg) -> None:
@@ -4073,6 +4384,24 @@ LEASE_TTL_S = 10.0
 #: each fleet worker's host tier (blocks): it starts the worker's
 #: prefetch-hint listener and peer server, the fleet pull's two ends
 FLEET_HOST_BLOCKS = 512
+#: migration and drain: a long greedy stream (a) cut by a SIGKILL of its
+#: worker and (b) cut by a SIGTERM, whose drain hands it off at the
+#: workers' ``--drain-deadline``; each is cut once MIGRATE_CUT text events
+#: reached the client, and must finish on the other worker
+FLEET_DRAIN_S = 2.0
+MIGRATE_TOKENS = (192, 512)
+MIGRATE_CUT = 32
+MIGRATE_PROMPT = 600  # bytes of each long stream's prompt
+#: a SIGTERM-drained process exits within the deadline plus this margin
+#: (the response plane's flush, the lease's revocation, the teardown)
+DRAIN_MARGIN_S = 20.0
+
+
+def migrate_prompts() -> list:
+    """The two long streams' prompts: fresh prefixes (no worker holds them)."""
+    return [(f"Migration {i}: a stream that outlives its worker. " * 40)
+            [:MIGRATE_PROMPT] + " Continue the story of the paged cache:"
+            for i in ("a", "b")]
 
 
 def pull_prompts(prefix: str) -> tuple:
@@ -4316,14 +4645,99 @@ async def fleet_drive(torch, dev, card: str) -> dict:
     from dynamo_tpu_torch.llm.backend import Backend
     from dynamo_tpu_torch.llm.preprocessor import OpenAIPreprocessor
     from dynamo_tpu_torch.protocols.openai import CompletionRequest
-    from dynamo_tpu_torch.runtime import AsyncEngine, DistributedRuntime, link
+    from dynamo_tpu_torch.runtime import (
+        AsyncEngine,
+        DistributedRuntime,
+        EndpointInfo,
+        NoResponders,
+        link,
+    )
     from dynamo_tpu_torch.runtime.hub import connect_hub
 
-    prompts = fleet_prompts()
+    prompts, long_prompts = fleet_prompts(), migrate_prompts()
+    seams: dict = {}  # the migrated streams' widest gap between text events
 
     def body(prompt: str, n: int = FLEET_TOKENS) -> dict:
         return {"model": FLEET_MODEL, "prompt": prompt, "max_tokens": n,
                 "temperature": 0.0, "stream": True, "nvext": {"ignore_eos": True}}
+
+    async def frontend_migrations(port: int) -> dict:
+        """The frontend's MigratingEngine counters, from its /metrics."""
+        text = await http_get(port, "/metrics")
+        got = {}
+        for key in ("migrations_total", "requests_migrated", "migration_failures"):
+            m = re.search(rf"^dynamo_tpu_torch_{key} (\d+)$", text, re.M)
+            if m is None:
+                raise AssertionError(f"fleet: the frontend's /metrics lacks {key}")
+            got[key] = int(m[1])
+        return got
+
+    async def streaming_worker(scrape, progress: list, task) -> int:
+        """The worker whose slot holds the long stream, once MIGRATE_CUT text
+        events of it reached the client."""
+        t_s = time.perf_counter()
+        while len(progress) < MIGRATE_CUT:
+            if task.done() or time.perf_counter() - t_s > 120:
+                raise AssertionError(f"fleet: the long stream ended or stalled "
+                                     f"after {len(progress)} events")
+            await asyncio.sleep(0.01)
+        busy = [w for w, d in (await scrape()).items() if d["request_active_slots"]]
+        if len(busy) != 1 or task.done():
+            raise AssertionError(f"fleet: the long stream's worker: {busy}")
+        return busy[0]
+
+    def migrated_stream(label, result, cut_at, t_cut, lines_at, pre, post, taker,
+                        mig0, mig1):
+        """The cut stream finished on ``taker``: status 200, every token, the
+        taker's migration_resumes and the frontend's migrations up by one.
+        Returns the seam from the frontend's log (``lines_at``: its lines
+        before the cut): the tokens the client had when the last
+        re-dispatch left, and that re-dispatch's wall-clock delay after
+        the cut (``t_cut``, ``time.time()``)."""
+        status, text, times = result
+        gaps = [b - a for a, b in zip(times, times[1:])]
+        redispatch = [m for m in (re.search(r"re-dispatching with (\d+) tokens so "
+                                            r"far", x) for x in front.lines[lines_at:])
+                      if m is not None]
+        if not redispatch:
+            raise AssertionError(f"fleet {label}: the frontend logged no re-dispatch"
+                                 f":\n{front.tail()}")
+        line = redispatch[-1].string
+        at = datetime.datetime.strptime(line[:23], "%Y-%m-%d %H:%M:%S,%f").timestamp()
+        # the taker's prefill of the resumed request (prompt + tokens so far):
+        # the only prefill it ran between the two scrapes
+        prefill_ms = (post[taker]["hist_prefill_ms"]["s"]
+                      - pre[taker]["hist_prefill_ms"]["s"])
+        seam = {"tokens": int(redispatch[-1][1]), "redispatch_ms": (at - t_cut) * 1e3,
+                "prefill_ms": prefill_ms, "times": times}
+        resumed = post[taker]["migration_resumes"] - pre[taker]["migration_resumes"]
+        if (status != 200 or not text or len(times) <= cut_at or resumed != 1
+                or mig1["migrations_total"] - mig0["migrations_total"] < 1
+                or mig1["requests_migrated"] - mig0["requests_migrated"] != 1
+                or mig1["migration_failures"] != mig0["migration_failures"]):
+            raise AssertionError(
+                f"fleet {label}: status {status}, {len(times)} text events "
+                f"({cut_at} before the cut), the taker's migration_resumes +"
+                f"{resumed}, the frontend's {mig0} -> {mig1}")
+        log(f"  {label} with a {len(times)}-event stream in flight ({cut_at} "
+            f"events before the cut): finished on worker {taker:x} "
+            f"(migration_resumes +{resumed}; frontend migrations_total "
+            f"{mig0['migrations_total']} -> {mig1['migrations_total']}, "
+            f"requests_migrated {mig1['requests_migrated']}); re-dispatched "
+            f"with {seam['tokens']} tokens so far {seam['redispatch_ms']:.1f} ms "
+            f"after the cut ({len(redispatch)} re-dispatches), the taker's prefill "
+            f"of it {prefill_ms:.1f} ms, median gap "
+            f"{statistics.median(gaps) * 1e3:.2f} ms  [{FLEET_MODEL}, {card}]")
+        return seam
+
+    async def direct_stats(subject: str):
+        """An instance's stats through its own subject (answered while its
+        ingress lives, out of discovery or not); None once it stopped."""
+        try:
+            raw = await drt.bus.request(subject + ".stats", b"{}", timeout=5)
+        except (NoResponders, asyncio.TimeoutError):
+            return None
+        return json.loads(raw) if raw else None
 
     pre = OpenAIPreprocessor(ByteTokenizer())
     token_ids = [pre.preprocess_completion(CompletionRequest.from_dict(body(p)))[0]
@@ -4339,13 +4753,11 @@ async def fleet_drive(torch, dev, card: str) -> dict:
         procs.append(hub)
         await hub.wait_for("hub listening", 60)
         common = ["--hub", hub_addr, "--model-path", FLEET_MODEL, "--host", "127.0.0.1"]
-        workers = [FleetProc(f"worker {i}", [f"in={FLEET_TARGET}", "out=torch",
-                                             "--num-blocks", str(FLEET_BLOCKS),
-                                             "--host-cache-blocks",
-                                             str(FLEET_HOST_BLOCKS),
-                                             "--device", FLEET_DEVICE,
-                                             "--warmup"] + common)
-                   for i in range(2)]
+        worker_args = [f"in={FLEET_TARGET}", "out=torch", "--num-blocks",
+                       str(FLEET_BLOCKS), "--host-cache-blocks",
+                       str(FLEET_HOST_BLOCKS), "--device", FLEET_DEVICE,
+                       "--drain-deadline", str(FLEET_DRAIN_S), "--warmup"] + common
+        workers = [FleetProc(f"worker {i}", worker_args) for i in range(2)]
         procs += workers
         pid_of = {}
         for w in workers:
@@ -4513,14 +4925,27 @@ async def fleet_drive(torch, dev, card: str) -> dict:
         pulled = await fleet_pull(torch, card, comp, router, scrape, served,
                                   prompts, body, pinned_service, token_ids)
 
-        # heal: SIGKILL the worker holding the most prompts
-        victim = max(after2, key=lambda w: sum(sw == w for sw, _n, _h in served))
+        # (a) SIGKILL with a stream in flight: the frontend's migration
+        # resumes it on the survivor as prompt + tokens so far
+        mig0 = await frontend_migrations(http_port)
+        pre_a = await scrape()
+        progress: list = []
+        long_a = asyncio.ensure_future(http_request(
+            http_port, "/v1/completions", body(long_prompts[0], MIGRATE_TOKENS[0]),
+            progress=progress))
+        victim = await streaming_worker(scrape, progress, long_a)
         survivor = next(w for w in after2 if w != victim)
-        t_kill = time.perf_counter()
+        cut_at, lines_at, t_kill = len(progress), len(front.lines), time.time()
         pid_of[victim].p.send_signal(signal.SIGKILL)
         pid_of[victim].p.wait(timeout=30)
+        r_a = await asyncio.wait_for(long_a, 120)
+        post_a = await scrape()
+        mig1 = await frontend_migrations(http_port)
+        seams["SIGKILL"] = migrated_stream("SIGKILL", r_a, cut_at, t_kill, lines_at,
+                                           pre_a, post_a, survivor, mig0, mig1)
+        # heal: the killed worker leaves discovery and the router's index
         first_ok = dropped = None
-        while time.perf_counter() - t_kill < LEASE_TTL_S + 5 and (
+        while time.time() - t_kill < LEASE_TTL_S + 5 and (
                 first_ok is None or dropped is None):
             if first_ok is None:
                 # a request the dead worker takes fails: only success counts
@@ -4528,10 +4953,10 @@ async def fleet_drive(torch, dev, card: str) -> dict:
                     status, text, _t = await asyncio.wait_for(http_request(
                         http_port, "/v1/completions", body(prompts[0], 4)), 5)
                     if status == 200 and text:
-                        first_ok = time.perf_counter() - t_kill
+                        first_ok = time.time() - t_kill
             if dropped is None and victim not in client.instance_ids() and (
                     victim not in router.indexer.index.workers()):
-                dropped = time.perf_counter() - t_kill
+                dropped = time.time() - t_kill
             await asyncio.sleep(0.2)
         if first_ok is None or dropped is None:
             raise AssertionError(f"fleet heal: served again at {first_ok} s, "
@@ -4565,9 +4990,65 @@ async def fleet_drive(torch, dev, card: str) -> dict:
         if missing and FLEET_DEVICE == "cuda":  # the CPU launches nothing
             raise AssertionError(f"fleet: kernels never launched: {missing}")
 
-        # SIGTERM on the survivor: the lease revoked at once, exit 0
-        pid_of[survivor].p.send_signal(signal.SIGTERM)
-        code = pid_of[survivor].p.wait(timeout=60)
+        # (b) a worker relaunched beside the survivor, then SIGTERM with a
+        # stream in flight: the drain leaves discovery first, hands the
+        # stream off at its deadline, revokes the lease last and exits 0
+        t_up = time.perf_counter()
+        fresh = FleetProc("worker 2", worker_args)
+        procs.append(fresh)
+        line = await fresh.wait_for("at dyn://", 600)
+        pid_of[int(re.search(r"worker ([0-9a-f]+) serving", line)[1], 16)] = fresh
+        while len(client.instance_ids()) < 2:
+            await asyncio.sleep(0.1)
+        log(f"  worker 2 (pid {fresh.p.pid}) relaunched with --warmup: serving "
+            f"{time.perf_counter() - t_up:.1f} s later")
+        subjects = {EndpointInfo.from_json(e.value).instance_id:
+                    EndpointInfo.from_json(e.value).subject
+                    for e in await drt.store.kv_get_prefix(comp.etcd_root + "/")}
+        mig0 = await frontend_migrations(http_port)
+        pre_b = await scrape()
+        progress = []
+        long_b = asyncio.ensure_future(http_request(
+            http_port, "/v1/completions", body(long_prompts[1], MIGRATE_TOKENS[1]),
+            progress=progress))
+        drained = await streaming_worker(scrape, progress, long_b)
+        other_w = next(w for w in pre_b if w != drained)
+        cut_at, lines_at, t_term = len(progress), len(front.lines), time.time()
+        pid_of[drained].p.send_signal(signal.SIGTERM)
+        t_gone, last = None, None
+        while pid_of[drained].p.poll() is None:
+            if t_gone is None and drained not in client.instance_ids():
+                t_gone = time.time() - t_term
+            if t_gone is not None:
+                # out of discovery, still serving its stats: the lease holds
+                got = await direct_stats(subjects[drained])
+                if got is not None:
+                    last = (time.time() - t_term, got)
+            await asyncio.sleep(0.05)
+        code = pid_of[drained].p.wait(timeout=60)
+        t_exit = time.time() - t_term
+        r_b = await asyncio.wait_for(long_b, 120)
+        post_b = await scrape()
+        mig1 = await frontend_migrations(http_port)
+        seams["SIGTERM"] = migrated_stream("SIGTERM", r_b, cut_at, t_term, lines_at,
+                                           pre_b, post_b, other_w, mig0, mig1)
+        if (code != 0 or t_gone is None or last is None
+                or not last[1]["draining"] or t_exit > FLEET_DRAIN_S + DRAIN_MARGIN_S
+                or t_exit < FLEET_DRAIN_S):
+            raise AssertionError(
+                f"fleet drain: exit {code} {t_exit:.2f} s after SIGTERM, out of "
+                f"discovery at {t_gone}, its stats while out of discovery "
+                f"{None if last is None else {k: last[1][k] for k in ('draining', 'drain_handoffs')}}")
+        log(f"  SIGTERM on worker {drained:x} with the stream in flight: out of "
+            f"discovery {t_gone:.2f} s after the signal, still answering stats "
+            f"(draining {last[1]['draining']}, drain_handoffs "
+            f"{last[1]['drain_handoffs']}) until {last[0]:.2f} s, exit 0 at "
+            f"{t_exit:.2f} s (deadline {FLEET_DRAIN_S:g} s)  [{card}]")
+
+        # SIGTERM on the last worker, nothing in flight: exit 0, out of
+        # discovery at once
+        pid_of[other_w].p.send_signal(signal.SIGTERM)
+        code = pid_of[other_w].p.wait(timeout=60)
         for _ in range(50):
             if not client.instance_ids():
                 break
@@ -4575,7 +5056,7 @@ async def fleet_drive(torch, dev, card: str) -> dict:
         if code != 0 or client.instance_ids():
             raise AssertionError(f"fleet: SIGTERM left exit {code}, discovery "
                                  f"{client.instance_ids()}")
-        log(f"  SIGTERM on worker {survivor:x}: exit 0, out of discovery at once")
+        log(f"  SIGTERM on worker {other_w:x}: exit 0, out of discovery at once")
     except BaseException:
         for p in procs:
             log(p.tail())
@@ -4599,6 +5080,14 @@ async def fleet_drive(torch, dev, card: str) -> dict:
     try:
         alone = [await http_request(svc.port, "/v1/completions", body(p))
                  for p in prompts + list(pulled["prompts"])]
+        # the migrated streams against the same engine: undisturbed, and
+        # given the request the survivor got (prompt + the tokens the
+        # client had at the seam, the resume annotation)
+        resumed = [await engine_resume(engine, pre, body(p, n), r, seams[label])
+                   for label, p, n, r in zip(("SIGKILL", "SIGTERM"), long_prompts,
+                                             MIGRATE_TOKENS, (r_a, r_b))]
+        long_alone = [await http_request(svc.port, "/v1/completions", body(p, n))
+                      for p, n in zip(long_prompts, MIGRATE_TOKENS)]
     finally:
         await svc.close()
         await engine.close()
@@ -4608,6 +5097,23 @@ async def fleet_drive(torch, dev, card: str) -> dict:
         f"{same} of {len(fleet_answers)} greedy answers equal to the fleet's "
         f"(round 1, the pull's cold, pulled and at-once prompts); TTFT ms "
         f"{[round(t[0] * 1e3, 1) for _s, _x, t in alone]}  [{card}]")
+    one_itl = statistics.median(
+        (t[-1] - t[0]) * 1e3 / (len(t) - 1) for _s, _x, t in long_alone)
+    for (label, seam), (k, n, equal, first, gap), got, undisturbed in zip(
+            seams.items(), resumed, (r_a, r_b), long_alone):
+        log(f"  migration after the {label}: the client's {n} tokens equal this "
+            f"engine's answer to the resumed request (prompt + the {k} tokens "
+            f"before the seam, the resume annotation) token for token: {equal}; "
+            f"equal to its undisturbed answer: {undisturbed[1] == got[1]}"
+            + ("" if undisturbed[1] == got[1] else
+               f" (first different token {first}, {first - k} after the seam)")
+            + f"; the seam's gap {gap:.1f} ms between two text events (the "
+            f"re-dispatch left {seam['redispatch_ms']:.1f} ms after the cut) "
+            f"against this engine's mean ITL {one_itl:.2f} ms on the same "
+            f"streams: {gap - one_itl:.1f} ms added  [{FLEET_MODEL}, {card}]")
+        if not equal:
+            raise AssertionError(f"fleet {label}: the migrated stream is not the "
+                                 "engine's continuation of the resumed request")
     if same != len(fleet_answers):
         raise AssertionError("fleet: answers differ from the single-process engine's")
     del worker, engine
@@ -4768,7 +5274,7 @@ async def disagg_drive(torch, dev, card: str) -> dict:
     hub_port, http_port = free_port(), free_port()
     hub_addr = f"127.0.0.1:{hub_port}"
     common = ["--hub", hub_addr, "--model-path", DISAGG_MODEL, "--host", "127.0.0.1",
-              "--device", DISAGG_DEVICE]
+              "--device", DISAGG_DEVICE, "--drain-deadline", str(FLEET_DRAIN_S)]
     procs: list = []
     drt = conn = None
     launches: dict = {}
@@ -4950,7 +5456,18 @@ async def disagg_drive(torch, dev, card: str) -> dict:
                                   pcomp, http_port, kill_prompt, ref, card)
                 prefill = None
             log(f"  disagg {label}: {time.perf_counter() - t_v:.1f} s")
-        await stop(prefill)
+        # SIGTERM on the prefill worker after the last answer: its drain
+        # stops consuming the queue, revokes the lease and exits 0
+        t_term = time.perf_counter()
+        code = await stop(prefill)
+        took = time.perf_counter() - t_term
+        if (code != 0 or took > FLEET_DRAIN_S + DRAIN_MARGIN_S
+                or not any(x.endswith("stopped") for x in prefill.lines)):
+            raise AssertionError(f"disagg: the prefill worker's SIGTERM: exit "
+                                 f"{code} after {took:.2f} s:\n{prefill.tail()}")
+        log(f"  disagg: SIGTERM on the prefill worker: stopped consuming, exit 0 "
+            f"{took:.2f} s later (drain deadline {FLEET_DRAIN_S:g} s + "
+            f"{DRAIN_MARGIN_S:.0f} s margin)  [{card}]")
         await stop(decode)
     except BaseException:
         for p in procs:
@@ -5373,8 +5890,8 @@ def mla_work(mi: MlaInputs) -> dict:
     that reach them; 2 flops per multiply-add of the scores (C + R) and of
     the value product (C)."""
     H, C, R, bs = mi.H, mi.C, mi.R, mi.bs
-    es = mi.cc.element_size()
-    row = (C + R) * es  # one position's latents
+    es = mi.qe_dec.element_size()  # queries and the decode output
+    row = (C + R) * mi.cc.element_size()  # one position's latents (fp8: 1 B)
 
     def pages(n):
         return -(-n // bs)
@@ -5559,6 +6076,7 @@ def timing(torch, dev, inp: KernelInputs, mi: MlaInputs, qi: QuantInputs,
     flush = torch.empty(64 * 2**20, dtype=torch.uint8, device=dev)  # > 50 MB L2
     sinp = inp.scaled()
     finp = inp.fp8()
+    m8 = mi.fp8()
     # fp8 copies of the append caches (ta's GQA caches are inp's)
     f_caches = (to_e4m3(inp.a_kc), to_e4m3(inp.a_vc))
     app_caches, app_planes = qi.caches.clone(), qi.scales.clone()
@@ -5605,6 +6123,11 @@ def timing(torch, dev, inp: KernelInputs, mi: MlaInputs, qi: QuantInputs,
         "kv_cache_append" + FP8_KV: lambda: inp.append(kvu.kv_cache_append, *f_caches),
         "kv_cache_append_tokens" + FP8_KV:
             lambda: ta.append(kvu.kv_cache_append_tokens, caches=f_caches),
+        "mla_paged_decode_attention" + FP8_KV:
+            lambda: m8.decode(mla.mla_paged_decode_attention),
+        "mla_paged_prefill_attention" + FP8_KV:
+            lambda: m8.prefill(mla.mla_paged_prefill_attention),
+        "kv_cache_append (MLA widths, fp8 KV)": lambda: m8.append(kvu.kv_cache_append),
         # Gemma-3-12B's heads (D = 256), bf16 pages, unwindowed and with its
         # 1024-token window
         "paged_decode_attention" + WIDE: lambda: gin.decode(pa.paged_decode_attention),
@@ -5665,6 +6188,12 @@ def timing(torch, dev, inp: KernelInputs, mi: MlaInputs, qi: QuantInputs,
             lambda: inp.append(kvu.kv_cache_append_plain, *f_caches),
         "kv_cache_append_tokens" + FP8_KV:
             lambda: ta.append(kvu.kv_cache_append_tokens_plain, caches=f_caches),
+        "mla_paged_decode_attention" + FP8_KV:
+            lambda: m8.decode(mla.mla_paged_decode_attention_plain),
+        "mla_paged_prefill_attention" + FP8_KV:
+            lambda: m8.prefill(mla.mla_paged_prefill_attention_plain),
+        "kv_cache_append (MLA widths, fp8 KV)":
+            lambda: m8.append(kvu.kv_cache_append_plain),
         "paged_decode_attention" + WIDE:
             lambda: gin.decode(pa.paged_decode_attention_plain),
         "paged_prefill_attention" + WIDE:
@@ -5690,16 +6219,25 @@ def timing(torch, dev, inp: KernelInputs, mi: MlaInputs, qi: QuantInputs,
                    if k + FP8_KV in KERNELS and not k.startswith("kv_cache")}
     wide_library = {k + WIDE: f for k, f in library_calls(torch, gin).items()
                     if k + WIDE in KERNELS}
+    # SDPA over the fp8 latent pages widened to bf16 (outside the span)
+    mla_fp8_library = {k + FP8_KV: f for k, f in
+                       mla_library_calls(torch, m8.widened()).items()
+                       if k + FP8_KV in KERNELS}
     library = {**library_calls(torch, inp), **mla_library_calls(torch, mi),
                **scaled_library, **quant_library_calls(torch, qi),
                "kv_cache_append_tokens": ta.index_put("gqa"),
                "kv_cache_append_tokens (MLA widths)": ta.index_put("mla"),
                **window_library_calls(torch, winp), **fp8_library,
-               **wide_library,
+               **wide_library, **mla_fp8_library,
                **window_library_calls(torch, gwinp, (WIDE_WINDOW, WIDE_WINDOW))}
+    L8, B8 = m8.c_new.shape[:2]
     bounds = {**work(inp), **mla_work(mi), **work(sinp), **quant_work(torch, qi),
               **spec_work(inp, mi, ta), **window_work(winp), **work(finp),
-              **work(gin, WIDE), **window_work(gwinp, (WIDE_WINDOW, WIDE_WINDOW))}
+              **work(gin, WIDE), **window_work(gwinp, (WIDE_WINDOW, WIDE_WINDOW)),
+              **{k + FP8_KV: v for k, v in mla_work(m8).items()},
+              # the bf16 rows read once, their codes written once, the slots
+              "kv_cache_append (MLA widths, fp8 KV)": (
+                  (m8.c_new.numel() + m8.pe_new.numel()) * 3 + B8 * 4 * 2, 0)}
     blocks = block_timing(torch, dev)
     kernel.update(blocks["kernel"])
     plain.update(blocks["plain"])
@@ -5762,12 +6300,15 @@ def timing(torch, dev, inp: KernelInputs, mi: MlaInputs, qi: QuantInputs,
     # the latent kernels' CUDA-core body, at phase 2's shapes: bf16 at
     # C = 1024, R = 64, wider than the tensor-core tiles (C.8), and f32 at
     # V2-Lite's widths (the body of the f32 models)
-    for label, inputs in (("C=1024, R=64, bf16", MlaInputs(torch, dev, C=1024, R=64)),
+    wide = MlaInputs(torch, dev, C=1024, R=64)
+    for label, inputs in (("C=1024, R=64, bf16", wide),
+                          ("C=1024, R=64, fp8 pages", wide.fp8()),
                           ("C=512, R=64, f32",
                            MlaInputs(torch, dev, dtype=torch.float32))):
         # the yardstick: SDPA over the same latents gathered and widened
         # contiguous, as at the tensor-core widths (timed only)
-        lib = mla_library_calls(torch, inputs)
+        lib = mla_library_calls(
+            torch, inputs.widened() if "fp8" in label else inputs)
         for name, fn, plain_fn in (
                 ("mla_paged_decode_attention", mla.mla_paged_decode_attention,
                  mla.mla_paged_decode_attention_plain),
@@ -5826,6 +6367,7 @@ def main() -> int:
     check_mla_widths(torch, dev)
     ta = TokenAppendInputs(torch, dev, inp, mi)
     errs.update(check_spec_kernels(torch, inp, mi, ta))
+    errs.update(check_mla_fp8(torch, dev, mi, ta))
     # gpt-oss-20b's attention shapes with its sliding window and sinks
     winp = KernelInputs(torch, dev, H=64, Hkv=8, D=64, window=GPTOSS_WINDOW,
                         sinks=True)
@@ -5844,15 +6386,16 @@ def main() -> int:
     check_int8_native_mm(torch, dev)
     errs.update(check_block_copy(torch, dev))
     log(f"[3/4] at {time.perf_counter() - t_all:.1f} s: serving over HTTP: "
-        "llama3-8b-sim and deepseek-v2-lite-sim, each "
-        "twice on fresh engines, deepseek-v2-lite-sim (int8 weights), "
+        "llama3-8b-sim twice on fresh engines, deepseek-v2-lite-sim, "
+        "deepseek-v2-lite-sim (int8 weights), deepseek-v2-lite-sim (fp8 KV), "
         "llama3-8b-sim (fp8 weights, int8 KV), llama3-8b-sim (fp8 KV, "
         f"spec_gamma={SPEC_GAMMA}), llama3-8b-sim and "
         f"deepseek-v2-lite-sim (spec_gamma={SPEC_GAMMA}), qwen2.5-7b-sim, "
         f"qwen3-8b-sim, a {CHECKPOINT_LAYERS}-layer Mistral-7B-v0.2 "
         f"checkpoint through dynamo_run --model-path, {GPTOSS_DRIVE}, "
-        f"{GEMMA_DRIVE}, a distributed {FLEET_MODEL} fleet with a peer pull and "
-        f"disaggregated {DISAGG_MODEL} prefill and decode workers")
+        f"{GEMMA_DRIVE}, a distributed {FLEET_MODEL} fleet with a peer pull, "
+        f"migration and drain, and disaggregated {DISAGG_MODEL} prefill and "
+        "decode workers")
     launches, plain = {}, {}
     for name, cfg, geometry, counted in drives():
         log(f"  drive {name} from {time.perf_counter() - t_all:.1f} s")

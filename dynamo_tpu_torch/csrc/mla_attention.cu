@@ -92,9 +92,26 @@
 //    the latents once per query row (L2 serves the repeats), a position
 //    per warp step (PERF.md has its times).
 //
+// float8_e4m3fn latent pages (the scale-free fp8 cache): bf16 queries over
+// e4m3 codes, in both bodies, for both functions. The pages carry no
+// scale, and a code widens EXACTLY (e4m3 -> f16 -> f32 -> bf16 loses
+// nothing), as the reference's XLA path widens them with astype(float32)
+// (dynamo_tpu/models/mla.py mla_prefill_attention_xla,
+// mla_decode_attention_xla). The tensor-core body stages each step's codes
+// in shared memory (16-byte cp.async, half a bf16 step's bytes; the ring
+// keeps its bf16 stages, so a 64-row tile at C + R = 576 fills the 227 KB
+// with three stages) and the copying thread widens its own chunks into the
+// bf16 ring at the top of the step, as csrc/paged_attention.cuh's segment
+// tiles do: the products then read bf16 fragments as before. A 16-row
+// decode tile whose two stages and codes outgrow a block runs as a 64-row
+// tile (the wrapper's plan). The CUDA-core body widens on load. f32 queries
+// over fp8 pages are not taken.
+//
 // Later work: wgmma with TMA page loads and warp specialisation.
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
+#include <cuda_fp8.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -114,6 +131,7 @@ constexpr int SMEM_MAX = 231424;   // dynamic shared memory a block takes
                                    // (227 KB less 1 KB for the static)
 
 using bf16 = __nv_bfloat16;
+using e4m3 = uint8_t;  // a float8_e4m3fn code (the pages' bytes)
 
 struct Params {
   const void* q_eff;    // [rows, C] query rows (token-major, heads inner)
@@ -121,8 +139,8 @@ struct Params {
   void* o;              // [rows, C] in the input dtype, or f32 (out_f32)
   float* m_out;         // [rows] or null
   float* l_out;         // [rows] or null
-  const void* cc;       // [N, bs, C] latent cache layer
-  const void* pc;       // [N, bs, R] rope-key cache layer
+  const void* cc;       // [N, bs, C] latent cache layer (queries' type or e4m3)
+  const void* pc;       // [N, bs, R] rope-key cache layer (likewise)
   const int* tables;    // decode: [B, M]; prefill: [M]
   const int* seq_lens;  // decode [B]: row attends kv_pos < seq_len
   const int* hist;      // prefill [1]: tokens cached before the chunk
@@ -156,17 +174,54 @@ __device__ __forceinline__ float warp_sum(float v) {
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(bf16 x) { return __bfloat162float(x); }
+// an e4m3 code, exactly (e4m3 -> f16 -> f32 widen without rounding)
+__device__ __forceinline__ float to_f(e4m3 x) {
+  return __half2float(__half(__nv_cvt_fp8_to_halfraw(x, __NV_E4M3)));
+}
+
+// two e4m3 codes (the low 16 bits) -> two floats, exactly
+__device__ __forceinline__ float2 e4m3x2_f(uint32_t codes) {
+  return __half22float2(__half2(__nv_cvt_fp8x2_to_halfraw2(
+      (__nv_fp8x2_storage_t)(codes & 0xffffu), __NV_E4M3)));
+}
+
+// 8 consecutive latents of a row as floats: one 16-byte load of bf16, one
+// 8-byte load of e4m3 codes
+__device__ __forceinline__ void load8(const bf16* src, float (&f)[8]) {
+  const uint4 v = *reinterpret_cast<const uint4*>(src);
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&v);
+#pragma unroll
+  for (int u = 0; u < 4; ++u) {
+    const float2 x = __bfloat1622float2(h[u]);
+    f[2 * u] = x.x;
+    f[2 * u + 1] = x.y;
+  }
+}
+__device__ __forceinline__ void load8(const e4m3* src, float (&f)[8]) {
+  const uint2 v = *reinterpret_cast<const uint2*>(src);
+  const uint32_t w[2] = {v.x, v.y};
+#pragma unroll
+  for (int u = 0; u < 2; ++u) {
+    const float2 lo = e4m3x2_f(w[u]), hi = e4m3x2_f(w[u] >> 16);
+    f[4 * u] = lo.x;
+    f[4 * u + 1] = lo.y;
+    f[4 * u + 2] = hi.x;
+    f[4 * u + 3] = hi.y;
+  }
+}
 
 // One block per query row: its scaled query in shared memory, and each of
 // its warps walking every nw-th position of the row's horizon with its own
 // online softmax and C accumulators in shared memory; the warps' (m, l, o)
 // merge at the end with the flash rule. Any width fits. T: the element type
-// of queries and caches; f32 lanes take C elements lane, lane + 32, ...,
-// bf16 lanes 8 consecutive ones per 16-byte load.
-template <typename T>
+// of the queries, TP that of the pages (T, or e4m3 codes under bf16
+// queries); f32 lanes take C elements lane, lane + 32, ..., bf16 and e4m3
+// lanes 8 consecutive ones per load (16 and 8 bytes), widened on load.
+template <typename T, typename TP>
 __global__ void __launch_bounds__(NT) mla_core_kernel(const Params p) {
   extern __shared__ __align__(16) float fsm[];
   constexpr bool kBf16 = std::is_same<T, bf16>::value;
+  constexpr bool kVec = !std::is_same<TP, float>::value;  // 8 per lane
   const int nw = blockDim.x >> 5;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int C = p.C, R = p.R;
@@ -195,27 +250,23 @@ __global__ void __launch_bounds__(NT) mla_core_kernel(const Params p) {
     qv[C + k] = to_f(qp[k]) * p.scale;
   for (int k = lane; k < C; k += 32) ov[k] = 0.f;
   __syncthreads();
-  const T* cc = static_cast<const T*>(p.cc);
-  const T* pc = static_cast<const T*>(p.pc);
+  const TP* cc = static_cast<const TP*>(p.cc);
+  const TP* pc = static_cast<const TP*>(p.pc);
   float m = kNegInf, l = 0.f;
   for (int pos = warp; pos <= lim; pos += nw) {
     const long long slot = (long long)table[pos / p.bs] * p.bs + pos % p.bs;
-    const T* cr = cc + slot * C;
-    const T* pr = pc + slot * R;
+    const TP* cr = cc + slot * C;
+    const TP* pr = pc + slot * R;
     float s = 0.f;
-    if constexpr (kBf16) {
+    if constexpr (kVec) {
       for (int k = 8 * lane; k < C; k += 256) {
-        const uint4 v = *reinterpret_cast<const uint4*>(cr + k);
-        const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&v);
+        float f[8];
+        load8(cr + k, f);
         const float4 q0 = *reinterpret_cast<const float4*>(qv + k);
         const float4 q1 = *reinterpret_cast<const float4*>(qv + k + 4);
         const float qf[8] = {q0.x, q0.y, q0.z, q0.w, q1.x, q1.y, q1.z, q1.w};
 #pragma unroll
-        for (int u = 0; u < 4; ++u) {
-          const float2 f = __bfloat1622float2(h[u]);
-          s = fmaf(qf[2 * u], f.x, s);
-          s = fmaf(qf[2 * u + 1], f.y, s);
-        }
+        for (int u = 0; u < 8; ++u) s = fmaf(qf[u], f[u], s);
       }
     } else {
       for (int k = lane; k < C; k += 32) s = fmaf(qv[k], to_f(cr[k]), s);
@@ -226,18 +277,16 @@ __global__ void __launch_bounds__(NT) mla_core_kernel(const Params p) {
     const float alpha = expf(m - mn), pe = expf(s - mn);
     l = l * alpha + pe;
     m = mn;
-    if constexpr (kBf16) {
+    if constexpr (kVec) {
       for (int k = 8 * lane; k < C; k += 256) {
-        const uint4 v = *reinterpret_cast<const uint4*>(cr + k);
-        const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&v);
+        float f[8];
+        load8(cr + k, f);
         float4* o4 = reinterpret_cast<float4*>(ov + k);
         float4 a = o4[0], b = o4[1];
-        const float2 f0 = __bfloat1622float2(h[0]), f1 = __bfloat1622float2(h[1]);
-        const float2 f2 = __bfloat1622float2(h[2]), f3 = __bfloat1622float2(h[3]);
-        o4[0] = make_float4(fmaf(pe, f0.x, a.x * alpha), fmaf(pe, f0.y, a.y * alpha),
-                            fmaf(pe, f1.x, a.z * alpha), fmaf(pe, f1.y, a.w * alpha));
-        o4[1] = make_float4(fmaf(pe, f2.x, b.x * alpha), fmaf(pe, f2.y, b.y * alpha),
-                            fmaf(pe, f3.x, b.z * alpha), fmaf(pe, f3.y, b.w * alpha));
+        o4[0] = make_float4(fmaf(pe, f[0], a.x * alpha), fmaf(pe, f[1], a.y * alpha),
+                            fmaf(pe, f[2], a.z * alpha), fmaf(pe, f[3], a.w * alpha));
+        o4[1] = make_float4(fmaf(pe, f[4], b.x * alpha), fmaf(pe, f[5], b.y * alpha),
+                            fmaf(pe, f[6], b.z * alpha), fmaf(pe, f[7], b.w * alpha));
       }
     } else {
       for (int k = lane; k < C; k += 32)
@@ -353,28 +402,46 @@ struct Tile {
 };
 
 // bf16 copy of one 16-byte chunk of a pe row that is not whole 16-byte
-// chunks: element loads, zeros past R (a synchronous shared store)
-__device__ __forceinline__ void pe_chunk_elems(bf16* dst, const bf16* row,
+// chunks: element loads (widened from e4m3 codes), zeros past R (a
+// synchronous shared store)
+template <typename TP>
+__device__ __forceinline__ void pe_chunk_elems(bf16* dst, const TP* row,
                                                int j0, int R, bool ok) {
   uint4 v;
   bf16* e = reinterpret_cast<bf16*>(&v);
 #pragma unroll
-  for (int u = 0; u < 8; ++u)
-    e[u] = (ok && j0 + u < R) ? row[j0 + u] : __float2bfloat16(0.f);
+  for (int u = 0; u < 8; ++u) {
+    if constexpr (std::is_same<TP, bf16>::value)
+      e[u] = (ok && j0 + u < R) ? row[j0 + u] : __float2bfloat16(0.f);
+    else
+      e[u] = __float2bfloat16((ok && j0 + u < R) ? to_f(row[j0 + u]) : 0.f);
+  }
   *reinterpret_cast<uint4*>(dst) = v;
 }
 
-template <int WPG, int KVT>
+// four e4m3 codes (one word) -> four bf16 (two words), exactly
+__device__ __forceinline__ uint2 widen4_e4m3(uint32_t codes) {
+  const float2 lo = e4m3x2_f(codes), hi = e4m3x2_f(codes >> 16);
+  return make_uint2(pack_bf16(lo.x, lo.y), pack_bf16(hi.x, hi.y));
+}
+
+// TP: the pages' element type, bf16, or e4m3 codes staged and widened into
+// the bf16 ring by the thread that copied them
+template <int WPG, int KVT, typename TP>
 __global__ void __launch_bounds__(NT, 1) mla_tc_kernel(const Params p) {
   using TL = Tile<WPG, KVT>;
   constexpr int RT = TL::RT, SXS = TL::SXS, NS8 = TL::NS8, NC8 = TL::NC8;
   constexpr int TPR = TL::TPR;
+  constexpr bool kFp8 = std::is_same<TP, e4m3>::value;
   extern __shared__ __align__(128) unsigned char smem[];
   const int DP = p.DP, CPR = DP / 8, KC = p.KD / 8, C8 = p.C / 8;
   const int C = p.C, R = p.R, ST = p.stages;
   bf16* qs = reinterpret_cast<bf16*>(smem);               // [RT][DP]
   bf16* ring = qs + RT * DP;                              // [ST][KVT][DP]
   float* sx = reinterpret_cast<float*>(ring + ST * KVT * DP);  // [RT][SXS]
+  // e4m3 pages: the codes of the steps in flight, [ST - 1][KVT][KD] bytes
+  // (each thread reads back only the chunks it copied)
+  e4m3* stg = reinterpret_cast<e4m3*>(sx + RT * SXS);
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int grp = warp / WPG, part = warp % WPG;
@@ -448,9 +515,13 @@ __global__ void __launch_bounds__(NT, 1) mla_tc_kernel(const Params p) {
 
   const bf16* qe = static_cast<const bf16*>(p.q_eff);
   const bf16* qp = static_cast<const bf16*>(p.q_pe);
-  const bf16* cc = static_cast<const bf16*>(p.cc);
-  const bf16* pc = static_cast<const bf16*>(p.pc);
+  const TP* cc = static_cast<const TP*>(p.cc);
+  const TP* pc = static_cast<const TP*>(p.pc);
   const bool pe16 = (R & 7) == 0;  // pe rows are whole 16-byte chunks
+  // e4m3 pages: a 16-byte copy carries 16 codes (two bf16 ring chunks);
+  // C16 of them per c row, KC1 per padded c | pe row
+  const int C16 = C / 16, KC1 = p.KD / 16;
+  const bool pe16c = (R & 15) == 0;  // pe code rows are whole copies
 
   // ---- Q: the tile's rows (zeros past nrows and past C + R) ----
   for (int e = tid; e < RT * KC; e += NT) {
@@ -482,20 +553,53 @@ __global__ void __launch_bounds__(NT, 1) mla_tc_kernel(const Params p) {
   auto copy_step = [&](int n) {
     bf16* st = ring + (n % ST) * KVT * DP;
     const bool ok = slot >= 0;
-    const bf16* cr = cc + (size_t)(ok ? slot : 0) * C;
-    const bf16* pr = pc + (size_t)(ok ? slot : 0) * R;
-    for (int k = kq; k < KC; k += TPR) {
-      bf16* dst = st + swz(j, k, CPR);
-      if (k < C8) {
-        cp_async16(smem_u32(dst), cr + k * 8, ok ? 16 : 0);
-      } else {
-        const int j0 = (k - C8) * 8;
-        if (pe16)
-          cp_async16(smem_u32(dst), j0 < R ? pr + j0 : pr,
-                     ok && j0 < R ? 16 : 0);
-        else
-          pe_chunk_elems(dst, pr, j0, R, ok);
+    const TP* cr = cc + (size_t)(ok ? slot : 0) * C;
+    const TP* pr = pc + (size_t)(ok ? slot : 0) * R;
+    if constexpr (kFp8) {
+      // codes into the staging slot; a pe row that is not whole copies
+      // widens element by element straight into the ring (zeros past R)
+      e4m3* sg = stg + (size_t)((n % (ST - 1)) * KVT + j) * p.KD;
+      for (int k = kq; k < KC1; k += TPR) {
+        if (k < C16) {
+          cp_async16(smem_u32(sg + k * 16), cr + k * 16, ok ? 16 : 0);
+        } else if (pe16c) {
+          cp_async16(smem_u32(sg + k * 16), pr + (k - C16) * 16, ok ? 16 : 0);
+        } else {
+          const int j0 = (k - C16) * 16;
+          pe_chunk_elems(st + swz(j, 2 * k, CPR), pr, j0, R, ok);
+          pe_chunk_elems(st + swz(j, 2 * k + 1, CPR), pr, j0 + 8, R, ok);
+        }
       }
+    } else {
+      for (int k = kq; k < KC; k += TPR) {
+        bf16* dst = st + swz(j, k, CPR);
+        if (k < C8) {
+          cp_async16(smem_u32(dst), cr + k * 8, ok ? 16 : 0);
+        } else {
+          const int j0 = (k - C8) * 8;
+          if (pe16)
+            cp_async16(smem_u32(dst), j0 < R ? pr + j0 : pr,
+                       ok && j0 < R ? 16 : 0);
+          else
+            pe_chunk_elems(dst, pr, j0, R, ok);
+        }
+      }
+    }
+  };
+  // e4m3 pages: this thread widens the codes it copied for step n into the
+  // ring (exact; its copies of step n have landed)
+  auto widen = [&](int n) {
+    bf16* st = ring + (n % ST) * KVT * DP;
+    const e4m3* sg = stg + (size_t)((n % (ST - 1)) * KVT + j) * p.KD;
+    const int kc_end = pe16c ? KC1 : C16;
+    for (int k = kq; k < kc_end; k += TPR) {
+      const uint4 raw = *reinterpret_cast<const uint4*>(sg + k * 16);
+      const uint2 w0 = widen4_e4m3(raw.x), w1 = widen4_e4m3(raw.y);
+      const uint2 w2 = widen4_e4m3(raw.z), w3 = widen4_e4m3(raw.w);
+      *reinterpret_cast<uint4*>(st + swz(j, 2 * k, CPR)) =
+          make_uint4(w0.x, w0.y, w1.x, w1.y);
+      *reinterpret_cast<uint4*>(st + swz(j, 2 * k + 1, CPR)) =
+          make_uint4(w2.x, w2.y, w3.x, w3.y);
     }
   };
 
@@ -518,6 +622,9 @@ __global__ void __launch_bounds__(NT, 1) mla_tc_kernel(const Params p) {
 
   for (int n = s_begin; n < s_end; ++n) {
     if (ST == 3) cp_async_wait<1>(); else cp_async_wait<0>();
+    // e4m3 pages: step n's codes into its bf16 stage (last read by step
+    // n - ST, which every warp finished before the previous barrier)
+    if constexpr (kFp8) widen(n);
     // step n's stage is complete, and every warp is done with step n - 1
     // (whose stage the next copy overwrites, and the S exchange)
     __syncthreads();
@@ -780,33 +887,36 @@ __global__ void __launch_bounds__(NT, 1) mla_tc_kernel(const Params p) {
   if (tid == 0) *ticket = 0;  // ready for the next launch
 }
 
-template <int WPG, int KVT>
-int tc_smem(int DP, int stages) {
+// the tensor-core body's shared memory: the Q tile, the ring, the S
+// exchange, and with e4m3 pages the codes of the steps in flight
+template <int WPG, int KVT, typename TP>
+int tc_smem(int DP, int KD, int stages) {
   using TL = Tile<WPG, KVT>;
-  return TL::RT * DP * 2 + stages * KVT * DP * 2 + TL::RT * TL::SXS * 4;
+  return TL::RT * DP * 2 + stages * KVT * DP * 2 + TL::RT * TL::SXS * 4 +
+         (std::is_same<TP, e4m3>::value ? (stages - 1) * KVT * KD : 0);
 }
 
-template <int WPG, int KVT>
+template <int WPG, int KVT, typename TP>
 cudaError_t launch_tc(const Params& p, cudaStream_t stream) {
   static bool attr_set = false;  // above 48 KB needs the opt-in, once
   if (!attr_set) {
     const cudaError_t e = cudaFuncSetAttribute(
-        mla_tc_kernel<WPG, KVT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        SMEM_MAX);
+        mla_tc_kernel<WPG, KVT, TP>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_MAX);
     if (e != cudaSuccess) return cudaGetLastError();
     attr_set = true;
   }
-  const int smem = tc_smem<WPG, KVT>(p.DP, p.stages);
+  const int smem = tc_smem<WPG, KVT, TP>(p.DP, p.KD, p.stages);
   if (smem > SMEM_MAX) return cudaErrorInvalidValue;
   const int blocks = p.B > 0 ? p.B * p.n_rt * p.n_slabs * p.n_split
                              : p.n_rt * p.n_slabs;
-  mla_tc_kernel<WPG, KVT><<<blocks, NT, smem, stream>>>(p);
+  mla_tc_kernel<WPG, KVT, TP><<<blocks, NT, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
 // the CUDA-core body: one block per query row, as many warps (at most NW)
 // as their f32 accumulators let into shared memory beside the query
-template <typename T>
+template <typename T, typename TP>
 cudaError_t launch_core(const Params& p, size_t rows, cudaStream_t stream) {
   const long long fixed = 4ll * ((p.C + p.R + 3) & ~3);
   const long long per_warp = 4ll * p.C + 8;
@@ -816,21 +926,24 @@ cudaError_t launch_core(const Params& p, size_t rows, cudaStream_t stream) {
   static bool attr_set = false;
   if (!attr_set) {
     const cudaError_t e = cudaFuncSetAttribute(
-        mla_core_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        mla_core_kernel<T, TP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         SMEM_MAX);
     if (e != cudaSuccess) return cudaGetLastError();
     attr_set = true;
   }
-  mla_core_kernel<T><<<(unsigned)rows, nw * 32, fixed + nw * per_warp, stream>>>(p);
+  mla_core_kernel<T, TP>
+      <<<(unsigned)rows, nw * 32, fixed + nw * per_warp, stream>>>(p);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// Plain C interface, loaded with ctypes. dtype: 0 = float32, 1 = bfloat16;
-// queries and caches share it, the output is that dtype, or float32 with
-// out_f32. Decode: B > 0 sequences of H query rows each, tables [B, M],
-// seq_lens [B]. Prefill: B == 0, one chunk of T tokens x H heads, tables
+// Plain C interface, loaded with ctypes. dtype: 0 = float32, 1 = bfloat16
+// (queries and caches share it), 2 = bfloat16 queries over float8_e4m3fn
+// latent pages (scale-free codes, widened exactly); the output is the
+// queries' dtype, or float32 with out_f32. f32 queries over e4m3 pages are
+// not taken (cudaErrorInvalidValue). Decode: B > 0 sequences of H query
+// rows each, tables [B, M], seq_lens [B]. Prefill: B == 0, one chunk of T tokens x H heads, tables
 // [M], hist [1], valid [1] or null. C % 128 == 0, R >= 1. Bodies: bf16
 // with C + R rounded up to 64 at most 768 and R <= 128 runs the tensor-core
 // body; f32, and bf16 at wider latents, the CUDA-core one. The tensor-core
@@ -877,12 +990,16 @@ extern "C" int mla_attention_launch(
     return (int)cudaErrorInvalidValue;
   if (C <= 0 || C % 128 != 0 || R < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return (int)launch_core<float>(p, rows, st);
-  if (dtype != 1) return (int)cudaErrorInvalidValue;
+  if (dtype == 0) return (int)launch_core<float, float>(p, rows, st);
+  // the page-type dispatch: bf16 pages (1) or e4m3 codes (2), bf16 queries
+  if (dtype != 1 && dtype != 2) return (int)cudaErrorInvalidValue;
+  const bool fp8 = dtype == 2;
   p.DP = C + (R + 63) / 64 * 64;
   p.KD = C + (R + 15) / 16 * 16;
   // the width dispatch: what the tensor-core tiles cannot hold (C.8)
-  if (p.DP > DP_MAX || R > 128) return (int)launch_core<bf16>(p, rows, st);
+  if (p.DP > DP_MAX || R > 128)
+    return fp8 ? (int)launch_core<bf16, e4m3>(p, rows, st)
+               : (int)launch_core<bf16, bf16>(p, rows, st);
   if ((stages != 2 && stages != 3) || slab_w <= 0 ||
       slab_w % 128 != 0 || slab_w > SLAB)
     return (int)cudaErrorInvalidValue;
@@ -898,11 +1015,13 @@ extern "C" int mla_attention_launch(
     return (int)cudaErrorInvalidValue;
   if (wpg == 2) {
     p.n_rt = B > 0 ? (H + 63) / 64 : (int)((rows + 63) / 64);
-    return (int)launch_tc<2, 32>(p, st);
+    return fp8 ? (int)launch_tc<2, 32, e4m3>(p, st)
+               : (int)launch_tc<2, 32, bf16>(p, st);
   }
   if (wpg == 8) {
     p.n_rt = B > 0 ? (H + 15) / 16 : (int)((rows + 15) / 16);
-    return (int)launch_tc<8, 64>(p, st);
+    return fp8 ? (int)launch_tc<8, 64, e4m3>(p, st)
+               : (int)launch_tc<8, 64, bf16>(p, st);
   }
   return (int)cudaErrorInvalidValue;
 }

@@ -32,9 +32,9 @@ serve, and the int8-with-scales KV cache keeps ``[L, N]`` f32
 scale planes beside the caches — recycled pages get their scales reset by
 one scatter on the next dispatch, prefix-cache claims keep theirs, and the
 device count of requantized pages folds into the stats only when
-``load_metrics`` is scraped. The scale-free ``float8_e4m3`` cache (GQA
-only, as the reference's kernels serve it) holds half the bytes of bf16
-pages and no planes; speculation runs over it as over bf16. Device work
+``load_metrics`` is scraped. The scale-free ``float8_e4m3`` cache (GQA,
+and MLA's latent pages) holds half the bytes of bf16 pages and no
+planes; speculation runs over it as over bf16. Device work
 runs in the loop's executor under one lock, so the event loop stays live
 while the card computes.
 
@@ -72,7 +72,15 @@ int8 cache's scale resets flushed first) and joins the sequence to its
 decode batch. The fleet tier: ``export_device_chain`` serves a peer's pull
 from the device pages, and ``prefetch_hint`` lands a router-hinted chain
 (host, disk or peer-pulled) into the reuse pool before its request
-arrives. Left out of this slice (ROADMAP queue A): adapters, live reshard,
+arrives.
+
+Resilience (``resilience/``): ``drain`` stops admission (new requests
+bounce with the migration signal), lets in-flight work finish within a
+deadline and then hands the rest off with the signal, at an iteration
+boundary of the loop; a request carrying the ``resume`` annotation (a
+migrated stream: prompt + tokens delivered so far) restores its
+prompt / generated split, so its seeded sampling and penalties continue at
+the seam. Left out of this slice (ROADMAP queue A): adapters, live reshard,
 the pipelined decode, multi-host mirrors, tracing / flight recorder, and
 the capture of prefill and of the mixed step.
 """
@@ -108,6 +116,8 @@ from ..protocols.common import (
     SamplingOptions,
     StopConditions,
 )
+from ..resilience.migration import RESUME_KEY
+from ..resilience.policy import MIGRATION_SIGNAL
 from ..runtime.engine import AsyncEngine, Context
 from .allocator import Block, BlockAllocator, sequence_block_hashes
 from .graphs import GraphRunner, StaticInputs
@@ -172,7 +182,7 @@ class EngineConfig:
     quantization: str = "none"
     # KV cache storage: "model" | "bfloat16" | "int8" (int8 with per-page
     # f32 scale planes) | "float8_e4m3" (scale-free float8_e4m3fn pages,
-    # the reference's cast; GQA only: MLA raises NotImplementedError)
+    # the reference's cast; GQA and MLA's latent pages)
     kv_cache_dtype: str = "model"
     # speculative decoding via prompt-lookup (n-gram) drafts: propose up to
     # spec_gamma continuation tokens from the sequence's own history (its
@@ -324,9 +334,16 @@ class TorchEngine(AsyncEngine):
             check_head_dim("TorchEngine", mcfg.head_dim)
         if mcfg.is_mla and cfg.quantization == "int8_native":
             raise ValueError(MLA_INT8_NATIVE)
-        # None, bf16, int8 or float8_e4m3fn (MLA + fp8 raises here: the
-        # latent kernels take no fp8 pages)
+        # None, bf16, int8 or float8_e4m3fn
         cache_dt = kv_cache_dtype(mcfg, cfg.kv_cache_dtype)
+        if (self.device.type == "cuda" and mcfg.is_mla
+                and cache_dt == torch.float8_e4m3fn
+                and llama._dtype(mcfg) != torch.bfloat16):
+            # the latent kernels read fp8 pages under bf16 queries only
+            raise ValueError(
+                "kv_cache_dtype='float8_e4m3' on an MLA model takes a bf16 "
+                f"model on the card (got {llama._dtype(mcfg)})"
+            )
         if cache_dt == torch.int8 and mcfg.is_mla:
             # refused, not a silent fallback: the absorbed latent path dots
             # queries against the cache directly and has no per-page scale
@@ -443,6 +460,12 @@ class TorchEngine(AsyncEngine):
         self._wake = asyncio.Event()
         self._closed = False
         self._backpressured = False
+        # graceful drain (resilience/drain.py): _draining stops admission
+        # (generate() bounces new work with the migration signal); past
+        # _drain_deadline the scheduler hands off in-flight streams too
+        self._draining = False
+        self._drain_handoff = True
+        self._drain_deadline = 0.0
         self._dead: Optional[str] = None
         # host mirrors of the batch state, uploaded per dispatch
         B, M = cfg.max_batch_size, cfg.max_blocks_per_seq
@@ -510,6 +533,11 @@ class TorchEngine(AsyncEngine):
             "xla_compile_ms_total": 0.0,
             "xla_warm_buckets": 0,
             "xla_reachable_buckets": 0,
+            # the resilience surface: drains, the streams they handed off,
+            # and resumed (migrated) requests this engine took
+            "drains_total": 0,
+            "drain_handoffs": 0,
+            "migration_resumes": 0,
         }
         # the worker's latency distributions in the reference's wire form
         # (load_metrics' hist_* keys): admission wait, prefill wall and
@@ -621,8 +649,11 @@ class TorchEngine(AsyncEngine):
         return sizes
 
     async def generate(self, request: Context) -> AsyncIterator[LLMEngineOutput]:
-        if self._dead is not None:
-            yield LLMEngineOutput(finish_reason=FinishReason.ERROR, text=self._dead)
+        if self._draining or self._dead is not None:
+            # draining or dead: bounce at once with a worker-lost signature,
+            # so a migration-aware frontend re-dispatches it elsewhere
+            yield LLMEngineOutput(finish_reason=FinishReason.ERROR,
+                                  text=self._dead or MIGRATION_SIGNAL)
             return
         self.start()
         req: PreprocessedRequest = request.data
@@ -648,6 +679,22 @@ class TorchEngine(AsyncEngine):
             tokens=list(req.token_ids),
             prompt_len=len(req.token_ids),
         )
+        resume = (req.annotations.get(RESUME_KEY)
+                  if isinstance(req.annotations, dict) else None)
+        if isinstance(resume, dict):
+            # a migrated request: token_ids = the original prompt + the
+            # tokens already delivered. Restoring the split continues the
+            # stream exactly: the sampling keys (seed, generated) pick up at
+            # the seam, the penalties rebuild from the true output, and the
+            # token limits and usage count from the original prompt
+            try:
+                plen = int(resume.get("prompt_len", 0))
+            except (TypeError, ValueError):
+                plen = 0
+            if 0 < plen <= len(req.token_ids):
+                seq.prompt_len = plen
+                seq.generated = len(req.token_ids) - plen
+                self.stats["migration_resumes"] += 1
         self.stats["requests_total"] += 1
         self.stats["prompt_tokens_total"] += seq.prompt_len
         await self._waiting.put(seq)
@@ -668,7 +715,7 @@ class TorchEngine(AsyncEngine):
         and warmup's coverage. With the KV tiers on, their keys join
         (queued last-tier drops are published first), and the transfer-cost
         model's counters close the scrape. Features this worker does not
-        have report their idle values: no autopilot, drain, reshard, weight
+        have report their idle values: no autopilot, reshard, weight
         prestaging or adapters; one device, one served name. The int8
         cache's device requant counter converts to a host number here, and
         only here."""
@@ -710,10 +757,11 @@ class TorchEngine(AsyncEngine):
             "requests_total": self.stats["requests_total"],
             "tokens_generated": self.stats["tokens_generated"],
             "prompt_tokens_total": self.stats["prompt_tokens_total"],
-            "draining": 0,
-            "drains_total": 0,
-            "drain_handoffs": 0,
-            "migration_resumes": 0,
+            # the router deprioritizes a draining worker
+            "draining": int(self._draining),
+            "drains_total": self.stats["drains_total"],
+            "drain_handoffs": self.stats["drain_handoffs"],
+            "migration_resumes": self.stats["migration_resumes"],
             "kv_block_bytes": self.kv_block_bytes,
             "kv_wire_block_bytes": self.kv_wire_block_bytes,
             "kv_quant_logprob_drift_max": self.stats["kv_quant_logprob_drift_max"],
@@ -834,11 +882,70 @@ class TorchEngine(AsyncEngine):
                 cur - self._offload_requants_seen)
             self._offload_requants_seen = cur
 
+    # ---------------- graceful drain (resilience/drain.py) ----------------
+
+    async def drain(self, deadline_s: float = 10.0, handoff: bool = True) -> dict:
+        """Stop admitting and retire in-flight work: requests get
+        ``deadline_s`` to finish; with ``handoff=True`` the stragglers (and
+        everything still queued) end with the migration signal, so a
+        migration-aware frontend resumes them on another worker as prompt +
+        tokens so far. ``handoff=False`` waits for every request to finish.
+        Returns ``{"handed_off": n}``."""
+        if not self._draining:
+            self._draining = True
+            self.stats["drains_total"] += 1
+        self._drain_handoff = handoff
+        self._drain_deadline = asyncio.get_running_loop().time() + deadline_s
+        self._wake.set()
+        handoffs_before = self.stats["drain_handoffs"]
+        while (
+            self._has_pending_work()
+            and self._loop_task is not None
+            and not self._closed
+            and self._dead is None
+        ):
+            await asyncio.sleep(0.01)
+        return {"handed_off": self.stats["drain_handoffs"] - handoffs_before}
+
+    def _drain_tick(self) -> None:
+        """One scheduler-loop pass of drain progress, at an iteration
+        boundary (never beside a device dispatch): queued work is handed
+        back at once (nothing of it is computed); past the deadline, the
+        remotely prefilled sequences waiting for a slot, the in-flight
+        prefills and the decoding streams too."""
+        if not self._drain_handoff:
+            return
+        while not self._waiting_is_empty():
+            self._handoff_seq(self._pop_waiting())
+        if asyncio.get_running_loop().time() < self._drain_deadline:
+            return
+        while self._remote_ready:
+            self._handoff_seq(self._remote_ready.pop())
+        for st in list(self._prefill_states):
+            self.stats["drain_handoffs"] += 1
+            self._abort_prefill(st, FinishReason.ERROR, text=MIGRATION_SIGNAL)
+        for seq in list(self._active):
+            if seq is not None and not seq.finished:
+                self._handoff_seq(seq)
+
+    def _handoff_seq(self, seq: _Sequence) -> None:
+        """End one stream with the migration signal (the tokens it already
+        emitted stay valid: the frontend splices the continuation)."""
+        if seq.finished:
+            return
+        self.stats["drain_handoffs"] += 1
+        seq.out_queue.put_nowait(
+            LLMEngineOutput(finish_reason=FinishReason.ERROR,
+                            text=MIGRATION_SIGNAL))
+        self._finish(seq, FinishReason.ERROR, emit=False)
+
     # ---------------- scheduler loop ----------------
 
     async def _loop(self) -> None:
         try:
             while not self._closed:
+                if self._draining:
+                    self._drain_tick()
                 admitted = await self._admit()
                 if (
                     self._n_active == 0
@@ -1090,16 +1197,18 @@ class TorchEngine(AsyncEngine):
         if st in self._prefill_states:
             self._prefill_states.remove(st)
 
-    def _abort_prefill(self, st: _PrefillState, reason: FinishReason) -> None:
-        """The one teardown of an in-flight prefill (cancellation and device
-        failure, dedicated and mixed paths): drop the state, free the
+    def _abort_prefill(self, st: _PrefillState, reason: FinishReason,
+                       text: Optional[str] = None) -> None:
+        """The one teardown of an in-flight prefill (cancellation, device
+        failure and the drain's handoff, whose ``text`` is the migration
+        signal; dedicated and mixed paths): drop the state, free the
         blocks, hand the reserved host chain back, end the stream."""
         seq = st.seq
         self._drop_prefill_state(st)
         self.allocator.free(seq.blocks)
         seq.blocks = []
         self._rollback_upload(st)
-        seq.out_queue.put_nowait(LLMEngineOutput(finish_reason=reason))
+        seq.out_queue.put_nowait(LLMEngineOutput(finish_reason=reason, text=text))
 
     def _rollback_upload(self, st: _PrefillState) -> None:
         """Record an abandoned upload (if it never landed) and return the

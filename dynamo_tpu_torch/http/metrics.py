@@ -3,16 +3,21 @@
 A trimmed copy of ``dynamo_tpu/http/metrics.py`` (the reference's
 lib/llm/src/http/service/metrics.rs): request counters by (model,
 endpoint, status), an inflight gauge with an RAII guard, token counters,
-and first-token / inter-token latency sums and counts — rendered in the
-Prometheus text format at /metrics with no client dependency. The
+and first-token / inter-token latency sums and counts, and registered
+sources (a callable returning ``{name: value}``, e.g. the migration
+wrapper's counters), each rendered as ``<prefix>_<name> <value>`` —
+in the Prometheus text format at /metrics with no client dependency. The
 log-bucket latency histograms, SLO classes and breach counters of the
 reference are not ported yet.
 """
 
 from __future__ import annotations
 
+import logging
 import time
 from collections import defaultdict
+
+logger = logging.getLogger(__name__)
 
 REQUESTS_TOTAL = "http_service_requests_total"
 INFLIGHT_REQUESTS = "http_service_inflight_requests"
@@ -30,6 +35,10 @@ class Metrics:
         # (model, endpoint) -> [sum_seconds, count]
         self.first_token: dict[tuple, list] = defaultdict(lambda: [0.0, 0])
         self.inter_token: dict[tuple, list] = defaultdict(lambda: [0.0, 0])
+        self._sources: list = []
+
+    def register_source(self, fn) -> None:
+        self._sources.append(fn)
 
     def inflight_guard(self, model: str, endpoint: str) -> "InflightGuard":
         return InflightGuard(self, model, endpoint)
@@ -60,6 +69,13 @@ class Metrics:
                 labels = f'model="{model}",endpoint="{endpoint}"'
                 lines.append(f"{p}_{name}_sum{{{labels}}} {total}")
                 lines.append(f"{p}_{name}_count{{{labels}}} {n}")
+        for src in self._sources:
+            try:
+                for k, v in sorted(src().items()):
+                    lines.append(f"{p}_{k} {v}")
+            except Exception:  # noqa: BLE001 — a bad source must not
+                # break the whole exposition
+                logger.debug("metrics source failed", exc_info=True)
         return "\n".join(lines) + "\n"
 
 

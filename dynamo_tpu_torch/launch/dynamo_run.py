@@ -19,10 +19,21 @@ The subset of ``dynamo_tpu/launch/dynamo_run.py`` the port serves:
   out=torch the PyTorch engine (TorchEngine), on ``--device`` (cuda)
   out=dyn://ns.comp.ep  route to the workers discovered at ``--hub``
             (frontend): ``--router kv`` tokenizes here and sends each
-            request to the worker holding most of its prefix; otherwise
-            the workers' registered models are served round robin or at
-            random (``--router round_robin|random``). The frontend holds
-            no model and touches no device.
+            request to the worker holding most of its prefix, and resumes
+            a stream cut by a worker's death or drain on another worker as
+            prompt + tokens so far (``--no-migration`` turns that off;
+            ``--max-migrations``, ``--migration-deadline``); otherwise the
+            workers' registered models are served round robin or at random
+            (``--router round_robin|random``). The frontend holds no model
+            and touches no device.
+
+SIGTERM on a worker role (``in=dyn://…``) is a graceful drain: the worker
+leaves discovery, lets its in-flight streams finish within
+``--drain-deadline`` seconds, hands the rest off to the frontend's
+migration, and revokes its lease last, then exits 0. On the prefill role it
+stops consuming the queue (an item in flight redelivers to another prefill
+worker after the queue's visibility timeout) and exits 0. SIGINT, and
+SIGTERM on the hub and the frontend, stop the process at once.
 
 Examples::
 
@@ -120,6 +131,7 @@ from ..models.config import ModelConfig, deepseek_v2_lite, gemma3_12b
 from ..models.quant import KV_CACHE_DTYPES, WEIGHT_MODES, kv_cache_dtype
 from ..models.weights import init_random_params, load_llama_params
 from ..ops._cuda import launch_counts
+from ..resilience import DrainCoordinator, MigratingEngine, MigrationPolicy
 from ..runtime import DistributedRuntime, Worker, link
 from ..runtime.engine import AsyncEngine, Context
 from ..runtime.hub import HubServer
@@ -243,6 +255,7 @@ def dyn_target(address: str) -> tuple[str, str, str]:
 
 async def run_http(args) -> None:
     manager = ModelManager()
+    sources = []  # metric sources beside the service's own
     if args.out.startswith("dyn://"):
         ns, comp_name, ep = dyn_target(args.out)
         drt = await connect_runtime(args)
@@ -258,8 +271,20 @@ async def run_http(args) -> None:
             router = await KvRouter(
                 drt, comp, block_size=args.block_size, model_name=name,
             ).start()
+            dispatch = KvRoutedEngine(router, client)
+            if not args.no_migration:
+                # in-flight migration: a stream cut by a worker's death or
+                # drain re-dispatches as prompt + tokens so far through the
+                # same router; its counters join /metrics
+                dispatch = MigratingEngine(
+                    dispatch,
+                    MigrationPolicy(max_migrations=args.max_migrations,
+                                    deadline_s=args.migration_deadline),
+                    client=client,
+                )
+                sources.append(lambda s=dispatch.stats: dict(s))
             engine = link(OpenAIPreprocessor(tokenizer), Backend(tokenizer),
-                          KvRoutedEngine(router, client))
+                          dispatch)
             manager.add_chat_model(name, engine)
             manager.add_completion_model(name, engine)
         else:
@@ -270,6 +295,8 @@ async def run_http(args) -> None:
         manager.add_chat_model(name, engine)
         manager.add_completion_model(name, engine)
     svc = HttpService(manager, host=args.host, port=args.http_port)
+    for source in sources:
+        svc.metrics.register_source(source)
     await svc.start()
     print(f"OpenAI server on http://{args.host}:{svc.port} "
           f"(models: {manager.model_names() or 'discovered dynamically'})",
@@ -281,8 +308,9 @@ def run_endpoint(args) -> None:
     """Worker: serve the engine at ``in=dyn://ns.comp.ep``, under
     ``runtime.Worker``. The engine is built and warmed BEFORE the runtime
     takes its lease, so keepalives are never starved by weight loading or
-    kernel builds. SIGTERM, SIGINT or a lost lease cancel serving, which
-    then has ``WorkerConfig.graceful_shutdown_timeout`` (30 s;
+    kernel builds. SIGTERM drains (:func:`serve_endpoint`); SIGINT or a lost
+    lease cancel serving, which then has
+    ``WorkerConfig.graceful_shutdown_timeout`` (30 s;
     ``DYN_WORKER_GRACEFUL_SHUTDOWN_TIMEOUT``) to unregister and close the
     engine before the lease is revoked (discovery drops the worker at once)
     and the process exits 0; an overrun exits 911."""
@@ -301,11 +329,14 @@ async def serve_endpoint(args, drt: DistributedRuntime, engine, core: TorchEngin
     """The worker's main: its allocator publishes KV events, its stats
     endpoint answers with ``load_metrics() | stats``, the loop monitor's
     counters and the kernel wrappers' launch counts (``kernel_launches``),
-    and its model and card are published; it serves until cancelled.
-    ``--disagg decode`` puts a ``DisaggEngine`` in front of the engine (its
-    counters and ``handoffs`` records join the stats); a host tier starts
-    the prefetch-hint listener (which pulls from peers) and the peer
-    server."""
+    and its model and card are published; it serves until cancelled or
+    drained. ``--disagg decode`` puts a ``DisaggEngine`` in front of the
+    engine (its counters and ``handoffs`` records join the stats); a host
+    tier starts the prefetch-hint listener (which pulls from peers) and the
+    peer server. SIGTERM runs a ``DrainCoordinator``: leave discovery, stop
+    the card refresher and the listeners, drain the engine with handoff
+    within ``--drain-deadline``, flush the response plane, revoke the lease
+    last."""
     target = args.in_.removeprefix("dyn://")
     ns, comp, ep = dyn_target(target)
     component = drt.namespace(ns).component(comp)
@@ -314,7 +345,8 @@ async def serve_endpoint(args, drt: DistributedRuntime, engine, core: TorchEngin
     KvEventPublisher(drt, component, drt.primary_lease_id).attach(
         core.allocator, offload=core.offload)
     stalls = LoopStallMonitor().start()
-    closers = []
+    closers = []  # after serving ends
+    aux = []  # auxiliary consumers, stopped first by a drain
     transfer = disagg = None
     if args.disagg == "decode":
         transfer = KvTransferServer(host=args.host, advertise_host=args.advertise_host)
@@ -339,7 +371,7 @@ async def serve_endpoint(args, drt: DistributedRuntime, engine, core: TorchEngin
         listener = await KvPrefetchListener(
             drt, component, drt.primary_lease_id, core, transfer=transfer).start()
         peers = await KvPeerServer(drt, component, drt.primary_lease_id, core).start()
-        closers += [listener.close, peers.close]
+        aux += [listener.close, peers.close]
 
     def stats() -> dict:
         out = core.load_metrics() | core.stats | stalls.counters()
@@ -360,18 +392,43 @@ async def serve_endpoint(args, drt: DistributedRuntime, engine, core: TorchEngin
     await card.publish(drt.bus)
     refresher = MdcRefresher(drt.bus, card)
     refresher.start()
+    aux.insert(0, refresher.stop)
+    drain = DrainCoordinator(drt, engines=[core], handles=[handle], closers=aux,
+                             deadline_s=args.drain_deadline)
     print(f"worker {drt.worker_id:x} serving {name!r} at dyn://{target}",
           flush=True)
     try:
-        await asyncio.Event().wait()
+        await _serve_until_stopped(drain, handle, aux)
     finally:
-        refresher.stop()
         stalls.stop()
-        await handle.stop()
         for close in closers:
             await close()
         await core.close()
         print(f"worker {drt.worker_id:x} stopped", flush=True)
+
+
+async def _serve_until_stopped(drain: DrainCoordinator, handle, aux) -> None:
+    """Serve until SIGTERM's drain ends (``drain`` deregisters, runs
+    ``aux``, drains its engines, stops ``handle`` and revokes the lease) or
+    serving is cancelled (SIGINT, a lost lease), which stops ``handle`` and
+    runs ``aux`` here before the cancellation goes on. The drain's lease
+    revocation also cancels serving (the runtime's shutdown): the drain is
+    then awaited, not repeated."""
+    done = asyncio.Event()
+    drain.on_done = done.set
+    drain.install_signal_handlers()
+    try:
+        await done.wait()
+    except asyncio.CancelledError:
+        if drain.task is not None:
+            await drain.task
+        else:
+            await handle.stop()
+            for close in aux:
+                r = close()
+                if asyncio.iscoroutine(r):
+                    await r
+        raise
 
 
 class _StatusOnly(AsyncEngine):
@@ -386,9 +443,11 @@ class _StatusOnly(AsyncEngine):
 def run_prefill(args) -> None:
     """Prefill worker (``in=prefill``), under ``runtime.Worker``: the engine
     is built and its prefill buckets warmed before the lease is taken; then
-    it consumes the namespace's prefill queue until SIGTERM / SIGINT, which
-    stop consumption (an in-flight item that does not finish redelivers to
-    another prefill worker) and exit 0."""
+    it consumes the namespace's prefill queue until SIGTERM (a drain: leave
+    discovery, stop consuming, revoke the lease last) or SIGINT; either
+    stops consumption (an in-flight item that does not finish redelivers to
+    another prefill worker after the queue's visibility timeout) and exits
+    0."""
     built = []
 
     async def runtime() -> DistributedRuntime:
@@ -412,13 +471,13 @@ async def serve_prefill(args, drt: DistributedRuntime, core: TorchEngine,
                                | {"handoffs": list(worker.handoffs),
                                   "kernel_launches": launch_counts()}))
     worker.start()
+    drain = DrainCoordinator(drt, handles=[handle], closers=[worker.close],
+                             deadline_s=args.drain_deadline)
     print(f"prefill worker {drt.worker_id:x} serving {name!r} on queue "
           f"{queue.name}", flush=True)
     try:
-        await asyncio.Event().wait()
+        await _serve_until_stopped(drain, handle, [worker.close])
     finally:
-        await worker.close()
-        await handle.stop()
         await core.close()
         print(f"prefill worker {drt.worker_id:x} stopped", flush=True)
 
@@ -550,11 +609,25 @@ def parse_args(argv=None):
     p.add_argument("--prefill-concurrency", type=int, default=1,
                    help="in=prefill: prompts advancing chunk-wise together on "
                         "one engine (1 = whole prompts in turn)")
+    p.add_argument("--no-migration", action="store_true",
+                   help="frontend (--router kv): no in-flight migration; a "
+                        "worker's death or drain then errors its streams "
+                        "instead of resuming them on another worker")
+    p.add_argument("--max-migrations", type=int, default=3,
+                   help="re-dispatch attempts per request before the "
+                        "failure reaches the client")
+    p.add_argument("--migration-deadline", type=float, default=30.0,
+                   help="wall-clock budget (s) from a request's first "
+                        "failure across all its re-dispatches")
+    p.add_argument("--drain-deadline", type=float, default=15.0,
+                   help="SIGTERM graceful-drain budget (s): in-flight "
+                        "requests get this long to finish before being "
+                        "handed off to surviving workers")
     p.add_argument("--kv-cache-dtype", default="model",
                    choices=list(KV_CACHE_DTYPES),
                    help="KV cache storage dtype (int8 = int8-with-scales "
                         "device cache, per-(layer, page) f32 scale planes; "
-                        "float8_e4m3 = scale-free fp8 pages, GQA only)")
+                        "float8_e4m3 = scale-free fp8 pages, GQA and MLA)")
     args = p.parse_args(argv)
     kv = dict(a.split("=", 1) for a in args.in_out if "=" in a)
     args.in_ = "hub" if "hub" in args.in_out else kv.get("in", "http")

@@ -45,7 +45,7 @@ int8-with-scales KV cache (GQA only), :func:`prefill`,
 planes ``k_scales`` / ``v_scales``, update them IN PLACE like the caches,
 and return them (and the device int32 count of scale entries that grew,
 ``n_requants``) right after the caches, as the JAX functions do. Over the
-scale-free fp8 cache (``float8_e4m3fn`` caches, GQA only) every function
+scale-free fp8 cache (``float8_e4m3fn`` caches, GQA and MLA) every function
 takes no planes: the writes cast with ``models/quant.to_e4m3`` (plain
 PyTorch for a prefill chunk or a fused step's rows, the row-store kernel for
 the merged decode's and the verify's appends) and the kernels widen the
@@ -747,21 +747,16 @@ def _i32(x, device) -> torch.Tensor:
 def _check_planes(cfg: ModelConfig, k_cache, k_scales, v_scales) -> bool:
     """Whether the int8-with-scales cache is on: both planes or neither,
     and never for MLA (its latent path has no per-page scale stream). A
-    scale-free fp8 cache (``float8_e4m3fn``) takes no planes and serves
-    GQA only: the latent kernels take no fp8 pages (ROADMAP A.3)."""
+    scale-free fp8 cache (``float8_e4m3fn``) takes no planes, GQA or MLA
+    (the latent pages widen exactly in both latent kernels)."""
     if (k_scales is None) != (v_scales is None):
         raise ValueError("k_scales and v_scales come together")
     if k_scales is not None and cfg.is_mla:
         raise ValueError("the int8-with-scales KV cache is not supported for "
                          "MLA models (the absorbed latent path has no "
                          "per-page scale stream)")
-    if k_cache.dtype == torch.float8_e4m3fn:
-        if k_scales is not None:
-            raise ValueError("an fp8 KV cache takes no scale planes")
-        if cfg.is_mla:
-            raise NotImplementedError(
-                "an fp8 KV cache on an MLA model is not ported yet: the "
-                "latent kernels take no fp8 pages (ROADMAP A.3)")
+    if k_cache.dtype == torch.float8_e4m3fn and k_scales is not None:
+        raise ValueError("an fp8 KV cache takes no scale planes")
     return k_scales is not None
 
 

@@ -20,7 +20,7 @@ The KV cache dtypes: ``model`` and ``bfloat16`` store K/V at that width;
 ``int8`` is the int8-with-scales device cache (one f32 absmax scale per
 (layer, physical page) for K and for V, kept in ``[L, N]`` planes beside
 the caches; ``ops/kv_cache_update.kv_cache_append_quantized``);
-``float8_e4m3`` is the scale-free ``float8_e4m3fn`` cache (GQA only): every
+``float8_e4m3`` is the scale-free ``float8_e4m3fn`` cache (GQA and MLA): every
 write casts with :func:`to_e4m3`, every read widens the codes exactly.
 """
 
@@ -139,14 +139,7 @@ def kv_cache_dtype(cfg: ModelConfig, name: Optional[str]) -> Optional[torch.dtyp
     if name == "int8":
         return torch.int8
     if name == "float8_e4m3":
-        if cfg.is_mla:
-            # the reference serves MLA + fp8 on its XLA fallback; the card
-            # runs the latent kernels or nothing, and they take no fp8 pages
-            raise NotImplementedError(
-                "kv_cache_dtype='float8_e4m3' on an MLA model is not ported "
-                "yet: the latent kernels (csrc/mla_attention.cu) take no fp8 "
-                "pages; see ROADMAP.md A.3, the MLA fp8 latent page type"
-            )
+        # GQA and MLA alike: the latent kernels read fp8 pages too
         return torch.float8_e4m3fn
     raise ValueError(f"kv_cache_dtype must be one of {KV_CACHE_DTYPES}")
 

@@ -23,7 +23,10 @@ position s as ``q_eff . c[s] + q_pe . pe[s]`` (scaled), fp32 softmax.
 On CUDA tensors the entry points launch ``csrc/mla_attention.cu`` (a
 tensor-core body for bf16 latents up to :func:`tc_takes`' widths, a
 CUDA-core body for f32 and for wider bf16 latents, both functions in one
-launch each); on CPU tensors they take their plain twins below.
+launch each); on CPU tensors they take their plain twins below. Both bodies
+also read ``float8_e4m3fn`` latent pages (the scale-free fp8 cache) under
+bf16 queries, widening the codes exactly; the twins widen them with
+``.float()``, as the reference's XLA path does with ``astype(float32)``.
 """
 
 from __future__ import annotations
@@ -36,6 +39,9 @@ import torch
 from . import _cuda
 
 NEG_INF = -1e30
+FP8 = torch.float8_e4m3fn
+#: the kernel's dtype code for bf16 queries over float8_e4m3fn latent pages
+FP8_PAGES = 2
 #: the tensor-core body's two tile shapes: warps per 16-row group ->
 #: kv positions per step (2: 64-row tiles, the prefill chunks and decode
 #: launches of more than 16 rows per sequence; 8: 16-row decode tiles)
@@ -76,9 +82,14 @@ def padded_row(C: int, R: int) -> int:
     return C + -(-R // 64) * 64
 
 
-def _tc_smem(wpg: int, dp: int, stages: int) -> int:
+def _tc_smem(wpg: int, dp: int, stages: int, kd: int = 0) -> int:
+    """The tensor-core block's shared memory (``csrc`` tc_smem): the Q
+    tile, the bf16 ring, the S exchange and, over fp8 pages (``kd``, the
+    score depth C + R rounded up to 16, else 0), the codes of the steps in
+    flight."""
     rows, kvt = 128 // wpg, TC_KVT[wpg]
-    return rows * dp * 2 + stages * kvt * dp * 2 + rows * (kvt + 8) * 4
+    return (rows * dp * 2 + stages * kvt * dp * 2 + rows * (kvt + 8) * 4
+            + (stages - 1) * kvt * kd)
 
 
 def takes_widths(C: int, R: int) -> bool:
@@ -99,17 +110,22 @@ def tc_takes(C: int, R: int) -> bool:
     return R <= 128 and padded_row(C, R) <= TC_DP_MAX
 
 
-def tile_plan(C: int, R: int, rows: int, B: int = 0, sms: int = 132) -> TilePlan:
-    """The block plan of a bf16 launch: ``rows`` query rows per sequence
-    (decode, ``B`` sequences) or of the prefill chunk (``B == 0``). Decode
-    splits every (sequence, row tile, slab) unit's horizon until the grid
-    holds about one block per SM (the body's occupancy); the device then
-    takes only as many splits as :func:`split_ranges` says a sequence's
-    length needs, with no host read of the lengths."""
-    wpg = 8 if B and rows <= 16 else 2
-    kvt, rt = TC_KVT[wpg], 128 // wpg
+def tile_plan(C: int, R: int, rows: int, B: int = 0, sms: int = 132,
+              fp8: bool = False) -> TilePlan:
+    """The block plan of a bf16-query launch: ``rows`` query rows per
+    sequence (decode, ``B`` sequences) or of the prefill chunk (``B ==
+    0``); ``fp8``: over ``float8_e4m3fn`` pages, whose staged codes take
+    shared memory beside the ring (a 16-row tile that cannot hold them at
+    two stages takes 64-row tiles). Decode splits every (sequence, row
+    tile, slab) unit's horizon until the grid holds about one block per SM
+    (the body's occupancy); the device then takes only as many splits as
+    :func:`split_ranges` says a sequence's length needs, with no host read
+    of the lengths."""
     dp = padded_row(C, R)
-    stages = 3 if _tc_smem(wpg, dp, 3) <= _SMEM_MAX else 2
+    kd = C + -(-R // 16) * 16 if fp8 else 0
+    wpg = 8 if B and rows <= 16 and _tc_smem(8, dp, 2, kd) <= _SMEM_MAX else 2
+    kvt, rt = TC_KVT[wpg], 128 // wpg
+    stages = 3 if _tc_smem(wpg, dp, 3, kd) <= _SMEM_MAX else 2
     n_slabs = -(-C // TC_SLAB)
     slab = 128 * -(-(C // 128) // n_slabs)
     n_rt = -(-rows // rt)
@@ -152,12 +168,12 @@ def launch_mla_attention(
 ):
     """Launch ``csrc/mla_attention.cu``: decode when ``seq_lens`` is given
     (one table row per sequence, its H query rows), else prefill of one
-    T-token chunk. bf16 runs the tensor-core body, f32 the CUDA-core one.
-    Returns ``o [Ntok, H, C]`` (q's dtype, or f32 with ``out_f32``) and,
-    with ``stats``, ``m``/``l`` f32 ``[Ntok, H]``. bf16 runs the
-    tensor-core body where :func:`tc_takes` the widths, f32 and wider bf16
-    latents the CUDA-core body. Validates every input and raises on what
-    the kernel does not take."""
+    T-token chunk. Returns ``o [Ntok, H, C]`` (q's dtype, or f32 with
+    ``out_f32``) and, with ``stats``, ``m``/``l`` f32 ``[Ntok, H]``. bf16
+    queries run the tensor-core body where :func:`tc_takes` the widths,
+    over bf16 or ``float8_e4m3fn`` pages (kernel dtype codes 1 and 2); f32
+    (f32 pages only) and wider latents the CUDA-core body. Validates every
+    input and raises on what the kernel does not take."""
     Ntok, H, C = q_eff.shape
     _, N, bs, Cc = c_cache_layer.shape
     R = pe_cache_layer.shape[-1]
@@ -166,10 +182,20 @@ def launch_mla_attention(
     _cuda.require_cuda(name, q_eff, q_pe, c_cache_layer, pe_cache_layer, *idx)
     _cuda.require_int32(name, *idx)
     dt = q_eff.dtype
-    if dt not in _cuda.DTYPE_CODES or {q_pe.dtype, c_cache_layer.dtype,
-                                       pe_cache_layer.dtype} != {dt}:
+    fp8 = c_cache_layer.dtype == FP8
+    if fp8:
+        if dt != torch.bfloat16 or q_pe.dtype != dt or pe_cache_layer.dtype != FP8:
+            raise ValueError(f"{name}: float8_e4m3fn latent pages take bf16 "
+                             f"queries and fp8 rope keys, got {dt} / "
+                             f"{q_pe.dtype} / {pe_cache_layer.dtype}")
+        code = FP8_PAGES
+    elif dt not in _cuda.DTYPE_CODES or {q_pe.dtype, c_cache_layer.dtype,
+                                         pe_cache_layer.dtype} != {dt}:
         raise ValueError(f"{name}: queries and caches must share one of "
-                         f"{list(_cuda.DTYPE_CODES)}")
+                         f"{list(_cuda.DTYPE_CODES)}, or bf16 queries over "
+                         "float8_e4m3fn pages")
+    else:
+        code = _cuda.DTYPE_CODES[dt]
     if (not takes_widths(C, R) or Cc != C
             or q_pe.shape != (Ntok, H, R) or c_cache_layer.shape[0] != 1
             or pe_cache_layer.shape != (1, N, bs, R)):
@@ -194,7 +220,7 @@ def launch_mla_attention(
         m = torch.empty((Ntok, H), dtype=torch.float32, device=dev)
         l = torch.empty_like(m)
     plan = tile_plan(C, R, H if decode else Ntok * H, Ntok if decode else 0,
-                     _cuda.sm_count(dev))
+                     _cuda.sm_count(dev), fp8=fp8)
     scratch = tickets = None
     if dt == torch.bfloat16 and tc_takes(C, R) and plan.n_split > 1:
         rows = Ntok * H
@@ -211,7 +237,7 @@ def launch_mla_attention(
         Ntok if decode else 0, 0 if decode else Ntok, H, N, bs,
         tables.shape[-1], C, R, float(scale), int(out_f32), plan.wpg,
         plan.stages, plan.slab, plan.n_split, plan.min_steps, _ptr(scratch),
-        _ptr(tickets), _cuda.DTYPE_CODES[dt],
+        _ptr(tickets), code,
         ctypes.c_void_p(_cuda.stream_ptr(q_eff)),
     )
     _cuda.check(err, name)
@@ -223,8 +249,12 @@ def launch_mla_attention(
 
 def gather_latents(cache_layer: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
     """``[1, N, bs, D]`` pages of ``table [..., M]`` -> ``[..., M*bs, D]``
-    (logical positions in order)."""
-    g = cache_layer[0][table.long()]
+    (logical positions in order; fp8 pages gathered as their bytes and
+    returned as they are: the caller widens them)."""
+    if cache_layer.dtype == FP8:
+        g = cache_layer[0].view(torch.uint8)[table.long()].view(FP8)
+    else:
+        g = cache_layer[0][table.long()]
     return g.reshape(*table.shape[:-1], -1, cache_layer.shape[-1])
 
 

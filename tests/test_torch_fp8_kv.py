@@ -20,7 +20,8 @@ Same inputs (numpy, from seeds) through the JAX function and its port:
   the tolerances stated at each check;
 * ``TorchEngine`` against ``JaxEngine`` with an fp8 cache (spec_gamma 0
   and 3): the same greedy tokens, ``load_metrics()`` keys and KV pool
-  bytes; ``dynamo_run --kv-cache-dtype float8_e4m3`` builds an engine.
+  bytes; ``dynamo_run --kv-cache-dtype float8_e4m3`` builds an engine (GQA
+  and MLA).
 
 The reference's prefill paths round differently: its XLA path (the CPU's)
 attends the chunk's own K/V at full width, its Pallas path reads them back
@@ -550,11 +551,10 @@ def test_torch_engine_matches_jax_engine_over_fp8(kind, run):
         assert tm["kv_block_bytes"] == jm["kv_block_bytes"]
 
 
-def test_dynamo_run_builds_an_fp8_engine_and_mla_refuses():
+def test_dynamo_run_builds_fp8_engines_gqa_and_mla():
     """``--kv-cache-dtype float8_e4m3`` builds a served engine over fp8
-    pages (no planes); the same flag on an MLA model raises
-    NotImplementedError naming the ROADMAP item, in the launcher and in
-    the engine."""
+    pages (no planes); the same flag on an MLA model builds over fp8
+    latent pages, in the launcher and in the engine."""
     from dynamo_tpu_torch.engine import EngineConfig, TorchEngine
     from dynamo_tpu_torch.launch import dynamo_run
 
@@ -570,9 +570,10 @@ def test_dynamo_run_builds_an_fp8_engine_and_mla_refuses():
     finally:
         asyncio.run(engine.close())
     mla = ModelConfig.tiny_mla()
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A.3"):
-        dynamo_run.engine_config(args, mla)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A.3"):
-        TorchEngine(EngineConfig(model=mla, num_blocks=8, block_size=4,
-                                 max_batch_size=1, kv_cache_dtype="float8_e4m3"),
-                    device="cpu")
+    assert dynamo_run.engine_config(args, mla).kv_cache_dtype == "float8_e4m3"
+    eng = TorchEngine(EngineConfig(model=mla, num_blocks=8, block_size=4,
+                                   max_batch_size=1, kv_cache_dtype="float8_e4m3"),
+                      device="cpu")
+    assert eng.k_cache.dtype == FP8 and eng.v_cache.dtype == FP8
+    assert eng.k_scales is None and eng.v_scales is None
+    assert eng._hbm_stats()["kv_pool"] == eng.k_cache.numel() + eng.v_cache.numel()

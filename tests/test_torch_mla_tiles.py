@@ -98,10 +98,26 @@ def test_mla_decode_tile_plan_fits_plain_and_pallas(rows, C, R):
 def test_mla_kernel_widths_are_the_reference_gate():
     """kv_lora_rank % 128 == 0 and any rope width >= 1; every published MLA
     width among them, and on the tensor-core body (the rest on the
-    CUDA-core body)."""
+    CUDA-core body). At every tensor-core width the block plan fits a
+    block's shared memory, over bf16 pages and over fp8 pages (whose staged
+    codes sit beside the ring: a 16-row decode tile that cannot hold them
+    at two stages takes 64-row tiles; bf16 plans keep 16-row tiles)."""
     for C, R in [(512, 64), (256, 32), (128, 64), (384, 16), (640, 64),
                  (640, 128), (128, 1), (128, 5)]:
         assert tmla.takes_widths(C, R) and tmla.tc_takes(C, R), (C, R)
+        dp = tmla.padded_row(C, R)
+        for fp8 in (False, True):
+            kd = C + -(-R // 16) * 16 if fp8 else 0
+            for rows, B in ((16, 8), (64, 8), (8192, 0)):
+                plan = tmla.tile_plan(C, R, rows, B, fp8=fp8)
+                assert tmla._tc_smem(plan.wpg, dp, plan.stages, kd) <= tmla._SMEM_MAX
+                if rows == 16 and not fp8:
+                    assert plan.wpg == 8, (C, R)
+    # V2-Lite's widths over fp8 pages: 16-row decode tiles at two stages,
+    # 64-row tiles at three (231424 bytes exactly)
+    assert tmla.tile_plan(512, 64, 16, 8, fp8=True)[:2] == (8, 64)
+    assert tmla.tile_plan(512, 64, 512 * 16, 0, fp8=True).stages == 3
+    assert tmla.tile_plan(640, 128, 16, 8, fp8=True).wpg == 2
     for C, R in [(768, 64), (512, 129), (512, 160), (2048, 64)]:
         assert tmla.takes_widths(C, R) and not tmla.tc_takes(C, R), (C, R)
     for C, R in [(32, 8), (500, 64), (512, 0)]:

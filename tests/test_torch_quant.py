@@ -964,18 +964,19 @@ def test_engine_int8_cache_creates_planes_and_counts_hbm():
 
 
 def test_engine_refuses_unported_and_unsupported_kv_dtypes():
-    """MLA refuses the int8 cache (ValueError, as the reference does) and,
-    on the card's behalf, the fp8 cache (NotImplementedError naming the
-    ROADMAP item: the latent kernels take no fp8 pages); a GQA model builds
-    over fp8 pages, in the engine and through dynamo_run."""
+    """MLA refuses the int8 cache (ValueError, as the reference does); MLA
+    builds over fp8 latent pages (no planes), and so does a GQA model, in
+    the engine and through dynamo_run."""
     mla = ModelConfig.tiny_mla(**MOE)
     mla_params = llama.init_params(mla, torch.Generator().manual_seed(0))
     with pytest.raises(ValueError, match="MLA"):
         TorchEngine(EngineConfig(model=mla, kv_cache_dtype="int8", **GEOMETRY),
                     params=mla_params, device="cpu")
-    with pytest.raises(NotImplementedError, match="float8_e4m3.*ROADMAP.md A.3"):
-        TorchEngine(EngineConfig(model=mla, kv_cache_dtype="float8_e4m3",
-                                 **GEOMETRY), params=mla_params, device="cpu")
+    eng = TorchEngine(EngineConfig(model=mla, kv_cache_dtype="float8_e4m3",
+                                   **GEOMETRY), params=mla_params, device="cpu")
+    assert eng.k_cache.dtype == torch.float8_e4m3fn
+    assert eng.v_cache.dtype == torch.float8_e4m3fn and eng.k_scales is None
+    assert eng.k_cache.shape[-1] == mla.kv_lora_rank
     eng = TorchEngine(EngineConfig(model=ModelConfig.tiny(),
                                    kv_cache_dtype="float8_e4m3", **GEOMETRY),
                       device="cpu")
@@ -985,8 +986,7 @@ def test_engine_refuses_unported_and_unsupported_kv_dtypes():
                                   "--kv-cache-dtype", "float8_e4m3"])
     assert dynamo_run.engine_config(args, ModelConfig.tiny()).kv_cache_dtype == (
         "float8_e4m3")
-    with pytest.raises(NotImplementedError, match="float8_e4m3.*ROADMAP.md A.3"):
-        dynamo_run.engine_config(args, mla)
+    assert dynamo_run.engine_config(args, mla).kv_cache_dtype == "float8_e4m3"
 
 
 def test_engine_decode_grows_scales_and_counts_requants(run):

@@ -148,4 +148,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             "dynamo_tpu_torch.disagg.router",
             "dynamo_tpu_torch.disagg.transfer",
             "dynamo_tpu_torch.disagg.worker",
-            "dynamo_tpu_torch.kv_router.publisher"} <= set(modules)
+            "dynamo_tpu_torch.kv_router.publisher",
+            # migration and graceful drain
+            "dynamo_tpu_torch.resilience.policy",
+            "dynamo_tpu_torch.resilience.migration",
+            "dynamo_tpu_torch.resilience.drain"} <= set(modules)
